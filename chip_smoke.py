@@ -14,9 +14,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    1e-5, discrete outputs exactly, after checking that the inputs leave
    every discrete decision a margin (kernels/cascade_filter/ref.py);
 4. timing: each kernel and its plain version at B=4096 groups of G=256
-   items (d=24, T=3), median of 25 launches timed with CUDA events, beside
-   the least time the card could take (bytes at 3.35 TB/s, operations at
-   67 TFLOP/s f32);
+   items (d=24, T=3): the median over 25 runs of 20 calls back to back
+   between CUDA events (device time per call), beside a lone call's time
+   (wrapper and launch included) and the least time the card could take
+   (bytes at 3.35 TB/s, operations at 67 TFLOP/s f32);
 5. the slice: the launcher's open-loop DES (`launch.serve`) on the card,
    once per plan ("filter", then "score"): 500 requests of 8-63 items at
    400 QPS with a 130 ms deadline, checked for resolved futures, closed
@@ -60,6 +61,7 @@ WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
 DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
+BUSY_CYCLES = 50_000_000    # ~25 ms at 1.98 GHz: covers queueing the calls
 
 KERNEL_INFO = {
     "cascade_score_batched": {
@@ -203,20 +205,34 @@ def phase_parity() -> dict[str, float]:
 
 # -- 4. timing ------------------------------------------------------------------
 
-def time_ms(fn, reps=25) -> float:
+def time_ms(fn, reps=25, calls=20) -> tuple[float, float]:
+    """(device ms per call, ms per lone call), medians over `reps`.
+
+    Device time: `calls` calls back to back between one pair of CUDA
+    events, queued behind a busy-wait on the stream, so the host's
+    wrapper work overlaps device work and the events see only the
+    device's time. A lone call is one call from an idle stream between
+    two events: the wrapper's host time up to the launch is inside it."""
     for _ in range(3):
         fn()
     sync()
-    times = []
+    device, lone = [], []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BUSY_CYCLES)
+        a.record()
+        for _ in range(calls):
+            fn()
+        z.record()
+        z.synchronize()
+        device.append(a.elapsed_time(z) / calls)
         a.record()
         fn()
         z.record()
         z.synchronize()
-        times.append(a.elapsed_time(z))
-    return statistics.median(times)
+        lone.append(a.elapsed_time(z))
+    return statistics.median(device), statistics.median(lone)
 
 
 def phase_timing() -> dict[str, dict]:
@@ -227,10 +243,10 @@ def phase_timing() -> dict[str, dict]:
     # K1: read x, w, zq once; write lp once.
     k1_bytes = f * (b * g * d + t * d + b * t + b * g * t)
     k1_ops = 2 * b * g * t * d
-    kern = time_ms(lambda: ops.cascade_score_batched(x, w, zq))
-    plain = time_ms(lambda: ops.cascade_score_batched_ref(x, w, zq))
+    kern, lone = time_ms(lambda: ops.cascade_score_batched(x, w, zq))
+    plain, _ = time_ms(lambda: ops.cascade_score_batched_ref(x, w, zq))
     out["cascade_score_batched"] = dict(
-        ms=kern, plain_ms=plain, bytes=k1_bytes, ops=k1_ops)
+        ms=kern, lone_ms=lone, plain_ms=plain, bytes=k1_bytes, ops=k1_ops)
     # K2: read x, w, zq, mask, m_q; write lp, survivors, counts, n_keep.
     # Operations: the scores, plus one compare and one add per (item,
     # surviving item) pair in each stage, counted on this run's survivors.
@@ -240,17 +256,19 @@ def phase_timing() -> dict[str, dict]:
     k2_bytes = f * (b * g * d + t * d + b * t + b * g + b
                     + 2 * b * g * t + 2 * b * t)
     k2_ops = 2 * b * g * t * d + 2 * pairs
-    kern = time_ms(lambda: ops.cascade_filter(x, w, zq, mask, m_q))
-    plain = time_ms(lambda: ops.cascade_filter_ref(x, w, zq, mask, m_q))
-    out["cascade_filter"] = dict(ms=kern, plain_ms=plain, bytes=k2_bytes,
-                                 ops=k2_ops, pairs=pairs)
+    kern, lone = time_ms(lambda: ops.cascade_filter(x, w, zq, mask, m_q))
+    plain, _ = time_ms(lambda: ops.cascade_filter_ref(x, w, zq, mask, m_q))
+    out["cascade_filter"] = dict(ms=kern, lone_ms=lone, plain_ms=plain,
+                                 bytes=k2_bytes, ops=k2_ops, pairs=pairs)
     for name, r in out.items():
         by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         by_ops = r["ops"] / F32_OPS_PER_S * 1e3
         r["bound_ms"] = max(by_bytes, by_ops)
         r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
         print(f"[timing] {name} at B={b} G={g} d={d} T={t}: kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['ms']:.4f} ms (a lone call from an idle stream "
+              f"{r['lone_ms']:.4f} ms: {r['lone_ms'] - r['ms']:.4f} ms of "
+              f"wrapper and launch), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} "
               f"bytes -> {by_bytes:.4f} ms; {r['ops']} ops -> "
               f"{by_ops:.4f} ms), {r['bound_ms'] / r['ms']:.1%} of bound")

@@ -16,6 +16,7 @@ query-grouped batch layout (B groups, G items per group).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -80,8 +81,22 @@ def params_from_numpy(params: dict[str, np.ndarray], device="cuda") -> Params:
     return out
 
 
+@functools.lru_cache(maxsize=32)
+def _constant(values: tuple, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def masks_tensor(cfg: CascadeConfig, device) -> torch.Tensor:
-    return torch.tensor(cfg.masks, dtype=torch.float32, device=device)
+    """The (T, d_x) stage masks on `device`: made once per config and
+    device, so a served chunk copies no constant to the card. Read-only."""
+    return _constant(cfg.masks, torch.float32, torch.device(device))
+
+
+def stage_times_tensor(cfg: CascadeConfig, dtype: torch.dtype,
+                       device) -> torch.Tensor:
+    """The (T,) stage times t_j on `device`, cached as `masks_tensor`."""
+    return _constant(cfg.stage_times, dtype, torch.device(device))
 
 
 def stage_logits(params: Params, cfg: CascadeConfig,
@@ -171,7 +186,7 @@ def actual_cost_per_query(survivors: torch.Tensor, mask: torch.Tensor,
                           cfg: CascadeConfig) -> torch.Tensor:
     """Realized serving cost of the hard cascade, per query group:
     cost = sum_j (#items entering stage j) * t_j."""
-    t = torch.tensor(cfg.t, dtype=survivors.dtype, device=survivors.device)
+    t = stage_times_tensor(cfg, survivors.dtype, survivors.device)
     entering = torch.cat(
         [mask.sum(-1, keepdim=True), survivors.sum(1)[:, :-1]], dim=-1)  # (B, T)
     return (entering * t).sum(-1)

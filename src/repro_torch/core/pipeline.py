@@ -143,7 +143,7 @@ def latency_from_counts(counts: torch.Tensor, m_q: torch.Tensor,
                         convention: str = "entering") -> torch.Tensor:
     """Eq-16 latency model from already-computed expected counts (B, T) —
     the serving pipeline's latency estimate without re-scoring the batch."""
-    t = torch.tensor(cfg.t, dtype=counts.dtype, device=counts.device)
+    t = C.stage_times_tensor(cfg, counts.dtype, counts.device)
     if convention == "entering":
         entering = torch.cat(
             [m_q[:, None].to(counts.dtype), counts[:, :-1]], dim=-1)

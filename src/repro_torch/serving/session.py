@@ -294,9 +294,9 @@ class CascadeSession:
         # (skip_neural, b, g) shapes the pipeline has run, so "no new
         # shapes after warmup" keeps its meaning (launch.serve).
         self.shapes_seen: set[tuple[bool, int, int]] = set()
-        # The degraded skip-neural pipeline is a distinct pipeline only
-        # when there is a neural stage to skip — never in this slice.
-        self._rank = self._rank_noneural = self._make_rank()
+        # One pipeline: the degraded skip-neural pipeline exists only when
+        # there is a neural stage to skip, which this package does not have.
+        self._rank = self._make_rank()
         self._pending: dict[int, list[_Pending]] = {g: [] for g in self.buckets}
         self._degraded_active = False
         # ONE lock around admission + the pending queues + resolution. The
@@ -327,11 +327,6 @@ class CascadeSession:
                       "degrade_exits": 0, "faults": 0, "retries": 0,
                       "errors": 0, "quarantined": 0, "breaker_shed": 0,
                       "inflight": 0, "drained": 0, "adopted": 0}
-        # Global-depth hook (the replica router): when set, bounded
-        # admission and the degradation watermarks judge THIS callable's
-        # depth instead of the local queue — one admission controller over
-        # N replicas. Must be safe to call without the session lock.
-        self.depth_fn = None
         # Consecutive failed execute attempts, session-wide — the circuit
         # breaker's input; any successful attempt resets it.
         self._consec_faults = 0
@@ -368,11 +363,10 @@ class CascadeSession:
         the session's device. Returns device tensors."""
         b, g = batch["mask"].shape
         self.shapes_seen.add((skip_neural, b, g))
-        rank = self._rank_noneural if skip_neural else self._rank
 
         def dev(v):
             return torch.as_tensor(v, dtype=torch.float32).to(self.device)
-        return rank(self.params, dev(batch["x"]), dev(batch["q"]),
+        return self._rank(self.params, dev(batch["x"]), dev(batch["q"]),
                     dev(batch["mask"]), dev(batch["m_q"]))
 
     @staticmethod
@@ -402,8 +396,8 @@ class CascadeSession:
             "d_x": self.cfg.d_x,
             "d_q": self.cfg.d_q,
             "n_stages": self.cfg.n_stages,
-            # distinct skip-neural pipeline to re-warm?
-            "degraded_pipeline": self._rank_noneural is not self._rank,
+            # no distinct skip-neural pipeline: there is no neural stage
+            "degraded_pipeline": False,
             "dtype": "float32",      # the pipeline's input/compute dtype
             "shapes": [[b, g] for g in self.buckets
                        for b in warmup_batch_sizes(self.scfg.batch_groups)],
@@ -412,9 +406,8 @@ class CascadeSession:
     def warm_restart(self, manifest: dict) -> list[tuple[int, int]]:
         """Replay a warmup manifest through the pipeline(s): every
         recorded (b, g) shape runs once, its results fetched as in
-        serving, on the normal and (when the manifest says one existed)
-        the degraded skip-neural pipeline; on a CUDA device the first run
-        builds and loads the kernel library. A manifest written by a
+        serving; on a CUDA device the first run builds and loads the
+        kernel library. A manifest written by a
         session with a different shape surface (plan, dims, geometry) is
         rejected — warming the wrong shapes would silently bring
         first-request work back."""
@@ -432,8 +425,6 @@ class CascadeSession:
             raise ValueError(
                 "warmup manifest does not match this session's shape "
                 f"surface: manifest {got} != session {want}")
-        warm_degraded = (bool(manifest.get("degraded_pipeline"))
-                         and self._rank_noneural is not self._rank)
         shapes = []
         for b, g in manifest["shapes"]:
             batch = {
@@ -443,17 +434,14 @@ class CascadeSession:
                 "m_q": np.full((b,), float(g), np.float32),
             }
             self.fetch(self.rank_batch(batch))
-            if warm_degraded:
-                self.fetch(self.rank_batch(batch, skip_neural=True))
             shapes.append((b, g))
         return shapes
 
     def warmup(self) -> list[tuple[int, int]]:
         """Run the pipeline once for every serving shape — each (b, g)
         with b a power of two up to batch_groups (the exact shapes a chunk
-        can pack into) per bucket, for the normal AND (when distinct) the
-        degraded skip-neural pipeline. After warmup, live traffic —
-        including degraded flushes — meets no new shape.
+        can pack into) per bucket. After warmup, live traffic — including
+        degraded flushes — meets no new shape.
         Implemented as a warm restart from this session's own manifest:
         cold start and warm restart are ONE code path, so the manifest can
         never drift from what warmup actually runs."""
@@ -468,21 +456,6 @@ class CascadeSession:
     @property
     def pending(self) -> int:
         return sum(len(v) for v in self._pending.values())
-
-    def queue_depth(self) -> int:
-        """Local pending depth WITHOUT taking the session lock: list len()
-        is GIL-atomic, so this is a safe (if instantaneously approximate)
-        read. The router's global depth_fn aggregates this across replicas
-        from inside a replica's submit path, where taking a SECOND session
-        lock could deadlock two concurrent submitters (A holds lock_A and
-        wants lock_B while B holds lock_B and wants lock_A)."""
-        return sum(len(v) for v in self._pending.values())
-
-    def _depth(self) -> int:
-        """Effective depth for admission and the degradation watermarks:
-        the router's GLOBAL depth when the hook is set (one admission
-        controller over N replicas), else the local queue."""
-        return self.pending if self.depth_fn is None else int(self.depth_fn())
 
     @property
     def degraded(self) -> bool:
@@ -503,7 +476,7 @@ class CascadeSession:
         hw = self.scfg.degrade.high_watermark
         if hw is None:
             return
-        depth = self._depth()
+        depth = self.pending
         if not self._degraded_active and depth >= hw:
             self._degraded_active = True
             self.stats["degrade_enters"] += 1
@@ -538,7 +511,7 @@ class CascadeSession:
                 fut._resolve(_shed_response(req))
                 return fut
             mq = self.scfg.max_queue
-            if mq is not None and self._depth() >= mq:
+            if mq is not None and self.pending >= mq:
                 if self.scfg.admission == "raise":
                     # Refused-by-raise is NOT a shed-with-future: the
                     # caller gets an exception instead of a future, so it
