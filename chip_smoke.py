@@ -7,24 +7,41 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the CUDA kernels from `src/repro_torch/csrc` (nvcc,
-   sm_90a) and loads them;
+   sm_90a, one process per source) and loads them;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
-   card, at every shape the serving session warms and at edge shapes
+   card. K1/K2 at every shape the serving session warms and at edge shapes
    (ties, fully masked groups, m_q > G); continuous outputs at rtol/atol
    1e-5, discrete outputs exactly, after checking that the inputs leave
-   every discrete decision a margin (kernels/cascade_filter/ref.py);
+   every discrete decision a margin (kernels/cascade_filter/ref.py).
+   K3/K4/K5 over G in {1, 7, 130}, d in {8, 24}, T in {1, 3, 8} with a
+   fully masked group, at the training shape (64 groups of 64, d=24, T=3)
+   and at an exact tie of lp_T with the NLL clamp; forward values at
+   rtol 2e-5 / atol 1e-5 (K4's plain NLL is taken in probability space,
+   the kernel's in log space), backward outputs at rtol 1e-4 / atol 5e-5
+   (sums over up to 130 items in another order). Every kernel launched
+   twice on the same inputs gives the same bits;
 4. timing: each kernel and its plain version at B=4096 groups of G=256
-   items (d=24, T=3): the median over 25 runs of 20 calls back to back
-   between CUDA events (device time per call), beside a lone call's time
-   (wrapper and launch included) and the least time the card could take
-   (bytes at 3.35 TB/s, operations at 67 TFLOP/s f32);
-5. the slice: the launcher's open-loop DES (`launch.serve`) on the card,
-   once per plan ("filter", then "score"): 500 requests of 8-63 items at
-   400 QPS with a 130 ms deadline, checked for resolved futures, closed
-   accounting, no faults or errors, no shape first seen after warmup, the
-   plan's kernel launched once per served chunk, and responses that agree
-   with the plain pipeline on the CPU;
-6. one JSON line with each kernel's launches on the main path, error and
+   items (d=24, T=3) and at the training shape: the median over 25 runs
+   of 20 calls back to back between CUDA events (device time per call),
+   beside a lone call's time (wrapper and launch included) and the least
+   time the card could take (bytes at 3.35 TB/s, operations at 67 TFLOP/s
+   f32);
+5. training: `fit_cloes` (L3) and `fit_soft_cascade` (L1) at the serve
+   launcher's settings (640 groups of 64, 4 epochs of 10 steps, lr 0.01,
+   beta 5) on the card, each path with the launch counts set to 0 before
+   and read after: K4 and K5 launched once per L3 step, K1 and K3 once
+   per L1 step; two fits on the card byte-equal; the loss trajectory,
+   params and `evaluate` metrics against the same fit on the CPU at
+   rtol 1e-4 / atol 1e-4; steps/s and epoch time printed, and one more
+   L3 fit under torch.profiler (device busy time, launches per step);
+6. serving: the launcher's open-loop DES (`launch.serve`) on the card
+   with the cascade trained in phase 5, once per plan ("filter", then
+   "score"): 500 requests of 8-63 items at 400 QPS with a 130 ms
+   deadline, checked for resolved futures, closed accounting, no faults
+   or errors, no shape first seen after warmup, the plan's kernel
+   launched once per served chunk, and responses that agree with the
+   plain pipeline on the CPU;
+7. one JSON line with each kernel's launches on its path, error and
    times; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -44,32 +61,61 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import cloes  # noqa: E402
+from repro_torch.core import baselines as B  # noqa: E402
+from repro_torch.core import losses as L  # noqa: E402
 from repro_torch.core import pipeline as P  # noqa: E402
+from repro_torch.core import trainer as T  # noqa: E402
 from repro_torch.data import LogConfig, generate_log  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.cascade_filter.ref import (  # noqa: E402
     assert_decision_margin)
+from repro_torch.kernels.cascade_loss import kernel as loss_kernel  # noqa: E402
+from repro_torch.kernels.cascade_score import kernel as score_kernel  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.serving.batching import (alloc_batch, bucket_of,  # noqa: E402
                                           pack_into)
 from repro_torch.serving.loadgen import run_open_loop  # noqa: E402
 
 RTOL = ATOL = 1e-5          # float32 sums taken in another order
+FWD_RTOL = 2e-5             # K4's NLL: probability vs log space
+BWD_RTOL, BWD_ATOL = 1e-4, 5e-5       # backward sums in another order
+FIT_RTOL = FIT_ATOL = 1e-4  # the card's fit against the CPU's
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
+TRAIN_SHAPE = (64, 64, 24, 3)         # one minibatch of the serve fit
+# The serve launcher's fit (launch/serve.py).
+FIT_QUERIES, FIT_EPOCHS, FIT_LR, FIT_BETA = 800, 4, 0.01, 5.0
 DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
 BUSY_CYCLES = 50_000_000    # ~25 ms at 1.98 GHz: covers queueing the calls
+# Zero features make the logits these biases exactly; on the CPU lp_T is
+# then float32(-1e-7), the NLL clamp, exactly (tests/test_torch_losses.py);
+# phase 3 searches around them for a pair that ties on the card.
+TIE_ZQ = (16.118097, 29.3795)
 
 KERNEL_INFO = {
     "cascade_score_batched": {
-        "route": "cuda", "source": "src/repro_torch/csrc/cascade_score.cu",
+        "id": "K1", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_score.cu",
         "replaces": "src/repro/kernels/cascade_score/kernel.py:238"},
     "cascade_filter": {
-        "route": "cuda", "source": "src/repro_torch/csrc/cascade_filter.cu",
+        "id": "K2", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_filter.cu",
         "replaces": "src/repro/kernels/cascade_filter/kernel.py:111"},
+    "cascade_score_batched_bwd": {
+        "id": "K3", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_score_bwd.cu",
+        "replaces": "src/repro/kernels/cascade_score/kernel.py:305"},
+    "cascade_loss": {
+        "id": "K4", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_loss.cu",
+        "replaces": "src/repro/kernels/cascade_loss/kernel.py:175"},
+    "cascade_loss_bwd": {
+        "id": "K5", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_loss.cu",
+        "replaces": "src/repro/kernels/cascade_loss/kernel.py:271"},
 }
 
 
@@ -203,6 +249,139 @@ def phase_parity() -> dict[str, float]:
     return errs
 
 
+def train_case(b, g, d, t, seed, *, dead_group=True):
+    """K3/K4/K5 inputs on the card: packed items xc (B, G, d+4) with
+    group 0 fully masked when dead_group, w (T, d), zq (B, T), and the
+    cotangents g (B, G, T), g_ll (B,), g_cost (T,), g_cnt (B, T)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, g, d))
+    y = rng.integers(0, 2, (b, g)).astype(np.float64)
+    mask = (rng.random((b, g)) < 0.85).astype(np.float64)
+    if dead_group:
+        mask[0] = 0.0
+    wgt = rng.uniform(0.5, 3.0, (b, g)) * mask
+    cost_w = rng.uniform(0.0, 50.0, (b, g)) * mask
+    xc = np.concatenate([x, y[..., None], mask[..., None], wgt[..., None],
+                         cost_w[..., None]], axis=-1)
+    arrays = (xc, 0.3 * rng.normal(size=(t, d)), rng.normal(size=(b, t)),
+              rng.normal(size=(b, g, t)) * mask[..., None],
+              rng.normal(size=b), rng.normal(size=t), rng.normal(size=(b, t)))
+    return tuple(torch.tensor(a, dtype=torch.float32, device="cuda")
+                 for a in arrays)
+
+
+def find_tie_zq() -> tuple[float, float]:
+    """Biases (z1, z2) for which lp_T = log s(z1) + log s(z2) is
+    float32(-1e-7) exactly both in the plain version on the card and in K1,
+    whose log-sigmoid and stage sum K4 and K5 share: a search around the
+    pair that ties on the CPU, z1 by float32 steps, z2 by 0.01."""
+    target = np.float32(-1e-7)
+    base = np.array([TIE_ZQ[0]], np.float32).view(np.int32)[0]
+    z1 = (base + np.arange(-128, 128)).astype(np.int32).view(np.float32)
+    z2 = np.concatenate([[TIE_ZQ[1]], np.linspace(18.0, 40.0, 2201)])
+    grid = np.stack(np.meshgrid(z1, z2.astype(np.float32), indexing="ij"),
+                    axis=-1).reshape(-1, 2)
+    first = np.nonzero((grid == np.array(TIE_ZQ, np.float32)).all(-1))[0]
+    grid = np.concatenate([grid[first], grid])       # the CPU's pair first
+    zq = torch.tensor(grid, device="cuda")
+    x = torch.zeros((len(grid), 1, 4), device="cuda")
+    w = torch.zeros((2, 4), device="cuda")
+    lp_k = score_kernel.cascade_score_batched(x, w, zq)[:, 0, -1]
+    lp_p = ops.cascade_score_batched_ref(x, w, zq)[:, 0, -1]
+    hit = torch.nonzero((lp_k == float(target)) & (lp_p == float(target)))
+    assert len(hit), "no float32 tie with the NLL clamp found"
+    z = grid[int(hit[0, 0])]
+    return float(z[0]), float(z[1])
+
+
+def tie_case():
+    """lp_T exactly at the NLL clamp for both items; NLL cotangent only."""
+    d = 4
+    xc = torch.zeros((1, 2, d + 4), device="cuda")
+    xc[0, 1, d] = 1.0                       # y: one negative, one positive
+    xc[0, :, d + 1:] = 1.0                  # mask, wgt, cost_w
+    zq = torch.tensor([find_tie_zq()], device="cuda")
+    w = torch.zeros((2, d), device="cuda")
+    return (xc, w, zq, torch.zeros((1, 2, 2), device="cuda"),
+            torch.ones(1, device="cuda"), torch.zeros(2, device="cuda"),
+            torch.zeros((1, 2), device="cuda"))
+
+
+def _check(name, got, want, rtol, atol, label, errs):
+    for i, (a, r) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, r, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name} {label} out {i}: {m}")
+        errs[name] = max(errs[name], float((a - r).abs().max()))
+
+
+def check_train_case(case, errs, label):
+    xc, w, zq, g, g_ll, g_cost, g_cnt = case
+    d = w.shape[1]
+    x = xc[..., :d].contiguous()
+    got = score_kernel.cascade_score_batched_bwd(x, w, zq, g)
+    sync()
+    _check("cascade_score_batched_bwd", got,
+           ops.cascade_score_batched_bwd_ref(x, w, zq, g),
+           BWD_RTOL, BWD_ATOL, label, errs)
+    got = loss_kernel.cascade_loss(xc, w, zq)
+    sync()
+    want = ops.cascade_loss_ref(xc, w, zq)
+    _check("cascade_loss", got, want, FWD_RTOL, ATOL, label, errs)
+    got = loss_kernel.cascade_loss_bwd(xc, w, zq, g_ll, g_cost, g_cnt)
+    sync()
+    _check("cascade_loss_bwd", got,
+           ops.cascade_loss_bwd_ref(xc, w, zq, g_ll, g_cost, g_cnt),
+           BWD_RTOL, BWD_ATOL, label, errs)
+    assert got[0][..., d:].abs().max().item() == 0.0, "dxc data lanes"
+    return got
+
+
+def phase_train_parity(errs) -> None:
+    n = 0
+    for g in (1, 7, 130):
+        for d in (8, 24):
+            for t in (1, 3, 8):
+                check_train_case(train_case(3, g, d, t, seed=g * 11 + d + t),
+                                 errs, f"g={g} d={d} t={t}")
+                n += 1
+    b, g, d, t = TRAIN_SHAPE
+    check_train_case(train_case(b, g, d, t, seed=5), errs, "training shape")
+    case = tie_case()
+    got = check_train_case(case, errs, "clamp tie")
+    assert got[2].abs().max().item() > 0, "the tie must pass the tangent"
+    print(f"[parity] clamp tie at zq = {case[2].tolist()}")
+    n += 2
+    print(f"[parity] {n} training cases: K3 max |err| "
+          f"{errs['cascade_score_batched_bwd']:.3g}, K4 "
+          f"{errs['cascade_loss']:.3g}, K5 {errs['cascade_loss_bwd']:.3g}")
+
+
+def phase_determinism() -> None:
+    """Each kernel twice on the same inputs: the same bits."""
+    b, g, d, t = TIMING_SHAPE
+    xc, w, zq, gct, g_ll, g_cost, g_cnt = train_case(b, g, d, t, seed=9)
+    x = xc[..., :d].contiguous()
+    mask, m_q = xc[..., d + 1].contiguous(), torch.full((b,), 5000.0,
+                                                        device="cuda")
+    runs = {
+        "cascade_score_batched": lambda: [ops.cascade_score_batched(x, w, zq)],
+        "cascade_filter": lambda: list(
+            ops.cascade_filter(x, w, zq, mask, m_q).values()),
+        "cascade_score_batched_bwd": lambda: list(
+            score_kernel.cascade_score_batched_bwd(x, w, zq, gct)),
+        "cascade_loss": lambda: list(loss_kernel.cascade_loss(xc, w, zq)),
+        "cascade_loss_bwd": lambda: list(loss_kernel.cascade_loss_bwd(
+            xc, w, zq, g_ll, g_cost, g_cnt)),
+    }
+    for name, run in runs.items():
+        a, z = run(), run()
+        sync()
+        for u, v in zip(a, z):
+            assert torch.equal(u, v), f"{name}: two launches differ"
+    print(f"[determinism] {len(runs)} kernels at B={b} G={g}: two launches "
+          "on the same inputs give the same bits")
+
+
 # -- 4. timing ------------------------------------------------------------------
 
 def time_ms(fn, reps=25, calls=20) -> tuple[float, float]:
@@ -235,52 +414,190 @@ def time_ms(fn, reps=25, calls=20) -> tuple[float, float]:
     return statistics.median(device), statistics.median(lone)
 
 
-def phase_timing() -> dict[str, dict]:
-    b, g, d, t = TIMING_SHAPE
-    x, w, zq, mask, m_q = make_case(b, g, d, t, seed=7)
-    f = 4  # bytes per float32
-    out = {}
-    # K1: read x, w, zq once; write lp once.
-    k1_bytes = f * (b * g * d + t * d + b * t + b * g * t)
-    k1_ops = 2 * b * g * t * d
-    kern, lone = time_ms(lambda: ops.cascade_score_batched(x, w, zq))
-    plain, _ = time_ms(lambda: ops.cascade_score_batched_ref(x, w, zq))
-    out["cascade_score_batched"] = dict(
-        ms=kern, lone_ms=lone, plain_ms=plain, bytes=k1_bytes, ops=k1_ops)
-    # K2: read x, w, zq, mask, m_q; write lp, survivors, counts, n_keep.
-    # Operations: the scores, plus one compare and one add per (item,
-    # surviving item) pair in each stage, counted on this run's survivors.
-    res = ops.cascade_filter(x, w, zq, mask, m_q)
+def shape_costs(b, g, d, t, pairs) -> dict[str, tuple[int, int]]:
+    """(bytes, operations) each kernel must move and do at (B, G, d, T):
+    every input read once, every output written once (float32).
+    Operations: 2*B*G*T*d for the logits; K2 adds one compare and one add
+    per (item, surviving item) pair per stage (`pairs`, counted on the
+    run's data); K3 and K5 add the dx and dw products (~6*B*G*T*d in all,
+    as the reference's backward does two more matmuls)."""
+    f = 4
+    bgt, tdp = b * g * t, t * d
+    return {
+        "cascade_score_batched": (f * (b * g * d + tdp + b * t + bgt),
+                                  2 * bgt * d),
+        "cascade_filter": (f * (b * g * d + tdp + b * t + b * g + b
+                                + 2 * bgt + 2 * b * t),
+                           2 * bgt * d + 2 * pairs),
+        "cascade_score_batched_bwd": (f * (2 * b * g * d + bgt + 2 * tdp
+                                           + 2 * b * t), 6 * bgt * d),
+        "cascade_loss": (f * (b * g * (d + 4) + tdp + b * t + b + t + b * t),
+                         2 * bgt * d),
+        "cascade_loss_bwd": (f * (2 * b * g * (d + 4) + 2 * tdp + b * t + b
+                                  + t + b * t + 2 * b * t), 6 * bgt * d),
+    }
+
+
+def time_shape(shape, seed) -> dict[str, dict]:
+    b, g, d, t = shape
+    xc, w, zq, gct, g_ll, g_cost, g_cnt = train_case(b, g, d, t, seed=seed,
+                                                     dead_group=False)
+    x = xc[..., :d].contiguous()
+    x1, w1, zq1, mask, m_q = make_case(b, g, d, t, seed=seed)
+    calls = {
+        "cascade_score_batched": (
+            lambda: ops.cascade_score_batched(x1, w1, zq1),
+            lambda: ops.cascade_score_batched_ref(x1, w1, zq1)),
+        "cascade_filter": (
+            lambda: ops.cascade_filter(x1, w1, zq1, mask, m_q),
+            lambda: ops.cascade_filter_ref(x1, w1, zq1, mask, m_q)),
+        "cascade_score_batched_bwd": (
+            lambda: score_kernel.cascade_score_batched_bwd(x, w, zq, gct),
+            lambda: ops.cascade_score_batched_bwd_ref(x, w, zq, gct)),
+        "cascade_loss": (
+            lambda: loss_kernel.cascade_loss(xc, w, zq),
+            lambda: ops.cascade_loss_ref(xc, w, zq)),
+        "cascade_loss_bwd": (
+            lambda: loss_kernel.cascade_loss_bwd(xc, w, zq, g_ll, g_cost,
+                                                 g_cnt),
+            lambda: ops.cascade_loss_bwd_ref(xc, w, zq, g_ll, g_cost, g_cnt)),
+    }
+    res = ops.cascade_filter(x1, w1, zq1, mask, m_q)
     entering = torch.cat([mask[..., None], res["survivors"][..., :-1]], -1)
     pairs = int(entering.sum().item()) * g
-    k2_bytes = f * (b * g * d + t * d + b * t + b * g + b
-                    + 2 * b * g * t + 2 * b * t)
-    k2_ops = 2 * b * g * t * d + 2 * pairs
-    kern, lone = time_ms(lambda: ops.cascade_filter(x, w, zq, mask, m_q))
-    plain, _ = time_ms(lambda: ops.cascade_filter_ref(x, w, zq, mask, m_q))
-    out["cascade_filter"] = dict(ms=kern, lone_ms=lone, plain_ms=plain,
-                                 bytes=k2_bytes, ops=k2_ops, pairs=pairs)
-    for name, r in out.items():
-        by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        by_ops = r["ops"] / F32_OPS_PER_S * 1e3
-        r["bound_ms"] = max(by_bytes, by_ops)
-        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-        print(f"[timing] {name} at B={b} G={g} d={d} T={t}: kernel "
-              f"{r['ms']:.4f} ms (a lone call from an idle stream "
-              f"{r['lone_ms']:.4f} ms: {r['lone_ms'] - r['ms']:.4f} ms of "
-              f"wrapper and launch), plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']} "
-              f"bytes -> {by_bytes:.4f} ms; {r['ops']} ops -> "
-              f"{by_ops:.4f} ms), {r['bound_ms'] / r['ms']:.1%} of bound")
-    all_pairs = b * g * g * t
-    print(f"[timing] cascade_filter rank compares: {out['cascade_filter']['pairs']}"
-          f" on this data, {all_pairs} for all G^2*T pairs "
-          f"({all_pairs / F32_OPS_PER_S * 1e3:.4f} ms at one op each)")
+    costs = shape_costs(b, g, d, t, pairs)
+    out = {}
+    for name, (kern_fn, plain_fn) in calls.items():
+        kern, lone = time_ms(kern_fn)
+        plain, _ = time_ms(plain_fn)
+        nbytes, nops = costs[name]
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / F32_OPS_PER_S * 1e3
+        out[name] = dict(ms=kern, lone_ms=lone, plain_ms=plain, bytes=nbytes,
+                         ops=nops, bound_ms=max(by_bytes, by_ops),
+                         bound_by="bytes" if by_bytes >= by_ops
+                         else "operations")
+        r = out[name]
+        print(f"[timing] {KERNEL_INFO[name]['id']} {name} at B={b} G={g} "
+              f"d={d} T={t}: kernel {r['ms']:.4f} ms (lone call "
+              f"{r['lone_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes -> "
+              f"{by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} ms), "
+              f"{r['bound_ms'] / r['ms']:.1%} of bound")
+    out["cascade_filter"]["pairs"] = pairs
     return out
 
 
-# -- 5. the slice -----------------------------------------------------------------
+def phase_timing() -> tuple[dict[str, dict], dict[str, dict]]:
+    big = time_shape(TIMING_SHAPE, seed=7)
+    b, g, _, t = TIMING_SHAPE
+    all_pairs = b * g * g * t
+    print(f"[timing] cascade_filter rank compares: {big['cascade_filter']['pairs']}"
+          f" on this data, {all_pairs} for all G^2*T pairs "
+          f"({all_pairs / F32_OPS_PER_S * 1e3:.4f} ms at one op each)")
+    return big, time_shape(TRAIN_SHAPE, seed=8)
 
+
+# -- 5. training ------------------------------------------------------------------
+
+def fit_once(fit_fn, device, **kw) -> tuple[dict, list, float, dict]:
+    """One fit on `device` with its launch counts taken from 0:
+    (params, losses, seconds, launches)."""
+    losses = []
+    ops.reset_launch_counts()        # this training path starts here
+    t0 = time.perf_counter()
+    params, cfg = fit_fn(callback=lambda s, v: losses.append(v),
+                         device=device, **kw)
+    if device == "cuda":
+        sync()
+    seconds = time.perf_counter() - t0
+    return params, losses, seconds, ops.launch_counts()   # ... ends here
+
+
+def phase_train(tr, te) -> tuple[dict, dict[str, int]]:
+    """Both training paths on the card, held to their launch counts, to
+    themselves (byte-equal) and to the same fit on the CPU. Returns the
+    L3 params and each kernel's launches on its path."""
+    steps_per_epoch, _ = T.epoch_steps(tr.x.shape[0], 64)
+    steps = FIT_EPOCHS * steps_per_epoch
+    lcfg = L.LossConfig(beta=FIT_BETA)
+    paths = {
+        "l3": (lambda **kw: B.fit_cloes(
+            tr, lcfg=lcfg, tcfg=T.TrainConfig(
+                loss="l3", epochs=FIT_EPOCHS, lr=FIT_LR, log_every=1), **kw),
+            ("cascade_loss", "cascade_loss_bwd")),
+        "l1": (lambda **kw: B.fit_soft_cascade(
+            tr, tcfg=T.TrainConfig(loss="l1", epochs=FIT_EPOCHS, lr=FIT_LR,
+                                   log_every=1), **kw),
+            ("cascade_score_batched", "cascade_score_batched_bwd")),
+    }
+    launches, trained = {}, None
+    for name, (fit_fn, kernels) in paths.items():
+        p1, losses1, s1, counts = fit_once(fit_fn, "cuda")
+        p2, losses2, s2, _ = fit_once(fit_fn, "cuda")
+        pc, losses_c, sc, _ = fit_once(fit_fn, "cpu")
+        assert len(losses1) == steps, (len(losses1), steps)
+        for k in kernels:
+            assert counts[k] == steps, (name, counts)
+            launches[k] = counts[k]
+        assert sum(v for k, v in counts.items() if k not in kernels) == 0, \
+            (name, counts)
+        assert losses1 == losses2, f"{name}: two fits' losses differ"
+        for k in p1:
+            assert torch.equal(p1[k], p2[k]), f"{name}: two fits differ in {k}"
+        np.testing.assert_allclose(losses1, losses_c, rtol=FIT_RTOL,
+                                   atol=FIT_ATOL)
+        dev = {k: float((p1[k].cpu() - pc[k]).abs().max()) for k in p1}
+        for k in p1:
+            np.testing.assert_allclose(p1[k].cpu().numpy(), pc[k].numpy(),
+                                       rtol=FIT_RTOL, atol=FIT_ATOL)
+        cfg = cloes.CASCADE
+        m_card = T.evaluate(p1, cfg, te, lcfg)
+        m_cpu = T.evaluate(pc, cfg, te, lcfg)
+        for k in m_cpu:
+            np.testing.assert_allclose(m_card[k], m_cpu[k], rtol=FIT_RTOL,
+                                       atol=FIT_ATOL, err_msg=k)
+        loss_err = max(abs(a - c) for a, c in zip(losses1, losses_c))
+        metric_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                         for k in m_cpu)
+        print(f"[train {name}] {steps} steps ({FIT_EPOCHS} epochs x "
+              f"{steps_per_epoch}) on the card: first fit {s1:.3f} s, second "
+              f"{s2:.3f} s ({steps / s2:.1f} steps/s, {s2 / FIT_EPOCHS:.4f} "
+              f"s/epoch); CPU {sc:.3f} s; launches {counts}")
+        print(f"[train {name}] two card fits byte-equal; against the CPU fit: "
+              f"max |loss err| {loss_err:.3g}, max |param err| {dev}, max "
+              f"relative metric err {metric_err:.3g}; loss "
+              f"{losses1[0]:.4f} -> {losses1[-1]:.4f}; test metrics on the "
+              f"card {json.dumps(m_card)}")
+        if name == "l3":
+            trained = p1
+            profile_fit(fit_fn, steps)
+    return trained, launches
+
+
+def profile_fit(fit_fn, steps) -> None:
+    """One more L3 fit under torch.profiler: where a training step's time
+    goes (the profiler's overhead inflates the fit's wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, seconds, _ = fit_once(fit_fn, "cuda")
+    summary = S.profile_summary(prof, seconds, top=10)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    print(f"[train l3] profiled fit: {seconds:.4f} s, device busy "
+          f"{summary['device_busy_ms']:.3f} ms (idle share "
+          f"{summary['device_idle_share']:.4f}), {launches} cudaLaunchKernel "
+          f"({launches / steps:.1f} per step)")
+    for op in summary["device_ops"]:
+        print(f"[train l3]   device {op['self_device_ms']:8.3f} ms "
+              f"x{op['count']:<6d} {op['name']}")
+    for op in summary["top_host_ops"]:
+        print(f"[train l3]   host {op['self_cpu_ms']:8.3f} ms "
+              f"x{op['count']:<6d} {op['name']}")
+
+
+# -- 6. serving -------------------------------------------------------------------
 def check_responses(reqs, futures, params, cfg, ses) -> int:
     """Every served, undegraded response against the plain pipeline on the
     CPU for that request alone: scores to tolerance, survivors exactly
@@ -314,11 +631,8 @@ def check_responses(reqs, futures, params, cfg, ses) -> int:
     return checked
 
 
-def phase_slice(plan: str) -> tuple[dict, dict]:
+def phase_slice(plan: str, params, te) -> tuple[dict, dict]:
     cfg = cloes.CASCADE
-    log = generate_log(LogConfig(n_queries=800, seed=0))
-    _, te = log.split(0.8)
-    params = S.load_params(None, cfg, seed=0, device="cuda")
     ses = S.build_session(params, cfg, plan=plan, device="cuda")
     chunks = 0
     execute = ses.execute_chunk
@@ -371,13 +685,20 @@ def phase_slice(plan: str) -> tuple[dict, dict]:
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     errs = phase_parity()
-    timing = phase_timing()
-    launches = {}
+    errs.update(cascade_score_batched_bwd=0.0, cascade_loss=0.0,
+                cascade_loss_bwd=0.0)
+    phase_train_parity(errs)
+    phase_determinism()
+    timing, timing_train = phase_timing()
+    log = generate_log(LogConfig(n_queries=FIT_QUERIES, seed=0))
+    tr, te = log.split(0.8)
+    params, launches = phase_train(tr, te)
     for plan in ("filter", "score"):
-        counts, _ = phase_slice(plan)
+        counts, _ = phase_slice(plan, params, te)
         kernel = ("cascade_filter" if plan == "filter"
                   else "cascade_score_batched")
         launches[kernel] = counts[kernel]
@@ -387,7 +708,12 @@ def main() -> None:
         rows.append({"name": name, **info, "launches": launches[name],
                      "max_abs_err": errs[name], "ms": tm["ms"],
                      "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-                     "bound_by": tm["bound_by"], "library_ms": None})
+                     "bound_by": tm["bound_by"], "library_ms": None,
+                     "lone_ms": tm["lone_ms"],
+                     "train_shape_ms": timing_train[name]["ms"],
+                     "train_shape_plain_ms": timing_train[name]["plain_ms"],
+                     "train_shape_bound_ms": timing_train[name]["bound_ms"]})
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
-"""CLOES core: the cascade model, the serving pipeline and the loss
-configuration. The trainer and the objectives come with the training
-slice."""
+"""CLOES core: the cascade model, the serving pipeline, the objectives
+(`losses`), the trainer, the paper's baselines and the offline metrics."""
 
 from repro_torch.core.cascade import (CascadeConfig, init_params,
                                       params_from_numpy, stage_probs,

@@ -29,7 +29,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("cascade_score.cu", "cascade_filter.cu")
+SOURCES = ("cascade_score.cu", "cascade_filter.cu", "cascade_score_bwd.cu",
+           "cascade_loss.cu")
+HEADERS = ("ordered_sum.cuh",)      # included by sources; part of the key
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libcascade_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,6 +46,12 @@ _SIGNATURES = {
     "cascade_score_batched_smem": ([_I, _I], ctypes.c_size_t),
     "cascade_filter": ([_P] * 9 + [_I] * 4 + [_P], _I),
     "cascade_filter_smem": ([_I, _I, _I], ctypes.c_size_t),
+    "cascade_score_batched_bwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "cascade_score_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    "cascade_loss": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "cascade_loss_smem": ([_I, _I], ctypes.c_size_t),
+    "cascade_loss_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    "cascade_loss_bwd_smem": ([_I, _I], ctypes.c_size_t),
     "cascade_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -66,7 +74,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

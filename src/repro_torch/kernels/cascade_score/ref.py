@@ -8,6 +8,8 @@ the CLOES cascade (Eqs 1-2, 6):
 
 It is the CPU path of `kernels.ops.cascade_score_batched` and the oracle
 the CUDA kernel (`csrc/cascade_score.cu`) is held against on the card.
+`cascade_score_batched_bwd_ref` is the closed-form backward, the CPU path
+of the op's gradient and the oracle of K3 (`csrc/cascade_score_bwd.cu`).
 """
 
 from __future__ import annotations
@@ -22,3 +24,23 @@ def cascade_score_batched_ref(x: torch.Tensor, w_eff: torch.Tensor,
     logits = (torch.einsum("bgd,td->bgt", x.float(), w_eff.float())
               + zq.float()[:, None, :])
     return torch.cumsum(F.logsigmoid(logits), dim=-1)
+
+
+def cascade_score_batched_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
+                                  zq: torch.Tensor, g: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Closed-form backward of `cascade_score_batched_ref`: cotangent g
+    (B, G, T) -> (dx (B, G, d), dw_eff (T, d), dzq (B, T)), all float32.
+
+        gc      = reverse cumsum of g over stages (total - cumsum + g)
+        g_logit = gc * sigmoid(-logit)
+        dx = g_logit . w_eff,  dw_eff = sum_bg g_logit^T x,  dzq = sum_g g_logit
+    """
+    xf, wf, gf = x.float(), w_eff.float(), g.float()
+    logits = torch.einsum("bgd,td->bgt", xf, wf) + zq.float()[:, None, :]
+    gc = gf.sum(-1, keepdim=True) - torch.cumsum(gf, dim=-1) + gf
+    g_logit = gc * torch.sigmoid(-logits)
+    return (torch.einsum("bgt,td->bgd", g_logit, wf),
+            torch.einsum("bgt,bgd->td", g_logit, xf),
+            g_logit.sum(dim=1))

@@ -7,6 +7,11 @@ device:
   build fails or the launch fails. Nothing falls back from the kernel to
   the plain version.
 
+The differentiable ops (`cascade_score_batched`, `cascade_loss_fused`) are
+`torch.autograd.Function`s whose forward and backward dispatch the same
+way: on the card a forward kernel and a backward kernel (K1 + K3, K4 + K5),
+on the CPU the plain forward and the closed-form backward.
+
 Each kernel wrapper counts its launches (`launch_counts()`), so a run can
 show that its hot path went through the kernels.
 """
@@ -18,13 +23,20 @@ import torch
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.cascade_filter import kernel as _filter_kernel
 from repro_torch.kernels.cascade_filter.ref import cascade_filter_ref
+from repro_torch.kernels.cascade_loss import kernel as _loss_kernel
+from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
+                                                  cascade_loss_ref)
 from repro_torch.kernels.cascade_score import kernel as _score_kernel
-from repro_torch.kernels.cascade_score.ref import cascade_score_batched_ref
+from repro_torch.kernels.cascade_score.ref import (
+    cascade_score_batched_bwd_ref, cascade_score_batched_ref)
 
 # name -> the wrapper that launches the kernel (and carries `.launches`)
 KERNELS = {
     "cascade_score_batched": _score_kernel.cascade_score_batched,
     "cascade_filter": _filter_kernel.cascade_filter,
+    "cascade_score_batched_bwd": _score_kernel.cascade_score_batched_bwd,
+    "cascade_loss": _loss_kernel.cascade_loss,
+    "cascade_loss_bwd": _loss_kernel.cascade_loss_bwd,
 }
 
 
@@ -53,15 +65,76 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
 
 
+class _ScoreBatched(torch.autograd.Function):
+    """K1 forward, K3 backward; residuals (x, w_eff, zq), as the reference's
+    custom VJP (src/repro/kernels/ops.py:82-98)."""
+
+    @staticmethod
+    def forward(ctx, x, w_eff, zq):
+        ctx.save_for_backward(x, w_eff, zq)
+        if _on_cpu(x):
+            return cascade_score_batched_ref(x, w_eff, zq)
+        return _score_kernel.cascade_score_batched(x, w_eff, zq)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_eff, zq = ctx.saved_tensors
+        g = g.contiguous()          # slices of lp arrive as strided views
+        if _on_cpu(x):
+            return cascade_score_batched_bwd_ref(x, w_eff, zq, g)
+        return _score_kernel.cascade_score_batched_bwd(x, w_eff, zq, g)
+
+
+class _LossFused(torch.autograd.Function):
+    """K4 forward, K5 backward. zq_pen takes the counts stream's gradient;
+    its value is not read (it equals zq by contract)."""
+
+    @staticmethod
+    def forward(ctx, xc, w_eff, zq, zq_pen):
+        ctx.save_for_backward(xc, w_eff, zq)
+        if _on_cpu(xc):
+            return cascade_loss_ref(xc, w_eff, zq)
+        return _loss_kernel.cascade_loss(xc, w_eff, zq)
+
+    @staticmethod
+    def backward(ctx, g_ll, g_cost, g_cnt):
+        xc, w_eff, zq = ctx.saved_tensors
+        gs = (g_ll.contiguous(), g_cost.contiguous(), g_cnt.contiguous())
+        if _on_cpu(xc):
+            return cascade_loss_bwd_ref(xc, w_eff, zq, *gs)
+        return _loss_kernel.cascade_loss_bwd(xc, w_eff, zq, *gs)
+
+
 def cascade_score_batched(x: torch.Tensor, w_eff: torch.Tensor,
                           zq: torch.Tensor) -> torch.Tensor:
     """Batched fused scorer: x (B, G, d) padded query groups, w_eff (T, d),
-    zq (B, T) per-group biases -> (B, G, T) cumulative log pass-probs."""
+    zq (B, T) per-group biases -> (B, G, T) cumulative log pass-probs.
+    Differentiable in all three inputs (K3 on the card)."""
     _require_ranks("cascade_score_batched",
                    x=(x, 3), w_eff=(w_eff, 2), zq=(zq, 2))
-    if _on_cpu(x):
-        return cascade_score_batched_ref(x, w_eff, zq)
-    return _score_kernel.cascade_score_batched(x, w_eff, zq)
+    return _ScoreBatched.apply(x, w_eff, zq)
+
+
+def cascade_loss_fused(xc: torch.Tensor, w_eff: torch.Tensor,
+                       zq: torch.Tensor, zq_pen: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused L3 training-step reductions: xc (B, G, d_x+4) packed items
+    ([x | y | mask | wgt | cost_w], `cascade_loss.kernel.pack_items`),
+    w_eff (T, d_x), zq (B, T) -> (ll (B,), cost_pp (T,), cnt_pp (B, T)):
+    the per-group NLL partials (Eqs 4/17), the Eq-8 expected-cost
+    accumulators and the Eq-10 expected keep counts, from one pass over the
+    items (K4 on the card).
+
+    zq_pen MUST equal zq in value (the same query bias with the Eq-15
+    stop-gradients applied): the forward does not read it, and the backward
+    (K5 on the card) sends the counts stream to zq_pen only and the NLL and
+    cost streams to w_eff and zq. With zq_pen=None, zq takes both, so the
+    two gradients add up in zq. The y/mask/wgt/cost_w columns are data: the
+    gradient in them is zero."""
+    _require_ranks("cascade_loss_fused", xc=(xc, 3), w_eff=(w_eff, 2),
+                   zq=(zq, 2),
+                   **({} if zq_pen is None else {"zq_pen": (zq_pen, 2)}))
+    return _LossFused.apply(xc, w_eff, zq, zq if zq_pen is None else zq_pen)
 
 
 def cascade_filter(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
@@ -78,5 +151,7 @@ def cascade_filter(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
 
 
 __all__ = ["KERNELS", "cascade_filter", "cascade_filter_ref",
-           "cascade_score_batched", "cascade_score_batched_ref",
-           "launch_counts", "load_library", "reset_launch_counts"]
+           "cascade_loss_bwd_ref", "cascade_loss_fused", "cascade_loss_ref",
+           "cascade_score_batched", "cascade_score_batched_bwd_ref",
+           "cascade_score_batched_ref", "launch_counts", "load_library",
+           "reset_launch_counts"]

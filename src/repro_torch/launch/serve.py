@@ -6,9 +6,11 @@ arrivals and flush policy on a simulated millisecond clock, service times
 real measured compute) and report shed / degraded / deadline-miss counts
 and end-to-end latency percentiles.
 
-The cascade's weights come from `--params PATH.npz` (numpy arrays w_x,
-w_q, b in the reference's layout, e.g. saved from a JAX fit) or, without
-it, from the seeded `init_params`. The port does not train yet.
+The cascade is trained first, as the reference's launcher does: CLOES (L3)
+on the log's training split, 4 epochs at lr 0.01 and `--beta` (5.0), on
+`--device`. `--params PATH.npz` (numpy arrays w_x, w_q, b in the
+reference's layout, e.g. saved from a JAX fit) serves those weights
+instead and skips training.
 
 Exit contract: nonzero when a future stays unresolved or the accounting
 identity submitted = completed + shed + errors does not close.
@@ -22,7 +24,8 @@ compute time of such a run.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 500 \
       --qps 400 [--deadline-ms 130] [--max-queue 128] [--plan filter] \
-      [--params cascade.npz] [--device cuda] [--report BENCH_serve.json] \
+      [--beta 5] [--params cascade.npz] [--device cuda] \
+      [--report BENCH_serve.json] \
       [--profile serve_trace.json]
 """
 
@@ -36,7 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import cloes
+from repro_torch.core import baselines as B
 from repro_torch.core import cascade as C
+from repro_torch.core import losses as L
+from repro_torch.core import trainer as T
 from repro_torch.data import LogConfig, SearchLog, generate_log
 from repro_torch.serving.batching import RankRequest
 from repro_torch.serving.faults import FaultInjector
@@ -75,13 +81,9 @@ def compiled_count(sessions) -> int:
     return len(set().union(*(s.shapes_seen for s in sessions)))
 
 
-def load_params(path: str | None, cfg: C.CascadeConfig, *, seed: int = 0,
+def load_params(path: str, cfg: C.CascadeConfig, *,
                 device="cuda") -> C.Params:
-    """Cascade weights from a `.npz` of numpy arrays (w_x, w_q, b), or the
-    seeded init when no path is given."""
-    if not path:
-        return C.init_params(cfg, torch.Generator().manual_seed(seed),
-                             device=device)
+    """Cascade weights from a `.npz` of numpy arrays (w_x, w_q, b)."""
     with np.load(path) as f:
         params = C.params_from_numpy({k: f[k] for k in f.files},
                                      device=device)
@@ -144,9 +146,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--plan", default="filter",
                     help="pipeline plan (core.pipeline.PLANS entry)")
+    ap.add_argument("--beta", type=float, default=5.0,
+                    help="CPU-cost trade-off of the L3 fit (Eq 9)")
     ap.add_argument("--params", default="",
-                    help=".npz of the cascade weights (w_x, w_q, b); "
-                         "default: seeded random init")
+                    help=".npz of the cascade weights (w_x, w_q, b) to "
+                         "serve instead of training")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the kernels' "
                          "plain versions)")
@@ -159,12 +163,20 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     log = generate_log(LogConfig(n_queries=800, seed=args.seed))
-    _, te = log.split(0.8)
+    tr, te = log.split(0.8)
     cfg = cloes.CASCADE
-    params = load_params(args.params or None, cfg, seed=args.seed,
-                         device=args.device)
-    print(f"[serve] cascade weights: "
-          f"{args.params or f'seeded init (seed {args.seed})'}")
+    if args.params:
+        params = load_params(args.params, cfg, device=args.device)
+        print(f"[serve] cascade weights: {args.params}")
+    else:
+        print("[serve] training cascade...")
+        t0 = time.perf_counter()
+        params, cfg = B.fit_cloes(
+            tr, lcfg=L.LossConfig(beta=args.beta),
+            tcfg=T.TrainConfig(loss="l3", epochs=4, lr=0.01),
+            device=args.device)
+        print(f"[serve] trained CLOES (L3, beta {args.beta}) in "
+              f"{time.perf_counter() - t0:.1f}s")
     ses = build_session(params, cfg, plan=args.plan,
                         max_queue=args.max_queue,
                         max_wait_ms=args.max_wait_ms, device=args.device)
@@ -240,7 +252,8 @@ def main(argv: list[str] | None = None) -> None:
             "config": {"requests": args.requests, "offered_qps": args.qps,
                        "deadline_ms": args.deadline_ms,
                        "max_queue": args.max_queue, "plan": args.plan,
-                       "seed": args.seed, "params": args.params or None,
+                       "seed": args.seed, "beta": args.beta,
+                       "params": args.params or None,
                        "mode": "des", "device": str(ses.device),
                        "device_name": (torch.cuda.get_device_name(ses.device)
                                        if ses.device.type == "cuda"

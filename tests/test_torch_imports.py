@@ -35,7 +35,12 @@ def _port_modules() -> list[str]:
 def test_port_has_modules():
     mods = _port_modules()
     for want in ("repro_torch.kernels.ops", "repro_torch.core.pipeline",
-                 "repro_torch.serving.session", "repro_torch.launch.serve"):
+                 "repro_torch.serving.session", "repro_torch.launch.serve",
+                 "repro_torch.kernels.cascade_loss.kernel",
+                 "repro_torch.kernels.cascade_loss.ref",
+                 "repro_torch.core.losses", "repro_torch.core.trainer",
+                 "repro_torch.core.baselines", "repro_torch.core.metrics",
+                 "repro_torch.optim.sgd", "repro_torch.launch.train"):
         assert want in mods
 
 

@@ -3,7 +3,17 @@ version against the reference's Pallas kernel in interpret mode and its
 XLA reference, on the same numpy inputs; the device dispatch of
 kernels.ops; and the CUDA wrappers' refusal of what their kernels do not
 take. The CUDA kernels themselves are held to these plain versions on the
-card by chip_smoke.py."""
+card by chip_smoke.py.
+
+Tolerances of the training kernels (K3-K5): rtol 1e-5 / atol 1e-5 on
+values, rtol 1e-4 / atol 5e-5 on the backward's outputs — the reference's
+own bars between its interpreted kernels and its XLA references
+(tests/test_cascade_loss.py); the sums (over up to 130 items, of terms up
+to ~1e2) are taken in another order. K4's NLL partial against the
+interpreted kernel: rtol 2e-5, because the plain version computes it in
+probability space as the reference's XLA reference does, and on the case
+G=130, d=24, T=1 that reference and the reference's own kernel differ by
+1.33e-5 relative (log1p(-exp(lp)) near lp = 0 magnifies an ulp)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,13 +23,22 @@ import torch
 from repro.kernels import ops as JK
 from repro.kernels.cascade_filter.kernel import cascade_filter as jfilter
 from repro.kernels.cascade_filter.ref import cascade_filter_ref as jfilter_ref
+from repro.kernels.cascade_loss import kernel as jloss
+from repro.kernels.cascade_loss import ref as jloss_ref
+from repro.kernels.cascade_score.kernel import (
+    cascade_score_batched_bwd as jscore_bwd)
 from repro.kernels.cascade_score.ref import cascade_score_batched_ref as jscore_ref
+from repro.kernels.cascade_score.ref import cascade_score_bwd_ref as jscore_bwd_ref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as TK
 from repro_torch.kernels.cascade_filter import kernel as filter_kernel
 from repro_torch.kernels.cascade_filter.ref import assert_decision_margin
+from repro_torch.kernels.cascade_loss import kernel as loss_kernel
+from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
+                                                  cascade_loss_ref)
 from repro_torch.kernels.cascade_score import kernel as score_kernel
-from torch_parity import close, filter_case, n, t, with_margin
+from repro_torch.kernels.cascade_score.ref import cascade_score_batched_bwd_ref
+from torch_parity import close, filter_case, loss_case, n, t, with_margin
 
 # ---------------------------------------------------------------------------
 # K1: cascade_score_batched
@@ -157,16 +176,23 @@ def test_margin_check_flags_boundary_inputs():
 def test_ops_cpu_tensors_take_the_plain_versions_and_build_nothing():
     TK.reset_launch_counts()
     x, w, zq, mask, m_q = map(t, filter_case(2, 8, 24, 3, seed=4))
-    TK.cascade_score_batched(x, w, zq)
+    wg = w.clone().requires_grad_(True)
+    TK.cascade_score_batched(x, wg, zq).sum().backward()
     TK.cascade_filter(x, w, zq, mask, m_q)
-    assert TK.launch_counts() == {"cascade_score_batched": 0,
-                                  "cascade_filter": 0}
+    xc = torch.cat([x, torch.ones(2, 8, 4)], dim=-1)
+    sum(o.sum() for o in TK.cascade_loss_fused(xc, wg, zq)).backward()
+    assert TK.launch_counts() == {
+        "cascade_score_batched": 0, "cascade_filter": 0,
+        "cascade_score_batched_bwd": 0, "cascade_loss": 0,
+        "cascade_loss_bwd": 0}
     assert _build._lib is None
 
 
 @pytest.mark.parametrize("op,args", [
     ("cascade_score_batched", lambda x, w, zq, m, mq: (x[0], w, zq)),
     ("cascade_filter", lambda x, w, zq, m, mq: (x, w, zq, m, mq[:, None])),
+    ("cascade_loss_fused", lambda x, w, zq, m, mq: (x[0], w, zq)),
+    ("cascade_loss_fused", lambda x, w, zq, m, mq: (x, w, zq, zq[0])),
 ])
 def test_ops_rank_errors_match_reference(op, args):
     arrs = filter_case(2, 8, 24, 3, seed=5)
@@ -179,10 +205,14 @@ def test_ops_rank_errors_match_reference(op, args):
 
 @pytest.mark.parametrize("fn,nargs", [
     (score_kernel.cascade_score_batched, 3),
-    (filter_kernel.cascade_filter, 5)])
+    (filter_kernel.cascade_filter, 5),
+    (score_kernel.cascade_score_batched_bwd, 4),
+    (loss_kernel.cascade_loss, 3),
+    (loss_kernel.cascade_loss_bwd, 6)])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, nargs):
     before = fn.launches
-    args = list(map(t, filter_case(2, 8, 24, 3, seed=6)))[:nargs]
+    args = list(map(t, filter_case(2, 8, 24, 3, seed=6)))
+    args = (args + args)[:nargs]
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(*args)
     assert fn.launches == before
@@ -193,3 +223,105 @@ def test_build_key_follows_the_sources():
     assert key == _build._digest() and len(key) == 16
     assert all((_build.CSRC / s).exists() for s in _build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# K3: cascade_score_batched_bwd; K4 / K5: cascade_loss / cascade_loss_bwd
+# ---------------------------------------------------------------------------
+
+# Every G in {1, 7, 130}, d in {8, 24}, T in {1, 3, 8} meets the interpreted
+# kernels in the fast set or the slow sweep; the JAX XLA references (eager
+# and cheaper to reach) take the fast set.
+TRAIN_FAST = [(1, 24, 1), (7, 8, 3), (130, 24, 8), (7, 24, 3)]
+TRAIN_SLOW = [(g, d, t_) for g in (1, 7, 130) for d in (8, 24)
+              for t_ in (1, 3, 8) if (g, d, t_) not in TRAIN_FAST]
+_TRAIN_GRID = ([pytest.param(*c, id="-".join(map(str, c))) for c in TRAIN_FAST]
+               + [pytest.param(*c, id="-".join(map(str, c)),
+                               marks=pytest.mark.slow) for c in TRAIN_SLOW])
+BWD_RTOL, BWD_ATOL = 1e-4, 5e-5
+
+
+def _cotangents(b, t_, g=None, seed=1):
+    rng = np.random.default_rng(seed)
+    out = [rng.normal(size=(b,)), rng.normal(size=(t_,)),
+           rng.normal(size=(b, t_))]
+    if g is not None:
+        out.append(rng.normal(size=(b, g, t_)))
+    return [a.astype(np.float32) for a in out]
+
+
+@pytest.mark.parametrize("g,d,t_stages", _TRAIN_GRID)
+def test_score_bwd_plain_matches_reference_kernel(g, d, t_stages):
+    b = 3
+    x, w, zq, _, _ = filter_case(b, g, d, t_stages, seed=g * 7 + d + t_stages)
+    gct = _cotangents(b, t_stages, g)[3]
+    gct[1] = 0.0               # a padded group: zero cotangent adds nothing
+    got = cascade_score_batched_bwd_ref(t(x), t(w), t(zq), t(gct))
+    want = jscore_bwd(*map(jnp.asarray, (x, w, zq, gct)), interpret=True)
+    for a, r in zip(got, want):
+        close(a, r, rtol=BWD_RTOL, atol=BWD_ATOL)
+    assert float(got[0][1].abs().max()) == 0.0
+    assert float(got[2][1].abs().max()) == 0.0
+    if (g, d, t_stages) in TRAIN_FAST:
+        # the closed form, per group, is the reference's single-group ref
+        for i in range(b):
+            ref = jscore_bwd_ref(x[i], w, zq[i], gct[i])
+            close(got[0][i], ref[0], rtol=BWD_RTOL, atol=BWD_ATOL)
+            close(got[2][i], ref[2], rtol=BWD_RTOL, atol=BWD_ATOL)
+
+
+@pytest.mark.parametrize("g,d,t_stages", _TRAIN_GRID)
+def test_loss_plain_matches_reference_kernels(g, d, t_stages):
+    """K4's and K5's plain versions against the interpreted Pallas kernels;
+    group 0 is fully masked."""
+    b = 3
+    xc, w, zq = loss_case(b, g, d, t_stages, seed=g * 11 + d + t_stages)
+    got = cascade_loss_ref(t(xc), t(w), t(zq))
+    want = jloss.cascade_loss(*map(jnp.asarray, (xc, w, zq)), d_x=d,
+                              interpret=True)
+    assert [tuple(a.shape) for a in got] == [(b,), (t_stages,), (b, t_stages)]
+    for a, r, rtol in zip(got, want, (2e-5, 1e-5, 1e-5)):
+        close(a, r, rtol=rtol, atol=1e-5)
+    assert float(got[0][0]) == 0.0 and float(got[2][0].abs().max()) == 0.0
+    g_ll, g_cost, g_cnt = _cotangents(b, t_stages)
+    got_b = cascade_loss_bwd_ref(*map(t, (xc, w, zq, g_ll, g_cost, g_cnt)))
+    want_b = jloss.cascade_loss_bwd(
+        *map(jnp.asarray, (xc, w, zq, g_ll, g_cost, g_cnt)), d_x=d,
+        interpret=True)
+    for a, r in zip(got_b, want_b):
+        close(a, r, rtol=BWD_RTOL, atol=BWD_ATOL)
+    assert float(got_b[0][..., d:].abs().max()) == 0.0      # data lanes
+    assert float(got_b[0][0].abs().max()) == 0.0            # masked group
+    if (g, d, t_stages) in TRAIN_FAST:
+        jref = jloss_ref.cascade_loss_ref(*map(jnp.asarray, (xc, w, zq)))
+        for a, r in zip(got, jref):
+            close(a, r)
+        jref_b = jloss_ref.cascade_loss_bwd_ref(
+            *map(jnp.asarray, (xc, w, zq, g_ll, g_cost, g_cnt)))
+        for a, r in zip(got_b, jref_b):
+            close(a, r, rtol=BWD_RTOL, atol=BWD_ATOL)
+
+
+def test_loss_underflow_stays_finite():
+    """A total log pass-probability below log(FLT_MIN) (8 stages at -12
+    nats) keeps the NLL partial finite and equal to the log-space kernel's,
+    as in the reference's ref."""
+    xc, w, zq = loss_case(2, 8, 4, 8, seed=7, dead_group=False)
+    zq = np.full_like(zq, -12.0)
+    got = cascade_loss_ref(t(xc), t(w) * 0.0, t(zq), t(zq))
+    assert torch.isfinite(got[0]).all()
+    want = jloss.cascade_loss(jnp.asarray(xc), jnp.asarray(w) * 0.0,
+                              jnp.asarray(zq), d_x=4, interpret=True)
+    close(got[0], want[0], rtol=1e-4, atol=1e-4)
+
+
+def test_training_wrappers_check_shapes_before_launch():
+    """The packed width and the cotangent shapes are refused before any
+    build or launch (ValueError, not a kernel error)."""
+    xc, w, zq = loss_case(2, 4, 8, 2, seed=0)
+    with pytest.raises(ValueError, match="packed item width"):
+        loss_kernel._check_packed("cascade_loss", t(xc)[..., :-1], t(w),
+                                  t(zq))
+    with pytest.raises(ValueError, match="stages"):
+        score_kernel.check_shapes("cascade_score_batched_bwd", t(xc),
+                                  torch.zeros(9, 12), torch.zeros(2, 9), 12)

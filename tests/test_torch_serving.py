@@ -295,6 +295,7 @@ def test_launcher_serves_on_cpu_and_reports(tmp_path, capsys):
     TL.main(["--device", "cpu", "--requests", "60", "--report",
              str(report)])
     out = capsys.readouterr().out
+    assert "trained CLOES (L3, beta 5.0)" in out
     assert "recompiles after warmup: 0" in out
     assert "all futures resolved" in out
     rep = json.loads(report.read_text())

@@ -61,6 +61,29 @@ def filter_case(b, g, d, t_stages, seed):
     return x, w, zq, mask, m_q
 
 
+def loss_case(b, g, d, t_stages, seed, dead_group=True):
+    """Packed K4/K5 inputs as tests/test_cascade_loss.py draws them, in
+    numpy: (xc (B, G, d+4), w (T, d), zq (B, T)); group 0 fully masked
+    when dead_group. The weights are scaled by 0.3, as filter_case's are:
+    with unit weights some logits pass 11, where 1 - exp(lp) of a negative
+    item is a few hundred float32 ulps of 1 and the NLL gradient's
+    ppc / (1 - ppc) turns one ulp of exp — which the two frameworks' exp
+    do not agree on — into 0.4% (measured at G=130, d=24, T=1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, g, d)).astype(np.float32)
+    y = rng.integers(0, 2, (b, g)).astype(np.float32)
+    mask = (rng.random((b, g)) < 0.85).astype(np.float32)
+    if dead_group:
+        mask[0] = 0.0
+    wgt = rng.uniform(0.5, 3.0, (b, g)).astype(np.float32) * mask
+    cost_w = rng.uniform(0.0, 50.0, (b, g)).astype(np.float32) * mask
+    xc = np.concatenate([x, y[..., None], mask[..., None], wgt[..., None],
+                         cost_w[..., None]], axis=-1)
+    w = (0.3 * rng.normal(size=(t_stages, d))).astype(np.float32)
+    zq = rng.normal(size=(b, t_stages)).astype(np.float32)
+    return xc, w, zq
+
+
 def with_margin(make, seed, tries=20):
     """make(seed) -> (x, w, zq, mask, m_q); the first seed from `seed` on
     whose inputs the filter's discrete decisions have margin."""
