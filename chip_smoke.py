@@ -41,13 +41,40 @@ Phases, in order; any failure raises and the script exits nonzero:
    or errors, no shape first seen after warmup, the plan's kernel
    launched once per served chunk, and responses that agree with the
    plain pipeline on the CPU;
-7. one JSON line with each kernel's launches on its path, error and
+7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
+   its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
+   1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
+   block edges and at S - 1 of an S = 1037 cache (float32 at 2e-5,
+   bfloat16 at 3e-2: the output's rounding), the ring-buffer mapping
+   against the reference's masked formula over ring_slot_positions, and
+   two launches giving the same bits; then K8 timed as the other kernels
+   at gemma3-27b's decode shapes (global layer B=4, S=4096; local ring
+   S=W=1024; B=1 at 128k), beside its plain version, its bound (in-window
+   K+V bytes at 3.35 TB/s) and one PyTorch call computing the same
+   function (scaled_dot_product_attention with the window's mask and GQA);
+8. the LLM engine: gemma3-27b at full width and depth in bfloat16
+   (random weights made on the card), prefill of 4 prompts of 2048
+   synthetic tokens (every local ring wraps), 32 greedy decode steps with
+   K8 launched once per layer per step, finite logits; prefill time, ms
+   per step, tokens/s and peak memory, and a few more steps under
+   torch.profiler. Then, at full width and 6 layers (one local:global
+   period) in float32, prefill of 1100 tokens plus one decode step held
+   to the model's own forward over the extended sequence (2e-3, the
+   reference's bar), a forward that never runs K8;
+9. serving with the neural final stage (`launch.serve --neural
+   gemma3-27b`: the smoke variant in float32, plan "filter", 500
+   requests at 400 QPS): every request served, none shed, no errors, the
+   responses against the plain pipeline plus the same scorer on the CPU;
+10. one JSON line with each kernel's launches on its path, error and
    times; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -60,6 +87,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import configs as CFG  # noqa: E402
 from repro_torch.configs import cloes  # noqa: E402
 from repro_torch.core import baselines as B  # noqa: E402
 from repro_torch.core import losses as L  # noqa: E402
@@ -71,7 +99,12 @@ from repro_torch.kernels.cascade_filter.ref import (  # noqa: E402
     assert_decision_margin)
 from repro_torch.kernels.cascade_loss import kernel as loss_kernel  # noqa: E402
 from repro_torch.kernels.cascade_score import kernel as score_kernel  # noqa: E402
+from repro_torch.kernels.swa_decode import kernel as swa_kernel  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
+from repro_torch.models import base as MB  # noqa: E402
+from repro_torch.models import layers as Lyr  # noqa: E402
+from repro_torch.models import zoo as Z  # noqa: E402
+from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (alloc_batch, bucket_of,  # noqa: E402
                                           pack_into)
 from repro_torch.serving.loadgen import run_open_loop  # noqa: E402
@@ -82,6 +115,21 @@ BWD_RTOL, BWD_ATOL = 1e-4, 5e-5       # backward sums in another order
 FIT_RTOL = FIT_ATOL = 1e-4  # the card's fit against the CPU's
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
+K8_F32_TOL, K8_BF16_TOL = 2e-5, 3e-2  # the reference's bars (test_kernels)
+# K8 timing shapes (B, H, Hkv, hd, S): gemma3-27b's decode attention at
+# the LM phase's batch: a global layer's cache, a local layer's full ring,
+# and one sequence at 128k context.
+K8_SHAPES = {"global": (4, 32, 16, 128, 4096), "ring": (4, 32, 16, 128, 1024),
+             "long": (1, 32, 16, 128, 131072)}
+L2_BYTES = 50 * 2**20       # rotate K8's inputs past the L2 between calls
+# The LM phase: gemma3-27b at full width and depth in bfloat16.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_PROFILE_STEPS = (
+    "gemma3-27b", 4, 2048, 32, 3)
+# ... and at full width, 6 layers in float32, held to its own forward.
+LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_PROMPT = 6, 2, 1100
+LM_PREFILL_TOL, LM_DECODE_TOL = 2e-4, 2e-3   # the reference's bars
+NEURAL_ARCH = "gemma3-27b"
 WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
@@ -116,6 +164,10 @@ KERNEL_INFO = {
         "id": "K5", "route": "cuda",
         "source": "src/repro_torch/csrc/cascade_loss.cu",
         "replaces": "src/repro/kernels/cascade_loss/kernel.py:271"},
+    "swa_decode": {
+        "id": "K8", "route": "cuda",
+        "source": "src/repro_torch/csrc/swa_decode.cu",
+        "replaces": "src/repro/kernels/swa_decode/kernel.py:75"},
 }
 
 
@@ -598,12 +650,16 @@ def profile_fit(fit_fn, steps) -> None:
 
 
 # -- 6. serving -------------------------------------------------------------------
-def check_responses(reqs, futures, params, cfg, ses) -> int:
+def check_responses(reqs, futures, params, cfg, ses, neural=None) -> int:
     """Every served, undegraded response against the plain pipeline on the
-    CPU for that request alone: scores to tolerance, survivors exactly
+    CPU for that request alone (plus the same neural scorer on the CPU,
+    when the session has one): scores to tolerance, survivors exactly
     where the request's decisions have margin, order a stable descending
     sort of the scores. Returns how many were checked."""
     cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu_neural = None if neural is None else dataclasses.replace(
+        neural, params=MB.tree_map(lambda a: a.cpu(), neural.params),
+        head=neural.head.cpu())
     checked = 0
     for req, fut in zip(reqs, futures):
         r = fut.result()
@@ -617,7 +673,10 @@ def check_responses(reqs, futures, params, cfg, ses) -> int:
                             t["m_q"], fused="none")
         n = len(r.scores)
         surv = out["survivors"][0, :n, -1] > 0
-        want = torch.where(surv, out["scores"][0, :n], -torch.inf).numpy()
+        scores = out["scores"][0, :n]
+        if cpu_neural is not None:
+            scores = scores + cpu_neural.score(t["x"][0, :n])
+        want = torch.where(surv, scores, -torch.inf).numpy()
         np.testing.assert_allclose(r.scores, want, rtol=RTOL, atol=ATOL)
         try:
             assert_decision_margin(out["lp"], t["mask"], t["m_q"])
@@ -631,9 +690,11 @@ def check_responses(reqs, futures, params, cfg, ses) -> int:
     return checked
 
 
-def phase_slice(plan: str, params, te) -> tuple[dict, dict]:
+def phase_slice(plan: str, params, te, neural=None) -> tuple[dict, dict]:
     cfg = cloes.CASCADE
-    ses = S.build_session(params, cfg, plan=plan, device="cuda")
+    ses = S.build_session(params, cfg, neural=neural, plan=plan,
+                          device="cuda")
+    label = plan if neural is None else f"{plan} + neural {neural.cfg.name}"
     chunks = 0
     execute = ses.execute_chunk
 
@@ -667,21 +728,369 @@ def phase_slice(plan: str, params, te) -> tuple[dict, dict]:
     assert new_shapes == 0, f"{new_shapes} shapes first seen after warmup"
     assert warm_launches[kernel] >= len(shapes), warm_launches
     assert serve_launches >= chunks > 0, (serve_launches, chunks)
-    checked = check_responses(reqs, res.futures, params, cfg, ses)
+    if neural is not None:
+        assert res.completed == res.n_requests and res.shed == 0, \
+            f"{label}: served {res.completed}, shed {res.shed}"
+        assert ses.warmup_manifest()["degraded_pipeline"]
+    checked = check_responses(reqs, res.futures, params, cfg, ses, neural)
     assert checked > 0
-    print(f"[slice {plan}] warmed {len(shapes)} shapes in {warmup_s:.2f}s; "
+    print(f"[slice {label}] warmed {len(shapes)} shapes in {warmup_s:.2f}s; "
           f"served {res.completed}/{res.n_requests} (shed {res.shed}, "
           f"errors {res.errors}, degraded {res.degraded}, deadline-missed "
           f"{res.deadline_missed}) in {chunks} chunks; "
           f"{res.achieved_qps:.1f} QPS achieved over {res.sim_s:.3f}s "
           f"simulated, {res.serve_s:.4f}s compute "
           f"({1e3 * res.serve_s / max(chunks, 1):.4f} ms/chunk)")
-    print(f"[slice {plan}] latency p50 {res.pct(50):.3f} ms, p95 "
+    print(f"[slice {label}] latency p50 {res.pct(50):.3f} ms, p95 "
           f"{res.pct(95):.3f} ms, p99 {res.pct(99):.3f} ms; "
           f"recompiles after warmup: {new_shapes}; launches {launches} "
           f"(warmup {warm_launches}); {checked} responses match the plain "
-          "pipeline on the CPU")
+          f"pipeline{'' if neural is None else ' and scorer'} on the CPU")
     return launches, res.summary()
+
+
+# -- 7. K8: the LLM engine's decode attention ------------------------------------
+
+def k8_inputs(b, h, hkv, hd, s, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((b, h, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+def ring_plain(q, k, v, cache_len):
+    """The reference's ring decode, independent of K8's mapping: softmax
+    over the ring slots that hold a position (ring_slot_positions >= 0)
+    within the window W = ring size, grouped-head einsums in float32."""
+    b, h, hd = q.shape
+    w, hkv = k.shape[1], k.shape[2]
+    kpos = Lyr.ring_slot_positions(cache_len + 1, w, device=q.device)
+    valid = (kpos >= 0) & (kpos <= cache_len) & (cache_len - kpos < w)
+    qg = q.reshape(b, hkv, h // hkv, hd).float()
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, k.float()) / math.sqrt(hd)
+    p = torch.softmax(torch.where(valid, logits, -1e30), dim=-1)
+    out = torch.einsum("bgrs,bsgd->bgrd", p, v.float())
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def phase_k8_parity(errs) -> None:
+    """K8 against its plain version on the card over the dtype x hd x rep
+    x window x cache_len grid, and the ring mapping of the engine's local
+    layers against the reference's masked formula."""
+    n = 0
+    s = 1037                          # a multiple of no block or split
+    for dtype, tol in ((torch.float32, K8_F32_TOL),
+                       (torch.bfloat16, K8_BF16_TOL)):
+        for hd in (64, 128):
+            for h, hkv in ((4, 4), (8, 4), (16, 4), (14, 2), (24, 2)):
+                q, k, v = k8_inputs(2, h, hkv, hd, s, dtype, seed=n)
+                for window in (ops.NO_WINDOW, 1024, 100):
+                    for cache_len in (0, 255, 256, s - 1):
+                        got = ops.swa_decode(q, k, v, cache_len,
+                                             window=window)
+                        sync()
+                        want = ops.swa_decode_ref(q, k, v, cache_len, window)
+                        torch.testing.assert_close(
+                            got.float(), want.float(), rtol=tol, atol=tol,
+                            msg=lambda m: f"K8 {dtype} hd={hd} h={h} "
+                            f"hkv={hkv} window={window} len={cache_len}: {m}")
+                        errs["swa_decode"] = max(
+                            errs["swa_decode"],
+                            float((got.float() - want.float()).abs().max()))
+                        n += 1
+                ring_k = k[:, :1024].contiguous()
+                ring_v = v[:, :1024].contiguous()
+                for cache_len in (5, 1023, 1024, 5000):
+                    got = Lyr.decode_attention(
+                        q[:, None], ring_k, ring_v, q_offset=cache_len,
+                        window=1024, ring=True)[:, 0]
+                    sync()
+                    want = ring_plain(q, ring_k, ring_v, cache_len)
+                    torch.testing.assert_close(
+                        got.float(), want.float(), rtol=tol, atol=tol,
+                        msg=lambda m: f"K8 ring {dtype} hd={hd} h={h} "
+                        f"len={cache_len}: {m}")
+                    n += 1
+    print(f"[parity] {n} K8 cases (f32 at {K8_F32_TOL}, bf16 at "
+          f"{K8_BF16_TOL}, ring mapping included): max |err| "
+          f"{errs['swa_decode']:.3g}")
+
+
+def host_ms(fn, calls=200) -> float:
+    """Wall-clock ms per call of `calls` calls back to back, synchronised
+    at the end: the host's cost per call wherever it exceeds the device's."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def k8_timing_case(shape, seed):
+    """K8's inputs at a timing shape in bfloat16, with enough copies that
+    back-to-back calls read K/V from device memory, not from the L2."""
+    b, h, hkv, hd, s = shape
+    kv_bytes = 2 * b * s * hkv * hd * 2
+    copies = max(1, -(-3 * L2_BYTES // kv_bytes))
+    q, _, _ = k8_inputs(b, h, hkv, hd, 1, torch.bfloat16, seed)
+    kvs = [k8_inputs(b, h, hkv, hd, s, torch.bfloat16, seed + 1 + i)[1:]
+           for i in range(copies)]
+    return q, kvs
+
+
+def rotate(fn, kvs):
+    """fn(k, v) over the copies in turn, one copy per call."""
+    it = [0]
+
+    def call():
+        k, v = kvs[it[0] % len(kvs)]
+        it[0] += 1
+        return fn(k, v)
+    return call
+
+
+def sdpa_call(q, cache_len, window):
+    """One PyTorch call computing K8's function: scaled_dot_product_attention
+    with the window's boolean mask and GQA (timed as a yardstick; the port
+    never calls it)."""
+    import torch.nn.functional as F
+
+    def call(k, v):
+        s = k.shape[1]
+        pos = torch.arange(s, device=k.device)
+        mask = (pos <= cache_len) & (pos > cache_len - window)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[None, None, None], enable_gqa=True)[:, :, 0]
+    return call
+
+
+def phase_k8_timing() -> dict[str, dict]:
+    """K8 at the LM phase's shapes, beside its plain version, its bound and
+    the library call; two launches give the same bits at each shape."""
+    out = {}
+    for name, shape in K8_SHAPES.items():
+        b, h, hkv, hd, s = shape
+        # global: the last slot of a full cache; ring: the mapping's
+        # cache_len for a wrapped ring (every slot valid, no window)
+        cache_len, window = s - 1, ops.NO_WINDOW
+        q, kvs = k8_timing_case(shape, seed=11)
+        a = ops.swa_decode(q, *kvs[0], cache_len, window=window)
+        z = ops.swa_decode(q, *kvs[0], cache_len, window=window)
+        want = ops.swa_decode_ref(q, *kvs[0], cache_len, window)
+        sync()
+        assert torch.equal(a, z), f"K8 {name}: two launches differ"
+        err = float((a.float() - want.float()).abs().max())
+        assert err <= K8_BF16_TOL, (name, err)
+        lib = sdpa_call(q, cache_len, window)
+        lib_err = float((lib(*kvs[0]).float() - want.float()).abs().max())
+        kern, lone = time_ms(rotate(lambda k, v: ops.swa_decode(
+            q, k, v, cache_len, window=window), kvs))
+        host = host_ms(rotate(lambda k, v: ops.swa_decode(
+            q, k, v, cache_len, window=window), kvs))
+        plain, _ = time_ms(rotate(lambda k, v: ops.swa_decode_ref(
+            q, k, v, cache_len, window), kvs), reps=5, calls=5)
+        library, _ = time_ms(rotate(lib, kvs), reps=5, calls=5)
+        n_valid = min(cache_len + 1, window)
+        nbytes = (2 * b * n_valid * hkv * hd + 2 * b * h * hd) * 2
+        nops = 4 * b * h * n_valid * hd
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / BF16_OPS_PER_S * 1e3
+        p = swa_kernel.plan(b, s, h, hkv, cache_len, window,
+                            swa_kernel._sm_count(0))
+        out[name] = dict(
+            ms=kern, lone_ms=lone, host_ms=host, plain_ms=plain,
+            library_ms=library,
+            bytes=nbytes, ops=nops, bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            max_abs_err=err, library_err=lib_err, plan=p)
+        r = out[name]
+        print(f"[timing] K8 swa_decode {name} (B={b} H={h} Hkv={hkv} hd={hd} "
+              f"S={s} bf16, {n_valid} positions, {p['n_split']} splits x "
+              f"{p['split_len']}, {len(kvs)} K/V copies): kernel "
+              f"{r['ms']:.4f} ms (lone call {r['lone_ms']:.4f} ms; "
+              f"{r['host_ms']:.4f} ms per call of 200 back to back, wall "
+              f"clock), plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['library_ms']:.4f} ms "
+              f"(|err| {lib_err:.3g}), bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']} ({nbytes} bytes -> {by_bytes:.4f} ms; "
+              f"{nops} ops -> {by_ops:.5f} ms), "
+              f"{r['bound_ms'] / r['ms']:.1%} of bound; two launches "
+              "bit-equal")
+    return out
+
+
+# -- 8. the LLM engine: gemma3-27b prefill + greedy decode -------------------
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm() -> dict:
+    """gemma3-27b at full width and depth in bf16 through the engine's
+    prefill and 32 greedy decode steps. K8's launches are counted from 0
+    just before the prefill and read just after the last step."""
+    cfg = CFG.get(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+    sync()
+    make_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in MB.tree_leaves(params))
+    print(f"[lm] {cfg.name}: {cfg.param_count()} parameters, {nbytes} bytes "
+          f"in {cfg.dtype} made on the card in {make_s:.1f} s; "
+          f"{cfg.n_layers} layers, window {cfg.sliding_window}, global "
+          f"every {cfg.global_every}")
+    max_len = LM_PROMPT + LM_STEPS + 2 * LM_PROFILE_STEPS
+    cache = E.init_cache(cfg, LM_BATCH, max_len, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=gen, device="cuda")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # the LM path starts here
+    t0 = time.perf_counter()
+    logits, cache = E.prefill(params, cfg, {"tokens": tokens}, cache)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LM_STEPS + 1)]
+    generated = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(LM_STEPS):
+        logits, cache = E.decode_step(params, cfg, tok, cache, LM_PROMPT + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        finite &= torch.isfinite(logits).all()
+        generated.append(tok)
+        events[i + 1].record()
+    sync()
+    decode_s = time.perf_counter() - t0
+    launches = ops.launch_counts()     # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    assert bool(finite), "non-finite logits in the LM phase"
+    want = {k: 0 for k in launches}
+    want["swa_decode"] = cfg.n_layers * LM_STEPS
+    assert launches == want, (launches, want)
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(LM_STEPS)]
+    med = statistics.median(step_ms)
+    print(f"[lm] prefill B={LM_BATCH} x {LM_PROMPT} tokens: {prefill_s:.3f} s "
+          f"({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s); {LM_STEPS} "
+          f"greedy decode steps in {decode_s:.3f} s: median {med:.3f} ms "
+          f"per step (first {step_ms[0]:.3f}, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), {LM_BATCH / med * 1e3:.1f} tokens/s at the "
+          f"median, {LM_BATCH * LM_STEPS / decode_s:.1f} tokens/s overall; "
+          f"peak memory {peak} bytes; K8 launches {launches['swa_decode']} "
+          f"= {cfg.n_layers} x {LM_STEPS}; logits finite")
+    print(f"[lm] greedy tokens of sequence 0: "
+          f"{torch.cat(generated, 1)[0].tolist()}")
+    profile = profile_decode(params, cfg, cache, tok)
+    cprofile_decode(params, cfg, cache, tok)
+    del params, cache, logits
+    free_cuda()
+    return dict(params=cfg.param_count(), param_bytes=nbytes,
+                prefill_s=prefill_s, step_ms=step_ms, step_ms_median=med,
+                tokens_per_s=LM_BATCH / med * 1e3, peak_bytes=peak,
+                k8_launches=launches["swa_decode"], profile=profile)
+
+
+def profile_decode(params, cfg, cache, tok) -> dict:
+    """A few more decode steps under torch.profiler: where a step's time
+    goes (the profiler's overhead inflates the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    pos = LM_PROMPT + LM_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(LM_PROFILE_STEPS):
+            logits, cache = E.decode_step(params, cfg, tok, cache, pos + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        sync()
+        seconds = time.perf_counter() - t0
+    summary = S.profile_summary(prof, seconds, top=12)
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    print(f"[lm] profiled {LM_PROFILE_STEPS} decode steps: {seconds:.4f} s, "
+          f"device busy {summary['device_busy_ms']:.3f} ms (idle share "
+          f"{summary['device_idle_share']:.4f}), {n_launch} cudaLaunchKernel "
+          f"({n_launch / LM_PROFILE_STEPS:.0f} per step)")
+    for op in summary["device_ops"]:
+        print(f"[lm]   device {op['self_device_ms']:9.3f} ms "
+              f"x{op['count']:<6d} {op['name'][:90]}")
+    for op in summary["top_host_ops"]:
+        print(f"[lm]   host {op['self_cpu_ms']:9.3f} ms "
+              f"x{op['count']:<6d} {op['name'][:90]}")
+    return dict(seconds=seconds, launches_per_step=n_launch / LM_PROFILE_STEPS,
+                device_busy_ms=summary["device_busy_ms"],
+                device_idle_share=summary["device_idle_share"])
+
+
+def cprofile_decode(params, cfg, cache, tok) -> None:
+    """A few more decode steps under cProfile: which Python functions take
+    the host's time (cProfile's own overhead inflates it)."""
+    import cProfile
+    import pstats
+    pos = LM_PROMPT + LM_STEPS + LM_PROFILE_STEPS
+    prof = cProfile.Profile()
+    prof.enable()
+    for i in range(LM_PROFILE_STEPS):
+        logits, cache = E.decode_step(params, cfg, tok, cache, pos + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    sync()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    rows = sorted(stats.stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    total = sum(v[2] for v in stats.stats.values())
+    print(f"[lm] cProfile of {LM_PROFILE_STEPS} decode steps: "
+          f"{total * 1e3 / LM_PROFILE_STEPS:.1f} ms of host time per step; "
+          "top functions by own time (ms per step, calls per step):")
+    for (path, line, fn), (_, ncalls, tottime, _, _) in rows[:14]:
+        print(f"[lm]   {tottime * 1e3 / LM_PROFILE_STEPS:8.2f} ms "
+              f"x{ncalls // LM_PROFILE_STEPS:<6d} "
+              f"{os.path.basename(path)}:{line} {fn}")
+
+
+def phase_lm_check() -> dict:
+    """Full width, one local:global period (6 layers) in float32: prefill
+    and one decode step against the model's own forward over the extended
+    sequence, which runs no K8."""
+    cfg = dataclasses.replace(CFG.get(LM_ARCH), n_layers=LM_CHECK_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+    b, s = LM_CHECK_BATCH, LM_CHECK_PROMPT
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    cache = E.init_cache(cfg, b, s + 1, device="cuda")
+    ops.reset_launch_counts()
+    lg, cache = E.prefill(params, cfg, {"tokens": tokens}, cache)
+    tok = lg[:, -1].argmax(-1, keepdim=True)
+    lg2, cache = E.decode_step(params, cfg, tok, cache, s)
+    sync()
+    launches = ops.launch_counts()["swa_decode"]
+    assert launches == cfg.n_layers, launches
+    del cache
+    full, _ = Z.forward(params, cfg, {"tokens": torch.cat([tokens, tok], 1)})
+    err_prefill = float((lg[:, 0] - full[:, -2]).abs().max())
+    err_decode = float((lg2[:, 0] - full[:, -1]).abs().max())
+    scale = float(full[:, -1].abs().max())
+    torch.testing.assert_close(lg[:, 0], full[:, -2], rtol=LM_PREFILL_TOL,
+                               atol=LM_PREFILL_TOL)
+    torch.testing.assert_close(lg2[:, 0], full[:, -1], rtol=LM_DECODE_TOL,
+                               atol=LM_DECODE_TOL)
+    print(f"[lm check] {cfg.name} at full width, {cfg.n_layers} layers, "
+          f"float32: prefill of {s} tokens (window {cfg.sliding_window}: "
+          f"the rings wrap) + 1 decode step (K8 x {launches}) against the "
+          f"forward over {s + 1} tokens: max |err| prefill {err_prefill:.3g}"
+          f" (bar {LM_PREFILL_TOL}), decode {err_decode:.3g} (bar "
+          f"{LM_DECODE_TOL}); logits up to {scale:.3g}")
+    del params, full, lg, lg2
+    free_cuda()
+    return dict(err_prefill=err_prefill, err_decode=err_decode)
 
 
 def main() -> None:
@@ -702,17 +1111,38 @@ def main() -> None:
         kernel = ("cascade_filter" if plan == "filter"
                   else "cascade_score_batched")
         launches[kernel] = counts[kernel]
+    free_cuda()
+    errs["swa_decode"] = 0.0
+    phase_k8_parity(errs)
+    k8 = phase_k8_timing()
+    free_cuda()
+    lm = phase_lm()
+    launches["swa_decode"] = lm["k8_launches"]
+    phase_lm_check()
+    phase_slice("filter", params, te,
+                neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     rows = []
     for name, info in KERNEL_INFO.items():
-        tm = timing[name]
-        rows.append({"name": name, **info, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": tm["ms"],
-                     "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-                     "bound_by": tm["bound_by"], "library_ms": None,
-                     "lone_ms": tm["lone_ms"],
-                     "train_shape_ms": timing_train[name]["ms"],
-                     "train_shape_plain_ms": timing_train[name]["plain_ms"],
-                     "train_shape_bound_ms": timing_train[name]["bound_ms"]})
+        row = {"name": name, **info, "launches": launches[name],
+               "max_abs_err": errs[name]}
+        if name == "swa_decode":
+            tm = k8["global"]
+            row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                       bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+                       library_ms=tm["library_ms"], lone_ms=tm["lone_ms"],
+                       launches_per_decode_step=CFG.get(LM_ARCH).n_layers)
+            for shape in ("ring", "long"):
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    row[f"{shape}_{key}"] = k8[shape][key]
+        else:
+            tm = timing[name]
+            row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                       bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+                       library_ms=None, lone_ms=tm["lone_ms"],
+                       train_shape_ms=timing_train[name]["ms"],
+                       train_shape_plain_ms=timing_train[name]["plain_ms"],
+                       train_shape_bound_ms=timing_train[name]["bound_ms"])
+        rows.append(row)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ is imported: the first call that launches a kernel builds it (the serving
 session's `warmup()` makes that call, before any request is timed).
 
 Shared checks for the kernel wrappers live here too: a wrapper takes only
-contiguous float32 tensors on one CUDA device of compute capability 9.0,
-and raises on anything else.
+contiguous tensors of the dtypes its kernel reads — float32 for K1-K5
+(the cascade kernels), float32 or bfloat16 for K8 (`swa_decode`, which
+reads a bf16 KV cache as it is) — on one CUDA device of compute
+capability 9.0, and raises on anything else.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("cascade_score.cu", "cascade_filter.cu", "cascade_score_bwd.cu",
-           "cascade_loss.cu")
+           "cascade_loss.cu", "swa_decode.cu")
 HEADERS = ("ordered_sum.cuh",)      # included by sources; part of the key
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libcascade_kernels.so"
@@ -39,7 +41,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232_448       # per-block shared memory limit on sm_90
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "cascade_score_batched": ([_P] * 4 + [_I] * 4 + [_P], _I),
@@ -52,6 +54,7 @@ _SIGNATURES = {
     "cascade_loss_smem": ([_I, _I], ctypes.c_size_t),
     "cascade_loss_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "cascade_loss_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    "swa_decode": ([_P] * 7 + [_I] * 11 + [_F, _P], _I),
     "cascade_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -148,9 +151,11 @@ def check_launch(lib: ctypes.CDLL, op: str, rc: int) -> None:
                            f"({msg})")
 
 
-def check_inputs(op: str, **tensors: torch.Tensor) -> torch.device:
-    """The kernels take contiguous float32 tensors on one CUDA device of
-    compute capability 9.0; raise on anything else. Returns the device."""
+def check_inputs(op: str, dtypes: tuple[torch.dtype, ...] = (torch.float32,),
+                 **tensors: torch.Tensor) -> torch.device:
+    """The kernels take contiguous tensors of `dtypes` (float32 unless the
+    kernel says otherwise) on one CUDA device of compute capability 9.0;
+    raise on anything else. Returns the device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{op}: inputs on several devices {sorted(map(str, devices))}")
@@ -163,8 +168,9 @@ def check_inputs(op: str, **tensors: torch.Tensor) -> torch.device:
             f"{op}: the kernel is built for sm_90a (H100/H200); "
             f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: {name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{op}: {name} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: {name} must be contiguous")
     return device

@@ -12,6 +12,9 @@ The differentiable ops (`cascade_score_batched`, `cascade_loss_fused`) are
 way: on the card a forward kernel and a backward kernel (K1 + K3, K4 + K5),
 on the CPU the plain forward and the closed-form backward.
 
+`swa_decode` (K8) is the one-token decode attention of the LLM engine; it
+takes float32 or bfloat16 and is not differentiable (serving only).
+
 Each kernel wrapper counts its launches (`launch_counts()`), so a run can
 show that its hot path went through the kernels.
 """
@@ -29,6 +32,8 @@ from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
 from repro_torch.kernels.cascade_score import kernel as _score_kernel
 from repro_torch.kernels.cascade_score.ref import (
     cascade_score_batched_bwd_ref, cascade_score_batched_ref)
+from repro_torch.kernels.swa_decode import kernel as _swa_kernel
+from repro_torch.kernels.swa_decode.ref import NO_WINDOW, swa_decode_ref
 
 # name -> the wrapper that launches the kernel (and carries `.launches`)
 KERNELS = {
@@ -37,6 +42,7 @@ KERNELS = {
     "cascade_score_batched_bwd": _score_kernel.cascade_score_batched_bwd,
     "cascade_loss": _loss_kernel.cascade_loss,
     "cascade_loss_bwd": _loss_kernel.cascade_loss_bwd,
+    "swa_decode": _swa_kernel.swa_decode,
 }
 
 
@@ -150,8 +156,20 @@ def cascade_filter(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
     return _filter_kernel.cascade_filter(x, w_eff, zq, mask, m_q)
 
 
-__all__ = ["KERNELS", "cascade_filter", "cascade_filter_ref",
+def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cache_len: int, *, window: int = NO_WINDOW) -> torch.Tensor:
+    """Flash-decode attention of one token against a (sliding-window) KV
+    cache: q (B, H, hd), k/v (B, S, Hkv, hd), the host int cache_len (the
+    query's position) -> (B, H, hd) over the positions
+    (cache_len - window, cache_len] (K8 on the card)."""
+    _require_ranks("swa_decode", q=(q, 3), k=(k, 4), v=(v, 4))
+    if _on_cpu(q):
+        return swa_decode_ref(q, k, v, cache_len, window)
+    return _swa_kernel.swa_decode(q, k, v, cache_len, window)
+
+
+__all__ = ["KERNELS", "NO_WINDOW", "cascade_filter", "cascade_filter_ref",
            "cascade_loss_bwd_ref", "cascade_loss_fused", "cascade_loss_ref",
            "cascade_score_batched", "cascade_score_batched_bwd_ref",
            "cascade_score_batched_ref", "launch_counts", "load_library",
-           "reset_launch_counts"]
+           "reset_launch_counts", "swa_decode", "swa_decode_ref"]

@@ -10,7 +10,9 @@ The cascade is trained first, as the reference's launcher does: CLOES (L3)
 on the log's training split, 4 epochs at lr 0.01 and `--beta` (5.0), on
 `--device`. `--params PATH.npz` (numpy arrays w_x, w_q, b in the
 reference's layout, e.g. saved from a JAX fit) serves those weights
-instead and skips training.
+instead and skips training. `--neural ARCH` adds the neural final stage:
+the smoke variant of that dense architecture in float32 with random
+weights (seed 7), scoring every batch's rows on `--device`.
 
 Exit contract: nonzero when a future stays unresolved or the accounting
 identity submitted = completed + shed + errors does not close.
@@ -25,19 +27,22 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 500 \
       --qps 400 [--deadline-ms 130] [--max-queue 128] [--plan filter] \
       [--beta 5] [--params cascade.npz] [--device cuda] \
-      [--report BENCH_serve.json] \
+      [--neural gemma3-27b] [--report BENCH_serve.json] \
       [--profile serve_trace.json]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
+from repro_torch import configs as CFG
 from repro_torch.configs import cloes
 from repro_torch.core import baselines as B
 from repro_torch.core import cascade as C
@@ -45,6 +50,7 @@ from repro_torch.core import losses as L
 from repro_torch.core import trainer as T
 from repro_torch.data import LogConfig, SearchLog, generate_log
 from repro_torch.serving.batching import RankRequest
+from repro_torch.serving.cascade_server import NeuralScorer
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.loadgen import run_open_loop
 from repro_torch.serving.session import (CascadeSession, DegradePolicy,
@@ -65,11 +71,12 @@ def build_serving_config(*, plan="filter", max_queue=128,
                          degrade=degrade)
 
 
-def build_session(params, cfg, lcfg=None, *, plan="filter", max_queue=128,
-                  max_wait_ms=5.0, faults: FaultInjector | None = None,
+def build_session(params, cfg, lcfg=None, *, neural=None, plan="filter",
+                  max_queue=128, max_wait_ms=5.0,
+                  faults: FaultInjector | None = None,
                   device="cuda") -> CascadeSession:
     return CascadeSession(
-        params, cfg, lcfg, faults=faults, device=device,
+        params, cfg, lcfg, neural_stage=neural, faults=faults, device=device,
         scfg=build_serving_config(plan=plan, max_queue=max_queue,
                                   max_wait_ms=max_wait_ms))
 
@@ -79,6 +86,13 @@ def compiled_count(sessions) -> int:
     run. Its delta across the serve phase counts the shapes first seen
     after warmup, which must be 0."""
     return len(set().union(*(s.shapes_seen for s in sessions)))
+
+
+def build_neural(arch: str, device="cuda") -> NeuralScorer:
+    """The neural final stage of `--neural ARCH`: the architecture's smoke
+    variant in float32, random weights from seed 7 (the reference's key)."""
+    ncfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+    return NeuralScorer.create(ncfg, 7, device=device)
 
 
 def load_params(path: str, cfg: C.CascadeConfig, *,
@@ -112,9 +126,14 @@ def make_requests(te: SearchLog, n: int, seed: int) -> list[RankRequest]:
 
 
 def profile_summary(prof, serve_s: float, top: int = 8) -> dict:
-    """Device busy time and the busiest host ops of a profiled serve."""
+    """Device busy time and the busiest host ops of a profiled serve.
+
+    Busy time sums the device-side events (kernels, copies) only: the host
+    op that launched a kernel reports the same device time again, so
+    summing every event would count each kernel twice."""
     events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
     return {
         "serve_ms": serve_s * 1e3,
@@ -128,7 +147,7 @@ def profile_summary(prof, serve_s: float, top: int = 8) -> dict:
         "device_ops": [
             {"name": e.key, "count": e.count,
              "self_device_ms": e.self_device_time_total / 1e3}
-            for e in sorted(events, key=lambda e: e.self_device_time_total,
+            for e in sorted(device, key=lambda e: e.self_device_time_total,
                             reverse=True)[:top]
             if e.self_device_time_total > 0],
     }
@@ -154,6 +173,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--neural", default="",
+                    help="arch id for the neural final stage (smoke variant)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--report", default="",
                     help="write the latency/lifecycle report as JSON here")
@@ -177,7 +198,11 @@ def main(argv: list[str] | None = None) -> None:
             device=args.device)
         print(f"[serve] trained CLOES (L3, beta {args.beta}) in "
               f"{time.perf_counter() - t0:.1f}s")
-    ses = build_session(params, cfg, plan=args.plan,
+    neural = None
+    if args.neural:
+        neural = build_neural(args.neural, device=args.device)
+        print(f"[serve] neural final stage: {neural.cfg.name}")
+    ses = build_session(params, cfg, neural=neural, plan=args.plan,
                         max_queue=args.max_queue,
                         max_wait_ms=args.max_wait_ms, device=args.device)
     t0 = time.perf_counter()
@@ -254,6 +279,7 @@ def main(argv: list[str] | None = None) -> None:
                        "max_queue": args.max_queue, "plan": args.plan,
                        "seed": args.seed, "beta": args.beta,
                        "params": args.params or None,
+                       "neural": args.neural or None,
                        "mode": "des", "device": str(ses.device),
                        "device_name": (torch.cuda.get_device_name(ses.device)
                                        if ses.device.type == "cuda"

@@ -28,12 +28,13 @@ module makes the API:
   degradation applied to a request is recorded on its response.
 
 The compute core is core.pipeline.run_cascade through the plan registry
-plus the Eq-16 latency estimate, run on the session's device (by default
+plus the optional neural final stage (serving.cascade_server.NeuralScorer)
+and the Eq-16 latency estimate, run on the session's device (by default
 the CUDA card, where plans "filter" and "score" launch the hand-written
 kernels). Each packed numpy batch is copied to the device, and the
-results come back to numpy before any response is built. The neural final
-stage, the CascadeServer shim, the pump and the router come in later
-slices of the port.
+results come back to numpy before any response is built. The
+CascadeServer shim, the pump and the router come in later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -266,13 +267,14 @@ class CascadeSession:
                  faults: FaultInjector | None = None,
                  name: str = "session",
                  device="cuda"):
-        if neural_stage is not None:
-            raise NotImplementedError(
-                "the neural final stage is not ported yet: it comes with "
-                "the LLM side-path slice (ROADMAP Queue 1 item 12)")
         # Every input and the whole pipeline live on `device`; asking for
         # "cuda" without a card raises here instead of serving elsewhere.
         self.device = torch.device(device)
+        if neural_stage is not None and neural_stage.device.type \
+                != self.device.type:
+            raise ValueError(
+                f"the neural stage's weights are on {neural_stage.device}, "
+                f"the session serves on {self.device}")
         self.params = {k: torch.as_tensor(v, dtype=torch.float32)
                        .to(self.device).contiguous()
                        for k, v in params.items()}
@@ -294,9 +296,13 @@ class CascadeSession:
         # (skip_neural, b, g) shapes the pipeline has run, so "no new
         # shapes after warmup" keeps its meaning (launch.serve).
         self.shapes_seen: set[tuple[bool, int, int]] = set()
-        # One pipeline: the degraded skip-neural pipeline exists only when
-        # there is a neural stage to skip, which this package does not have.
-        self._rank = self._make_rank()
+        self._rank = self._make_rank(with_neural=True)
+        # The degraded pipeline drops the neural stage; it only exists as a
+        # distinct pipeline when there is a neural stage to skip.
+        if self.neural is not None and self.scfg.degrade.skip_neural:
+            self._rank_noneural = self._make_rank(with_neural=False)
+        else:
+            self._rank_noneural = self._rank
         self._pending: dict[int, list[_Pending]] = {g: [] for g in self.buckets}
         self._degraded_active = False
         # ONE lock around admission + the pending queues + resolution. The
@@ -336,7 +342,9 @@ class CascadeSession:
 
     # -- the pipeline ---------------------------------------------------------
 
-    def _make_rank(self):
+    def _make_rank(self, with_neural: bool):
+        neural = self.neural if with_neural else None
+
         def impl(params: C.Params, x: torch.Tensor, q: torch.Tensor,
                  mask: torch.Tensor, m_q: torch.Tensor) -> dict:
             """Score -> hard filter -> latency estimate, end to end."""
@@ -344,11 +352,24 @@ class CascadeSession:
                                 fused=self.scfg.plan)
             surv = out["survivors"][..., -1]
             final_scores = torch.where(surv > 0, out["scores"], -torch.inf)
+
+            if neural is not None:
+                # the expensive stage scores every row of the padded batch
+                # (flattened); only the survivors keep its score
+                b, g, _ = x.shape
+                nscore = neural.score(x.reshape(b * g, -1)).reshape(b, g)
+                final_scores = torch.where(
+                    surv > 0, final_scores + nscore.float(), -torch.inf)
+
             # Eq-16 latency from the pipeline's own expected counts — no
             # re-scoring of the batch.
             lat = P.latency_from_counts(out["expected_counts"], m_q, self.cfg,
                                         self.lcfg.latency_scale,
                                         self.lcfg.latency_convention)
+            if neural is not None:
+                lat = lat + (self.lcfg.latency_scale * self.scfg.neural_cost
+                             * surv.sum(-1) / torch.clamp(mask.sum(-1), min=1)
+                             * torch.clamp(m_q, max=6000.0))
             return {
                 "scores": final_scores,
                 "survivors": surv,
@@ -366,7 +387,8 @@ class CascadeSession:
 
         def dev(v):
             return torch.as_tensor(v, dtype=torch.float32).to(self.device)
-        return self._rank(self.params, dev(batch["x"]), dev(batch["q"]),
+        rank = self._rank_noneural if skip_neural else self._rank
+        return rank(self.params, dev(batch["x"]), dev(batch["q"]),
                     dev(batch["mask"]), dev(batch["m_q"]))
 
     @staticmethod
@@ -396,8 +418,8 @@ class CascadeSession:
             "d_x": self.cfg.d_x,
             "d_q": self.cfg.d_q,
             "n_stages": self.cfg.n_stages,
-            # no distinct skip-neural pipeline: there is no neural stage
-            "degraded_pipeline": False,
+            # distinct skip-neural pipeline to re-warm?
+            "degraded_pipeline": self._rank_noneural is not self._rank,
             "dtype": "float32",      # the pipeline's input/compute dtype
             "shapes": [[b, g] for g in self.buckets
                        for b in warmup_batch_sizes(self.scfg.batch_groups)],
@@ -405,9 +427,10 @@ class CascadeSession:
 
     def warm_restart(self, manifest: dict) -> list[tuple[int, int]]:
         """Replay a warmup manifest through the pipeline(s): every
-        recorded (b, g) shape runs once, its results fetched as in
-        serving; on a CUDA device the first run builds and loads the
-        kernel library. A manifest written by a
+        recorded (b, g) shape runs once for the normal and (when the
+        manifest says one existed) the degraded skip-neural pipeline, its
+        results fetched as in serving; on a CUDA device the first run
+        builds and loads the kernel library. A manifest written by a
         session with a different shape surface (plan, dims, geometry) is
         rejected — warming the wrong shapes would silently bring
         first-request work back."""
@@ -425,6 +448,8 @@ class CascadeSession:
             raise ValueError(
                 "warmup manifest does not match this session's shape "
                 f"surface: manifest {got} != session {want}")
+        warm_degraded = (bool(manifest.get("degraded_pipeline"))
+                         and self._rank_noneural is not self._rank)
         shapes = []
         for b, g in manifest["shapes"]:
             batch = {
@@ -434,13 +459,16 @@ class CascadeSession:
                 "m_q": np.full((b,), float(g), np.float32),
             }
             self.fetch(self.rank_batch(batch))
+            if warm_degraded:
+                self.fetch(self.rank_batch(batch, skip_neural=True))
             shapes.append((b, g))
         return shapes
 
     def warmup(self) -> list[tuple[int, int]]:
         """Run the pipeline once for every serving shape — each (b, g)
         with b a power of two up to batch_groups (the exact shapes a chunk
-        can pack into) per bucket. After warmup, live traffic — including
+        can pack into) per bucket, for the normal AND (when distinct) the
+        degraded skip-neural pipeline. After warmup, live traffic — including
         degraded flushes — meets no new shape.
         Implemented as a warm restart from this session's own manifest:
         cold start and warm restart are ONE code path, so the manifest can

@@ -40,7 +40,16 @@ def test_port_has_modules():
                  "repro_torch.kernels.cascade_loss.ref",
                  "repro_torch.core.losses", "repro_torch.core.trainer",
                  "repro_torch.core.baselines", "repro_torch.core.metrics",
-                 "repro_torch.optim.sgd", "repro_torch.launch.train"):
+                 "repro_torch.optim.sgd", "repro_torch.launch.train",
+                 "repro_torch.models.base", "repro_torch.models.layers",
+                 "repro_torch.models.zoo", "repro_torch.configs.gemma3_27b",
+                 "repro_torch.configs.qwen3_8b", "repro_torch.configs.yi_34b",
+                 "repro_torch.configs.starcoder2_3b",
+                 "repro_torch.configs.pixtral_12b",
+                 "repro_torch.kernels.swa_decode.kernel",
+                 "repro_torch.kernels.swa_decode.ref",
+                 "repro_torch.serving.engine",
+                 "repro_torch.serving.cascade_server"):
         assert want in mods
 
 

@@ -181,10 +181,12 @@ def test_ops_cpu_tensors_take_the_plain_versions_and_build_nothing():
     TK.cascade_filter(x, w, zq, mask, m_q)
     xc = torch.cat([x, torch.ones(2, 8, 4)], dim=-1)
     sum(o.sum() for o in TK.cascade_loss_fused(xc, wg, zq)).backward()
+    TK.swa_decode(torch.randn(2, 4, 64), torch.randn(2, 9, 2, 64),
+                  torch.randn(2, 9, 2, 64), 5)
     assert TK.launch_counts() == {
         "cascade_score_batched": 0, "cascade_filter": 0,
         "cascade_score_batched_bwd": 0, "cascade_loss": 0,
-        "cascade_loss_bwd": 0}
+        "cascade_loss_bwd": 0, "swa_decode": 0}
     assert _build._lib is None
 
 

@@ -8,6 +8,7 @@ estimates within tolerance. Also the launcher's DES path."""
 
 import dataclasses
 import json
+import types
 
 import numpy as np
 import pytest
@@ -18,39 +19,17 @@ from repro.serving import batching as JB
 from repro.serving import faults as JF
 from repro.serving import session as JS
 from repro.serving.loadgen import run_open_loop as j_run
-from repro_torch.core import pipeline as TPIPE
 from repro_torch.data import LogConfig, generate_log
-from repro_torch.kernels.cascade_filter.ref import assert_decision_margin
 from repro_torch.launch import serve as TL
 from repro_torch.serving import batching as TB
 from repro_torch.serving import faults as TF
 from repro_torch.serving import session as TS
 from repro_torch.serving.loadgen import run_open_loop as t_run
-from torch_parity import cascades, close, t
+from torch_parity import (FakeTimer, assert_margin, assert_same_serve,
+                          cascades, close, requests, serving_arrays,
+                          serving_config)
 
 _JP, _TP, _JCFG, _TCFG = cascades()
-
-
-class _FakeTimer:
-    """perf_counter stand-in: advances a fixed dt per call, so measured
-    'service time' is deterministic — the one wall-clock input the DES has."""
-
-    def __init__(self, dt_s=0.004):
-        self.t, self.dt = 0.0, dt_s
-
-    def __call__(self):
-        self.t += self.dt
-        return self.t
-
-
-def _arrays(n, seed=0, lo=2, hi=9):
-    rng = np.random.default_rng(seed)
-    out = []
-    for i in range(n):
-        k = int(rng.integers(lo, hi))
-        out.append((i, np.eye(8)[i % 8].astype(np.float32),
-                    rng.normal(size=(k, 24)).astype(np.float32), 10 * k + 1))
-    return out
 
 
 def _log_arrays(n, seed=0):
@@ -59,75 +38,21 @@ def _log_arrays(n, seed=0):
             for r in TL.make_requests(te, n, seed)]
 
 
-def _reqs(mod, arrays):
-    return [mod.RankRequest(request_id=i, q_feat=q, item_feats=x, m_q=m)
-            for i, q, x, m in arrays]
-
-
-def _scfg(mod, **kw):
-    """A ServingConfig of module `mod` (JS or TS) from plain values."""
-    d = dict(plan="filter", group_buckets=(8,), batch_groups=2, max_queue=8,
-             flush=dict(max_wait_ms=5.0),
-             degrade=dict(high_watermark=6, low_watermark=2))
-    d.update(kw)
-    return mod.ServingConfig(
-        **{k: v for k, v in d.items()
-           if k not in ("flush", "degrade", "retry")},
-        flush=mod.FlushPolicy(**d["flush"]),
-        degrade=mod.DegradePolicy(**d["degrade"]),
-        retry=mod.RetryPolicy(**d.get("retry", {})))
-
-
-def _assert_margin(arrays, scfg_kw_buckets, mq_scales=(1.0, 0.5)):
-    """Every request, alone in its bucket, leaves the filter's decisions a
-    margin at every m_q the session may serve it with."""
-    buckets = tuple(sorted(scfg_kw_buckets))
-    for i, q, x, m in arrays:
-        for g in {TB.bucket_of(len(x), buckets), buckets[0]}:
-            batch = TB.alloc_batch(1, g, 24, 8)
-            TB.pack_into(batch, _reqs(TB, [(i, q, x, m)]), g)
-            for s in mq_scales:
-                m_q = t(np.maximum(batch["m_q"] * s, 1.0) if s < 1
-                        else batch["m_q"])
-                lp = TPIPE.run_cascade(_TP, _TCFG, t(batch["x"]),
-                                       t(batch["q"]), t(batch["mask"]),
-                                       m_q)["lp"]
-                assert_decision_margin(lp, t(batch["mask"]), m_q)
-
-
-def _assert_same_serve(jres, tres, jses, tses):
-    assert (json.dumps(jres.summary(), sort_keys=True)
-            == json.dumps(tres.summary(), sort_keys=True))
-    assert jses.stats_export() == tses.stats_export()
-    assert len(jres.futures) == len(tres.futures)
-    for jf, tf in zip(jres.futures, tres.futures):
-        a, b = jf.result(), tf.result()
-        for field in ("request_id", "status", "degraded", "truncated",
-                      "deadline_missed", "wait_ms", "service_ms", "error",
-                      "attempts", "stage_counts"):
-            assert getattr(a, field) == getattr(b, field), \
-                (field, a.request_id)
-        np.testing.assert_array_equal(a.order, b.order)
-        np.testing.assert_array_equal(a.survivors, b.survivors)
-        close(b.scores, a.scores)
-        close(b.est_latency_ms, a.est_latency_ms)
-
-
 def _serve_pair(arrays, qps, deadline_ms, *, seed=3, faults=None, **kw):
-    jses = JS.CascadeSession(_JP, _JCFG, scfg=_scfg(JS, **kw),
+    jses = JS.CascadeSession(_JP, _JCFG, scfg=serving_config(JS, **kw),
                              faults=None if faults is None
                              else JF.FaultInjector(JF.FaultConfig(**faults)))
-    tses = TS.CascadeSession(_TP, _TCFG, scfg=_scfg(TS, **kw), device="cpu",
+    tses = TS.CascadeSession(_TP, _TCFG, scfg=serving_config(TS, **kw), device="cpu",
                              faults=None if faults is None
                              else TF.FaultInjector(TF.FaultConfig(**faults)))
     for s in (jses, tses):
         s._sleep = lambda sec: None
-    jres = j_run(jses, _reqs(JB, arrays), qps, deadline_ms=deadline_ms,
-                 seed=seed, timer=_FakeTimer())
-    tres = t_run(tses, _reqs(TB, arrays), qps, deadline_ms=deadline_ms,
-                 seed=seed, timer=_FakeTimer())
+    jres = j_run(jses, requests(JB, arrays), qps, deadline_ms=deadline_ms,
+                 seed=seed, timer=FakeTimer())
+    tres = t_run(tses, requests(TB, arrays), qps, deadline_ms=deadline_ms,
+                 seed=seed, timer=FakeTimer())
     assert tres.unresolved == 0
-    _assert_same_serve(jres, tres, jses, tses)
+    assert_same_serve(jres, tres, jses, tses)
     return tres, tses
 
 
@@ -145,14 +70,14 @@ def test_bucketing_and_padding_rules_match_reference():
 
 
 def test_pack_and_pool_match_reference():
-    arrays = _arrays(5, seed=1, lo=1, hi=20)
+    arrays = serving_arrays(5, seed=1, lo=1, hi=20)
     jpool, tpool = JB.TransferBufferPool(24, 8), TB.TransferBufferPool(24, 8)
     for _ in range(3):
         jb, tb = jpool.acquire(8, 16), tpool.acquire(8, 16)
-        JB.pack_into(jb, _reqs(JB, arrays[:3]), 16)
-        TB.pack_into(tb, _reqs(TB, arrays[:3]), 16)
-        TB.pack_into(tb, _reqs(TB, arrays[3:]), 16, start=3)
-        JB.pack_into(jb, _reqs(JB, arrays[3:]), 16, start=3)
+        JB.pack_into(jb, requests(JB, arrays[:3]), 16)
+        TB.pack_into(tb, requests(TB, arrays[:3]), 16)
+        TB.pack_into(tb, requests(TB, arrays[3:]), 16, start=3)
+        JB.pack_into(jb, requests(JB, arrays[3:]), 16, start=3)
         for k in jb:
             assert jb[k].tobytes() == tb[k].tobytes()
         jpool.release(jb)
@@ -192,8 +117,8 @@ def test_fault_injector_replays_reference(cfg):
 # ---------------------------------------------------------------------------
 
 def test_des_overload_sheds_and_degrades_like_reference():
-    arrays = _arrays(60, seed=2)
-    _assert_margin(arrays, (8,))
+    arrays = serving_arrays(60, seed=2)
+    assert_margin(_TP, _TCFG, arrays, (8,))
     res, ses = _serve_pair(arrays, qps=1200.0, deadline_ms=40.0)
     assert res.shed > 0 and res.degraded > 0
     assert ses.stats_export()["degrade_enters"] > 0
@@ -205,7 +130,7 @@ def test_des_launcher_profile_matches_reference(plan):
     assert dataclasses.asdict(JL.build_serving_config(plan=plan)) \
         == dataclasses.asdict(TL.build_serving_config(plan=plan))
     arrays = _log_arrays(80, seed=0)
-    _assert_margin(arrays, (16, 64, 256), mq_scales=(1.0,))
+    assert_margin(_TP, _TCFG, arrays, (16, 64, 256), mq_scales=(1.0,))
     prof = dict(plan=plan, group_buckets=(16, 64, 256), batch_groups=32,
                 max_queue=128, flush=dict(max_wait_ms=5.0),
                 degrade=dict(high_watermark=96, low_watermark=32))
@@ -224,8 +149,8 @@ def test_des_launcher_profile_matches_reference(plan):
           breaker_open_after=4)),
 ])
 def test_fault_replay_matches_reference(faults, retry):
-    arrays = _arrays(60, seed=2)
-    _assert_margin(arrays, (8,))
+    arrays = serving_arrays(60, seed=2)
+    assert_margin(_TP, _TCFG, arrays, (8,))
     res, ses = _serve_pair(arrays, qps=600.0, deadline_ms=40.0,
                            faults=faults, retry=retry)
     st = ses.stats_export()
@@ -234,14 +159,14 @@ def test_fault_replay_matches_reference(faults, retry):
 
 
 def test_submit_then_flush_matches_reference():
-    arrays = _arrays(9, seed=4, lo=1, hi=30)
-    _assert_margin(arrays, (8, 16))
+    arrays = serving_arrays(9, seed=4, lo=1, hi=30)
+    assert_margin(_TP, _TCFG, arrays, (8, 16))
     kw = dict(group_buckets=(8, 16), batch_groups=4, max_queue=None,
               degrade=dict(high_watermark=None))
-    jses = JS.CascadeSession(_JP, _JCFG, scfg=_scfg(JS, **kw))
-    tses = TS.CascadeSession(_TP, _TCFG, scfg=_scfg(TS, **kw), device="cpu")
-    jf = [jses.submit(r, now_ms=0.0) for r in _reqs(JB, arrays)]
-    tf = [tses.submit(r, now_ms=0.0) for r in _reqs(TB, arrays)]
+    jses = JS.CascadeSession(_JP, _JCFG, scfg=serving_config(JS, **kw))
+    tses = TS.CascadeSession(_TP, _TCFG, scfg=serving_config(TS, **kw), device="cpu")
+    jf = [jses.submit(r, now_ms=0.0) for r in requests(JB, arrays)]
+    tf = [tses.submit(r, now_ms=0.0) for r in requests(TB, arrays)]
     jout, tout = jses.flush(now_ms=1.0), tses.flush(now_ms=1.0)
     assert [r.request_id for r in jout] == [r.request_id for r in tout]
     for a, b in zip(jf, tf):
@@ -257,8 +182,8 @@ def test_submit_then_flush_matches_reference():
 
 def test_warmup_runs_every_shape_and_manifest_matches_reference():
     kw = dict(group_buckets=(16, 64, 256), batch_groups=32)
-    jses = JS.CascadeSession(_JP, _JCFG, scfg=_scfg(JS, **kw))
-    tses = TS.CascadeSession(_TP, _TCFG, scfg=_scfg(TS, **kw), device="cpu")
+    jses = JS.CascadeSession(_JP, _JCFG, scfg=serving_config(JS, **kw))
+    tses = TS.CascadeSession(_TP, _TCFG, scfg=serving_config(TS, **kw), device="cpu")
     assert tses.warmup_manifest() == jses.warmup_manifest()
     shapes = tses.warmup()
     assert len(shapes) == 18
@@ -272,11 +197,17 @@ def test_warmup_runs_every_shape_and_manifest_matches_reference():
 
 
 def test_unknown_plan_and_neural_stage_are_refused():
+    """An unknown plan, a neural stage whose weights live on another
+    device than the session's, and a neural stage of a family the port
+    does not carry yet are refused."""
     with pytest.raises(ValueError, match="unknown pipeline plan"):
-        TS.CascadeSession(_TP, _TCFG, scfg=_scfg(TS, plan="fused"),
+        TS.CascadeSession(_TP, _TCFG, scfg=serving_config(TS, plan="fused"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="neural"):
-        TS.CascadeSession(_TP, _TCFG, neural_stage=object(), device="cpu")
+    elsewhere = types.SimpleNamespace(device=torch.device("meta"))
+    with pytest.raises(ValueError, match="neural stage"):
+        TS.CascadeSession(_TP, _TCFG, neural_stage=elsewhere, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        TL.build_neural("dbrx-132b", device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():
