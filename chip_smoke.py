@@ -44,14 +44,16 @@ Phases, in order; any failure raises and the script exits nonzero:
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
-   block edges and at S - 1 of an S = 1037 cache (float32 at 2e-5,
-   bfloat16 at 3e-2: the output's rounding), the ring-buffer mapping
-   against the reference's masked formula over ring_slot_positions, and
-   two launches giving the same bits; then K8 timed as the other kernels
-   at gemma3-27b's decode shapes (global layer B=4, S=4096; local ring
-   S=W=1024; B=1 at 128k), beside its plain version, its bound (in-window
-   K+V bytes at 3.35 TB/s) and one PyTorch call computing the same
-   function (scaled_dot_product_attention with the window's mask and GQA);
+   block edges and at S - 1 of an S = 1037 cache (float32 at 2e-5;
+   bfloat16 elementwise within one unit of the output, 2^-7 |want| +
+   1e-5), the ring-buffer mapping against the reference's masked formula
+   over ring_slot_positions, float32 at 2e-5 at gemma3-27b's decode shapes
+   (global layer B=4, S=4096; local ring S=W=1024, wrapped and not; B=1 at
+   128k), and two launches giving the same bits; then K8 timed as the
+   other kernels at those shapes in bfloat16 (held to the same bar),
+   beside its plain version, its bound (in-window K+V bytes at 3.35 TB/s)
+   and one PyTorch call computing the same function
+   (scaled_dot_product_attention with the window's mask and GQA);
 8. the LLM engine: gemma3-27b at full width and depth in bfloat16
    (random weights made on the card), prefill of 4 prompts of 2048
    synthetic tokens (every local ring wraps), 32 greedy decode steps with
@@ -116,7 +118,12 @@ FIT_RTOL = FIT_ATOL = 1e-4  # the card's fit against the CPU's
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
-K8_F32_TOL, K8_BF16_TOL = 2e-5, 3e-2  # the reference's bars (test_kernels)
+K8_F32_TOL = 2e-5           # the reference's bar (test_kernels)
+# bfloat16: the kernel and its plain version both compute in float32 and
+# round the output once, so they differ by at most one bfloat16 unit of
+# the value (<= 2^-7 |want|) plus float32 noise. Held elementwise, the
+# bar scales with the output (~0.005 at 128k) rather than exceeding it.
+K8_BF16_RTOL, K8_BF16_ATOL = 2.0 ** -7, 1e-5
 # K8 timing shapes (B, H, Hkv, hd, S): gemma3-27b's decode attention at
 # the LM phase's batch: a global layer's cache, a local layer's full ring,
 # and one sequence at 128k context.
@@ -772,14 +779,38 @@ def ring_plain(q, k, v, cache_len):
     return out.reshape(b, h, hd).to(q.dtype)
 
 
+def k8_check(got, want, label) -> tuple[float, float, float]:
+    """Hold K8's output to its plain version's elementwise: float32 within
+    K8_F32_TOL, bfloat16 within one unit of the output. Returns (max |err|,
+    max |want|, the largest share of its bar that an element used)."""
+    g, w = got.float(), want.float()
+    if want.dtype == torch.bfloat16:
+        rtol, atol = K8_BF16_RTOL, K8_BF16_ATOL
+    else:
+        rtol = atol = K8_F32_TOL
+    torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{label}: {m}")
+    err = (g - w).abs()
+    return (float(err.max()), float(w.abs().max()),
+            float((err / (atol + rtol * w.abs())).max()))
+
+
 def phase_k8_parity(errs) -> None:
     """K8 against its plain version on the card over the dtype x hd x rep
-    x window x cache_len grid, and the ring mapping of the engine's local
-    layers against the reference's masked formula."""
+    x window x cache_len grid, the ring mapping of the engine's local
+    layers against the reference's masked formula, and float32 at the
+    timing shapes."""
     n = 0
     s = 1037                          # a multiple of no block or split
-    for dtype, tol in ((torch.float32, K8_F32_TOL),
-                       (torch.bfloat16, K8_BF16_TOL)):
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+
+    def check(got, want, label):
+        err, _, use = k8_check(got, want, label)
+        w = worst[want.dtype]
+        w[0], w[1] = max(w[0], err), max(w[1], use)
+        errs["swa_decode"] = max(errs["swa_decode"], err)
+
+    for dtype in (torch.float32, torch.bfloat16):
         for hd in (64, 128):
             for h, hkv in ((4, 4), (8, 4), (16, 4), (14, 2), (24, 2)):
                 q, k, v = k8_inputs(2, h, hkv, hd, s, dtype, seed=n)
@@ -789,13 +820,8 @@ def phase_k8_parity(errs) -> None:
                                              window=window)
                         sync()
                         want = ops.swa_decode_ref(q, k, v, cache_len, window)
-                        torch.testing.assert_close(
-                            got.float(), want.float(), rtol=tol, atol=tol,
-                            msg=lambda m: f"K8 {dtype} hd={hd} h={h} "
-                            f"hkv={hkv} window={window} len={cache_len}: {m}")
-                        errs["swa_decode"] = max(
-                            errs["swa_decode"],
-                            float((got.float() - want.float()).abs().max()))
+                        check(got, want, f"K8 {dtype} hd={hd} h={h} "
+                              f"hkv={hkv} window={window} len={cache_len}")
                         n += 1
                 ring_k = k[:, :1024].contiguous()
                 ring_v = v[:, :1024].contiguous()
@@ -805,14 +831,39 @@ def phase_k8_parity(errs) -> None:
                         window=1024, ring=True)[:, 0]
                     sync()
                     want = ring_plain(q, ring_k, ring_v, cache_len)
-                    torch.testing.assert_close(
-                        got.float(), want.float(), rtol=tol, atol=tol,
-                        msg=lambda m: f"K8 ring {dtype} hd={hd} h={h} "
-                        f"len={cache_len}: {m}")
+                    check(got, want, f"K8 ring {dtype} hd={hd} h={h} "
+                          f"len={cache_len}")
                     n += 1
-    print(f"[parity] {n} K8 cases (f32 at {K8_F32_TOL}, bf16 at "
-          f"{K8_BF16_TOL}, ring mapping included): max |err| "
-          f"{errs['swa_decode']:.3g}")
+    print(f"[parity] {n} K8 cases at S={s} (ring mapping included): f32 max "
+          f"|err| {worst[torch.float32][0]:.3g} (bar {K8_F32_TOL}); bf16 max "
+          f"|err| {worst[torch.bfloat16][0]:.3g}, at most "
+          f"{worst[torch.bfloat16][1]:.3f} of its bar (|err| <= 2^-7 |want| "
+          f"+ {K8_BF16_ATOL})")
+    # float32 at the timing shapes: the main path's sizes, held to 2e-5
+    readings = []
+    for name, shape in K8_SHAPES.items():
+        b, h, hkv, hd, s = shape
+        q, k, v = k8_inputs(b, h, hkv, hd, s, torch.float32, seed=n)
+        # the ring: wrapped (as in the LM phase) and half full
+        for cache_len in (LM_PROMPT + 31, s // 2) if name == "ring" else (
+                s - 1,):
+            if name == "ring":
+                got = Lyr.decode_attention(q[:, None], k, v,
+                                           q_offset=cache_len, window=s,
+                                           ring=True)[:, 0]
+                want = ring_plain(q, k, v, cache_len)
+            else:
+                got = ops.swa_decode(q, k, v, cache_len)
+                want = ops.swa_decode_ref(q, k, v, cache_len)
+            sync()
+            err, mag, _ = k8_check(got, want, f"K8 f32 {name} len={cache_len}")
+            errs["swa_decode"] = max(errs["swa_decode"], err)
+            readings.append(f"{name} len={cache_len} {err:.3g} (|want| up to "
+                            f"{mag:.3g})")
+            n += 1
+        del q, k, v
+    print(f"[parity] K8 f32 at the timing shapes (bar {K8_F32_TOL}): max "
+          f"|err| " + "; ".join(readings))
 
 
 def host_ms(fn, calls=200) -> float:
@@ -881,8 +932,7 @@ def phase_k8_timing() -> dict[str, dict]:
         want = ops.swa_decode_ref(q, *kvs[0], cache_len, window)
         sync()
         assert torch.equal(a, z), f"K8 {name}: two launches differ"
-        err = float((a.float() - want.float()).abs().max())
-        assert err <= K8_BF16_TOL, (name, err)
+        err, mag, use = k8_check(a, want, f"K8 bf16 {name}")
         lib = sdpa_call(q, cache_len, window)
         lib_err = float((lib(*kvs[0]).float() - want.float()).abs().max())
         kern, lone = time_ms(rotate(lambda k, v: ops.swa_decode(
@@ -904,7 +954,8 @@ def phase_k8_timing() -> dict[str, dict]:
             library_ms=library,
             bytes=nbytes, ops=nops, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
-            max_abs_err=err, library_err=lib_err, plan=p)
+            max_abs_err=err, max_abs_want=mag, bar_use=use,
+            library_err=lib_err, plan=p)
         r = out[name]
         print(f"[timing] K8 swa_decode {name} (B={b} H={h} Hkv={hkv} hd={hd} "
               f"S={s} bf16, {n_valid} positions, {p['n_split']} splits x "
@@ -917,7 +968,8 @@ def phase_k8_timing() -> dict[str, dict]:
               f"{r['bound_by']} ({nbytes} bytes -> {by_bytes:.4f} ms; "
               f"{nops} ops -> {by_ops:.5f} ms), "
               f"{r['bound_ms'] / r['ms']:.1%} of bound; two launches "
-              "bit-equal")
+              f"bit-equal; against plain max |err| {err:.3g}, |want| up to "
+              f"{mag:.3g}, at most {use:.3f} of the bf16 bar")
     return out
 
 

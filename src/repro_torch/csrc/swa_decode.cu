@@ -284,7 +284,6 @@ cudaError_t launch(const Args& a) {
 template <typename T, int HD>
 cudaError_t by_group(int group, const Args& a) {
   switch (group) {
-    case 1: return launch<T, HD, 1>(a);
     case 2: return launch<T, HD, 2>(a);
     case 4: return launch<T, HD, 4>(a);
     case 8: return launch<T, HD, 8>(a);

@@ -38,9 +38,10 @@ def _sm_count(index: int) -> int:
 
 
 def head_group(rep: int) -> int:
-    """Query heads per block: the smallest kernel instance (1, 2, 4, 8)
-    that holds all rep heads of a kv head, else groups of 8."""
-    for g in (1, 2, 4):
+    """Query heads per block: the smallest kernel instance (2, 4, 8)
+    that holds all rep heads of a kv head, else groups of 8 (rep 1 runs
+    in the group-2 instance, which masks the heads it does not have)."""
+    for g in (2, 4):
         if rep <= g:
             return g
     return MAX_HEAD_GROUP

@@ -220,48 +220,32 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
 
 def decode_attention(q, k, v, *, q_offset: int, window: int = NO_WINDOW,
                      ring: bool = False) -> torch.Tensor:
-    """Attention of the query tokens at positions q_offset.. (q: (B, Sq, H,
-    hd)) against a KV cache (B, Sk, Hkv, hd) whose slots up to the last
-    query position are written — the reference's `decode_attention` with
-    its `valid_len = q_offset + Sq`, which the causal mask already implies.
+    """Attention of the one query token at position q_offset (q: (B, 1, H,
+    hd)) against a KV cache (B, Sk, Hkv, hd) whose slots up to q_offset are
+    written — the reference's `decode_attention` with its `valid_len =
+    q_offset + 1`, which K8's `pos <= cache_len` already implies.
 
     ring=True: the cache is a ring buffer of Sk slots, slot s holding the
     most recent position congruent to s mod Sk (the reference passes
-    `k_pos=ring_slot_positions(q_offset + Sq, Sk)`); window >= Sk.
+    `k_pos=ring_slot_positions(q_offset + 1, Sk)`); window >= Sk.
 
-    One token (Sq == 1) runs K8 (`ops.swa_decode`: the CUDA kernel on the
-    card, its plain version on the CPU). A ring maps onto K8 exactly: after
-    the new K/V is written, the valid slots are 0..min(q_offset, Sk - 1),
-    every one of them inside the window, and softmax does not depend on
-    slot order — so it is K8 with no window and cache_len min(q_offset,
-    Sk - 1) over the ring. Several tokens run the plain grouped-head
-    einsums, on the CPU only."""
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    if ring and window < sk:
-        raise ValueError(f"a ring of {sk} slots needs window >= {sk}, "
-                         f"got {window}")
-    if sq == 1:
-        if ring:
-            return ops.swa_decode(q[:, 0], k, v, min(q_offset, sk - 1),
-                                  window=NO_WINDOW)[:, None]
-        return ops.swa_decode(q[:, 0], k, v, q_offset,
-                              window=window)[:, None]
-    if q.device.type != "cpu":
-        raise ValueError(f"decode_attention: the card decodes one token at "
-                         f"a time through K8, got {sq}")
-    rep = h // hkv
-    qg = q.reshape(b, sq, hkv, rep, hd).float()
-    s = torch.einsum("bqgrd,bsgd->bgrqs", qg, k.float()) / math.sqrt(hd)
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    k_pos = (ring_slot_positions(q_offset + sq, sk, device=q.device) if ring
-             else torch.arange(sk, device=q.device))
-    mask = ((q_pos[:, None] >= k_pos[None, :]) & (k_pos >= 0)[None, :]
-            & (q_pos[:, None] - k_pos[None, :] < window))
-    s = torch.where(mask[None, None, None], s, -1e30)
-    probs = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgrqs,bsgd->bqgrd", probs, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    Runs K8 (`ops.swa_decode`: the CUDA kernel on the card, its plain
+    version on the CPU). A ring maps onto K8 exactly: after the new K/V is
+    written, the valid slots are 0..min(q_offset, Sk - 1), every one of
+    them inside the window, and softmax does not depend on slot order — so
+    it is K8 with no window and cache_len min(q_offset, Sk - 1) over the
+    ring."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq != 1:
+        raise ValueError(f"decode_attention decodes one token at a time "
+                         f"through K8, got {sq}")
+    if ring:
+        if window < sk:
+            raise ValueError(f"a ring of {sk} slots needs window >= {sk}, "
+                             f"got {window}")
+        return ops.swa_decode(q[:, 0], k, v, min(q_offset, sk - 1),
+                              window=NO_WINDOW)[:, None]
+    return ops.swa_decode(q[:, 0], k, v, q_offset, window=window)[:, None]
 
 
 def ring_slot_positions(cache_len: int, window: int,

@@ -140,24 +140,18 @@ def test_ring_decode_maps_onto_k8(cache_len, h, hkv):
         n(TL.ring_slot_positions(cache_len + 1, w)), np.asarray(kpos))
 
 
-@pytest.mark.parametrize("ring", [False, True])
-def test_multi_token_decode_plain_path(ring):
-    """Several query tokens take the plain grouped-head path on the CPU
-    (the card decodes one token at a time and raises otherwise)."""
-    sq, s, cache_len = 3, 48, 40
+@pytest.mark.parametrize("case", ["several_tokens", "ring_narrower"])
+def test_decode_attention_refusals(case):
+    """decode_attention takes one query token (decode_step never passes
+    more), and a ring only with a window that covers it."""
     rng = np.random.default_rng(3)
-    q = jnp.asarray(rng.normal(size=(2, sq, 4, 64)), jnp.float32)
-    k = jnp.asarray(rng.normal(size=(2, s, 2, 64)), jnp.float32)
-    v = jnp.asarray(rng.normal(size=(2, s, 2, 64)), jnp.float32)
-    kw = (dict(k_pos=JL.ring_slot_positions(cache_len + sq, s)) if ring
-          else dict(valid_len=cache_len + sq))
-    want = JL.decode_attention(q, k, v, q_offset=cache_len, window=s, **kw)
-    got = TL.decode_attention(exact(q), exact(k), exact(v),
-                              q_offset=cache_len, window=s, ring=ring)
-    _close(got, want, jnp.float32)
-    with pytest.raises(ValueError, match="needs window"):
-        TL.decode_attention(exact(q), exact(k), exact(v), q_offset=cache_len,
-                            window=s - 1, ring=True)
+    sq, w = (3, 48) if case == "several_tokens" else (1, 47)
+    q = torch.from_numpy(rng.normal(size=(2, sq, 4, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, 48, 2, 64)).astype(np.float32))
+    match = "one token" if case == "several_tokens" else "needs window"
+    for ring in (False, True) if case == "several_tokens" else (True,):
+        with pytest.raises(ValueError, match=match):
+            TL.decode_attention(q, k, k, q_offset=40, window=w, ring=ring)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +177,7 @@ def test_launch_plan_covers_the_window_once(b, s, h, hkv, cache_len,
 
 def test_head_groups():
     assert [swa_kernel.head_group(r) for r in (1, 2, 3, 4, 7, 12)] \
-        == [1, 2, 4, 4, 8, 8]
+        == [2, 2, 4, 4, 8, 8]
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
