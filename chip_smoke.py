@@ -18,14 +18,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    and at an exact tie of lp_T with the NLL clamp; forward values at
    rtol 2e-5 / atol 1e-5 (K4's plain NLL is taken in probability space,
    the kernel's in log space), backward outputs at rtol 1e-4 / atol 5e-5
-   (sums over up to 130 items in another order). Every kernel launched
-   twice on the same inputs gives the same bits;
+   (sums over up to 130 items in another order). K6 (the single-group
+   scorer, forward and backward) and K7 (the feature-major scorer) over
+   N in {1, 7, 128, 129, 512, 1000, 2048, 262144} x (d, T) in {(24, 3),
+   (8, 1), (128, 8), (40, 5)}, float32 and bfloat16 inputs, each with its
+   last N // 4 rows zero (held to cumsum log sigmoid(zq)): forward at
+   rtol/atol 1e-5 (bfloat16 too: kernel and plain version up-cast the same
+   values), K6's backward at rtol 1e-4 / atol 5e-5 (dw and dzq, sums over
+   all N items, with 2^-24 sum_i |term_i| more), K7 against K6. Every
+   kernel launched twice on the same inputs gives the same bits (K6 and K7
+   on the timing shape's 1,048,576 items as one group);
 4. timing: each kernel and its plain version at B=4096 groups of G=256
    items (d=24, T=3) and at the training shape: the median over 25 runs
    of 20 calls back to back between CUDA events (device time per call),
    beside a lone call's time (wrapper and launch included) and the least
    time the card could take (bytes at 3.35 TB/s, operations at 67 TFLOP/s
-   f32);
+   f32). K6, K6's backward and K7 so at N = 4096, 65536, 262144 and
+   1,048,576 items (d=24, T=3; the reference kernel bench's N and K1's
+   item count), inputs rotated through copies past the L2, beside K1 at
+   B=1 on the same items;
 5. training: `fit_cloes` (L3) and `fit_soft_cascade` (L1) at the serve
    launcher's settings (640 groups of 64, 4 epochs of 10 steps, lr 0.01,
    beta 5) on the card, each path with the launch counts set to 0 before
@@ -33,14 +44,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    per L1 step; two fits on the card byte-equal; the loss trajectory,
    params and `evaluate` metrics against the same fit on the CPU at
    rtol 1e-4 / atol 1e-4; steps/s and epoch time printed, and one more
-   L3 fit under torch.profiler (device busy time, launches per step);
+   L3 fit under torch.profiler (device busy time, launches per step).
+   Then L3 fitted through the losses' score_fn seam with torch.func.vmap
+   of the single-group op (the reference's `jax.vmap` path): K6 forward
+   and backward once per group for lp and for the penalty variant, 128
+   each per step, nothing else launched; two card fits byte-equal, and
+   within 1e-4 of the same fit on the CPU and of the default K4 + K5 fit
+   on the card; profiled as the first;
 6. serving: the launcher's open-loop DES (`launch.serve`) on the card
    with the cascade trained in phase 5, once per plan ("filter", then
    "score"): 500 requests of 8-63 items at 400 QPS with a 130 ms
    deadline, checked for resolved futures, closed accounting, no faults
    or errors, no shape first seen after warmup, the plan's kernel
    launched once per served chunk, and responses that agree with the
-   plain pipeline on the CPU;
+   plain pipeline on the CPU. Then the reference's vmap pipeline built from
+   the port's pieces (vmapped single-group op, keep counts, stage chain,
+   latency) on a batch of every warm bucket shape against plan "score"
+   (K1): lp within 1e-5, survivors exact where the decisions have margin;
+   and every query group of the test split scored feature-major (K7)
+   against K6;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -74,6 +96,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -92,6 +115,7 @@ import torch  # noqa: E402
 from repro_torch import configs as CFG  # noqa: E402
 from repro_torch.configs import cloes  # noqa: E402
 from repro_torch.core import baselines as B  # noqa: E402
+from repro_torch.core import cascade as C  # noqa: E402
 from repro_torch.core import losses as L  # noqa: E402
 from repro_torch.core import pipeline as P  # noqa: E402
 from repro_torch.core import trainer as T  # noqa: E402
@@ -114,6 +138,11 @@ from repro_torch.serving.loadgen import run_open_loop  # noqa: E402
 RTOL = ATOL = 1e-5          # float32 sums taken in another order
 FWD_RTOL = 2e-5             # K4's NLL: probability vs log space
 BWD_RTOL, BWD_ATOL = 1e-4, 5e-5       # backward sums in another order
+# K6's backward sums dw and dzq over all N items of a group (up to 262,144
+# here): two float32 sums of the same terms in other orders differ by a
+# few roundings of the terms' magnitude, not of the result (which may
+# cancel to ~0), so those outputs also get U32 * sum_i |term_i| of slack.
+U32 = 2.0 ** -24            # float32 unit roundoff
 FIT_RTOL = FIT_ATOL = 1e-4  # the card's fit against the CPU's
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -141,6 +170,11 @@ WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
 TRAIN_SHAPE = (64, 64, 24, 3)         # one minibatch of the serve fit
+# K6 / K7: the parity grid (one group of N items), and the timing sizes at
+# d=24, T=3 (the reference kernel bench's N and TIMING_SHAPE's item count).
+SINGLE_N = (1, 7, 128, 129, 512, 1000, 2048, 262144)
+SINGLE_DT = ((24, 3), (8, 1), (128, 8), (40, 5))
+SINGLE_TIMING_N = (4096, 65536, 262144, 1048576)
 # The serve launcher's fit (launch/serve.py).
 FIT_QUERIES, FIT_EPOCHS, FIT_LR, FIT_BETA = 800, 4, 0.01, 5.0
 DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
@@ -175,6 +209,18 @@ KERNEL_INFO = {
         "id": "K8", "route": "cuda",
         "source": "src/repro_torch/csrc/swa_decode.cu",
         "replaces": "src/repro/kernels/swa_decode/kernel.py:75"},
+    "cascade_score": {
+        "id": "K6", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_score_single.cu",
+        "replaces": "src/repro/kernels/cascade_score/kernel.py:73"},
+    "cascade_score_bwd": {
+        "id": "K6 bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_score_single.cu",
+        "replaces": "src/repro/kernels/cascade_score/kernel.py:154"},
+    "cascade_score_fm": {
+        "id": "K7", "route": "cuda",
+        "source": "src/repro_torch/csrc/cascade_score_single.cu",
+        "replaces": "src/repro/kernels/cascade_score/kernel.py:365"},
 }
 
 
@@ -415,6 +461,89 @@ def phase_train_parity(errs) -> None:
           f"{errs['cascade_loss']:.3g}, K5 {errs['cascade_loss_bwd']:.3g}")
 
 
+def single_case(n, d, t, seed, dtype=torch.float32, zero_tail=True):
+    """K6/K7 inputs on the card: x (N, d) in `dtype` with its last N // 4
+    rows zero when zero_tail, w (T, d) at 0.3 scale and zq (T,) in `dtype`,
+    and a float32 cotangent g (N, T)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    if zero_tail:
+        x[n - n // 4:] = 0.0
+    w = 0.3 * torch.randn((t, d), generator=gen, device="cuda")
+    zq = torch.randn(t, generator=gen, device="cuda")
+    g = torch.randn((n, t), generator=gen, device="cuda")
+    return x.to(dtype), w.to(dtype), zq.to(dtype), g
+
+
+def sum_scales(x, w, zq, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """sum_i |term_i| of each of K6's backward sums, in float64: dw (T, d)
+    and dzq (T,) from |g_logit| (the closed form of
+    `cascade_score_bwd_ref`) and |x|."""
+    xd, gd = x.double(), g.double()
+    logits = xd @ w.double().T + zq.double()
+    gc = gd.sum(-1, keepdim=True) - gd.cumsum(-1) + gd
+    g_logit = (gc * torch.sigmoid(-logits)).abs()
+    return g_logit.T @ xd.abs(), g_logit.sum(0)
+
+
+def check_bwd_single(got, x, w, zq, g, label, errs) -> float:
+    """K6's backward against its plain version: dx at BWD_RTOL/BWD_ATOL,
+    dw and dzq with the sums' slack too. Returns the largest share of its
+    bar that an element of dw or dzq used."""
+    want = ops.cascade_score_bwd_ref(x, w, zq, g)
+    _check("cascade_score_bwd", got[:1], want[:1], BWD_RTOL, BWD_ATOL, label,
+           errs)
+    use = 0.0
+    for name, a, r, scale in zip(("dw", "dzq"), got[1:], want[1:],
+                                 sum_scales(x, w, zq, g)):
+        err = (a - r).abs()
+        bar = BWD_ATOL + BWD_RTOL * r.abs() + U32 * scale.float()
+        assert (err <= bar).all(), (
+            f"K6 bwd {label} {name}: |err| up to {float(err.max()):.3g}, "
+            f"{int((err > bar).sum())} elements over the bar")
+        errs["cascade_score_bwd"] = max(errs["cascade_score_bwd"],
+                                        float(err.max()))
+        use = max(use, float((err / bar).max()))
+    return use
+
+
+def phase_single_parity(errs) -> None:
+    """K6 forward and backward and K7 against their plain versions on the
+    card; the zero rows inert; K7 against K6 on the same items."""
+    cases, fm_same_bits, bar_use = 0, 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in SINGLE_N:
+            for d, t in SINGLE_DT:
+                x, w, zq, g = single_case(n, d, t, seed=cases, dtype=dtype)
+                label = f"{dtype} n={n} d={d} t={t}"
+                got = score_kernel.cascade_score(x, w, zq)
+                fm = score_kernel.cascade_score_fm(x.T.contiguous(), w, zq)
+                grads = score_kernel.cascade_score_bwd(x, w, zq, g)
+                sync()
+                want = ops.cascade_score_ref(x, w, zq)
+                _check("cascade_score", [got], [want], RTOL, ATOL, label, errs)
+                _check("cascade_score_fm", [fm], [want], RTOL, ATOL, label,
+                       errs)
+                torch.testing.assert_close(
+                    fm, got, rtol=RTOL, atol=ATOL,
+                    msg=lambda m: f"K7 against K6 {label}: {m}")
+                bar_use = max(bar_use, check_bwd_single(grads, x, w, zq, g,
+                                                        label, errs))
+                inert = torch.cumsum(torch.nn.functional.logsigmoid(
+                    zq.float()), 0)
+                torch.testing.assert_close(
+                    got[n - n // 4:], inert.expand(n // 4, t), rtol=RTOL,
+                    atol=ATOL, msg=lambda m: f"K6 {label} zero rows: {m}")
+                fm_same_bits += torch.equal(fm, got)
+                cases += 1
+    print(f"[parity] {cases} K6/K7 cases (n up to {max(SINGLE_N)}, f32 and "
+          f"bf16 inputs): max |err| K6 {errs['cascade_score']:.3g}, K6 bwd "
+          f"{errs['cascade_score_bwd']:.3g} (dw, dzq at most {bar_use:.3f} "
+          f"of their bar), K7 {errs['cascade_score_fm']:.3g}"
+          f"; K7 bit-equal to K6 in {fm_same_bits} of {cases}; zero rows "
+          "score cumsum log sigmoid(zq)")
+
+
 def phase_determinism() -> None:
     """Each kernel twice on the same inputs: the same bits."""
     b, g, d, t = TIMING_SHAPE
@@ -422,6 +551,9 @@ def phase_determinism() -> None:
     x = xc[..., :d].contiguous()
     mask, m_q = xc[..., d + 1].contiguous(), torch.full((b,), 5000.0,
                                                         device="cuda")
+    # K6 and K7: the same items as one group of B * G
+    x1, g1, zq1 = x.view(b * g, d), gct.view(b * g, t), zq[0]
+    xt1 = x1.T.contiguous()
     runs = {
         "cascade_score_batched": lambda: [ops.cascade_score_batched(x, w, zq)],
         "cascade_filter": lambda: list(
@@ -431,6 +563,11 @@ def phase_determinism() -> None:
         "cascade_loss": lambda: list(loss_kernel.cascade_loss(xc, w, zq)),
         "cascade_loss_bwd": lambda: list(loss_kernel.cascade_loss_bwd(
             xc, w, zq, g_ll, g_cost, g_cnt)),
+        "cascade_score": lambda: [score_kernel.cascade_score(x1, w, zq1)],
+        "cascade_score_bwd": lambda: list(score_kernel.cascade_score_bwd(
+            x1, w, zq1, g1)),
+        "cascade_score_fm": lambda: [score_kernel.cascade_score_fm(
+            xt1, w, zq1)],
     }
     for name, run in runs.items():
         a, z = run(), run()
@@ -557,6 +694,76 @@ def phase_timing() -> tuple[dict[str, dict], dict[str, dict]]:
     return big, time_shape(TRAIN_SHAPE, seed=8)
 
 
+def single_costs(n, d, t) -> dict[str, tuple[int, int]]:
+    """(bytes, operations) of K6, its backward, K7 and K1 at B=1 on one
+    group of N items (float32; inputs read once, outputs written once)."""
+    f = 4
+    fwd = (f * (n * d + t * d + t + n * t), 2 * n * t * d)
+    return {"cascade_score": fwd, "cascade_score_fm": fwd,
+            "cascade_score_batched": fwd,
+            "cascade_score_bwd": (f * (2 * n * d + n * t + 2 * (t * d + t)),
+                                  6 * n * t * d)}
+
+
+def phase_single_timing() -> dict[int, dict[str, dict]]:
+    """K6, K6's backward and K7 beside their plain versions and K1 at B=1 on
+    the same items, at each N of SINGLE_TIMING_N (d=24, T=3). The inputs
+    rotate through enough copies that back-to-back calls read them from
+    device memory, not from the L2."""
+    d, t = 24, 3
+    out = {}
+    for n in SINGLE_TIMING_N:
+        copies = max(1, -(-3 * L2_BYTES // (n * d * 4)))
+        cases = []
+        for i in range(copies):
+            x, w, zq, g = single_case(n, d, t, seed=100 + i, zero_tail=False)
+            cases.append((x, x.T.contiguous(), g))
+        calls = {
+            "cascade_score": (
+                lambda x, xt, g: score_kernel.cascade_score(x, w, zq),
+                lambda x, xt, g: ops.cascade_score_ref(x, w, zq)),
+            "cascade_score_bwd": (
+                lambda x, xt, g: score_kernel.cascade_score_bwd(x, w, zq, g),
+                lambda x, xt, g: ops.cascade_score_bwd_ref(x, w, zq, g)),
+            "cascade_score_fm": (
+                lambda x, xt, g: score_kernel.cascade_score_fm(xt, w, zq),
+                lambda x, xt, g: ops.cascade_score_ref(xt.T, w, zq)),
+            "cascade_score_batched": (
+                lambda x, xt, g: score_kernel.cascade_score_batched(
+                    x[None], w, zq[None]),
+                lambda x, xt, g: ops.cascade_score_batched_ref(
+                    x[None], w, zq[None])),
+        }
+        costs = single_costs(n, d, t)
+        out[n] = {}
+        for name, (kern_fn, plain_fn) in calls.items():
+            kern, lone = time_ms(rotate(kern_fn, cases))
+            plain, _ = time_ms(rotate(plain_fn, cases), reps=5, calls=5)
+            nbytes, nops = costs[name]
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = nops / F32_OPS_PER_S * 1e3
+            out[n][name] = r = dict(
+                ms=kern, lone_ms=lone, plain_ms=plain, bytes=nbytes, ops=nops,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+            label = ("K1 cascade_score_batched at B=1" if
+                     name == "cascade_score_batched" else
+                     f"{KERNEL_INFO[name]['id']} {name}")
+            print(f"[timing] {label} at N={n} d={d} T={t} ({copies} input "
+                  f"copies): kernel {r['ms']:.4f} ms (lone call "
+                  f"{r['lone_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} "
+                  f"bytes -> {by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} "
+                  f"ms), {r['bound_ms'] / r['ms']:.1%} of bound")
+        o = out[n]
+        print(f"[timing] N={n}: K7 / K6 device time "
+              f"{o['cascade_score_fm']['ms'] / o['cascade_score']['ms']:.3f}, "
+              f"K6 / K1 at B=1 "
+              f"{o['cascade_score']['ms'] / o['cascade_score_batched']['ms']:.3f}")
+        del cases
+    return out
+
+
 # -- 5. training ------------------------------------------------------------------
 
 def fit_once(fit_fn, device, **kw) -> tuple[dict, list, float, dict]:
@@ -573,10 +780,11 @@ def fit_once(fit_fn, device, **kw) -> tuple[dict, list, float, dict]:
     return params, losses, seconds, ops.launch_counts()   # ... ends here
 
 
-def phase_train(tr, te) -> tuple[dict, dict[str, int]]:
+def phase_train(tr, te) -> tuple[dict, dict[str, int], list]:
     """Both training paths on the card, held to their launch counts, to
     themselves (byte-equal) and to the same fit on the CPU. Returns the
-    L3 params and each kernel's launches on its path."""
+    L3 params, each kernel's launches on its path and the L3 fit's loss
+    trajectory."""
     steps_per_epoch, _ = T.epoch_steps(tr.x.shape[0], 64)
     steps = FIT_EPOCHS * steps_per_epoch
     lcfg = L.LossConfig(beta=FIT_BETA)
@@ -629,12 +837,12 @@ def phase_train(tr, te) -> tuple[dict, dict[str, int]]:
               f"{losses1[0]:.4f} -> {losses1[-1]:.4f}; test metrics on the "
               f"card {json.dumps(m_card)}")
         if name == "l3":
-            trained = p1
+            trained, trained_losses = p1, losses1
             profile_fit(fit_fn, steps)
-    return trained, launches
+    return trained, launches, trained_losses
 
 
-def profile_fit(fit_fn, steps) -> None:
+def profile_fit(fit_fn, steps, label="l3") -> None:
     """One more L3 fit under torch.profiler: where a training step's time
     goes (the profiler's overhead inflates the fit's wall time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -644,16 +852,76 @@ def profile_fit(fit_fn, steps) -> None:
     summary = S.profile_summary(prof, seconds, top=10)
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
-    print(f"[train l3] profiled fit: {seconds:.4f} s, device busy "
+    print(f"[train {label}] profiled fit: {seconds:.4f} s, device busy "
           f"{summary['device_busy_ms']:.3f} ms (idle share "
           f"{summary['device_idle_share']:.4f}), {launches} cudaLaunchKernel "
           f"({launches / steps:.1f} per step)")
     for op in summary["device_ops"]:
-        print(f"[train l3]   device {op['self_device_ms']:8.3f} ms "
+        print(f"[train {label}]   device {op['self_device_ms']:8.3f} ms "
               f"x{op['count']:<6d} {op['name']}")
     for op in summary["top_host_ops"]:
-        print(f"[train l3]   host {op['self_cpu_ms']:8.3f} ms "
+        print(f"[train {label}]   host {op['self_cpu_ms']:8.3f} ms "
               f"x{op['count']:<6d} {op['name']}")
+
+
+def vmap_score(x, w_eff, zq):
+    """The reference's `jax.vmap` of its single-group op over query groups
+    (its losses' and benches' vmap path): one K6 call per group."""
+    return torch.func.vmap(
+        lambda xb, zb: ops.cascade_score(xb, w_eff, zb))(x, zq)
+
+
+def phase_train_k6(tr, default_params, default_losses) -> dict[str, int]:
+    """L3 through the losses' score_fn seam with the vmapped single-group
+    op: K6 forward and backward once per group for lp and for the penalty
+    variant lp_pen, nothing else launched; two card fits byte-equal; the
+    same fit on the CPU and the card's default K4 + K5 fit (the same
+    objective) within 1e-4. Returns the launches of the first card fit."""
+    steps_per_epoch, _ = T.epoch_steps(tr.x.shape[0], 64)
+    steps = FIT_EPOCHS * steps_per_epoch
+    kernels = ("cascade_score", "cascade_score_bwd")
+
+    def fit_fn(**kw):
+        return B.fit_cloes(
+            tr, lcfg=L.LossConfig(beta=FIT_BETA),
+            tcfg=T.TrainConfig(loss="l3", epochs=FIT_EPOCHS, lr=FIT_LR,
+                               log_every=1),
+            loss_fn=functools.partial(L.loss_l3, score_fn=vmap_score), **kw)
+
+    p1, losses1, s1, counts = fit_once(fit_fn, "cuda")
+    p2, losses2, s2, _ = fit_once(fit_fn, "cuda")
+    pc, losses_c, sc, _ = fit_once(fit_fn, "cpu")
+    assert len(losses1) == steps, (len(losses1), steps)
+    for k in kernels:              # lp and lp_pen: one call per group each
+        assert counts[k] == 2 * 64 * steps, counts
+    assert sum(v for k, v in counts.items() if k not in kernels) == 0, counts
+    assert losses1 == losses2, "K6 fit: two fits' losses differ"
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), f"K6 fit: two fits differ in {k}"
+    errs = {}
+    for other, (params, losses) in {
+            "the CPU fit": (pc, losses_c),
+            "the default K4 + K5 fit": (default_params, default_losses)
+    }.items():
+        np.testing.assert_allclose(losses1, losses, rtol=FIT_RTOL,
+                                   atol=FIT_ATOL, err_msg=other)
+        for k in p1:
+            np.testing.assert_allclose(
+                p1[k].cpu().numpy(), params[k].cpu().numpy(), rtol=FIT_RTOL,
+                atol=FIT_ATOL, err_msg=f"{other}: {k}")
+        errs[other] = (max(abs(a - c) for a, c in zip(losses1, losses)),
+                       max(float((p1[k].cpu() - params[k].cpu()).abs().max())
+                           for k in p1))
+    print(f"[train l3 via K6] {steps} steps through vmap of the single-group "
+          f"op on the card: first fit {s1:.3f} s, second {s2:.3f} s "
+          f"({steps / s2:.1f} steps/s); CPU {sc:.3f} s; launches {counts} "
+          f"({counts['cascade_score'] / steps:.0f} K6 + "
+          f"{counts['cascade_score_bwd'] / steps:.0f} K6 bwd per step)")
+    print(f"[train l3 via K6] two card fits byte-equal; max |loss err|, max "
+          f"|param err| against " + "; ".join(
+              f"{k} {a:.3g}, {b:.3g}" for k, (a, b) in errs.items()))
+    profile_fit(fit_fn, steps, label="l3 via K6")
+    return counts
 
 
 # -- 6. serving -------------------------------------------------------------------
@@ -754,6 +1022,89 @@ def phase_slice(plan: str, params, te, neural=None) -> tuple[dict, dict]:
           f"(warmup {warm_launches}); {checked} responses match the plain "
           f"pipeline{'' if neural is None else ' and scorer'} on the CPU")
     return launches, res.summary()
+
+
+def phase_serve_k6(params, te) -> dict[str, int]:
+    """The reference's vmap serving pipeline (`_vmap_score_pipeline` of its
+    serving bench), built from the port's pieces, on one batch of each warm
+    bucket shape of test-split requests, against plan "score" (K1): lp
+    within 1e-5, survivors exactly where the decisions have margin, the
+    latency estimate within 1e-5. Returns the launches."""
+    cfg, lcfg = cloes.CASCADE, L.LossConfig()
+    w_eff = (params["w_x"] * C.masks_tensor(cfg, "cuda")).contiguous()
+    reqs = iter(S.make_requests(te, len(WARM_G) * sum(WARM_B), seed=1))
+    worst, bit_equal, with_margin, batches = 0.0, 0, 0, 0
+    ops.reset_launch_counts()              # this path starts here
+    for g in WARM_G:
+        for b in WARM_B:
+            batch = alloc_batch(b, g, cfg.d_x, cfg.d_q)
+            pack_into(batch, [next(reqs) for _ in range(b)], g)
+            x, q, mask, m_q = (torch.tensor(batch[k], device="cuda")
+                               for k in ("x", "q", "mask", "m_q"))
+            zq = (q @ params["w_q"].T + params["b"]).contiguous()
+            lp = vmap_score(x, w_eff, zq)
+            counts, n_keep = P.keep_counts_from_lp(lp, mask, m_q)
+            surv = P.filter_chain(lp, mask, n_keep)
+            lat = P.latency_from_counts(counts, m_q, cfg, lcfg.latency_scale,
+                                        lcfg.latency_convention)
+            want = P.run_cascade(params, cfg, x, q, mask, m_q, fused="score")
+            lat_want = P.latency_from_counts(
+                want["expected_counts"], m_q, cfg, lcfg.latency_scale,
+                lcfg.latency_convention)
+            sync()
+            label = f"vmap pipeline b={b} g={g}"
+            torch.testing.assert_close(lp, want["lp"], rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{label} lp: {m}")
+            torch.testing.assert_close(lat, lat_want, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{label} latency: {m}")
+            worst = max(worst, float((lp - want["lp"]).abs().max()))
+            bit_equal += torch.equal(lp, want["lp"])
+            batches += 1
+            try:
+                assert_decision_margin(want["lp"], mask, m_q)
+            except AssertionError:
+                continue
+            assert torch.equal(surv, want["survivors"]), label
+            assert torch.equal(n_keep, want["n_keep"]), label
+            with_margin += 1
+    sync()
+    launches = ops.launch_counts()         # ... and ends here
+    assert launches["cascade_score"] == len(WARM_G) * sum(WARM_B), launches
+    assert launches["cascade_score_batched"] == batches, launches
+    assert with_margin > 0
+    print(f"[slice vmap K6] {batches} batches (B in {WARM_B}, G in {WARM_G}):"
+          f" lp against plan \"score\" max |err| {worst:.3g}, bit-equal in "
+          f"{bit_equal} of {batches}; survivors and n_keep exact in the "
+          f"{with_margin} batches with decision margin; launches {launches}")
+    return launches
+
+
+def phase_fm_scoring(params, te) -> dict[str, int]:
+    """Every query group of the test split scored with the trained cascade
+    feature-major (K7, the layout the reference's serving store keeps) and
+    item-major (K6): the same values. Returns K7's launches."""
+    cfg = cloes.CASCADE
+    w_eff = (params["w_x"] * C.masks_tensor(cfg, "cuda")).contiguous()
+    x = torch.tensor(te.x, dtype=torch.float32, device="cuda")
+    q = torch.tensor(te.q, dtype=torch.float32, device="cuda")
+    zq = (q @ params["w_q"].T + params["b"]).contiguous()
+    xt = x.transpose(1, 2).contiguous()          # (queries, d, G)
+    ops.reset_launch_counts()              # this path starts here
+    fm = torch.stack([ops.cascade_score_fm(xt[i], w_eff, zq[i])
+                      for i in range(len(x))])
+    sync()
+    launches = ops.launch_counts()         # ... and ends here
+    im = torch.stack([ops.cascade_score(x[i], w_eff, zq[i])
+                      for i in range(len(x))])
+    sync()
+    torch.testing.assert_close(fm, im, rtol=RTOL, atol=ATOL,
+                               msg=lambda m: f"K7 scoring vs K6: {m}")
+    assert launches["cascade_score_fm"] == len(x), launches
+    print(f"[score fm] {len(x)} test-split groups of {x.shape[1]} items "
+          f"scored feature-major (K7 x {launches['cascade_score_fm']}) and "
+          f"item-major (K6): max |err| {float((fm - im).abs().max()):.3g}, "
+          f"bit-equal {torch.equal(fm, im)}")
+    return launches
 
 
 # -- 7. K8: the LLM engine's decode attention ------------------------------------
@@ -890,14 +1241,15 @@ def k8_timing_case(shape, seed):
     return q, kvs
 
 
-def rotate(fn, kvs):
-    """fn(k, v) over the copies in turn, one copy per call."""
+def rotate(fn, copies):
+    """fn(*args) over the copies of the arguments in turn, one copy per
+    call."""
     it = [0]
 
     def call():
-        k, v = kvs[it[0] % len(kvs)]
+        args = copies[it[0] % len(copies)]
         it[0] += 1
-        return fn(k, v)
+        return fn(*args)
     return call
 
 
@@ -1151,18 +1503,28 @@ def main() -> None:
     phase_build()
     errs = phase_parity()
     errs.update(cascade_score_batched_bwd=0.0, cascade_loss=0.0,
-                cascade_loss_bwd=0.0)
+                cascade_loss_bwd=0.0, cascade_score=0.0,
+                cascade_score_bwd=0.0, cascade_score_fm=0.0)
     phase_train_parity(errs)
+    phase_single_parity(errs)
     phase_determinism()
     timing, timing_train = phase_timing()
+    timing_single = phase_single_timing()
+    free_cuda()
     log = generate_log(LogConfig(n_queries=FIT_QUERIES, seed=0))
     tr, te = log.split(0.8)
-    params, launches = phase_train(tr, te)
+    params, launches, l3_losses = phase_train(tr, te)
+    counts = phase_train_k6(tr, params, l3_losses)
+    launches.update(cascade_score=counts["cascade_score"],
+                    cascade_score_bwd=counts["cascade_score_bwd"])
     for plan in ("filter", "score"):
         counts, _ = phase_slice(plan, params, te)
         kernel = ("cascade_filter" if plan == "filter"
                   else "cascade_score_batched")
         launches[kernel] = counts[kernel]
+    phase_serve_k6(params, te)
+    launches["cascade_score_fm"] = phase_fm_scoring(
+        params, te)["cascade_score_fm"]
     free_cuda()
     errs["swa_decode"] = 0.0
     phase_k8_parity(errs)
@@ -1186,6 +1548,16 @@ def main() -> None:
             for shape in ("ring", "long"):
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                     row[f"{shape}_{key}"] = k8[shape][key]
+        elif name in ("cascade_score", "cascade_score_bwd",
+                      "cascade_score_fm"):
+            tm = timing_single[max(SINGLE_TIMING_N)][name]
+            row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                       bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+                       library_ms=None, lone_ms=tm["lone_ms"])
+            for n, by_name in timing_single.items():
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    row[f"n{n}_{key}"] = by_name[name][key]
+                row[f"n{n}_k1_b1_ms"] = by_name["cascade_score_batched"]["ms"]
         else:
             tm = timing[name]
             row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],

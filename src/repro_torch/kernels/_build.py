@@ -11,7 +11,9 @@ session's `warmup()` makes that call, before any request is timed).
 
 Shared checks for the kernel wrappers live here too: a wrapper takes only
 contiguous tensors of the dtypes its kernel reads — float32 for K1-K5
-(the cascade kernels), float32 or bfloat16 for K8 (`swa_decode`, which
+(the batched cascade kernels), float32 or bfloat16 for K6 and K7 (the
+single-group and feature-major scorers, which up-cast bf16 inputs in
+registers as the reference's kernels do) and for K8 (`swa_decode`, which
 reads a bf16 KV cache as it is) — on one CUDA device of compute
 capability 9.0, and raises on anything else.
 """
@@ -32,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("cascade_score.cu", "cascade_filter.cu", "cascade_score_bwd.cu",
-           "cascade_loss.cu", "swa_decode.cu")
+           "cascade_loss.cu", "swa_decode.cu", "cascade_score_single.cu")
 HEADERS = ("ordered_sum.cuh",)      # included by sources; part of the key
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libcascade_kernels.so"
@@ -55,6 +57,13 @@ _SIGNATURES = {
     "cascade_loss_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "cascade_loss_bwd_smem": ([_I, _I], ctypes.c_size_t),
     "swa_decode": ([_P] * 7 + [_I] * 11 + [_F, _P], _I),
+    "cascade_score_single": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "cascade_score_single_smem": ([_I, _I], ctypes.c_size_t),
+    "cascade_score_fm": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "cascade_score_fm_smem": ([_I, _I], ctypes.c_size_t),
+    "cascade_score_single_bwd": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "cascade_score_single_bwd_smem": ([_I, _I], ctypes.c_size_t),
+    "cascade_score_single_bwd_blocks": ([_I], _I),
     "cascade_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,9 +1,13 @@
 """Wrappers of the CUDA kernels K1 (`csrc/cascade_score.cu`), the batched
 cascade scorer x (B, G, d), w_eff (T, d), zq (B, T) -> lp (B, G, T), and
-K3 (`csrc/cascade_score_bwd.cu`), its backward.
+K3 (`csrc/cascade_score_bwd.cu`), its backward; and of
+`csrc/cascade_score_single.cu`: K6, the single-group scorer x (N, d),
+w_eff (T, d), zq (T,) -> (N, T), with its backward, and K7, the same
+function of the feature-major xt (d, N).
 
 Each launches on the current stream of the inputs' device and counts its
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches`. K1 and K3 take float32; K6 and K7 take
+float32 or bfloat16 inputs (mixed as they come) and return float32.
 """
 
 from __future__ import annotations
@@ -91,3 +95,113 @@ def cascade_score_batched_bwd(x: torch.Tensor, w_eff: torch.Tensor,
 
 
 cascade_score_batched_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 (forward and backward) and K7: one group of N items, one bias row
+# ---------------------------------------------------------------------------
+
+SINGLE_DTYPES = (torch.float32, torch.bfloat16)
+MAX_ITEMS = 2**31 - 1          # the kernels index items with a 32-bit int
+
+
+def check_single_shapes(op: str, n: int, d: int, w_eff: torch.Tensor,
+                        zq: torch.Tensor) -> int:
+    """Raise unless w_eff is (T, d) with 1 <= T <= MAX_STAGES and zq is
+    (T,) for n <= MAX_ITEMS items of d features; returns T."""
+    t = w_eff.shape[0]
+    if not 1 <= t <= MAX_STAGES:
+        raise ValueError(f"{op}: cascade of {t} stages, the kernel takes "
+                         f"1..{MAX_STAGES}")
+    if w_eff.shape[1] != d or tuple(zq.shape) != (t,):
+        raise ValueError(f"{op}: {n} items of {d} features, w_eff "
+                         f"{tuple(w_eff.shape)}, zq {tuple(zq.shape)} do not "
+                         "agree")
+    if n > MAX_ITEMS:
+        raise ValueError(f"{op}: {n} items, the kernel takes at most "
+                         f"{MAX_ITEMS}")
+    return t
+
+
+def _bf16_bits(*tensors: torch.Tensor) -> int:
+    """Bit i set when the i-th tensor is bfloat16 (the kernels' `bf16`)."""
+    return sum(1 << i for i, a in enumerate(tensors)
+               if a.dtype == torch.bfloat16)
+
+
+def _forward(wrapper, entry: str, x: torch.Tensor, w_eff: torch.Tensor,
+             zq: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """Launch the forward kernel `entry` (K6 or K7) for `wrapper`, which
+    names the op and counts the launch."""
+    op = wrapper.__name__
+    device = _build.check_inputs(op, SINGLE_DTYPES, x=x, w_eff=w_eff, zq=zq)
+    t = check_single_shapes(op, n, d, w_eff, zq)
+    out = torch.empty((n, t), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    lib = _build.load_library()
+    check_smem(op, getattr(lib, f"{entry}_smem")(d, t), d)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(
+            x.data_ptr(), w_eff.data_ptr(), zq.data_ptr(), out.data_ptr(),
+            n, d, t, _bf16_bits(x, w_eff, zq), _build.stream_handle(device))
+    _build.check_launch(lib, op, rc)
+    wrapper.launches += 1
+    return out
+
+
+def cascade_score(x: torch.Tensor, w_eff: torch.Tensor,
+                  zq: torch.Tensor) -> torch.Tensor:
+    """K6: x (N, d), w_eff (T, d), zq (T,) -> (N, T) float32."""
+    return _forward(cascade_score, "cascade_score_single", x, w_eff, zq,
+                    *x.shape)
+
+
+cascade_score.launches = 0
+
+
+def cascade_score_fm(xt: torch.Tensor, w_eff: torch.Tensor,
+                     zq: torch.Tensor) -> torch.Tensor:
+    """K7: xt (d, N) feature-major, w_eff (T, d), zq (T,) -> (N, T) float32,
+    contiguous (the reference returns its (T, N) result transposed)."""
+    d, n = xt.shape
+    return _forward(cascade_score_fm, "cascade_score_fm", xt, w_eff, zq, n, d)
+
+
+cascade_score_fm.launches = 0
+
+
+def cascade_score_bwd(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
+                      g: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's backward: cotangent g (N, T) -> (dx (N, d), dw_eff (T, d),
+    dzq (T,)), all float32; dw_eff and dzq are summed over the N items in a
+    fixed order."""
+    op = "cascade_score_bwd"
+    device = _build.check_inputs(op, SINGLE_DTYPES, x=x, w_eff=w_eff, zq=zq,
+                                 g=g)
+    n, d = x.shape
+    t = check_single_shapes(op, n, d, w_eff, zq)
+    if tuple(g.shape) != (n, t):
+        raise ValueError(f"{op}: cotangent of shape {tuple(g.shape)}, "
+                         f"expected {(n, t)}")
+    dx = torch.empty((n, d), dtype=torch.float32, device=device)
+    if n == 0:
+        sums = torch.zeros(t * d + t, dtype=torch.float32, device=device)
+        return dx, sums[:t * d].view(t, d), sums[t * d:]
+    lib = _build.load_library()
+    check_smem(op, lib.cascade_score_single_bwd_smem(d, t), d)
+    sums = torch.empty(t * d + t, dtype=torch.float32, device=device)
+    part = torch.empty((t * d + t) * lib.cascade_score_single_bwd_blocks(n),
+                       dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.cascade_score_single_bwd(
+            x.data_ptr(), w_eff.data_ptr(), zq.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), sums.data_ptr(), part.data_ptr(), n, d, t,
+            _bf16_bits(x, w_eff, zq, g), _build.stream_handle(device))
+    _build.check_launch(lib, op, rc)
+    cascade_score_bwd.launches += 1
+    return dx, sums[:t * d].view(t, d), sums[t * d:]
+
+
+cascade_score_bwd.launches = 0

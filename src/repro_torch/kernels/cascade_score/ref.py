@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the batched cascade scorer (K1).
+"""Plain PyTorch versions of the cascade scorers (K1, K6, K7) and their
+backwards (K3, K6's).
 
 Computes, for every item, the per-stage cumulative log pass-probability of
 the CLOES cascade (Eqs 1-2, 6):
@@ -6,10 +7,15 @@ the CLOES cascade (Eqs 1-2, 6):
     logit[b, g, j] = x[b, g] . w_eff[j] + zq[b, j]
     lp[b, g, j]    = sum_{k<=j} log sigmoid(logit[b, g, k])
 
-It is the CPU path of `kernels.ops.cascade_score_batched` and the oracle
-the CUDA kernel (`csrc/cascade_score.cu`) is held against on the card.
+`cascade_score_batched_ref` is the CPU path of
+`kernels.ops.cascade_score_batched` and the oracle the CUDA kernel
+(`csrc/cascade_score.cu`) is held against on the card;
 `cascade_score_batched_bwd_ref` is the closed-form backward, the CPU path
 of the op's gradient and the oracle of K3 (`csrc/cascade_score_bwd.cu`).
+`cascade_score_ref` and `cascade_score_bwd_ref` are the same for one group
+of N items with one bias row zq (T,): the CPU path and oracle of
+`kernels.ops.cascade_score` (K6 forward and backward) and, on xt.T, of
+`kernels.ops.cascade_score_fm` (K7), all in `csrc/cascade_score_single.cu`.
 """
 
 from __future__ import annotations
@@ -44,3 +50,24 @@ def cascade_score_batched_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
     return (torch.einsum("bgt,td->bgd", g_logit, wf),
             torch.einsum("bgt,bgd->td", g_logit, xf),
             g_logit.sum(dim=1))
+
+
+def cascade_score_ref(x: torch.Tensor, w_eff: torch.Tensor,
+                      zq: torch.Tensor) -> torch.Tensor:
+    """x (N, d), w_eff (T, d), zq (T,) -> (N, T) float32."""
+    logits = x.float() @ w_eff.float().T + zq.float()
+    return torch.cumsum(F.logsigmoid(logits), dim=-1)
+
+
+def cascade_score_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
+                          zq: torch.Tensor, g: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Closed-form backward of `cascade_score_ref`: cotangent g (N, T) ->
+    (dx (N, d), dw_eff (T, d), dzq (T,)), all float32, as
+    `cascade_score_batched_bwd_ref` for one group."""
+    xf, wf, gf = x.float(), w_eff.float(), g.float()
+    logits = xf @ wf.T + zq.float()
+    gc = gf.sum(-1, keepdim=True) - torch.cumsum(gf, dim=-1) + gf
+    g_logit = gc * torch.sigmoid(-logits)                           # (N, T)
+    return g_logit @ wf, g_logit.T @ xf, g_logit.sum(dim=0)

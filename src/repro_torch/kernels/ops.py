@@ -7,10 +7,15 @@ device:
   build fails or the launch fails. Nothing falls back from the kernel to
   the plain version.
 
-The differentiable ops (`cascade_score_batched`, `cascade_loss_fused`) are
-`torch.autograd.Function`s whose forward and backward dispatch the same
-way: on the card a forward kernel and a backward kernel (K1 + K3, K4 + K5),
-on the CPU the plain forward and the closed-form backward.
+The differentiable ops (`cascade_score_batched`, `cascade_loss_fused`,
+`cascade_score`) are `torch.autograd.Function`s whose forward and backward
+dispatch the same way: on the card a forward kernel and a backward kernel
+(K1 + K3, K4 + K5, K6's two), on the CPU the plain forward and the
+closed-form backward. `cascade_score` (K6, one query group) also maps
+under `torch.func.vmap`, one group per call: the losses' score_fn seam
+takes it that way, as the reference's losses take `jax.vmap` of its op.
+`cascade_score_fm` (K7, the same function of feature-major items) is
+forward only, as in the reference.
 
 `swa_decode` (K8) is the one-token decode attention of the LLM engine; it
 takes float32 or bfloat16 and is not differentiable (serving only).
@@ -31,7 +36,8 @@ from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
                                                   cascade_loss_ref)
 from repro_torch.kernels.cascade_score import kernel as _score_kernel
 from repro_torch.kernels.cascade_score.ref import (
-    cascade_score_batched_bwd_ref, cascade_score_batched_ref)
+    cascade_score_batched_bwd_ref, cascade_score_batched_ref,
+    cascade_score_bwd_ref, cascade_score_ref)
 from repro_torch.kernels.swa_decode import kernel as _swa_kernel
 from repro_torch.kernels.swa_decode.ref import NO_WINDOW, swa_decode_ref
 
@@ -43,6 +49,9 @@ KERNELS = {
     "cascade_loss": _loss_kernel.cascade_loss,
     "cascade_loss_bwd": _loss_kernel.cascade_loss_bwd,
     "swa_decode": _swa_kernel.swa_decode,
+    "cascade_score": _score_kernel.cascade_score,
+    "cascade_score_bwd": _score_kernel.cascade_score_bwd,
+    "cascade_score_fm": _score_kernel.cascade_score_fm,
 }
 
 
@@ -91,6 +100,40 @@ class _ScoreBatched(torch.autograd.Function):
         return _score_kernel.cascade_score_batched_bwd(x, w_eff, zq, g)
 
 
+class _Score(torch.autograd.Function):
+    """K6 forward and backward; residuals (x, w_eff, zq), as the
+    reference's custom VJP (src/repro/kernels/ops.py:64-78)."""
+
+    @staticmethod
+    def forward(x, w_eff, zq):
+        if _on_cpu(x):
+            return cascade_score_ref(x, w_eff, zq)
+        return _score_kernel.cascade_score(x, w_eff, zq)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_eff, zq = ctx.saved_tensors
+        g = g.contiguous()
+        if _on_cpu(x):
+            return cascade_score_bwd_ref(x, w_eff, zq, g)
+        return _score_kernel.cascade_score_bwd(x, w_eff, zq, g)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w_eff, zq):
+        """One `apply` per group of the mapped inputs (one K6 launch each
+        way on the card), stacked along dim 0."""
+        def group(a, dim, i):
+            return a if dim is None else a.select(dim, i).contiguous()
+        args = (x, w_eff, zq)
+        return torch.stack([
+            _Score.apply(*(group(a, dim, i) for a, dim in zip(args, in_dims)))
+            for i in range(info.batch_size)]), 0
+
+
 class _LossFused(torch.autograd.Function):
     """K4 forward, K5 backward. zq_pen takes the counts stream's gradient;
     its value is not read (it equals zq by contract)."""
@@ -119,6 +162,29 @@ def cascade_score_batched(x: torch.Tensor, w_eff: torch.Tensor,
     _require_ranks("cascade_score_batched",
                    x=(x, 3), w_eff=(w_eff, 2), zq=(zq, 2))
     return _ScoreBatched.apply(x, w_eff, zq)
+
+
+def cascade_score(x: torch.Tensor, w_eff: torch.Tensor,
+                  zq: torch.Tensor) -> torch.Tensor:
+    """Single-group fused scorer: x (N, d) items of one query, w_eff (T, d),
+    zq (T,) -> (N, T) cumulative log pass-probs. Differentiable in all
+    three inputs (K6's backward on the card); float32 or bfloat16 inputs,
+    float32 out. `torch.func.vmap(lambda xb, zb: cascade_score(xb, w_eff,
+    zb))(x, zq)` scores (B, N, d) groups one call each."""
+    _require_ranks("cascade_score", x=(x, 2), w_eff=(w_eff, 2), zq=(zq, 1))
+    return _Score.apply(x, w_eff, zq)
+
+
+def cascade_score_fm(xt: torch.Tensor, w_eff: torch.Tensor,
+                     zq: torch.Tensor) -> torch.Tensor:
+    """Feature-major fused scorer: xt (d, N) -> (N, T), the function of
+    `cascade_score` on xt.T (K7 on the card, which has no backward, as
+    in the reference)."""
+    _require_ranks("cascade_score_fm", xt=(xt, 2), w_eff=(w_eff, 2),
+                   zq=(zq, 1))
+    if _on_cpu(xt):
+        return cascade_score_ref(xt.T, w_eff, zq)
+    return _score_kernel.cascade_score_fm(xt, w_eff, zq)
 
 
 def cascade_loss_fused(xc: torch.Tensor, w_eff: torch.Tensor,
@@ -170,6 +236,8 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 __all__ = ["KERNELS", "NO_WINDOW", "cascade_filter", "cascade_filter_ref",
            "cascade_loss_bwd_ref", "cascade_loss_fused", "cascade_loss_ref",
-           "cascade_score_batched", "cascade_score_batched_bwd_ref",
-           "cascade_score_batched_ref", "launch_counts", "load_library",
-           "reset_launch_counts", "swa_decode", "swa_decode_ref"]
+           "cascade_score", "cascade_score_batched",
+           "cascade_score_batched_bwd_ref", "cascade_score_batched_ref",
+           "cascade_score_bwd_ref", "cascade_score_fm", "cascade_score_ref",
+           "launch_counts", "load_library", "reset_launch_counts",
+           "swa_decode", "swa_decode_ref"]

@@ -183,10 +183,13 @@ def test_ops_cpu_tensors_take_the_plain_versions_and_build_nothing():
     sum(o.sum() for o in TK.cascade_loss_fused(xc, wg, zq)).backward()
     TK.swa_decode(torch.randn(2, 4, 64), torch.randn(2, 9, 2, 64),
                   torch.randn(2, 9, 2, 64), 5)
+    TK.cascade_score(x[0], wg, zq[0]).sum().backward()
+    TK.cascade_score_fm(x[0].T, w, zq[0])
     assert TK.launch_counts() == {
         "cascade_score_batched": 0, "cascade_filter": 0,
         "cascade_score_batched_bwd": 0, "cascade_loss": 0,
-        "cascade_loss_bwd": 0, "swa_decode": 0}
+        "cascade_loss_bwd": 0, "swa_decode": 0, "cascade_score": 0,
+        "cascade_score_bwd": 0, "cascade_score_fm": 0}
     assert _build._lib is None
 
 
