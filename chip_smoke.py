@@ -33,7 +33,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    of 20 calls back to back between CUDA events (device time per call),
    beside a lone call's time (wrapper and launch included) and the least
    time the card could take (bytes at 3.35 TB/s, operations at 67 TFLOP/s
-   f32). K6, K6's backward and K7 so at N = 4096, 65536, 262144 and
+   f32); K2 also at the serving session's largest bucket batch (32 groups
+   of 256), each K2 time beside the (item, surviving item) pairs its
+   data has per stage (the first design's rank compares). K6, K6's
+   backward and K7 so at N = 4096, 65536, 262144 and
    1,048,576 items (d=24, T=3; the reference kernel bench's N and K1's
    item count), inputs rotated through copies past the L2, beside K1 at
    B=1 on the same items;
@@ -75,7 +78,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    other kernels at those shapes in bfloat16 (held to the same bar),
    beside its plain version, its bound (in-window K+V bytes at 3.35 TB/s)
    and one PyTorch call computing the same function
-   (scaled_dot_product_attention with the window's mask and GQA);
+   (scaled_dot_product_attention with the window's mask and GQA), with
+   its launch plan (splits, blocks, blocks per SM) and the CUDA kernels
+   the device ran per call (torch.profiler; one);
 8. the LLM engine: gemma3-27b at full width and depth in bfloat16
    (random weights made on the card), prefill of 4 prompts of 2048
    synthetic tokens (every local ring wraps), 32 greedy decode steps with
@@ -634,7 +639,9 @@ def shape_costs(b, g, d, t, pairs) -> dict[str, tuple[int, int]]:
     }
 
 
-def time_shape(shape, seed) -> dict[str, dict]:
+def time_shape(shape, seed, names=None) -> dict[str, dict]:
+    """Each kernel of `names` (all five by default) and its plain version
+    at (B, G, d, T), beside its bound."""
     b, g, d, t = shape
     xc, w, zq, gct, g_ll, g_cost, g_cnt = train_case(b, g, d, t, seed=seed,
                                                      dead_group=False)
@@ -658,6 +665,7 @@ def time_shape(shape, seed) -> dict[str, dict]:
                                                  g_cnt),
             lambda: ops.cascade_loss_bwd_ref(xc, w, zq, g_ll, g_cost, g_cnt)),
     }
+    calls = {k: v for k, v in calls.items() if names is None or k in names}
     res = ops.cascade_filter(x1, w1, zq1, mask, m_q)
     entering = torch.cat([mask[..., None], res["survivors"][..., :-1]], -1)
     pairs = int(entering.sum().item()) * g
@@ -679,19 +687,26 @@ def time_shape(shape, seed) -> dict[str, dict]:
               f"{r['lone_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} bytes -> "
               f"{by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} ms), "
-              f"{r['bound_ms'] / r['ms']:.1%} of bound")
+              f"{r['bound_ms'] / r['ms']:.1%} of bound"
+              + (f"; rank pairs on this data {pairs}"
+                 if name == "cascade_filter" else ""))
     out["cascade_filter"]["pairs"] = pairs
     return out
 
 
-def phase_timing() -> tuple[dict[str, dict], dict[str, dict]]:
+def phase_timing() -> tuple[dict[str, dict], dict[str, dict], dict]:
+    """The five batched kernels at the timing and training shapes, and K2
+    also at the serving session's largest bucket batch."""
     big = time_shape(TIMING_SHAPE, seed=7)
     b, g, _, t = TIMING_SHAPE
     all_pairs = b * g * g * t
     print(f"[timing] cascade_filter rank compares: {big['cascade_filter']['pairs']}"
           f" on this data, {all_pairs} for all G^2*T pairs "
           f"({all_pairs / F32_OPS_PER_S * 1e3:.4f} ms at one op each)")
-    return big, time_shape(TRAIN_SHAPE, seed=8)
+    train = time_shape(TRAIN_SHAPE, seed=8)
+    serve = time_shape((WARM_B[-1], WARM_G[-1], TIMING_SHAPE[2],
+                        TIMING_SHAPE[3]), seed=9, names=("cascade_filter",))
+    return big, train, serve["cascade_filter"]
 
 
 def single_costs(n, d, t) -> dict[str, tuple[int, int]]:
@@ -1269,6 +1284,28 @@ def sdpa_call(q, cache_len, window):
     return call
 
 
+def cuda_launches_per_call(fn, calls=5) -> tuple[float, list[str]]:
+    """CUDA kernels the device ran per call of fn, and their names, from
+    torch.profiler's device events over `calls` calls in a step that
+    follows a waiting and a warm-up step (so the tracer is running)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            for _ in range(calls):
+                fn()
+            sync()
+            prof.step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and not e.key.startswith(("Memcpy", "Memset",
+                                         "ProfilerStep"))]
+    return (sum(e.count for e in kernels) / calls,
+            sorted({e.key.split("<")[0].split("(")[-1].split("::")[-1]
+                    for e in kernels}))
+
+
 def phase_k8_timing() -> dict[str, dict]:
     """K8 at the LM phase's shapes, beside its plain version, its bound and
     the library call; two launches give the same bits at each shape."""
@@ -1299,19 +1336,24 @@ def phase_k8_timing() -> dict[str, dict]:
         nops = 4 * b * h * n_valid * hd
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = nops / BF16_OPS_PER_S * 1e3
+        per_sm, tile = swa_kernel._instance(
+            0, hd, swa_kernel.head_group(h // hkv), True)
         p = swa_kernel.plan(b, s, h, hkv, cache_len, window,
-                            swa_kernel._sm_count(0))
+                            swa_kernel._sm_count(0), per_sm, tile)
         out[name] = dict(
             ms=kern, lone_ms=lone, host_ms=host, plain_ms=plain,
             library_ms=library,
             bytes=nbytes, ops=nops, bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             max_abs_err=err, max_abs_want=mag, bar_use=use,
-            library_err=lib_err, plan=p)
+            library_err=lib_err, plan=p, inputs=(q, kvs[0], cache_len,
+                                                 window))
         r = out[name]
         print(f"[timing] K8 swa_decode {name} (B={b} H={h} Hkv={hkv} hd={hd} "
               f"S={s} bf16, {n_valid} positions, {p['n_split']} splits x "
-              f"{p['split_len']}, {len(kvs)} K/V copies): kernel "
+              f"{p['split_len']} = {p['blocks']} blocks at "
+              f"{p['blocks_per_sm']} per SM ({p['waves']} wave(s)), "
+              f"{len(kvs)} K/V copies): kernel "
               f"{r['ms']:.4f} ms (lone call {r['lone_ms']:.4f} ms; "
               f"{r['host_ms']:.4f} ms per call of 200 back to back, wall "
               f"clock), plain {r['plain_ms']:.4f} ms, sdpa "
@@ -1322,6 +1364,18 @@ def phase_k8_timing() -> dict[str, dict]:
               f"{r['bound_ms'] / r['ms']:.1%} of bound; two launches "
               f"bit-equal; against plain max |err| {err:.3g}, |want| up to "
               f"{mag:.3g}, at most {use:.3f} of the bf16 bar")
+    # CUDA launches per call, over all the shapes in one profiled session
+    calls = [out[name].pop("inputs") for name in K8_SHAPES]
+    n_cuda, names = cuda_launches_per_call(
+        lambda: [ops.swa_decode(q, k, v, c, window=w)
+                 for q, (k, v), c, w in calls], calls=5)
+    n_cuda /= len(calls)
+    print(f"[timing] K8: {n_cuda:g} CUDA launch(es) per call {names} "
+          f"(torch.profiler, {5 * len(calls)} calls over the three shapes)")
+    if n_cuda != 1:
+        raise AssertionError(f"K8: {n_cuda} CUDA launches per call, not 1")
+    for name in K8_SHAPES:
+        out[name]["cuda_launches_per_call"] = n_cuda
     return out
 
 
@@ -1508,7 +1562,7 @@ def main() -> None:
     phase_train_parity(errs)
     phase_single_parity(errs)
     phase_determinism()
-    timing, timing_train = phase_timing()
+    timing, timing_train, timing_serve = phase_timing()
     timing_single = phase_single_timing()
     free_cuda()
     log = generate_log(LogConfig(n_queries=FIT_QUERIES, seed=0))
@@ -1544,10 +1598,16 @@ def main() -> None:
             row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],
                        bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
                        library_ms=tm["library_ms"], lone_ms=tm["lone_ms"],
-                       launches_per_decode_step=CFG.get(LM_ARCH).n_layers)
+                       launches_per_decode_step=CFG.get(LM_ARCH).n_layers,
+                       cuda_launches_per_call=tm["cuda_launches_per_call"],
+                       n_split=tm["plan"]["n_split"],
+                       blocks=tm["plan"]["blocks"],
+                       blocks_per_sm=tm["plan"]["blocks_per_sm"])
             for shape in ("ring", "long"):
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]
+                row[f"{shape}_n_split"] = k8[shape]["plan"]["n_split"]
         elif name in ("cascade_score", "cascade_score_bwd",
                       "cascade_score_fm"):
             tm = timing_single[max(SINGLE_TIMING_N)][name]
@@ -1566,6 +1626,11 @@ def main() -> None:
                        train_shape_ms=timing_train[name]["ms"],
                        train_shape_plain_ms=timing_train[name]["plain_ms"],
                        train_shape_bound_ms=timing_train[name]["bound_ms"])
+            if name == "cascade_filter":
+                row.update(pairs=tm["pairs"],
+                           serve_shape_ms=timing_serve["ms"],
+                           serve_shape_bound_ms=timing_serve["bound_ms"],
+                           serve_shape_pairs=timing_serve["pairs"])
         rows.append(row)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -56,7 +56,9 @@ _SIGNATURES = {
     "cascade_loss_smem": ([_I, _I], ctypes.c_size_t),
     "cascade_loss_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "cascade_loss_bwd_smem": ([_I, _I], ctypes.c_size_t),
-    "swa_decode": ([_P] * 7 + [_I] * 11 + [_F, _P], _I),
+    "swa_decode": ([_P] * 8 + [_I] * 11 + [_F, _P], _I),
+    "swa_decode_blocks_per_sm": ([_I, _I, _I], _I),
+    "swa_decode_tile": ([_I, _I], _I),
     "cascade_score_single": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "cascade_score_single_smem": ([_I, _I], ctypes.c_size_t),
     "cascade_score_fm": ([_P] * 4 + [_I] * 4 + [_P], _I),

@@ -1,6 +1,6 @@
 """Wrapper of the CUDA kernel K2 (`csrc/cascade_filter.cu`): the fused
-score + Eq-10 keep counts + chained stable rank-select, one block per query
-group.
+score + Eq-10 keep counts + chained stable top-n_keep select, one thread
+per item, each block walking query groups.
 
 Launches on the current stream of the inputs' device and counts its
 launches in `cascade_filter.launches`.
@@ -13,7 +13,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_STAGES = 8
-MAX_GROUP = 512     # one thread per item, one block per group
+MAX_GROUP = 512     # one thread per item
 
 
 def cascade_filter(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,

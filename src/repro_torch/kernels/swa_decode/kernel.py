@@ -4,15 +4,18 @@ host int `cache_len`, over the positions (cache_len - window, cache_len],
 -> (B, H, hd) in q's dtype (float32 or bfloat16).
 
 The wrapper plans the launch on the host: only the in-window positions
-[lo, hi) are visited, cut into `n_split` contiguous splits so that about
-two blocks per SM are in flight even at B = 1. Each block handles one
-(batch, kv head, group of up to 8 query heads, split); with several splits
-a second pass combines the per-split softmax partials in split order.
-The plan depends only on the shapes, cache_len, window and the card's SM
-count, so two launches on the same inputs give the same bits.
+[lo, hi) are visited, cut into `n_split` contiguous splits so that the
+grid is one full wave of the card — the SMs times the blocks of this
+kernel instance that fit on one (asked of the CUDA runtime once per
+instance) — even at B = 1. Each block handles one (batch, kv head, group
+of up to 8 query heads, split); with several splits the last block of a
+(batch, head group) to finish combines the per-split softmax partials in
+split order, inside the same launch. The plan depends only on the shapes,
+cache_len, window and the card, so two launches on the same inputs give
+the same bits.
 
 Launches on the current stream of the inputs' device and counts them in
-`swa_decode.launches`.
+`swa_decode.launches` (one CUDA launch per call).
 """
 
 from __future__ import annotations
@@ -28,13 +31,26 @@ from repro_torch.kernels.swa_decode.ref import NO_WINDOW
 
 HEAD_DIMS = (64, 128)
 MAX_HEAD_GROUP = 8      # query heads one block carries (kernel template)
-MIN_SPLIT = 256         # positions below which a split is not worth a block
+MIN_SPLIT = 64          # positions below which a split is not worth a block
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _instance(index: int, hd: int, group: int, bf16: bool) -> tuple[int, int]:
+    """(blocks per SM, positions per shared-memory stage) of the kernel
+    instance, asked of the library once per instance and device."""
+    lib = _build.load_library()
+    with torch.cuda.device(index):
+        per_sm = lib.swa_decode_blocks_per_sm(hd, group, int(bf16))
+    if per_sm < 1:
+        raise RuntimeError(f"swa_decode: no block of the (hd={hd}, group="
+                           f"{group}, bf16={bf16}) instance fits on an SM")
+    return per_sm, lib.swa_decode_tile(hd, int(bf16))
 
 
 def head_group(rep: int) -> int:
@@ -48,19 +64,25 @@ def head_group(rep: int) -> int:
 
 
 def plan(b: int, s: int, h: int, hkv: int, cache_len: int, window: int,
-         n_sm: int) -> dict:
-    """The launch plan of one call (host ints only)."""
+         n_sm: int, blocks_per_sm: int, tile: int) -> dict:
+    """The launch plan of one call (host ints only): the most splits of
+    at least MIN_SPLIT positions that keep the grid within one wave of
+    n_sm * blocks_per_sm blocks, each split a whole number of `tile`
+    positions (the kernel's shared-memory stage) but the last."""
     lo, hi = max(0, cache_len - window + 1), cache_len + 1
     rep = h // hkv
     group = head_group(rep)
-    blocks = b * hkv * (-(-rep // group))
+    units = b * hkv * (-(-rep // group))
     n_valid = hi - lo
-    want = max(1, -(-2 * n_sm // blocks))
-    n_split = max(1, min(want, -(-n_valid // MIN_SPLIT)))
+    slots = n_sm * blocks_per_sm
+    n_split = max(1, min(slots // units, -(-n_valid // MIN_SPLIT)))
     split_len = -(-n_valid // n_split)
+    split_len = -(-split_len // tile) * tile
     n_split = -(-n_valid // split_len)
+    blocks = units * n_split
     return dict(lo=lo, hi=hi, group=group, n_split=n_split,
-                split_len=split_len)
+                split_len=split_len, units=units, blocks=blocks,
+                blocks_per_sm=blocks_per_sm, waves=-(-blocks // slots))
 
 
 def check_args(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,17 +123,22 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, hd), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
-    p = plan(b, s, h, hkv, cache_len, window, _sm_count(device.index))
+    bf16 = q.dtype == torch.bfloat16
+    group = head_group(h // hkv)
+    per_sm, tile = _instance(device.index, hd, group, bf16)
+    p = plan(b, s, h, hkv, cache_len, window, _sm_count(device.index),
+             per_sm, tile)
     n_part = b * h * p["n_split"] if p["n_split"] > 1 else 0
     part_ml = torch.empty((2, n_part), dtype=torch.float32, device=device)
     part_acc = torch.empty((n_part, hd), dtype=torch.float32, device=device)
+    tickets = _tickets(device, p["units"])
     lib = _build.load_library()
     with torch.cuda.device(device):
         rc = lib.swa_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-            part_acc.data_ptr(), b, s, h, hkv, hd, p["group"],
-            int(q.dtype == torch.bfloat16), p["lo"], p["hi"], p["n_split"],
+            part_acc.data_ptr(), tickets.data_ptr(), b, s, h, hkv, hd,
+            group, int(bf16), p["lo"], p["hi"], p["n_split"],
             p["split_len"], 1.0 / math.sqrt(hd), _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
     swa_decode.launches += 1
@@ -119,3 +146,17 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 swa_decode.launches = 0
+
+_ticket_arrays: dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 tickets, one per (batch, kv head, head group)
+    unit, zero between calls (the kernel's last block of a unit resets its
+    own). Allocated once per device and grown, zeroed, when a call needs
+    more."""
+    t = _ticket_arrays.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ticket_arrays[device] = t
+    return t

@@ -1,9 +1,11 @@
 """The port's kernel modules on the CPU: each kernel's plain PyTorch
 version against the reference's Pallas kernel in interpret mode and its
-XLA reference, on the same numpy inputs; the device dispatch of
-kernels.ops; and the CUDA wrappers' refusal of what their kernels do not
-take. The CUDA kernels themselves are held to these plain versions on the
-card by chip_smoke.py.
+XLA reference, on the same numpy inputs; K2's threshold select (the CUDA
+kernel's algorithm, written out in plain code) against the all-pairs
+stable rank, exactly, at ties, signed zeros, -inf survivors, NaN and
+n_keep past the survivors; the device dispatch of kernels.ops; and the
+CUDA wrappers' refusal of what their kernels do not take. The CUDA kernels
+themselves are held to these plain versions on the card by chip_smoke.py.
 
 Tolerances of the training kernels (K3-K5): rtol 1e-5 / atol 1e-5 on
 values, rtol 1e-4 / atol 5e-5 on the backward's outputs — the reference's
@@ -32,7 +34,11 @@ from repro.kernels.cascade_score.ref import cascade_score_bwd_ref as jscore_bwd_
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as TK
 from repro_torch.kernels.cascade_filter import kernel as filter_kernel
-from repro_torch.kernels.cascade_filter.ref import assert_decision_margin
+from repro_torch.core.pipeline import filter_chain
+from repro_torch.kernels.cascade_filter.ref import (assert_decision_margin,
+                                                    order_key,
+                                                    threshold_chain,
+                                                    threshold_select)
 from repro_torch.kernels.cascade_loss import kernel as loss_kernel
 from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
                                                   cascade_loss_ref)
@@ -167,6 +173,127 @@ def test_margin_check_flags_boundary_inputs():
         assert_decision_margin(lp, torch.ones(1, 4), m)
     assert_decision_margin(torch.tensor([[[-1.0], [-1.0], [-9.0]]]),
                            torch.ones(1, 3), m)     # an exact tie is fine
+
+
+# ---------------------------------------------------------------------------
+# K2's select rule (order-preserving key, threshold, tie prefix) in plain
+# code, held to the all-pairs rank it replaces in the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _all_pairs_keep(s, n_keep):
+    """rank_i = #{k : s_k > s_i} + #{k < i : s_k == s_i} over the group
+    (NaN compares false), kept iff rank_i < n_keep: the rank the CUDA
+    kernel computed before, pair by pair."""
+    idx = torch.arange(s.shape[1])
+    gt = (s[:, None, :] > s[:, :, None]).sum(-1)
+    eq = ((s[:, None, :] == s[:, :, None])
+          & (idx[None, :] < idx[:, None])).sum(-1)
+    return gt + eq < n_keep[:, None]
+
+
+def _all_pairs_chain(lp, mask, n_keep):
+    surv = mask.float()
+    cols = []
+    for j in range(lp.shape[-1]):
+        alive = surv > 0
+        s = torch.where(alive, lp[..., j], -torch.inf)
+        keep = _all_pairs_keep(s, n_keep[:, j])
+        surv = torch.where(alive, surv * keep.float(), surv)
+        cols.append(surv)
+    return torch.stack(cols, dim=-1)
+
+
+def _select_case(name, rng):
+    """(scores (B, G), n_keep (B,)) for one edge of the select."""
+    b, g = 6, 64
+    s = rng.normal(size=(b, g)).astype(np.float32)
+    dead = rng.random((b, g)) < 0.2
+    if name == "twins":
+        s[:, 1::2] = s[:, ::2]
+    elif name == "signed_zeros":
+        s[:, ::3] = 0.0
+        s[:, 1::3] = -0.0
+    elif name == "ties_across_cut":
+        s = np.round(s).astype(np.float32)           # a handful of levels
+    elif name == "fully_masked":
+        dead[:] = True
+    elif name == "neg_inf_survivors":
+        s[:, ::5] = -np.inf                          # survivors at -inf too
+    elif name == "nan":
+        s[:, ::7] = np.nan
+    elif name == "group_512":
+        g = 512
+        s = rng.normal(size=(b, g)).astype(np.float32)
+        s[:, 1::4] = s[:, ::4]
+        dead = rng.random((b, g)) < 0.2
+    elif name == "tiny_and_huge":
+        s = (s * np.float32(1e-38)).astype(np.float32)
+        s[:, ::4] = np.float32(3e38)
+        s[:, 2::4] = np.float32(-3e38)
+    s = np.where(dead, -np.inf, s).astype(np.float32)
+    n_keep = rng.integers(1, g + 1, size=b)
+    if name == "keep_exceeds_survivors":
+        n_keep = np.full(b, g)
+        n_keep[:3] = (~dead[:3]).sum(-1) + 1
+    n_keep[0] = max(1, (~dead[0]).sum() // 2)        # a cut inside
+    return torch.from_numpy(s), torch.from_numpy(n_keep).float()
+
+
+@pytest.mark.parametrize("name", [
+    "random", "twins", "signed_zeros", "ties_across_cut", "fully_masked",
+    "keep_exceeds_survivors", "group_512", "neg_inf_survivors", "nan",
+    "tiny_and_huge"])
+def test_threshold_select_matches_all_pairs_rank(name):
+    """The plain version of the CUDA kernel's threshold select keeps the
+    same items as the all-pairs stable rank, exactly, at ties (twins,
+    +0.0 and -0.0, equal scores across the cut), non-survivors at -inf
+    (also among survivors), NaN scores and n_keep at or past the
+    survivors, in groups of up to 512."""
+    rng = np.random.default_rng(abs(hash(name)) % 2**32)
+    for _ in range(5):
+        s, n_keep = _select_case(name, rng)
+        got = threshold_select(s, n_keep)
+        want = _all_pairs_keep(s, n_keep)
+        assert torch.equal(got, want), (s, n_keep)
+
+
+def test_order_key_orders_as_float_compare():
+    vals = torch.tensor([-torch.inf, -3e38, -1.0, -1e-45, -0.0, 0.0, 1e-45,
+                         1.0, 3e38, torch.inf])
+    keys = order_key(vals)
+    assert (keys >= 0).all() and (keys < 2**32).all()
+    for a in range(len(vals)):
+        for c in range(len(vals)):
+            assert bool(vals[a] > vals[c]) == bool(keys[a] > keys[c])
+            assert bool(vals[a] == vals[c]) == bool(keys[a] == keys[c])
+
+
+@pytest.mark.parametrize("g", [1, 7, 64, 256, 512])
+def test_threshold_chain_matches_filter_chain(g):
+    """The stage chain through the select (with the kernel's keep-all
+    shortcut) against core.pipeline's argsort chain and the all-pairs
+    chain, on filter_case scores, on scores with twins, and on a fully
+    masked group."""
+    x, w, zq, mask, m_q = map(t, filter_case(4, g, 24, 3, seed=g))
+    x[:, 1::2] = x[:, ::2][:, :g // 2]
+    mask[2] = 0.0
+    for xx in (x, t(filter_case(4, g, 24, 3, seed=g + 1)[0])):
+        lp = TK.cascade_score_batched_ref(xx, w, zq)
+        n_keep = TK.cascade_filter_ref(xx, w, zq, mask, m_q)["n_keep"]
+        got = threshold_chain(lp, mask, n_keep)
+        assert torch.equal(got, filter_chain(lp, mask, n_keep))
+        assert torch.equal(got, _all_pairs_chain(lp, mask, n_keep))
+
+
+def test_threshold_chain_at_neg_inf_survivors():
+    """A survivor whose lp is -inf ties the non-survivors before it (the
+    rank's rule), which the kernel's shortcut must not skip."""
+    lp = torch.tensor([[[-torch.inf], [-1.0], [-torch.inf], [-2.0]]])
+    mask = torch.tensor([[0.0, 1.0, 1.0, 1.0]])
+    n_keep = torch.tensor([[3.0]])
+    got = threshold_chain(lp, mask, n_keep)
+    assert torch.equal(got, _all_pairs_chain(lp, mask, n_keep))
+    assert got[0, :, 0].tolist() == [0.0, 1.0, 0.0, 1.0]
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 version against the reference's Pallas kernel in interpret mode and its
 `swa_decode_ref`, on the same numpy inputs; the mapping of the engine's
 decode attention onto K8 (contiguous cache and ring buffer) against the
-reference's `decode_attention`; the host-side launch plan; and the CUDA
-wrapper's refusal of what its kernel does not take. The CUDA kernel
+reference's `decode_attention`; the kernel's edge cases (one slot, a
+window of one, rep 1, 7 and 12); the host-side launch plan (the window
+covered once, one wave of the card); and the CUDA wrapper's refusal of
+what its kernel does not take. The CUDA kernel
 itself is held to this plain version on the card by chip_smoke.py.
 
 Tolerances: float32 2e-5 (the reference's own bar between its kernel and
@@ -85,6 +87,28 @@ def test_rep_and_block_edges(h, hkv, s, cache_len, window):
                               interpret=True), jnp.float32)
 
 
+@pytest.mark.parametrize("b,h,hkv,s,cache_len,window", [
+    pytest.param(1, 4, 4, 1, 0, JK.NO_WINDOW, id="b1_s1"),
+    pytest.param(2, 8, 2, 300, 250, 1, id="window1"),
+    pytest.param(2, 4, 4, 300, 299, JK.NO_WINDOW, id="rep1"),
+    pytest.param(1, 14, 2, 300, 123, 64, id="rep7"),
+    pytest.param(1, 12, 1, 300, 299, JK.NO_WINDOW, id="rep12")])
+def test_kernel_edges(b, h, hkv, s, cache_len, window):
+    """The edges the CUDA kernel's plan and head groups meet (one slot, a
+    window of one position, rep 1 in the group-2 instance, rep 7 in the
+    group-8 one, rep 12 in two groups of 8) against the reference's kernel
+    and ref."""
+    q, k, v = _case(b, h, hkv, 64, s, jnp.float32, seed=h + s + cache_len)
+    got = TK.swa_decode(exact(q), exact(k), exact(v), cache_len,
+                        window=window)
+    _close(got, JK.swa_decode_ref(q, k, v, cache_len, window), jnp.float32)
+    _close(got, JK.swa_decode(q, k, v, cache_len, window=window,
+                              interpret=True), jnp.float32)
+    p = swa_kernel.plan(b, s, h, hkv, cache_len, window, n_sm=132,
+                        blocks_per_sm=3, tile=64)
+    assert p["hi"] - p["lo"] == min(cache_len + 1, window)
+
+
 def test_window_excludes_old_positions():
     """With window=W, changing K/V outside the window (and beyond
     cache_len) must not change the output."""
@@ -158,21 +182,59 @@ def test_decode_attention_refusals(case):
 # The CUDA wrapper's launch plan and refusals (host side only)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,s,h,hkv,cache_len,window", [
+_PLAN_CASES = [
     (4, 4096, 32, 16, 4095, JK.NO_WINDOW), (4, 1024, 32, 16, 1023,
                                             JK.NO_WINDOW),
     (1, 131072, 32, 16, 131071, JK.NO_WINDOW), (1, 4096, 32, 16, 4000, 1024),
-    (2, 700, 24, 2, 0, JK.NO_WINDOW), (1, 64, 12, 1, 63, 1)])
+    (2, 700, 24, 2, 0, JK.NO_WINDOW), (1, 64, 12, 1, 63, 1),
+    (1, 1, 4, 4, 0, JK.NO_WINDOW), (2, 1037, 14, 2, 1036, 100)]
+
+
+@pytest.mark.parametrize("blocks_per_sm,tile", [(3, 32), (1, 16), (2, 64)])
+@pytest.mark.parametrize("b,s,h,hkv,cache_len,window", _PLAN_CASES)
 def test_launch_plan_covers_the_window_once(b, s, h, hkv, cache_len,
-                                            window):
-    p = swa_kernel.plan(b, s, h, hkv, cache_len, window, n_sm=132)
+                                            window, blocks_per_sm, tile):
+    p = swa_kernel.plan(b, s, h, hkv, cache_len, window, n_sm=132,
+                        blocks_per_sm=blocks_per_sm, tile=tile)
     assert p["lo"] == max(0, cache_len - window + 1)
     assert p["hi"] == cache_len + 1
     starts = [p["lo"] + i * p["split_len"] for i in range(p["n_split"])]
     assert all(st < p["hi"] for st in starts)          # no empty split
     assert starts[-1] + p["split_len"] >= p["hi"]       # the last reaches hi
+    assert p["split_len"] % tile == 0                   # whole stages
     assert p["group"] >= min(h // hkv, swa_kernel.MAX_HEAD_GROUP)
-    assert p == swa_kernel.plan(b, s, h, hkv, cache_len, window, n_sm=132)
+    assert p == swa_kernel.plan(b, s, h, hkv, cache_len, window, n_sm=132,
+                                blocks_per_sm=blocks_per_sm, tile=tile)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3])
+@pytest.mark.parametrize("b,s,h,hkv", [
+    (4, 4096, 32, 16), (4, 1024, 32, 16), (1, 131072, 32, 16),
+    (2, 8192, 24, 2)])
+def test_launch_plan_fills_one_wave(b, s, h, hkv, blocks_per_sm):
+    """Where the window is long enough, the grid is one wave of the card
+    (SMs x the instance's blocks per SM), and splits one stage shorter
+    would overflow it."""
+    n_sm, tile = 132, 32
+    p = swa_kernel.plan(b, s, h, hkv, s - 1, JK.NO_WINDOW, n_sm=n_sm,
+                        blocks_per_sm=blocks_per_sm, tile=tile)
+    slots = n_sm * blocks_per_sm
+    assert p["blocks"] == p["units"] * p["n_split"] <= slots
+    assert p["waves"] == 1
+    shorter = -(-s // (p["split_len"] - tile))
+    assert shorter * p["units"] > slots
+    assert p["blocks_per_sm"] == blocks_per_sm
+
+
+def test_launch_plan_keeps_splits_worth_a_block():
+    """A short window is not cut below MIN_SPLIT positions a split, and one
+    unit per block slot or more leaves one split."""
+    p = swa_kernel.plan(1, 4096, 32, 16, 4000, 100, n_sm=132,
+                        blocks_per_sm=3, tile=32)
+    assert p["n_split"] == 2 and p["split_len"] == 64
+    p = swa_kernel.plan(64, 4096, 32, 16, 4095, JK.NO_WINDOW, n_sm=132,
+                        blocks_per_sm=3, tile=32)
+    assert p["n_split"] == 1 and p["waves"] == 3
 
 
 def test_head_groups():
