@@ -10,12 +10,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    sm_90a, one process per source) and loads them;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card. K1/K2 at every shape the serving session warms and at edge shapes
-   (ties, fully masked groups, m_q > G); continuous outputs at rtol/atol
+   (ties, fully masked groups, m_q > G, d in {5, 13, 27, 50} — d % 4 != 0,
+   the kernels' scalar layouts, and at d = 50 K2's column chunks — and x
+   contiguous at a 4-byte storage offset); continuous outputs at rtol/atol
    1e-5, discrete outputs exactly, after checking that the inputs leave
-   every discrete decision a margin (kernels/cascade_filter/ref.py).
-   K3/K4/K5 over G in {1, 7, 130}, d in {8, 24}, T in {1, 3, 8} with a
-   fully masked group, at the training shape (64 groups of 64, d=24, T=3)
-   and at an exact tie of lp_T with the NLL clamp; forward values at
+   every discrete decision a margin (kernels/cascade_filter/ref.py); K1
+   alone also at 4096 x 256, on one group of 1,048,576 items and at odd G
+   (its blocks walk many tiles, its tiles span many groups), and K1 at
+   T = 3 and K5 at T = 8 at the widest d their previous designs took and
+   at their own widest d (K3 and K4 too at d = 384, T = 8), each wrapper
+   refusing one d past its widest. K3/K4/K5
+   over G in {1, 7, 130}, d in {8, 24, 5, 13, 27}, T in {1, 3, 8} with a
+   fully masked group, at the training shape (64 groups of 64, d=24, T=3),
+   on it with xc at a 4-byte storage offset, at 5000 groups of 7 (K5's
+   blocks walk several groups) and at an exact tie of lp_T with the NLL
+   clamp; forward values at
    rtol 2e-5 / atol 1e-5 (K4's plain NLL is taken in probability space,
    the kernel's in log space), backward outputs at rtol 1e-4 / atol 5e-5
    (sums over up to 130 items in another order). K6 (the single-group
@@ -33,9 +42,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    of 20 calls back to back between CUDA events (device time per call),
    beside a lone call's time (wrapper and launch included) and the least
    time the card could take (bytes at 3.35 TB/s, operations at 67 TFLOP/s
-   f32); K2 also at the serving session's largest bucket batch (32 groups
-   of 256), each K2 time beside the (item, surviving item) pairs its
-   data has per stage (the first design's rank compares). K6, K6's
+   f32); K1 and K2 also at the serving session's largest bucket batch (32
+   groups of 256); K1 and K5 beside their previous design's times and
+   their target shares of the bound (60%, 40%); each K2 time beside the
+   (item, surviving item) pairs its data has per stage (the first
+   design's rank compares). K6, K6's
    backward and K7 so at N = 4096, 65536, 262144 and
    1,048,576 items (d=24, T=3; the reference kernel bench's N and K1's
    item count), inputs rotated through copies past the L2, beside K1 at
@@ -63,7 +74,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain pipeline on the CPU. Then the reference's vmap pipeline built from
    the port's pieces (vmapped single-group op, keep counts, stage chain,
    latency) on a batch of every warm bucket shape against plan "score"
-   (K1): lp within 1e-5, survivors exact where the decisions have margin;
+   (K1): lp within 1e-5 and bit-equal to K1's in every batch, survivors
+   exact where the decisions have margin;
    and every query group of the test split scored feature-major (K7)
    against K6;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
@@ -80,7 +92,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    and one PyTorch call computing the same function
    (scaled_dot_product_attention with the window's mask and GQA), with
    its launch plan (splits, blocks, blocks per SM) and the CUDA kernels
-   the device ran per call (torch.profiler; one);
+   the device ran per call (torch.profiler; one); and pairs of K8 calls
+   launched back to back on two side streams with no sync between them
+   (at 128k with the same and with different inputs, at the ring shape
+   and at a shape whose two grids fit on the card together) equal to the
+   one-stream results bit for bit;
 8. the LLM engine: gemma3-27b at full width and depth in bfloat16
    (random weights made on the card), prefill of 4 prompts of 2048
    synthetic tokens (every local ring wraps), 32 greedy decode steps with
@@ -111,8 +127,10 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+# The port's source tree: this checkout's `src`, or CHIP_SMOKE_SRC (kernel_ab.py
+# points it at another tree to run these checks and timings on that tree).
+sys.path.insert(0, os.environ.get("CHIP_SMOKE_SRC") or os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -163,6 +181,9 @@ K8_BF16_RTOL, K8_BF16_ATOL = 2.0 ** -7, 1e-5
 # and one sequence at 128k context.
 K8_SHAPES = {"global": (4, 32, 16, 128, 4096), "ring": (4, 32, 16, 128, 1024),
              "long": (1, 32, 16, 128, 131072)}
+# ... and one whose grid (B=1, 2 kv heads, 32 splits: 64 blocks) leaves room
+# for a second call's on the card, for the two-stream check.
+K8_PAIR_SHAPE = (1, 4, 2, 128, 2048)
 L2_BYTES = 50 * 2**20       # rotate K8's inputs past the L2 between calls
 # The LM phase: gemma3-27b at full width and depth in bfloat16.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_PROFILE_STEPS = (
@@ -175,6 +196,7 @@ WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
 TRAIN_SHAPE = (64, 64, 24, 3)         # one minibatch of the serve fit
+SERVE_SHAPE = (WARM_B[-1], WARM_G[-1], 24, 3)   # the largest bucket batch
 # K6 / K7: the parity grid (one group of N items), and the timing sizes at
 # d=24, T=3 (the reference kernel bench's N and TIMING_SHAPE's item count).
 SINGLE_N = (1, 7, 128, 129, 512, 1000, 2048, 262144)
@@ -188,6 +210,18 @@ BUSY_CYCLES = 50_000_000    # ~25 ms at 1.98 GHz: covers queueing the calls
 # then float32(-1e-7), the NLL clamp, exactly (tests/test_torch_losses.py);
 # phase 3 searches around them for a pair that ties on the card.
 TIE_ZQ = (16.118097, 29.3795)
+# The times (ms, H100 80GB HBM3, 700 W) of the designs the current K1 and
+# K5 replace, printed beside the new ones.
+WAS_MS = {"cascade_score_batched": {TIMING_SHAPE: 0.0945, TRAIN_SHAPE: 0.0083,
+                                    "b1": 0.0944},
+          "cascade_loss_bwd": {TIMING_SHAPE: 0.4143, TRAIN_SHAPE: 0.0157}}
+# The share of its bound each redesigned kernel aims at, at the timing shape.
+TARGET_SHARE = {"cascade_score_batched": 0.60, "cascade_loss_bwd": 0.40}
+# The widest d the previous designs of K1 and K5 took at these T (one block
+# per tile or group: t d + 128 (d + 1) + 128 t floats of shared memory for
+# K1, t d + 128 (d + 5) + 256 t + t (d + 2) for K5): the new ones must too.
+PREV_WIDEST_D = {("cascade_score_batched", 3): 439,
+                 ("cascade_loss_bwd", 8): 384}
 
 KERNEL_INFO = {
     "cascade_score_batched": {
@@ -301,6 +335,16 @@ def case_with_margin(b, g, d, t, seed, **kw):
                          f"{last}")
 
 
+def at_offset(a: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `a` whose storage starts 4 bytes past a 16-byte
+    boundary (the kernels' scalar paths take such an input)."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
 def check_case(case, errs, label):
     x, w, zq, mask, m_q = case
     got = ops.cascade_score_batched(x, w, zq)
@@ -334,11 +378,21 @@ def phase_parity() -> dict[str, float]:
             check_case(case_with_margin(b, g, 24, 3, seed=1000 * g + b),
                        errs, f"warm shape b={b} g={g}")
             n += 1
+    # the last five: d % 4 != 0 (K1's and K2's scalar layouts; (4, 512, 50,
+    # 8) also cuts K2's x tile into column chunks)
     for b, g, d, t in [(4, 1, 24, 3), (4, 7, 24, 3), (4, 130, 24, 3),
                        (4, 512, 24, 3), (8, 64, 8, 1), (8, 64, 40, 5),
-                       (8, 64, 24, 8), (4, 512, 40, 8), (3, 33, 8, 5)]:
+                       (8, 64, 24, 8), (4, 512, 40, 8), (3, 33, 8, 5),
+                       (4, 64, 5, 3), (4, 130, 13, 8), (8, 256, 27, 3),
+                       (3, 7, 27, 1), (4, 512, 50, 8)]:
         check_case(case_with_margin(b, g, d, t, seed=g * 37 + d + t),
                    errs, f"b={b} g={g} d={d} t={t}")
+        n += 1
+    # x contiguous at a 4-byte storage offset (not 16-byte aligned)
+    for b, g, d, t in [(4, 256, 24, 3), (3, 130, 13, 5)]:
+        x, w, zq, mask, m_q = case_with_margin(b, g, d, t, seed=g + d)
+        check_case((at_offset(x), w, zq, mask, m_q), errs,
+                   f"offset x b={b} g={g} d={d} t={t}")
         n += 1
     got = check_case(case_with_margin(3, 64, 24, 3, seed=0, twins=True),
                      errs, "ties")
@@ -353,10 +407,80 @@ def phase_parity() -> dict[str, float]:
     assert (got["n_keep"] == 16).all()
     assert (got["survivors"][..., -1] == 1).all()
     n += 3
+    # K1 alone where its blocks walk many tiles and a tile spans many
+    # groups: the timing shape, one group of 1,048,576 items, and odd G
+    # (scalar path, unaligned x)
+    for b, g, d, t, offset in [(*TIMING_SHAPE, False), (1, 1 << 20, 24, 3, False),
+                               (3001, 77, 13, 5, False),
+                               (2000, 33, 24, 3, True)]:
+        check_alone("cascade_score_batched", (b, g, d, t), b + g, errs,
+                    offset=offset)
+        n += 1
+    # the widest d (a one-tile ring), checked, and one past it refused
+    widest, n_wide = check_widest("cascade_score_batched", 3, errs)
+    n += n_wide
     print(f"[parity] {n} cases: kernels agree with their plain versions "
           f"(max |err| K1 {errs['cascade_score_batched']:.3g}, "
-          f"K2 {errs['cascade_filter']:.3g}; discrete outputs exact)")
+          f"K2 {errs['cascade_filter']:.3g}; discrete outputs exact); K1 "
+          f"takes d <= {widest} at T=3 (its previous design "
+          f"{PREV_WIDEST_D[('cascade_score_batched', 3)]}) and refuses "
+          f"{widest + 1}")
     return errs
+
+
+def check_alone(name, shape, seed, errs, offset=False) -> None:
+    """K1 or K5 (`name`) alone against its plain version on a case at
+    (B, G, d, T), its x or xc at a 4-byte storage offset if `offset`."""
+    b, g, d, t = shape
+    if name == "cascade_score_batched":
+        x, w, zq, _, _ = make_case(b, g, d, t, seed=seed)
+        args = (at_offset(x) if offset else x, w, zq)
+        got = (ops.cascade_score_batched(*args),)
+        sync()
+        want = (ops.cascade_score_batched_ref(*args),)
+        rtol, atol = RTOL, ATOL
+    else:
+        xc, w, zq, _, g_ll, g_cost, g_cnt = train_case(b, g, d, t, seed=seed)
+        args = (at_offset(xc) if offset else xc, w, zq, g_ll, g_cost, g_cnt)
+        got = loss_kernel.cascade_loss_bwd(*args)
+        sync()
+        want = ops.cascade_loss_bwd_ref(*args)
+        rtol, atol = BWD_RTOL, BWD_ATOL
+        assert got[0][..., d:].abs().max().item() == 0.0, (
+            f"K5 {shape}: dxc data lanes")
+    _check(name, got, want, rtol, atol, f"{shape} offset={offset}", errs)
+
+
+def widest_d(name, t) -> int:
+    """The widest d whose launch of K1 or K5 (`name`) at T = t fits in a
+    block's shared memory: the wrapper refuses wider."""
+    smem = getattr(_build.load_library(), f"{name}_smem")
+    d = 1
+    while smem(d + 1, t) <= _build.MAX_SMEM_BYTES:
+        d += 1
+    return d
+
+
+def check_widest(name, t, errs) -> tuple[int, int]:
+    """K1 or K5 at T = t: at its previous design's widest d (and one more:
+    the other of the vector and scalar paths) and at its own widest d
+    against its plain version, and its wrapper refusing one past that.
+    Returns (the widest d, cases checked)."""
+    d = widest_d(name, t)
+    prev = PREV_WIDEST_D[(name, t)]
+    assert d >= prev, (f"{name} takes d <= {d} at T={t}; its previous "
+                       f"design took {prev}")
+    ds = sorted({prev, prev + 1, d})
+    for dd in ds:
+        check_alone(name, (2, 40, dd, t), dd, errs)
+    try:
+        check_alone(name, (1, 4, d + 1, t), 0, errs)
+    except ValueError as e:
+        assert "shared memory" in str(e), e
+    else:
+        raise AssertionError(f"{name} took d={d + 1} at T={t}, past its "
+                             "shared memory")
+    return d, len(ds)
 
 
 def train_case(b, g, d, t, seed, *, dead_group=True):
@@ -448,22 +572,38 @@ def check_train_case(case, errs, label):
 
 def phase_train_parity(errs) -> None:
     n = 0
+    # d + 4 a multiple of 4 (8, 24) and not (5, 13, 27: K5's scalar path)
     for g in (1, 7, 130):
-        for d in (8, 24):
+        for d in (8, 24, 5, 13, 27):
             for t in (1, 3, 8):
                 check_train_case(train_case(3, g, d, t, seed=g * 11 + d + t),
                                  errs, f"g={g} d={d} t={t}")
                 n += 1
     b, g, d, t = TRAIN_SHAPE
     check_train_case(train_case(b, g, d, t, seed=5), errs, "training shape")
+    # xc at a 4-byte storage offset; more groups than K5 has blocks on the
+    # card, so its blocks walk several groups each
+    xc, *rest = train_case(b, g, d, t, seed=6)
+    check_train_case((at_offset(xc), *rest), errs, "offset xc")
+    check_train_case(train_case(5000, 7, 24, 3, seed=7), errs,
+                     "5000 groups of 7")
+    # K3, K4 and K5 at the widest d K5's previous design took (K5 with one
+    # warp a block here), then K5 alone up to its own widest d
+    check_train_case(train_case(2, 40, 384, 8, seed=8), errs, "d=384 t=8")
+    n += 4
+    widest, n_wide = check_widest("cascade_loss_bwd", 8, errs)
+    n += n_wide
     case = tie_case()
     got = check_train_case(case, errs, "clamp tie")
     assert got[2].abs().max().item() > 0, "the tie must pass the tangent"
     print(f"[parity] clamp tie at zq = {case[2].tolist()}")
-    n += 2
+    n += 1
     print(f"[parity] {n} training cases: K3 max |err| "
           f"{errs['cascade_score_batched_bwd']:.3g}, K4 "
-          f"{errs['cascade_loss']:.3g}, K5 {errs['cascade_loss_bwd']:.3g}")
+          f"{errs['cascade_loss']:.3g}, K5 {errs['cascade_loss_bwd']:.3g}; "
+          f"K5 takes d <= {widest} at T=8 (its previous design "
+          f"{PREV_WIDEST_D[('cascade_loss_bwd', 8)]}) and refuses "
+          f"{widest + 1}")
 
 
 def single_case(n, d, t, seed, dtype=torch.float32, zero_tail=True):
@@ -639,6 +779,22 @@ def shape_costs(b, g, d, t, pairs) -> dict[str, tuple[int, int]]:
     }
 
 
+def was_note(name, key, r) -> str:
+    """The previous design's time of a redesigned kernel at this shape,
+    and at the timing shapes whether it reaches its target share of the
+    bound."""
+    was = WAS_MS.get(name, {}).get(key)
+    if was is None:
+        return ""
+    note = (f"; was {was:.4f} ms (the previous design), now "
+            f"{was / r['ms']:.2f}x as fast")
+    if key in (TIMING_SHAPE, "b1"):
+        share, target = r["bound_ms"] / r["ms"], TARGET_SHARE[name]
+        note += (f"; target >= {target:.0%} of bound "
+                 f"{'met' if share >= target else 'MISSED'}")
+    return note
+
+
 def time_shape(shape, seed, names=None) -> dict[str, dict]:
     """Each kernel of `names` (all five by default) and its plain version
     at (B, G, d, T), beside its bound."""
@@ -666,9 +822,12 @@ def time_shape(shape, seed, names=None) -> dict[str, dict]:
             lambda: ops.cascade_loss_bwd_ref(xc, w, zq, g_ll, g_cost, g_cnt)),
     }
     calls = {k: v for k, v in calls.items() if names is None or k in names}
-    res = ops.cascade_filter(x1, w1, zq1, mask, m_q)
-    entering = torch.cat([mask[..., None], res["survivors"][..., :-1]], -1)
-    pairs = int(entering.sum().item()) * g
+    pairs = 0
+    if "cascade_filter" in calls:
+        res = ops.cascade_filter(x1, w1, zq1, mask, m_q)
+        entering = torch.cat([mask[..., None], res["survivors"][..., :-1]],
+                             -1)
+        pairs = int(entering.sum().item()) * g
     costs = shape_costs(b, g, d, t, pairs)
     out = {}
     for name, (kern_fn, plain_fn) in calls.items():
@@ -689,14 +848,16 @@ def time_shape(shape, seed, names=None) -> dict[str, dict]:
               f"{by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} ms), "
               f"{r['bound_ms'] / r['ms']:.1%} of bound"
               + (f"; rank pairs on this data {pairs}"
-                 if name == "cascade_filter" else ""))
-    out["cascade_filter"]["pairs"] = pairs
+                 if name == "cascade_filter" else "")
+              + was_note(name, tuple(shape), r))
+    if "cascade_filter" in out:
+        out["cascade_filter"]["pairs"] = pairs
     return out
 
 
 def phase_timing() -> tuple[dict[str, dict], dict[str, dict], dict]:
-    """The five batched kernels at the timing and training shapes, and K2
-    also at the serving session's largest bucket batch."""
+    """The five batched kernels at the timing and training shapes, and K1
+    and K2 also at the serving session's largest bucket batch."""
     big = time_shape(TIMING_SHAPE, seed=7)
     b, g, _, t = TIMING_SHAPE
     all_pairs = b * g * g * t
@@ -704,9 +865,9 @@ def phase_timing() -> tuple[dict[str, dict], dict[str, dict], dict]:
           f" on this data, {all_pairs} for all G^2*T pairs "
           f"({all_pairs / F32_OPS_PER_S * 1e3:.4f} ms at one op each)")
     train = time_shape(TRAIN_SHAPE, seed=8)
-    serve = time_shape((WARM_B[-1], WARM_G[-1], TIMING_SHAPE[2],
-                        TIMING_SHAPE[3]), seed=9, names=("cascade_filter",))
-    return big, train, serve["cascade_filter"]
+    serve = time_shape(SERVE_SHAPE, seed=9,
+                       names=("cascade_score_batched", "cascade_filter"))
+    return big, train, serve
 
 
 def single_costs(n, d, t) -> dict[str, tuple[int, int]]:
@@ -769,7 +930,9 @@ def phase_single_timing() -> dict[int, dict[str, dict]]:
                   f"{r['lone_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} "
                   f"bytes -> {by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} "
-                  f"ms), {r['bound_ms'] / r['ms']:.1%} of bound")
+                  f"ms), {r['bound_ms'] / r['ms']:.1%} of bound"
+                  + (was_note(name, "b1", r) if n == max(SINGLE_TIMING_N)
+                     else ""))
         o = out[n]
         print(f"[timing] N={n}: K7 / K6 device time "
               f"{o['cascade_score_fm']['ms'] / o['cascade_score']['ms']:.3f}, "
@@ -1087,6 +1250,8 @@ def phase_serve_k6(params, te) -> dict[str, int]:
     assert launches["cascade_score"] == len(WARM_G) * sum(WARM_B), launches
     assert launches["cascade_score_batched"] == batches, launches
     assert with_margin > 0
+    assert bit_equal == batches, (
+        f"K1 bit-equal to vmap of K6 in {bit_equal} of {batches} batches")
     print(f"[slice vmap K6] {batches} batches (B in {WARM_B}, G in {WARM_G}):"
           f" lp against plan \"score\" max |err| {worst:.3g}, bit-equal in "
           f"{bit_equal} of {batches}; survivors and n_keep exact in the "
@@ -1379,6 +1544,55 @@ def phase_k8_timing() -> dict[str, dict]:
     return out
 
 
+def phase_k8_streams() -> None:
+    """K8 calls in flight on two streams at once give the one-stream bits:
+    the split combine's tickets are per (device, stream). Pairs of calls
+    at the 128k shape (the same inputs on both streams, then different
+    ones), at the ring shape and at a shape whose two grids fit on the card
+    together, each pair launched back to back on two side streams with no
+    sync between them, both held behind one busy-wait so that they start
+    together; three rounds each, on new inputs every round (so a combine
+    that read another call's slot would meet partials that differ)."""
+    main = torch.cuda.current_stream()
+    side = (torch.cuda.Stream(), torch.cuda.Stream())
+    cases = [("long", K8_SHAPES["long"], True),
+             ("long", K8_SHAPES["long"], False),
+             ("ring", K8_SHAPES["ring"], False),
+             ("two grids at once", K8_PAIR_SHAPE, False)]
+    done = []
+    for name, shape, same in cases:
+        b, h, hkv, hd, s = shape
+        for rnd in range(3):
+            first = k8_inputs(b, h, hkv, hd, s, torch.bfloat16, seed=20 + rnd)
+            args = [(*first, s - 1), (*(first if same else k8_inputs(
+                b, h, hkv, hd, s, torch.bfloat16, seed=30 + rnd)), s - 1)]
+            want = [ops.swa_decode(*a) for a in args]       # one stream
+            torch.cuda._sleep(BUSY_CYCLES)
+            got = [None, None]
+            for st in side:
+                st.wait_stream(main)
+            for i, st in enumerate(side):
+                with torch.cuda.stream(st):
+                    got[i] = ops.swa_decode(*args[i])
+            for st in side:
+                main.wait_stream(st)
+            sync()
+            for i in range(2):
+                assert torch.equal(got[i], want[i]), (
+                    f"K8 {name} on two streams (round {rnd}, stream {i}): "
+                    "differs from the one-stream result")
+            del first, args
+        p = swa_kernel.plan(b, s, h, hkv, s - 1, ops.NO_WINDOW,
+                            swa_kernel._sm_count(0),
+                            *swa_kernel._instance(
+                                0, hd, swa_kernel.head_group(h // hkv), True))
+        done.append(f"{name} {shape} ({'same' if same else 'different'} "
+                    f"inputs; {p['blocks']} blocks a call, {p['n_split']} "
+                    f"splits x {p['units']} tickets)")
+    print(f"[k8 streams] two calls in flight on two side streams equal the "
+          f"one-stream bits, 3 rounds each: " + "; ".join(done))
+
+
 # -- 8. the LLM engine: gemma3-27b prefill + greedy decode -------------------
 
 def free_cuda() -> None:
@@ -1583,6 +1797,7 @@ def main() -> None:
     errs["swa_decode"] = 0.0
     phase_k8_parity(errs)
     k8 = phase_k8_timing()
+    phase_k8_streams()
     free_cuda()
     lm = phase_lm()
     launches["swa_decode"] = lm["k8_launches"]
@@ -1626,11 +1841,14 @@ def main() -> None:
                        train_shape_ms=timing_train[name]["ms"],
                        train_shape_plain_ms=timing_train[name]["plain_ms"],
                        train_shape_bound_ms=timing_train[name]["bound_ms"])
+            if name in timing_serve:
+                row.update(serve_shape_ms=timing_serve[name]["ms"],
+                           serve_shape_bound_ms=timing_serve[name]["bound_ms"])
             if name == "cascade_filter":
                 row.update(pairs=tm["pairs"],
-                           serve_shape_ms=timing_serve["ms"],
-                           serve_shape_bound_ms=timing_serve["bound_ms"],
-                           serve_shape_pairs=timing_serve["pairs"])
+                           serve_shape_pairs=timing_serve[name]["pairs"])
+            if name == "cascade_score_batched":
+                row["b1_ms"] = timing_single[max(SINGLE_TIMING_N)][name]["ms"]
         rows.append(row)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -63,6 +63,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxStages = 8;
@@ -71,28 +73,10 @@ constexpr int kMaxWarps = kMaxGroup / 32;
 constexpr int kTileFloats = 16384;   // x chunk + w chunk: 64 KB
 constexpr int kBins = 256;           // radix-select digit: 8 bits
 
-__device__ __forceinline__ float log_sigmoid(float z) {
-  return fminf(z, 0.0f) - log1pf(expf(-fabsf(z)));
-}
-
 // Order-preserving key: a > b (floats, not NaN) iff key(a) > key(b).
 __device__ __forceinline__ unsigned order_key(float f) {
   const unsigned u = __float_as_uint(f == 0.0f ? 0.0f : f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
 }
 
 // Row stride (floats) of a staged x chunk of dc columns, chosen so that
@@ -135,8 +119,6 @@ constexpr int kVecFloats = 40960;    // both buffers + w: 160 KB
 __host__ __device__ __forceinline__ int after_floats(int g, int t, int p) {
   return (t + 1) * p + 2 * g * t;
 }
-
-__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
 
 // Floats of one buffer: the x tile (or chunk), then (red, lp, surv); with
 // `vec` the group's mask, zq and m_q after them (copied with the tile).
@@ -220,7 +202,7 @@ cascade_filter_kernel(const float* __restrict__ x,
       if (bq < n_groups)
         prefetch(bufq, bufq + nbuf - naux, x, mask, zq, mq, bq, g, d, t, i,
                  nthreads);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      cp_async_commit();
     }
   }
   int round = 0;     // histograms used so far (s_hist[round % 3] is next)
@@ -240,7 +222,7 @@ cascade_filter_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < kMaxStages; ++j) lp[j] = 0.0f;
     if (vec) {
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cp_async_wait<1>();
       __syncthreads();
       if (real) {
         const float4* xr = reinterpret_cast<const float4*>(xs + i * stride);
@@ -513,23 +495,10 @@ cascade_filter_kernel(const float* __restrict__ x,
       if (bn < n_groups)
         prefetch(buf, buf + nbuf - naux, x, mask, zq, mq, bn, g, d, t, i,
                  nthreads);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      cp_async_commit();
     }
   }
-  if (vec) asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Blocks of one launch: those that fit on the device at once, at most one
-// per group (0 if the runtime cannot say).
-int grid_blocks(int n_groups, int threads, size_t smem) {
-  int dev = 0, per_sm = 0, n_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, cascade_filter_kernel, threads, smem) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return per_sm * n_sm < n_groups ? per_sm * n_sm : n_groups;
+  if (vec) cp_async_wait_all();
 }
 
 }  // namespace
@@ -556,13 +525,10 @@ int cascade_filter(const float* x, const float* w, const float* zq,
   const bool vec = vec_fits(g, d, t, p) &&
                    (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const size_t smem = sizeof(float) * smem_floats(g, d, t, p, vec);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cascade_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = grid_blocks(b, threads, smem);
+  cudaError_t e = allow_smem(cascade_filter_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  // one full wave of the card, at most one block per group
+  const int blocks = one_wave_blocks(cascade_filter_kernel, threads, smem, b);
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   cascade_filter_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       x, w, zq, mask, mq, lp, surv, counts, nkeep, b, g, d, t, p, (int)vec);

@@ -1,6 +1,6 @@
-// Pieces shared by the training kernels (cascade_score_bwd.cu,
-// cascade_loss.cu): the log-sigmoid they recompute the scores with, and the
-// fixed-order second pass that adds per-block partials of a grid-wide sum.
+// The fixed-order second pass that adds per-block partials of a grid-wide
+// sum, shared by the training kernels (cascade_score_bwd.cu,
+// cascade_loss.cu, cascade_score_single.cu).
 //
 // Determinism: no float sum in these kernels uses atomics. A sum over the
 // whole grid (dw in K3 and K5, cost_pp in K4) is taken in two passes: each
@@ -13,15 +13,11 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kSumThreads = 256;
-
-// log sigma(z) = min(z, 0) - log1p(exp(-|z|)): no overflow for any finite z
-// (the same formula as K1, csrc/cascade_score.cu).
-__device__ __forceinline__ float log_sigmoid(float z) {
-  return fminf(z, 0.0f) - log1pf(expf(-fabsf(z)));
-}
 
 // out[j] = sum_b part[j * n + b], for j < gridDim.x, in a fixed order.
 __global__ void __launch_bounds__(kSumThreads)
@@ -45,15 +41,6 @@ inline void launch_ordered_sum(const float* part, float* out, int n_out,
                                int n, cudaStream_t stream) {
   if (n_out > 0)
     ordered_sum_kernel<<<n_out, kSumThreads, 0, stream>>>(part, out, n);
-}
-
-// Opt a kernel into more than 48 KB of dynamic shared memory when it needs
-// it; returns the CUDA error of the attribute call (0 = fine).
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

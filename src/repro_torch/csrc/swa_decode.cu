@@ -51,14 +51,18 @@
 //     0, combines the partials in split order in one pass: one CUDA launch
 //     per call, no float atomics, and the bits do not depend on which
 //     block finishes last, so two launches on the same inputs give the
-//     same bits. The tickets are zero between calls; calls on one stream
-//     run in order, so they never share a ticket.
+//     same bits. The tickets are zero between calls, and the wrapper
+//     keeps one array per (device, stream): calls on one stream run in
+//     order, so they never share a ticket, and calls on two streams get
+//     two arrays (kernels/swa_decode/kernel.py `_tickets`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -82,24 +86,6 @@ struct Shape {
   static_assert(kTile % kGroups == 0, "a stage splits evenly over groups");
   static_assert(kTile * kChunks % kThreads == 0, "whole copies per thread");
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  // src-size 0 writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 8 consecutive elements (16-byte aligned) as float32.
 template <typename T>
@@ -208,8 +194,8 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = p0 + row < end;
       const size_t off = (size_t)(ok ? p0 + row : start) * row_stride +
                          col * 16;
-      cp_async16(ks + row * S::kRowBytes + col * 16, kb + off, ok);
-      cp_async16(vs + row * S::kRowBytes + col * 16, vb + off, ok);
+      cp_async16_zfill(ks + row * S::kRowBytes + col * 16, kb + off, ok);
+      cp_async16_zfill(vs + row * S::kRowBytes + col * 16, vb + off, ok);
     }
   };
 

@@ -35,13 +35,13 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("cascade_score.cu", "cascade_filter.cu", "cascade_score_bwd.cu",
            "cascade_loss.cu", "swa_decode.cu", "cascade_score_single.cu")
-HEADERS = ("ordered_sum.cuh",)      # included by sources; part of the key
+HEADERS = ("common.cuh", "ordered_sum.cuh")   # included; part of the key
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libcascade_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232_448       # per-block shared memory limit on sm_90
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", f"-DREPRO_MAX_SMEM_BYTES={MAX_SMEM_BYTES}")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

@@ -15,7 +15,9 @@ cache_len, window and the card, so two launches on the same inputs give
 the same bits.
 
 Launches on the current stream of the inputs' device and counts them in
-`swa_decode.launches` (one CUDA launch per call).
+`swa_decode.launches` (one CUDA launch per call). The combine's tickets
+are kept per (device, stream), so calls in flight on several streams of
+one card never share, reset or free each other's (see `_tickets`).
 """
 
 from __future__ import annotations
@@ -131,7 +133,8 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_part = b * h * p["n_split"] if p["n_split"] > 1 else 0
     part_ml = torch.empty((2, n_part), dtype=torch.float32, device=device)
     part_acc = torch.empty((n_part, hd), dtype=torch.float32, device=device)
-    tickets = _tickets(device, p["units"])
+    stream = _build.stream_handle(device)
+    tickets = _tickets(device, stream, p["units"])
     lib = _build.load_library()
     with torch.cuda.device(device):
         rc = lib.swa_decode(
@@ -139,7 +142,7 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             part_ml[0].data_ptr(), part_ml[1].data_ptr(),
             part_acc.data_ptr(), tickets.data_ptr(), b, s, h, hkv, hd,
             group, int(bf16), p["lo"], p["hi"], p["n_split"],
-            p["split_len"], 1.0 / math.sqrt(hd), _build.stream_handle(device))
+            p["split_len"], 1.0 / math.sqrt(hd), stream)
     _build.check_launch(lib, op, rc)
     swa_decode.launches += 1
     return out
@@ -147,16 +150,28 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 swa_decode.launches = 0
 
-_ticket_arrays: dict[torch.device, torch.Tensor] = {}
+# (device, stream handle) -> that stream's int32 tickets
+_ticket_arrays: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The device's int32 tickets, one per (batch, kv head, head group)
-    unit, zero between calls (the kernel's last block of a unit resets its
-    own). Allocated once per device and grown, zeroed, when a call needs
-    more."""
-    t = _ticket_arrays.get(device)
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The int32 tickets of one stream of `device` (`stream` is its handle,
+    the one the kernel launches on), one per (batch, kv head, head group)
+    unit, zero between calls: the last block of a unit resets its own.
+    Allocated once per stream and grown, zeroed, when a call needs more.
+
+    Per stream, because a ticket slot is numbered from 0 in every call:
+    calls on one stream run in order and so never share a slot, but two
+    calls in flight on two streams would count and reset each other's.
+    Growing is safe too: the array is allocated while `stream` is current
+    (the caller launches on it), so PyTorch's caching allocator ties its
+    block to that stream, and when the replaced array is dropped the block
+    is reused only by later work on the same stream, which runs after
+    every kernel already queued there that reads it. No other stream ever
+    holds it."""
+    key = (device, stream)
+    t = _ticket_arrays.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _ticket_arrays[device] = t
+        _ticket_arrays[key] = t
     return t

@@ -53,7 +53,8 @@ def test_port_has_modules():
         assert want in mods
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [SMOKE],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [SMOKE, REPO / "kernel_ab.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import_in_source(path):
     hits = [m.group(0).strip() for m in FORBIDDEN.finditer(path.read_text())]

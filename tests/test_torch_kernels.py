@@ -44,7 +44,8 @@ from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
                                                   cascade_loss_ref)
 from repro_torch.kernels.cascade_score import kernel as score_kernel
 from repro_torch.kernels.cascade_score.ref import cascade_score_batched_bwd_ref
-from torch_parity import close, filter_case, loss_case, n, t, with_margin
+from torch_parity import (at_offset, close, filter_case, loss_case, n, t,
+                          with_margin)
 
 # ---------------------------------------------------------------------------
 # K1: cascade_score_batched
@@ -115,6 +116,38 @@ def test_filter_plain_matches_reference_kernel(g, d, t_stages):
 def test_filter_plain_matches_reference_at_serving_groups(g):
     case = with_margin(lambda s: filter_case(4, g, 24, 3, s), seed=g)
     _assert_filter_parity(case, interpret=False)
+
+
+@pytest.mark.parametrize("g", [7, 130])
+@pytest.mark.parametrize("d", [5, 13, 27])
+def test_score_and_filter_plain_match_reference_at_d_not_a_multiple_of_4(d, g):
+    """d % 4 != 0: the layout the CUDA kernels read with their scalar
+    paths (K1's 4-byte copies, K2's per-group column chunks)."""
+    case = with_margin(lambda s: filter_case(3, g, d, 3, s), seed=g * 3 + d)
+    x, w, zq = case[:3]
+    got = TK.cascade_score_batched(t(x), t(w), t(zq))
+    close(got, JK.cascade_score_batched(jnp.asarray(x), jnp.asarray(w),
+                                        jnp.asarray(zq), interpret=True))
+    close(got, jscore_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(zq)))
+    _assert_filter_parity(case, interpret=g <= 48)
+
+
+@pytest.mark.parametrize("d", [24, 13])
+def test_score_and_filter_plain_on_x_at_a_4_byte_offset(d):
+    """x contiguous but 4 bytes past a 16-byte boundary (the CUDA kernels'
+    scalar paths on the card): the plain versions give the reference's
+    values and decisions."""
+    x, w, zq, mask, m_q = with_margin(lambda s: filter_case(2, 64, d, 3, s),
+                                      seed=d)
+    xo = at_offset(t(x))
+    got = TK.cascade_score_batched(xo, t(w), t(zq))
+    close(got, jscore_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(zq)))
+    res = TK.cascade_filter(xo, t(w), t(zq), t(mask), t(m_q))
+    want = jfilter(*map(jnp.asarray, (x, w, zq, mask, m_q)), interpret=True)
+    close(res["lp"], want["lp"])
+    close(res["expected_counts"], want["expected_counts"])
+    for k in ("n_keep", "survivors"):
+        np.testing.assert_array_equal(n(res[k]), np.asarray(want[k]))
 
 
 def test_filter_tied_scores():
@@ -367,7 +400,10 @@ def test_build_key_follows_the_sources():
 TRAIN_FAST = [(1, 24, 1), (7, 8, 3), (130, 24, 8), (7, 24, 3)]
 TRAIN_SLOW = [(g, d, t_) for g in (1, 7, 130) for d in (8, 24)
               for t_ in (1, 3, 8) if (g, d, t_) not in TRAIN_FAST]
-_TRAIN_GRID = ([pytest.param(*c, id="-".join(map(str, c))) for c in TRAIN_FAST]
+# d + 4 not a multiple of 4: K5's scalar path on the card
+TRAIN_ODD_D = [(7, 5, 3), (130, 13, 8), (1, 27, 1), (7, 27, 3)]
+_TRAIN_GRID = ([pytest.param(*c, id="-".join(map(str, c)))
+                for c in TRAIN_FAST + TRAIN_ODD_D]
                + [pytest.param(*c, id="-".join(map(str, c)),
                                marks=pytest.mark.slow) for c in TRAIN_SLOW])
 BWD_RTOL, BWD_ATOL = 1e-4, 5e-5

@@ -16,6 +16,7 @@ an exact tie and pins each port path to the reference path it ports.
 """
 
 import importlib
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ from repro_torch.kernels import ops as TK
 from repro_torch.kernels.cascade_loss.kernel import LOG_P_CLAMP, pack_items
 from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
                                                   cascade_loss_ref)
-from torch_parity import cascades, close, loss_case, t
+from torch_parity import at_offset, cascades, close, loss_case, t
 
 # the modules: each package's optim/__init__ re-exports a function `sgd`
 JO = importlib.import_module("repro.optim.sgd")
@@ -297,6 +298,125 @@ def test_exact_tie_at_the_clamp_each_path_keeps_its_rule():
 # ---------------------------------------------------------------------------
 # Optimizers
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# K5's fixed summation order (csrc/cascade_loss.cu), written out in plain code
+# ---------------------------------------------------------------------------
+
+# warps per K5 block (one at a d too wide for four); ordered_sum's threads
+K5_WARPS, K5_SUM_THREADS = (4, 1), 256
+BWD_RTOL, BWD_ATOL = 1e-4, 5e-5     # test_torch_kernels.py's backward bars
+
+
+def _ordered_sum(part: torch.Tensor) -> torch.Tensor:
+    """ordered_sum_kernel (csrc/ordered_sum.cuh) on (n_out, n) partials:
+    thread i adds part[:, i], part[:, i + 256], ... in turn, then the
+    threads' sums meet in a tree s[i] += s[i + h], h = 128 .. 1."""
+    s = torch.zeros(part.shape[0], K5_SUM_THREADS)
+    for i in range(part.shape[1]):
+        s[:, i % K5_SUM_THREADS] = s[:, i % K5_SUM_THREADS] + part[:, i]
+    h = K5_SUM_THREADS // 2
+    while h:
+        s[:, :h] = s[:, :h] + s[:, h:2 * h]
+        h //= 2
+    return s[:, 0]
+
+
+def _k5_order_mirror(xc, w, zq, g_ll, g_cost, g_cnt, n_blocks, n_warps):
+    """K5's outputs with its sums taken in the kernel's order: the per-item
+    logit-gradient streams as `cascade_loss_bwd_ref` forms them; block k of
+    n_blocks takes the groups k, k + n_blocks, ..., and its warp v of
+    n_warps the chunks v, v + n_warps, ... of 32 items of each. dzq and dzq_pen: per
+    group, each warp's chain over its chunks' items in order, the warps'
+    chains added in warp order. dw: each warp's chain over all its items in
+    order, the block's warps added in warp order into one partial per
+    block, and the blocks' partials added as ordered_sum_kernel adds them.
+    dxc is per item and has no order."""
+    b, g, dc = xc.shape
+    d = dc - 4
+    x, y, mask, wgt, cost_w = (xc[..., :d], *[xc[..., d + i:d + i + 1]
+                                              for i in range(4)])
+    logits = torch.einsum("bgd,td->bgt", x, w) + zq[:, None, :]
+    lp = torch.cumsum(torch.nn.functional.logsigmoid(logits), dim=-1)
+    pp, n_t = torch.exp(lp), lp.shape[-1]
+    ppc = torch.exp(torch.clamp_max(lp[..., -1:], LOG_P_CLAMP))
+    dll = (wgt * mask) * (y - (1.0 - y) * ppc / (1.0 - ppc))
+    g_nll = torch.where(lp[..., -1:] <= LOG_P_CLAMP, g_ll[:, None, None] * dll,
+                        0.0)
+    g_main = torch.nn.functional.pad(g_nll, (n_t - 1, 0)) + g_cost * pp * cost_w
+    g_pen = g_cnt[:, None, :] * pp * mask
+    sig = torch.sigmoid(-logits)
+    gm, gp = [(s_.sum(-1, keepdim=True) - torch.cumsum(s_, -1) + s_) * sig
+              for s_ in (g_main, g_pen)]
+    dzq, dzq_pen = torch.zeros(b, n_t), torch.zeros(b, n_t)
+    block_dw = torch.zeros(n_blocks, n_t, d)
+    for blk in range(n_blocks):
+        warp_dw = torch.zeros(n_warps, n_t, d)
+        for grp in range(blk, b, n_blocks):
+            chains = torch.zeros(n_warps, 2, n_t)
+            for v in range(n_warps):
+                for c0 in range(32 * v, g, 32 * n_warps):
+                    for i in range(c0, min(c0 + 32, g)):
+                        warp_dw[v] = warp_dw[v] + gm[grp, i][:, None] * x[grp, i]
+                        chains[v, 0] = chains[v, 0] + gm[grp, i]
+                        chains[v, 1] = chains[v, 1] + gp[grp, i]
+            total = chains[0]
+            for v in range(1, n_warps):
+                total = total + chains[v]
+            dzq[grp], dzq_pen[grp] = total
+        acc = warp_dw[0]
+        for v in range(1, n_warps):
+            acc = acc + warp_dw[v]
+        block_dw[blk] = acc
+    dw = _ordered_sum(block_dw.reshape(n_blocks, -1).T).reshape(n_t, d)
+    dxc = torch.nn.functional.pad(torch.einsum("bgt,td->bgd", gm + gp, w),
+                                  (0, 4))
+    return dxc, dw, dzq, dzq_pen
+
+
+@pytest.mark.parametrize("t_stages", [1, 3, 8])
+@pytest.mark.parametrize("g", [1, 7, 130, 256])
+def test_k5_summation_order_matches_reference(g, t_stages):
+    """A plain copy of K5's summation order against the closed form and the
+    reference's interpreted kernel: nine groups over one block (every group
+    in one block's chains), over three (three groups a block) and over
+    nine (the card's grid for B = 9: a group a block); G = 130 and 256 give
+    each warp of a block several chunks of a group. Four warps a block, and
+    one (K5's layout at a d too wide for four)."""
+    b, d = 9, 24
+    xc, w, zq = loss_case(b, g, d, t_stages, seed=g * 5 + t_stages)
+    rng = np.random.default_rng(g + t_stages)
+    cot = [rng.normal(size=s_).astype(np.float32)
+           for s_ in ((b,), (t_stages,), (b, t_stages))]
+    args = [t(a) for a in (xc, w, zq, *cot)]
+    want_ref = cascade_loss_bwd_ref(*args)
+    want_kernel = jloss_bwd(*map(jnp.asarray, (xc, w, zq, *cot)), d_x=d,
+                            interpret=True)
+    for n_blocks, n_warps in itertools.product((1, 3, 9), K5_WARPS):
+        got = _k5_order_mirror(*args, n_blocks=n_blocks, n_warps=n_warps)
+        for a, r_ref, r_kernel in zip(got, want_ref, want_kernel):
+            close(a, r_ref, rtol=BWD_RTOL, atol=BWD_ATOL)
+            close(a, r_kernel, rtol=BWD_RTOL, atol=BWD_ATOL)
+        assert float(got[0][..., d:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [5, 13, 27, 24])
+def test_k5_plain_on_xc_at_a_4_byte_offset(d):
+    """K5's plain version on a packed xc 4 bytes past a 16-byte boundary
+    (the CUDA kernel's scalar path; d + 4 not a multiple of 4 for three of
+    the widths) against the reference's interpreted kernel."""
+    b, g, t_stages = 3, 33, 3
+    xc, w, zq = loss_case(b, g, d, t_stages, seed=d)
+    rng = np.random.default_rng(d)
+    cot = [rng.normal(size=s_).astype(np.float32)
+           for s_ in ((b,), (t_stages,), (b, t_stages))]
+    got = TK.cascade_loss_bwd_ref(at_offset(t(xc)), *map(t, (w, zq, *cot)))
+    want = jloss_bwd(*map(jnp.asarray, (xc, w, zq, *cot)), d_x=d,
+                     interpret=True)
+    for a, r in zip(got, want):
+        close(a, r, rtol=BWD_RTOL, atol=BWD_ATOL)
+    assert float(got[0][..., d:].abs().max()) == 0.0
+
 
 def _params(seed=0):
     rng = np.random.default_rng(seed)

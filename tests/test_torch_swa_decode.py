@@ -265,3 +265,27 @@ def test_plain_version_is_the_reference_formula():
     q, k, v = (exact(a) for a in _case(2, 8, 2, 64, 100, jnp.bfloat16, 1))
     assert torch.equal(TK.swa_decode(q, k, v, 50, window=20),
                        swa_decode_ref(q, k, v, 50, 20))
+
+
+@pytest.mark.parametrize("grow_on", [1, 2])
+def test_ticket_store_is_per_device_and_stream(monkeypatch, grow_on):
+    """The combine's tickets are one int32 array per (device, stream
+    handle): distinct keys get distinct zeroed arrays, a key keeps its
+    array while it is large enough, and growing one key's array leaves
+    every other key's array as it was (it may still be in use by a kernel
+    on that stream)."""
+    monkeypatch.setattr(swa_kernel, "_ticket_arrays", {})
+    cpu, meta = torch.device("cpu"), torch.device("meta")
+    a = swa_kernel._tickets(cpu, 1, 16)
+    b = swa_kernel._tickets(cpu, 2, 16)
+    c = swa_kernel._tickets(meta, 1, 16)
+    assert a.dtype == torch.int32 and a.numel() >= 16 and not a.any()
+    assert a.data_ptr() != b.data_ptr() and c.device == meta
+    assert swa_kernel._tickets(cpu, 1, 16) is a
+    grown = swa_kernel._tickets(cpu, grow_on, 1 << 14)
+    assert grown.numel() >= 1 << 14 and not grown.any()
+    other = 3 - grow_on
+    kept = swa_kernel._tickets(cpu, other, 16)
+    assert kept is (a if other == 1 else b)
+    assert swa_kernel._tickets(meta, 1, 16) is c
+    assert set(swa_kernel._ticket_arrays) == {(cpu, 1), (cpu, 2), (meta, 1)}

@@ -104,6 +104,17 @@ def loss_case(b, g, d, t_stages, seed, dead_group=True):
     return xc, w, zq
 
 
+def at_offset(a: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `a` whose storage starts 4 bytes past a 16-byte
+    boundary: the input that sends the CUDA kernels down their scalar
+    paths (chip_smoke.py runs the same cases on the card)."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
 def with_margin(make, seed, tries=20):
     """make(seed) -> (x, w, zq, mask, m_q); the first seed from `seed` on
     whose inputs the filter's discrete decisions have margin."""
