@@ -12,7 +12,10 @@ between a tree's two turns. A turn runs chip_smoke.py's own code on its
 tree (through CHIP_SMOKE_SRC): each kernel of AB_SHAPES against its plain
 version at chip_smoke's bars (`check_alone`), then timed as chip_smoke
 times it (`time_shape`), and in each tree's first turn the two-stream K8
-check (`phase_k8_streams`). A failed check is recorded rather than raised,
+check (`phase_k8_streams`) and the widest d each wrapper of
+chip_smoke's PREV_WIDEST_D takes (`widest_d`: on the parent, the previous
+designs' limits that chip_smoke holds the new ones to). A failed check is
+recorded rather than raised,
 so an old tree's failures print beside the new tree's passes; the script
 exits nonzero if the NEW tree fails any. Prints the card's name and power
 limit, chip_smoke's lines of every turn, and a JSON summary as its last
@@ -29,9 +32,11 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (chip_smoke's shape constant, its seed there, the kernels compared at it)
-AB_SHAPES = (("TIMING_SHAPE", 7, ("cascade_score_batched", "cascade_loss_bwd")),
+REDESIGNED = ("cascade_score_batched", "cascade_score_batched_bwd",
+              "cascade_loss", "cascade_loss_bwd")
+AB_SHAPES = (("TIMING_SHAPE", 7, REDESIGNED),
              ("SERVE_SHAPE", 9, ("cascade_score_batched",)),
-             ("TRAIN_SHAPE", 8, ("cascade_score_batched", "cascade_loss_bwd")))
+             ("TRAIN_SHAPE", 8, REDESIGNED))
 
 
 def turn(src: str, streams: bool) -> dict:
@@ -58,7 +63,11 @@ def turn(src: str, streams: bool) -> dict:
             cs.phase_k8_streams()
         except AssertionError as e:
             failed.append(f"k8 streams: {e}")
-    return dict(rows=rows, failed=failed)
+        widest = [dict(kernel=name, t=t, d=cs.widest_d(name, t))
+                  for name, t in cs.PREV_WIDEST_D]
+    else:
+        widest = []
+    return dict(rows=rows, failed=failed, widest=widest)
 
 
 def main() -> None:
@@ -90,6 +99,9 @@ def main() -> None:
                   f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_ms'] / r['ms']:.1%}), max |err| against the "
                   f"plain version {r['max_abs_err']:.3g}")
+        for r in res["widest"]:
+            print(f"[ab] {name} {r['kernel']} takes d <= {r['d']} at "
+                  f"T={r['t']}")
         for f in res["failed"]:
             print(f"[ab] {name} FAILED {f}")
         turns.append(dict(tree=name, **res))

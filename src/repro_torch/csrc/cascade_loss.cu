@@ -22,59 +22,62 @@
 //     dxc = (main + pen) . w_eff on the feature lanes, exactly 0 on the four
 //     data lanes (the batch data is not differentiated).
 //
-// f32 in, f32 out, f32 accumulation; T <= 8, any d whose tile fits in
-// shared memory.
+// f32 in, f32 out, f32 accumulation; T <= 8, any d whose one warp's ring
+// fits in shared memory (K4 d <= 863 at T = 3, K5 d <= 716 at T = 8).
 //
 // What bounds them on this card: bytes. K4 reads d + 4 floats per item for
 // ~2*d*T flops plus a few transcendentals per stage; K5 also writes d + 4
 // floats per item for ~6*d*T flops: 1-3 flops per byte at d = 24, T = 3.
 //
-// K4's design (as K3, csrc/cascade_score_bwd.cu): one block per query
-// group, walking the group in tiles of kRows items with one thread per
-// item; the packed tile is read coalesced into shared memory (row stride
-// d + 5) and the logits are recomputed from it. Each item leaves its terms
-// in shared memory, one thread per output adds the tile's items in item
-// order into its own accumulator; ll and cnt_pp are final when the block
-// ends, cost_pp is a per-group partial that `ordered_sum_kernel`
-// (ordered_sum.cuh) adds in group order.
+// K4's and K5's designs share one map and one ring (warp_ring.cuh, also
+// K3's): persistent blocks of kWarps = 4 warps (one warp at a d too wide
+// for four warps' rings: `fwd_warps`, `bwd_warps`), one full wave of the
+// card; block k takes the groups k, k + grid, ..., and its warp w the
+// chunks w, w + kWarps, ... of 32 rows of each group, streamed through the
+// warp's own two-stage cp.async ring (16-byte copies when d % 4 == 0 and xc
+// is 16-byte aligned, else 4-byte copies: the scalar path, any d),
+// prefetching across group boundaries; only __syncwarp orders a warp's
+// stages, and the block meets once per group. Per chunk, lane = item
+// recomputes the item's logits and cumulative log pass-probabilities from
+// its packed row (float4 reads on the vector path).
 //
-// K5's design. K4's layout would leave K5 waiting: one thread per output
-// walking all of a tile's items in one dependent chain while the other
-// threads idle, several barriers a tile and no prefetch. Instead:
-//   * persistent blocks of kWarps = 4 warps (one warp at a d too wide for
-//     four warps' rings, see `bwd_warps`), one full wave of the card;
-//     block k takes the groups k, k + grid, ... (a static map: no counter,
-//     no atomics), and warp w of it the chunks w, w + kWarps, ... of 32
-//     rows of each group, so a group's chunks are scored side by side;
-//   * each warp streams its chunks through its own two-stage shared-memory
-//     ring filled by cp.async (16-byte copies when d % 4 == 0 and xc is
-//     16-byte aligned, else 4-byte copies: the scalar path, any d),
-//     prefetching across group boundaries; only __syncwarp orders a warp's
-//     stages, and the block meets once per group;
-//   * per chunk, lane = item recomputes the item's logits (as K4 does) and
-//     both logit-gradient streams into shared memory; then lane = column k
-//     walks the chunk's items in order:
-//     T chains a lane into the sums (k < d: dw, k = d: dzq, k = d + 1:
-//     dzq_pen, a column of ones) and the dxc row formed in place of the
-//     item (exact zeros on the four data lanes); the warp stores the chunk
-//     as one contiguous run, float4 where aligned;
-//   * sums in a fixed order, without float atomics: dzq and dzq_pen are, per
-//     group, each warp's chain over its chunks' items in order, the warps'
-//     chains added in warp order at the group's end (the block's one
-//     barrier per group); dw is each warp's chain over all its items, the
-//     warps' chains added in warp order into one partial per block, and
-//     `ordered_sum_kernel` adds the blocks' partials in block order. The
-//     warps and blocks depend only on (d, T) and the card, so the same
-//     inputs on the same card give the same bits
-//     (tests/test_torch_losses.py holds a plain copy of this order to the
-//     reference).
-//   * two instances of each path with four warps: one for T = 3 (CLOES's
-//     cascade, the main path), whose stage loops have three steps at
-//     compile time, and one for any T <= 8, whose loops run to 8 behind a
-//     test of j < T. The per-item arrays of 8 held ~128 registers with
-//     spills and left the warps waiting on instructions; at T = 3 the
-//     instance needs ~56-72 registers (on the H100 it takes ~44% less time
-//     at 4096 x 256). Both take the same sums in the same order.
+// K4 replaces its first design (one block of 128 threads per group, each
+// 128-row tile loaded, waited on, summed and stored in turn, an integer
+// divide per float, and one thread per output walking a tile's 128 items
+// while 121 of 128 threads idled: 26.8% of its bound at 4096 x 256). Lane
+// = item forms its 1 + 2T terms and adds them to chains the lane holds in
+// registers; nothing is staged or walked:
+//   * ll and cnt_pp are per group: each lane's chain over its warp's chunks
+//     of the group (its item of each, in chunk order), the 32 lanes' chains
+//     added in a butterfly (`warp_sum`) at the group's end, and the warps'
+//     sums in warp order after the block's one barrier per group;
+//   * cost_pp is over the whole grid: each lane's chain over all its items
+//     of all the block's groups, a butterfly at the end, the warps' sums in
+//     warp order into one partial per block, and `ordered_sum_kernel` adds
+//     the blocks' partials in block order.
+//
+// K5: lane = item also forms both logit-gradient streams into shared
+// memory; then lane = column k walks the chunk's items in order: T chains a
+// lane into the sums (k < d: dw, k = d: dzq, k = d + 1: dzq_pen, a column
+// of ones) and the dxc row formed in place of the item (exact zeros on the
+// four data lanes); the warp stores the chunk as one contiguous run, float4
+// where aligned. dzq and dzq_pen are, per group, each warp's chain over its
+// chunks' items in order, the warps' chains added in warp order at the
+// group's end; dw is each warp's chain over all its items, the warps'
+// chains added in warp order into one partial per block, and
+// `ordered_sum_kernel` adds the blocks' partials in block order. K4's first
+// layout (above) would have left K5 waiting.
+//
+// Both: sums in a fixed order, without float atomics. The warps and blocks
+// depend only on (d, T) and the card, so the same inputs on the same card
+// give the same bits (tests/test_torch_losses.py holds plain copies of both
+// orders to the reference). Two instances of each path with four warps: one
+// for T = 3 (CLOES's cascade, the main path), whose stage loops have three
+// steps at compile time, and one for any T <= 8, whose loops run to 8 behind
+// a test of j < T. The per-item arrays of 8 held ~128 registers with spills
+// in K5 and left the warps waiting on instructions; at T = 3 its instance
+// needs ~56-72 registers (on the H100 it takes ~44% less time at 4096 x
+// 256). Both instances take the same sums in the same order.
 // Padded items carry mask = wgt = cost_w = 0 and add nothing.
 
 #include <cuda_runtime.h>
@@ -82,46 +85,34 @@
 
 #include "common.cuh"
 #include "ordered_sum.cuh"
+#include "warp_ring.cuh"
 
 namespace {
 
 constexpr int kMaxStages = 8;
-constexpr int kRows = 128;             // K4: items per tile, one thread each
-constexpr int kWarps = 4;              // K5: warps per block, where they fit
-constexpr int kChunk = 32;             // K5: items per chunk, one lane each
-constexpr int kRing = 2;               // K5: a warp's stages (one in flight)
 constexpr int kDataCols = 4;           // y, mask, wgt, cost_w
 constexpr float kLogPClamp = -1e-7f;   // the NLL's clamp on log p
 
-// Load one tile of packed rows into shared memory (row stride dc + 1).
-__device__ __forceinline__ void load_tile(float* sx, const float* src,
-                                          int rows, int dc) {
-  for (int i = threadIdx.x; i < rows * dc; i += blockDim.x) {
-    const int r = i / dc;
-    sx[r * (dc + 1) + (i - r * dc)] = src[i];
-  }
-}
-
-// The item's logits (zq included) and cumulative log pass-probabilities.
+// An item's logits (zq included) and cumulative log pass-probabilities from
+// its packed row xr; lp[j] for j >= t repeats lp[t - 1], so lp[kS - 1] is
+// the last stage's. Also its four data columns, on the vector path the
+// row's float4 d / 4 (read as xr + d, K5 took 3% longer on the H100).
+template <bool VEC, int kS>
 __device__ __forceinline__ void item_scores(const float* xr, const float* sw,
-                                            const float* zb, int d, int t,
-                                            float* z, float* lp) {
+                                            const float (&zb)[kS], int d,
+                                            int t, float (&z)[kS],
+                                            float (&lp)[kS], float4& data) {
+  row_logits<VEC, kS>(xr, sw, d, t, z);
+  data = VEC ? reinterpret_cast<const float4*>(xr)[d / 4]
+             : make_float4(xr[d], xr[d + 1], xr[d + 2], xr[d + 3]);
+  float cum = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kMaxStages; ++j) z[j] = 0.0f;
-  for (int k = 0; k < d; ++k) {
-    const float xv = xr[k];
-#pragma unroll
-    for (int j = 0; j < kMaxStages; ++j)
-      if (j < t) z[j] = fmaf(xv, sw[j * d + k], z[j]);
-  }
-  float acc = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kMaxStages; ++j) {
+  for (int j = 0; j < kS; ++j) {
     if (j < t) {
       z[j] += zb[j];
-      acc += log_sigmoid(z[j]);
+      cum += log_sigmoid(z[j]);
     }
-    lp[j] = acc;      // so lp[kMaxStages - 1] is the last stage's, lp[t - 1]
+    lp[j] = cum;
   }
 }
 
@@ -129,68 +120,160 @@ __device__ __forceinline__ void item_scores(const float* xr, const float* sw,
 // K4: forward partials.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kRows)
+// Floats of one warp's shared memory: its ring of kRing (kChunk, dc) stages.
+__host__ __device__ __forceinline__ int fwd_warp_floats(int d) {
+  return kRing * kChunk * (d + kDataCols);
+}
+
+// Floats before the warps' memory: w_eff, the nw warps' per-group ll and
+// cnt_pp sums, double-buffered by group parity, and their cost_pp sums.
+__host__ __device__ __forceinline__ int fwd_shared_floats(int d, int t,
+                                                          int nw) {
+  return round4(t * d) + round4(2 * nw * (1 + t)) + round4(nw * t);
+}
+
+__host__ __device__ __forceinline__ size_t fwd_smem_floats(int d, int t,
+                                                           int nw) {
+  return (size_t)fwd_shared_floats(d, t, nw) + (size_t)nw * fwd_warp_floats(d);
+}
+
+// Warps per K4 block: kWarps up to d = 220 at T = 3 (215 at T = 8), then
+// one, whose ring fits up to d = 863 at T = 3 (803 at T = 8): wider than
+// its first design took (431, 406).
+int fwd_warps(int d, int t) { return ring_warps(fwd_smem_floats(d, t, kWarps)); }
+
+template <bool VEC, int NW, int TS>
+__global__ void __launch_bounds__(32 * NW)
 cascade_loss_kernel(const float* __restrict__ xc, const float* __restrict__ w,
                     const float* __restrict__ zq, float* __restrict__ ll,
                     float* __restrict__ cnt, float* __restrict__ cost_part,
                     int n_groups, int g, int d, int t) {
-  extern __shared__ float smem[];
+  // TS > 0: an instance for T = TS, whose stage loops have TS steps
+  constexpr int kS = TS > 0 ? TS : kMaxStages;
+  if (TS > 0) t = TS;
+  extern __shared__ __align__(16) float smem[];
   const int dc = d + kDataCols;
-  const int nv = 1 + 2 * t;            // per item: ll, cost (t), count (t)
-  float* sw = smem;                    // (t, d)
-  float* sx = sw + t * d;              // (kRows, dc + 1)
-  float* sv = sx + kRows * (dc + 1);   // (kRows, nv)
-  float* acc = sv + kRows * nv;        // (nv)
+  const int nv = 1 + t;                // per group: ll, cnt_pp (t)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* sw = smem;                                        // (t, d)
+  float* part = smem + round4(t * d);                      // (2, NW, nv)
+  float* cpart = part + round4(2 * NW * nv);               // (NW, t)
+  float* ring = smem + fwd_shared_floats(d, t, NW) +
+                warp * fwd_warp_floats(d);                 // (kRing, 32, dc)
+  const int chunk_floats = kChunk * dc;
 
-  const int b = blockIdx.x;
   for (int i = threadIdx.x; i < t * d; i += blockDim.x) sw[i] = w[i];
-  for (int i = threadIdx.x; i < nv; i += blockDim.x) acc[i] = 0.0f;
-  float zb[kMaxStages];
-#pragma unroll
-  for (int j = 0; j < kMaxStages; ++j) zb[j] = j < t ? zq[b * t + j] : 0.0f;
+  __syncthreads();                     // sw is shared by the warps
 
-  const long long base = (long long)b * g;
-  for (int r0 = 0; r0 < g; r0 += kRows) {
-    const int rows = min(kRows, g - r0);
-    __syncthreads();
-    load_tile(sx, xc + (base + r0) * dc, rows, dc);
-    __syncthreads();
+  ChunkWalk c = chunk_walk<NW>(n_groups, g, warp);
+  auto copy = [&](int stage, int ib, int r0, int rows) {
+    copy_run<VEC>(ring + stage * chunk_floats, xc + ((long long)ib * g + r0) * dc,
+                  rows * dc, lane);
+  };
+  stage_next_chunk<NW>(c, g, warp, copy);
 
-    const int r = threadIdx.x;
-    if (r < rows) {
-      const float* xr = sx + r * (dc + 1);
-      float z[kMaxStages], lp[kMaxStages];
-      item_scores(xr, sw, zb, d, t, z, lp);
-      const float y = xr[d], mask = xr[d + 1], wgt = xr[d + 2],
-                  cost_w = xr[d + 3];
-      const float lpc = fminf(lp[kMaxStages - 1], kLogPClamp);
-      float* v = sv + r * nv;
-      v[0] = (wgt * mask) * (y * lpc + (1.0f - y) * log1pf(-expf(lpc)));
+  float cost[kS];                      // the lane's cost_pp chains
 #pragma unroll
-      for (int j = 0; j < kMaxStages; ++j) {
-        if (j < t) {
-          const float pp = expf(lp[j]);
-          v[1 + j] = pp * cost_w;
-          v[1 + t + j] = pp * mask;
+  for (int j = 0; j < kS; ++j) cost[j] = 0.0f;
+
+  int q = 0;                           // the warp's chunks worked on
+  for (int gi = 0; gi < c.n_mine; ++gi) {
+    const int b = blockIdx.x + gi * gridDim.x;
+    float zb[kS], s_cnt[kS];
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      zb[j] = j < t ? __ldg(zq + b * t + j) : 0.0f;
+      s_cnt[j] = 0.0f;
+    }
+    float s_ll = 0.0f;
+
+    for (int m = 0; m < c.my_nc; ++m, ++q) {
+      // Chunk q is in, and chunk q - 1 is read: refill its stage with
+      // chunk q + 1 while this one is worked on.
+      cp_async_wait<0>();
+      __syncwarp();
+      stage_next_chunk<NW>(c, g, warp, copy);
+      const int rows = min(kChunk, g - (warp + m * NW) * kChunk);
+      // Lane = item: its terms, added to the lane's chains.
+      if (lane < rows) {
+        float z[kS], lp[kS];
+        float4 data;                   // y, mask, wgt, cost_w
+        item_scores<VEC, kS>(ring + (q % kRing) * chunk_floats + lane * dc,
+                             sw, zb, d, t, z, lp, data);
+        const float y = data.x, mask = data.y, wgt = data.z,
+                    cost_w = data.w;
+        const float lpc = fminf(lp[kS - 1], kLogPClamp);
+        s_ll += (wgt * mask) * (y * lpc + (1.0f - y) * log1pf(-expf(lpc)));
+#pragma unroll
+        for (int j = 0; j < kS; ++j) {
+          if (j < t) {
+            const float pp = expf(lp[j]);
+            cost[j] += pp * cost_w;
+            s_cnt[j] += pp * mask;
+          }
         }
       }
     }
+
+    // Group b's end: the lanes' chains meet in a butterfly, and the warps'
+    // sums (zero for a warp with no chunk in it) are added in warp order.
+    s_ll = warp_sum(s_ll);
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      if (j < t) s_cnt[j] = warp_sum(s_cnt[j]);
+    float* pw = part + ((gi & 1) * NW + warp) * nv;
+    if (lane == 0) {
+      pw[0] = s_ll;
+#pragma unroll
+      for (int j = 0; j < kS; ++j)
+        if (j < t) pw[1 + j] = s_cnt[j];
+    }
     __syncthreads();
-    for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-      float a = acc[j];
-      for (int i = 0; i < rows; ++i) a += sv[i * nv + j];
-      acc[j] = a;
+    const float* pg = part + (gi & 1) * NW * nv;
+    for (int e = threadIdx.x; e < nv; e += blockDim.x) {
+      float sum = pg[e];
+      for (int wp = 1; wp < NW; ++wp) sum += pg[wp * nv + e];
+      if (e == 0)
+        ll[b] = sum;
+      else
+        cnt[b * t + e - 1] = sum;
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
-    if (j == 0)
-      ll[b] = acc[0];
-    else if (j <= t)
-      cost_part[(long long)(j - 1) * n_groups + b] = acc[j];
-    else
-      cnt[b * t + (j - 1 - t)] = acc[j];
+  cp_async_wait_all();
+
+  // The block's cost_pp partial: the lanes' chains in a butterfly, the
+  // warps' sums added in warp order.
+#pragma unroll
+  for (int j = 0; j < kS; ++j)
+    if (j < t) cost[j] = warp_sum(cost[j]);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      if (j < t) cpart[warp * t + j] = cost[j];
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < t; e += blockDim.x) {
+    float sum = cpart[e];
+    for (int wp = 1; wp < NW; ++wp) sum += cpart[wp * t + e];
+    cost_part[(long long)e * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+template <bool VEC, int NW, int TS>
+int launch_fwd(const float* xc, const float* w, const float* zq, float* ll,
+               float* cost_pp, float* cnt_pp, float* cost_part, int b, int g,
+               int d, int t, cudaStream_t s) {
+  const size_t smem = sizeof(float) * fwd_smem_floats(d, t, NW);
+  cudaError_t e = allow_smem(cascade_loss_kernel<VEC, NW, TS>, smem);
+  if (e != cudaSuccess) return (int)e;
+  // one full wave of the card, at most one block per group
+  const int blocks =
+      one_wave_blocks(cascade_loss_kernel<VEC, NW, TS>, 32 * NW, smem, b);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  cascade_loss_kernel<VEC, NW, TS><<<blocks, 32 * NW, smem, s>>>(
+      xc, w, zq, ll, cnt_pp, cost_part, b, g, d, t);
+  launch_ordered_sum(cost_part, cost_pp, t, blocks, s);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -220,43 +303,8 @@ __host__ __device__ __forceinline__ size_t bwd_smem_floats(int d, int t,
 
 // Warps per K5 block: kWarps where their rings fit in a block's shared
 // memory, else one (d > 185 at T = 8, d > 214 at T = 1), whose ring fits up
-// to d = 716 at T = 8 (872 at T = 1): wider than K3 and K4 take.
-int bwd_warps(int d, int t) {
-  return sizeof(float) * bwd_smem_floats(d, t, kWarps) <= kMaxSmemBytes
-             ? kWarps
-             : 1;
-}
-
-// Copy a warp's next chunk (group ib, chunk ic: rows ic * 32 ..) into its
-// stage `issued % kRing` when it has one left, and step (ib, ic) on to the
-// warp's following chunk: chunks ic, ic + NW, ... of each group, then
-// the block's next group. 16-byte copies on the vector path, 4-byte ones on
-// the scalar path. One commit group per call (empty when no chunk is left),
-// so the waits count chunks.
-template <bool VEC, int NW>
-__device__ __forceinline__ void stage_next_chunk(
-    float* ring_buf, const float* xc, int& issued, int& ib, int& ic,
-    int n_chunks, int g, int dc, int nc, int warp, int lane) {
-  if (issued < n_chunks) {
-    const int r0 = ic * kChunk;
-    const int n = min(kChunk, g - r0) * dc;
-    const float* src = xc + ((long long)ib * g + r0) * dc;
-    float* dst = ring_buf + (issued % kRing) * (kChunk * dc);
-    if (VEC) {
-      for (int e = lane; e < n / 4; e += 32)
-        cp_async16(dst + 4 * e, src + 4 * e);
-    } else {
-      for (int e = lane; e < n; e += 32) cp_async4(dst + e, src + e);
-    }
-    ++issued;
-    ic += NW;
-    if (ic >= nc) {
-      ic = warp;
-      ib += gridDim.x;
-    }
-  }
-  cp_async_commit();
-}
+// to d = 716 at T = 8 (872 at T = 1).
+int bwd_warps(int d, int t) { return ring_warps(bwd_smem_floats(d, t, kWarps)); }
 
 template <bool VEC, int NW, int TS>
 __global__ void __launch_bounds__(32 * NW)
@@ -291,25 +339,19 @@ cascade_loss_bwd_kernel(const float* __restrict__ xc,
   for (int i = lane; i < t * n_col; i += 32) acc[i] = 0.0f;
   __syncthreads();                     // sw is shared by the warps
 
-  // The block's groups blockIdx.x, + gridDim.x, ...; warp w takes chunks
-  // w, w + NW, ... of each (of nc chunks of 32 rows): my_nc of them.
-  const int nc = (g + kChunk - 1) / kChunk;
-  const int my_nc = nc > warp ? (nc - 1 - warp) / NW + 1 : 0;
-  const int n_mine = (int)blockIdx.x < n_groups
-                         ? (n_groups - 1 - blockIdx.x) / gridDim.x + 1
-                         : 0;
-  const int n_chunks = n_mine * my_nc;
-
-  int issued = 0, ib = blockIdx.x, ic = warp;   // the next chunk to copy
-  stage_next_chunk<VEC, NW>(ring_buf, xc, issued, ib, ic, n_chunks, g, dc, nc,
-                        warp, lane);
+  ChunkWalk c = chunk_walk<NW>(n_groups, g, warp);
+  auto copy = [&](int stage, int ib, int r0, int rows) {
+    copy_run<VEC>(ring_buf + stage * chunk_floats,
+                  xc + ((long long)ib * g + r0) * dc, rows * dc, lane);
+  };
+  stage_next_chunk<NW>(c, g, warp, copy);
 
   float gcost[kS];
 #pragma unroll
   for (int j = 0; j < kS; ++j) gcost[j] = j < t ? g_cost[j] : 0.0f;
 
   int q = 0;                           // the warp's chunks worked on
-  for (int gi = 0; gi < n_mine; ++gi) {
+  for (int gi = 0; gi < c.n_mine; ++gi) {
     const int b = blockIdx.x + gi * gridDim.x;
     float zb[kS], gcnt[kS];
 #pragma unroll
@@ -319,60 +361,23 @@ cascade_loss_bwd_kernel(const float* __restrict__ xc,
     }
     const float gll = __ldg(g_ll + b);
 
-    for (int m = 0; m < my_nc; ++m, ++q) {
+    for (int m = 0; m < c.my_nc; ++m, ++q) {
       // Chunk q is in, and chunk q - 1 is stored out: refill its stage
       // with chunk q + 1 while this one is worked on.
       cp_async_wait<0>();
       __syncwarp();
-      stage_next_chunk<VEC, NW>(ring_buf, xc, issued, ib, ic, n_chunks, g, dc,
-                            nc, warp, lane);
+      stage_next_chunk<NW>(c, g, warp, copy);
       float* sx = ring_buf + (q % kRing) * chunk_floats;
       const int r0 = (warp + m * NW) * kChunk;
       const int rows = min(kChunk, g - r0);
 
       // Lane = item: the logits and the two logit-gradient streams.
       if (lane < rows) {
-        const float* xr = sx + lane * dc;
         float z[kS], lp[kS];
-#pragma unroll
-        for (int j = 0; j < kS; ++j) z[j] = 0.0f;
-        float y, mask, wgt, cost_w;
-        if (VEC) {
-          const float4* x4 = reinterpret_cast<const float4*>(xr);
-          const float4* w4 = reinterpret_cast<const float4*>(sw);
-          for (int k4 = 0; k4 < d / 4; ++k4) {
-            const float4 a = x4[k4];
-#pragma unroll
-            for (int j = 0; j < kS; ++j) {
-              if (j < t) {
-                const float4 wv = w4[j * (d / 4) + k4];
-                z[j] = fmaf(a.x, wv.x, z[j]);
-                z[j] = fmaf(a.y, wv.y, z[j]);
-                z[j] = fmaf(a.z, wv.z, z[j]);
-                z[j] = fmaf(a.w, wv.w, z[j]);
-              }
-            }
-          }
-          const float4 dv = x4[d / 4];
-          y = dv.x, mask = dv.y, wgt = dv.z, cost_w = dv.w;
-        } else {
-          for (int k = 0; k < d; ++k) {
-            const float xv = xr[k];
-#pragma unroll
-            for (int j = 0; j < kS; ++j)
-              if (j < t) z[j] = fmaf(xv, sw[j * d + k], z[j]);
-          }
-          y = xr[d], mask = xr[d + 1], wgt = xr[d + 2], cost_w = xr[d + 3];
-        }
-        float cum = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kS; ++j) {
-          if (j < t) {
-            z[j] += zb[j];
-            cum += log_sigmoid(z[j]);
-          }
-          lp[j] = cum;  // so lp[kS - 1] is the last stage's, lp[t-1]
-        }
+        float4 data;                   // y, mask, wgt, cost_w
+        item_scores<VEC, kS>(sx + lane * dc, sw, zb, d, t, z, lp, data);
+        const float y = data.x, mask = data.y, wgt = data.z,
+                    cost_w = data.w;
         const float lpl = lp[kS - 1];
         const float ppc = expf(fminf(lpl, kLogPClamp));
         const float dll =
@@ -404,7 +409,6 @@ cascade_loss_bwd_kernel(const float* __restrict__ xc,
         }
       }
       __syncwarp();
-
       // Lane = column k of the chunk's rows, item by item in order: the
       // chains (k < d: dw, k = d: dzq, k = d + 1: dzq_pen; T a lane; the
       // last two multiply by 1, and fmaf(v, 1, a) is a + v exactly, so
@@ -453,15 +457,7 @@ cascade_loss_bwd_kernel(const float* __restrict__ xc,
         }
       }
       __syncwarp();
-      const int n = rows * dc;
-      float* dst = dxc + ((long long)b * g + r0) * dc;
-      if (VEC) {
-        for (int e = lane; e < n / 4; e += 32)
-          reinterpret_cast<float4*>(dst)[e] =
-              reinterpret_cast<const float4*>(sx)[e];
-      } else {
-        for (int e = lane; e < n; e += 32) dst[e] = sx[e];
-      }
+      store_run<VEC>(dxc + ((long long)b * g + r0) * dc, sx, rows * dc, lane);
     }
 
     // Group b's end: each warp's dzq and dzq_pen chains (zero for a warp
@@ -514,6 +510,12 @@ int launch_bwd(const float* xc, const float* w, const float* zq,
   return (int)cudaGetLastError();
 }
 
+// 16-byte copies where the packed rows' width and xc's base allow them.
+bool packed_vec(const float* xc, int d) {
+  return (d + kDataCols) % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(xc) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -521,28 +523,30 @@ extern "C" {
 // Dynamic shared memory of one launch; the wrappers refuse shapes above the
 // card's per-block limit before launching.
 size_t cascade_loss_smem(int d, int t) {
-  const size_t dc = (size_t)d + kDataCols;
-  return sizeof(float) * ((size_t)t * d + kRows * (dc + 1) +
-                          kRows * (1 + 2 * (size_t)t) + 1 + 2 * (size_t)t);
+  return sizeof(float) * fwd_smem_floats(d, t, fwd_warps(d, t));
 }
 
 size_t cascade_loss_bwd_smem(int d, int t) {
   return sizeof(float) * bwd_smem_floats(d, t, bwd_warps(d, t));
 }
 
-// cost_part is scratch of t * b floats. Returns cudaGetLastError() after
-// both launches (0 = launched).
+// cost_part is scratch of t * b floats (one partial per block is used, at
+// most one block per group). Returns cudaGetLastError() after both
+// launches (0 = launched).
 int cascade_loss(const float* xc, const float* w, const float* zq, float* ll,
                  float* cost_pp, float* cnt_pp, float* cost_part, int b,
                  int g, int d, int t, void* stream) {
-  const size_t smem = cascade_loss_smem(d, t);
-  cudaError_t e = allow_smem(cascade_loss_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  cascade_loss_kernel<<<b, kRows, smem, s>>>(xc, w, zq, ll, cnt_pp,
-                                             cost_part, b, g, d, t);
-  launch_ordered_sum(cost_part, cost_pp, t, b, s);
-  return (int)cudaGetLastError();
+  const bool vec = packed_vec(xc, d);
+  // an instance for CLOES's T = 3, and one for any T
+  const bool four = fwd_warps(d, t) == kWarps;
+  auto run = four && t == 3
+                 ? (vec ? launch_fwd<true, kWarps, 3>
+                        : launch_fwd<false, kWarps, 3>)
+             : four ? (vec ? launch_fwd<true, kWarps, 0>
+                           : launch_fwd<false, kWarps, 0>)
+                    : (vec ? launch_fwd<true, 1, 0> : launch_fwd<false, 1, 0>);
+  return run(xc, w, zq, ll, cost_pp, cnt_pp, cost_part, b, g, d, t,
+             (cudaStream_t)stream);
 }
 
 // dw_part is scratch of t * d * b floats (one partial per block is used,
@@ -553,9 +557,7 @@ int cascade_loss_bwd(const float* xc, const float* w, const float* zq,
                      const float* g_cnt, float* dxc, float* dw, float* dzq,
                      float* dzq_pen, float* dw_part, int b, int g, int d,
                      int t, void* stream) {
-  const bool vec = (d + kDataCols) % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(xc) & 15) == 0;
-  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = packed_vec(xc, d);
   // an instance for CLOES's T = 3, and one for any T
   const bool four = bwd_warps(d, t) == kWarps;
   auto run = four && t == 3
@@ -565,7 +567,7 @@ int cascade_loss_bwd(const float* xc, const float* w, const float* zq,
                            : launch_bwd<false, kWarps, 0>)
                     : (vec ? launch_bwd<true, 1, 0> : launch_bwd<false, 1, 0>);
   return run(xc, w, zq, g_ll, g_cost, g_cnt, dxc, dw, dzq, dzq_pen, dw_part,
-             b, g, d, t, s);
+             b, g, d, t, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -35,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("cascade_score.cu", "cascade_filter.cu", "cascade_score_bwd.cu",
            "cascade_loss.cu", "swa_decode.cu", "cascade_score_single.cu")
-HEADERS = ("common.cuh", "ordered_sum.cuh")   # included; part of the key
+HEADERS = ("common.cuh", "ordered_sum.cuh",    # included; part of the key
+           "warp_ring.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libcascade_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

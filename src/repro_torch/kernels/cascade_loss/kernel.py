@@ -56,7 +56,9 @@ def cascade_loss(xc: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor
     if b == 0:
         return ll, torch.zeros((t,), device=device), cnt
     cost = torch.empty((t,), dtype=torch.float32, device=device)
-    cost_part = torch.empty((t, b), dtype=torch.float32, device=device)
+    # scratch of the per-block cost_pp partials, kept at B blocks: the grid
+    # is one wave of the card, at most one block per group
+    cost_part = torch.empty(t * b, dtype=torch.float32, device=device)
     lib = _build.load_library()
     check_smem(op, lib.cascade_loss_smem(d, t), d)
     with torch.cuda.device(device):
@@ -95,7 +97,8 @@ def cascade_loss_bwd(xc: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
     if b == 0:
         return dxc, torch.zeros((t, d), device=device), dzq, dzq_pen
     dw = torch.empty((t, d), dtype=torch.float32, device=device)
-    dw_part = torch.empty((t * d, b), dtype=torch.float32, device=device)
+    # as cost_part in cascade_loss
+    dw_part = torch.empty(t * d * b, dtype=torch.float32, device=device)
     lib = _build.load_library()
     check_smem(op, lib.cascade_loss_bwd_smem(d, t), d)
     with torch.cuda.device(device):

@@ -81,7 +81,9 @@ def cascade_score_batched_bwd(x: torch.Tensor, w_eff: torch.Tensor,
     if b == 0:
         return dx, torch.zeros((t, d), device=device), dzq
     dw = torch.empty((t, d), dtype=torch.float32, device=device)
-    dw_part = torch.empty((t * d, b), dtype=torch.float32, device=device)
+    # scratch of the per-block dw partials, kept at B blocks: the grid is
+    # one wave of the card, at most one block per group
+    dw_part = torch.empty(t * d * b, dtype=torch.float32, device=device)
     lib = _build.load_library()
     check_smem(op, lib.cascade_score_bwd_smem(d, t), d)
     with torch.cuda.device(device):

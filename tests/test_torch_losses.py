@@ -15,6 +15,7 @@ it. The cross-package tests keep lp_T away from the clamp; one test builds
 an exact tie and pins each port path to the reference path it ports.
 """
 
+import functools
 import importlib
 import itertools
 
@@ -26,10 +27,15 @@ import torch
 
 from repro.core import losses as JL
 from repro.data import features as JF
+from repro.kernels.cascade_loss.kernel import cascade_loss as jloss
 from repro.kernels.cascade_loss.kernel import cascade_loss_bwd as jloss_bwd
+from repro.kernels.cascade_score.kernel import (
+    cascade_score_batched_bwd as jscore_bwd)
 from repro_torch.core import losses as TL
 from repro_torch.kernels import ops as TK
 from repro_torch.kernels.cascade_loss.kernel import LOG_P_CLAMP, pack_items
+from repro_torch.kernels.cascade_score.ref import (
+    cascade_score_batched_bwd_ref)
 from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
                                                   cascade_loss_ref)
 from torch_parity import at_offset, cascades, close, loss_case, t
@@ -322,6 +328,29 @@ def _ordered_sum(part: torch.Tensor) -> torch.Tensor:
     return s[:, 0]
 
 
+def _warp_rows(g, warp, n_warps):
+    """The chunks of a group that warp `warp` of n_warps takes, in its order:
+    (first row, rows) of chunks warp, warp + n_warps, ... of 32 rows."""
+    return [(c0, min(32, g - c0)) for c0 in range(32 * warp, g, 32 * n_warps)]
+
+
+def _butterfly(a: torch.Tensor) -> torch.Tensor:
+    """warp_sum (csrc/warp_ring.cuh) on the 32 lanes' values a (32, ...):
+    a[l] += a[l ^ off] for off = 16, 8, 4, 2, 1; every lane ends with the
+    same sum, lane 0's is returned."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        a = a + a[lanes ^ off]
+    return a[0]
+
+
+def _in_warp_order(sums):
+    total = sums[0]
+    for s_ in sums[1:]:
+        total = total + s_
+    return total
+
+
 def _k5_order_mirror(xc, w, zq, g_ll, g_cost, g_cnt, n_blocks, n_warps):
     """K5's outputs with its sums taken in the kernel's order: the per-item
     logit-gradient streams as `cascade_loss_bwd_ref` forms them; block k of
@@ -355,19 +384,13 @@ def _k5_order_mirror(xc, w, zq, g_ll, g_cost, g_cnt, n_blocks, n_warps):
         for grp in range(blk, b, n_blocks):
             chains = torch.zeros(n_warps, 2, n_t)
             for v in range(n_warps):
-                for c0 in range(32 * v, g, 32 * n_warps):
-                    for i in range(c0, min(c0 + 32, g)):
+                for c0, rows in _warp_rows(g, v, n_warps):
+                    for i in range(c0, c0 + rows):
                         warp_dw[v] = warp_dw[v] + gm[grp, i][:, None] * x[grp, i]
                         chains[v, 0] = chains[v, 0] + gm[grp, i]
                         chains[v, 1] = chains[v, 1] + gp[grp, i]
-            total = chains[0]
-            for v in range(1, n_warps):
-                total = total + chains[v]
-            dzq[grp], dzq_pen[grp] = total
-        acc = warp_dw[0]
-        for v in range(1, n_warps):
-            acc = acc + warp_dw[v]
-        block_dw[blk] = acc
+            dzq[grp], dzq_pen[grp] = _in_warp_order(chains)
+        block_dw[blk] = _in_warp_order(warp_dw)
     dw = _ordered_sum(block_dw.reshape(n_blocks, -1).T).reshape(n_t, d)
     dxc = torch.nn.functional.pad(torch.einsum("bgt,td->bgd", gm + gp, w),
                                   (0, 4))
@@ -416,6 +439,152 @@ def test_k5_plain_on_xc_at_a_4_byte_offset(d):
     for a, r in zip(got, want):
         close(a, r, rtol=BWD_RTOL, atol=BWD_ATOL)
     assert float(got[0][..., d:].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# K3's and K4's fixed summation orders (csrc/cascade_score_bwd.cu,
+# csrc/cascade_loss.cu: K5's block / warp / chunk map), in plain code
+# ---------------------------------------------------------------------------
+
+# Nine groups of 166 items: six chunks of 32 rows, the last of 6, so with
+# four warps a block warps 0 and 1 take two chunks of each group and warps
+# 2 and 3 one; over one block (all nine groups in one block's chains), three
+# (three groups a block) and nine (a group a block).
+ORDER_B, ORDER_G, ORDER_D = 9, 166, 24
+ORDER_BLOCKS, ORDER_WARPS, ORDER_T = (1, 3, 9), (1, 4), (1, 3, 8)
+FWD_RTOL, FWD_ATOL = (2e-5, 1e-5, 1e-5), 1e-5   # test_torch_kernels.py's
+
+
+def _k3_order_mirror(x, w, zq, g, n_blocks, n_warps):
+    """K3's outputs with its sums taken in the kernel's order: g_logit per
+    item as `cascade_score_batched_bwd_ref` forms it; block k of n_blocks
+    takes the groups k, k + n_blocks, ..., its warp v the chunks v,
+    v + n_warps, ... of each. dzq: per group, each warp's chain over its
+    chunks' items in order, the warps' chains added in warp order. dw: each
+    warp's chain over all its items in order, the warps' chains added in
+    warp order into one partial per block, the blocks' partials added as
+    ordered_sum_kernel adds them. dx is per item and has no order."""
+    b, n_items, d = x.shape
+    logits = torch.einsum("bgd,td->bgt", x, w) + zq[:, None, :]
+    gc = g.sum(-1, keepdim=True) - torch.cumsum(g, -1) + g
+    gl = gc * torch.sigmoid(-logits)
+    n_t = gl.shape[-1]
+    dzq = torch.zeros(b, n_t)
+    block_dw = torch.zeros(n_blocks, n_t, d)
+    for blk in range(n_blocks):
+        warp_dw = torch.zeros(n_warps, n_t, d)
+        for grp in range(blk, b, n_blocks):
+            chains = torch.zeros(n_warps, n_t)
+            for v in range(n_warps):
+                for c0, rows in _warp_rows(n_items, v, n_warps):
+                    for i in range(c0, c0 + rows):
+                        warp_dw[v] = warp_dw[v] + gl[grp, i][:, None] * x[grp, i]
+                        chains[v] = chains[v] + gl[grp, i]
+            dzq[grp] = _in_warp_order(chains)
+        block_dw[blk] = _in_warp_order(warp_dw)
+    dw = _ordered_sum(block_dw.reshape(n_blocks, -1).T).reshape(n_t, d)
+    return torch.einsum("bgt,td->bgd", gl, w), dw, dzq
+
+
+def _k4_order_mirror(xc, w, zq, n_blocks, n_warps):
+    """K4's outputs with its sums taken in the kernel's order, on the map of
+    _k3_order_mirror: lane = item of a chunk adds the item's terms (as
+    `cascade_loss_bwd_ref` forms lp) to chains the lane holds. ll and
+    cnt_pp: per group, each lane's chain over its warp's chunks in order,
+    the 32 lanes' chains in warp_sum's butterfly, the warps' sums in warp
+    order. cost_pp: each lane's chain over all its items of all the block's
+    groups, a butterfly at the end, the warps' sums in warp order into one
+    partial per block, the blocks' partials as ordered_sum_kernel adds
+    them."""
+    b, n_items, dc = xc.shape
+    d = dc - 4
+    x, y, mask, wgt, cost_w = (xc[..., :d], *[xc[..., d + i]
+                                              for i in range(4)])
+    logits = torch.einsum("bgd,td->bgt", x, w) + zq[:, None, :]
+    lp = torch.cumsum(torch.nn.functional.logsigmoid(logits), dim=-1)
+    pp, n_t = torch.exp(lp), lp.shape[-1]
+    lpc = torch.clamp_max(lp[..., -1], LOG_P_CLAMP)
+    ll_terms = (wgt * mask) * (y * lpc + (1.0 - y) * torch.log1p(-torch.exp(lpc)))
+    group_terms = torch.cat([ll_terms[..., None], pp * mask[..., None]], -1)
+    cost_terms = pp * cost_w[..., None]
+    ll, cnt = torch.zeros(b), torch.zeros(b, n_t)
+    block_cost = torch.zeros(n_blocks, n_t)
+    for blk in range(n_blocks):
+        lane_cost = torch.zeros(n_warps, 32, n_t)
+        for grp in range(blk, b, n_blocks):
+            sums = []
+            for v in range(n_warps):
+                lanes = torch.zeros(32, 1 + n_t)
+                for c0, rows in _warp_rows(n_items, v, n_warps):
+                    lanes[:rows] = lanes[:rows] + group_terms[grp, c0:c0 + rows]
+                    lane_cost[v, :rows] = (lane_cost[v, :rows]
+                                           + cost_terms[grp, c0:c0 + rows])
+                sums.append(_butterfly(lanes))
+            total = _in_warp_order(sums)
+            ll[grp], cnt[grp] = total[0], total[1:]
+        block_cost[blk] = _in_warp_order([_butterfly(lc) for lc in lane_cost])
+    return ll, _ordered_sum(block_cost.T), cnt
+
+
+def _order_case(t_stages):
+    xc, w, zq = loss_case(ORDER_B, ORDER_G, ORDER_D, t_stages,
+                          seed=31 + t_stages)
+    rng = np.random.default_rng(t_stages)
+    gct = (rng.normal(size=(ORDER_B, ORDER_G, t_stages))
+           * xc[..., ORDER_D + 1:ORDER_D + 2]).astype(np.float32)
+    return xc, w, zq, gct
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_wanted(t_stages):
+    """K3's case at T = t_stages, its closed form and the reference's
+    interpreted kernel (one interpreted run per T for the 6 orders)."""
+    xc, w, zq, gct = _order_case(t_stages)
+    x = np.ascontiguousarray(xc[..., :ORDER_D])
+    args = tuple(map(t, (x, w, zq, gct)))
+    return (args, cascade_score_batched_bwd_ref(*args),
+            jscore_bwd(*map(jnp.asarray, (x, w, zq, gct)), interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_wanted(t_stages):
+    xc, w, zq, _ = _order_case(t_stages)
+    args = tuple(map(t, (xc, w, zq)))
+    return (args, cascade_loss_ref(*args),
+            jloss(*map(jnp.asarray, (xc, w, zq)), d_x=ORDER_D, interpret=True))
+
+
+@pytest.mark.parametrize("t_stages", ORDER_T)
+@pytest.mark.parametrize("n_warps", ORDER_WARPS)
+@pytest.mark.parametrize("n_blocks", ORDER_BLOCKS)
+def test_k3_summation_order_matches_reference(n_blocks, n_warps, t_stages):
+    """A plain copy of K3's summation order against its closed form and
+    the reference's interpreted kernel at the backward bars; the masked
+    items' zero cotangent adds nothing (group 0 is fully masked)."""
+    args, want_ref, want_kernel = _k3_wanted(t_stages)
+    got = _k3_order_mirror(*args, n_blocks=n_blocks, n_warps=n_warps)
+    for a, r_ref, r_kernel in zip(got, want_ref, want_kernel):
+        close(a, r_ref, rtol=BWD_RTOL, atol=BWD_ATOL)
+        close(a, r_kernel, rtol=BWD_RTOL, atol=BWD_ATOL)
+    assert float(got[0][0].abs().max()) == float(got[2][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("t_stages", ORDER_T)
+@pytest.mark.parametrize("n_warps", ORDER_WARPS)
+@pytest.mark.parametrize("n_blocks", ORDER_BLOCKS)
+def test_k4_summation_order_matches_reference(n_blocks, n_warps, t_stages):
+    """A plain copy of K4's summation order against its plain version and
+    the reference's interpreted kernel at the forward bars (ll at 2e-5: the
+    plain version takes it in probability space); the fully masked group 0
+    adds nothing to its ll and counts."""
+    args, want_ref, want_kernel = _k4_wanted(t_stages)
+    got = _k4_order_mirror(*args, n_blocks=n_blocks, n_warps=n_warps)
+    assert [tuple(a.shape) for a in got] == [(ORDER_B,), (t_stages,),
+                                             (ORDER_B, t_stages)]
+    for a, r_ref, r_kernel, rtol in zip(got, want_ref, want_kernel, FWD_RTOL):
+        close(a, r_ref, rtol=rtol, atol=FWD_ATOL)
+        close(a, r_kernel, rtol=rtol, atol=FWD_ATOL)
+    assert float(got[0][0]) == 0.0 and float(got[2][0].abs().max()) == 0.0
 
 
 def _params(seed=0):
