@@ -35,9 +35,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    last N // 4 rows zero (held to cumsum log sigmoid(zq)): forward at
    rtol/atol 1e-5 (bfloat16 too: kernel and plain version up-cast the same
    values), K6's backward at rtol 1e-4 / atol 5e-5 (dw and dzq, sums over
-   all N items, with 2^-24 sum_i |term_i| more), K7 against K6. Every
-   kernel launched twice on the same inputs gives the same bits (K6 and K7
-   on the timing shape's 1,048,576 items as one group);
+   all N items, with 2^-24 sum_i |term_i| more), K7 against K6. K6 and
+   its backward on B groups in one launch (the launch a vmapped call
+   makes) at the same bars, float32 and bfloat16, over (B, N) in {(64,
+   64), (5000, 7), (3, 262144), (1, 1048576)} and (2, 100) at d = 400,
+   with zq per group and shared, d in {5, 13, 27} and x at a 4-byte
+   storage offset, each launched twice for the same bits. Every kernel
+   launched twice on the same inputs gives the same bits (K6 and K7 on the
+   timing shape's 1,048,576 items as one group);
 4. timing: each kernel and its plain version at B=4096 groups of G=256
    items (d=24, T=3) and at the training shape: the median over 25 runs
    of 20 calls back to back between CUDA events (device time per call),
@@ -47,11 +52,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    groups of 256); K1, K3, K4 and K5 beside their previous design's times
    and their target shares of the bound (60%, 50%, 50%, 40%); each K2 time
    beside the (item, surviving item) pairs its data has per stage (the
-   first design's rank compares). K6, K6's backward and K7 so at N = 64
-   (the vmap fit's group, inputs warm in the L2), 4096, 65536, 262144 and
-   1,048,576 items (d=24, T=3; the reference kernel bench's N and K1's
-   item count), inputs rotated through copies past the L2, beside K1 at
-   B=1 on the same items;
+   first design's rank compares). K6 and its backward on the B groups of
+   both shapes in one launch, beside K1 and K3 there (within 1.25x of
+   them). K6, K6's backward and K7 so at N = 64 (the vmap fit's group,
+   inputs warm in the L2), 4096, 65536, 262144 and 1,048,576 items (d=24,
+   T=3; the reference kernel bench's N and K1's item count), inputs
+   rotated through copies past the L2, beside K1 at B=1 on the same items,
+   and K6 and its backward at 1,048,576 beside their previous design's
+   times and target shares (60%, 50%); and the vmapped op as a caller runs
+   it at the training shape, forward and forward + backward;
 5. training: `fit_cloes` (L3) and `fit_soft_cascade` (L1) at the serve
    launcher's settings (640 groups of 64, 4 epochs of 10 steps, lr 0.01,
    beta 5) on the card, each path with the launch counts set to 0 before
@@ -62,10 +71,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    L3 fit under torch.profiler (device busy time, launches per step).
    Then L3 fitted through the losses' score_fn seam with torch.func.vmap
    of the single-group op (the reference's `jax.vmap` path): K6 forward
-   and backward once per group for lp and for the penalty variant, 128
-   each per step, nothing else launched; two card fits byte-equal, and
-   within 1e-4 of the same fit on the CPU and of the default K4 + K5 fit
-   on the card; profiled as the first;
+   and backward once per step for lp and once for the penalty variant
+   (one launch each for the minibatch's 64 groups), 2 each per step,
+   nothing else launched; two card fits byte-equal, and within 1e-4 of
+   the same fit on the CPU and of the default K4 + K5 fit on the card;
+   steps/s, and profiled as the first (launches per step, device busy);
 6. serving: the launcher's open-loop DES (`launch.serve`) on the card
    with the cascade trained in phase 5, once per plan ("filter", then
    "score"): 500 requests of 8-63 items at 400 QPS with a 130 ms
@@ -75,8 +85,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain pipeline on the CPU. Then the reference's vmap pipeline built from
    the port's pieces (vmapped single-group op, keep counts, stage chain,
    latency) on a batch of every warm bucket shape against plan "score"
-   (K1): lp within 1e-5 and bit-equal to K1's in every batch, survivors
-   exact where the decisions have margin;
+   (K1): one K6 launch per batch, lp within 1e-5 and bit-equal to K1's in
+   every batch, survivors exact where the decisions have margin;
    and every query group of the test split scored feature-major (K7)
    against K6;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
@@ -92,8 +102,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    beside its plain version, its bound (in-window K+V bytes at 3.35 TB/s)
    and one PyTorch call computing the same function
    (scaled_dot_product_attention with the window's mask and GQA), with
-   its launch plan (splits, blocks, blocks per SM) and the CUDA kernels
-   the device ran per call (torch.profiler; one); and pairs of K8 calls
+   its launch plan (splits, blocks, blocks per SM) and the kernel
+   launches per call (torch.profiler's count of the runtime's launch
+   calls, one; the device's kernels listed beside it); and pairs of K8 calls
    launched back to back on two side streams with no sync between them
    (at 128k with the same and with different inputs, at the ring shape
    and at a shape whose two grids fit on the card together) equal to the
@@ -199,14 +210,28 @@ TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
 TRAIN_SHAPE = (64, 64, 24, 3)         # one minibatch of the serve fit
 SERVE_SHAPE = (WARM_B[-1], WARM_G[-1], 24, 3)   # the largest bucket batch
 # K6 / K7: the parity grid (one group of N items), and the timing sizes at
-# d=24, T=3: the group size at which the vmap fit launches K6 and its
-# backward (64, 5,120 launches each a fit; its inputs are timed warm in the
-# L2, as the fit reads them), the reference kernel bench's N and
+# d=24, T=3: the group size of the vmap fit (64; its inputs are timed warm
+# in the L2, as the fit reads them), the reference kernel bench's N and
 # TIMING_SHAPE's item count.
 SINGLE_N = (1, 7, 128, 129, 512, 1000, 2048, 262144)
 SINGLE_DT = ((24, 3), (8, 1), (128, 8), (40, 5))
 VMAP_GROUP_N = 64
 SINGLE_TIMING_N = (VMAP_GROUP_N, 4096, 65536, 262144, 1048576)
+# K6 on B groups at once, the launch a vmapped call makes: (B, N, d, T, zq
+# shared by the groups, x at a 4-byte storage offset), each in float32 and
+# bfloat16. The vmap fit's minibatch; 5000 groups of 7 (whole-group pieces,
+# many per block); 3 and 1 large groups (128-row pieces, dzq added over a
+# group's pieces); d % 4 != 0 (the scalar paths); a d too wide for four
+# warps' rings in the backward (one warp a block) and for two of the
+# forward's tiles (a one-tile ring).
+VMAP_CASES = ((64, 64, 24, 3, False, False), (64, 64, 24, 3, True, False),
+              (64, 64, 13, 3, False, True), (5000, 7, 24, 3, False, False),
+              (5000, 7, 5, 8, True, False), (5000, 7, 27, 3, False, True),
+              (3, 262144, 24, 3, False, False),
+              (3, 262144, 27, 5, True, True),
+              (1, 1048576, 24, 3, False, False),
+              (1, 1048576, 13, 3, False, True),
+              (2, 100, 400, 8, False, False))
 # The serve launcher's fit (launch/serve.py).
 FIT_QUERIES, FIT_EPOCHS, FIT_LR, FIT_BETA = 800, 4, 0.01, 5.0
 DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
@@ -216,17 +241,27 @@ BUSY_CYCLES = 50_000_000    # ~25 ms at 1.98 GHz: covers queueing the calls
 # phase 3 searches around them for a pair that ties on the card.
 TIE_ZQ = (16.118097, 29.3795)
 # The times (ms, H100 80GB HBM3, 700 W) of the designs the current K1, K3,
-# K4 and K5 replace, printed beside the new ones.
+# K4, K5, K6 and K6's backward replace, printed beside the new ones ("b1":
+# one group of 1,048,576 items). K6's at the training shape are its
+# previous design's per-group launches under vmap: 64 at N = 64, 0.0061
+# and 0.0128 ms each.
 WAS_MS = {"cascade_score_batched": {TIMING_SHAPE: 0.0945, TRAIN_SHAPE: 0.0083,
                                     "b1": 0.0944},
           "cascade_score_batched_bwd": {TIMING_SHAPE: 0.2387,
                                         TRAIN_SHAPE: 0.0135},
           "cascade_loss": {TIMING_SHAPE: 0.1310, TRAIN_SHAPE: 0.0096},
-          "cascade_loss_bwd": {TIMING_SHAPE: 0.4143, TRAIN_SHAPE: 0.0157}}
-# The share of its bound each redesigned kernel aims at, at the timing shape.
+          "cascade_loss_bwd": {TIMING_SHAPE: 0.4143, TRAIN_SHAPE: 0.0157},
+          "cascade_score": {"b1": 0.0919, TRAIN_SHAPE: 64 * 0.0061},
+          "cascade_score_bwd": {"b1": 0.2280, TRAIN_SHAPE: 64 * 0.0128}}
+# The share of its bound each redesigned kernel aims at, at the timing shape
+# (K6 and its backward: on one group of 1,048,576 items).
 TARGET_SHARE = {"cascade_score_batched": 0.60,
                 "cascade_score_batched_bwd": 0.50, "cascade_loss": 0.50,
-                "cascade_loss_bwd": 0.40}
+                "cascade_loss_bwd": 0.40, "cascade_score": 0.60,
+                "cascade_score_bwd": 0.50}
+# The vmapped K6 call against K1 and K6's backward against K3 on the same
+# (B, G) shape: the most time it may take as a multiple of theirs.
+VMAP_RATIO_BAR = 1.25
 # The widest d the previous designs took at these T (one block per tile or
 # group, in floats of shared memory: K1 t d + 128 (d + 1) + 128 t; K3
 # t d + 128 (d + 1) + 128 t + t (d + 1); K4 t d + 128 (d + 5) + 128 (1 + 2t)
@@ -267,7 +302,7 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/swa_decode/kernel.py:75"},
     "cascade_score": {
         "id": "K6", "route": "cuda",
-        "source": "src/repro_torch/csrc/cascade_score_single.cu",
+        "source": "src/repro_torch/csrc/cascade_score.cu",
         "replaces": "src/repro/kernels/cascade_score/kernel.py:73"},
     "cascade_score_bwd": {
         "id": "K6 bwd", "route": "cuda",
@@ -355,8 +390,9 @@ def case_with_margin(b, g, d, t, seed, **kw):
 def at_offset(a: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of `a` whose storage starts 4 bytes past a 16-byte
     boundary (the kernels' scalar paths take such an input)."""
-    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
-    out = buf[1:].view(a.shape)
+    k = 4 // a.element_size()          # elements in 4 bytes
+    buf = torch.empty(a.numel() + k, dtype=a.dtype, device=a.device)
+    out = buf[k:].view(a.shape)
     out.copy_(a)
     assert out.is_contiguous() and out.data_ptr() % 16 == 4
     return out
@@ -671,13 +707,16 @@ def single_case(n, d, t, seed, dtype=torch.float32, zero_tail=True):
 
 def sum_scales(x, w, zq, g) -> tuple[torch.Tensor, torch.Tensor]:
     """sum_i |term_i| of each of K6's backward sums, in float64: dw (T, d)
-    and dzq (T,) from |g_logit| (the closed form of
+    and dzq shaped as zq from |g_logit| (the closed form of
     `cascade_score_bwd_ref`) and |x|."""
     xd, gd = x.double(), g.double()
-    logits = xd @ w.double().T + zq.double()
+    t, d = w.shape
+    logits = xd @ w.double().T + zq.double()[..., None, :]
     gc = gd.sum(-1, keepdim=True) - gd.cumsum(-1) + gd
     g_logit = (gc * torch.sigmoid(-logits)).abs()
-    return g_logit.T @ xd.abs(), g_logit.sum(0)
+    dzq = g_logit.sum(-2)
+    return (g_logit.reshape(-1, t).T @ xd.abs().reshape(-1, d),
+            dzq if dzq.ndim == zq.ndim else dzq.reshape(-1, t).sum(0))
 
 
 def check_bwd_single(got, x, w, zq, g, label, errs) -> float:
@@ -736,6 +775,56 @@ def phase_single_parity(errs) -> None:
           f"of their bar), K7 {errs['cascade_score_fm']:.3g}"
           f"; K7 bit-equal to K6 in {fm_same_bits} of {cases}; zero rows "
           "score cumsum log sigmoid(zq)")
+
+
+def groups_case(b, n, d, t, seed, dtype, shared, offset):
+    """K6 inputs for B groups (the launch a vmapped call makes): x (B, N, d),
+    zq (B, T) or one shared row (T,), cotangent g (B, N, T), all in
+    `dtype`, x at a 4-byte storage offset when `offset`; B = 1 without a
+    shared row is one group, x (N, d) and zq (T,)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, n, d), generator=gen, device="cuda")
+    w = 0.3 * torch.randn((t, d), generator=gen, device="cuda")
+    zq = torch.randn((t,) if shared else (b, t), generator=gen, device="cuda")
+    g = torch.randn((b, n, t), generator=gen, device="cuda")
+    if b == 1 and not shared:
+        x, zq, g = x[0], zq[0], g[0]
+    x, w, zq, g = (a.to(dtype).contiguous() for a in (x, w, zq, g))
+    return at_offset(x) if offset else x, w, zq, g
+
+
+def check_groups(b, n, d, t, seed, dtype, shared, offset, errs) -> float:
+    """K6 forward and backward on one `groups_case` against their plain
+    versions, and launched twice: the same bits. Returns the largest share
+    of its bar an element of dw or dzq used."""
+    x, w, zq, g = groups_case(b, n, d, t, seed, dtype, shared, offset)
+    label = (f"{dtype} B={b} N={n} d={d} t={t} zq "
+             f"{'shared' if shared else 'per group'}"
+             f"{' x at offset' if offset else ''}")
+    runs = [(score_kernel.cascade_score(x, w, zq),
+             *score_kernel.cascade_score_bwd(x, w, zq, g)) for _ in range(2)]
+    sync()
+    for u, v in zip(*runs):
+        assert torch.equal(u, v), f"K6 {label}: two launches differ"
+    _check("cascade_score", runs[0][:1], [ops.cascade_score_ref(x, w, zq)],
+           RTOL, ATOL, label, errs)
+    return check_bwd_single(runs[0][1:], x, w, zq, g, label, errs)
+
+
+def phase_vmap_parity(errs) -> None:
+    """K6 forward and backward on B groups at once (VMAP_CASES, float32 and
+    bfloat16) against their plain versions, each launched twice."""
+    cases, bar_use = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, n, d, t, shared, offset in VMAP_CASES:
+            bar_use = max(bar_use, check_groups(b, n, d, t, cases, dtype,
+                                                shared, offset, errs))
+            cases += 1
+    print(f"[parity] {cases} vmapped K6 cases (B groups in one launch, up to "
+          f"B x N = {max(b * n for b, n, *_ in VMAP_CASES)}, f32 and bf16): "
+          f"max |err| K6 {errs['cascade_score']:.3g}, K6 bwd "
+          f"{errs['cascade_score_bwd']:.3g} (dw, dzq at most {bar_use:.3f} of "
+          "their bar); two launches give the same bits")
 
 
 def phase_determinism() -> None:
@@ -810,17 +899,19 @@ def shape_costs(b, g, d, t, pairs) -> dict[str, tuple[int, int]]:
     Operations: 2*B*G*T*d for the logits; K2 adds one compare and one add
     per (item, surviving item) pair per stage (`pairs`, counted on the
     run's data); K3 and K5 add the dx and dw products (~6*B*G*T*d in all,
-    as the reference's backward does two more matmuls)."""
+    as the reference's backward does two more matmuls). K6 and its
+    backward on B groups at once move what K1 and K3 do."""
     f = 4
     bgt, tdp = b * g * t, t * d
+    k1 = (f * (b * g * d + tdp + b * t + bgt), 2 * bgt * d)
+    k3 = (f * (2 * b * g * d + bgt + 2 * tdp + 2 * b * t), 6 * bgt * d)
     return {
-        "cascade_score_batched": (f * (b * g * d + tdp + b * t + bgt),
-                                  2 * bgt * d),
+        "cascade_score": k1, "cascade_score_bwd": k3,
+        "cascade_score_batched": k1,
         "cascade_filter": (f * (b * g * d + tdp + b * t + b * g + b
                                 + 2 * bgt + 2 * b * t),
                            2 * bgt * d + 2 * pairs),
-        "cascade_score_batched_bwd": (f * (2 * b * g * d + bgt + 2 * tdp
-                                           + 2 * b * t), 6 * bgt * d),
+        "cascade_score_batched_bwd": k3,
         "cascade_loss": (f * (b * g * (d + 4) + tdp + b * t + b + t + b * t),
                          2 * bgt * d),
         "cascade_loss_bwd": (f * (2 * b * g * (d + 4) + 2 * tdp + b * t + b
@@ -845,8 +936,9 @@ def was_note(name, key, r) -> str:
 
 
 def time_shape(shape, seed, names=None) -> dict[str, dict]:
-    """Each kernel of `names` (all five by default) and its plain version
-    at (B, G, d, T), beside its bound."""
+    """Each kernel of `names` (by default the five batched ones, and K6 and
+    its backward on the B groups at once, as a vmapped call launches them)
+    and its plain version at (B, G, d, T), beside its bound."""
     b, g, d, t = shape
     xc, w, zq, gct, g_ll, g_cost, g_cnt = train_case(b, g, d, t, seed=seed,
                                                      dead_group=False)
@@ -869,6 +961,12 @@ def time_shape(shape, seed, names=None) -> dict[str, dict]:
             lambda: loss_kernel.cascade_loss_bwd(xc, w, zq, g_ll, g_cost,
                                                  g_cnt),
             lambda: ops.cascade_loss_bwd_ref(xc, w, zq, g_ll, g_cost, g_cnt)),
+        "cascade_score": (
+            lambda: score_kernel.cascade_score(x1, w1, zq1),
+            lambda: ops.cascade_score_ref(x1, w1, zq1)),
+        "cascade_score_bwd": (
+            lambda: score_kernel.cascade_score_bwd(x, w, zq, gct),
+            lambda: ops.cascade_score_bwd_ref(x, w, zq, gct)),
     }
     calls = {k: v for k, v in calls.items() if names is None or k in names}
     pairs = 0
@@ -901,6 +999,14 @@ def time_shape(shape, seed, names=None) -> dict[str, dict]:
               + was_note(name, tuple(shape), r))
     if "cascade_filter" in out:
         out["cascade_filter"]["pairs"] = pairs
+    for k6, other in (("cascade_score", "cascade_score_batched"),
+                      ("cascade_score_bwd", "cascade_score_batched_bwd")):
+        if k6 in out and other in out:
+            ratio = out[k6]["ms"] / out[other]["ms"]
+            print(f"[timing] vmapped {KERNEL_INFO[k6]['id']} / "
+                  f"{KERNEL_INFO[other]['id']} at B={b} G={g}: {ratio:.3f} "
+                  f"(bar {VMAP_RATIO_BAR}: "
+                  f"{'met' if ratio <= VMAP_RATIO_BAR else 'MISSED'})")
     return out
 
 
@@ -930,65 +1036,92 @@ def single_costs(n, d, t) -> dict[str, tuple[int, int]]:
                                   6 * n * t * d)}
 
 
-def phase_single_timing() -> dict[int, dict[str, dict]]:
+def time_single(n, d=24, t=3) -> dict[str, dict]:
     """K6, K6's backward and K7 beside their plain versions and K1 at B=1 on
-    the same items, at each N of SINGLE_TIMING_N (d=24, T=3). The inputs
-    rotate through enough copies that back-to-back calls read them from
-    device memory, not from the L2."""
-    d, t = 24, 3
+    the same items, on one group of n items. Past N = 64 the inputs rotate
+    through enough copies that back-to-back calls read them from device
+    memory, not from the L2."""
+    copies = (1 if n == VMAP_GROUP_N
+              else max(1, -(-3 * L2_BYTES // (n * d * 4))))
+    cases = []
+    for i in range(copies):
+        x, w, zq, g = single_case(n, d, t, seed=100 + i, zero_tail=False)
+        cases.append((x, x.T.contiguous(), g))
+    calls = {
+        "cascade_score": (
+            lambda x, xt, g: score_kernel.cascade_score(x, w, zq),
+            lambda x, xt, g: ops.cascade_score_ref(x, w, zq)),
+        "cascade_score_bwd": (
+            lambda x, xt, g: score_kernel.cascade_score_bwd(x, w, zq, g),
+            lambda x, xt, g: ops.cascade_score_bwd_ref(x, w, zq, g)),
+        "cascade_score_fm": (
+            lambda x, xt, g: score_kernel.cascade_score_fm(xt, w, zq),
+            lambda x, xt, g: ops.cascade_score_ref(xt.T, w, zq)),
+        "cascade_score_batched": (
+            lambda x, xt, g: score_kernel.cascade_score_batched(
+                x[None], w, zq[None]),
+            lambda x, xt, g: ops.cascade_score_batched_ref(
+                x[None], w, zq[None])),
+    }
+    costs = single_costs(n, d, t)
     out = {}
-    for n in SINGLE_TIMING_N:
-        copies = (1 if n == VMAP_GROUP_N
-                  else max(1, -(-3 * L2_BYTES // (n * d * 4))))
-        cases = []
-        for i in range(copies):
-            x, w, zq, g = single_case(n, d, t, seed=100 + i, zero_tail=False)
-            cases.append((x, x.T.contiguous(), g))
-        calls = {
-            "cascade_score": (
-                lambda x, xt, g: score_kernel.cascade_score(x, w, zq),
-                lambda x, xt, g: ops.cascade_score_ref(x, w, zq)),
-            "cascade_score_bwd": (
-                lambda x, xt, g: score_kernel.cascade_score_bwd(x, w, zq, g),
-                lambda x, xt, g: ops.cascade_score_bwd_ref(x, w, zq, g)),
-            "cascade_score_fm": (
-                lambda x, xt, g: score_kernel.cascade_score_fm(xt, w, zq),
-                lambda x, xt, g: ops.cascade_score_ref(xt.T, w, zq)),
-            "cascade_score_batched": (
-                lambda x, xt, g: score_kernel.cascade_score_batched(
-                    x[None], w, zq[None]),
-                lambda x, xt, g: ops.cascade_score_batched_ref(
-                    x[None], w, zq[None])),
-        }
-        costs = single_costs(n, d, t)
-        out[n] = {}
-        for name, (kern_fn, plain_fn) in calls.items():
-            kern, lone = time_ms(rotate(kern_fn, cases))
-            plain, _ = time_ms(rotate(plain_fn, cases), reps=5, calls=5)
-            nbytes, nops = costs[name]
-            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            by_ops = nops / F32_OPS_PER_S * 1e3
-            out[n][name] = r = dict(
-                ms=kern, lone_ms=lone, plain_ms=plain, bytes=nbytes, ops=nops,
-                bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
-            label = ("K1 cascade_score_batched at B=1" if
-                     name == "cascade_score_batched" else
-                     f"{KERNEL_INFO[name]['id']} {name}")
-            print(f"[timing] {label} at N={n} d={d} T={t} ({copies} input "
-                  f"copies): kernel {r['ms']:.4f} ms (lone call "
-                  f"{r['lone_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} "
-                  f"bytes -> {by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} "
-                  f"ms), {r['bound_ms'] / r['ms']:.1%} of bound"
-                  + (was_note(name, "b1", r) if n == max(SINGLE_TIMING_N)
-                     else ""))
-        o = out[n]
-        print(f"[timing] N={n}: K7 / K6 device time "
-              f"{o['cascade_score_fm']['ms'] / o['cascade_score']['ms']:.3f}, "
-              f"K6 / K1 at B=1 "
-              f"{o['cascade_score']['ms'] / o['cascade_score_batched']['ms']:.3f}")
-        del cases
+    for name, (kern_fn, plain_fn) in calls.items():
+        kern, lone = time_ms(rotate(kern_fn, cases))
+        plain, _ = time_ms(rotate(plain_fn, cases), reps=5, calls=5)
+        nbytes, nops = costs[name]
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / F32_OPS_PER_S * 1e3
+        out[name] = r = dict(
+            ms=kern, lone_ms=lone, plain_ms=plain, bytes=nbytes, ops=nops,
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations")
+        label = ("K1 cascade_score_batched at B=1" if
+                 name == "cascade_score_batched" else
+                 f"{KERNEL_INFO[name]['id']} {name}")
+        print(f"[timing] {label} at N={n} d={d} T={t} ({copies} input "
+              f"copies): kernel {r['ms']:.4f} ms (lone call "
+              f"{r['lone_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes} "
+              f"bytes -> {by_bytes:.4f} ms; {nops} ops -> {by_ops:.4f} "
+              f"ms), {r['bound_ms'] / r['ms']:.1%} of bound"
+              + (was_note(name, "b1", r) if n == max(SINGLE_TIMING_N)
+                 else ""))
+    print(f"[timing] N={n}: K7 / K6 device time "
+          f"{out['cascade_score_fm']['ms'] / out['cascade_score']['ms']:.3f}, "
+          f"K6 / K1 at B=1 "
+          f"{out['cascade_score']['ms'] / out['cascade_score_batched']['ms']:.3f}")
+    return out
+
+
+def phase_single_timing() -> dict[int, dict[str, dict]]:
+    """`time_single` at each N of SINGLE_TIMING_N (d=24, T=3)."""
+    return {n: time_single(n) for n in SINGLE_TIMING_N}
+
+
+def time_vmap_call(shape, seed) -> dict[str, float]:
+    """The vmapped single-group op as a caller runs it, at (B, G, d, T):
+    `vmap_score` forward, and forward plus backward (torch.autograd.grad in
+    w_eff and zq). Device ms per call (with the host's gaps where the host
+    is slower than the card) and a lone call's ms."""
+    b, g, d, t = shape
+    x, w, zq, _, _ = make_case(b, g, d, t, seed=seed)
+    w.requires_grad_(True)
+    zq.requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            return vmap_score(x, w, zq)
+
+    def fwd_bwd():
+        return torch.autograd.grad(vmap_score(x, w, zq).sum(), (w, zq))
+    out = {}
+    for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        out[f"{name}_ms"], out[f"{name}_lone_ms"] = time_ms(fn, reps=10)
+    print(f"[timing] vmap of the single-group op at B={b} G={g} d={d} T={t}: "
+          f"forward {out['fwd_ms']:.4f} ms (lone call "
+          f"{out['fwd_lone_ms']:.4f} ms), forward + backward "
+          f"{out['fwd_bwd_ms']:.4f} ms (lone call {out['fwd_bwd_lone_ms']:.4f}"
+          " ms)")
     return out
 
 
@@ -1094,17 +1227,18 @@ def profile_fit(fit_fn, steps, label="l3") -> None:
 
 def vmap_score(x, w_eff, zq):
     """The reference's `jax.vmap` of its single-group op over query groups
-    (its losses' and benches' vmap path): one K6 call per group."""
+    (its losses' and benches' vmap path): one K6 launch for the batch."""
     return torch.func.vmap(
         lambda xb, zb: ops.cascade_score(xb, w_eff, zb))(x, zq)
 
 
 def phase_train_k6(tr, default_params, default_losses) -> dict[str, int]:
     """L3 through the losses' score_fn seam with the vmapped single-group
-    op: K6 forward and backward once per group for lp and for the penalty
-    variant lp_pen, nothing else launched; two card fits byte-equal; the
-    same fit on the CPU and the card's default K4 + K5 fit (the same
-    objective) within 1e-4. Returns the launches of the first card fit."""
+    op: K6 forward and backward once per step for lp and once for the
+    penalty variant lp_pen (one launch each for the minibatch's 64 groups),
+    nothing else launched; two card fits byte-equal; the same fit on the
+    CPU and the card's default K4 + K5 fit (the same objective) within
+    1e-4. Returns the launches of the first card fit."""
     steps_per_epoch, _ = T.epoch_steps(tr.x.shape[0], 64)
     steps = FIT_EPOCHS * steps_per_epoch
     kernels = ("cascade_score", "cascade_score_bwd")
@@ -1120,8 +1254,8 @@ def phase_train_k6(tr, default_params, default_losses) -> dict[str, int]:
     p2, losses2, s2, _ = fit_once(fit_fn, "cuda")
     pc, losses_c, sc, _ = fit_once(fit_fn, "cpu")
     assert len(losses1) == steps, (len(losses1), steps)
-    for k in kernels:              # lp and lp_pen: one call per group each
-        assert counts[k] == 2 * 64 * steps, counts
+    for k in kernels:              # lp and lp_pen: one call per step each
+        assert counts[k] == 2 * steps, counts
     assert sum(v for k, v in counts.items() if k not in kernels) == 0, counts
     assert losses1 == losses2, "K6 fit: two fits' losses differ"
     for k in p1:
@@ -1144,7 +1278,9 @@ def phase_train_k6(tr, default_params, default_losses) -> dict[str, int]:
           f"op on the card: first fit {s1:.3f} s, second {s2:.3f} s "
           f"({steps / s2:.1f} steps/s); CPU {sc:.3f} s; launches {counts} "
           f"({counts['cascade_score'] / steps:.0f} K6 + "
-          f"{counts['cascade_score_bwd'] / steps:.0f} K6 bwd per step)")
+          f"{counts['cascade_score_bwd'] / steps:.0f} K6 bwd per step; "
+          f"{counts['cascade_score']} + {counts['cascade_score_bwd']} per "
+          "fit)")
     print(f"[train l3 via K6] two card fits byte-equal; max |loss err|, max "
           f"|param err| against " + "; ".join(
               f"{k} {a:.3g}, {b:.3g}" for k, (a, b) in errs.items()))
@@ -1297,7 +1433,7 @@ def phase_serve_k6(params, te) -> dict[str, int]:
             with_margin += 1
     sync()
     launches = ops.launch_counts()         # ... and ends here
-    assert launches["cascade_score"] == len(WARM_G) * sum(WARM_B), launches
+    assert launches["cascade_score"] == batches, launches   # one per batch
     assert launches["cascade_score_batched"] == batches, launches
     assert with_margin > 0
     assert bit_equal == batches, (
@@ -1499,24 +1635,40 @@ def sdpa_call(q, cache_len, window):
     return call
 
 
-def cuda_launches_per_call(fn, calls=5) -> tuple[float, list[str]]:
-    """CUDA kernels the device ran per call of fn, and their names, from
-    torch.profiler's device events over `calls` calls in a step that
-    follows a waiting and a warm-up step (so the tracer is running)."""
+# the CUDA runtime and driver calls that launch one kernel each
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+# idle host time on each side of the counted calls inside the traced step
+TRACE_MARGIN_S = 0.02
+
+
+def cuda_launches_per_call(fn, calls=5) -> tuple[float, int, list[str]]:
+    """Kernel launches per call of fn, the kernels the device ran over
+    those calls, and their names, from torch.profiler over `calls` calls
+    in a step that follows a waiting and a warm-up step (so the tracer is
+    running). Launches are the runtime's launch calls, stamped by the host
+    clock; a device event is stamped by the card's clock, converted, and
+    the tracer drops one that lands outside the step's window, so the
+    counted calls sit between idle margins and the device count is a
+    second reading, at most the launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=1)) as prof:
         for _ in range(3):
+            time.sleep(TRACE_MARGIN_S)
             for _ in range(calls):
                 fn()
             sync()
+            time.sleep(TRACE_MARGIN_S)
             prof.step()
-    kernels = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    kernels = [e for e in events
                if e.device_type != DeviceType.CPU
                and not e.key.startswith(("Memcpy", "Memset",
                                          "ProfilerStep"))]
-    return (sum(e.count for e in kernels) / calls,
+    return (launches / calls, sum(e.count for e in kernels),
             sorted({e.key.split("<")[0].split("(")[-1].split("::")[-1]
                     for e in kernels}))
 
@@ -1581,14 +1733,19 @@ def phase_k8_timing() -> dict[str, dict]:
               f"{mag:.3g}, at most {use:.3f} of the bf16 bar")
     # CUDA launches per call, over all the shapes in one profiled session
     calls = [out[name].pop("inputs") for name in K8_SHAPES]
-    n_cuda, names = cuda_launches_per_call(
+    n_cuda, n_device, names = cuda_launches_per_call(
         lambda: [ops.swa_decode(q, k, v, c, window=w)
                  for q, (k, v), c, w in calls], calls=5)
     n_cuda /= len(calls)
-    print(f"[timing] K8: {n_cuda:g} CUDA launch(es) per call {names} "
-          f"(torch.profiler, {5 * len(calls)} calls over the three shapes)")
+    n_calls = 5 * len(calls)
+    print(f"[timing] K8: {n_cuda:g} CUDA launch(es) per call, the device "
+          f"ran {n_device} kernel(s) {names} (torch.profiler, {n_calls} "
+          f"calls over the three shapes)")
     if n_cuda != 1:
         raise AssertionError(f"K8: {n_cuda} CUDA launches per call, not 1")
+    if n_device > n_calls or names != ["swa_decode_kernel"]:
+        raise AssertionError(f"K8: the device ran {n_device} kernels "
+                             f"{names} for {n_calls} calls")
     for name in K8_SHAPES:
         out[name]["cuda_launches_per_call"] = n_cuda
     return out
@@ -1825,9 +1982,11 @@ def main() -> None:
                 cascade_score_bwd=0.0, cascade_score_fm=0.0)
     phase_train_parity(errs)
     phase_single_parity(errs)
+    phase_vmap_parity(errs)
     phase_determinism()
     timing, timing_train, timing_serve = phase_timing()
     timing_single = phase_single_timing()
+    timing_vmap = time_vmap_call(TRAIN_SHAPE, seed=8)
     free_cuda()
     log = generate_log(LogConfig(n_queries=FIT_QUERIES, seed=0))
     tr, te = log.split(0.8)
@@ -1883,6 +2042,13 @@ def main() -> None:
                 for key in ("ms", "plain_ms", "bound_ms"):
                     row[f"n{n}_{key}"] = by_name[name][key]
                 row[f"n{n}_k1_b1_ms"] = by_name["cascade_score_batched"]["ms"]
+            if name != "cascade_score_fm":     # B groups in one launch
+                for shape, tms in (("timing_shape", timing),
+                                   ("train_shape", timing_train)):
+                    for key in ("ms", "plain_ms", "bound_ms"):
+                        row[f"vmap_{shape}_{key}"] = tms[name][key]
+                row["vmap_train_shape_call_ms"] = timing_vmap[
+                    "fwd_ms" if name == "cascade_score" else "fwd_bwd_ms"]
         else:
             tm = timing[name]
             row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -11,10 +11,16 @@ named `repro_torch`), so a drift of the card's clocks shows as a difference
 between a tree's two turns. A turn runs chip_smoke.py's own code on its
 tree (through CHIP_SMOKE_SRC): each kernel of AB_SHAPES against its plain
 version at chip_smoke's bars (`check_alone`), then timed as chip_smoke
-times it (`time_shape`), and in each tree's first turn the two-stream K8
-check (`phase_k8_streams`) and the widest d each wrapper of
-chip_smoke's PREV_WIDEST_D takes (`widest_d`: on the parent, the previous
-designs' limits that chip_smoke holds the new ones to). A failed check is
+times it (`time_shape`); K6 and its backward on one group of 1,048,576
+items against their plain versions (`check_groups`) and timed with K7 and
+K1 at B=1 on the same items (`time_single`); the vmapped single-group op
+at the training shape, forward and forward + backward, as a caller runs
+it (`time_vmap_call`: one launch each way on a tree whose K6 takes the
+groups at once, one per group on one that does not); and in each tree's
+first turn the two-stream K8 check (`phase_k8_streams`) and the widest d
+each wrapper of chip_smoke's PREV_WIDEST_D takes (`widest_d`: on the
+parent, the previous designs' limits that chip_smoke holds the new ones
+to). A failed check is
 recorded rather than raised,
 so an old tree's failures print beside the new tree's passes; the script
 exits nonzero if the NEW tree fails any. Prints the card's name and power
@@ -37,6 +43,9 @@ REDESIGNED = ("cascade_score_batched", "cascade_score_batched_bwd",
 AB_SHAPES = (("TIMING_SHAPE", 7, REDESIGNED),
              ("SERVE_SHAPE", 9, ("cascade_score_batched",)),
              ("TRAIN_SHAPE", 8, REDESIGNED))
+SINGLE_N = 1 << 20            # K6's items in one group
+SINGLE_KERNELS = ("cascade_score", "cascade_score_bwd",
+                  "cascade_score_batched")
 
 
 def turn(src: str, streams: bool) -> dict:
@@ -58,6 +67,18 @@ def turn(src: str, streams: bool) -> dict:
             rows.append(dict(kernel=name, shape=shape, ms=r["ms"],
                              bound_ms=r["bound_ms"],
                              max_abs_err=errs[name]))
+    errs = collections.defaultdict(float)
+    try:
+        cs.check_groups(1, SINGLE_N, 24, 3, 11, cs.torch.float32, False,
+                        False, errs)
+    except AssertionError as e:
+        failed.append(f"K6 at N={SINGLE_N}: {e}")
+    for name, r in cs.time_single(SINGLE_N).items():
+        if name in SINGLE_KERNELS:
+            rows.append(dict(kernel=name, shape=(1, SINGLE_N, 24, 3),
+                             ms=r["ms"], bound_ms=r["bound_ms"],
+                             max_abs_err=errs[name]))
+    vmap = cs.time_vmap_call(cs.TRAIN_SHAPE, 8)
     if streams:
         try:
             cs.phase_k8_streams()
@@ -67,7 +88,7 @@ def turn(src: str, streams: bool) -> dict:
                   for name, t in cs.PREV_WIDEST_D]
     else:
         widest = []
-    return dict(rows=rows, failed=failed, widest=widest)
+    return dict(rows=rows, failed=failed, widest=widest, vmap=vmap)
 
 
 def main() -> None:
@@ -99,6 +120,10 @@ def main() -> None:
                   f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_ms'] / r['ms']:.1%}), max |err| against the "
                   f"plain version {r['max_abs_err']:.3g}")
+        v = res["vmap"]
+        print(f"[ab] {name} vmap of the single-group op at the training "
+              f"shape: forward {v['fwd_ms']:.4f} ms, forward + backward "
+              f"{v['fwd_bwd_ms']:.4f} ms")
         for r in res["widest"]:
             print(f"[ab] {name} {r['kernel']} takes d <= {r['d']} at "
                   f"T={r['t']}")

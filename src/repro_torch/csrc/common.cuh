@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels: the log-sigmoid the cascade
-// kernels score with, cp.async copies into shared memory, the opt-in to more
-// than 48 KB of dynamic shared memory, and the grid of one full wave of the
-// card that the persistent kernels launch.
+// kernels score with, float32 reads of float32 or bfloat16 elements,
+// cp.async copies into shared memory, the opt-in to more than 48 KB of
+// dynamic shared memory, and the grid of one full wave of the card that the
+// persistent kernels launch.
 //
 // REPRO_MAX_SMEM_BYTES, the per-block shared-memory limit, is set by the
 // build (kernels/_build.py MAX_SMEM_BYTES, which the wrappers' refusals
@@ -9,6 +10,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #ifndef REPRO_MAX_SMEM_BYTES
@@ -22,6 +24,26 @@ constexpr size_t kMaxSmemBytes = REPRO_MAX_SMEM_BYTES;
 // log sigma(z) = min(z, 0) - log1p(exp(-|z|)): no overflow for any finite z.
 __device__ __forceinline__ float log_sigmoid(float z) {
   return fminf(z, 0.0f) - log1pf(expf(-fabsf(z)));
+}
+
+// An element as float32 (bfloat16 up-casts exactly).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Elements p[0..3] as float32: one 16-byte read of float32 (p 16-byte
+// aligned), one 8-byte read of bfloat16 (p 8-byte aligned).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }

@@ -1,5 +1,5 @@
-// The fixed-order second pass that adds per-block partials of a grid-wide
-// sum, shared by the training kernels (cascade_score_bwd.cu,
+// The fixed-order second pass that adds per-block (or per-piece) partials
+// of a grid-wide sum, shared by the training kernels (cascade_score_bwd.cu,
 // cascade_loss.cu, cascade_score_single.cu).
 //
 // Determinism: no float sum in these kernels uses atomics. A sum over the

@@ -1,6 +1,6 @@
 // The per-warp chunk ring of the training kernels K3 (cascade_score_bwd.cu),
-// K4 and K5 (cascade_loss.cu), and the pieces of their per-item work that
-// they share.
+// K4 and K5 (cascade_loss.cu) and K6's backward (cascade_score_single.cu),
+// and the pieces of their per-item work that they share.
 //
 // The map: persistent blocks of NW warps, one full wave of the card; block
 // k takes the groups k, k + grid, ... (a static map: no counter, no
@@ -110,19 +110,19 @@ __device__ __forceinline__ void store_run(float* dst, const float* src, int n,
 }
 
 // An item's logits without the bias, z[j] = x . w_eff[j] for j < t, from
-// its row xr in shared memory and w_eff (t, d) in shared memory: fmaf over
-// k = 0..d-1 in order, as float4s when VEC (d % 4 == 0, xr 16-byte
-// aligned). kS is the stages the loops run to (t, or 8 behind j < t).
-template <bool VEC, int kS>
-__device__ __forceinline__ void row_logits(const float* xr, const float* sw,
+// its row xr (float32 or bfloat16) in shared memory and w_eff (t, d) in
+// shared memory as float32: fmaf over k = 0..d-1 in order, four elements at
+// a time when VEC (d % 4 == 0, xr aligned to four elements). kS is the
+// stages the loops run to (t, or 8 behind j < t).
+template <bool VEC, int kS, typename TX>
+__device__ __forceinline__ void row_logits(const TX* xr, const float* sw,
                                            int d, int t, float (&z)[kS]) {
 #pragma unroll
   for (int j = 0; j < kS; ++j) z[j] = 0.0f;
   if (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
     const float4* w4 = reinterpret_cast<const float4*>(sw);
     for (int k4 = 0; k4 < d / 4; ++k4) {
-      const float4 a = x4[k4];
+      const float4 a = load4(xr + 4 * k4);
 #pragma unroll
       for (int j = 0; j < kS; ++j) {
         if (j < t) {
@@ -136,7 +136,7 @@ __device__ __forceinline__ void row_logits(const float* xr, const float* sw,
     }
   } else {
     for (int k = 0; k < d; ++k) {
-      const float xv = xr[k];
+      const float xv = to_f32(xr[k]);
 #pragma unroll
       for (int j = 0; j < kS; ++j)
         if (j < t) z[j] = fmaf(xv, sw[j * d + k], z[j]);

@@ -60,13 +60,12 @@ _SIGNATURES = {
     "swa_decode": ([_P] * 8 + [_I] * 11 + [_F, _P], _I),
     "swa_decode_blocks_per_sm": ([_I, _I, _I], _I),
     "swa_decode_tile": ([_I, _I], _I),
-    "cascade_score_single": ([_P] * 4 + [_I] * 4 + [_P], _I),
-    "cascade_score_single_smem": ([_I, _I], ctypes.c_size_t),
+    "cascade_score_groups": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "cascade_score_groups_smem": ([_I] * 3, ctypes.c_size_t),
     "cascade_score_fm": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "cascade_score_fm_smem": ([_I, _I], ctypes.c_size_t),
-    "cascade_score_single_bwd": ([_P] * 7 + [_I] * 4 + [_P], _I),
-    "cascade_score_single_bwd_smem": ([_I, _I], ctypes.c_size_t),
-    "cascade_score_single_bwd_blocks": ([_I], _I),
+    "cascade_score_groups_bwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    "cascade_score_groups_bwd_smem": ([_I] * 3, ctypes.c_size_t),
     "cascade_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -13,9 +13,10 @@ the CLOES cascade (Eqs 1-2, 6):
 `cascade_score_batched_bwd_ref` is the closed-form backward, the CPU path
 of the op's gradient and the oracle of K3 (`csrc/cascade_score_bwd.cu`).
 `cascade_score_ref` and `cascade_score_bwd_ref` are the same for one group
-of N items with one bias row zq (T,): the CPU path and oracle of
-`kernels.ops.cascade_score` (K6 forward and backward) and, on xt.T, of
-`kernels.ops.cascade_score_fm` (K7), all in `csrc/cascade_score_single.cu`.
+of N items with one bias row zq (T,), or for B such groups at once (x
+(B, N, d) with zq (B, T), or zq (T,) shared by every group): the CPU path
+and oracle of `kernels.ops.cascade_score` (K6 forward and backward, also
+under vmap) and, on xt.T, of `kernels.ops.cascade_score_fm` (K7).
 """
 
 from __future__ import annotations
@@ -54,8 +55,9 @@ def cascade_score_batched_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
 
 def cascade_score_ref(x: torch.Tensor, w_eff: torch.Tensor,
                       zq: torch.Tensor) -> torch.Tensor:
-    """x (N, d), w_eff (T, d), zq (T,) -> (N, T) float32."""
-    logits = x.float() @ w_eff.float().T + zq.float()
+    """x (..., N, d), w_eff (T, d), zq (..., T) or (T,) -> (..., N, T)
+    float32."""
+    logits = x.float() @ w_eff.float().T + zq.float()[..., None, :]
     return torch.cumsum(F.logsigmoid(logits), dim=-1)
 
 
@@ -63,11 +65,17 @@ def cascade_score_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
                           zq: torch.Tensor, g: torch.Tensor
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """Closed-form backward of `cascade_score_ref`: cotangent g (N, T) ->
-    (dx (N, d), dw_eff (T, d), dzq (T,)), all float32, as
-    `cascade_score_batched_bwd_ref` for one group."""
+    """Closed-form backward of `cascade_score_ref`: cotangent g (..., N, T)
+    -> (dx shaped as x, dw_eff (T, d), dzq shaped as zq), all float32, as
+    `cascade_score_batched_bwd_ref` per group; a zq shared by the groups
+    gets the sum over all of them."""
     xf, wf, gf = x.float(), w_eff.float(), g.float()
-    logits = xf @ wf.T + zq.float()
+    logits = xf @ wf.T + zq.float()[..., None, :]
     gc = gf.sum(-1, keepdim=True) - torch.cumsum(gf, dim=-1) + gf
-    g_logit = gc * torch.sigmoid(-logits)                           # (N, T)
-    return g_logit @ wf, g_logit.T @ xf, g_logit.sum(dim=0)
+    g_logit = gc * torch.sigmoid(-logits)                      # (..., N, T)
+    t, d = wf.shape
+    dzq = g_logit.sum(dim=-2)
+    return (g_logit @ wf,
+            g_logit.reshape(-1, t).T @ xf.reshape(-1, d),
+            dzq.reshape(zq.shape) if dzq.ndim == zq.ndim
+            else dzq.reshape(-1, t).sum(0))

@@ -12,8 +12,9 @@ The differentiable ops (`cascade_score_batched`, `cascade_loss_fused`,
 dispatch the same way: on the card a forward kernel and a backward kernel
 (K1 + K3, K4 + K5, K6's two), on the CPU the plain forward and the
 closed-form backward. `cascade_score` (K6, one query group) also maps
-under `torch.func.vmap`, one group per call: the losses' score_fn seam
-takes it that way, as the reference's losses take `jax.vmap` of its op.
+under `torch.func.vmap` over query groups, one call (one launch each way
+on the card) for the whole batch: the losses' score_fn seam takes it that
+way, as the reference's losses take `jax.vmap` of its op.
 `cascade_score_fm` (K7, the same function of feature-major items) is
 forward only, as in the reference.
 
@@ -102,7 +103,9 @@ class _ScoreBatched(torch.autograd.Function):
 
 class _Score(torch.autograd.Function):
     """K6 forward and backward; residuals (x, w_eff, zq), as the
-    reference's custom VJP (src/repro/kernels/ops.py:64-78)."""
+    reference's custom VJP (src/repro/kernels/ops.py:64-78). Takes one
+    group, x (N, d) with zq (T,), or, from the vmap rule, B groups at once,
+    x (B, N, d) with zq (B, T) or (T,)."""
 
     @staticmethod
     def forward(x, w_eff, zq):
@@ -124,8 +127,19 @@ class _Score(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, w_eff, zq):
-        """One `apply` per group of the mapped inputs (one K6 launch each
-        way on the card), stacked along dim 0."""
+        """Mapped x with w_eff unmapped (the losses' and the reference's
+        benches' case, zq mapped or not): one `apply` over the stacked
+        groups, so one K6 launch each way on the card for the whole batch,
+        as `jax.vmap` gives the reference's kernel a grid axis. Any other
+        in_dims (a mapped w_eff, an unmapped x; no caller has them): one
+        `apply` per group, stacked along dim 0."""
+        x_dim, w_dim, zq_dim = in_dims
+        if x_dim is not None and w_dim is None:
+            x = x.movedim(x_dim, 0).contiguous()
+            if zq_dim is not None:
+                zq = zq.movedim(zq_dim, 0).contiguous()
+            return _Score.apply(x, w_eff, zq), 0
+
         def group(a, dim, i):
             return a if dim is None else a.select(dim, i).contiguous()
         args = (x, w_eff, zq)
@@ -170,7 +184,7 @@ def cascade_score(x: torch.Tensor, w_eff: torch.Tensor,
     zq (T,) -> (N, T) cumulative log pass-probs. Differentiable in all
     three inputs (K6's backward on the card); float32 or bfloat16 inputs,
     float32 out. `torch.func.vmap(lambda xb, zb: cascade_score(xb, w_eff,
-    zb))(x, zq)` scores (B, N, d) groups one call each."""
+    zb))(x, zq)` scores (B, N, d) groups in one call each way."""
     _require_ranks("cascade_score", x=(x, 2), w_eff=(w_eff, 2), zq=(zq, 1))
     return _Score.apply(x, w_eff, zq)
 

@@ -2,7 +2,9 @@
 backward) and feature-major scorer (K7, `kernels.ops.cascade_score_fm`)
 on the CPU, against the reference's Pallas kernels in interpret mode and
 its XLA references, on the same numpy inputs; gradients through the op,
-alone and under torch.func.vmap against jax.vmap; and `fit` training L3
+alone and under torch.func.vmap against jax.vmap (over every in_dims,
+with the op's calls each way: one for the whole batch where x is mapped
+and w_eff is not); the piece plan of K6's backward; and `fit` training L3
 through the vmapped op against the reference's fit through its own. The
 CUDA kernels are held to these plain versions on the card by
 chip_smoke.py.
@@ -164,9 +166,9 @@ def test_vmap_grads_match_reference_vmap():
     close(gz, want[1], rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
-def test_vmap_runs_one_call_per_group_each_way(monkeypatch):
-    """Under vmap the op runs once per group forward and backward (one K6
-    launch each on the card); counted here through the plain versions."""
+def _count_plain_calls(monkeypatch) -> dict[str, int]:
+    """Count the op's calls of its plain forward and backward (one K6
+    launch each on the card)."""
     calls = {"cascade_score_ref": 0, "cascade_score_bwd_ref": 0}
 
     def counted(name):
@@ -177,10 +179,122 @@ def test_vmap_runs_one_call_per_group_each_way(monkeypatch):
             return fn(*a)
         return wrapped
 
-    for name in calls:
+    for name in list(calls):
         monkeypatch.setattr(TK, name, counted(name))
+    return calls
+
+
+def test_vmap_runs_one_call_each_way(monkeypatch):
+    """Under vmap over the losses' in_dims (x and zq mapped, w_eff not) the
+    op runs once for the whole batch forward and once backward (one K6
+    launch each way on the card), as jax.vmap gives the reference's kernel
+    one grid."""
+    calls = _count_plain_calls(monkeypatch)
     _port_vmap_grads(*_vmap_loss_case())
-    assert calls == {"cascade_score_ref": 4, "cascade_score_bwd_ref": 4}
+    assert calls == {"cascade_score_ref": 1, "cascade_score_bwd_ref": 1}
+
+
+# (x, w_eff, zq) batch dims, and the op's calls each way for a batch of
+# _B_GRID groups: one for a mapped x with w_eff unmapped, one per group
+# otherwise (ops._Score.vmap)
+_B_GRID = 3
+_IN_DIMS = [
+    pytest.param((0, None, 0), 1, id="x0-zq0"),
+    pytest.param((1, None, 1), 1, id="x1-zq1"),
+    pytest.param((0, None, None), 1, id="x0-zq_shared"),
+    pytest.param((1, None, None), 1, id="x1-zq_shared"),
+    pytest.param((1, None, 0), 1, id="x1-zq0"),
+    pytest.param((0, 0, 0), _B_GRID, id="x0-w0-zq0"),
+    pytest.param((None, None, 0), _B_GRID, id="x_shared-zq0"),
+]
+
+
+def _in_dims_case(in_dims, seed):
+    """x, w, zq with a batch of _B_GRID at each mapped input's dim."""
+    rng = np.random.default_rng(seed)
+    shapes = ((9, 8), (3, 8), (3,))
+    out = []
+    for shape, dim in zip(shapes, in_dims):
+        if dim is not None:
+            shape = shape[:dim] + (_B_GRID,) + shape[dim:]
+        out.append((rng.normal(size=shape) * 0.5).astype(np.float32))
+    return out
+
+
+@pytest.mark.slow           # interpret-mode vmap compile is the cost here
+@pytest.mark.parametrize("in_dims,calls_each_way", _IN_DIMS)
+def test_vmap_in_dims_match_reference(monkeypatch, in_dims, calls_each_way):
+    """torch.func.vmap of the op over each in_dims against jax.vmap of the
+    reference's op (both Pallas kernels interpreted): values, and the
+    gradients of sum(lp ** 2) in every input; and the op's calls each
+    way."""
+    arrays = _in_dims_case(in_dims, seed=sum(d or 0 for d in in_dims) + 7)
+
+    def jloss(*a):
+        lp = jax.vmap(lambda xx, ww, zz: JK.cascade_score(
+            xx, ww, zz, interpret=True), in_axes=in_dims)(*a)
+        return (lp ** 2).sum(), lp
+
+    (_, want), want_grads = jax.value_and_grad(jloss, (0, 1, 2),
+                                               has_aux=True)(
+        *map(jnp.asarray, arrays))
+    calls = _count_plain_calls(monkeypatch)
+    args = [t(a).requires_grad_(True) for a in arrays]
+    lp = torch.func.vmap(TK.cascade_score, in_dims=in_dims)(*args)
+    (lp ** 2).sum().backward()
+    assert calls == {"cascade_score_ref": calls_each_way,
+                     "cascade_score_bwd_ref": calls_each_way}
+    close(lp, want, rtol=1e-5, atol=1e-5)
+    for a, b in zip(args, want_grads):
+        close(a.grad, b, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("n_items", [1, 7, 64, 256, 257, 1000, 4096])
+def test_piece_plan_covers_each_row_once(n_items):
+    """K6's backward cuts each group into pieces: the plan is a function of
+    N alone (a whole group up to WHOLE_GROUP_ROWS items, PIECE_ROWS-row
+    pieces past that), and its pieces cover every row exactly once."""
+    rows, per_group = score_kernel.piece_plan(n_items)
+    if n_items <= score_kernel.WHOLE_GROUP_ROWS:
+        assert (rows, per_group) == (n_items, 1)
+    else:
+        assert rows == score_kernel.PIECE_ROWS
+    covered = np.zeros(n_items, int)
+    for p in range(per_group):
+        covered[p * rows:(p + 1) * rows] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("b,n_items,shared", [(3, 1000, False),
+                                              (3, 1000, True),
+                                              (5, 7, False), (4, 300, True)])
+def test_piece_sums_match_plain_sums(b, n_items, shared):
+    """dw and dzq added piece by piece in the kernel's order (each piece's
+    partial, then dw over every piece and dzq over each group's pieces, or
+    every piece when zq is shared) equal the plain version's sums, at the
+    backward's bar (sums over up to 3000 items in another order)."""
+    rng = np.random.default_rng(b + n_items)
+    d, t_stages = 8, 3
+    x, g = (t(rng.normal(size=s).astype(np.float32))
+            for s in ((b, n_items, d), (b, n_items, t_stages)))
+    w = t((0.3 * rng.normal(size=(t_stages, d))).astype(np.float32))
+    zq = t(rng.normal(size=(t_stages,) if shared else (b, t_stages))
+           .astype(np.float32))
+    _, dw, dzq = cascade_score_bwd_ref(x, w, zq, g)
+    rows, per_group = score_kernel.piece_plan(n_items)
+    dw_sum = torch.zeros_like(dw)
+    dzq_sum = torch.zeros((b, t_stages))
+    for gi in range(b):
+        for p in range(per_group):
+            sl = slice(p * rows, (p + 1) * rows)
+            zb = zq if shared else zq[gi]
+            _, dw_p, dzq_p = cascade_score_bwd_ref(x[gi, sl], w, zb,
+                                                   g[gi, sl])
+            dw_sum += dw_p
+            dzq_sum[gi] += dzq_p
+    close(dw_sum, dw, rtol=BWD_RTOL, atol=BWD_ATOL)
+    close(dzq_sum.sum(0) if shared else dzq_sum, dzq, rtol=BWD_RTOL,
+          atol=BWD_ATOL)
 
 
 def test_vmap_matches_batched_op():
@@ -259,6 +373,26 @@ def test_wrappers_check_shapes():
         score_kernel.check_single_shapes("op", 10, 24, w, torch.zeros(2))
     with pytest.raises(ValueError, match="at most"):
         score_kernel.check_single_shapes("op", 2**31, 24, w, zq)
+
+
+@pytest.mark.parametrize("x_shape,zq_shape,want", [
+    ((10, 24), (3,), (1, 10, 24, 3, 3)),
+    ((4, 10, 24), (4, 3), (4, 10, 24, 3, 3)),
+    ((4, 10, 24), (3,), (4, 10, 24, 3, 0)),
+    ((4, 10, 24), (5, 3), "do not agree"),
+    ((10, 24), (1, 3), "do not agree"),
+    ((2, 4, 10, 24), (3,), "expected"),
+])
+def test_group_shapes(x_shape, zq_shape, want):
+    """K6's wrappers take one group or B groups, with zq per group or one
+    zq row shared by every group (stride 0): (B, N, d, T, zq stride)."""
+    args = ("op", torch.zeros(x_shape), torch.zeros(3, 24),
+            torch.zeros(zq_shape))
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            score_kernel._groups(*args)
+    else:
+        assert score_kernel._groups(*args) == want
 
 
 # ---------------------------------------------------------------------------
