@@ -89,6 +89,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    every batch, survivors exact where the decisions have margin;
    and every query group of the test split scored feature-major (K7)
    against K6;
+6b. serving on the wall clock and across replicas, each path with the
+   launch counts set to 0 before it and read after it:
+   `[pump filter]` the launcher's --pump (a SessionPump over the session,
+   500 requests at 400 QPS from 4 submitter threads, 130 ms deadline):
+   every future resolved, the accounting identity, no shape after warmup,
+   no cycle error or restart, K2 once per pipeline run and at least once
+   per executed chunk, the page-locked transfer pool reusing its buffers,
+   every served response against the plain pipeline; wall-clock p50 /
+   p95 / p99, achieved QPS, cycles, slot joins, host ms per chunk.
+   `[router]` --replicas 2 (both on the card, each on its own stream,
+   distinct and not the default), on the DES and with one pump per
+   replica, each plain and with replica 0 forced dead: every future
+   resolved, the fleet identity, drained = adopted, failovers in the kill
+   runs, K2 once per pipeline run, responses against the plain pipeline.
+   `[replica streams]` at every warmed (b, g) two page-locked batches on
+   the two replicas' streams behind one busy-wait (both enqueued before
+   it ends), each output equal to its one-stream bits. `[pump faults]`
+   --pump --faults 0.2: every future resolved, the identity, every error
+   an injected fault and every poisoned request an error. `[shim]`
+   CascadeServer on "filter" (K2) and "score" (K1): responses in submit
+   order, each equal bit for bit to the session's results on
+   RequestBatcher.drain's batch (pageable copies; the shim's own are
+   page-locked);
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -128,6 +151,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -137,6 +161,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # The port's source tree: this checkout's `src`, or CHIP_SMOKE_SRC (kernel_ab.py
@@ -162,13 +187,18 @@ from repro_torch.kernels.cascade_loss import kernel as loss_kernel  # noqa: E402
 from repro_torch.kernels.cascade_score import kernel as score_kernel  # noqa: E402
 from repro_torch.kernels.swa_decode import kernel as swa_kernel  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
+from repro_torch.launch.mesh import replica_devices  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
-from repro_torch.serving.batching import (alloc_batch, bucket_of,  # noqa: E402
-                                          pack_into)
-from repro_torch.serving.loadgen import run_open_loop  # noqa: E402
+from repro_torch.serving.batching import (  # noqa: E402
+    PinnedBatch, RequestBatcher, alloc_batch, bucket_of, pack_into)
+from repro_torch.serving.cascade_server import CascadeServer  # noqa: E402
+from repro_torch.serving.loadgen import (  # noqa: E402
+    run_open_loop, run_open_loop_router)
+from repro_torch.serving.pump import SessionPump, run_wall_clock  # noqa: E402
+from repro_torch.serving.router import make_replicas  # noqa: E402
 
 RTOL = ATOL = 1e-5          # float32 sums taken in another order
 FWD_RTOL = 2e-5             # K4's NLL: probability vs log space
@@ -235,6 +265,14 @@ VMAP_CASES = ((64, 64, 24, 3, False, False), (64, 64, 24, 3, True, False),
 # The serve launcher's fit (launch/serve.py).
 FIT_QUERIES, FIT_EPOCHS, FIT_LR, FIT_BETA = 800, 4, 0.01, 5.0
 DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
+# The wall-clock pump and the router: the launcher's --pump / --replicas
+# defaults (4 submitter threads, 2 replicas), --faults 0.2 for the chaos
+# run; every wait on a future is bounded by RESULT_TIMEOUT_S.
+PUMP_THREADS, N_REPLICAS, CHAOS_RATE, RESULT_TIMEOUT_S = 4, 2, 0.2, 60.0
+SHIM_REQUESTS = 200
+# The injector's own exceptions (and the session's guard against the
+# corrupt scores it plants): the only errors a chaos run may end in.
+INJECTED_ERRORS = ("TransientFault", "PoisonFault", "CorruptOutput")
 BUSY_CYCLES = 50_000_000    # ~25 ms at 1.98 GHz: covers queueing the calls
 # Zero features make the logits these biases exactly; on the CPU lp_T is
 # then float32(-1e-7), the NLL clamp, exactly (tests/test_torch_losses.py);
@@ -1288,6 +1326,35 @@ def phase_train_k6(tr, default_params, default_losses) -> dict[str, int]:
     return counts
 
 
+class Tally:
+    """Counts and times calls of a session's seams (rank_batch,
+    execute_chunk) from any thread: the pump thread, router probes made in
+    submitter threads and the DES all call them. `longest` keeps each
+    seam's slowest call, so a latency tail can be told apart from a slow
+    execute."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.calls = collections.Counter()
+        self.seconds = collections.Counter()
+        self.longest = collections.Counter()
+
+    def wrap(self, ses, name: str) -> None:
+        fn = getattr(ses, name)
+
+        def counted(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    self.calls[name] += 1
+                    self.seconds[name] += dt
+                    self.longest[name] = max(self.longest[name], dt)
+        setattr(ses, name, counted)
+
+
 # -- 6. serving -------------------------------------------------------------------
 def check_responses(reqs, futures, params, cfg, ses, neural=None) -> int:
     """Every served, undegraded response against the plain pipeline on the
@@ -1334,14 +1401,8 @@ def phase_slice(plan: str, params, te, neural=None) -> tuple[dict, dict]:
     ses = S.build_session(params, cfg, neural=neural, plan=plan,
                           device="cuda")
     label = plan if neural is None else f"{plan} + neural {neural.cfg.name}"
-    chunks = 0
-    execute = ses.execute_chunk
-
-    def counted(chunk):
-        nonlocal chunks
-        chunks += 1
-        return execute(chunk)
-    ses.execute_chunk = counted
+    tally = Tally()
+    tally.wrap(ses, "execute_chunk")
     reqs = S.make_requests(te, DES_REQUESTS, seed=0)
 
     ops.reset_launch_counts()        # the main path starts here
@@ -1359,6 +1420,7 @@ def phase_slice(plan: str, params, te, neural=None) -> tuple[dict, dict]:
 
     kernel = "cascade_filter" if plan == "filter" else "cascade_score_batched"
     serve_launches = launches[kernel] - warm_launches[kernel]
+    chunks = tally.calls["execute_chunk"]
     assert res.unresolved == 0, f"{res.unresolved} futures unresolved"
     assert all(f.done() for f in res.futures)
     assert st["submitted"] == st["completed"] + st["shed"] + st["errors"], st
@@ -1471,6 +1533,309 @@ def phase_fm_scoring(params, te) -> dict[str, int]:
           f"item-major (K6): max |err| {float((fm - im).abs().max()):.3g}, "
           f"bit-equal {torch.equal(fm, im)}")
     return launches
+
+
+# -- 6b. wall-clock pump, replica router, replica streams, shim ------------------
+
+def in_request_order(reqs, futures) -> list:
+    """The futures of a wall-clock run (grouped by submitter thread) in
+    the order of `reqs`, as check_responses takes them."""
+    by_id = {f.request_id: f for f in futures}
+    return [by_id[r.request_id] for r in reqs]
+
+
+def wall_summary(res) -> str:
+    return (f"p50 {res.pct(50):.3f} ms, p95 {res.pct(95):.3f} ms, p99 "
+            f"{res.pct(99):.3f} ms; {res.achieved_qps:.1f} QPS achieved of "
+            f"{res.offered_qps:.0f} offered in {res.wall_s:.3f}s wall; "
+            f"served {res.completed}/{res.n_requests}, shed {res.shed}, "
+            f"errors {res.errors}, degraded {res.degraded}, deadline-missed "
+            f"{res.deadline_missed}")
+
+
+def check_injected_errors(futures, injectors) -> tuple[int, int]:
+    """Every error response ends in one of the injector's own faults, and
+    every poisoned request that was not shed is an error. Returns (errors,
+    poisoned)."""
+    errors = poisoned = 0
+    for f in futures:
+        r = f.result()
+        if r.status == "error":
+            errors += 1
+            assert r.error.split(":")[0] in INJECTED_ERRORS, r.error
+        if (r.status != "shed"
+                and any(i.is_poisoned(r.request_id) for i in injectors)):
+            poisoned += 1
+            assert r.status == "error", (r.request_id, r.status)
+    return errors, poisoned
+
+
+def phase_pump(params, te, *, fault_rate=0.0) -> dict:
+    """The launcher's --pump path on the card: a SessionPump over the
+    launcher's session (plan "filter", K2), 500 requests at 400 QPS offered
+    from 4 submitter threads, deadline 130 ms, with the launch counts set
+    to 0 before warmup and read after the pump has closed. Without faults:
+    no errors, cycle errors or restarts, K2 launched once per pipeline run
+    and at least once per executed chunk, the page-locked pool reusing
+    its buffers, every served response against the plain pipeline on the
+    CPU. With --faults: errors only from the injector."""
+    cfg = cloes.CASCADE
+    injector = S.build_injector(fault_rate, seed=0)
+    ses = S.build_session(params, cfg, plan="filter", faults=injector,
+                          device="cuda")
+    label = "pump filter" if injector is None else "pump faults"
+    reqs = S.make_requests(te, DES_REQUESTS, seed=0)
+    ops.reset_launch_counts()        # the path starts here
+    shapes = ses.warmup()
+    warm = ops.launch_counts()["cascade_filter"]
+    shapes_after_warmup = S.compiled_count([ses])
+    tally = Tally()
+    tally.wrap(ses, "rank_batch")
+    tally.wrap(ses, "execute_chunk")
+    pump = SessionPump(ses).start()
+    res = run_wall_clock(pump, reqs, DES_QPS, deadline_ms=DES_DEADLINE_MS,
+                         n_threads=PUMP_THREADS, seed=0,
+                         result_timeout_s=RESULT_TIMEOUT_S)
+    pump.close(timeout=RESULT_TIMEOUT_S)
+    sync()
+    launches = ops.launch_counts()["cascade_filter"] - warm   # ... ends here
+    assert not pump.running, f"{label}: the pump thread did not stop"
+    pst = pump.stats_export()
+    st = pst["session"]
+    futures = in_request_order(reqs, res.futures)
+    assert res.unresolved == 0 and all(f.done() for f in futures), \
+        f"{label}: {res.unresolved} futures unresolved"
+    assert st["submitted"] == st["completed"] + st["shed"] + st["errors"], st
+    assert pst["cycle_errors"] == 0 and pst["restarts"] == 0, pst
+    new_shapes = S.compiled_count([ses]) - shapes_after_warmup
+    assert new_shapes == 0, f"{label}: {new_shapes} shapes after warmup"
+    chunks, runs = tally.calls["execute_chunk"], tally.calls["rank_batch"]
+    assert launches == runs, (launches, runs)
+    pool = ses.pool.snapshot()
+    assert ses.pool.pin, f"{label}: the session's pool is not page-locked"
+    assert pool["reused"] > 0 and pool["allocated"] <= 4 * len(shapes), pool
+    checked = check_responses(reqs, futures, params, cfg, ses)
+    assert checked > 0
+    if injector is None:
+        assert st["faults"] == 0 and st["errors"] == 0, st
+        assert launches >= chunks > 0, (launches, chunks)
+        chaos = ""
+    else:
+        errors, poisoned = check_injected_errors(futures, [injector])
+        inj = injector.snapshot()
+        assert sum(inj.values()) > 0 and st["faults"] > 0, inj
+        chaos = (f"; injected {inj}, {st['retries']} retries, {errors} "
+                 f"errors (every one an injected fault), {poisoned} "
+                 "poisoned requests all errors")
+    per_cycle = 1e3 * tally.seconds["execute_chunk"] / max(chunks, 1)
+    print(f"[{label}] {wall_summary(res)}; {pst['cycles']} cycles, "
+          f"{pst['slot_joins']} slot joins, {chunks} chunks executed "
+          f"({per_cycle:.4f} ms host each, pack to fetch; longest "
+          f"{1e3 * tally.longest['execute_chunk']:.3f} ms), K2 x {launches} "
+          f"(warmup {warm}); pool allocated {pool['allocated']} / reused "
+          f"{pool['reused']} (page-locked); {checked} responses match the "
+          f"plain pipeline on the CPU{chaos}")
+    return dict(launches=launches, summary=res.summary(), cycles=pst["cycles"],
+                slot_joins=pst["slot_joins"], chunks=chunks,
+                ms_per_chunk=per_cycle, pool=pool)
+
+
+def phase_router(params, te) -> dict:
+    """--replicas 2 on the card: both replicas on the one card
+    (`replica_devices`), each on its own stream (distinct, neither the
+    default). The DES (`run_open_loop_router`) and the wall-clock run (one
+    pump per replica, 4 submitter threads), each once plain and once with
+    replica 0's executor forced dead (--kill-replica): every future
+    resolved, the fleet identity, Σ adopted = Σ drained, failovers in the
+    kill runs, K2 once per pipeline run on either replica (counts set to 0
+    before each run's warmup and read after it), every served response
+    against the plain pipeline on the CPU."""
+    cfg = cloes.CASCADE
+    reqs = S.make_requests(te, DES_REQUESTS, seed=0)
+    out = {"launches": 0}
+    for mode in ("des", "pump"):
+        for kill in (False, True):
+            label = f"router {mode}" + (" kill-replica" if kill else "")
+            router = S.build_router(params, cfg, n=N_REPLICAS,
+                                    kill_replica=kill, device="cuda")
+            reps = router.replicas
+            streams = [r.stream for r in reps]
+            default = torch.cuda.default_stream(reps[0].device)
+            handles = {s.cuda_stream for s in streams if s is not None}
+            assert len(handles) == N_REPLICAS and \
+                default.cuda_stream not in handles, (streams, default)
+            ops.reset_launch_counts()        # this run starts here
+            shapes = router.warmup()
+            warm = ops.launch_counts()["cascade_filter"]
+            tally = Tally()
+            for r in reps:
+                tally.wrap(r, "rank_batch")
+                tally.wrap(r, "execute_chunk")
+            if mode == "des":
+                res = run_open_loop_router(router, reqs, DES_QPS,
+                                           deadline_ms=DES_DEADLINE_MS,
+                                           seed=0)
+                router.close()
+            else:
+                router.attach_pumps([
+                    SessionPump(r, name=f"pump-{r.name}").start()
+                    for r in reps])
+                res = run_wall_clock(router, reqs, DES_QPS,
+                                     deadline_ms=DES_DEADLINE_MS,
+                                     n_threads=PUMP_THREADS, seed=0,
+                                     result_timeout_s=RESULT_TIMEOUT_S)
+                router.close(timeout=RESULT_TIMEOUT_S)
+                assert not any(p.running for p in router.pumps), label
+            sync()
+            launches = ops.launch_counts()["cascade_filter"] - warm
+            st = router.stats_export()
+            per = [p.get("session", p) for p in st["replicas"]]
+            g = st["global"]
+            futures = in_request_order(reqs, res.futures)
+            assert res.unresolved == 0 and all(f.done() for f in futures), \
+                f"{label}: unresolved futures"
+            assert g["submitted"] == g["completed"] + g["shed"] \
+                + g["errors"], g
+            assert g["pending"] == 0 and g["inflight"] == 0, g
+            assert g["adopted"] == g["drained"], g
+            assert launches == tally.calls["rank_batch"] > 0, \
+                (launches, tally.calls)
+            if mode == "pump":
+                for p in st["replicas"]:
+                    assert p["cycle_errors"] == 0 and p["restarts"] == 0, p
+            if kill:
+                assert st["failovers"] >= 1 and st["failed"] == [0], st
+            else:
+                assert st["failovers"] == 0 and g["errors"] == 0 \
+                    and g["faults"] == 0, st
+                assert all(p["submitted"] > 0 for p in per), per
+            checked = check_responses(reqs, futures, params, cfg, reps[0])
+            assert checked > 0
+            out["launches"] += launches
+            out[label] = res.summary()
+            detail = wall_summary(res) if mode == "pump" else (
+                f"p50 {res.pct(50):.3f} ms, p95 {res.pct(95):.3f} ms, p99 "
+                f"{res.pct(99):.3f} ms; {res.achieved_qps:.1f} QPS over "
+                f"{res.sim_s:.3f}s simulated, {res.serve_s:.4f}s compute; "
+                f"served {res.completed}/{res.n_requests}, errors "
+                f"{res.errors}")
+            print(f"[{label}] {len(shapes)} shapes warmed per replica; "
+                  f"{detail}; failovers {st['failovers']}, drained "
+                  f"{[p['drained'] for p in per]} adopted "
+                  f"{[p['adopted'] for p in per]}, probes {st['probes']}, "
+                  f"submitted {[p['submitted'] for p in per]}; "
+                  f"{tally.calls['execute_chunk']} chunks executed, longest "
+                  f"{1e3 * tally.longest['execute_chunk']:.3f} ms; K2 x "
+                  f"{launches} (warmup {warm}); streams "
+                  f"{[hex(s.cuda_stream) for s in streams]}; {checked} "
+                  "responses match the plain pipeline on the CPU")
+    return out
+
+
+def phase_replica_streams(params, te) -> int:
+    """The two replicas' streams at once: at every warmed (b, g), two
+    packed page-locked batches, each run first alone on the current stream
+    (a bare session: the one-stream bits), then on replica 0's and replica
+    1's streams back to back, both held behind one busy-wait so that they
+    run together; each output must equal its one-stream bits exactly, and
+    the host must have enqueued both before the busy-wait ends (no host
+    sync inside rank_batch). Returns K2's launches (counts set to 0 after
+    the warmups, read at the end)."""
+    cfg = cloes.CASCADE
+    reps = make_replicas(params, cfg, n=N_REPLICAS,
+                         scfg=S.build_serving_config(),
+                         devices=replica_devices(N_REPLICAS))
+    bare = S.build_session(params, cfg, device="cuda")
+    for r in reps + [bare]:
+        r.warmup()
+    reqs = iter(S.make_requests(te, N_REPLICAS * len(WARM_G) * sum(WARM_B),
+                                seed=2))
+    main = torch.cuda.current_stream()
+    ops.reset_launch_counts()        # this path starts here
+    shapes = overlapped = 0
+    for g in WARM_G:
+        for b in WARM_B:
+            batches = []
+            for r in reps:
+                batch = r.pool.acquire(b, g)
+                assert isinstance(batch, PinnedBatch)
+                pack_into(batch, [next(reqs) for _ in range(b)], g)
+                batches.append(batch)
+            want = [bare.fetch(bare.rank_batch(batch)) for batch in batches]
+            torch.cuda._sleep(BUSY_CYCLES)
+            for r in reps:
+                r.stream.wait_stream(main)
+            res = [r.rank_batch(batch) for r, batch in zip(reps, batches)]
+            overlapped += not main.query()
+            got = [r.fetch(x) for r, x in zip(reps, res)]
+            for k in range(N_REPLICAS):
+                for key in want[k]:
+                    assert np.array_equal(got[k][key], want[k][key]), (
+                        f"replica {k} stream, b={b} g={g} {key}: differs "
+                        "from the one-stream result")
+            for r, batch in zip(reps, batches):
+                r.pool.release(batch)
+            shapes += 1
+    sync()
+    launches = ops.launch_counts()["cascade_filter"]   # ... and ends here
+    assert launches == 2 * N_REPLICAS * shapes, launches
+    assert overlapped == shapes, (
+        f"{shapes - overlapped} of {shapes} shapes: the host waited for "
+        "the device before both replicas were enqueued")
+    print(f"[replica streams] {shapes} shapes (B in {WARM_B}, G in "
+          f"{WARM_G}): replicas 0 and 1 on streams "
+          f"{[hex(r.stream.cuda_stream) for r in reps]} behind one "
+          f"busy-wait, both enqueued while it ran in {overlapped} of "
+          f"{shapes}; every output equals its one-stream bits; K2 x "
+          f"{launches}")
+    return launches
+
+
+def phase_shim(params, te) -> dict[str, int]:
+    """The CascadeServer shim on the card, plans "filter" (K2) and "score"
+    (K1): 200 requests submitted, served in submit order; each response's
+    scores, survivors, stage counts and latency equal, bit for bit, the
+    session's results on the same batch packed by RequestBatcher.drain
+    (pageable numpy; the shim's flush stages them page-locked). The plan's
+    launches counted from 0 before serve() and read after it."""
+    cfg = cloes.CASCADE
+    reqs = S.make_requests(te, SHIM_REQUESTS, seed=3)
+    out = {}
+    for plan, kernel in (("filter", "cascade_filter"),
+                         ("score", "cascade_score_batched")):
+        srv = CascadeServer(params, cfg, fused=plan, device="cuda")
+        shapes = srv.warmup()
+        for r in reqs:
+            srv.submit(r)
+        ops.reset_launch_counts()    # this path starts here
+        resps = srv.serve()
+        sync()
+        launches = ops.launch_counts()[kernel]   # ... and ends here
+        assert [r.request_id for r in resps] == [r.request_id for r in reqs]
+        assert all(r.status == "ok" for r in resps)
+        batcher = RequestBatcher()
+        for r in reqs:
+            batcher.submit(r)
+        batches = 0
+        for seqs, chunk, batch in batcher.drain():
+            want = srv.session.fetch(srv.rank_batch(batch))
+            batches += 1
+            for i, (seq, req) in enumerate(zip(seqs, chunk)):
+                r = resps[seq]
+                n = len(r.scores)
+                assert np.array_equal(r.scores, want["scores"][i][:n]), seq
+                assert np.array_equal(r.survivors,
+                                      want["survivors"][i][:n] > 0), seq
+                assert r.stage_counts == [int(c) for c in
+                                          want["stage_counts"][i]], seq
+                assert r.est_latency_ms == float(want["lat"][i]), seq
+        assert launches == batches, (launches, batches)
+        out[kernel] = launches
+        print(f"[shim {plan}] {len(shapes)} shapes warmed; {len(resps)} "
+              f"requests served in submit order in {batches} batches "
+              f"({kernel} x {launches}); every response equals the "
+              "session's bits on RequestBatcher.drain's batch")
+    return out
 
 
 # -- 7. K8: the LLM engine's decode attention ------------------------------------
@@ -1999,6 +2364,19 @@ def main() -> None:
         kernel = ("cascade_filter" if plan == "filter"
                   else "cascade_score_batched")
         launches[kernel] = counts[kernel]
+    pump = phase_pump(params, te)
+    router = phase_router(params, te)
+    streams_launches = phase_replica_streams(params, te)
+    chaos = phase_pump(params, te, fault_rate=CHAOS_RATE)
+    shim = phase_shim(params, te)
+    extra = {"cascade_filter": dict(
+                 pump_launches=pump["launches"],
+                 pump_faults_launches=chaos["launches"],
+                 router_launches=router["launches"],
+                 replica_streams_launches=streams_launches,
+                 shim_launches=shim["cascade_filter"]),
+             "cascade_score_batched": dict(
+                 shim_launches=shim["cascade_score_batched"])}
     phase_serve_k6(params, te)
     launches["cascade_score_fm"] = phase_fm_scoring(
         params, te)["cascade_score_fm"]
@@ -2016,7 +2394,7 @@ def main() -> None:
     rows = []
     for name, info in KERNEL_INFO.items():
         row = {"name": name, **info, "launches": launches[name],
-               "max_abs_err": errs[name]}
+               "max_abs_err": errs[name], **extra.get(name, {})}
         if name == "swa_decode":
             tm = k8["global"]
             row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -71,6 +71,10 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# Guards every wrapper's `.launches` count: serving threads (a pump per
+# replica) launch kernels at once, and `+= 1` on an attribute is a
+# read-modify-write that would lose increments between them.
+launch_lock = threading.Lock()
 # What the last build (or load) did: library path, seconds spent, and the
 # compiler's output (ptxas register / shared-memory report per kernel).
 build_info: dict = {}
@@ -152,6 +156,13 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
         return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, under `launch_lock`: the one place a
+    wrapper counts the kernel it has just launched."""
+    with launch_lock:
+        wrapper.launches += 1
 
 
 def check_launch(lib: ctypes.CDLL, op: str, rc: int) -> None:

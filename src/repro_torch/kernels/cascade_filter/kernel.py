@@ -61,7 +61,7 @@ def cascade_filter(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
             out["n_keep"].data_ptr(), b, g, d, t,
             _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_filter.launches += 1
+    _build.count_launch(cascade_filter)
     return out
 
 

@@ -67,7 +67,7 @@ def cascade_loss(xc: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor
             cost.data_ptr(), cnt.data_ptr(), cost_part.data_ptr(),
             b, g, d, t, _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_loss.launches += 1
+    _build.count_launch(cascade_loss)
     return ll, cost, cnt
 
 
@@ -108,7 +108,7 @@ def cascade_loss_bwd(xc: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
             dw.data_ptr(), dzq.data_ptr(), dzq_pen.data_ptr(),
             dw_part.data_ptr(), b, g, d, t, _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_loss_bwd.launches += 1
+    _build.count_launch(cascade_loss_bwd)
     return dxc, dw, dzq, dzq_pen
 
 

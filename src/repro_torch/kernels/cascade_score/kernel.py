@@ -60,7 +60,7 @@ def cascade_score_batched(x: torch.Tensor, w_eff: torch.Tensor,
             x.data_ptr(), w_eff.data_ptr(), zq.data_ptr(), out.data_ptr(),
             b, g, d, t, _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_score_batched.launches += 1
+    _build.count_launch(cascade_score_batched)
     return out
 
 
@@ -95,7 +95,7 @@ def cascade_score_batched_bwd(x: torch.Tensor, w_eff: torch.Tensor,
             dx.data_ptr(), dw.data_ptr(), dzq.data_ptr(), dw_part.data_ptr(),
             b, n, d, t, _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_score_batched_bwd.launches += 1
+    _build.count_launch(cascade_score_batched_bwd)
     return dx, dw, dzq
 
 
@@ -184,7 +184,7 @@ def cascade_score(x: torch.Tensor, w_eff: torch.Tensor,
             x.data_ptr(), w_eff.data_ptr(), zq.data_ptr(), out.data_ptr(),
             b, n, d, t, zq_stride, bf16, _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_score.launches += 1
+    _build.count_launch(cascade_score)
     return out
 
 
@@ -210,7 +210,7 @@ def cascade_score_fm(xt: torch.Tensor, w_eff: torch.Tensor,
             xt.data_ptr(), w_eff.data_ptr(), zq.data_ptr(), out.data_ptr(),
             n, d, t, _bf16_bits(xt, w_eff, zq), _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_score_fm.launches += 1
+    _build.count_launch(cascade_score_fm)
     return out
 
 
@@ -251,7 +251,7 @@ def cascade_score_bwd(x: torch.Tensor, w_eff: torch.Tensor, zq: torch.Tensor,
             dx.data_ptr(), sums.data_ptr(), part.data_ptr(), b, n, d, t,
             zq_stride, rows, bf16, _build.stream_handle(device))
     _build.check_launch(lib, op, rc)
-    cascade_score_bwd.launches += 1
+    _build.count_launch(cascade_score_bwd)
     return dx, sums[:t * d].view(t, d), sums[t * d:].view(zq.shape)
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.cascade_filter import kernel as _filter_kernel
 from repro_torch.kernels.cascade_filter.ref import cascade_filter_ref
@@ -57,12 +58,17 @@ KERNELS = {
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Each kernel's launches so far, read under the lock the wrappers
+    count under (`_build.count_launch`), so threads launching at the same
+    time lose no count."""
+    with _build.launch_lock:
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _build.launch_lock:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 def _require_ranks(op: str, **named) -> None:

@@ -144,7 +144,7 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             group, int(bf16), p["lo"], p["hi"], p["n_split"],
             p["split_len"], 1.0 / math.sqrt(hd), stream)
     _build.check_launch(lib, op, rc)
-    swa_decode.launches += 1
+    _build.count_launch(swa_decode)
     return out
 
 

@@ -3,22 +3,32 @@ that re-scores the items surviving the linear cascade — how the paper
 treats the expensive "Deep & Wide" feature (Table 1, cost 0.84): a costly
 scorer that the cascade shields from the bulk of the traffic.
 
-The port of `NeuralScorer` from the reference's
-src/repro/serving/cascade_server.py. Its `CascadeServer` compatibility
-shim over CascadeSession is not ported yet (ROADMAP Queue 1 item 8). The
-scorer runs the dense block over the window schedule, so, as in the
+The scorer runs the dense block over the window schedule, so, as in the
 reference, its model is a dense architecture.
+
+CascadeServer is the thin COMPATIBILITY SHIM over the streaming
+serving.session.CascadeSession engine: submit() queues unboundedly and
+serve() drains everything, in submit order — new code should use
+CascadeSession directly (deadlines, admission control, flush policy,
+degraded modes). The two give the same results on the same request set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
+from repro_torch.core import cascade as C
+from repro_torch.core import losses as L
 from repro_torch.models import base as MB
 from repro_torch.models import layers as Lyr
 from repro_torch.models import zoo as Z
+from repro_torch.serving.batching import (RankRequest, RankResponse,
+                                          RequestBatcher)
+from repro_torch.serving.session import (CascadeSession, DegradePolicy,
+                                         ServingConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -80,3 +90,81 @@ class NeuralScorer:
             x, _ = Z._dense_block_fwd(p, self.cfg, x, positions,
                                       int(wins[i]))
         return Lyr.rms_norm(x, params["final_norm"])
+
+
+# ---------------------------------------------------------------------------
+# The cascade server.
+# ---------------------------------------------------------------------------
+
+class CascadeServer:
+    """Thin compatibility shim over serving.session.CascadeSession:
+    unbounded queue, no deadlines, no degradation — submit() then serve()
+    drains everything in submit order, exactly the pre-session API. Serves
+    on `device` (default the CUDA card; asking for it without one
+    raises)."""
+
+    def __init__(self, params: C.Params, cfg: C.CascadeConfig,
+                 lcfg: L.LossConfig | None = None,
+                 neural_stage: NeuralScorer | None = None,
+                 neural_cost: float = 0.84,
+                 use_fused_kernel: bool | None = None,
+                 fused: str | None = None,
+                 batcher: RequestBatcher | None = None,
+                 device="cuda"):
+        # fused names a core.pipeline.PLANS entry directly ('filter' — the
+        # fully fused kernel, 'score' — the batched scorer + the stage
+        # chain, 'none' — the plain PyTorch path). use_fused_kernel is the
+        # pre-registry bool API, deprecated for one release of aliasing;
+        # an explicit fused= always takes precedence over the legacy bool.
+        if use_fused_kernel is not None:
+            warnings.warn(
+                "CascadeServer(use_fused_kernel=...) is deprecated; pass "
+                "fused='filter' (True) or fused='none' (False) — a "
+                "core.pipeline.PLANS plan name — instead",
+                DeprecationWarning, stacklevel=2)
+            if fused is None:
+                fused = "filter" if use_fused_kernel else "none"
+        self.fused = fused if fused is not None else "filter"
+        self.use_fused_kernel = self.fused == "filter"
+        self.batcher = batcher if batcher is not None else RequestBatcher()
+        self.session = CascadeSession(
+            params, cfg, lcfg, neural_stage=neural_stage, device=device,
+            scfg=ServingConfig(
+                plan=self.fused,
+                group_buckets=tuple(self.batcher.buckets),
+                batch_groups=self.batcher.batch_groups,
+                max_queue=None,                        # legacy: unbounded
+                degrade=DegradePolicy(high_watermark=None),
+                neural_cost=neural_cost))
+        self.params = self.session.params
+        self.cfg = cfg
+        self.lcfg = self.session.lcfg
+        self.neural = neural_stage
+        self.neural_cost = neural_cost
+        self._futures = []
+
+    @property
+    def _rank(self):
+        """The session's pipeline."""
+        return self.session._rank
+
+    def rank_batch(self, batch: dict) -> dict:
+        """Run the hard-cascade pipeline on a padded batch (device
+        tensors out; `session.fetch` reads them)."""
+        return self.session.rank_batch(batch)
+
+    def warmup(self) -> list[tuple[int, int]]:
+        """Run the pipeline once for every batcher shape bucket."""
+        return self.session.warmup()
+
+    # -- request API ------------------------------------------------------
+
+    def submit(self, req: RankRequest) -> None:
+        self._futures.append(self.session.submit(req))
+
+    def serve(self) -> list[RankResponse]:
+        # The session flushes bucket by bucket (shape order, not submit
+        # order); the futures list restores submit order before return.
+        self.session.flush()
+        futures, self._futures = self._futures, []
+        return [f.result() for f in futures]

@@ -19,7 +19,8 @@ degrades — the fig-5 saturation sweep and launch.serve both report from
 this generator. Request *generation* cost never pollutes the numbers: the
 caller builds the request list up front and times it separately.
 
-The N-replica version (`run_open_loop_router`) comes with the router.
+`run_open_loop_router` drives N replicas behind a ReplicaRouter the same
+way, each replica with its own virtual service clock.
 """
 
 from __future__ import annotations
@@ -180,6 +181,128 @@ def run_open_loop(session: CascadeSession, reqs: list[RankRequest],
         record(resps, now)
     # loop exit requires session.pending == 0 (next_due_ms() is None only
     # when every bucket is empty): nothing is ever left hanging here
+
+    shed = sum(1 for f in futures if f.done() and f.result().status == "shed")
+    unresolved = sum(1 for f in futures if not f.done())
+    sim_s = max(last_resolve - float(arrivals[0]), 1e-9) / 1e3
+    return OpenLoopResult(
+        offered_qps=qps, n_requests=len(reqs),
+        completed=len(latencies), shed=shed,
+        degraded=completions["degraded"],
+        deadline_missed=completions["deadline_missed"],
+        truncated=completions["truncated"],
+        unresolved=unresolved, serve_s=serve_s, sim_s=sim_s,
+        latency_ms=np.asarray(latencies), errors=completions["errors"],
+        futures=futures)
+
+
+def run_open_loop_router(router, reqs: list[RankRequest], qps: float, *,
+                         deadline_ms: float | None = None, seed: int = 0,
+                         timer=time.perf_counter) -> OpenLoopResult:
+    """The N-replica counterpart of run_open_loop: one open-loop Poisson
+    arrival stream submitted through a ReplicaRouter, served as a DES
+    with PER-REPLICA virtual service concurrency.
+
+    Each replica k has its own virtual free time `free_at[k]`; a due
+    chunk on replica k starts service at max(due_k, free_at[k]), its REAL
+    measured compute advances only that replica's clock, and the
+    simulation always processes the globally earliest service start — so
+    two replicas genuinely overlap in virtual time even though this
+    driver executes their chunks one after the other (each on its own
+    stream). That is how N replicas beat one on virtual-time throughput:
+    the offered load splits across clocks that run in parallel.
+
+    With one replica this reduces to run_open_loop's schedule exactly:
+    free_at[0] plays the single `now`, every event lands at the same
+    virtual instant, and same seed + same timer gives byte-identical
+    results (tests/test_torch_router.py pins it).
+
+    `router.tick(now)` runs at each event boundary, so a breaker that
+    trips mid-soak triggers failover (backlog drains to survivors) and
+    probe re-admission on the virtual clock with no new arrivals needed.
+    """
+    if not reqs:
+        return OpenLoopResult(
+            offered_qps=qps, n_requests=0, completed=0, shed=0, degraded=0,
+            deadline_missed=0, truncated=0, unresolved=0, serve_s=0.0,
+            sim_s=0.0, latency_ms=np.empty(0))
+    replicas = router.replicas
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1e3 / qps, size=len(reqs)))
+    free_at = [0.0] * len(replicas)
+    now = 0.0                   # sim front: latest event processed
+    serve_s = 0.0
+    arrival_of: dict[int, float] = {}
+    latencies: list[float] = []
+    completions = {"degraded": 0, "deadline_missed": 0, "truncated": 0,
+                   "errors": 0}
+    futures = []
+    last_resolve = 0.0
+    i = 0
+
+    def record(resps, done_ms):
+        nonlocal last_resolve
+        last_resolve = max(last_resolve, done_ms)
+        for r in resps:
+            if r.request_id < 0:
+                continue        # router probe, not caller traffic
+            if r.status == "error":
+                completions["errors"] += 1
+                continue
+            latencies.append(done_ms - arrival_of[r.request_id])
+            completions["degraded"] += bool(r.degraded)
+            completions["deadline_missed"] += r.deadline_missed
+            completions["truncated"] += r.truncated
+
+    while i < len(reqs) or router.pending:
+        # control plane on the virtual clock: failover drains and probes
+        # happen between events, exactly like a real steering loop
+        router.tick(now)
+        best_k, best_start = None, float("inf")
+        for k, r in enumerate(replicas):
+            due = r.next_due_ms()
+            if due is None:
+                continue
+            start = max(due, free_at[k])
+            if start < best_start:
+                best_k, best_start = k, start
+        if i < len(reqs) and (best_k is None or arrivals[i] <= best_start):
+            arr = float(arrivals[i])
+            req = reqs[i]
+            i += 1
+            arrival_of[req.request_id] = arr
+            fut = router.submit(
+                req, now_ms=arr,
+                deadline_ms=None if deadline_ms is None
+                else arr + deadline_ms)
+            futures.append(fut)
+            # simulation time has reached arr: an idle replica cannot have
+            # served before the requests forming its batch existed
+            for k in range(len(free_at)):
+                free_at[k] = max(free_at[k], arr)
+            now = max(now, arr)
+            if fut.done():
+                last_resolve = max(last_resolve, arr)
+            continue
+        if best_k is None:
+            break
+        rep = replicas[best_k]
+        chunk = rep.claim_due(best_start)
+        if chunk is None:       # defensive: the due bucket raced away
+            now = max(now, best_start)      # (e.g. a failover drain moved
+            free_at[best_k] = best_start    # it between tick and claim)
+            continue
+        t0 = timer()
+        results = rep.execute_chunk(chunk)
+        dt_ms = (timer() - t0) * 1e3
+        serve_s += dt_ms / 1e3
+        done = best_start + dt_ms
+        free_at[best_k] = done
+        now = max(now, done)
+        resps = rep.resolve_chunk(chunk, results, now_ms=best_start,
+                                  done_ms=done)
+        record(resps, done)
+    router.tick(now)
 
     shed = sum(1 for f in futures if f.done() and f.result().status == "shed")
     unresolved = sum(1 for f in futures if not f.done())

@@ -31,14 +31,18 @@ The compute core is core.pipeline.run_cascade through the plan registry
 plus the optional neural final stage (serving.cascade_server.NeuralScorer)
 and the Eq-16 latency estimate, run on the session's device (by default
 the CUDA card, where plans "filter" and "score" launch the hand-written
-kernels). Each packed numpy batch is copied to the device, and the
-results come back to numpy before any response is built. The
-CascadeServer shim, the pump and the router come in later slices of the
-port.
+kernels). Each packed numpy batch is copied to the device (from
+page-locked staging on a CUDA device, without blocking the host), and the
+results come back to numpy before any response is built. A session given
+`stream=` enqueues those copies and its kernels on that CUDA stream, so
+replicas of one card (serving.router) run side by side; the
+CascadeServer shim (serving.cascade_server), the wall-clock SessionPump
+(serving.pump) and the ReplicaRouter (serving.router) drive it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -50,9 +54,10 @@ import torch
 from repro_torch.core import cascade as C
 from repro_torch.core import losses as L
 from repro_torch.core import pipeline as P
-from repro_torch.serving.batching import (RankRequest, RankResponse,
-                                          TransferBufferPool, bucket_of,
-                                          pack_into, padded_batch_rows,
+from repro_torch.serving.batching import (PinnedBatch, RankRequest,
+                                          RankResponse, TransferBufferPool,
+                                          bucket_of, pack_into,
+                                          padded_batch_rows,
                                           warmup_batch_sizes)
 from repro_torch.serving.faults import CorruptOutput, FaultInjector
 
@@ -266,7 +271,9 @@ class CascadeSession:
                  scfg: ServingConfig | None = None,
                  faults: FaultInjector | None = None,
                  name: str = "session",
-                 device="cuda"):
+                 device="cuda",
+                 stream: torch.cuda.Stream | None = None,
+                 pipeline_from: "CascadeSession | None" = None):
         # Every input and the whole pipeline live on `device`; asking for
         # "cuda" without a card raises here instead of serving elsewhere.
         self.device = torch.device(device)
@@ -275,6 +282,13 @@ class CascadeSession:
             raise ValueError(
                 f"the neural stage's weights are on {neural_stage.device}, "
                 f"the session serves on {self.device}")
+        # The CUDA stream this session's copies and kernels go on (a
+        # replica's own stream of a shared card); None keeps the calling
+        # thread's current stream.
+        if stream is not None and self.device.type != "cuda":
+            raise ValueError(f"a CUDA stream was given to a session on "
+                             f"{self.device}")
+        self.stream = stream
         self.params = {k: torch.as_tensor(v, dtype=torch.float32)
                        .to(self.device).contiguous()
                        for k, v in params.items()}
@@ -295,14 +309,28 @@ class CascadeSession:
         # What the reference's jit cache counted is kept as the set of
         # (skip_neural, b, g) shapes the pipeline has run, so "no new
         # shapes after warmup" keeps its meaning (launch.serve).
-        self.shapes_seen: set[tuple[bool, int, int]] = set()
-        self._rank = self._make_rank(with_neural=True)
-        # The degraded pipeline drops the neural stage; it only exists as a
-        # distinct pipeline when there is a neural stage to skip.
-        if self.neural is not None and self.scfg.degrade.skip_neural:
-            self._rank_noneural = self._make_rank(with_neural=False)
+        if pipeline_from is not None:
+            # Co-located replicas share ONE pipeline and its shape record:
+            # same plan, neural stage and device -> the same compute, and
+            # the fleet's "no new shapes after warmup" is one count.
+            if (pipeline_from.scfg.plan != self.scfg.plan
+                    or pipeline_from.neural is not self.neural
+                    or pipeline_from.device != self.device):
+                raise ValueError(
+                    "pipeline_from requires the same plan, neural stage "
+                    "and device as the donor session")
+            self.shapes_seen = pipeline_from.shapes_seen
+            self._rank = pipeline_from._rank
+            self._rank_noneural = pipeline_from._rank_noneural
         else:
-            self._rank_noneural = self._rank
+            self.shapes_seen: set[tuple[bool, int, int]] = set()
+            self._rank = self._make_rank(with_neural=True)
+            # The degraded pipeline drops the neural stage; it only exists
+            # as a distinct pipeline when there is a neural stage to skip.
+            if self.neural is not None and self.scfg.degrade.skip_neural:
+                self._rank_noneural = self._make_rank(with_neural=False)
+            else:
+                self._rank_noneural = self._rank
         self._pending: dict[int, list[_Pending]] = {g: [] for g in self.buckets}
         self._degraded_active = False
         # ONE lock around admission + the pending queues + resolution. The
@@ -312,8 +340,10 @@ class CascadeSession:
         # session's own methods take.
         self.lock = threading.RLock()
         # Staging buffers for request packing: per-(B, G) reuse so the
-        # flush hot path stops allocating (see TransferBufferPool).
-        self.pool = TransferBufferPool(cfg.d_x, cfg.d_q)
+        # flush hot path stops allocating (see TransferBufferPool);
+        # page-locked when the session copies them to a CUDA device.
+        self.pool = TransferBufferPool(cfg.d_x, cfg.d_q,
+                                       pin=self.device.type == "cuda")
         # "refused" counts admission="raise" rejections (QueueFull, no
         # future) — distinct from "shed" (resolved future with
         # status="shed"); "submitted" counts only requests that got a
@@ -333,6 +363,11 @@ class CascadeSession:
                       "degrade_exits": 0, "faults": 0, "retries": 0,
                       "errors": 0, "quarantined": 0, "breaker_shed": 0,
                       "inflight": 0, "drained": 0, "adopted": 0}
+        # Global-depth hook (the replica router): when set, bounded
+        # admission and the degradation watermarks judge THIS callable's
+        # depth instead of the local queue — one admission controller over
+        # N replicas. Must be safe to call without the session lock.
+        self.depth_fn = None
         # Consecutive failed execute attempts, session-wide — the circuit
         # breaker's input; any successful attempt resets it.
         self._consec_faults = 0
@@ -379,29 +414,51 @@ class CascadeSession:
 
         return impl
 
+    def _on_stream(self):
+        """The context that puts this session's device work on its own
+        stream (`stream=`): entered by rank_batch and fetch themselves, so
+        every caller (pump thread, DES, router probe) gets the same
+        placement. Without a stream, the caller's current stream."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def rank_batch(self, batch: dict, *, skip_neural: bool = False) -> dict:
         """Run the hard-cascade pipeline on a padded numpy batch, copied to
-        the session's device. Returns device tensors."""
+        the session's device. Returns device tensors, to be read with
+        `fetch` (on this session's stream). A pooled page-locked batch
+        (`PinnedBatch`) is copied without blocking the host, and its
+        `copied` event is recorded after the copies, so that the pool
+        hands the buffer out again only once they are done."""
         b, g = batch["mask"].shape
         self.shapes_seen.add((skip_neural, b, g))
-
-        def dev(v):
-            return torch.as_tensor(v, dtype=torch.float32).to(self.device)
+        keys = ("x", "q", "mask", "m_q")
         rank = self._rank_noneural if skip_neural else self._rank
-        return rank(self.params, dev(batch["x"]), dev(batch["q"]),
-                    dev(batch["mask"]), dev(batch["m_q"]))
+        with self._on_stream():
+            if isinstance(batch, PinnedBatch):
+                x, q, mask, m_q = (batch.pinned[k].to(self.device,
+                                                      non_blocking=True)
+                                   for k in keys)
+                batch.copied.record()
+            else:
+                x, q, mask, m_q = (torch.as_tensor(batch[k],
+                                                   dtype=torch.float32)
+                                   .to(self.device) for k in keys)
+            return rank(self.params, x, q, mask, m_q)
 
-    @staticmethod
-    def fetch(res: dict) -> dict:
+    def fetch(self, res: dict) -> dict:
         """rank_batch's device results as host numpy arrays: the copies
-        that wait for the device. Warmup runs them too, so that serving
+        that wait for the device, on this session's stream (the one the
+        results were computed on). Warmup runs them too, so that serving
         meets no device code for the first time."""
-        return {
-            "scores": res["scores"].cpu().numpy(),
-            "survivors": res["survivors"].cpu().numpy(),
-            "lat": res["est_latency_ms"].cpu().numpy(),
-            "stage_counts": res["stage_survivors"].sum(dim=1).cpu().numpy(),
-        }
+        with self._on_stream():
+            return {
+                "scores": res["scores"].cpu().numpy(),
+                "survivors": res["survivors"].cpu().numpy(),
+                "lat": res["est_latency_ms"].cpu().numpy(),
+                "stage_counts": res["stage_survivors"].sum(dim=1)
+                .cpu().numpy(),
+            }
 
     def warmup_manifest(self) -> dict:
         """The shape surface of this session as a JSON-serializable
@@ -485,6 +542,21 @@ class CascadeSession:
     def pending(self) -> int:
         return sum(len(v) for v in self._pending.values())
 
+    def queue_depth(self) -> int:
+        """Local pending depth WITHOUT taking the session lock: list len()
+        is GIL-atomic, so this is a safe (if instantaneously approximate)
+        read. The router's global depth_fn aggregates this across replicas
+        from inside a replica's submit path, where taking a SECOND session
+        lock could deadlock two concurrent submitters (A holds lock_A and
+        wants lock_B while B holds lock_B and wants lock_A)."""
+        return sum(len(v) for v in self._pending.values())
+
+    def _depth(self) -> int:
+        """Effective depth for admission and the degradation watermarks:
+        the router's GLOBAL depth when the hook is set (one admission
+        controller over N replicas), else the local queue."""
+        return self.pending if self.depth_fn is None else int(self.depth_fn())
+
     @property
     def degraded(self) -> bool:
         return self._degraded_active or self._breaker_degraded()
@@ -504,7 +576,7 @@ class CascadeSession:
         hw = self.scfg.degrade.high_watermark
         if hw is None:
             return
-        depth = self.pending
+        depth = self._depth()
         if not self._degraded_active and depth >= hw:
             self._degraded_active = True
             self.stats["degrade_enters"] += 1
@@ -539,7 +611,7 @@ class CascadeSession:
                 fut._resolve(_shed_response(req))
                 return fut
             mq = self.scfg.max_queue
-            if mq is not None and self.pending >= mq:
+            if mq is not None and self._depth() >= mq:
                 if self.scfg.admission == "raise":
                     # Refused-by-raise is NOT a shed-with-future: the
                     # caller gets an exception instead of a future, so it
@@ -921,11 +993,56 @@ class CascadeSession:
                 out.append(resp)
         return out
 
+    # -- failover seams (serving.router) -----------------------------------
+
+    def takeover_pending(self) -> dict[int, list[_Pending]]:
+        """Atomically pop EVERY queued entry, by bucket — the router's
+        failover drain. When this replica's breaker trips open its backlog
+        moves to survivors instead of stranding behind a broken executor;
+        futures travel WITH their entries (each resolves on whichever
+        replica serves it). Entries already claimed into a chunk
+        (inflight) are not touched — the caller that claimed them still
+        resolves or fails them here. Only entries move, never device
+        tensors: a survivor packs them into its own buffers and copies
+        them on its own stream. Counted under stats["drained"] so the
+        per-replica snapshot identity stays closed:
+          submitted + adopted = completed + shed + errors
+                                + pending + inflight + drained
+        (globally Σ adopted == Σ drained, so the router-wide identity
+        reduces to the plain one)."""
+        with self.lock:
+            out: dict[int, list[_Pending]] = {}
+            n = 0
+            for g in self.buckets:
+                if self._pending[g]:
+                    out[g] = self._pending[g]
+                    self._pending[g] = []
+                    n += len(out[g])
+            self.stats["drained"] += n
+            return out
+
+    def adopt_entries(self, g: int, entries: list[_Pending]) -> int:
+        """Graft entries drained from a failed replica onto the FRONT of
+        this replica's bucket-g queue: they are senior to anything queued
+        locally, so FIFO order is preserved across the drain and adopted
+        work is re-claimed through the normal claim_*/pack seams — same
+        shapes (the warmed pow2 ladder), the same results. A bucket this
+        replica does not serve falls back to the largest local bucket,
+        exactly like local admission."""
+        if not entries:
+            return 0
+        with self.lock:
+            gg = g if g in self._pending else self.buckets[-1]
+            self._pending[gg][:0] = entries
+            self.stats["adopted"] += len(entries)
+            return len(entries)
+
     def stats_export(self) -> dict:
         """One flat snapshot of the serving metrics surface: lifecycle
         counters, queue/breaker state, the TransferBufferPool's
         allocated/reused counters, and (when a FaultInjector is attached)
-        the injected-fault counts — consumed by launch.serve's report.
+        the injected-fault counts — consumed by launch.serve's report,
+        SessionPump.stats_export and ReplicaRouter.stats_export.
 
         The lifecycle counters, pending depth, and breaker state are read
         under ONE session-lock hold, so the snapshot cannot tear mid-read

@@ -49,7 +49,9 @@ def test_port_has_modules():
                  "repro_torch.kernels.swa_decode.kernel",
                  "repro_torch.kernels.swa_decode.ref",
                  "repro_torch.serving.engine",
-                 "repro_torch.serving.cascade_server"):
+                 "repro_torch.serving.cascade_server",
+                 "repro_torch.serving.pump", "repro_torch.serving.router",
+                 "repro_torch.launch.mesh"):
         assert want in mods
 
 

@@ -4,7 +4,9 @@ open-loop DES with an injected service clock (the pattern of
 tests/test_determinism.py). On the same requests and params, every
 response's status, order, survivors, flags, stage counts and timings, the
 run summary and stats_export() must be equal; scores and latency
-estimates within tolerance. Also the launcher's DES path."""
+estimates within tolerance. Also the CascadeServer shim and its
+RequestBatcher, and the launcher: its DES path, --pump, --replicas 2
+--kill-replica and --faults."""
 
 import dataclasses
 import json
@@ -14,16 +16,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import losses as JLoss
 from repro.launch import serve as JL
 from repro.serving import batching as JB
+from repro.serving import cascade_server as JCS
 from repro.serving import faults as JF
 from repro.serving import session as JS
 from repro.serving.loadgen import run_open_loop as j_run
+from repro_torch.core import losses as TLoss
 from repro_torch.data import LogConfig, generate_log
 from repro_torch.launch import serve as TL
 from repro_torch.serving import batching as TB
+from repro_torch.serving import cascade_server as TCS
 from repro_torch.serving import faults as TF
 from repro_torch.serving import session as TS
+from repro_torch.serving.pump import SessionPump
 from repro_torch.serving.loadgen import run_open_loop as t_run
 from torch_parity import (FakeTimer, assert_margin, assert_same_serve,
                           cascades, close, requests, serving_arrays,
@@ -261,3 +268,182 @@ def test_launcher_params_npz(tmp_path, capsys):
              b=np.zeros(2))
     with pytest.raises(SystemExit, match="do not fit"):
         TL.load_params(str(path), _TCFG, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the CascadeServer shim and its RequestBatcher
+# ---------------------------------------------------------------------------
+
+def _batcher_req(mod, i, n_items, d_x=24, d_q=8, seed=None):
+    """tests/test_serving_batching.py's `_req`."""
+    rng = np.random.default_rng(n_items if seed is None else seed)
+    return mod.RankRequest(request_id=i,
+                           q_feat=np.eye(d_q)[i % d_q].astype(np.float32),
+                           item_feats=rng.normal(size=(n_items, d_x))
+                           .astype(np.float32),
+                           m_q=10 * n_items + 1)
+
+
+def test_batcher_drain_and_pack_requests_byte_equal_reference():
+    sizes = [1, 3, 15, 16, 17, 63, 64, 65, 255, 256, 300, 4, 40, 200]
+    jb = JB.RequestBatcher(batch_groups=8, group_buckets=(16, 64, 256))
+    tb = TB.RequestBatcher(batch_groups=8, group_buckets=(16, 64, 256))
+    for i, n in enumerate(sizes):
+        jb.submit(_batcher_req(JB, i, n, d_x=6, d_q=4))
+        tb.submit(_batcher_req(TB, i, n, d_x=6, d_q=4))
+    assert len(tb) == len(sizes)
+    jout, tout = list(jb.drain()), list(tb.drain())
+    assert len(tb) == 0 and len(jout) == len(tout) == 3
+    for (jseq, jreqs, jbatch), (tseq, treqs, tbatch) in zip(jout, tout):
+        assert jseq == tseq
+        assert [r.request_id for r in jreqs] == [r.request_id for r in treqs]
+        assert set(jbatch) == set(tbatch)
+        for k in jbatch:
+            assert jbatch[k].shape == tbatch[k].shape
+            assert jbatch[k].tobytes() == tbatch[k].tobytes()
+    for n_reqs, g, bg in ((1, 16, 32), (3, 64, 32), (4, 8, 4), (7, 256, 8)):
+        jr = [_batcher_req(JB, i, 3 * i + 1, seed=i) for i in range(n_reqs)]
+        tr = [_batcher_req(TB, i, 3 * i + 1, seed=i) for i in range(n_reqs)]
+        want, got = JB.pack_requests(jr, g, bg), TB.pack_requests(tr, g, bg)
+        for k in want:
+            assert want[k].tobytes() == got[k].tobytes(), (n_reqs, g, k)
+
+
+def _servers(fused="filter", buckets=(8, 16), batch_groups=4):
+    jsrv = JCS.CascadeServer(_JP, _JCFG, JLoss.LossConfig(), fused=fused,
+                             batcher=JB.RequestBatcher(
+                                 batch_groups=batch_groups,
+                                 group_buckets=buckets))
+    tsrv = TCS.CascadeServer(_TP, _TCFG, TLoss.LossConfig(), fused=fused,
+                             batcher=TB.RequestBatcher(
+                                 batch_groups=batch_groups,
+                                 group_buckets=buckets), device="cpu")
+    return jsrv, tsrv
+
+
+@pytest.mark.parametrize("fused", ["filter", "score"])
+def test_server_serves_in_submit_order_like_reference(fused):
+    jsrv, tsrv = _servers(fused=fused)
+    rng = np.random.default_rng(3)
+    sizes = [12, 3, 16, 2, 9, 5, 11, 4, 7]
+    seeds = [int(rng.integers(1 << 20)) for _ in sizes]
+    arrays = [(i, np.eye(8)[i % 8].astype(np.float32),
+               _batcher_req(TB, i, n, seed=sd).item_feats, 10 * n + 1)
+              for i, (n, sd) in enumerate(zip(sizes, seeds))]
+    assert_margin(_TP, _TCFG, arrays, (8, 16), mq_scales=(1.0,))
+    for i, (n, sd) in enumerate(zip(sizes, seeds)):
+        jsrv.submit(_batcher_req(JB, i, n, seed=sd))
+        tsrv.submit(_batcher_req(TB, i, n, seed=sd))
+    jout, tout = jsrv.serve(), tsrv.serve()
+    assert [r.request_id for r in tout] == list(range(len(sizes)))
+    for a, b, n in zip(jout, tout, sizes):
+        assert len(b.scores) == n and b.status == "ok"
+        np.testing.assert_array_equal(a.order, b.order)
+        np.testing.assert_array_equal(a.survivors, b.survivors)
+        assert a.stage_counts == b.stage_counts
+        close(b.scores, a.scores)
+        close(b.est_latency_ms, a.est_latency_ms)
+    assert jsrv.session.stats_export() == tsrv.session.stats_export()
+
+
+def test_server_rejects_unknown_fused_mode_at_construction():
+    with pytest.raises(ValueError, match="unknown pipeline plan: 'scores'"):
+        _servers(fused="scores")
+
+
+@pytest.mark.parametrize("legacy, plan", [(True, "filter"), (False, "none")])
+def test_use_fused_kernel_is_deprecated_but_aliases_the_plan(legacy, plan):
+    with pytest.warns(DeprecationWarning, match="use_fused_kernel"):
+        srv = TCS.CascadeServer(_TP, _TCFG, use_fused_kernel=legacy,
+                                device="cpu")
+    assert srv.fused == plan and srv.session.scfg.plan == plan
+    assert srv.use_fused_kernel is legacy
+    with pytest.warns(DeprecationWarning):
+        srv2 = TCS.CascadeServer(_TP, _TCFG, use_fused_kernel=legacy,
+                                 fused="score", device="cpu")
+    assert srv2.fused == "score"
+    import warnings as _w
+    with _w.catch_warnings():
+        _w.simplefilter("error")
+        TCS.CascadeServer(_TP, _TCFG, fused=plan, device="cpu")
+
+
+def test_server_warmup_runs_each_shape_once_no_new_shape_in_serve():
+    jsrv, tsrv = _servers(buckets=(8, 16), batch_groups=4)
+    assert tsrv.session.shapes_seen == set()
+    shapes = tsrv.warmup()
+    assert shapes == jsrv.warmup()
+    assert sorted(shapes) == sorted((b, g) for g in (8, 16)
+                                    for b in (1, 2, 4))
+    assert tsrv.session.shapes_seen == {(False, b, g) for b, g in shapes}
+    assert tsrv._rank is tsrv.session._rank
+    out = tsrv.session.fetch(tsrv.rank_batch(
+        TB.pack_requests([_batcher_req(TB, 0, 5)], 8, 4)))
+    assert out["scores"].shape == (1, 8)
+    for round_ in range(2):
+        for i, n in enumerate([2, 8, 13, 16, 5]):
+            tsrv.submit(_batcher_req(TB, i, n))
+        assert len(tsrv.serve()) == 5
+        assert tsrv.session.shapes_seen == {(False, b, g)
+                                            for b, g in shapes}, round_
+
+
+# ---------------------------------------------------------------------------
+# the launcher's wall-clock, router and chaos paths; no card, no serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flags", [["--pump"], ["--replicas", "2",
+                                                "--kill-replica"],
+                                   ["--faults", "0.2"],
+                                   ["--pump", "--faults", "0.2"]],
+                         ids=lambda f: " ".join(f))
+def test_launcher_pump_router_and_faults_on_cpu(flags, tmp_path, capsys):
+    report = tmp_path / "serve.json"
+    TL.main(["--device", "cpu", "--requests", "40", "--report",
+             str(report)] + flags)
+    out = capsys.readouterr().out
+    assert "all futures resolved" in out
+    assert "recompiles after warmup: 0" in out
+    rep = json.loads(report.read_text())
+    st = rep["session_stats"]           # the fleet's, under a router
+    assert st["submitted"] == st["completed"] + st["shed"] + st["errors"]
+    assert rep["recompiles_after_warmup"] == 0
+    summary = rep["wall_clock" if "--pump" in flags else "open_loop"]
+    assert summary["unresolved"] == 0
+    assert summary["completed"] + summary["shed"] + summary["errors"] == 40
+    # a router's probes are submitted on top of the callers' requests
+    assert st["submitted"] == 40 + rep.get("router_stats",
+                                           {}).get("probes", 0)
+    assert rep["config"]["mode"] == ("pump" if "--pump" in flags else "des")
+    if "--pump" in flags:
+        assert rep["pump_stats"]["cycles"] > 0
+        assert rep["pump_stats"]["cycle_errors"] == 0
+        assert rep["pump_stats"]["running"] is False
+    if "--kill-replica" in flags:
+        router = rep["router_stats"]
+        assert router["failovers"] >= 1 and router["failed"] == [0]
+        assert sum(r["drained"] for r in router["replicas"]) \
+            == sum(r["adopted"] for r in router["replicas"])
+        assert "replica0:" in out and "FORCED DEAD" in out
+    if "--faults" in flags:
+        assert "CHAOS MODE" in out
+        assert sum(st["injected"].values()) > 0
+
+
+def test_launcher_refuses_inconsistent_flags():
+    with pytest.raises(SystemExit, match="--replicas >= 2"):
+        TL.main(["--device", "cpu", "--kill-replica"])
+    with pytest.raises(SystemExit, match="single-session"):
+        TL.main(["--device", "cpu", "--pump", "--profile", "t.json"])
+
+
+def test_cuda_pump_and_launcher_without_a_card_raise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        SessionPump(TS.CascadeSession(_TP, _TCFG))
+    with pytest.raises((AssertionError, RuntimeError)):
+        TCS.CascadeServer(_TP, _TCFG)           # device defaults to "cuda"
+    for flags in (["--pump"], ["--replicas", "2"]):
+        with pytest.raises((AssertionError, RuntimeError)):
+            TL.main(["--requests", "5"] + flags)
