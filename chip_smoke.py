@@ -76,6 +76,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    nothing else launched; two card fits byte-equal, and within 1e-4 of
    the same fit on the CPU and of the default K4 + K5 fit on the card;
    steps/s, and profiled as the first (launches per step, device busy);
+5b. durable training state and the other training paths, each with the
+   launch counts set to 0 before it and read after it: `[train restart]`
+   the L3 fit checkpointed for 2 of its 4 epochs, then resumed: params
+   and the resumed losses byte-equal to the uninterrupted card fit, K4 =
+   K5 = the steps run after the restore; CheckpointStore save and load
+   times; the launcher in subprocesses on the card (--crash-after-epoch 2
+   exits 9, --resume prints the uninterrupted run's params sha256).
+   `[train dp]` the same fit through fit(mesh=) on a one-rank NCCL group,
+   byte-equal to the fit without a mesh;
 6. serving: the launcher's open-loop DES (`launch.serve`) on the card
    with the cascade trained in phase 5, once per plan ("filter", then
    "score"): 500 requests of 8-63 items at 400 QPS with a 130 ms
@@ -111,7 +120,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    CascadeServer on "filter" (K2) and "score" (K1): responses in submit
    order, each equal bit for bit to the session's results on
    RequestBatcher.drain's batch (pageable copies; the shim's own are
-   page-locked);
+   page-locked). `[warm restart]` the launcher with --serve-dir (500
+   requests at 400 QPS; drained, persisted), then with --warm-restart:
+   the restored params equal, no shape first seen after warmup, every
+   future resolved, the identity closed, K2 = chunks executed + the
+   manifest's replayed shapes, responses bit-equal to the first server's
+   where both served a request in a chunk of the same shape (within 1e-5
+   elsewhere); both warmup times and the warm server's latency;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -145,22 +160,33 @@ Phases, in order; any failure raises and the script exits nonzero:
    gemma3-27b`: the smoke variant in float32, plan "filter", 500
    requests at 400 QPS): every request served, none shed, no errors, the
    responses against the plain pipeline plus the same scorer on the CPU;
-10. one JSON line with each kernel's launches on its path, error and
-   times; the last line is {"ok": true, "device": {...}}.
+10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
+   2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
+   the card: finite losses within 1e-4 of the same steps on the CPU, and
+   the same steps with the weights in bfloat16 more than 1e-4 from them.
+   It runs last: its ~30 s of the CPU's threads stay out of every phase
+   timed on the host's clock;
+11. one JSON line with each kernel's launches on its path (K2, K4 and
+   K5 also on the restart, data-parallel and warm-restart paths), error
+   and times; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -171,8 +197,11 @@ sys.path.insert(0, os.environ.get("CHIP_SMOKE_SRC") or os.path.join(
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 
 from repro_torch import configs as CFG  # noqa: E402
+from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.configs import cloes  # noqa: E402
 from repro_torch.core import baselines as B  # noqa: E402
 from repro_torch.core import cascade as C  # noqa: E402
@@ -187,10 +216,13 @@ from repro_torch.kernels.cascade_loss import kernel as loss_kernel  # noqa: E402
 from repro_torch.kernels.cascade_score import kernel as score_kernel  # noqa: E402
 from repro_torch.kernels.swa_decode import kernel as swa_kernel  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
-from repro_torch.launch.mesh import replica_devices  # noqa: E402
+from repro_torch.launch import train as TLT  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    data_parallel_mesh, replica_devices)
 from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
     PinnedBatch, RequestBatcher, alloc_batch, bucket_of, pack_into)
@@ -199,6 +231,7 @@ from repro_torch.serving.loadgen import (  # noqa: E402
     run_open_loop, run_open_loop_router)
 from repro_torch.serving.pump import SessionPump, run_wall_clock  # noqa: E402
 from repro_torch.serving.router import make_replicas  # noqa: E402
+from repro_torch.serving.session import CascadeSession  # noqa: E402
 
 RTOL = ATOL = 1e-5          # float32 sums taken in another order
 FWD_RTOL = 2e-5             # K4's NLL: probability vs log space
@@ -234,6 +267,16 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS, LM_PROFILE_STEPS = (
 LM_CHECK_LAYERS, LM_CHECK_BATCH, LM_CHECK_PROMPT = 6, 2, 1100
 LM_PREFILL_TOL, LM_DECODE_TOL = 2e-4, 2e-3   # the reference's bars
 NEURAL_ARCH = "gemma3-27b"
+# The launcher's --target lm on the card: Adam steps (its default lr 0.01)
+# of LM_TRAIN_ARCH at its published widths, cut to LM_TRAIN_LAYERS layers
+# so the same steps on the CPU stay affordable, held to them. The launcher
+# draws the weights in float32 whatever the config's dtype, as the
+# reference's does, so the bar is float32's: Adam carries the gradients'
+# float32 differences forward, most once lr 0.01 has doubled the loss by
+# the third step. The same steps with the weights in bfloat16 must miss
+# the bar, so it is one that bf16 rounding fails.
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_STEPS = "starcoder2-3b", 2, 3
+LM_TRAIN_RTOL = 1e-4
 WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
@@ -1326,6 +1369,178 @@ def phase_train_k6(tr, default_params, default_losses) -> dict[str, int]:
     return counts
 
 
+def l3_fit_fn(tr, epochs=FIT_EPOCHS):
+    """phase_train's L3 fit (the serve launcher's settings), `epochs`
+    long; a checkpoint every epoch when given a directory."""
+    return lambda **kw: B.fit_cloes(
+        tr, lcfg=L.LossConfig(beta=FIT_BETA),
+        tcfg=T.TrainConfig(loss="l3", epochs=epochs, lr=FIT_LR, log_every=1,
+                           checkpoint_every=1), **kw)
+
+
+def run_launcher(module, args, timeout) -> subprocess.CompletedProcess:
+    """`python -m module args` from this checkout, with a time limit."""
+    src = os.environ.get("CHIP_SMOKE_SRC") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src")
+    return subprocess.run([sys.executable, "-m", module, *args],
+                          env=dict(os.environ, PYTHONPATH=src),
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def phase_train_restart(tr, params, losses, tmp) -> dict:
+    """Crash-safe training on the card: phase_train's L3 fit checkpointed
+    for 2 of FIT_EPOCHS epochs, then resumed to FIT_EPOCHS — params and
+    the resumed epochs' losses byte-equal to phase_train's uninterrupted
+    card fit, K4 = K5 = the steps run after the restore (counts set to 0
+    before the resumed fit, read after it); the CheckpointStore's save and
+    load (to the card) times for the CLOES state. Then the launcher in
+    subprocesses on the card: --crash-after-epoch 2 returns 9, --resume
+    prints the digest of the same run made here without a crash."""
+    steps_per_epoch, _ = T.epoch_steps(tr.x.shape[0], 64)
+    ckpt = os.path.join(tmp, "fit")
+    l3_fit_fn(tr, epochs=2)(checkpoint_dir=ckpt, device="cuda")
+    info: dict = {}
+    resumed = []
+    ops.reset_launch_counts()        # the resumed path starts here
+    t0 = time.perf_counter()
+    p, _ = l3_fit_fn(tr)(checkpoint_dir=ckpt, resume=True, train_info=info,
+                         callback=lambda s, v: resumed.append(v),
+                         device="cuda")
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()     # ... and ends here
+    steps = (FIT_EPOCHS - 2) * steps_per_epoch
+    assert info == {"restored_epoch": 2, "epochs_run": FIT_EPOCHS - 2}, info
+    assert counts["cascade_loss"] == counts["cascade_loss_bwd"] == steps, \
+        counts
+    assert sum(counts.values()) == 2 * steps, counts
+    assert resumed == losses[2 * steps_per_epoch:], \
+        "resumed losses differ from the uninterrupted fit's"
+    for k in params:
+        assert torch.equal(p[k], params[k]), f"resumed fit differs in {k}"
+
+    store = CheckpointStore(os.path.join(tmp, "timing"), keep=1)
+    _, state, meta = CheckpointStore(ckpt).load_latest()
+    state["theta"] = torch.tensor(state["theta"], device="cuda")
+    state["opt_state"]["mu"] = torch.tensor(state["opt_state"]["mu"],
+                                            device="cuda")
+    nbytes = state["theta"].numel() * 4
+    save_ms = host_ms(lambda: store.save(1, state, meta=meta), calls=20)
+
+    def load_to_card():
+        _, st, _ = store.load_latest()
+        torch.tensor(st["theta"], device="cuda")
+        torch.tensor(st["opt_state"]["mu"], device="cuda")
+    load_ms = host_ms(load_to_card, calls=20)
+    print(f"[train restart] fit checkpointed at epoch 2, resumed to "
+          f"{FIT_EPOCHS} on the card: {steps} steps in {seconds:.4f} s "
+          f"({steps / seconds:.1f} steps/s); K4 x "
+          f"{counts['cascade_loss']}, K5 x {counts['cascade_loss_bwd']}; "
+          "params and losses byte-equal to the uninterrupted card fit")
+    print(f"[train restart] CheckpointStore for the CLOES state ({nbytes} "
+          f"bytes of theta, as many of momentum): save from the card "
+          f"{save_ms:.3f} ms, load to the card {load_ms:.3f} ms (20 back to "
+          "back, host clock, fsync included)")
+
+    args = ["--device", "cuda", "--queries", "300", "--epochs", "4",
+            "--batch-groups", "16"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        TLT.main(args)
+    want = re.search(r"sha256=[0-9a-f]{64}", out.getvalue()).group(0)
+    launcher_ckpt = ["--checkpoint-dir", os.path.join(tmp, "launcher")]
+    crash = run_launcher("repro_torch.launch.train",
+                         args + launcher_ckpt + ["--crash-after-epoch", "2"],
+                         timeout=180)
+    assert crash.returncode == T.CRASH_EXIT_CODE == 9, \
+        (crash.returncode, crash.stderr[-2000:])
+    res = run_launcher("repro_torch.launch.train",
+                       args + launcher_ckpt + ["--resume"], timeout=180)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "(restored_epoch=2 epochs_run=2)" in res.stdout, res.stdout
+    got = re.search(r"sha256=[0-9a-f]{64}", res.stdout).group(0)
+    assert got == want, (got, want)
+    print(f"[train restart] launcher on the card: --crash-after-epoch 2 "
+          f"exited {crash.returncode}; --resume restored epoch 2 and printed "
+          f"{got}, the uninterrupted run's")
+    return dict(launches=counts, steps_per_s=steps / seconds,
+                save_ms=save_ms, load_ms=load_ms)
+
+
+def phase_train_dp(tr, params, losses, tmp) -> dict[str, int]:
+    """The data-parallel fit on a one-rank NCCL group: phase_train's L3
+    fit through fit(mesh=) byte-equal to the fit without a mesh, K4 = K5
+    = its steps. data_parallel_mesh is None at a world of one, as the
+    launcher's one-process fallback needs."""
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1)
+    try:
+        assert data_parallel_mesh(64, "cuda") is None
+        mesh = DeviceMesh("cuda", [0], mesh_dim_names=("data",))
+        p, got, seconds, counts = fit_once(l3_fit_fn(tr), "cuda", mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    steps = len(losses)
+    assert counts["cascade_loss"] == counts["cascade_loss_bwd"] == steps, \
+        counts
+    assert got == losses, "the one-rank mesh's losses differ"
+    for k in params:
+        assert torch.equal(p[k], params[k]), f"the one-rank mesh differs in {k}"
+    print(f"[train dp] fit(mesh=) on a one-rank NCCL group: {steps} steps in "
+          f"{seconds:.4f} s, K4 x {counts['cascade_loss']}, K5 x "
+          f"{counts['cascade_loss_bwd']}, byte-equal to the fit without a "
+          "mesh")
+    return counts
+
+
+def phase_train_lm() -> dict:
+    """The launcher's --target lm on the card: LM_TRAIN_STEPS Adam steps of
+    LM_TRAIN_ARCH at its published widths and LM_TRAIN_LAYERS layers (the
+    weights drawn on the CPU from the seed, so both devices start alike),
+    finite losses within LM_TRAIN_RTOL of the same steps on the CPU. The
+    same steps with the weights rounded to bfloat16 (on the card, the
+    launcher's batches) must differ from the card's by more than the bar."""
+    args = ["--target", "lm", "--arch", LM_TRAIN_ARCH, "--layers",
+            str(LM_TRAIN_LAYERS), "--steps", str(LM_TRAIN_STEPS)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        card = TLT.main(args + ["--device", "cuda"])
+        sync()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = TLT.main(args + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+    head = out.getvalue().splitlines()[0]
+    assert f"{LM_TRAIN_LAYERS} layers" in head, head
+    assert len(card) == LM_TRAIN_STEPS and np.isfinite(card).all(), card
+    np.testing.assert_allclose(card, cpu, rtol=LM_TRAIN_RTOL)
+    err = max(abs(a - c) / abs(c) for a, c in zip(card, cpu))
+
+    cfg = dataclasses.replace(CFG.get(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_LAYERS)
+    params = MB.tree_map(
+        lambda p: p.to("cuda", torch.bfloat16),
+        MB.materialize(Z.templates(cfg), torch.Generator().manual_seed(0)))
+    opt = adam(0.01)                       # the launcher's defaults
+    opt_state, rng, bf16 = opt.init(params), np.random.default_rng(0), []
+    for _ in range(LM_TRAIN_STEPS):
+        batch = TLT.lm_batch(cfg, rng, 4, 64, "cuda")
+        params, opt_state, loss = Z.train_step(params, opt_state, batch, cfg,
+                                               opt.update)
+        bf16.append(float(loss))
+    del params, opt_state
+    free_cuda()
+    bf16_err = max(abs(a - c) / abs(c) for a, c in zip(bf16, card))
+    assert bf16_err > LM_TRAIN_RTOL, (bf16, card)
+    print(f"[train lm] {head.removeprefix('[train] ')}: "
+          f"{seconds:.2f} s on the card (first-call work included), "
+          f"{cpu_s:.2f} s on the CPU; losses {[round(v, 4) for v in card]}, "
+          f"max relative err against the CPU {err:.3g} (bar {LM_TRAIN_RTOL});"
+          f" the same steps in bfloat16 {bf16_err:.3g} from the card's")
+    return dict(losses=card, max_rel_err=err, bf16_err=bf16_err)
+
+
 class Tally:
     """Counts and times calls of a session's seams (rank_batch,
     execute_chunk) from any thread: the pump thread, router probes made in
@@ -1836,6 +2051,132 @@ def phase_shim(params, te) -> dict[str, int]:
               f"({kernel} x {launches}); every response equals the "
               "session's bits on RequestBatcher.drain's batch")
     return out
+
+
+def phase_warm_restart(tmp) -> dict:
+    """`launch.serve` on the card with --serve-dir (the cascade trained,
+    500 requests at 400 QPS, drained and persisted), then again with
+    --warm-restart: restored params equal to the first server's, 0 shapes
+    first seen after warmup, every future resolved, the identity closed,
+    K2 = chunks executed + the manifest's replayed shapes (counts set to 0
+    before the warm-restarted run, read after it), and each response equal
+    bit for bit to the first server's where both served the request in a
+    chunk of the same (b, g), within 1e-5 elsewhere: `row_bits_by_b`
+    measures why (K2 is bit-equal at every b for the same zq; cuBLAS's
+    q @ w_q.T is not). Warmup seconds of both, the warm server's p99."""
+    serve_dir = os.path.join(tmp, "serve")
+    args = ["--device", "cuda", "--requests", str(DES_REQUESTS), "--qps",
+            str(DES_QPS), "--serve-dir", serve_dir]
+    orig = CascadeSession.execute_chunk
+    runs, reports, chunk_of, executed = [], [], [], []
+
+    def recorded(self, chunk):
+        executed[-1] += 1
+        for e in chunk.entries:
+            chunk_of[-1][e.req.request_id] = (chunk.capacity, chunk.g)
+        return orig(self, chunk)
+    CascadeSession.execute_chunk = recorded
+    try:
+        for extra in ([], ["--warm-restart"]):
+            chunk_of.append({})
+            executed.append(0)
+            report = os.path.join(tmp, f"serve{len(runs)}.json")
+            if extra:
+                cold_params = S.load_serving_state(serve_dir,
+                                                   device="cuda")[0]
+                ops.reset_launch_counts()    # the warm path starts here
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs.append(S.main(args + extra + ["--report", report]))
+            sync()
+            with open(report) as f:
+                reports.append(json.load(f))
+        launches = ops.launch_counts()       # ... and ends here
+    finally:
+        CascadeSession.execute_chunk = orig
+    cold, warm = reports
+    warm_params = S.load_serving_state(serve_dir, device="cuda")[0]
+    for k in cold_params:
+        assert torch.equal(warm_params[k], cold_params[k]), k
+    with open(os.path.join(serve_dir, "warmup_manifest.json")) as f:
+        shapes = len(json.load(f)["shapes"])
+    assert warm["recompiles_after_warmup"] == 0, warm
+    for res, rep in zip(runs, reports):
+        st = rep["session_stats"]
+        assert res.unresolved == 0 and all(f.done() for f in res.futures)
+        assert st["submitted"] == st["completed"] + st["shed"] + st["errors"]
+        assert st["errors"] == 0 and st["faults"] == 0, st
+    same = other = 0
+    for f1, f2 in zip(runs[0].futures, runs[1].futures):
+        a, b = f1.result(), f2.result()
+        assert a.request_id == b.request_id
+        if a.status != "ok" or b.status != "ok" or a.degraded or b.degraded:
+            continue
+        if chunk_of[0][a.request_id] == chunk_of[1][b.request_id]:
+            assert np.array_equal(a.scores, b.scores), a.request_id
+            assert np.array_equal(a.survivors, b.survivors), a.request_id
+            assert np.array_equal(a.order, b.order), a.request_id
+            same += 1
+        else:
+            np.testing.assert_allclose(b.scores, a.scores, rtol=RTOL,
+                                       atol=ATOL)
+            other += 1
+    assert same > 0
+    assert launches["cascade_filter"] == executed[1] + shapes, \
+        (launches, executed, shapes)
+    print(f"[warm restart] cold start: trained, warmed {shapes} shapes in "
+          f"{cold['phases_s']['warmup']:.4f} s, served, drained, persisted; "
+          f"warm restart: restored in {warm['phases_s']['train']:.4f} s, "
+          f"replayed the manifest in {warm['phases_s']['warmup']:.4f} s, "
+          f"0 shapes first seen after warmup")
+    lat = {k: r["open_loop"]["latency_ms"] for k, r in
+           (("cold", cold), ("warm", warm))}
+    print(f"[warm restart] {DES_REQUESTS} requests at {DES_QPS:.0f} QPS: "
+          f"p50 / p95 / p99 {lat['warm']['p50']:.3f} / "
+          f"{lat['warm']['p95']:.3f} / {lat['warm']['p99']:.3f} ms (cold "
+          f"start {lat['cold']['p99']:.3f}); K2 x "
+          f"{launches['cascade_filter']} = {executed[1]} chunks + {shapes} "
+          f"replayed shapes; {same} responses bit-equal to the first "
+          f"server's in a chunk of the same shape, {other} within 1e-5 in "
+          "another")
+    zq_rows, rows = row_bits_by_b(warm_params)
+    print(f"[warm restart] a row's bits by its chunk's b ({WARM_B[-1]} rows"
+          f" in chunks of each b in {WARM_B}, g in {WARM_G}: {rows} in all): "
+          f"K2's outputs bit-equal given the same zq; zq = q @ w_q.T + b in "
+          f"other bits than one chunk of all {WARM_B[-1]} for {zq_rows}, so "
+          "a request served at another b may differ in the last bits")
+    return dict(launches=launches["cascade_filter"], cold=cold, warm=warm)
+
+
+def row_bits_by_b(params) -> tuple[int, int]:
+    """The same WARM_B[-1] rows of random requests through the `filter`
+    pipeline's two steps in chunks of each warmed b, against one chunk of
+    all of them: K2's outputs must be bit-equal for the same zq rows (each
+    group is scored and filtered on its own). Returns (rows x (b, g) whose
+    zq = q @ w_q.T + b differs in any bit, rows x (b, g) compared)."""
+    cfg = cloes.CASCADE
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w_eff = (params["w_x"] * C.masks_tensor(cfg, "cuda")).contiguous()
+    n_rows, zq_diff, compared = WARM_B[-1], 0, 0
+    for g in WARM_G:
+        x = torch.randn(n_rows, g, cfg.d_x, generator=gen, device="cuda")
+        q = torch.randn(n_rows, cfg.d_q, generator=gen, device="cuda")
+        n = torch.randint(1, g + 1, (n_rows,), generator=gen, device="cuda")
+        mask = (torch.arange(g, device="cuda")[None] < n[:, None]).float()
+        m_q = 3.0 * n.float()
+        zq_all = (q @ params["w_q"].T + params["b"]).contiguous()
+        want = ops.cascade_filter(x, w_eff, zq_all, mask, m_q)
+        for b in WARM_B:
+            for s in range(0, n_rows, b):
+                sl = slice(s, s + b)
+                zq = (q[sl] @ params["w_q"].T + params["b"]).contiguous()
+                zq_diff += int((zq != zq_all[sl]).any(-1).sum())
+                got = ops.cascade_filter(x[sl], w_eff,
+                                         zq_all[sl].contiguous(), mask[sl],
+                                         m_q[sl])
+                for k in ("lp", "survivors", "expected_counts", "n_keep"):
+                    assert torch.equal(got[k], want[k][sl]), (k, b, g)
+            compared += n_rows
+    return zq_diff, compared
 
 
 # -- 7. K8: the LLM engine's decode attention ------------------------------------
@@ -2359,6 +2700,9 @@ def main() -> None:
     counts = phase_train_k6(tr, params, l3_losses)
     launches.update(cascade_score=counts["cascade_score"],
                     cascade_score_bwd=counts["cascade_score_bwd"])
+    with tempfile.TemporaryDirectory() as tmp:
+        restart = phase_train_restart(tr, params, l3_losses, tmp)
+        dp = phase_train_dp(tr, params, l3_losses, tmp)
     for plan in ("filter", "score"):
         counts, _ = phase_slice(plan, params, te)
         kernel = ("cascade_filter" if plan == "filter"
@@ -2369,14 +2713,20 @@ def main() -> None:
     streams_launches = phase_replica_streams(params, te)
     chaos = phase_pump(params, te, fault_rate=CHAOS_RATE)
     shim = phase_shim(params, te)
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = phase_warm_restart(tmp)
     extra = {"cascade_filter": dict(
                  pump_launches=pump["launches"],
                  pump_faults_launches=chaos["launches"],
                  router_launches=router["launches"],
                  replica_streams_launches=streams_launches,
-                 shim_launches=shim["cascade_filter"]),
+                 shim_launches=shim["cascade_filter"],
+                 warm_restart_launches=warm["launches"]),
              "cascade_score_batched": dict(
                  shim_launches=shim["cascade_score_batched"])}
+    for name in ("cascade_loss", "cascade_loss_bwd"):
+        extra[name] = dict(restart_launches=restart["launches"][name],
+                           dp_launches=dp[name])
     phase_serve_k6(params, te)
     launches["cascade_score_fm"] = phase_fm_scoring(
         params, te)["cascade_score_fm"]
@@ -2391,6 +2741,8 @@ def main() -> None:
     phase_lm_check()
     phase_slice("filter", params, te,
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
+    free_cuda()
+    phase_train_lm()
     rows = []
     for name, info in KERNEL_INFO.items():
         row = {"name": name, **info, "launches": launches[name],

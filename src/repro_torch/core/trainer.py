@@ -22,22 +22,37 @@ the same order (host numpy permutations, the reference's RNG stream):
 
 The reference's scan engine is one `jax.lax.scan` per epoch; the port runs
 the same steps eagerly (capturing a step as a CUDA graph is later work).
+
+The scan engine is also the one with durable state and data parallelism:
+`fit(checkpoint_dir=...)` commits the reference's state tree to a
+`checkpoint.CheckpointStore` (so each package resumes the other's
+checkpoints) and `fit(mesh=...)` shards each minibatch over a
+`torch.distributed` data mesh (`launch.mesh.data_parallel_mesh`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import cascade as C
 from repro_torch.core import losses as L
 from repro_torch.core import metrics as M
 from repro_torch.data.synthetic import SearchLog
 from repro_torch.kernels.cascade_loss.kernel import pack_items
 from repro_torch.optim.sgd import apply_updates, momentum_sgd
+
+# Exit code of the deterministic crash seam (fit(crash_after_epoch=k)):
+# os._exit at this code models SIGKILL — no finally blocks, no atexit, no
+# flush — so the restart smoke exercises exactly what a preemption leaves
+# behind. 9 on purpose (the SIGKILL signal number).
+CRASH_EXIT_CODE = 9
 
 
 @dataclasses.dataclass
@@ -58,6 +73,13 @@ class TrainConfig:
     # Static loss scale (scan engine only): the step optimizes
     # loss * loss_scale and unscales the gradient before the update.
     loss_scale: float = 1.0
+    # Snapshot (params + momentum + epoch + rng key) to fit()'s
+    # checkpoint_dir every this-many epochs (scan engine only; 0 with a
+    # checkpoint_dir means every epoch). The final epoch is always
+    # snapshotted. An epoch is a pure function of the restored state — the
+    # minibatch order is re-derived from seed+epoch — so a resumed run is
+    # bit-identical to the uninterrupted one.
+    checkpoint_every: int = 0
 
 
 def epoch_steps(n_groups: int, batch_groups: int) -> tuple[int, int]:
@@ -185,11 +207,46 @@ def _initial_params(cfg: C.CascadeConfig, tcfg: TrainConfig, init_params,
          for k, v in init_params.items()}, device=device)
 
 
+def _train_sig(tcfg: TrainConfig, cfg: C.CascadeConfig, n_groups: int) -> dict:
+    """The run identity a checkpoint is only valid under (the reference's
+    keys and values). Saved in every checkpoint's meta and strict-equality-
+    checked on resume: resuming a trajectory under a different objective,
+    optimizer or data order would silently produce a hybrid run."""
+    return {
+        "loss": tcfg.loss if isinstance(tcfg.loss, str) else "<custom>",
+        "lr": tcfg.lr, "momentum": tcfg.momentum,
+        "batch_groups": tcfg.batch_groups, "seed": tcfg.seed,
+        "precision": tcfg.precision, "loss_scale": tcfg.loss_scale,
+        "n_groups": n_groups, "d_x": cfg.d_x, "d_q": cfg.d_q,
+        "n_stages": cfg.n_stages,
+    }
+
+
+def _prng_key(seed: int) -> np.ndarray:
+    """The uint32 pair `jax.random.PRNGKey(seed)` gives for an int32 seed
+    (the default threefry key, 64-bit mode off): the reference's
+    checkpoints carry it as `rng_key`, so the port's do too."""
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def _data_shard(mesh, batch_groups: int):
+    """(rank, world size, process group) of the mesh's data axis; the
+    minibatch's groups split into `world` contiguous blocks in rank order,
+    as shard_map splits the reference's group axis."""
+    world = mesh.size()
+    if batch_groups % world:
+        raise ValueError(f"batch_groups={batch_groups} must divide "
+                         f"by the data-axis size {world}")
+    return mesh.get_local_rank("data"), world, mesh.get_group("data")
+
+
 def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
         tcfg: TrainConfig | None = None,
         callback: Callable[[int, float], None] | None = None,
         *, loss_fn: Callable | None = None, init_params=None,
-        device="cuda") -> C.Params:
+        mesh=None, checkpoint_dir: str | None = None, resume: bool = False,
+        keep_checkpoints: int = 3, crash_after_epoch: int | None = None,
+        train_info: dict | None = None, device="cuda") -> C.Params:
     """Train CLOES params on the log on `device`. See the module docstring
     for the engines.
 
@@ -198,7 +255,31 @@ def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
     starting weights — the reference initialises from jax.random, which
     torch cannot replay, so a parity check passes the reference's initial
     weights here; without it the seeded `init_params` starts the fit.
-    callback(step, loss) sees every log_every-th step's loss."""
+    callback(step, loss) sees every log_every-th step's loss.
+
+    mesh (scan engine only): a 1-D torch.distributed DeviceMesh with the
+    dim "data" (`launch.mesh.data_parallel_mesh`); tcfg.batch_groups must
+    divide by its size. Each rank takes its contiguous block of every
+    minibatch's groups and normalizes its loss over that block (mask and
+    m_q sums are per shard, as in the reference); gradients and the
+    reported loss are all-reduced and divided by the world size before the
+    (replicated) update — the gradient of the mean of per-shard losses,
+    not of the global-batch loss, so a world of one is exact.
+
+    checkpoint_dir (scan engine only) makes training crash-safe: every
+    tcfg.checkpoint_every-th epoch (and the last) the state tree
+    {"theta", "opt_state": {"step", "mu"}, "epoch", "rng_key"} — the
+    reference's, theta and mu raveled in key order, step a 0-d int32 — is
+    committed to a CheckpointStore by rank 0 alone (the store assumes one
+    writer). resume=True restores the latest good checkpoint on every rank
+    (falling back past torn ones); it wins over init_params, and the run
+    continues bit-identically, because an epoch is a pure function of
+    (theta, opt_state, epoch). A checkpoint written under a different
+    TrainConfig identity is rejected (see _train_sig). crash_after_epoch
+    hard-exits the process (os._exit(CRASH_EXIT_CODE), a SIGKILL
+    stand-in) after that many epochs, once every rank is there — the
+    deterministic crash seam of the restart smoke. train_info, when given,
+    receives {"restored_epoch", "epochs_run"}."""
     tcfg = tcfg or TrainConfig()
     device = torch.device(device)
     params = _initial_params(cfg, tcfg, init_params, device)
@@ -206,6 +287,12 @@ def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
     loss_fn = loss_fn or L.LOSSES[tcfg.loss]
 
     if tcfg.engine == "loop":
+        if mesh is not None:
+            raise ValueError("the loop engine has no data-parallel path")
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "checkpointing is a scan-engine feature (the loop engine "
+                "is the no-moving-parts oracle)")
         if tcfg.precision != "f32" or tcfg.loss_scale != 1.0:
             raise ValueError(
                 "precision/loss_scale are scan-engine features (the loop "
@@ -225,39 +312,95 @@ def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
     if tcfg.engine != "scan":
         raise ValueError(f"unknown trainer engine: {tcfg.engine!r}")
 
+    rank, world, group = 0, 1, None
+    if mesh is not None:
+        rank, world, group = _data_shard(mesh, tcfg.batch_groups)
     n_groups = log.x.shape[0]
     steps_per_epoch, _ = epoch_steps(n_groups, tcfg.batch_groups)
     if steps_per_epoch == 0:
         return params
-    item, group = _engine_pack(log, lcfg, tcfg.precision, device)
+    item, group_arr = _engine_pack(log, lcfg, tcfg.precision, device)
     theta, unravel = _ravel(params)
     opt_state = opt.init(theta)
-    for epoch in range(tcfg.epochs):
-        idx = torch.as_tensor(
-            _epoch_perm(n_groups, tcfg.batch_groups, tcfg.seed + epoch),
-            device=device).reshape(-1)
-        # one gather per packed array and epoch; a bf16 pack is gathered in
-        # bf16 and up-cast here, once per epoch
-        shape = (steps_per_epoch, tcfg.batch_groups)
+
+    store = None
+    start_epoch = 0
+    if checkpoint_dir is not None:
+        sig = _train_sig(tcfg, cfg, n_groups)
+        ckpt_every = max(1, tcfg.checkpoint_every)
+        store = CheckpointStore(checkpoint_dir, keep=keep_checkpoints)
+        if resume:
+            latest = store.load_latest()    # skips torn/corrupt steps
+            if latest is not None:
+                _, state, meta = latest
+                saved_sig = (meta or {}).get("train_sig")
+                if saved_sig != sig:
+                    raise ValueError(
+                        "checkpoint was written under a different training "
+                        f"config: saved {saved_sig} != current {sig}")
+                # exact restore: the bytes are crc-verified, so the
+                # resumed state IS the killed run's state. Copied into
+                # tensors of torch's own allocation: a CPU BLAS may take
+                # another path (and other sums) for a view of a numpy
+                # buffer of another alignment.
+                theta = torch.tensor(state["theta"], device=device)
+                opt_state = {
+                    "step": int(state["opt_state"]["step"]),
+                    "mu": torch.tensor(state["opt_state"]["mu"],
+                                       device=device)}
+                start_epoch = int(state["epoch"])
+    if train_info is not None:
+        train_info["restored_epoch"] = start_epoch
+        train_info["epochs_run"] = max(0, tcfg.epochs - start_epoch)
+
+    shard = tcfg.batch_groups // world
+    for epoch in range(start_epoch, tcfg.epochs):
+        plan = _epoch_perm(n_groups, tcfg.batch_groups, tcfg.seed + epoch)
+        idx = torch.as_tensor(plan[:, rank * shard:(rank + 1) * shard],
+                              device=device).reshape(-1)
+        # one gather per packed array and epoch (of this rank's shard); a
+        # bf16 pack is gathered in bf16 and up-cast here, once per epoch
+        shape = (steps_per_epoch, shard)
         items = item[idx].reshape(*shape, *item.shape[1:]).float()
-        groups = group[idx].reshape(*shape, *group.shape[1:]).float()
+        groups = group_arr[idx].reshape(*shape, *group_arr.shape[1:]).float()
         losses = []
         for i in range(steps_per_epoch):
             batch = _engine_unpack(items[i], groups[i], cfg.d_x, cfg.d_q)
             th = theta.detach().requires_grad_(True)
             loss = loss_fn(unravel(th), cfg, lcfg, batch) * tcfg.loss_scale
             (grad,) = torch.autograd.grad(loss, th)
+            loss = loss.detach()
             if tcfg.loss_scale != 1.0:
                 loss = loss / tcfg.loss_scale
                 grad = grad / tcfg.loss_scale
+            if group is not None:
+                dist.all_reduce(grad, group=group)
+                dist.all_reduce(loss, group=group)
+                grad, loss = grad / world, loss / world
             updates, opt_state = opt.update(grad, opt_state, theta)
             theta = apply_updates(theta.detach(), updates)
-            losses.append(loss.detach())
+            losses.append(loss)
         if callback:
             base = epoch * steps_per_epoch
             for i, v in enumerate(torch.stack(losses).tolist()):
                 if (base + i) % tcfg.log_every == 0:
                     callback(base + i, v)
+        done = epoch + 1
+        if rank == 0 and store is not None and (
+                done % ckpt_every == 0 or done == tcfg.epochs):
+            store.save(done, {
+                "theta": theta,
+                # keys sorted, as the reference's jitted epoch returns them
+                "opt_state": {"mu": opt_state["mu"],
+                              "step": np.asarray(opt_state["step"], np.int32)},
+                "epoch": done, "rng_key": _prng_key(tcfg.seed)},
+                meta={"train_sig": sig})
+        if crash_after_epoch is not None and done >= crash_after_epoch:
+            if group is not None:
+                dist.barrier(group=group)   # rank 0's save is committed
+            os._exit(CRASH_EXIT_CODE)
+    if group is not None and store is not None:
+        dist.barrier(group=group)   # no rank returns before the last save
     return {k: v.clone() for k, v in unravel(theta).items()}
 
 

@@ -31,6 +31,16 @@ Exit contract: nonzero when a future stays unresolved or the accounting
 identity submitted = completed + shed + errors does not close (over the
 whole fleet under a router, where drained and adopted work cancel).
 
+`--serve-dir DIR` makes the shutdown graceful and durable: pumps and the
+router close with drain=True (every queued request is served), then the
+params, the configs that rebuild the session and its warmup manifest are
+written to DIR with `checkpoint.save_pytree` (crash-safe), the manifest
+mirrored as `warmup_manifest.json`. `--warm-restart` restores them from
+`--serve-dir` instead of training and replays the manifest on every
+replica; the run exits nonzero if the serve phase then meets a shape
+first seen after warmup. `--serve-dir` persists the cascade only, so it
+refuses `--neural`; `--warm-restart` refuses `--params`.
+
 `--profile TRACE.json` runs the single-session DES under torch.profiler,
 writes its Chrome trace there and prints where the serve time went: the
 device's busy time (kernels and copies) against the measured compute, and
@@ -43,7 +53,7 @@ Usage:
       [--beta 5] [--params cascade.npz] [--device cuda] \
       [--pump [--threads 4]] [--replicas 2 [--kill-replica]] \
       [--faults 0.2] [--neural gemma3-27b] [--report BENCH_serve.json] \
-      [--profile serve_trace.json]
+      [--profile serve_trace.json] [--serve-dir DIR [--warm-restart]]
 """
 
 from __future__ import annotations
@@ -52,12 +62,14 @@ import argparse
 import dataclasses
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from repro_torch import configs as CFG
+from repro_torch.checkpoint import load_pytree, save_pytree
 from repro_torch.configs import cloes
 from repro_torch.core import baselines as B
 from repro_torch.core import cascade as C
@@ -151,6 +163,37 @@ def compiled_count(sessions) -> int:
     return len(set().union(*(s.shapes_seen for s in sessions)))
 
 
+def save_serving_state(serve_dir: str, ses: CascadeSession) -> None:
+    """The graceful-shutdown write: everything a restarted server needs to
+    serve its first request with no new shape — params, the configs that
+    rebuild the session, and the warmup manifest (also mirrored as plain
+    JSON) — in the reference's tree, so either package restores it.
+    Crash-safe via save_pytree."""
+    manifest = ses.warmup_manifest()
+    cfg = ses.cfg
+    save_pytree(Path(serve_dir) / "serve_state", {
+        "params": {k: v.detach().cpu().numpy()
+                   for k, v in ses.params.items()},
+        "cfg": {"n_stages": cfg.n_stages, "d_x": cfg.d_x, "d_q": cfg.d_q,
+                "masks": cfg.masks, "stage_times": cfg.stage_times},
+        "lcfg": dataclasses.asdict(ses.lcfg),
+        "manifest": manifest,
+    })
+    with open(Path(serve_dir) / "warmup_manifest.json", "w") as f:
+        json.dump(manifest, f, indent=2)
+
+
+def load_serving_state(serve_dir: str, *, device="cuda"):
+    """Restore what save_serving_state wrote (verified: a torn or corrupt
+    state raises instead of warm-starting a wrong server). Returns
+    (params on `device`, CascadeConfig, LossConfig, warmup manifest)."""
+    state = load_pytree(Path(serve_dir) / "serve_state")
+    cfg = C.CascadeConfig(**state["cfg"])
+    lcfg = L.LossConfig(**state["lcfg"])
+    return (C.params_from_numpy(state["params"], device=device), cfg, lcfg,
+            state["manifest"])
+
+
 def build_neural(arch: str, device="cuda") -> NeuralScorer:
     """The neural final stage of `--neural ARCH`: the architecture's smoke
     variant in float32, random weights from seed 7 (the reference's key)."""
@@ -216,7 +259,10 @@ def profile_summary(prof, serve_s: float, top: int = 8) -> dict:
     }
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None):
+    """Run the launcher; returns the serve phase's result (OpenLoopResult
+    or WallClockResult: its futures hold the responses), or None when no
+    request was made."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--qps", type=float, default=400.0,
@@ -260,7 +306,25 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--profile", default="",
                     help="run the single-session DES under torch.profiler "
                          "and write its Chrome trace here")
+    ap.add_argument("--serve-dir", default="",
+                    help="durable serving state: graceful shutdown drains "
+                         "the pumps then writes params + warmup manifest "
+                         "here (crash-safe)")
+    ap.add_argument("--warm-restart", action="store_true",
+                    help="restore params from --serve-dir and replay its "
+                         "warmup manifest instead of training — the first "
+                         "live request must meet no new shape (enforced)")
     args = ap.parse_args(argv)
+    serve_dir = args.serve_dir or None
+    if args.warm_restart and not serve_dir:
+        raise SystemExit("[serve] --warm-restart requires --serve-dir")
+    if serve_dir and args.neural:
+        raise SystemExit("[serve] --serve-dir persists the cascade params "
+                         "only — the neural stage's weights are not "
+                         "durable state; drop --neural")
+    if args.warm_restart and args.params:
+        raise SystemExit("[serve] --warm-restart restores the params from "
+                         "--serve-dir; drop --params")
     if args.kill_replica and args.replicas < 2:
         raise SystemExit("[serve] --kill-replica needs --replicas >= 2 "
                          "(a survivor must exist to absorb the backlog)")
@@ -271,18 +335,26 @@ def main(argv: list[str] | None = None) -> None:
     log = generate_log(LogConfig(n_queries=800, seed=args.seed))
     tr, te = log.split(0.8)
     cfg = cloes.CASCADE
-    if args.params:
+    lcfg = manifest = None  # the session's defaults unless restored
+    t0 = time.perf_counter()
+    if args.warm_restart:
+        params, cfg, lcfg, manifest = load_serving_state(serve_dir,
+                                                         device=args.device)
+        print(f"[serve] warm restart from {serve_dir}: restored params + "
+              f"manifest ({len(manifest['shapes'])} shapes) in "
+              f"{time.perf_counter() - t0:.2f}s, no training")
+    elif args.params:
         params = load_params(args.params, cfg, device=args.device)
         print(f"[serve] cascade weights: {args.params}")
     else:
         print("[serve] training cascade...")
-        t0 = time.perf_counter()
         params, cfg = B.fit_cloes(
             tr, lcfg=L.LossConfig(beta=args.beta),
             tcfg=T.TrainConfig(loss="l3", epochs=4, lr=0.01),
             device=args.device)
         print(f"[serve] trained CLOES (L3, beta {args.beta}) in "
               f"{time.perf_counter() - t0:.1f}s")
+    train_s = time.perf_counter() - t0
     neural = None
     if args.neural:
         neural = build_neural(args.neural, device=args.device)
@@ -294,7 +366,8 @@ def main(argv: list[str] | None = None) -> None:
             print(f"[serve] CHAOS MODE: rate {args.faults}"
                   + (", replica 0 FORCED DEAD" if args.kill_replica else "")
                   + f" (seed {args.seed})")
-        router = build_router(params, cfg, n=args.replicas, neural=neural,
+        router = build_router(params, cfg, lcfg, n=args.replicas,
+                              neural=neural,
                               plan=args.plan, max_queue=args.max_queue,
                               max_wait_ms=args.max_wait_ms,
                               fault_rate=args.faults,
@@ -302,7 +375,13 @@ def main(argv: list[str] | None = None) -> None:
                               seed=args.seed, device=args.device)
         ses = router.replicas[0]
         sessions = router.replicas
-        shapes = router.warmup()
+        if manifest is not None:
+            # replay the restored manifest on every replica (co-located
+            # replicas share one pipeline and its shape record)
+            for r in sessions:
+                shapes = r.warm_restart(manifest)
+        else:
+            shapes = router.warmup()
         print(f"[serve] warmed {len(shapes)} shape buckets on each of "
               f"{args.replicas} replicas ("
               + ", ".join(f"{r.name} on {r.device}"
@@ -315,12 +394,13 @@ def main(argv: list[str] | None = None) -> None:
         if injector is not None:
             print(f"[serve] CHAOS MODE: fault injection at rate "
                   f"{args.faults} (seed {args.seed})")
-        ses = build_session(params, cfg, neural=neural, plan=args.plan,
+        ses = build_session(params, cfg, lcfg, neural=neural, plan=args.plan,
                             max_queue=args.max_queue,
                             max_wait_ms=args.max_wait_ms, faults=injector,
                             device=args.device)
         sessions = [ses]
-        shapes = ses.warmup()
+        shapes = (ses.warm_restart(manifest) if manifest is not None
+                  else ses.warmup())
         print(f"[serve] warmed {len(shapes)} shape buckets on {ses.device} "
               f"in {time.perf_counter() - t0:.1f}s")
     warmup_s = time.perf_counter() - t0
@@ -343,7 +423,9 @@ def main(argv: list[str] | None = None) -> None:
                              for s in router.replicas])
         res = run_wall_clock(router, reqs, args.qps, deadline_ms=deadline,
                              n_threads=args.threads, seed=args.seed)
-        router.close()
+        # graceful shutdown (--serve-dir): drain the queues so every
+        # future resolves with a real result before state is persisted
+        router.close(drain=bool(serve_dir))
         router_stats = router.stats_export()
         print(f"[serve] router pump mode: offered {res.offered_qps:.0f} "
               f"QPS from {args.threads} threads over {args.replicas} "
@@ -354,7 +436,7 @@ def main(argv: list[str] | None = None) -> None:
         pump = SessionPump(ses).start()
         res = run_wall_clock(pump, reqs, args.qps, deadline_ms=deadline,
                              n_threads=args.threads, seed=args.seed)
-        pump.close()
+        pump.close(drain=bool(serve_dir))
         pump_stats = pump.stats_export()
         print(f"[serve] pump mode: offered {res.offered_qps:.0f} QPS from "
               f"{args.threads} threads; served {res.completed}/"
@@ -366,7 +448,7 @@ def main(argv: list[str] | None = None) -> None:
     elif router is not None:
         res = run_open_loop_router(router, reqs, args.qps,
                                    deadline_ms=deadline, seed=args.seed)
-        router.close()
+        router.close(drain=bool(serve_dir))
         router_stats = router.stats_export()
         print(f"[serve] router DES: offered {res.offered_qps:.0f} QPS over "
               f"{args.replicas} replicas; served {res.completed}/"
@@ -448,8 +530,19 @@ def main(argv: list[str] | None = None) -> None:
     print("[serve] all futures resolved (zero dropped; "
           "submitted = completed + shed + errors"
           + (" globally across replicas)" if router_stats else ")"))
+    # The warm-restart contract: every shape the serve phase needed was
+    # run before the first live request. A cold start reports the same
+    # number; a warm restart FAILS on it.
     recompiles = compiled_count(sessions) - shapes_after_warmup
     print(f"[serve] recompiles after warmup: {recompiles}")
+    if args.warm_restart and recompiles:
+        raise SystemExit(
+            f"[serve] FAIL: warm restart promised no new shape but the "
+            f"serve phase ran {recompiles} shape(s) first seen after warmup")
+    if serve_dir:
+        save_serving_state(serve_dir, ses)
+        print(f"[serve] graceful shutdown: wrote serving state "
+              f"(params + warmup manifest) to {serve_dir}")
 
     if args.report:
         report = {
@@ -463,13 +556,15 @@ def main(argv: list[str] | None = None) -> None:
                        "kill_replica": args.kill_replica,
                        "mode": "pump" if args.pump else "des",
                        "threads": args.threads if args.pump else None,
+                       "serve_dir": serve_dir,
+                       "warm_restart": args.warm_restart,
                        "device": str(ses.device),
                        "device_name": (torch.cuda.get_device_name(ses.device)
                                        if ses.device.type == "cuda"
                                        else "cpu")},
             "recompiles_after_warmup": recompiles,
-            "phases_s": {"warmup": warmup_s, "generate": gen_s,
-                         "serve": serve_s},
+            "phases_s": {"train": train_s, "warmup": warmup_s,
+                         "generate": gen_s, "serve": serve_s},
             ("wall_clock" if args.pump else "open_loop"): res.summary(),
             "session_stats": st,
         }
@@ -482,6 +577,7 @@ def main(argv: list[str] | None = None) -> None:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=2)
         print(f"[serve] wrote {args.report}")
+    return res
 
 
 if __name__ == "__main__":

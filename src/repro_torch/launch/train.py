@@ -1,34 +1,67 @@
-"""Training launcher of the port: train the paper's cascade (L3) on the
-synthetic log, print the params' digest and the offline metrics of the
-train and test splits.
+"""Training launcher of the port.
+
+Two paths:
+  * `--target cloes` — train the paper's cascade (L3) on the synthetic log,
+    print the params' digest and the offline metrics of the train and test
+    splits. Crash-safe with `--checkpoint-dir` (a checkpoint every
+    `--checkpoint-every` epochs and at the last), `--resume` continues
+    from the latest good one bit-identically, and `--crash-after-epoch N`
+    hard-exits with code 9 after N epochs (the restart smoke's seam).
+    `--save PATH` writes the trained params and loss config with
+    `checkpoint.save_pytree`. Data parallel under torchrun: each rank
+    trains on `cuda:{LOCAL_RANK}` over a 1-D ("data",) mesh of the ranks
+    (`launch.mesh.data_parallel_mesh`), rank 0 prints and writes the
+    checkpoints; one process takes the plain path.
+  * `--target lm --arch <id>` — train a dense architecture of the model
+    zoo (`--smoke`: its reduced variant, in float32) with Adam on random
+    tokens: the neural final-stage ranker's substrate. `--layers N` keeps
+    the first N layers at the published widths. The weights are drawn in
+    float32 whatever the config's dtype, as the reference's launcher draws
+    them. The moe, ssm, hybrid and encdec families are not ported and
+    raise.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --target cloes \
       [--queries 1200] [--epochs 6] [--batch-groups 64] [--beta 5] \
-      [--lr 0.01] [--seed 0] [--device cuda]
+      [--lr 0.01] [--seed 0] [--device cuda] [--save cascade] \
+      [--checkpoint-dir CKPT [--checkpoint-every 1] [--resume] \
+       [--crash-after-epoch 2]]
+  torchrun --nproc-per-node N -m repro_torch.launch.train --target cloes ...
+  PYTHONPATH=src python -m repro_torch.launch.train --target lm \
+      --arch starcoder2-3b [--smoke | --layers 2] [--steps 30] \
+      [--batch 4] [--seq 64]
 
-`--device cpu` runs the kernels' plain versions. The reference launcher's
-`--target lm` and its checkpoint flags are not ported yet.
+`--device cpu` runs the kernels' plain versions (and gloo under torchrun).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import configs as CFG
+from repro_torch.checkpoint import save_pytree
 from repro_torch.core import baselines as B
 from repro_torch.core import losses as L
 from repro_torch.core import trainer as T
 from repro_torch.data import LogConfig, generate_log
+from repro_torch.launch.mesh import data_parallel_mesh
+from repro_torch.models import base as MB
+from repro_torch.models import zoo as Z
+from repro_torch.optim import adam
 
 
 def params_digest(params) -> str:
     """sha256 over the params' (key, shape, bytes) in key order: a stable
-    identity for trajectory-parity checks."""
+    identity for trajectory-parity checks — the restart smoke compares
+    this line between the resumed and the uninterrupted runs."""
     h = hashlib.sha256()
     for k in sorted(params):
         a = np.ascontiguousarray(params[k].detach().cpu().numpy())
@@ -39,36 +72,129 @@ def params_digest(params) -> str:
 
 
 def train_cloes(args) -> dict:
+    """Under torchrun (WORLD_SIZE > 1) join the process group from its
+    environment — NCCL on cuda:{LOCAL_RANK}, gloo on the CPU — and train
+    over the data mesh, leaving the group when done; else the plain
+    path. Where no world of 2 or more ranks divides --batch-groups, rank 0
+    alone takes the plain path (the checkpoint store has one writer) and
+    the other ranks return {}, as ranks past the mesh do."""
+    device = torch.device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _train_cloes(args, device, None, 0)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        mesh = data_parallel_mesh(args.batch_groups, device.type)
+        rank = dist.get_rank()
+        if (rank if mesh is None else mesh.get_coordinate() is None):
+            return {}   # a rank past the largest world that divides
+        return _train_cloes(args, device, mesh, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_cloes(args, device, mesh, rank) -> dict:
+    say = print if rank == 0 else (lambda *a, **k: None)
     log = generate_log(LogConfig(n_queries=args.queries, seed=args.seed))
     tr, te = log.split(0.8)
     lcfg = L.LossConfig(beta=args.beta)
-    device = torch.device(args.device)
-    print(f"[train] CLOES on {device} "
-          f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
-          f"{tr.n_instances} instances")
+    shards = 1 if mesh is None else mesh.size()
+    say(f"[train] CLOES on {device} "
+        f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}), "
+        f"{shards}-way data parallel, {tr.n_instances} instances")
     t0 = time.perf_counter()
+    info: dict = {}
     params, cfg = B.fit_cloes(
         tr, lcfg=lcfg,
         tcfg=T.TrainConfig(loss="l3", epochs=args.epochs, lr=args.lr,
-                           batch_groups=args.batch_groups),
-        device=device)
+                           batch_groups=args.batch_groups,
+                           checkpoint_every=args.checkpoint_every),
+        mesh=mesh, checkpoint_dir=args.checkpoint_dir or None,
+        resume=args.resume, crash_after_epoch=args.crash_after_epoch,
+        train_info=info, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    print(f"[train] done in {time.perf_counter() - t0:.1f}s")
-    print(f"[train] params sha256={params_digest(params)}")
+    say(f"[train] done in {time.perf_counter() - t0:.1f}s "
+        f"(restored_epoch={info.get('restored_epoch', 0)} "
+        f"epochs_run={info.get('epochs_run', args.epochs)})")
+    say(f"[train] params sha256={params_digest(params)}")
     out = {}
     for split, data in [("train", tr), ("test", te)]:
         m = T.evaluate(params, cfg, data, lcfg)
         out[split] = m
-        print(f"[eval:{split}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+        say(f"[eval:{split}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+    if args.save and rank == 0:
+        save_pytree(args.save, {"params": params,
+                                "lcfg": dataclasses.asdict(lcfg)})
+        say(f"[ckpt] saved to {args.save}")
     return out
 
 
-def main(argv: list[str] | None = None) -> dict:
+def lm_batch(cfg, rng: np.random.Generator, bsz: int, s: int,
+             device) -> dict[str, torch.Tensor]:
+    """One batch of random tokens (the reference's `train_lm` draw): s + 1
+    tokens per row, shifted into inputs and targets; a vlm config also
+    gets its frontend stub embeddings, and its text is cut to s - P."""
+    tok = rng.integers(0, cfg.vocab, (bsz, s + 1))
+    batch = {"tokens": torch.as_tensor(tok[:, :-1], device=device),
+             "targets": torch.as_tensor(tok[:, 1:], device=device)}
+    if cfg.frontend_positions:
+        p_ = cfg.frontend_positions
+        fe = 0.1 * rng.normal(size=(bsz, p_, cfg.d_model))
+        batch["frontend"] = torch.as_tensor(fe, dtype=torch.float32,
+                                            device=device)
+        batch["tokens"] = batch["tokens"][:, :s - p_]
+        batch["targets"] = batch["targets"][:, :s - p_]
+    return batch
+
+
+def train_lm(args) -> list[float]:
+    """Adam on random tokens from the seed's numpy stream; the weights are
+    `materialize`d on the CPU from the seed and moved to `--device`, so
+    both devices train the same model. Returns every step's loss."""
+    device = torch.device(args.device)
+    cfg = CFG.get_smoke(args.arch) if args.smoke else CFG.get(args.arch)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32 if args.smoke
+                              else cfg.dtype,
+                              n_layers=args.layers or cfg.n_layers)
+    params = MB.tree_map(
+        lambda p: p.to(device),
+        MB.materialize(Z.templates(cfg),
+                       torch.Generator().manual_seed(args.seed)))
+    n_params = sum(p.numel() for p in MB.tree_leaves(params))
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e6:.1f}M "
+          f"params, {args.steps} steps on {device}")
+    opt = adam(args.lr)
+    opt_state = opt.init(params)
+    rng = np.random.default_rng(args.seed)
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        batch = lm_batch(cfg, rng, args.batch, args.seq, device)
+        params, opt_state, loss = Z.train_step(params, opt_state, batch, cfg,
+                                               opt.update)
+        losses.append(float(loss))
+        if step % max(1, args.steps // 10) == 0:
+            print(f"  step {step:4d} loss {losses[-1]:.4f} "
+                  f"({(time.perf_counter() - t0) / (step + 1):.2f}s/step)")
+    print(f"[train] final loss {losses[-1]:.4f}")
+    return losses
+
+
+def main(argv: list[str] | None = None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--target", choices=["cloes"], default="cloes")
+    ap.add_argument("--target", choices=["cloes", "lm"], default="cloes")
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="lm target: keep the first N layers (0: all)")
     ap.add_argument("--queries", type=int, default=1200)
     ap.add_argument("--epochs", type=int, default=6)
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--batch-groups", type=int, default=64)
     ap.add_argument("--beta", type=float, default=5.0)
     ap.add_argument("--lr", type=float, default=0.01)
@@ -76,7 +202,19 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu runs the kernels' "
                          "plain versions)")
-    return train_cloes(ap.parse_args(argv))
+    ap.add_argument("--save", default="")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="crash-safe per-epoch checkpoints (cloes target)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="epochs between checkpoints (with --checkpoint-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest good checkpoint")
+    ap.add_argument("--crash-after-epoch", type=int, default=None,
+                    help="test seam: hard-exit (code 9) after N epochs")
+    args = ap.parse_args(argv)
+    if args.target == "cloes":
+        return train_cloes(args)
+    return train_lm(args)
 
 
 if __name__ == "__main__":

@@ -122,11 +122,13 @@ def tree_leaves(tree) -> Iterator:
         yield tree
 
 
-def tree_map(fn: Callable, tree):
-    """fn over the leaves, visited in sorted-key order (as tree_leaves)."""
+def tree_map(fn: Callable, tree, *rest):
+    """fn over the leaves (and the matching leaves of `rest`, trees of the
+    same keys), visited in sorted-key order (as tree_leaves)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
 
 
 @dataclasses.dataclass(frozen=True)

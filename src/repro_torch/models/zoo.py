@@ -7,7 +7,8 @@ are not ported yet (ROADMAP Queue 1 item 12).
 
 Parameters keep the reference's tree (src/repro/models/zoo.py), with layer
 params STACKED on a leading axis; the forward walks the layers in a
-Python loop over per-layer views (`base.unstack`).
+Python loop over per-layer views (`base.unstack`). `lm_loss` and
+`train_step` are the reference's next-token objective and optimizer step.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
-                                     stack_tree, unstack)
+                                     stack_tree, tree_leaves, tree_map,
+                                     unstack)
 
 BIG_WINDOW = 1 << 30     # "no window" sentinel of the per-layer schedule
 
@@ -171,3 +173,32 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
 def _lm_head(params, cfg, x):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ w.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss / train step
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+    """Mean next-token NLL over batch["targets"] (float32 logits) plus the
+    weighted aux loss; a vlm's frontend positions carry no target."""
+    logits, aux = forward(params, cfg, batch)
+    if cfg.frontend_positions:
+        logits = logits[:, cfg.frontend_positions:]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["targets"][..., None])[..., 0]
+    nll = (logz - gold).mean()
+    return nll + aux_weight * aux
+
+
+def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update):
+    """One optimizer step on the parameter tree: (params, opt_state, loss).
+    Each update is cast to its parameter's dtype before it is added."""
+    leaves = tree_map(lambda p_: p_.detach().requires_grad_(True), params)
+    loss = lm_loss(leaves, cfg, batch)
+    grads = iter(torch.autograd.grad(loss, list(tree_leaves(leaves))))
+    grads = tree_map(lambda _: next(grads), leaves)
+    updates, opt_state = opt_update(grads, opt_state, params)
+    params = tree_map(lambda p_, u: p_ + u.to(p_.dtype), params, updates)
+    return params, opt_state, loss.detach()

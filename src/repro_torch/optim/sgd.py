@@ -6,8 +6,10 @@ Each factory returns (init_fn, update_fn) where
     updates, state = update_fn(grads, state, params)
     params = apply_updates(params, updates)
 
-`params` is a dict of tensors (the cascade's w_x / w_q / b) or one tensor
-(the trainer's raveled parameter vector). The step counter is a host int.
+`params` is a dict of tensors (the cascade's w_x / w_q / b; nested for
+the model zoo's trees) or one tensor (the trainer's raveled parameter
+vector). The step counter is a host int; the trainer's checkpoints store it
+as the reference's 0-d int32.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ class OptPair(NamedTuple):
 
 
 def _map(fn, *trees):
-    """fn over the leaves of dicts of tensors (same keys) or of tensors."""
+    """fn over the leaves of (nested) dicts of tensors with the same keys,
+    or of tensors."""
     if isinstance(trees[0], dict):
-        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
 
 

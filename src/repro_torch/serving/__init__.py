@@ -6,8 +6,9 @@ the multi-replica ReplicaRouter (least-loaded placement, global
 admission, breaker-driven failover with probe re-admission; replicas of
 one card on their own CUDA streams), the CascadeServer compatibility shim
 and the neural final stage, request batching with a page-locked
-transfer-buffer pool, the seeded fault injector, and the open-loop load
-generators (virtual-clock DES, single- and multi-replica, + wall-clock).
+transfer-buffer pool, the seeded fault injectors (executor and checkpoint
+file IO), and the open-loop load generators (virtual-clock DES, single-
+and multi-replica, + wall-clock).
 The LLM engine is `serving.engine`."""
 
 from repro_torch.serving.batching import (RankRequest, RankResponse,
@@ -15,7 +16,8 @@ from repro_torch.serving.batching import (RankRequest, RankResponse,
                                           pack_requests)
 from repro_torch.serving.cascade_server import CascadeServer, NeuralScorer
 from repro_torch.serving.faults import (CorruptOutput, FaultConfig,
-                                        FaultInjector, InjectedFault,
+                                        FaultInjector, FsFaultConfig,
+                                        FsFaultInjector, InjectedFault,
                                         PoisonFault, TransientFault)
 from repro_torch.serving.loadgen import (OpenLoopResult, run_open_loop,
                                          run_open_loop_router)
@@ -29,6 +31,7 @@ from repro_torch.serving.session import (CascadeSession, DegradePolicy,
 
 __all__ = ["CascadeServer", "CascadeSession", "CorruptOutput",
            "DegradePolicy", "FaultConfig", "FaultInjector", "FlushPolicy",
+           "FsFaultConfig", "FsFaultInjector",
            "InjectedFault", "NeuralScorer", "OpenLoopResult", "PoisonFault",
            "QueueFull", "RankFuture", "RankRequest", "RankResponse",
            "ReplicaRouter", "RequestBatcher", "RetryPolicy", "RouterConfig",

@@ -32,8 +32,9 @@ the one fault source for the whole stack:
     the whole injector at runtime (tests flip it to watch the breaker
     close; a chaos soak flips it to verify recovery).
 
-The filesystem fault injector of the checkpoint layer comes with the
-checkpoint slice.
+`FsFaultInjector` is the same discipline for the checkpoint layer's file
+IO (torn writes, truncated reads, bit flips), with the reference's draw
+order, so a seed mangles the same bytes in both packages.
 """
 
 from __future__ import annotations
@@ -165,3 +166,83 @@ class FaultInjector:
             col = int(self._rng.integers(results["scores"].shape[1]))
             bad = np.nan if self._rng.random() < 0.5 else np.inf
         results["scores"][row, col] = bad
+
+
+# ---------------------------------------------------------------------------
+# Filesystem faults: chaos-testing the checkpoint layer's fallback path.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FsFaultConfig:
+    """Per-class filesystem fault rates, all default-off. Same discipline
+    as FaultConfig: one seeded generator, zero rates == bit-identical
+    no-op, so the injector can sit permanently on the checkpoint path."""
+    torn_write_rate: float = 0.0    # P(a write durably commits a prefix)
+    truncate_rate: float = 0.0      # P(a read returns a truncated file)
+    bitflip_rate: float = 0.0       # P(a read has one bit flipped)
+    seed: int = 0
+
+
+class FsFaultInjector:
+    """Seeded fault source wrapping the checkpoint layer's raw file IO.
+
+    `checkpoint.io` passes every payload through `on_write` on its way to
+    disk and `on_read` on its way back, so the injector models the three
+    storage failures a checkpoint store must survive:
+
+      - torn write:   the filesystem lied about durability and committed
+                      only a prefix (crash between page flushes);
+      - truncation:   a reader sees a file cut short;
+      - bit flip:     silent media corruption on the read path.
+
+    The checksummed-manifest contract under injection is *correct or
+    detected, never silently wrong*: a faulted checkpoint must surface as
+    CheckpointCorrupt (and `load_latest()` falls back to the last good
+    step), never as wrong parameters. Thread-safe like FaultInjector:
+    the rng and stats are lock-guarded."""
+
+    def __init__(self, cfg: FsFaultConfig):
+        self.cfg = cfg
+        self.enabled = True
+        self._rng = np.random.default_rng(cfg.seed)
+        self._lock = threading.Lock()
+        self.stats = {"torn_write": 0, "truncate": 0, "bitflip": 0}
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self.stats)
+
+    def _mangle(self, kind: str, rate: float, payload: bytes) -> bytes:
+        """One seeded draw per (call, class); on a hit, cut the payload
+        to a strict prefix (torn/truncate) or flip one bit (bitflip)."""
+        if rate <= 0.0 or len(payload) == 0:
+            return payload
+        with self._lock:
+            if self._rng.random() >= rate:
+                return payload
+            self.stats[kind] += 1
+            if kind == "bitflip":
+                pos = int(self._rng.integers(len(payload)))
+                bit = int(self._rng.integers(8))
+            else:
+                cut = int(self._rng.integers(len(payload)))
+        if kind == "bitflip":
+            buf = bytearray(payload)
+            buf[pos] ^= 1 << bit
+            return bytes(buf)
+        return payload[:cut]
+
+    def on_write(self, path: str, payload: bytes) -> bytes:
+        """Write-side hook: returns the bytes that actually reach disk
+        (a torn write durably commits a strict prefix)."""
+        if not self.enabled:
+            return payload
+        return self._mangle("torn_write", self.cfg.torn_write_rate, payload)
+
+    def on_read(self, path: str, payload: bytes) -> bytes:
+        """Read-side hook: returns the bytes the reader observes
+        (truncation first, then a possible bit flip)."""
+        if not self.enabled:
+            return payload
+        payload = self._mangle("truncate", self.cfg.truncate_rate, payload)
+        return self._mangle("bitflip", self.cfg.bitflip_rate, payload)

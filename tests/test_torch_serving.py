@@ -6,7 +6,9 @@ response's status, order, survivors, flags, stage counts and timings, the
 run summary and stats_export() must be equal; scores and latency
 estimates within tolerance. Also the CascadeServer shim and its
 RequestBatcher, and the launcher: its DES path, --pump, --replicas 2
---kill-replica and --faults."""
+--kill-replica, --faults, and --serve-dir followed by --warm-restart (no
+shape first seen after warmup; a manifest short of shapes fails the
+run)."""
 
 import dataclasses
 import json
@@ -23,6 +25,7 @@ from repro.serving import cascade_server as JCS
 from repro.serving import faults as JF
 from repro.serving import session as JS
 from repro.serving.loadgen import run_open_loop as j_run
+from repro_torch.checkpoint import load_pytree, save_pytree
 from repro_torch.core import losses as TLoss
 from repro_torch.data import LogConfig, generate_log
 from repro_torch.launch import serve as TL
@@ -447,3 +450,68 @@ def test_cuda_pump_and_launcher_without_a_card_raise():
     for flags in (["--pump"], ["--replicas", "2"]):
         with pytest.raises((AssertionError, RuntimeError)):
             TL.main(["--requests", "5"] + flags)
+
+
+# ---------------------------------------------------------------------------
+# the launcher's durable state: --serve-dir, then --warm-restart
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flags", [[], ["--pump"],
+                                   ["--replicas", "2", "--pump"]],
+                         ids=lambda f: " ".join(f) or "des")
+def test_launcher_serve_dir_then_warm_restart_on_cpu(flags, tmp_path,
+                                                     capsys):
+    serve_dir, report = tmp_path / "serve", tmp_path / "warm.json"
+    cold = TL.main(["--device", "cpu", "--requests", "40", "--serve-dir",
+                    str(serve_dir)] + flags)
+    out = capsys.readouterr().out
+    assert "graceful shutdown: wrote serving state" in out
+    manifest = json.loads((serve_dir / "warmup_manifest.json").read_text())
+    params, cfg, lcfg, restored = TL.load_serving_state(str(serve_dir),
+                                                        device="cpu")
+    assert restored == manifest and len(manifest["shapes"]) == 18
+    assert lcfg == TLoss.LossConfig() and cfg == _TCFG
+    warm = TL.main(["--device", "cpu", "--requests", "40", "--serve-dir",
+                    str(serve_dir), "--warm-restart", "--report",
+                    str(report)] + flags)
+    out = capsys.readouterr().out
+    assert "warm restart from" in out and "training cascade" not in out
+    assert "recompiles after warmup: 0" in out
+    rep = json.loads(report.read_text())
+    assert rep["recompiles_after_warmup"] == 0
+    assert rep["config"]["warm_restart"] is True
+    assert rep["config"]["serve_dir"] == str(serve_dir)
+    for res in (cold, warm):
+        assert res.unresolved == 0 and all(f.done() for f in res.futures)
+        assert res.completed + res.shed + res.errors == 40
+    # the state written again at the warm server's shutdown: same params
+    params2, *_ = TL.load_serving_state(str(serve_dir), device="cpu")
+    for k in params:
+        assert torch.equal(params2[k], params[k])
+
+
+def test_launcher_warm_restart_refusals(tmp_path):
+    with pytest.raises(SystemExit, match="requires --serve-dir"):
+        TL.main(["--device", "cpu", "--warm-restart"])
+    with pytest.raises(SystemExit, match="drop --neural"):
+        TL.main(["--device", "cpu", "--serve-dir", str(tmp_path),
+                 "--neural", "gemma3-27b"])
+    with pytest.raises(SystemExit, match="drop --params"):
+        TL.main(["--device", "cpu", "--serve-dir", str(tmp_path),
+                 "--warm-restart", "--params", "x.npz"])
+    with pytest.raises(FileNotFoundError):            # nothing saved there
+        TL.main(["--device", "cpu", "--serve-dir", str(tmp_path / "none"),
+                 "--warm-restart"])
+
+
+def test_warm_restart_fails_on_a_shape_first_seen_after_warmup(tmp_path):
+    """A manifest short of shapes warms too little: the serve phase meets
+    a new shape and the warm-restarted run exits nonzero."""
+    ses = TS.CascadeSession(_TP, _TCFG, device="cpu")
+    TL.save_serving_state(str(tmp_path), ses)
+    state = load_pytree(tmp_path / "serve_state")
+    state["manifest"]["shapes"] = state["manifest"]["shapes"][:1]
+    save_pytree(tmp_path / "serve_state", state)
+    with pytest.raises(SystemExit, match="promised no new shape"):
+        TL.main(["--device", "cpu", "--requests", "40", "--serve-dir",
+                 str(tmp_path), "--warm-restart"])

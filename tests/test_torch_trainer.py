@@ -11,16 +11,38 @@ atol 1e-5 — the reference's own bar between its loop and scan engines
 (tests/test_train_engine.py); float32 sums are taken in another order each
 step, and 20 momentum steps carry the difference forward. Offline metrics
 of the same params: rtol/atol 1e-6.
+
+Also the data-parallel fit (a world of one equal to `fit` bit for bit; two
+gloo ranks' first step within 1e-5 of the reference's per-shard step), the
+launcher's crash seam and resume (the uninterrupted run's digest), the same
+under torchrun on two gloo ranks (with a dividing and a non-dividing
+--batch-groups: rank 0 alone writes the checkpoints), and the LM target
+(`--layers` cuts depth only): Adam against the reference's on the same gradients (rtol 1e-6,
+the same float32 operations), and `zoo.train_step` for every dense smoke
+config (losses rtol 1e-5; the first step's gradients, through Adam's
+first moment, within 1e-3 of each leaf's largest — the forward's logits
+are held to 2e-4, tests/test_torch_models.py).
 """
 
 import dataclasses
 import hashlib
+import importlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from jax.flatten_util import ravel_pytree
+from torch.distributed.device_mesh import DeviceMesh
 
+import repro.checkpoint as JCK
 from repro.core import baselines as JB
 from repro.core import cascade as JC
 from repro.core import losses as JL
@@ -28,13 +50,24 @@ from repro.core import metrics as JM
 from repro.core import trainer as JT
 from repro.data import LogConfig as JLogConfig
 from repro.data import generate_log as jgenerate_log
+from repro.models import zoo as JZ
+from repro.optim import adam as jadam
+from repro_torch import configs as TCFG
 from repro_torch.core import baselines as TB
 from repro_torch.core import losses as TL
 from repro_torch.core import metrics as TM
 from repro_torch.core import trainer as TT
 from repro_torch.data import LogConfig, generate_log
 from repro_torch.launch import train as TLT
-from torch_parity import cascades, close, n
+from repro_torch.launch.mesh import data_parallel_mesh
+from repro_torch.models import base as TMB
+from repro_torch.models import zoo as TZ
+from repro_torch.optim import adam as tadam
+from torch_parity import (DENSE_ARCHS, cascades, close, dense_model, n,
+                          one_cpu_thread)
+
+JSGD = importlib.import_module("repro.optim.sgd")
+REPO = Path(__file__).resolve().parents[1]
 
 TRAJ_TOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
@@ -311,3 +344,304 @@ def test_params_digest_follows_the_bytes():
     assert TLT.params_digest(p) == h.hexdigest()
     p["b"][1] = 1e-30
     assert TLT.params_digest(p) != h.hexdigest()
+
+
+def _launch_train(*flags, timeout=120) -> subprocess.CompletedProcess:
+    """The launcher in a subprocess on one CPU thread (see
+    torch_parity.one_cpu_thread: a fresh process's first multi-threaded
+    fit is not always bit-equal to the next)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--queries", "300", "--epochs", "4", "--batch-groups", "16", *flags],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def _digest(out: str) -> str:
+    return next(s for s in out.split() if s.startswith("sha256="))
+
+
+def test_train_launcher_crash_and_resume_reproduce_the_digest(tmp_path):
+    """The restart smoke of scripts/ci.sh on the port: killed after epoch
+    2 (exit code 9, a SIGKILL stand-in), resumed from its checkpoint, the
+    run prints the uninterrupted run's params sha256."""
+    full = _launch_train()
+    assert full.returncode == 0, full.stderr
+    ckpt = str(tmp_path / "ckpt")
+    crash = _launch_train("--checkpoint-dir", ckpt, "--crash-after-epoch", "2")
+    assert crash.returncode == TT.CRASH_EXIT_CODE == 9, crash.stderr
+    assert "params sha256=" not in crash.stdout
+    resumed = _launch_train("--checkpoint-dir", ckpt, "--resume")
+    assert resumed.returncode == 0, resumed.stderr
+    assert "(restored_epoch=2 epochs_run=2)" in resumed.stdout
+    assert _digest(resumed.stdout) == _digest(full.stdout)
+
+
+def test_train_launcher_save_writes_a_checkpoint(tmp_path, capsys):
+    path = tmp_path / "cascade"
+    TLT.main(["--device", "cpu", "--queries", "200", "--epochs", "1",
+              "--save", str(path)])
+    assert f"[ckpt] saved to {path}" in capsys.readouterr().out
+    tree = JCK.load_pytree(path)          # the reference reads it
+    assert set(tree) == {"params", "lcfg"}
+    assert tree["lcfg"] == dataclasses.asdict(TL.LossConfig(beta=5.0))
+    assert {k: v.shape for k, v in tree["params"].items()} == \
+        {"b": (3,), "w_q": (3, 8), "w_x": (3, 24)}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism over a torch.distributed mesh
+# ---------------------------------------------------------------------------
+
+_DP_LOG = dict(n_queries=16, items_per_query=16, seed=3)
+_DP_TCFG = dict(loss="l3", lr=0.05, batch_groups=16, log_every=1)
+
+
+def _dp_fit(mesh, epochs, **kw):
+    losses = []
+    p, _ = TB.fit_cloes(generate_log(LogConfig(**_DP_LOG)),
+                        lcfg=TL.LossConfig(beta=2.0),
+                        tcfg=TT.TrainConfig(epochs=epochs, **_DP_TCFG),
+                        callback=lambda s, v: losses.append(v), mesh=mesh,
+                        device="cpu", **kw)
+    return p, losses
+
+
+def test_data_parallel_world_of_one_equals_fit(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        assert data_parallel_mesh(16, "cpu") is None    # a world of one
+        mesh = DeviceMesh("cpu", [0], mesh_dim_names=("data",))
+        with one_cpu_thread():
+            ref, ref_losses = _dp_fit(None, 3)
+            got, losses = _dp_fit(mesh, 3)
+    finally:
+        dist.destroy_process_group()
+    assert losses == ref_losses
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_data_parallel_refusals(logs, cascade):
+    assert data_parallel_mesh(16, "cpu") is None        # no process group
+
+    class _Mesh:                        # what fit reads of a 3-rank mesh
+        def size(self):
+            return 3
+    (tr, _), _ = logs
+    _, tcfg = cascade
+    with pytest.raises(ValueError, match="must divide by the data-axis"):
+        TT.fit(tr, tcfg, TL.LossConfig(),
+               TT.TrainConfig(batch_groups=16, epochs=1), mesh=_Mesh(),
+               device="cpu")
+    with pytest.raises(ValueError, match="no data-parallel path"):
+        TT.fit(tr, tcfg, TL.LossConfig(),
+               TT.TrainConfig(engine="loop", epochs=1), mesh=_Mesh(),
+               device="cpu")
+
+
+def _dp_worker(rank, world, tmp, init):
+    """One rank of test_data_parallel_two_ranks: (a) one step (16 groups,
+    one minibatch an epoch) from the reference's init, checkpointing into
+    a directory of its own; (b) resumed from rank 0's directory to 2
+    epochs; (c) 2 epochs uninterrupted. Writes what it saw to
+    rank{rank}.npz."""
+    torch.set_num_threads(1)            # as one_cpu_thread: p2r == p2
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                            rank=rank, world_size=world)
+    try:
+        assert data_parallel_mesh(15, "cpu") is None    # 2 does not divide
+        mesh = data_parallel_mesh(16, "cpu")
+        p1, l1 = _dp_fit(mesh, 1, init_params=init,
+                         checkpoint_dir=f"{tmp}/ckpt{rank}")
+        info: dict = {}
+        p2r, _ = _dp_fit(mesh, 2, init_params=init,
+                         checkpoint_dir=f"{tmp}/ckpt0", resume=True,
+                         train_info=info)
+        p2, _ = _dp_fit(mesh, 2, init_params=init)
+        np.savez(f"{tmp}/rank{rank}.npz", loss=np.array(l1),
+                 restored=info["restored_epoch"],
+                 resumed_equal=all(torch.equal(p2r[k], p2[k]) for k in p2),
+                 **{k: v.numpy() for k, v in p1.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def test_data_parallel_two_ranks_match_the_reference_per_shard_step(
+        tmp_path):
+    """Two gloo ranks: every rank ends the first step with the same params,
+    which are the reference's per-shard-normalized step — loss_l3's
+    gradient on each contiguous half of the minibatch, their mean, one
+    momentum_sgd update — within 1e-5. Only rank 0 writes checkpoints,
+    every rank resumes from them, bit-identically."""
+    _, _, jcfg, _ = cascades(3)
+    init = jax.device_get(JC.init_params(jcfg, jax.random.PRNGKey(0)))
+    mp.spawn(_dp_worker, args=(2, str(tmp_path), init), nprocs=2, join=True)
+    got = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+
+    lcfg = JL.LossConfig(beta=2.0)
+    item, group = JT._engine_pack(
+        jgenerate_log(JLogConfig(**_DP_LOG)), lcfg)
+    idx = JT._epoch_perm(16, 16, 0)[0]
+    theta, unravel = ravel_pytree(init)
+    losses, grads = [], []
+    for half in (idx[:8], idx[8:]):
+        batch = JT._engine_unpack(item[half], group[half], 24, 8)
+        loss, g = jax.value_and_grad(
+            lambda th: JL.LOSSES["l3"](unravel(th), jcfg, lcfg, batch))(theta)
+        losses.append(loss)
+        grads.append(g)
+    opt = JSGD.momentum_sgd(0.05, 0.9)
+    upd, _ = opt.update((grads[0] + grads[1]) / 2, opt.init(theta), theta)
+    want = jax.device_get(unravel(JSGD.apply_updates(theta, upd)))
+    for r, out in enumerate(got):
+        close(out["loss"], [(losses[0] + losses[1]) / 2], rtol=1e-5,
+              atol=1e-5)
+        for k in want:
+            close(out[k], want[k], rtol=1e-5, atol=1e-5)
+            np.testing.assert_array_equal(out[k], got[0][k])
+        assert int(out["restored"]) == 1 and bool(out["resumed_equal"])
+    assert not list((tmp_path / "ckpt1").glob("step_*"))   # rank 1 wrote none
+    assert [p.name for p in sorted((tmp_path / "ckpt0").glob("*.json"))] \
+        == ["step_00000001.json", "step_00000002.json"]
+
+
+# launch.train's main under torchrun, printing what each rank returned
+_TORCHRUN_MAIN = (
+    "import os, sys; from repro_torch.launch import train; "
+    "out = train.main(sys.argv[1:]); "
+    "print(f'[rank {os.environ[\"RANK\"]}] returned {sorted(out)}')")
+
+
+def _torchrun_train(ckpt, batch_groups, *flags, timeout=120):
+    """`launch.train.main` under `torchrun --standalone` with two gloo ranks
+    on one CPU thread each (localhost rendezvous on a free port)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "--no-python", sys.executable, "-c",
+         _TORCHRUN_MAIN, "--device", "cpu", "--queries", "300", "--epochs", "4",
+         "--batch-groups", str(batch_groups), "--checkpoint-dir", str(ckpt),
+         *flags],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.mark.parametrize("batch_groups,ways", [(16, 2), (7, 1)])
+def test_train_launcher_under_torchrun_crash_and_resume(tmp_path,
+                                                        batch_groups, ways):
+    """`launch.train` under torchrun: each rank joins the group from the
+    environment, rank 0 alone prints and writes the checkpoints, the crash
+    seam exits 9 once rank 0's save is committed, and `--resume` on every
+    rank reproduces the uninterrupted run's digest. 16 groups divide over
+    the 2 ranks; 7 do not, so rank 0 alone trains on the plain path (the
+    digest of a single process) while rank 1 returns at once, writing
+    nothing."""
+    ckpt = tmp_path / "ckpt"
+    crash = _torchrun_train(ckpt, batch_groups, "--crash-after-epoch", "2")
+    assert crash.returncode != 0 and "exitcode  : 9" in crash.stderr, \
+        crash.stderr[-2000:]
+    assert "params sha256=" not in crash.stdout
+    assert sorted(p.name for p in ckpt.iterdir()) == [
+        "step_00000001.json", "step_00000001.npz",
+        "step_00000002.json", "step_00000002.npz"]
+    resumed = _torchrun_train(ckpt, batch_groups, "--resume")
+    assert resumed.returncode == 0, resumed.stderr[-2000:]
+    assert resumed.stdout.count("params sha256=") == 1      # rank 0 prints
+    assert f"{ways}-way data parallel" in resumed.stdout
+    assert "(restored_epoch=2 epochs_run=2)" in resumed.stdout
+    rank1 = "['test', 'train']" if ways == 2 else "[]"
+    assert f"[rank 1] returned {rank1}" in resumed.stdout
+    assert sorted(p.name for p in ckpt.glob("*.json")) == [
+        "step_00000002.json", "step_00000003.json", "step_00000004.json"]
+    if ways == 1:
+        full = _launch_train("--batch-groups", str(batch_groups))
+    else:
+        full = _torchrun_train(tmp_path / "full", batch_groups)
+    assert full.returncode == 0, full.stderr[-2000:]
+    assert _digest(resumed.stdout) == _digest(full.stdout)
+
+
+# ---------------------------------------------------------------------------
+# the LM target: Adam, zoo.lm_loss / train_step, the launcher
+# ---------------------------------------------------------------------------
+
+def test_adam_matches_reference():
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.normal(size=(3, 4)).astype(np.float32),
+            "n": {"b": rng.normal(size=(5,)).astype(np.float32)}}
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = TMB.tree_map(torch.from_numpy, tree)
+    for wd in (0.0, 0.1):
+        jo, to = jadam(1e-2, weight_decay=wd), tadam(1e-2, weight_decay=wd)
+        js, ts = jo.init(jp), to.init(tp)
+        assert ts["step"].dtype == torch.int32 and ts["step"].shape == ()
+        for i in range(4):
+            g = {"a": rng.normal(size=(3, 4)).astype(np.float32),
+                 "n": {"b": (10.0 ** -i * rng.normal(size=(5,)))
+                       .astype(np.float32)}}
+            ju, js = jo.update(jax.tree_util.tree_map(jnp.asarray, g), js,
+                               jp)
+            tu, ts = to.update(TMB.tree_map(torch.from_numpy, g), ts, tp)
+            for jt, tt in ((ju, tu), (js["m"], ts["m"]), (js["v"], ts["v"])):
+                for a, b in zip(jax.tree_util.tree_leaves(jt),
+                                TMB.tree_leaves(tt)):
+                    close(b, a, rtol=1e-6, atol=1e-9)
+        assert int(ts["step"]) == int(js["step"]) == 4
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_lm_train_step_matches_reference(arch):
+    jcfg, tcfg, jp, tp = dense_model(arch)
+    jo, to = jadam(1e-3), tadam(1e-3)
+    js, ts = jo.init(jp), to.init(tp)
+    step = jax.jit(lambda p, o, b: JZ.train_step(p, o, b, jcfg, jo.update))
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        tb = TLT.lm_batch(tcfg, rng, 2, 24, "cpu")
+        jb = {k: jnp.asarray(v.numpy()) for k, v in tb.items()}
+        jp, js, jl = step(jp, js, jb)
+        tp, ts, tl = TZ.train_step(tp, ts, tb, tcfg, to.update)
+        close(tl, jl, rtol=1e-5, atol=1e-5)
+        if i == 0:          # m = (1 - b1) g: the gradients
+            jm = jax.tree_util.tree_leaves(jax.device_get(js["m"]))
+            tm = list(TMB.tree_leaves(ts["m"]))
+            assert len(jm) == len(tm)
+            for a, b in zip(jm, tm):
+                close(b, a, rtol=0, atol=1e-3 * float(np.abs(a).max()))
+    assert ts["step"].dtype == torch.int32 and int(ts["step"]) == 3
+    assert all(torch.isfinite(p).all() for p in TMB.tree_leaves(tp))
+
+
+def test_train_launcher_lm_target_on_cpu(capsys):
+    losses = TLT.main(["--target", "lm", "--arch", "yi-34b", "--smoke",
+                       "--steps", "3", "--seq", "16", "--device", "cpu"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    out = capsys.readouterr().out
+    assert "[train] yi-smoke" in out and "final loss" in out
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TLT.main(["--target", "lm", "--arch", "dbrx-132b", "--smoke",
+                  "--device", "cpu"])
+
+
+def test_train_launcher_lm_layers_cuts_depth_only(capsys):
+    """`--layers N` trains the config's first N layers at its widths: the
+    launcher's losses are those of the same Adam steps on the config with
+    n_layers = N, the weights drawn in float32 from the seed."""
+    losses = TLT.main(["--target", "lm", "--arch", "qwen3-8b", "--smoke",
+                       "--layers", "1", "--steps", "2", "--seq", "16",
+                       "--device", "cpu"])
+    cfg = dataclasses.replace(TCFG.get_smoke("qwen3-8b"), n_layers=1,
+                              dtype=torch.float32)
+    params = TMB.materialize(TZ.templates(cfg),
+                             torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in TMB.tree_leaves(params))
+    assert f"1 layers, {n_params / 1e6:.1f}M params" in capsys.readouterr().out
+    opt = tadam(0.01)
+    state, rng, want = opt.init(params), np.random.default_rng(0), []
+    for _ in range(2):
+        batch = TLT.lm_batch(cfg, rng, 4, 16, "cpu")
+        params, state, loss = TZ.train_step(params, state, batch, cfg,
+                                            opt.update)
+        want.append(float(loss))
+    assert losses == want

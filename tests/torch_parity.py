@@ -9,6 +9,7 @@ Discrete outputs (n_keep, survivors, orders, statuses) exactly, after
 asserting that the inputs leave every decision a margin
 (repro_torch.kernels.cascade_filter.ref.assert_decision_margin)."""
 
+import contextlib
 import dataclasses
 import json
 
@@ -31,6 +32,22 @@ from repro_torch.kernels.cascade_filter.ref import assert_decision_margin
 from repro_torch.kernels.cascade_score.ref import cascade_score_batched_ref
 
 RTOL, ATOL = 1e-5, 1e-6
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """Run the block on one CPU thread. torch's multi-threaded CPU kernels
+    are not run-to-run deterministic: in about 1 of 40 fresh processes the
+    first fit differs in the last bits from the same fit run again (on one
+    thread 48 of 48 runs agreed), and the embedding backward differs
+    between any two runs. A test that holds two CPU runs bit-equal pins
+    the port's arithmetic, not torch's threading."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def t(a) -> torch.Tensor:
