@@ -43,6 +43,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    storage offset, each launched twice for the same bits. Every kernel
    launched twice on the same inputs gives the same bits (K6 and K7 on the
    timing shape's 1,048,576 items as one group);
+3b. query_bias (the serving cascade's zq = q @ w_q.T + b, each row summed
+   in a fixed order; a port-only kernel) against its plain version at 1-32
+   and 4096 rows: bit for bit on the card, and against the plain version on
+   the CPU bit for bit or else within 1e-6 (printed which); the rows of one
+   launch equal the same rows launched in slices of every warmed b; timed
+   at 32 and 4096 rows beside its plain version, its bound and the
+   library's addmm;
 4. timing: each kernel and its plain version at B=4096 groups of G=256
    items (d=24, T=3) and at the training shape: the median over 25 runs
    of 20 calls back to back between CUDA events (device time per call),
@@ -112,6 +119,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    replica, each plain and with replica 0 forced dead: every future
    resolved, the fleet identity, drained = adopted, failovers in the kill
    runs, K2 once per pipeline run, responses against the plain pipeline.
+   `[router adopt]` a backlog queued on the dead replica, drained by the
+   router's tick and served by the survivor: at least one adopted, each
+   adopted response bit-equal to the plain DES run's.
    `[replica streams]` at every warmed (b, g) two page-locked batches on
    the two replicas' streams behind one busy-wait (both enqueued before
    it ends), each output equal to its one-stream bits. `[pump faults]`
@@ -124,9 +134,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    requests at 400 QPS; drained, persisted), then with --warm-restart:
    the restored params equal, no shape first seen after warmup, every
    future resolved, the identity closed, K2 = chunks executed + the
-   manifest's replayed shapes, responses bit-equal to the first server's
-   where both served a request in a chunk of the same shape (within 1e-5
-   elsewhere); both warmup times and the warm server's latency;
+   manifest's replayed shapes (and query_bias as often), responses
+   bit-equal to the first server's wherever both served a request in a
+   chunk of the same g, at any b (within 1e-5 across g); zq by query_bias
+   and K2's outputs bit-equal for the same rows in chunks of every warmed
+   b (`row_bits_by_b`, 0 rows differing, asserted); both warmup times and
+   the warm server's latency. Every pipeline run launches query_bias once
+   beside the plan's kernel, and each router kill run's responses equal
+   the run without the kill bit for bit;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -160,15 +175,31 @@ Phases, in order; any failure raises and the script exits nonzero:
    gemma3-27b`: the smoke variant in float32, plan "filter", 500
    requests at 400 QPS): every request served, none shed, no errors, the
    responses against the plain pipeline plus the same scorer on the CPU;
+8b. `[moe lm]` dbrx-132b (2 layers, 15.5 GB) and arctic-480b (1 layer,
+   28.1 GB) at their published widths in bfloat16, the weights drawn leaf
+   by leaf on the card: prefill of 4 prompts of 512 tokens, 32 greedy
+   decode steps, K8 launched once per layer per step and nothing else;
+   ms per step, CUDA kernel launches per step and peak memory beside the
+   card's name and power limit;
 10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
    2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
    the card: finite losses within 1e-4 of the same steps on the CPU, and
    the same steps with the weights in bfloat16 more than 1e-4 from them.
-   It runs last: its ~30 s of the CPU's threads stay out of every phase
-   timed on the host's clock;
-11. one JSON line with each kernel's launches on its path (K2, K4 and
-   K5 also on the restart, data-parallel and warm-restart paths), error
-   and times; the last line is {"ok": true, "device": {...}}.
+   It and the two phases after it run last: their CPU work stays out of
+   every phase timed on the host's clock;
+11. `[moe parity]` dbrx-smoke and arctic-smoke in float32 on the card
+   against the CPU: forward logits (2e-4) and aux loss (1e-6), prefill and
+   16 greedy decode steps (2e-4), greedy tokens and every layer's expert
+   choices exactly wherever the margin allows, K8 = layers x steps;
+12. `[moe lm check]` dbrx-132b at full width, 1 layer in float32 (18.0 GB):
+   prefill of 4 x 512 tokens ([moe lm]'s capacity) and 8 greedy decode
+   steps on the card against the CPU, logits
+   within 2e-4, greedy tokens and expert choices exact where the margin
+   allows;
+13. one JSON line with each kernel's launches on its path (K2, K4 and
+   K5 also on the restart, data-parallel and warm-restart paths; K8 also
+   on the moe paths; query_bias on the serving main path and the others),
+   error and times; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -277,6 +308,31 @@ NEURAL_ARCH = "gemma3-27b"
 # the bar, so it is one that bf16 rounding fails.
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_STEPS = "starcoder2-3b", 2, 3
 LM_TRAIN_RTOL = 1e-4
+# The moe family. [moe parity]: each smoke config in float32 on the card
+# against the CPU (forward, prefill, MOE_PARITY_STEPS greedy decode
+# steps). [moe lm]: each config at its published widths cut to
+# MOE_LM_LAYERS layers in bfloat16 (dbrx 2: 15.5 GB; arctic 1: 28.1 GB of
+# weights), a prompt's prefill then MOE_LM_STEPS greedy decode steps at
+# B = 4. [moe lm check]: dbrx at full width, 1 layer in float32 (18.0 GB),
+# prefill and decode on the card against the CPU.
+MOE_ARCHS = ("dbrx-132b", "arctic-480b")
+MOE_PARITY_BATCH, MOE_PARITY_PROMPT, MOE_PARITY_STEPS = 2, 24, 16
+MOE_LM_LAYERS = {"dbrx-132b": 2, "arctic-480b": 1}
+MOE_LM_BATCH, MOE_LM_PROMPT, MOE_LM_STEPS = 4, 512, 32
+MOE_CHECK_ARCH, MOE_CHECK_LAYERS = "dbrx-132b", 1
+# [moe lm]'s prefill (4 x 512 tokens, 640 capacity slots per expert) and a
+# longer decode, so the large-capacity dispatch is held to the CPU too
+MOE_CHECK_BATCH, MOE_CHECK_PROMPT, MOE_CHECK_STEPS = (
+    MOE_LM_BATCH, MOE_LM_PROMPT, 8)
+MOE_LOGIT_TOL = 2e-4        # the dense LM phases' bar
+MOE_AUX_TOL = 1e-6          # a mean of E products of probabilities
+# Expert choices are compared exactly where the k-th and (k+1)-th router
+# probabilities differ by more than this in log space.
+ROUTE_LOG_MARGIN = 1e-3
+# query_bias: the serving buckets' batch sizes and a large batch; timed at
+# the largest bucket and at 4096 rows.
+QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
+QB_TIMING_ROWS = (32, 4096)
 WARM_B = (1, 2, 4, 8, 16, 32)
 WARM_G = (16, 64, 256)
 TIMING_SHAPE = (4096, 256, 24, 3)     # B, G, d, T: ~100 MB of x
@@ -312,6 +368,7 @@ DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
 # defaults (4 submitter threads, 2 replicas), --faults 0.2 for the chaos
 # run; every wait on a future is bounded by RESULT_TIMEOUT_S.
 PUMP_THREADS, N_REPLICAS, CHAOS_RATE, RESULT_TIMEOUT_S = 4, 2, 0.2, 60.0
+ADOPT_BACKLOG = 48
 SHIM_REQUESTS = 200
 # The injector's own exceptions (and the session's guard against the
 # corrupt scores it plants): the only errors a chaos run may end in.
@@ -393,6 +450,11 @@ KERNEL_INFO = {
         "id": "K7", "route": "cuda",
         "source": "src/repro_torch/csrc/cascade_score_single.cu",
         "replaces": "src/repro/kernels/cascade_score/kernel.py:365"},
+    # port-only: the reference computes zq in XLA, no Pallas kernel
+    "query_bias": {
+        "id": "QB", "route": "cuda",
+        "source": "src/repro_torch/csrc/query_bias.cu",
+        "replaces": "src/repro/core/pipeline.py:140"},
 }
 
 
@@ -940,6 +1002,75 @@ def phase_determinism() -> None:
             assert torch.equal(u, v), f"{name}: two launches differ"
     print(f"[determinism] {len(runs)} kernels at B={b} G={g}: two launches "
           "on the same inputs give the same bits")
+
+
+# -- 3b. query_bias: zq per row, in a fixed order -------------------------------
+
+def qb_case(rows, seed):
+    """query_bias's inputs at `rows` rows: q half one-hot query buckets (as
+    the log draws them) and half normal draws, w_q and b of the CLOES
+    cascade's shapes."""
+    cfg = cloes.CASCADE
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(rows, cfg.d_q)).astype(np.float32)
+    hot = rng.integers(0, cfg.d_q, (rows + 1) // 2)
+    q[::2] = np.eye(cfg.d_q, dtype=np.float32)[hot]
+    w = (0.3 * rng.normal(size=(cfg.n_stages, cfg.d_q))).astype(np.float32)
+    b = rng.normal(size=(cfg.n_stages,)).astype(np.float32)
+    return tuple(torch.tensor(a, device="cuda") for a in (q, w, b))
+
+
+def phase_query_bias(errs) -> dict[int, dict]:
+    """query_bias against its plain version at every row count in QB_ROWS:
+    bit for bit on the card (asserted), and against the plain version on
+    the CPU bit for bit, or else within 1e-6 (which of the two held is
+    printed); the rows of one launch over all of them equal, bit for bit,
+    the same rows launched in slices of every warmed b; two launches give
+    the same bits. Then its time at QB_TIMING_ROWS beside its plain
+    version, its bound and the library's q @ w_q.T + b (`torch.addmm`)."""
+    held = "bit for bit"
+    for rows in QB_ROWS:
+        q, w, b = qb_case(rows, seed=rows)
+        got = ops.query_bias(q, w, b)
+        want = ops.query_bias_ref(q, w, b)
+        assert torch.equal(got, want), f"query_bias at {rows} rows"
+        assert torch.equal(got, ops.query_bias(q, w, b)), "two launches"
+        cpu = ops.query_bias_ref(q.cpu(), w.cpu(), b.cpu())
+        if not torch.equal(got.cpu(), cpu):
+            torch.testing.assert_close(got.cpu(), cpu, rtol=1e-6, atol=1e-6)
+            held = "within 1e-6"
+        errs["query_bias"] = max(errs["query_bias"],
+                                 float((got - want).abs().max()))
+        for bb in WARM_B:
+            if bb < rows:
+                parts = torch.cat([ops.query_bias(q[s:s + bb], w, b)
+                                   for s in range(0, rows, bb)])
+                assert torch.equal(parts, got), (rows, bb)
+    print(f"[parity] query_bias at rows {QB_ROWS}: bit-equal to its plain "
+          f"version on the card; against the plain version on the CPU "
+          f"{held}; every row's bits the same in slices of each b in "
+          f"{WARM_B}")
+    out = {}
+    for rows in QB_TIMING_ROWS:
+        q, w, b = qb_case(rows, seed=rows + 1)
+        t_, d_q = w.shape
+        kern, lone = time_ms(lambda: ops.query_bias(q, w, b))
+        plain, _ = time_ms(lambda: ops.query_bias_ref(q, w, b))
+        lib, _ = time_ms(lambda: torch.addmm(b, q, w.T))
+        nbytes = 4 * (rows * d_q + t_ * d_q + t_ + rows * t_)
+        nops = 2 * rows * t_ * d_q
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / F32_OPS_PER_S * 1e3
+        out[rows] = r = dict(
+            ms=kern, lone_ms=lone, plain_ms=plain, library_ms=lib,
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations")
+        print(f"[timing] QB query_bias at {rows} rows, d_q={d_q} T={t_}: "
+              f"kernel {kern:.4f} ms (lone call {lone:.4f} ms), plain "
+              f"{plain:.4f} ms, library addmm {lib:.4f} ms, bound "
+              f"{r['bound_ms']:.3g} ms by {r['bound_by']} ({nbytes} bytes, "
+              f"{nops} ops), {r['bound_ms'] / kern:.2%} of bound")
+    return out
 
 
 # -- 4. timing ------------------------------------------------------------------
@@ -1644,6 +1775,8 @@ def phase_slice(plan: str, params, te, neural=None) -> tuple[dict, dict]:
     assert new_shapes == 0, f"{new_shapes} shapes first seen after warmup"
     assert warm_launches[kernel] >= len(shapes), warm_launches
     assert serve_launches >= chunks > 0, (serve_launches, chunks)
+    # zq: one query_bias launch per pipeline run, beside the plan's kernel
+    assert launches["query_bias"] == launches[kernel], launches
     if neural is not None:
         assert res.completed == res.n_requests and res.shed == 0, \
             f"{label}: served {res.completed}, shed {res.shed}"
@@ -1802,7 +1935,7 @@ def phase_pump(params, te, *, fault_rate=0.0) -> dict:
     reqs = S.make_requests(te, DES_REQUESTS, seed=0)
     ops.reset_launch_counts()        # the path starts here
     shapes = ses.warmup()
-    warm = ops.launch_counts()["cascade_filter"]
+    warm = ops.launch_counts()
     shapes_after_warmup = S.compiled_count([ses])
     tally = Tally()
     tally.wrap(ses, "rank_batch")
@@ -1813,7 +1946,9 @@ def phase_pump(params, te, *, fault_rate=0.0) -> dict:
                          result_timeout_s=RESULT_TIMEOUT_S)
     pump.close(timeout=RESULT_TIMEOUT_S)
     sync()
-    launches = ops.launch_counts()["cascade_filter"] - warm   # ... ends here
+    counts = ops.launch_counts()     # ... and ends here
+    launches = counts["cascade_filter"] - warm["cascade_filter"]
+    qb_launches = counts["query_bias"] - warm["query_bias"]
     assert not pump.running, f"{label}: the pump thread did not stop"
     pst = pump.stats_export()
     st = pst["session"]
@@ -1825,7 +1960,7 @@ def phase_pump(params, te, *, fault_rate=0.0) -> dict:
     new_shapes = S.compiled_count([ses]) - shapes_after_warmup
     assert new_shapes == 0, f"{label}: {new_shapes} shapes after warmup"
     chunks, runs = tally.calls["execute_chunk"], tally.calls["rank_batch"]
-    assert launches == runs, (launches, runs)
+    assert launches == qb_launches == runs, (launches, qb_launches, runs)
     pool = ses.pool.snapshot()
     assert ses.pool.pin, f"{label}: the session's pool is not page-locked"
     assert pool["reused"] > 0 and pool["allocated"] <= 4 * len(shapes), pool
@@ -1847,10 +1982,12 @@ def phase_pump(params, te, *, fault_rate=0.0) -> dict:
           f"{pst['slot_joins']} slot joins, {chunks} chunks executed "
           f"({per_cycle:.4f} ms host each, pack to fetch; longest "
           f"{1e3 * tally.longest['execute_chunk']:.3f} ms), K2 x {launches} "
-          f"(warmup {warm}); pool allocated {pool['allocated']} / reused "
+          f"(warmup {warm['cascade_filter']}), query_bias x {qb_launches}; "
+          f"pool allocated {pool['allocated']} / reused "
           f"{pool['reused']} (page-locked); {checked} responses match the "
           f"plain pipeline on the CPU{chaos}")
-    return dict(launches=launches, summary=res.summary(), cycles=pst["cycles"],
+    return dict(launches=launches, qb_launches=qb_launches,
+                summary=res.summary(), cycles=pst["cycles"],
                 slot_joins=pst["slot_joins"], chunks=chunks,
                 ms_per_chunk=per_cycle, pool=pool)
 
@@ -1864,11 +2001,14 @@ def phase_router(params, te) -> dict:
     resolved, the fleet identity, Σ adopted = Σ drained, failovers in the
     kill runs, K2 once per pipeline run on either replica (counts set to 0
     before each run's warmup and read after it), every served response
-    against the plain pipeline on the CPU."""
+    against the plain pipeline on the CPU, and each kill run's responses
+    (adopted ones included) bit-equal to the same mode's run without the
+    kill wherever both served the request whole."""
     cfg = cloes.CASCADE
     reqs = S.make_requests(te, DES_REQUESTS, seed=0)
     out = {"launches": 0}
     for mode in ("des", "pump"):
+        plain_run = {}
         for kill in (False, True):
             label = f"router {mode}" + (" kill-replica" if kill else "")
             router = S.build_router(params, cfg, n=N_REPLICAS,
@@ -1926,6 +2066,25 @@ def phase_router(params, te) -> dict:
                 assert all(p["submitted"] > 0 for p in per), per
             checked = check_responses(reqs, futures, params, cfg, reps[0])
             assert checked > 0
+            # failover changes placement and chunking, never a request's
+            # bits: each response served whole in both runs equals the
+            # plain run's bit for bit, adopted ones included
+            equal = 0
+            for f in futures:
+                r = f.result()
+                if r.status != "ok" or r.degraded:
+                    continue
+                if not kill:
+                    plain_run[r.request_id] = r
+                elif r.request_id in plain_run:
+                    p0 = plain_run[r.request_id]
+                    assert np.array_equal(r.scores, p0.scores), \
+                        (label, r.request_id)
+                    assert np.array_equal(r.order, p0.order), r.request_id
+                    equal += 1
+            assert equal > 0 or not kill, label
+            if mode == "des" and not kill:
+                plain_des = plain_run
             out["launches"] += launches
             out[label] = res.summary()
             detail = wall_summary(res) if mode == "pump" else (
@@ -1943,8 +2102,70 @@ def phase_router(params, te) -> dict:
                   f"{1e3 * tally.longest['execute_chunk']:.3f} ms; K2 x "
                   f"{launches} (warmup {warm}); streams "
                   f"{[hex(s.cuda_stream) for s in streams]}; {checked} "
-                  "responses match the plain pipeline on the CPU")
+                  "responses match the plain pipeline on the CPU"
+                  + (f"; {equal} bit-equal to the run without the kill"
+                     if kill else ""))
+    out["launches"] += phase_router_adopt(params, reqs, plain_des)
     return out
+
+
+def phase_router_adopt(params, reqs, plain_run) -> int:
+    """Failover with a backlog on the card. In the kill runs above replica
+    0 holds nothing queued when its breaker opens (it quarantines each
+    chunk as it comes), so nothing is adopted. Here ADOPT_BACKLOG requests
+    that the plain DES run served whole are queued on replica 0 (forced
+    dead), chunks of its smallest bucket are executed until its breaker
+    opens, and the router's tick drains the rest to replica 1, which
+    serves them on the card. At least one request must be adopted, Σ
+    adopted = Σ drained, and every adopted response must equal the plain
+    DES run's response to the same request bit for bit, though it was
+    served in another chunk of another size. Returns K2's launches,
+    asserted = the adopting replica's pipeline runs."""
+    router = S.build_router(params, cloes.CASCADE, n=N_REPLICAS,
+                            kill_replica=True, device="cuda")
+    dead, live = router.replicas
+    dead._sleep = lambda s: None        # no backoff between its attempts
+    router.warmup()
+    backlog = [r for r in reqs if r.request_id in plain_run][:ADOPT_BACKLOG]
+    futs = [dead.submit(r, now_ms=0.0) for r in backlog]
+    quarantined = 0
+    while not dead._breaker_open():
+        g = min((g for g in dead.buckets if dead._pending[g]),
+                key=lambda g: len(dead._pending[g]))
+        chunk = dead.claim_bucket(g)
+        quarantined += len(dead.resolve_chunk(
+            chunk, dead.execute_chunk(chunk), 0.0))
+    router.tick(0.0)
+    tally = Tally()
+    tally.wrap(live, "rank_batch")
+    adopted = live.stats["adopted"]
+    assert dead.pending == 0 and adopted >= 1 \
+        and adopted == dead.stats["drained"] == router.stats["drained"], \
+        router.stats_export()
+    ops.reset_launch_counts()            # the survivor's run starts here
+    live.flush(0.0)
+    sync()
+    launches = ops.launch_counts()["cascade_filter"]
+    assert launches == tally.calls["rank_batch"] > 0, \
+        (launches, tally.calls)
+    router.close()
+    equal = 0
+    for f in futs:
+        r = f.result()
+        if r.status != "ok":
+            continue
+        assert not r.degraded, r.request_id
+        p0 = plain_run[r.request_id]
+        assert np.array_equal(r.scores, p0.scores), r.request_id
+        assert np.array_equal(r.order, p0.order), r.request_id
+        equal += 1
+    assert equal == adopted, (equal, adopted)
+    print(f"[router adopt] {len(backlog)} queued on the dead replica, "
+          f"{quarantined} quarantined before its breaker opened, {adopted} "
+          f"adopted and served by the survivor in {tally.calls['rank_batch']} "
+          f"pipeline runs (K2 x {launches}); {equal} bit-equal to the plain "
+          "DES run")
+    return launches
 
 
 def phase_replica_streams(params, te) -> int:
@@ -2058,12 +2279,13 @@ def phase_warm_restart(tmp) -> dict:
     500 requests at 400 QPS, drained and persisted), then again with
     --warm-restart: restored params equal to the first server's, 0 shapes
     first seen after warmup, every future resolved, the identity closed,
-    K2 = chunks executed + the manifest's replayed shapes (counts set to 0
-    before the warm-restarted run, read after it), and each response equal
-    bit for bit to the first server's where both served the request in a
-    chunk of the same (b, g), within 1e-5 elsewhere: `row_bits_by_b`
-    measures why (K2 is bit-equal at every b for the same zq; cuBLAS's
-    q @ w_q.T is not). Warmup seconds of both, the warm server's p99."""
+    K2 = query_bias = chunks executed + the manifest's replayed shapes
+    (counts set to 0 before the warm-restarted run, read after it), and
+    each response equal bit for bit to the first server's wherever both
+    served the request in a chunk of the same g, whatever the chunks' b
+    (within 1e-5 across g): `row_bits_by_b` shows why (query_bias's zq and
+    K2's outputs are bit-equal at every b; asserted). Warmup seconds of
+    both, the warm server's p99."""
     serve_dir = os.path.join(tmp, "serve")
     args = ["--device", "cuda", "--requests", str(DES_REQUESTS), "--qps",
             str(DES_QPS), "--serve-dir", serve_dir]
@@ -2075,6 +2297,7 @@ def phase_warm_restart(tmp) -> dict:
         for e in chunk.entries:
             chunk_of[-1][e.req.request_id] = (chunk.capacity, chunk.g)
         return orig(self, chunk)
+    other_b = 0
     CascadeSession.execute_chunk = recorded
     try:
         for extra in ([], ["--warm-restart"]):
@@ -2111,18 +2334,22 @@ def phase_warm_restart(tmp) -> dict:
         assert a.request_id == b.request_id
         if a.status != "ok" or b.status != "ok" or a.degraded or b.degraded:
             continue
-        if chunk_of[0][a.request_id] == chunk_of[1][b.request_id]:
-            assert np.array_equal(a.scores, b.scores), a.request_id
+        (cap0, g0), (cap1, g1) = (chunk_of[0][a.request_id],
+                                  chunk_of[1][b.request_id])
+        if g0 == g1:
+            assert np.array_equal(a.scores, b.scores), (a.request_id,
+                                                        cap0, cap1)
             assert np.array_equal(a.survivors, b.survivors), a.request_id
             assert np.array_equal(a.order, b.order), a.request_id
             same += 1
+            other_b += cap0 != cap1
         else:
             np.testing.assert_allclose(b.scores, a.scores, rtol=RTOL,
                                        atol=ATOL)
             other += 1
     assert same > 0
-    assert launches["cascade_filter"] == executed[1] + shapes, \
-        (launches, executed, shapes)
+    assert launches["cascade_filter"] == launches["query_bias"] \
+        == executed[1] + shapes, (launches, executed, shapes)
     print(f"[warm restart] cold start: trained, warmed {shapes} shapes in "
           f"{cold['phases_s']['warmup']:.4f} s, served, drained, persisted; "
           f"warm restart: restored in {warm['phases_s']['train']:.4f} s, "
@@ -2136,23 +2363,25 @@ def phase_warm_restart(tmp) -> dict:
           f"start {lat['cold']['p99']:.3f}); K2 x "
           f"{launches['cascade_filter']} = {executed[1]} chunks + {shapes} "
           f"replayed shapes; {same} responses bit-equal to the first "
-          f"server's in a chunk of the same shape, {other} within 1e-5 in "
-          "another")
+          f"server's in a chunk of the same g ({other_b} of them at another"
+          f" b), {other} within 1e-5 at another g")
     zq_rows, rows = row_bits_by_b(warm_params)
+    assert zq_rows == 0, f"{zq_rows} of {rows} rows' zq differ with b"
     print(f"[warm restart] a row's bits by its chunk's b ({WARM_B[-1]} rows"
           f" in chunks of each b in {WARM_B}, g in {WARM_G}: {rows} in all): "
-          f"K2's outputs bit-equal given the same zq; zq = q @ w_q.T + b in "
-          f"other bits than one chunk of all {WARM_B[-1]} for {zq_rows}, so "
-          "a request served at another b may differ in the last bits")
-    return dict(launches=launches["cascade_filter"], cold=cold, warm=warm)
+          f"K2's outputs bit-equal given the same zq; query_bias's zq in "
+          f"other bits than one chunk of all {WARM_B[-1]} for {zq_rows}")
+    return dict(launches=launches["cascade_filter"],
+                qb_launches=launches["query_bias"], cold=cold, warm=warm)
 
 
 def row_bits_by_b(params) -> tuple[int, int]:
     """The same WARM_B[-1] rows of random requests through the `filter`
-    pipeline's two steps in chunks of each warmed b, against one chunk of
-    all of them: K2's outputs must be bit-equal for the same zq rows (each
-    group is scored and filtered on its own). Returns (rows x (b, g) whose
-    zq = q @ w_q.T + b differs in any bit, rows x (b, g) compared)."""
+    pipeline's two steps (`query_bias`, then K2, as run_cascade calls
+    them) in chunks of each warmed b, against one chunk of all of them:
+    K2's outputs must be bit-equal for the same zq rows (each group is
+    scored and filtered on its own). Returns (rows x (b, g) whose zq
+    differs in any bit, rows x (b, g) compared)."""
     cfg = cloes.CASCADE
     gen = torch.Generator(device="cuda").manual_seed(11)
     w_eff = (params["w_x"] * C.masks_tensor(cfg, "cuda")).contiguous()
@@ -2163,12 +2392,12 @@ def row_bits_by_b(params) -> tuple[int, int]:
         n = torch.randint(1, g + 1, (n_rows,), generator=gen, device="cuda")
         mask = (torch.arange(g, device="cuda")[None] < n[:, None]).float()
         m_q = 3.0 * n.float()
-        zq_all = (q @ params["w_q"].T + params["b"]).contiguous()
+        zq_all = ops.query_bias(q, params["w_q"], params["b"])
         want = ops.cascade_filter(x, w_eff, zq_all, mask, m_q)
         for b in WARM_B:
             for s in range(0, n_rows, b):
                 sl = slice(s, s + b)
-                zq = (q[sl] @ params["w_q"].T + params["b"]).contiguous()
+                zq = ops.query_bias(q[sl], params["w_q"], params["b"])
                 zq_diff += int((zq != zq_all[sl]).any(-1).sum())
                 got = ops.cascade_filter(x[sl], w_eff,
                                          zq_all[sl].contiguous(), mask[sl],
@@ -2573,7 +2802,7 @@ def phase_lm() -> dict:
           f"= {cfg.n_layers} x {LM_STEPS}; logits finite")
     print(f"[lm] greedy tokens of sequence 0: "
           f"{torch.cat(generated, 1)[0].tolist()}")
-    profile = profile_decode(params, cfg, cache, tok)
+    profile = profile_decode(params, cfg, cache, tok, LM_PROMPT + LM_STEPS)
     cprofile_decode(params, cfg, cache, tok)
     del params, cache, logits
     free_cuda()
@@ -2583,11 +2812,11 @@ def phase_lm() -> dict:
                 k8_launches=launches["swa_decode"], profile=profile)
 
 
-def profile_decode(params, cfg, cache, tok) -> dict:
-    """A few more decode steps under torch.profiler: where a step's time
-    goes (the profiler's overhead inflates the wall time)."""
+def profile_decode(params, cfg, cache, tok, pos, tag="lm") -> dict:
+    """LM_PROFILE_STEPS more decode steps from position `pos` under
+    torch.profiler: where a step's time goes (the profiler's overhead
+    inflates the wall time)."""
     from torch.profiler import ProfilerActivity, profile
-    pos = LM_PROMPT + LM_STEPS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2599,15 +2828,15 @@ def profile_decode(params, cfg, cache, tok) -> dict:
     summary = S.profile_summary(prof, seconds, top=12)
     n_launch = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
-    print(f"[lm] profiled {LM_PROFILE_STEPS} decode steps: {seconds:.4f} s, "
-          f"device busy {summary['device_busy_ms']:.3f} ms (idle share "
-          f"{summary['device_idle_share']:.4f}), {n_launch} cudaLaunchKernel "
-          f"({n_launch / LM_PROFILE_STEPS:.0f} per step)")
+    print(f"[{tag}] profiled {LM_PROFILE_STEPS} decode steps of {cfg.name}: "
+          f"{seconds:.4f} s, device busy {summary['device_busy_ms']:.3f} ms "
+          f"(idle share {summary['device_idle_share']:.4f}), {n_launch} "
+          f"cudaLaunchKernel ({n_launch / LM_PROFILE_STEPS:.0f} per step)")
     for op in summary["device_ops"]:
-        print(f"[lm]   device {op['self_device_ms']:9.3f} ms "
+        print(f"[{tag}]   device {op['self_device_ms']:9.3f} ms "
               f"x{op['count']:<6d} {op['name'][:90]}")
     for op in summary["top_host_ops"]:
-        print(f"[lm]   host {op['self_cpu_ms']:9.3f} ms "
+        print(f"[{tag}]   host {op['self_cpu_ms']:9.3f} ms "
               f"x{op['count']:<6d} {op['name'][:90]}")
     return dict(seconds=seconds, launches_per_step=n_launch / LM_PROFILE_STEPS,
                 device_busy_ms=summary["device_busy_ms"],
@@ -2678,9 +2907,274 @@ def phase_lm_check() -> dict:
     return dict(err_prefill=err_prefill, err_decode=err_decode)
 
 
+# -- 8b. the moe family: dbrx and arctic ----------------------------------------
+
+def routed(fn, *args):
+    """fn(*args) with every moe layer's routing recorded: (fn's result,
+    [(probs (T, E) on the CPU, gate_i (T, k) on the CPU), ...] in call
+    order). The zoo reaches `layers.moe_route` through the module."""
+    routes = []
+    orig = Lyr.moe_route
+
+    def rec(p, cfg, xt):
+        out = orig(p, cfg, xt)
+        routes.append((out[0].detach().cpu(), out[2].cpu()))
+        return out
+    Lyr.moe_route = rec
+    try:
+        return fn(*args), routes
+    finally:
+        Lyr.moe_route = orig
+
+
+def check_routes(got, want, k, label) -> tuple[int, int]:
+    """Expert choices equal wherever the router leaves a margin: the
+    k-th and (k+1)-th of `want`'s probabilities more than ROUTE_LOG_MARGIN
+    apart in log space. Returns (tokens compared, tokens without margin)."""
+    assert len(got) == len(want), (label, len(got), len(want))
+    compared = skipped = 0
+    for (_, g_i), (w_p, w_i) in zip(got, want):
+        top = torch.sort(w_p, dim=-1, descending=True).values.log()
+        sure = (top[:, k - 1] - top[:, k]) > ROUTE_LOG_MARGIN
+        assert torch.equal(g_i[sure], w_i[sure]), label
+        compared += int(sure.sum())
+        skipped += int((~sure).sum())
+    assert compared > 0, label
+    return compared, skipped
+
+
+def check_greedy(got, want, label) -> int:
+    """Logits (B, V) within MOE_LOGIT_TOL; the greedy token equal wherever
+    want's top-2 margin exceeds twice the bar. Returns tokens compared."""
+    torch.testing.assert_close(got, want, rtol=MOE_LOGIT_TOL,
+                               atol=MOE_LOGIT_TOL, msg=lambda m: f"{label}: {m}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * MOE_LOGIT_TOL
+    assert torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]), label
+    return int(sure.sum())
+
+
+def moe_serve(params, cfg, tokens, steps, device, feed=None) -> dict:
+    """Prefill `tokens` (B, S), then `steps` greedy decode steps on
+    `device`, each fed feed[i] (B, 1) if given, else this run's own greedy
+    token: every step's last-position logits (on the CPU), the tokens fed
+    and the routing of every call."""
+    b, s = tokens.shape
+    cache = E.init_cache(cfg, b, s + steps, device=device)
+    (lg, cache), routes = routed(E.prefill, params, cfg,
+                                 {"tokens": tokens.to(device)}, cache)
+    logits, fed = [lg[:, -1].cpu()], []
+    for i in range(steps):
+        tok = (logits[-1].argmax(-1, keepdim=True) if feed is None
+               else feed[i])
+        fed.append(tok)
+        (lg, cache), r = routed(E.decode_step, params, cfg, tok.to(device),
+                                cache, s + i)
+        logits.append(lg[:, -1].cpu())
+        routes += r
+    return dict(logits=logits, fed=fed, routes=routes)
+
+
+def phase_moe_parity() -> dict:
+    """dbrx-smoke and arctic-smoke in float32 on the card against the same
+    weights on the CPU: the forward's logits (MOE_LOGIT_TOL) and aux loss
+    (MOE_AUX_TOL), then a prompt's prefill and MOE_PARITY_STEPS greedy
+    decode steps, both fed the CPU's greedy tokens: logits within the bar
+    at every step, the greedy token and every layer's expert choices
+    exactly wherever the margin allows; K8 launched once per layer per
+    decode step (counts set to 0 before the card's prefill, read after its
+    last step)."""
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+        cpu_params = MB.materialize(Z.templates(cfg),
+                                    torch.Generator().manual_seed(3))
+        params = MB.tree_map(lambda a: a.to("cuda"), cpu_params)
+        rng = np.random.default_rng(3)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (MOE_PARITY_BATCH, MOE_PARITY_PROMPT)))
+        (lg, aux), r_card = routed(Z.forward, params, cfg,
+                                   {"tokens": tokens.to("cuda")})
+        (lg_c, aux_c), r_cpu = routed(Z.forward, cpu_params, cfg,
+                                      {"tokens": tokens})
+        torch.testing.assert_close(lg.cpu(), lg_c, rtol=MOE_LOGIT_TOL,
+                                   atol=MOE_LOGIT_TOL)
+        torch.testing.assert_close(aux.cpu(), aux_c, rtol=MOE_AUX_TOL,
+                                   atol=MOE_AUX_TOL)
+        fwd_err = float((lg.cpu() - lg_c).abs().max())
+        routes, no_margin = check_routes(r_card, r_cpu, cfg.top_k,
+                                         f"{arch} forward")
+        cpu = moe_serve(cpu_params, cfg, tokens, MOE_PARITY_STEPS, "cpu")
+        ops.reset_launch_counts()        # the card's engine path starts here
+        card = moe_serve(params, cfg, tokens, MOE_PARITY_STEPS, "cuda",
+                         feed=cpu["fed"])
+        sync()
+        k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
+        assert k8 == cfg.n_layers * MOE_PARITY_STEPS, k8
+        greedy = sum(check_greedy(g, w, f"{arch} step {i}") for i, (g, w)
+                     in enumerate(zip(card["logits"], cpu["logits"])))
+        assert greedy > 0, arch
+        r, nm = check_routes(card["routes"], cpu["routes"], cfg.top_k,
+                             f"{arch} engine")
+        routes, no_margin = routes + r, no_margin + nm
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(card["logits"], cpu["logits"]))
+        print(f"[moe parity] {cfg.name} (float32, {cfg.n_experts} experts "
+              f"top-{cfg.top_k}, capacity factor {cfg.capacity_factor}) on "
+              f"the card against the CPU: forward of {MOE_PARITY_BATCH} x "
+              f"{MOE_PARITY_PROMPT} tokens max |err| {fwd_err:.3g}, aux "
+              f"{float(aux):.6f} vs {float(aux_c):.6f}; prefill + "
+              f"{MOE_PARITY_STEPS} greedy decode steps max |err| {err:.3g} "
+              f"(bar {MOE_LOGIT_TOL}), {greedy} greedy tokens equal; expert "
+              f"choices equal for {routes} token-layers ({no_margin} "
+              f"without margin); K8 x {k8} = {cfg.n_layers} x "
+              f"{MOE_PARITY_STEPS}")
+        out[arch] = dict(fwd_err=fwd_err, decode_err=err, k8_launches=k8)
+        del params
+    free_cuda()
+    return out
+
+
+def phase_moe_lm(card: str) -> dict:
+    """Each moe config at its published widths cut to MOE_LM_LAYERS layers
+    in bfloat16 (the weights drawn leaf by leaf on the card, each cast to
+    bfloat16 as it is drawn): prefill of MOE_LM_BATCH prompts of
+    MOE_LM_PROMPT tokens, then MOE_LM_STEPS greedy decode steps, finite
+    logits; K8 launched once per layer per step and nothing else counted
+    (counts set to 0 before the prefill, read after the last step); ms per
+    step (CUDA events, median) beside the floor of the weight bytes a step
+    reads, the CUDA kernel launches of one more step and a profile of
+    LM_PROFILE_STEPS more (torch.profiler: device busy and idle share),
+    peak memory; each beside the card's name and power limit."""
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(CFG.get(arch),
+                                  n_layers=MOE_LM_LAYERS[arch])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+        sync()
+        make_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in MB.tree_leaves(params))
+        b, s, steps = MOE_LM_BATCH, MOE_LM_PROMPT, MOE_LM_STEPS
+        cache = E.init_cache(cfg, b, s + steps + LM_PROFILE_STEPS,
+                             device="cuda")
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device="cuda")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()        # the path starts here
+        t0 = time.perf_counter()
+        logits, cache = E.prefill(params, cfg, {"tokens": tokens}, cache)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        generated = []
+        events[0].record()
+        for i in range(steps):
+            logits, cache = E.decode_step(params, cfg, tok, cache, s + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            finite &= torch.isfinite(logits).all()
+            generated.append(tok)
+            events[i + 1].record()
+        sync()
+        launches = ops.launch_counts()   # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        assert bool(finite), f"{arch}: non-finite logits"
+        want = {k: 0 for k in launches}
+        want["swa_decode"] = cfg.n_layers * steps
+        assert launches == want, (launches, want)
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(steps)]
+        med = statistics.median(step_ms)
+        per_step, kernels, _ = cuda_launches_per_call(
+            lambda: E.decode_step(params, cfg, tok, cache, s + steps),
+            calls=2)
+        # a decode step reads every weight but the embedding's (the
+        # capacity dispatch runs all E experts): its floor on the card
+        read = nbytes - params["embed"].numel() * params["embed"].element_size()
+        floor_ms = read / HBM_BYTES_PER_S * 1e3
+        print(f"[moe lm] {cfg.name}: {cfg.n_layers} of "
+              f"{CFG.get(arch).n_layers} layers at the published widths, {cfg.param_count()} parameters, {nbytes} "
+              f"bytes in {cfg.dtype} made on the card in {make_s:.1f} s; "
+              f"{cfg.n_experts} experts top-{cfg.top_k}"
+              + (", dense residual" if cfg.dense_residual else ""))
+        print(f"[moe lm] {cfg.name} on {card}: prefill B={b} x {s} tokens "
+              f"{prefill_s:.3f} s; {steps} greedy decode steps at B={b}: "
+              f"median {med:.3f} ms per step (first {step_ms[0]:.3f}, min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
+              f"{b / med * 1e3:.1f} tokens/s; weights read per step "
+              f"{read} bytes, {floor_ms:.3f} ms at 3.35 TB/s ("
+              f"{floor_ms / med:.1%} of the median); {per_step:.0f} CUDA kernel "
+              f"launches per step ({kernels / 2:.0f} kernels on the device); "
+              f"peak memory {peak} bytes; K8 launches "
+              f"{launches['swa_decode']} = {cfg.n_layers} x {steps}")
+        print(f"[moe lm] {cfg.name} greedy tokens of sequence 0: "
+              f"{torch.cat(generated, 1)[0].tolist()}")
+        profile = profile_decode(params, cfg, cache, tok, s + steps,
+                                 tag="moe lm")
+        out[arch] = dict(layers=cfg.n_layers, params=cfg.param_count(),
+                         param_bytes=nbytes, prefill_s=prefill_s,
+                         step_ms_median=med, floor_ms=floor_ms,
+                         launches_per_step=per_step,
+                         device_idle_share=profile["device_idle_share"],
+                         peak_bytes=peak, k8_launches=launches["swa_decode"])
+        del params, cache, logits
+        free_cuda()
+    return out
+
+
+def phase_moe_lm_check() -> dict:
+    """dbrx at full width cut to MOE_CHECK_LAYERS layer in float32 (the
+    weights drawn on the card, then copied to the CPU): a prompt's prefill
+    and MOE_CHECK_STEPS greedy decode steps on the card (K8 once per layer
+    per step), then the same on the CPU fed the card's tokens: logits
+    within MOE_LOGIT_TOL at every step, greedy tokens and every layer's
+    expert choices exactly wherever the margin allows. The CPU part runs
+    last of all phases: no phase timed on the host's clock follows it."""
+    cfg = dataclasses.replace(CFG.get(MOE_CHECK_ARCH),
+                              n_layers=MOE_CHECK_LAYERS, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+    tokens = torch.randint(0, cfg.vocab, (MOE_CHECK_BATCH, MOE_CHECK_PROMPT),
+                           generator=gen, device="cuda").cpu()
+    ops.reset_launch_counts()        # the card's path starts here
+    card = moe_serve(params, cfg, tokens, MOE_CHECK_STEPS, "cuda")
+    sync()
+    k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
+    assert k8 == cfg.n_layers * MOE_CHECK_STEPS, k8
+    params = MB.tree_map(lambda a: a.cpu(), params)
+    free_cuda()
+    t0 = time.perf_counter()
+    cpu = moe_serve(params, cfg, tokens, MOE_CHECK_STEPS, "cpu",
+                    feed=card["fed"])
+    cpu_s = time.perf_counter() - t0
+    greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}") for i, (g, w)
+                 in enumerate(zip(card["logits"], cpu["logits"])))
+    routes, no_margin = check_routes(card["routes"], cpu["routes"],
+                                     cfg.top_k, cfg.name)
+    err = max(float((g - w).abs().max())
+              for g, w in zip(card["logits"], cpu["logits"]))
+    scale = max(float(w.abs().max()) for w in cpu["logits"])
+    print(f"[moe lm check] {cfg.name} at full width, {cfg.n_layers} layer, "
+          f"float32 ({cfg.param_count()} parameters): prefill of "
+          f"{MOE_CHECK_BATCH} x {MOE_CHECK_PROMPT} tokens + {MOE_CHECK_STEPS}"
+          f" greedy decode steps (K8 x {k8}) on the card against the CPU "
+          f"({cpu_s:.1f} s): max |err| {err:.3g} (bar {MOE_LOGIT_TOL}; "
+          f"logits up to {scale:.3g}), {greedy} greedy tokens equal, expert "
+          f"choices equal for {routes} token-layers ({no_margin} without "
+          "margin)")
+    del params
+    return dict(err=err, k8_launches=k8)
+
+
 def main() -> None:
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     errs = phase_parity()
     errs.update(cascade_score_batched_bwd=0.0, cascade_loss=0.0,
@@ -2690,6 +3184,8 @@ def main() -> None:
     phase_single_parity(errs)
     phase_vmap_parity(errs)
     phase_determinism()
+    errs["query_bias"] = 0.0
+    timing_qb = phase_query_bias(errs)
     timing, timing_train, timing_serve = phase_timing()
     timing_single = phase_single_timing()
     timing_vmap = time_vmap_call(TRAIN_SHAPE, seed=8)
@@ -2708,6 +3204,10 @@ def main() -> None:
         kernel = ("cascade_filter" if plan == "filter"
                   else "cascade_score_batched")
         launches[kernel] = counts[kernel]
+        if plan == "filter":             # the serving main path's zq
+            launches["query_bias"] = counts["query_bias"]
+        else:
+            qb_score_launches = counts["query_bias"]
     pump = phase_pump(params, te)
     router = phase_router(params, te)
     streams_launches = phase_replica_streams(params, te)
@@ -2739,10 +3239,23 @@ def main() -> None:
     lm = phase_lm()
     launches["swa_decode"] = lm["k8_launches"]
     phase_lm_check()
+    moe_lm = phase_moe_lm(card)
     phase_slice("filter", params, te,
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     free_cuda()
     phase_train_lm()
+    moe_parity = phase_moe_parity()
+    moe_check = phase_moe_lm_check()     # last: its CPU part is the largest
+    extra["swa_decode"] = {
+        **{f"moe_lm_{a}_launches": r["k8_launches"]
+           for a, r in moe_lm.items()},
+        **{f"moe_parity_{a}_launches": r["k8_launches"]
+           for a, r in moe_parity.items()},
+        "moe_lm_check_launches": moe_check["k8_launches"]}
+    extra["query_bias"] = dict(
+        score_launches=qb_score_launches,
+        pump_launches=pump["qb_launches"],
+        warm_restart_launches=warm["qb_launches"])
     rows = []
     for name, info in KERNEL_INFO.items():
         row = {"name": name, **info, "launches": launches[name],
@@ -2762,6 +3275,15 @@ def main() -> None:
                             "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]
                 row[f"{shape}_n_split"] = k8[shape]["plan"]["n_split"]
+        elif name == "query_bias":
+            tm = timing_qb[QB_TIMING_ROWS[0]]
+            row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                       bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+                       library_ms=tm["library_ms"], lone_ms=tm["lone_ms"],
+                       port_only=True)
+            for rows_, tm in timing_qb.items():
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    row[f"rows{rows_}_{key}"] = tm[key]
         elif name in ("cascade_score", "cascade_score_bwd",
                       "cascade_score_fm"):
             tm = timing_single[max(SINGLE_TIMING_N)][name]

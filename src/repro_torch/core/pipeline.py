@@ -117,9 +117,12 @@ def run_cascade(params: C.Params, cfg: C.CascadeConfig,
     plan = resolve_plan(fused)
     # One scoring formulation for every plan (precomputed w_eff / zq, the
     # kernels' decomposition), so the plans agree on every discrete
-    # decision, not just to tolerance.
+    # decision, not just to tolerance. zq is summed per row in a fixed
+    # order (`query_bias`), so a request's bits do not depend on the size
+    # of the batch it is served in.
     w_eff = (params["w_x"] * C.masks_tensor(cfg, x.device)).contiguous()
-    zq = (q @ params["w_q"].T + params["b"]).contiguous()
+    zq = K.query_bias(q.contiguous(), params["w_q"].contiguous(),
+                      params["b"].contiguous())
     if plan.fused_filter:
         out = K.cascade_filter(x, w_eff, zq, mask, m_q)
         lp, surv = out["lp"], out["survivors"]

@@ -32,6 +32,7 @@ checkpoints) and `fit(mesh=...)` shards each minibatch over a
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Callable, Iterator
@@ -240,6 +241,19 @@ def _data_shard(mesh, batch_groups: int):
     return mesh.get_local_rank("data"), world, mesh.get_group("data")
 
 
+@contextlib.contextmanager
+def _one_thread_on_cpu(device: torch.device):
+    """Run the block on one CPU thread when `device` is the CPU, and give
+    the process its thread count back after it."""
+    n = torch.get_num_threads()
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
         tcfg: TrainConfig | None = None,
         callback: Callable[[int, float], None] | None = None,
@@ -279,129 +293,142 @@ def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
     hard-exits the process (os._exit(CRASH_EXIT_CODE), a SIGKILL
     stand-in) after that many epochs, once every rank is there — the
     deterministic crash seam of the restart smoke. train_info, when given,
-    receives {"restored_epoch", "epochs_run"}."""
-    tcfg = tcfg or TrainConfig()
+    receives {"restored_epoch", "epochs_run"}.
+
+    On a CPU device a fit takes its steps on one CPU thread (the
+    process's thread count is restored when it returns): torch's
+    multi-threaded CPU kernels do not give the same bits in every process
+    (now and then a fresh process's fit differs from the others in the
+    last bits), and a resumed run must reproduce the uninterrupted one,
+    checkpointed or not, byte for byte. On the card nothing changes."""
     device = torch.device(device)
-    params = _initial_params(cfg, tcfg, init_params, device)
-    opt = momentum_sgd(tcfg.lr, tcfg.momentum)
-    loss_fn = loss_fn or L.LOSSES[tcfg.loss]
+    with _one_thread_on_cpu(device):
+        tcfg = tcfg or TrainConfig()
+        params = _initial_params(cfg, tcfg, init_params, device)
+        opt = momentum_sgd(tcfg.lr, tcfg.momentum)
+        loss_fn = loss_fn or L.LOSSES[tcfg.loss]
 
-    if tcfg.engine == "loop":
+        if tcfg.engine == "loop":
+            if mesh is not None:
+                raise ValueError("the loop engine has no data-parallel path")
+            if checkpoint_dir is not None:
+                raise ValueError(
+                    "checkpointing is a scan-engine feature (the loop engine "
+                    "is the no-moving-parts oracle)")
+            if tcfg.precision != "f32" or tcfg.loss_scale != 1.0:
+                raise ValueError(
+                    "precision/loss_scale are scan-engine features (the loop "
+                    "engine is the plain-f32 oracle); got "
+                    f"precision={tcfg.precision!r}, "
+                    f"loss_scale={tcfg.loss_scale}")
+            opt_state = opt.init(params)
+            step = 0
+            for epoch in range(tcfg.epochs):
+                for batch in batches(log, tcfg.batch_groups, tcfg.seed + epoch,
+                                     device):
+                    params, opt_state, loss = train_step(
+                        params, opt_state, batch, cfg, lcfg, loss_fn,
+                        opt.update)
+                    if callback and step % tcfg.log_every == 0:
+                        callback(step, float(loss))
+                    step += 1
+            return params
+        if tcfg.engine != "scan":
+            raise ValueError(f"unknown trainer engine: {tcfg.engine!r}")
+
+        rank, world, group = 0, 1, None
         if mesh is not None:
-            raise ValueError("the loop engine has no data-parallel path")
+            rank, world, group = _data_shard(mesh, tcfg.batch_groups)
+        n_groups = log.x.shape[0]
+        steps_per_epoch, _ = epoch_steps(n_groups, tcfg.batch_groups)
+        if steps_per_epoch == 0:
+            return params
+        item, group_arr = _engine_pack(log, lcfg, tcfg.precision, device)
+        theta, unravel = _ravel(params)
+        opt_state = opt.init(theta)
+
+        store = None
+        start_epoch = 0
         if checkpoint_dir is not None:
-            raise ValueError(
-                "checkpointing is a scan-engine feature (the loop engine "
-                "is the no-moving-parts oracle)")
-        if tcfg.precision != "f32" or tcfg.loss_scale != 1.0:
-            raise ValueError(
-                "precision/loss_scale are scan-engine features (the loop "
-                "engine is the plain-f32 oracle); got "
-                f"precision={tcfg.precision!r}, loss_scale={tcfg.loss_scale}")
-        opt_state = opt.init(params)
-        step = 0
-        for epoch in range(tcfg.epochs):
-            for batch in batches(log, tcfg.batch_groups, tcfg.seed + epoch,
-                                 device):
-                params, opt_state, loss = train_step(
-                    params, opt_state, batch, cfg, lcfg, loss_fn, opt.update)
-                if callback and step % tcfg.log_every == 0:
-                    callback(step, float(loss))
-                step += 1
-        return params
-    if tcfg.engine != "scan":
-        raise ValueError(f"unknown trainer engine: {tcfg.engine!r}")
+            sig = _train_sig(tcfg, cfg, n_groups)
+            ckpt_every = max(1, tcfg.checkpoint_every)
+            store = CheckpointStore(checkpoint_dir, keep=keep_checkpoints)
+            if resume:
+                latest = store.load_latest()    # skips torn/corrupt steps
+                if latest is not None:
+                    _, state, meta = latest
+                    saved_sig = (meta or {}).get("train_sig")
+                    if saved_sig != sig:
+                        raise ValueError(
+                            "checkpoint was written under a different "
+                            f"training config: saved {saved_sig} != "
+                            f"current {sig}")
+                    # exact restore: the bytes are crc-verified, so the
+                    # resumed state IS the killed run's state. Copied into
+                    # tensors of torch's own allocation: a CPU BLAS may take
+                    # another path (and other sums) for a view of a numpy
+                    # buffer of another alignment.
+                    theta = torch.tensor(state["theta"], device=device)
+                    opt_state = {
+                        "step": int(state["opt_state"]["step"]),
+                        "mu": torch.tensor(state["opt_state"]["mu"],
+                                           device=device)}
+                    start_epoch = int(state["epoch"])
+        if train_info is not None:
+            train_info["restored_epoch"] = start_epoch
+            train_info["epochs_run"] = max(0, tcfg.epochs - start_epoch)
 
-    rank, world, group = 0, 1, None
-    if mesh is not None:
-        rank, world, group = _data_shard(mesh, tcfg.batch_groups)
-    n_groups = log.x.shape[0]
-    steps_per_epoch, _ = epoch_steps(n_groups, tcfg.batch_groups)
-    if steps_per_epoch == 0:
-        return params
-    item, group_arr = _engine_pack(log, lcfg, tcfg.precision, device)
-    theta, unravel = _ravel(params)
-    opt_state = opt.init(theta)
-
-    store = None
-    start_epoch = 0
-    if checkpoint_dir is not None:
-        sig = _train_sig(tcfg, cfg, n_groups)
-        ckpt_every = max(1, tcfg.checkpoint_every)
-        store = CheckpointStore(checkpoint_dir, keep=keep_checkpoints)
-        if resume:
-            latest = store.load_latest()    # skips torn/corrupt steps
-            if latest is not None:
-                _, state, meta = latest
-                saved_sig = (meta or {}).get("train_sig")
-                if saved_sig != sig:
-                    raise ValueError(
-                        "checkpoint was written under a different training "
-                        f"config: saved {saved_sig} != current {sig}")
-                # exact restore: the bytes are crc-verified, so the
-                # resumed state IS the killed run's state. Copied into
-                # tensors of torch's own allocation: a CPU BLAS may take
-                # another path (and other sums) for a view of a numpy
-                # buffer of another alignment.
-                theta = torch.tensor(state["theta"], device=device)
-                opt_state = {
-                    "step": int(state["opt_state"]["step"]),
-                    "mu": torch.tensor(state["opt_state"]["mu"],
-                                       device=device)}
-                start_epoch = int(state["epoch"])
-    if train_info is not None:
-        train_info["restored_epoch"] = start_epoch
-        train_info["epochs_run"] = max(0, tcfg.epochs - start_epoch)
-
-    shard = tcfg.batch_groups // world
-    for epoch in range(start_epoch, tcfg.epochs):
-        plan = _epoch_perm(n_groups, tcfg.batch_groups, tcfg.seed + epoch)
-        idx = torch.as_tensor(plan[:, rank * shard:(rank + 1) * shard],
-                              device=device).reshape(-1)
-        # one gather per packed array and epoch (of this rank's shard); a
-        # bf16 pack is gathered in bf16 and up-cast here, once per epoch
-        shape = (steps_per_epoch, shard)
-        items = item[idx].reshape(*shape, *item.shape[1:]).float()
-        groups = group_arr[idx].reshape(*shape, *group_arr.shape[1:]).float()
-        losses = []
-        for i in range(steps_per_epoch):
-            batch = _engine_unpack(items[i], groups[i], cfg.d_x, cfg.d_q)
-            th = theta.detach().requires_grad_(True)
-            loss = loss_fn(unravel(th), cfg, lcfg, batch) * tcfg.loss_scale
-            (grad,) = torch.autograd.grad(loss, th)
-            loss = loss.detach()
-            if tcfg.loss_scale != 1.0:
-                loss = loss / tcfg.loss_scale
-                grad = grad / tcfg.loss_scale
-            if group is not None:
-                dist.all_reduce(grad, group=group)
-                dist.all_reduce(loss, group=group)
-                grad, loss = grad / world, loss / world
-            updates, opt_state = opt.update(grad, opt_state, theta)
-            theta = apply_updates(theta.detach(), updates)
-            losses.append(loss)
-        if callback:
-            base = epoch * steps_per_epoch
-            for i, v in enumerate(torch.stack(losses).tolist()):
-                if (base + i) % tcfg.log_every == 0:
-                    callback(base + i, v)
-        done = epoch + 1
-        if rank == 0 and store is not None and (
-                done % ckpt_every == 0 or done == tcfg.epochs):
-            store.save(done, {
-                "theta": theta,
-                # keys sorted, as the reference's jitted epoch returns them
-                "opt_state": {"mu": opt_state["mu"],
-                              "step": np.asarray(opt_state["step"], np.int32)},
-                "epoch": done, "rng_key": _prng_key(tcfg.seed)},
-                meta={"train_sig": sig})
-        if crash_after_epoch is not None and done >= crash_after_epoch:
-            if group is not None:
-                dist.barrier(group=group)   # rank 0's save is committed
-            os._exit(CRASH_EXIT_CODE)
-    if group is not None and store is not None:
-        dist.barrier(group=group)   # no rank returns before the last save
-    return {k: v.clone() for k, v in unravel(theta).items()}
+        shard = tcfg.batch_groups // world
+        for epoch in range(start_epoch, tcfg.epochs):
+            plan = _epoch_perm(n_groups, tcfg.batch_groups, tcfg.seed + epoch)
+            idx = torch.as_tensor(plan[:, rank * shard:(rank + 1) * shard],
+                                  device=device).reshape(-1)
+            # one gather per packed array and epoch (of this rank's shard); a
+            # bf16 pack is gathered in bf16 and up-cast here, once per epoch
+            shape = (steps_per_epoch, shard)
+            items = item[idx].reshape(*shape, *item.shape[1:]).float()
+            groups = group_arr[idx].reshape(
+                *shape, *group_arr.shape[1:]).float()
+            losses = []
+            for i in range(steps_per_epoch):
+                batch = _engine_unpack(items[i], groups[i], cfg.d_x, cfg.d_q)
+                th = theta.detach().requires_grad_(True)
+                loss = loss_fn(unravel(th), cfg, lcfg, batch) * tcfg.loss_scale
+                (grad,) = torch.autograd.grad(loss, th)
+                loss = loss.detach()
+                if tcfg.loss_scale != 1.0:
+                    loss = loss / tcfg.loss_scale
+                    grad = grad / tcfg.loss_scale
+                if group is not None:
+                    dist.all_reduce(grad, group=group)
+                    dist.all_reduce(loss, group=group)
+                    grad, loss = grad / world, loss / world
+                updates, opt_state = opt.update(grad, opt_state, theta)
+                theta = apply_updates(theta.detach(), updates)
+                losses.append(loss)
+            if callback:
+                base = epoch * steps_per_epoch
+                for i, v in enumerate(torch.stack(losses).tolist()):
+                    if (base + i) % tcfg.log_every == 0:
+                        callback(base + i, v)
+            done = epoch + 1
+            if rank == 0 and store is not None and (
+                    done % ckpt_every == 0 or done == tcfg.epochs):
+                store.save(done, {
+                    "theta": theta,
+                    # keys sorted, as the reference's jitted epoch returns them
+                    "opt_state": {"mu": opt_state["mu"],
+                                  "step": np.asarray(opt_state["step"],
+                                                     np.int32)},
+                    "epoch": done, "rng_key": _prng_key(tcfg.seed)},
+                    meta={"train_sig": sig})
+            if crash_after_epoch is not None and done >= crash_after_epoch:
+                if group is not None:
+                    dist.barrier(group=group)   # rank 0's save is committed
+                os._exit(CRASH_EXIT_CODE)
+        if group is not None and store is not None:
+            dist.barrier(group=group)   # no rank returns before the last save
+        return {k: v.clone() for k, v in unravel(theta).items()}
 
 
 def evaluate(params: C.Params, cfg: C.CascadeConfig, log: SearchLog,

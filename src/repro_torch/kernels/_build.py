@@ -15,7 +15,8 @@ contiguous tensors of the dtypes its kernel reads — float32 for K1-K5
 single-group and feature-major scorers, which up-cast bf16 inputs in
 registers as the reference's kernels do) and for K8 (`swa_decode`, which
 reads a bf16 KV cache as it is) — on one CUDA device of compute
-capability 9.0, and raises on anything else.
+capability 9.0, and raises on anything else. `query_bias` (the serving
+cascade's per-query stage biases, a port-only kernel) takes float32.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("cascade_score.cu", "cascade_filter.cu", "cascade_score_bwd.cu",
-           "cascade_loss.cu", "swa_decode.cu", "cascade_score_single.cu")
+           "cascade_loss.cu", "swa_decode.cu", "cascade_score_single.cu",
+           "query_bias.cu")
 HEADERS = ("common.cuh", "ordered_sum.cuh",    # included; part of the key
            "warp_ring.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,6 +68,7 @@ _SIGNATURES = {
     "cascade_score_fm_smem": ([_I, _I], ctypes.c_size_t),
     "cascade_score_groups_bwd": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "cascade_score_groups_bwd_smem": ([_I] * 3, ctypes.c_size_t),
+    "query_bias": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "cascade_error_string": ([_I], ctypes.c_char_p),
 }
 

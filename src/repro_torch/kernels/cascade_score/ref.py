@@ -25,12 +25,25 @@ import torch
 import torch.nn.functional as F
 
 
+def _batched_logits(x: torch.Tensor, w_eff: torch.Tensor,
+                    zq: torch.Tensor) -> torch.Tensor:
+    """x (B, G, d) . w_eff (T, d) + zq (B, T) -> (B, G, T) float32, each
+    item's dot product summed over d in index order (one rounded product
+    and sum a step), so an item's bits depend on that item alone: a CPU
+    matmul orders its sums by the problem's size (MKL takes another path
+    below 16 rows), which would make a request's scores depend on the
+    size of the batch it was served in."""
+    xf, wf = x.float(), w_eff.float()
+    acc = xf[..., :1] * wf[:, 0]
+    for k in range(1, xf.shape[-1]):
+        acc = acc + xf[..., k:k + 1] * wf[:, k]
+    return acc + zq.float()[:, None, :]
+
+
 def cascade_score_batched_ref(x: torch.Tensor, w_eff: torch.Tensor,
                               zq: torch.Tensor) -> torch.Tensor:
     """x (B, G, d), w_eff (T, d), zq (B, T) -> (B, G, T) float32."""
-    logits = (torch.einsum("bgd,td->bgt", x.float(), w_eff.float())
-              + zq.float()[:, None, :])
-    return torch.cumsum(F.logsigmoid(logits), dim=-1)
+    return torch.cumsum(F.logsigmoid(_batched_logits(x, w_eff, zq)), dim=-1)
 
 
 def cascade_score_batched_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
@@ -45,7 +58,7 @@ def cascade_score_batched_bwd_ref(x: torch.Tensor, w_eff: torch.Tensor,
         dx = g_logit . w_eff,  dw_eff = sum_bg g_logit^T x,  dzq = sum_g g_logit
     """
     xf, wf, gf = x.float(), w_eff.float(), g.float()
-    logits = torch.einsum("bgd,td->bgt", xf, wf) + zq.float()[:, None, :]
+    logits = _batched_logits(x, w_eff, zq)
     gc = gf.sum(-1, keepdim=True) - torch.cumsum(gf, dim=-1) + gf
     g_logit = gc * torch.sigmoid(-logits)
     return (torch.einsum("bgt,td->bgd", g_logit, wf),

@@ -21,6 +21,11 @@ forward only, as in the reference.
 `swa_decode` (K8) is the one-token decode attention of the LLM engine; it
 takes float32 or bfloat16 and is not differentiable (serving only).
 
+`query_bias` is the serving cascade's per-query stage biases zq = q @
+w_q.T + b, each row summed in a fixed order, so a request's bits do not
+depend on the size of the chunk it is served in (a port-only kernel: the
+reference computes zq in XLA). Serving only, not differentiable.
+
 Each kernel wrapper counts its launches (`launch_counts()`), so a run can
 show that its hot path went through the kernels.
 """
@@ -40,6 +45,8 @@ from repro_torch.kernels.cascade_score import kernel as _score_kernel
 from repro_torch.kernels.cascade_score.ref import (
     cascade_score_batched_bwd_ref, cascade_score_batched_ref,
     cascade_score_bwd_ref, cascade_score_ref)
+from repro_torch.kernels.query_bias import kernel as _qb_kernel
+from repro_torch.kernels.query_bias.ref import query_bias_ref
 from repro_torch.kernels.swa_decode import kernel as _swa_kernel
 from repro_torch.kernels.swa_decode.ref import NO_WINDOW, swa_decode_ref
 
@@ -54,6 +61,7 @@ KERNELS = {
     "cascade_score": _score_kernel.cascade_score,
     "cascade_score_bwd": _score_kernel.cascade_score_bwd,
     "cascade_score_fm": _score_kernel.cascade_score_fm,
+    "query_bias": _qb_kernel.query_bias,
 }
 
 
@@ -254,10 +262,22 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _swa_kernel.swa_decode(q, k, v, cache_len, window)
 
 
+def query_bias(q: torch.Tensor, w_q: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """Per-query stage biases: q (R, d_q), w_q (T, d_q), b (T,) -> zq (R, T)
+    = b + q @ w_q.T, each row summed over d_q in index order, so its bits
+    depend on that row alone (the CUDA kernel on the card, its plain
+    version on the CPU; the two give the same bits)."""
+    _require_ranks("query_bias", q=(q, 2), w_q=(w_q, 2), b=(b, 1))
+    if _on_cpu(q):
+        return query_bias_ref(q, w_q, b)
+    return _qb_kernel.query_bias(q, w_q, b)
+
+
 __all__ = ["KERNELS", "NO_WINDOW", "cascade_filter", "cascade_filter_ref",
            "cascade_loss_bwd_ref", "cascade_loss_fused", "cascade_loss_ref",
            "cascade_score", "cascade_score_batched",
            "cascade_score_batched_bwd_ref", "cascade_score_batched_ref",
            "cascade_score_bwd_ref", "cascade_score_fm", "cascade_score_ref",
-           "launch_counts", "load_library", "reset_launch_counts",
-           "swa_decode", "swa_decode_ref"]
+           "launch_counts", "load_library", "query_bias", "query_bias_ref",
+           "reset_launch_counts", "swa_decode", "swa_decode_ref"]

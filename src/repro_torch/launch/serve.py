@@ -24,8 +24,8 @@ on the log's training split, 4 epochs at lr 0.01 and `--beta` (5.0), on
 `--device`. `--params PATH.npz` (numpy arrays w_x, w_q, b in the
 reference's layout, e.g. saved from a JAX fit) serves those weights
 instead and skips training. `--neural ARCH` adds the neural final stage:
-the smoke variant of that dense architecture in float32 with random
-weights (seed 7), scoring every batch's rows on `--device`.
+the smoke variant of that dense or moe architecture in float32 with
+random weights (seed 7), scoring every batch's rows on `--device`.
 
 Exit contract: nonzero when a future stays unresolved or the accounting
 identity submitted = completed + shed + errors does not close (over the

@@ -12,13 +12,13 @@ Two paths:
     trains on `cuda:{LOCAL_RANK}` over a 1-D ("data",) mesh of the ranks
     (`launch.mesh.data_parallel_mesh`), rank 0 prints and writes the
     checkpoints; one process takes the plain path.
-  * `--target lm --arch <id>` — train a dense architecture of the model
-    zoo (`--smoke`: its reduced variant, in float32) with Adam on random
-    tokens: the neural final-stage ranker's substrate. `--layers N` keeps
-    the first N layers at the published widths. The weights are drawn in
-    float32 whatever the config's dtype, as the reference's launcher draws
-    them. The moe, ssm, hybrid and encdec families are not ported and
-    raise.
+  * `--target lm --arch <id>` — train a dense or moe architecture of the
+    model zoo (`--smoke`: its reduced variant, in float32) with Adam on
+    random tokens: the neural final-stage ranker's substrate; a moe
+    model's loss adds its weighted aux loss. `--layers N` keeps the first
+    N layers at the published widths. The weights are drawn in float32
+    whatever the config's dtype, as the reference's launcher draws them.
+    The ssm, hybrid and encdec families are not ported and raise.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --target cloes \
@@ -28,8 +28,8 @@ Usage:
        [--crash-after-epoch 2]]
   torchrun --nproc-per-node N -m repro_torch.launch.train --target cloes ...
   PYTHONPATH=src python -m repro_torch.launch.train --target lm \
-      --arch starcoder2-3b [--smoke | --layers 2] [--steps 30] \
-      [--batch 4] [--seq 64]
+      --arch starcoder2-3b|dbrx-132b|... [--smoke | --layers 2] \
+      [--steps 30] [--batch 4] [--seq 64]
 
 `--device cpu` runs the kernels' plain versions (and gloo under torchrun).
 """

@@ -1,4 +1,4 @@
-"""Functional building blocks of the dense model family.
+"""Functional building blocks of the dense and moe model families.
 
 Plain functions over explicit parameter dicts, with the reference's
 conventions (src/repro/models/layers.py):
@@ -9,8 +9,8 @@ conventions (src/repro/models/layers.py):
 Decode attention of one token runs K8 (`kernels.ops.swa_decode`): the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on a
 CPU tensor. The reference's mesh-only variants (`shmap_attention`,
-`_seq_shard`, `attn_shard="seqkv"`) are not ported: the port runs on one
-card.
+`_seq_shard`, `attn_shard="seqkv"`, the expert-parallel `moe_ffn_shmap`)
+are not ported: the port runs on one card.
 """
 
 from __future__ import annotations
@@ -256,3 +256,93 @@ def ring_slot_positions(cache_len: int, window: int,
     p = s + torch.div(cache_len - 1 - s, window,
                       rounding_mode="floor") * window
     return torch.where(p >= 0, p, -1)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: capacity-based scatter dispatch (no giant one-hots)
+# ---------------------------------------------------------------------------
+
+
+def moe_route(p, cfg, xt: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token-choice routing of xt (T, d): (probs (T, E) float32, gate_v
+    (T, k) the renormalised top-k probabilities, gate_i (T, k) int64).
+
+    The router logits are taken in the weights' dtype and only then cast
+    to float32, as in the reference. Its `jax.lax.top_k` puts the lower
+    expert index first among equal probabilities, which `torch.topk` does
+    not promise: the top k are the first k of a STABLE descending sort."""
+    logits = (xt @ p["router"]).float()                       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_v, gate_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_v, gate_i = gate_v[:, :cfg.top_k], gate_i[:, :cfg.top_k]
+    gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_v, gate_i
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    """Slots per expert for a call of `tokens` tokens (the reference's
+    capacity-factor rule); choices past an expert's capacity are dropped."""
+    return int(max(1, math.ceil(cfg.capacity_factor * tokens * cfg.top_k
+                                / cfg.n_experts)))
+
+
+def moe_positions(gate_i: torch.Tensor, n_experts: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """gate_i (T, k) -> (flat_e (T*k,), pos (T*k,)): each choice's expert
+    and its position in that expert's buffer, a cumsum of one-hot
+    memberships in token-major order (stable, no sort); a choice is kept
+    iff pos < the capacity."""
+    flat_e = gate_i.reshape(-1)
+    onehot = F.one_hot(flat_e, n_experts)                      # (T*k, E)
+    pos = torch.gather(torch.cumsum(onehot, dim=0) - 1, 1,
+                       flat_e[:, None])[:, 0]
+    return flat_e, pos
+
+
+def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity-factor scatter dispatch (the
+    reference's `moe_ffn`, src/repro/models/layers.py).
+
+    x: (B, S, d). Returns (out (B, S, d), aux) where aux is the Switch
+    load-balance loss (float32). Every choice takes its position in its
+    expert's buffer from a cumsum of one-hot memberships in token-major
+    (T * k) order — the reference's order, not a sort; a choice at or past
+    the capacity is dropped (its scatter lands in the spare row `cap`,
+    which is sliced away). The expert products are plain batched matmuls
+    (the reference leaves them to XLA)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, gate_v, gate_i = moe_route(p, cfg, xt)
+
+    cap = moe_capacity(cfg, t)
+    flat_e, pos = moe_positions(gate_i, e)
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, cap)                     # cap: dropped
+
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = xt.new_zeros((e, cap + 1, d))
+    buf = buf.index_put((flat_e, safe_pos), xt[tok_idx])
+    buf = buf[:, :cap]                                         # (E, C, d)
+
+    hidden = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_in"])
+    out_buf = torch.bmm(hidden, p["w_out"])                    # (E, C, d)
+
+    # A dropped choice's index `cap` lies past the buffer's last row: the
+    # reference's gather clamps it there and masks the value; indexing
+    # raises in torch (a device-side assert on the card), so clamp it here
+    # and mask the same way (no value, no gradient reaches that row).
+    gathered = out_buf[flat_e, torch.clamp_max(safe_pos, cap - 1)]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=gathered.device))
+    y = (gathered.reshape(t, k, d)
+         * gate_v.reshape(t, k, 1).to(gathered.dtype)).sum(dim=1)
+
+    # Switch-transformer load-balance aux loss
+    me = probs.mean(dim=0)                                     # (E,)
+    ce = F.one_hot(gate_i[:, 0], e).float().mean(dim=0)
+    aux = e * torch.sum(me * ce)
+    return y.reshape(b, s, d), aux

@@ -1,9 +1,12 @@
-"""Architecture zoo, dense family: parameter templates and the forward pass.
+"""Architecture zoo, dense and moe families: parameter templates and the
+forward pass.
 
 Dense — llama-style GQA (yi, qwen3, starcoder2, gemma3 local:global) and
 pixtral's dense decoder over [patch embeds ; token embeds] (frontend
-stubbed, as in the reference). The moe, ssm, hybrid and encdec families
-are not ported yet (ROADMAP Queue 1 item 12).
+stubbed, as in the reference). Moe — token-choice top-k MoE (dbrx; arctic
+adds a dense residual MLP beside the experts), whose forward also returns
+the Switch aux loss summed over the layers. The ssm, hybrid and encdec
+families are not ported yet (ROADMAP Queue 1 item 12).
 
 Parameters keep the reference's tree (src/repro/models/zoo.py), with layer
 params STACKED on a leading axis; the forward walks the layers in a
@@ -26,10 +29,14 @@ from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
 BIG_WINDOW = 1 << 30     # "no window" sentinel of the per-layer schedule
 
 
-def _not_ported(cfg: ModelConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: the {cfg.arch_type} family is not ported to PyTorch "
-        "yet (ROADMAP Queue 1 item 12); the port runs the dense family")
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless cfg's family is ported: the keys of _BLOCK_TEMPLATES
+    are the one list of ported families."""
+    if cfg.arch_type not in _BLOCK_TEMPLATES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.arch_type} family is not ported to "
+            "PyTorch yet (ROADMAP Queue 1 item 12); the port runs the "
+            f"{' and '.join(_BLOCK_TEMPLATES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +68,17 @@ def _mlp_templates(cfg: ModelConfig) -> dict:
             "wo": P((ff, cfg.d_model), ("ff", "embed"))}
 
 
+def _moe_templates(cfg: ModelConfig) -> dict:
+    d, e = cfg.d_model, cfg.n_experts
+    ff = cfg.moe_d_ff or cfg.d_ff
+    return {
+        "router": P((d, e), ("embed", None)),
+        "w_gate": P((e, d, ff), ("experts", "embed", "ff")),
+        "w_in": P((e, d, ff), ("experts", "embed", "ff")),
+        "w_out": P((e, ff, d), ("experts", "ff", "embed")),
+    }
+
+
 def _dense_block_templates(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {
@@ -71,9 +89,25 @@ def _dense_block_templates(cfg: ModelConfig) -> dict:
     }
 
 
+def _moe_block_templates(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    t = {
+        "ln1": P((d,), (None,), "zeros"),
+        "attn": _attn_templates(cfg),
+        "ln2": P((d,), (None,), "zeros"),
+        "moe": _moe_templates(cfg),
+    }
+    if cfg.dense_residual:
+        t["dense_mlp"] = _mlp_templates(cfg)
+    return t
+
+
+_BLOCK_TEMPLATES = {"dense": _dense_block_templates,
+                    "moe": _moe_block_templates}
+
+
 def templates(cfg: ModelConfig) -> dict:
-    if cfg.arch_type != "dense":
-        raise _not_ported(cfg)
+    check_ported(cfg)
     d = cfg.d_model
     t: dict[str, Any] = {
         "embed": P((cfg.vocab, d), ("vocab", "embed"), "normal", 0.02),
@@ -81,14 +115,16 @@ def templates(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         t["head"] = P((d, cfg.vocab), ("embed", "vocab"))
-    t["blocks"] = stack_tree(_dense_block_templates(cfg), cfg.n_layers)
+    t["blocks"] = stack_tree(_BLOCK_TEMPLATES[cfg.arch_type](cfg),
+                             cfg.n_layers)
     return t
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The port's parameter tree from numpy arrays of the reference's tree
     (e.g. `jax.device_get` of its `materialize`), checked leaf by leaf
-    against this config's templates. Values arrive bit for bit: a bfloat16
+    against this config's templates (a moe config's stacked expert leaves,
+    (L, E, d, ff), included). Values arrive bit for bit: a bfloat16
     array (numpy's `ml_dtypes.bfloat16`, which torch.from_numpy rejects)
     crosses as its uint16 bit pattern."""
     def one(a, t: P) -> torch.Tensor:
@@ -147,6 +183,33 @@ def _dense_block_fwd(p, cfg, x, positions, window, kv_cache=None,
     return x, cache
 
 
+def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
+                   cache_len=None, mode="decode"):
+    """The dense block with the MLP replaced by the experts (plus arctic's
+    dense residual MLP on the same normed input): (x, cache, aux)."""
+    h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
+                             positions=positions, window=window,
+                             kv_cache=kv_cache, cache_len=cache_len, mode=mode)
+    x = x + h
+    xn = Lyr.rms_norm(x, p["ln2"])
+    moe_out, aux = Lyr.moe_ffn(p["moe"], cfg, xn)
+    if cfg.dense_residual:
+        moe_out = moe_out + Lyr.mlp(xn, p["dense_mlp"], cfg.mlp_act)
+    return x + moe_out, cache, aux
+
+
+def _block_fwd(p, cfg, x, positions, window, kv_cache=None, cache_len=None,
+               mode="decode"):
+    """One layer of a dense or moe model: (x, cache, aux), aux the moe
+    block's Switch loss and 0.0 for a dense block."""
+    if cfg.arch_type == "moe":
+        return _moe_block_fwd(p, cfg, x, positions, window, kv_cache,
+                              cache_len, mode)
+    x, cache = _dense_block_fwd(p, cfg, x, positions, window, kv_cache,
+                                cache_len, mode)
+    return x, cache, 0.0
+
+
 def embed_inputs(params, cfg, batch):
     tok_emb = params["embed"][batch["tokens"]]
     if cfg.frontend_positions:
@@ -157,17 +220,19 @@ def embed_inputs(params, cfg, batch):
 
 def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
-    """Returns (logits, aux_loss); the dense family has no aux loss."""
-    if cfg.arch_type != "dense":
-        raise _not_ported(cfg)
+    """Returns (logits, aux_loss): the moe family's aux summed over the
+    layers (float32), 0 for the dense family."""
+    check_ported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    aux_total = torch.zeros((), device=x.device)
     wins = window_schedule(cfg)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
-        x, _ = _dense_block_fwd(p, cfg, x, positions, int(wins[i]))
+        x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]))
+        aux_total = aux_total + aux
     x = Lyr.rms_norm(x, params["final_norm"])
-    return _lm_head(params, cfg, x), torch.zeros((), device=x.device)
+    return _lm_head(params, cfg, x), aux_total
 
 
 def _lm_head(params, cfg, x):

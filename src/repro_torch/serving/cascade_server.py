@@ -3,8 +3,10 @@ that re-scores the items surviving the linear cascade — how the paper
 treats the expensive "Deep & Wide" feature (Table 1, cost 0.84): a costly
 scorer that the cascade shields from the bulk of the traffic.
 
-The scorer runs the dense block over the window schedule, so, as in the
-reference, its model is a dense architecture.
+The scorer runs the model's blocks over the window schedule: a dense
+architecture, as in the reference, or a moe one (the port's addition: the
+reference's scorer runs the dense block alone, so a moe model does not
+score there); a moe block's aux loss is dropped.
 
 CascadeServer is the thin COMPATIBILITY SHIM over the streaming
 serving.session.CascadeSession engine: submit() queues unboundedly and
@@ -87,8 +89,7 @@ class NeuralScorer:
         wins = Z.window_schedule(self.cfg)
         for i, p in enumerate(MB.unstack(params["blocks"],
                                          self.cfg.n_layers)):
-            x, _ = Z._dense_block_fwd(p, self.cfg, x, positions,
-                                      int(wins[i]))
+            x, _, _ = Z._block_fwd(p, self.cfg, x, positions, int(wins[i]))
         return Lyr.rms_norm(x, params["final_norm"])
 
 

@@ -1,9 +1,9 @@
-"""Serving engine, dense family: cache construction, prefill and
+"""Serving engine, dense and moe families: cache construction, prefill and
 single-token decode (the reference's src/repro/serving/engine.py).
 
 Caches are dicts of tensors with the per-layer state STACKED on a leading
 axis, in the reference's layout (M = max cache length):
-  dense          : {"k","v"}: (L, B, M, Hkv, hd)
+  dense, moe     : {"k","v"}: (L, B, M, Hkv, hd)
   dense, gemma3  : {"gk","gv"}: (n_groups, B, M, Hkv, hd)   global layers
                    {"lk","lv"}: (n_groups, g-1, B, W, Hkv, hd) local rings
                    {"tlk","tlv"}: (tail, B, W, Hkv, hd)     local tail
@@ -13,7 +13,9 @@ ring buffer (slot = position % W).
 Prefill and decode write the cache IN PLACE and return it; its contents
 equal the reference's. `cache_len` is a host int, so a decode step
 launches its work without waiting for the card. Every decode step runs K8
-once per layer (`layers.decode_attention`).
+once per layer (`layers.decode_attention`). A moe layer's capacity comes
+from the tokens of the call (B * S at prefill, B at decode), as in the
+reference: choices past an expert's capacity are dropped.
 """
 
 from __future__ import annotations
@@ -37,8 +39,7 @@ def _windowed(cfg: ModelConfig) -> bool:
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int
                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of every tensor of the serving cache."""
-    if cfg.arch_type != "dense":
-        raise Z._not_ported(cfg)
+    Z.check_ported(cfg)
     L, b = cfg.n_layers, batch
     hkv, hd = cfg.n_kv_heads, cfg.hd
     if _windowed(cfg):
@@ -94,14 +95,13 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
 
 
 def _run_layers(params, cfg, x, positions, cache, cache_len, mode):
-    if cfg.arch_type != "dense":
-        raise Z._not_ported(cfg)
+    Z.check_ported(cfg)
     if _windowed(cfg):
         return _dense_serve_windowed(params, cfg, x, positions, cache,
                                      cache_len, mode)
     wins = Z.window_schedule(cfg)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
-        x, _ = Z._dense_block_fwd(
+        x, _, _ = Z._block_fwd(
             p, cfg, x, positions, int(wins[i]),
             kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
             cache_len=cache_len, mode=mode)

@@ -44,6 +44,7 @@ from repro_torch.kernels.cascade_loss.ref import (cascade_loss_bwd_ref,
                                                   cascade_loss_ref)
 from repro_torch.kernels.cascade_score import kernel as score_kernel
 from repro_torch.kernels.cascade_score.ref import cascade_score_batched_bwd_ref
+from repro_torch.kernels.query_bias import kernel as qb_kernel
 from torch_parity import (at_offset, close, filter_case, loss_case, n, t,
                           with_margin)
 
@@ -345,11 +346,12 @@ def test_ops_cpu_tensors_take_the_plain_versions_and_build_nothing():
                   torch.randn(2, 9, 2, 64), 5)
     TK.cascade_score(x[0], wg, zq[0]).sum().backward()
     TK.cascade_score_fm(x[0].T, w, zq[0])
+    TK.query_bias(torch.randn(2, 8), torch.randn(3, 8), torch.randn(3))
     assert TK.launch_counts() == {
         "cascade_score_batched": 0, "cascade_filter": 0,
         "cascade_score_batched_bwd": 0, "cascade_loss": 0,
         "cascade_loss_bwd": 0, "swa_decode": 0, "cascade_score": 0,
-        "cascade_score_bwd": 0, "cascade_score_fm": 0}
+        "cascade_score_bwd": 0, "cascade_score_fm": 0, "query_bias": 0}
     assert _build._lib is None
 
 
@@ -373,14 +375,63 @@ def test_ops_rank_errors_match_reference(op, args):
     (filter_kernel.cascade_filter, 5),
     (score_kernel.cascade_score_batched_bwd, 4),
     (loss_kernel.cascade_loss, 3),
-    (loss_kernel.cascade_loss_bwd, 6)])
+    (loss_kernel.cascade_loss_bwd, 6),
+    (qb_kernel.query_bias, 3)])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, nargs):
     before = fn.launches
     args = list(map(t, filter_case(2, 8, 24, 3, seed=6)))
     args = (args + args)[:nargs]
+    if fn is qb_kernel.query_bias:          # q (R, d_q), w_q (T, d_q), b (T,)
+        args = [args[0][0], args[1], args[2][0]]
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(*args)
     assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# query_bias, and the plain scorer's rows independent of the batch
+# ---------------------------------------------------------------------------
+
+def _rows_by_b(fn, n_rows, bs):
+    """fn(lo, hi) on row slices of every size in bs, stitched back
+    together in row order, one result per b."""
+    return {b: torch.cat([fn(s, min(s + b, n_rows))
+                          for s in range(0, n_rows, b)]) for b in bs}
+
+
+def test_query_bias_plain_rows_do_not_depend_on_the_batch():
+    """The same rows at b = 1, 2, 3, 8 and 16 give identical bits, within
+    1e-6 of the reference's q @ w_q.T + b; the one-hot query buckets the
+    log draws give exactly w_q's column plus b."""
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(48, 8)).astype(np.float32)
+    w_q = (0.3 * rng.normal(size=(3, 8))).astype(np.float32)
+    b = rng.normal(size=(3,)).astype(np.float32)
+    got = _rows_by_b(lambda lo, hi: TK.query_bias(t(q[lo:hi]), t(w_q), t(b)),
+                     len(q), (1, 2, 3, 8, 16))
+    for zq in got.values():
+        assert zq.dtype == torch.float32 and tuple(zq.shape) == (48, 3)
+        assert torch.equal(zq, got[1])
+    close(got[1], jnp.asarray(q) @ jnp.asarray(w_q).T + jnp.asarray(b),
+          rtol=1e-6, atol=1e-6)
+    hot = np.eye(8, dtype=np.float32)[[0, 3, 7]]
+    assert torch.equal(TK.query_bias(t(hot), t(w_q), t(b)),
+                       t(w_q[:, [0, 3, 7]].T + b))
+
+
+@pytest.mark.parametrize("g", [1, 5, 8, 64])
+def test_plain_scorer_rows_do_not_depend_on_the_batch(g):
+    """K1's and K2's plain versions give a group the same bits at every
+    batch size (a CPU matmul would not, below 16 rows): what lets a
+    request served in a chunk of any size equal its solo serve."""
+    x, w, zq, mask, m_q = map(t, filter_case(32, g, 24, 3, seed=g))
+    for out in (_rows_by_b(lambda lo, hi: TK.cascade_score_batched(
+                    x[lo:hi], w, zq[lo:hi]), 32, (1, 2, 3, 8, 16, 32)),
+                _rows_by_b(lambda lo, hi: TK.cascade_filter(
+                    x[lo:hi], w, zq[lo:hi], mask[lo:hi], m_q[lo:hi])["lp"],
+                    32, (1, 2, 3, 8, 16, 32))):
+        for lp in out.values():
+            assert torch.equal(lp, out[32])
 
 
 def test_build_key_follows_the_sources():

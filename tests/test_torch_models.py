@@ -1,8 +1,9 @@
-"""The port's dense model zoo on the CPU against the reference: the
-configs, the parameter templates and `materialize`'s init rule, every
-layer on the same numpy inputs, and `zoo.forward` for every dense smoke
-config from the reference's own `materialize` carried over by
-`params_from_numpy` (bit for bit, bfloat16 included).
+"""The port's model zoo (dense and moe families) on the CPU against the
+reference: the configs, the parameter templates and `materialize`'s init
+rule, every dense layer on the same numpy inputs, and `zoo.forward` (logits
+and the moe aux loss) for every ported smoke config from the reference's
+own `materialize` carried over by `params_from_numpy` (bit for bit,
+bfloat16 included). The moe layer itself: tests/test_torch_moe.py.
 
 Tolerances: layers rtol/atol 1e-5 in float32 (sums taken in another
 order); forward logits 2e-4, the reference's own bar between its prefill
@@ -23,7 +24,7 @@ from repro.models import zoo as JZ
 from repro_torch.models import base as TMB
 from repro_torch.models import layers as TL
 from repro_torch.models import zoo as TZ
-from torch_parity import DENSE_ARCHS, close, dense_model, exact, n, \
+from torch_parity import PORTED_ARCHS, close, dense_model, exact, n, \
     token_batch
 
 LAYER_TOL = 1e-5
@@ -44,7 +45,7 @@ def test_configs_match_reference(arch):
     assert TCFG.ARCH_IDS == JCFG.ARCH_IDS
     assert TCFG.ALIASES == JCFG.ALIASES
     assert TCFG.all_archs() == JCFG.all_archs()
-    if arch not in DENSE_ARCHS:
+    if arch not in PORTED_ARCHS:
         for get in (TCFG.get, TCFG.get_smoke):
             with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
                 get(arch)
@@ -56,7 +57,7 @@ def test_configs_match_reference(arch):
         assert jc == tc
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_templates_and_param_counts_match_reference(arch):
     jcfg, tcfg = JCFG.get(arch), TCFG.get(arch)
     assert tcfg.param_count() == jcfg.param_count()
@@ -201,22 +202,30 @@ def test_attention_matches_reference(arch, window):
 # the forward pass
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_forward_matches_reference(arch):
+    """Logits at LOGIT_TOL; the aux loss (the moe family's Switch loss
+    summed over the layers, 0 for the dense family) at 1e-6."""
     jcfg, tcfg, jp, tp = dense_model(arch)
     jb, tb = token_batch(jcfg, 2, 40, seed=1)       # > gemma3-smoke's window
-    want, _ = JZ.forward(jp, jcfg, jb)
+    want, want_aux = JZ.forward(jp, jcfg, jb)
     got, aux = TZ.forward(tp, tcfg, tb)
     assert tuple(got.shape) == (2, 40 + jcfg.frontend_positions, jcfg.vocab)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if jcfg.arch_type == "dense":
+        assert float(aux) == 0.0
+    else:
+        assert float(aux) > 0.0
+    close(aux, want_aux, 1e-6, 1e-6)
     close(got, want, LOGIT_TOL, LOGIT_TOL)
 
 
 def test_non_dense_families_are_not_ported():
-    moe = dataclasses.replace(TCFG.get_smoke("gemma3-27b"), arch_type="moe")
+    """The families still to port (ssm, hybrid, encdec) raise."""
+    ssm = dataclasses.replace(TCFG.get_smoke("gemma3-27b"), arch_type="ssm")
     for fn in (TZ.templates, lambda c: TZ.forward({}, c, {})):
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            fn(moe)
+            fn(ssm)
 
 
 def test_forward_in_bf16_stays_near_reference():

@@ -144,13 +144,15 @@ def test_slot_join_rides_padding_row_with_the_reference_results():
     np.testing.assert_array_equal(got.order, want.order)
     np.testing.assert_array_equal(got.survivors, want.survivors)
     assert got.stage_counts == want.stage_counts
-    # ... and the port's own solo serve, to tolerance (the plain CPU
-    # versions' matmul orders its sums by the batch's size)
+    # ... and the port's own solo serve, bit for bit (zq and the scores
+    # are summed per row in a fixed order: the padding-row ride changes
+    # nothing)
     solo = _session(buckets=(8,), batch_groups=4)
     f_solo = solo.submit(_req(TB, 3, 5), now_ms=0.0)
     solo.flush(0.0)
-    close(got.scores, f_solo.result().scores)
+    np.testing.assert_array_equal(got.scores, f_solo.result().scores)
     np.testing.assert_array_equal(got.order, f_solo.result().order)
+    assert got.stage_counts == f_solo.result().stage_counts
 
 
 def test_slot_join_respects_capacity():

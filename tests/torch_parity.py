@@ -235,11 +235,13 @@ def assert_same_serve(jres, tres, jses, tses):
 
 
 # ---------------------------------------------------------------------------
-# the dense model zoo: the reference's smoke models carried to the port
+# the model zoo: the reference's smoke models carried to the port
 # ---------------------------------------------------------------------------
 
 DENSE_ARCHS = ["gemma3-27b", "qwen3-8b", "yi-34b", "starcoder2-3b",
                "pixtral-12b"]
+MOE_ARCHS = ["dbrx-132b", "arctic-480b"]
+PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS
 
 
 def dense_model(arch, dtype="float32", seed=1):
