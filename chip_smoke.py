@@ -150,7 +150,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    1e-5), the ring-buffer mapping against the reference's masked formula
    over ring_slot_positions, float32 at 2e-5 at gemma3-27b's decode shapes
    (global layer B=4, S=4096; local ring S=W=1024, wrapped and not; B=1 at
-   128k), and two launches giving the same bits; then K8 timed as the
+   128k) and at zamba2-1.2b's (B=4, 32 heads of 64, S=547), and two
+   launches giving the same bits; then K8 timed as the
    other kernels at those shapes in bfloat16 (held to the same bar),
    beside its plain version, its bound (in-window K+V bytes at 3.35 TB/s)
    and one PyTorch call computing the same function
@@ -181,12 +182,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    decode steps, K8 launched once per layer per step and nothing else;
    ms per step, CUDA kernel launches per step and peak memory beside the
    card's name and power limit;
+8c. `[ssm lm]` rwkv6-1.6b (24 layers) and zamba2-1.2b (38 layers, 6
+   shared-block applications) at their published widths and full depth in
+   bfloat16, the weights drawn on the card: prefill of 4 prompts of 512
+   tokens through the chunked form and through the scan (seconds each, the
+   largest gap between their last logits), 32 greedy decode steps from the
+   scan's cache, K8 = 6 x 32 for zamba2 and no kernel at all for rwkv6;
+   ms per step beside the floor of the weight bytes a step reads (the
+   shared block's once per application), CUDA kernel launches per step,
+   the device's idle share (a profile of 3 more steps) and peak memory,
+   beside the card's name and power limit;
 10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
    2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
    the card: finite losses within 1e-4 of the same steps on the CPU, and
    the same steps with the weights in bfloat16 more than 1e-4 from them.
-   It and the two phases after it run last: their CPU work stays out of
-   every phase timed on the host's clock;
+   It and the phases after it run last: their CPU work stays out of every
+   phase timed on the host's clock;
 11. `[moe parity]` dbrx-smoke and arctic-smoke in float32 on the card
    against the CPU: forward logits (2e-4) and aux loss (1e-6), prefill and
    16 greedy decode steps (2e-4), greedy tokens and every layer's expert
@@ -196,10 +207,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    steps on the card against the CPU, logits
    within 2e-4, greedy tokens and expert choices exact where the margin
    allows;
-13. one JSON line with each kernel's launches on its path (K2, K4 and
+13. `[ssm parity]` rwkv6-smoke, zamba2-smoke and zamba2-smoke at 3 layers
+   (a tail layer after the last shared block) in float32, every leaf the
+   templates initialise to zeros or ones perturbed, on the card against
+   the CPU: forward logits in both ssm_impl forms, prefill and 16 greedy
+   decode steps fed the CPU's tokens (2e-4), greedy tokens exact wherever
+   the margin allows, K8 = shared-block applications x steps (none for
+   rwkv6) and no other kernel;
+14. `[ssm lm check]` both configs at full width, rwkv6 cut to 2 layers and
+   zamba2 to 7 (one group of 6 and a tail layer), in float32, perturbed:
+   prefill of 2 x 128 tokens and 8 greedy decode steps, and the chunked
+   form's prefill, on the card against the CPU within 2e-4;
+15. `[ssm train]` --target lm at those cuts, 3 Adam steps on 2 x 32
+   tokens at lr 1e-4, the card's losses within 1e-4 of the CPU's;
+16. one JSON line with each kernel's launches on its path (K2, K4 and
    K5 also on the restart, data-parallel and warm-restart paths; K8 also
-   on the moe paths; query_bias on the serving main path and the others),
-   error and times; the last line is {"ok": true, "device": {...}}.
+   on the moe and ssm paths; query_bias on the serving main path and the
+   others), error and times; the last line is {"ok": true, "device":
+   {...}}.
 """
 
 from __future__ import annotations
@@ -284,9 +309,10 @@ K8_F32_TOL = 2e-5           # the reference's bar (test_kernels)
 K8_BF16_RTOL, K8_BF16_ATOL = 2.0 ** -7, 1e-5
 # K8 timing shapes (B, H, Hkv, hd, S): gemma3-27b's decode attention at
 # the LM phase's batch: a global layer's cache, a local layer's full ring,
-# and one sequence at 128k context.
+# and one sequence at 128k context; and zamba2-1.2b's shared block in
+# [ssm lm] (32 heads of 64, no GQA) over its cache of 512 + 32 + 3.
 K8_SHAPES = {"global": (4, 32, 16, 128, 4096), "ring": (4, 32, 16, 128, 1024),
-             "long": (1, 32, 16, 128, 131072)}
+             "long": (1, 32, 16, 128, 131072), "zamba2": (4, 32, 32, 64, 547)}
 # ... and one whose grid (B=1, 2 kv heads, 32 splits: 64 blocks) leaves room
 # for a second call's on the card, for the two-stream check.
 K8_PAIR_SHAPE = (1, 4, 2, 128, 2048)
@@ -329,6 +355,33 @@ MOE_AUX_TOL = 1e-6          # a mean of E products of probabilities
 # Expert choices are compared exactly where the k-th and (k+1)-th router
 # probabilities differ by more than this in log space.
 ROUTE_LOG_MARGIN = 1e-3
+# The ssm (rwkv6) and hybrid (zamba2) families. [ssm parity]: each smoke
+# config (and zamba2-smoke at 3 layers: a tail layer after its last shared
+# block) in float32 on the card against the CPU, every leaf the templates
+# initialise to zeros or ones perturbed by SSM_NOISE * N(0, 1) (else the
+# LoRA paths, the bonus term and the data-dependent shift are zero):
+# forward in both ssm_impl forms, then prefill and SSM_PARITY_STEPS greedy
+# decode steps. [ssm lm]: both configs at published widths and full depth
+# in bfloat16, a prompt's prefill through the scan and the chunked form,
+# then SSM_LM_STEPS greedy decode steps. [ssm lm check] / [ssm train]: full
+# width at SSM_CHECK_LAYERS (rwkv6 2, zamba2 7: one group of 6 and a tail
+# layer; ~1.5 GB each in float32) on the card against the CPU.
+SSM_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
+SSM_PARITY_CASES = (("rwkv6-1.6b", 0), ("zamba2-1.2b", 0), ("zamba2-1.2b", 3))
+SSM_PARITY_BATCH, SSM_PARITY_PROMPT, SSM_PARITY_STEPS = 2, 40, 16
+SSM_NOISE = 0.1
+SSM_LM_BATCH, SSM_LM_PROMPT, SSM_LM_STEPS = 4, 512, 32
+SSM_CHECK_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 7}
+SSM_CHECK_BATCH, SSM_CHECK_PROMPT, SSM_CHECK_STEPS = 2, 128, 8
+# [ssm train] runs the launcher at lr 1e-4, not its default 0.01. Adam
+# moves a weight by about lr whatever its gradient's size, so where a
+# gradient is near zero float32 rounding picks the step's sign, and the
+# card's and the CPU's runs part by about lr times the loss's sensitivity
+# to such weights. On the H100, rwkv6's third loss differed from the
+# CPU's by 1.35e-3 at lr 0.01 (its loss went 11.42 -> 18.16 in three
+# steps) and by 8.27e-5 at lr 1e-3, against the bar of 1e-4; the first
+# loss agreed to every printed digit at both rates.
+SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_LR = 3, 2, 32, 1e-4
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -2675,7 +2728,7 @@ def phase_k8_timing() -> dict[str, dict]:
     n_calls = 5 * len(calls)
     print(f"[timing] K8: {n_cuda:g} CUDA launch(es) per call, the device "
           f"ran {n_device} kernel(s) {names} (torch.profiler, {n_calls} "
-          f"calls over the three shapes)")
+          f"calls over the {len(calls)} shapes)")
     if n_cuda != 1:
         raise AssertionError(f"K8: {n_cuda} CUDA launches per call, not 1")
     if n_device > n_calls or names != ["swa_decode_kernel"]:
@@ -2954,11 +3007,11 @@ def check_greedy(got, want, label) -> int:
     return int(sure.sum())
 
 
-def moe_serve(params, cfg, tokens, steps, device, feed=None) -> dict:
+def lm_serve(params, cfg, tokens, steps, device, feed=None) -> dict:
     """Prefill `tokens` (B, S), then `steps` greedy decode steps on
     `device`, each fed feed[i] (B, 1) if given, else this run's own greedy
     token: every step's last-position logits (on the CPU), the tokens fed
-    and the routing of every call."""
+    and the routing of every moe layer's call (none in other families)."""
     b, s = tokens.shape
     cache = E.init_cache(cfg, b, s + steps, device=device)
     (lg, cache), routes = routed(E.prefill, params, cfg,
@@ -3004,9 +3057,9 @@ def phase_moe_parity() -> dict:
         fwd_err = float((lg.cpu() - lg_c).abs().max())
         routes, no_margin = check_routes(r_card, r_cpu, cfg.top_k,
                                          f"{arch} forward")
-        cpu = moe_serve(cpu_params, cfg, tokens, MOE_PARITY_STEPS, "cpu")
+        cpu = lm_serve(cpu_params, cfg, tokens, MOE_PARITY_STEPS, "cpu")
         ops.reset_launch_counts()        # the card's engine path starts here
-        card = moe_serve(params, cfg, tokens, MOE_PARITY_STEPS, "cuda",
+        card = lm_serve(params, cfg, tokens, MOE_PARITY_STEPS, "cuda",
                          feed=cpu["fed"])
         sync()
         k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
@@ -3143,14 +3196,14 @@ def phase_moe_lm_check() -> dict:
     tokens = torch.randint(0, cfg.vocab, (MOE_CHECK_BATCH, MOE_CHECK_PROMPT),
                            generator=gen, device="cuda").cpu()
     ops.reset_launch_counts()        # the card's path starts here
-    card = moe_serve(params, cfg, tokens, MOE_CHECK_STEPS, "cuda")
+    card = lm_serve(params, cfg, tokens, MOE_CHECK_STEPS, "cuda")
     sync()
     k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
     assert k8 == cfg.n_layers * MOE_CHECK_STEPS, k8
     params = MB.tree_map(lambda a: a.cpu(), params)
     free_cuda()
     t0 = time.perf_counter()
-    cpu = moe_serve(params, cfg, tokens, MOE_CHECK_STEPS, "cpu",
+    cpu = lm_serve(params, cfg, tokens, MOE_CHECK_STEPS, "cpu",
                     feed=card["fed"])
     cpu_s = time.perf_counter() - t0
     greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}") for i, (g, w)
@@ -3170,6 +3223,290 @@ def phase_moe_lm_check() -> dict:
           "margin)")
     del params
     return dict(err=err, k8_launches=k8)
+
+
+# -- 8c. the ssm and hybrid families: rwkv6 and zamba2 -------------------------
+
+def perturbed(cfg, gen: torch.Generator) -> dict:
+    """cfg's weights drawn on the generator's device in cfg.dtype, every
+    leaf the templates initialise to zeros or ones plus SSM_NOISE * N(0,
+    1)."""
+    tmpl = Z.templates(cfg)
+    params = MB.materialize(tmpl, gen, dtype=cfg.dtype)
+
+    def bump(t, p):
+        if t.init not in ("zeros", "ones"):
+            return p
+        noise = torch.randn(p.shape, generator=gen, device=p.device)
+        return p + (SSM_NOISE * noise).to(p.dtype)
+    return MB.tree_map(bump, tmpl, params)
+
+
+def k8_per_step(cfg) -> int:
+    """K8 launches of one decode step: one per shared-block application of
+    a hybrid, none for the ssm family."""
+    return Z.shared_applications(cfg) if cfg.arch_type == "hybrid" else 0
+
+
+def phase_ssm_parity() -> dict:
+    """Each SSM_PARITY_CASES config in float32 (perturbed weights) on the
+    card against the same weights on the CPU: the forward's logits in both
+    ssm_impl forms, then a prompt's prefill and SSM_PARITY_STEPS greedy
+    decode steps fed the CPU's tokens: logits within MOE_LOGIT_TOL (the
+    same 2e-4) at every step, the greedy token exactly where the margin
+    allows; K8 once per shared-block application per decode step for
+    zamba2, no kernel at all for rwkv6 (counts set to 0 before the card's
+    prefill, read after its last step)."""
+    out = {}
+    for arch, layers in SSM_PARITY_CASES:
+        cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+        cpu_params = perturbed(cfg, torch.Generator().manual_seed(3))
+        params = MB.tree_map(lambda a: a.to("cuda"), cpu_params)
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (SSM_PARITY_BATCH, SSM_PARITY_PROMPT)))
+        fwd_err = {}
+        for impl in ("scan", "chunked"):
+            c = dataclasses.replace(cfg, ssm_impl=impl)
+            lg, aux = Z.forward(params, c, {"tokens": tokens.to("cuda")})
+            lg_c, _ = Z.forward(cpu_params, c, {"tokens": tokens})
+            torch.testing.assert_close(lg.cpu(), lg_c, rtol=MOE_LOGIT_TOL,
+                                       atol=MOE_LOGIT_TOL)
+            assert float(aux) == 0.0, aux
+            fwd_err[impl] = float((lg.cpu() - lg_c).abs().max())
+        cpu = lm_serve(cpu_params, cfg, tokens, SSM_PARITY_STEPS, "cpu")
+        ops.reset_launch_counts()        # the card's engine path starts here
+        card = lm_serve(params, cfg, tokens, SSM_PARITY_STEPS, "cuda",
+                        feed=cpu["fed"])
+        sync()
+        launches = ops.launch_counts()   # ... and ends here
+        want = {k: 0 for k in launches}
+        want["swa_decode"] = k8_per_step(cfg) * SSM_PARITY_STEPS
+        assert launches == want, (arch, launches, want)
+        greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}") for i, (g, w)
+                     in enumerate(zip(card["logits"], cpu["logits"])))
+        assert greedy > 0, arch
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(card["logits"], cpu["logits"]))
+        tag = f"{cfg.name}-L{cfg.n_layers}"
+        print(f"[ssm parity] {cfg.name} at {cfg.n_layers} layers (float32, "
+              "perturbed) on the card against "
+              f"the CPU: forward of {SSM_PARITY_BATCH} x {SSM_PARITY_PROMPT} "
+              f"tokens max |err| scan {fwd_err['scan']:.3g}, chunked "
+              f"{fwd_err['chunked']:.3g}; prefill + {SSM_PARITY_STEPS} greedy "
+              f"decode steps max |err| {err:.3g} (bar {MOE_LOGIT_TOL}), "
+              f"{greedy} greedy tokens equal; K8 x {launches['swa_decode']}"
+              f" = {k8_per_step(cfg)} x {SSM_PARITY_STEPS}, no other kernel")
+        out[tag] = dict(fwd_err=fwd_err, decode_err=err,
+                        k8_launches=launches["swa_decode"])
+        del params
+    free_cuda()
+    return out
+
+
+def phase_ssm_lm(card: str) -> dict:
+    """Each ssm / hybrid config at its published widths and full depth in
+    bfloat16 (the weights drawn on the card): prefill of SSM_LM_BATCH
+    prompts of SSM_LM_PROMPT tokens through the chunked form and through
+    the scan (each timed on the host clock around a sync; the largest gap
+    between their last logits printed), then SSM_LM_STEPS greedy decode
+    steps from the scan's cache, finite logits; K8 once per shared-block
+    application per step and nothing else counted (counts set to 0 before
+    the first prefill, read after the last step); ms per step (CUDA events,
+    median) beside the floor of the weight bytes a step reads (the shared
+    block's once per application), the CUDA kernel launches of one more
+    step, a profile of LM_PROFILE_STEPS more (device idle share) and peak
+    memory; each beside the card's name and power limit."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = CFG.get(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+        sync()
+        make_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in MB.tree_leaves(params))
+        b, s, steps = SSM_LM_BATCH, SSM_LM_PROMPT, SSM_LM_STEPS
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device="cuda")
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()        # the path starts here
+        prefill_s, last = {}, {}
+        for impl in ("chunked", "scan"):
+            c = dataclasses.replace(cfg, ssm_impl=impl)
+            cache = E.init_cache(c, b, s + steps + LM_PROFILE_STEPS,
+                                 device="cuda")
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = E.prefill(params, c, {"tokens": tokens}, cache)
+            sync()
+            prefill_s[impl] = time.perf_counter() - t0
+            last[impl] = logits[:, -1].float()
+        gap = float((last["scan"] - last["chunked"]).abs().max())
+        scale = float(last["scan"].abs().max())
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        generated = []
+        events[0].record()
+        for i in range(steps):
+            logits, cache = E.decode_step(params, cfg, tok, cache, s + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            finite &= torch.isfinite(logits).all()
+            generated.append(tok)
+            events[i + 1].record()
+        sync()
+        launches = ops.launch_counts()   # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        assert bool(finite), f"{arch}: non-finite logits"
+        want = {k: 0 for k in launches}
+        want["swa_decode"] = k8_per_step(cfg) * steps
+        assert launches == want, (launches, want)
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(steps)]
+        med = statistics.median(step_ms)
+        per_step, kernels, _ = cuda_launches_per_call(
+            lambda: E.decode_step(params, cfg, tok, cache, s + steps),
+            calls=2)
+        # a decode step reads every weight but the embedding's, the shared
+        # block's once per application: its floor on the card
+        size = lambda tree: sum(t.numel() * t.element_size()
+                                for t in MB.tree_leaves(tree))
+        read = nbytes - size(params["embed"])
+        if cfg.arch_type == "hybrid":
+            read += (Z.shared_applications(cfg) - 1) * size(
+                params["shared_attn"])
+        floor_ms = read / HBM_BYTES_PER_S * 1e3
+        extra = (f", {Z.shared_applications(cfg)} shared-block applications"
+                 if cfg.arch_type == "hybrid" else "")
+        print(f"[ssm lm] {cfg.name}: {cfg.n_layers} layers{extra} at the "
+              f"published widths, {cfg.param_count()} parameters, {nbytes} "
+              f"bytes in {cfg.dtype} made on the card in {make_s:.1f} s")
+        print(f"[ssm lm] {cfg.name} on {card}: prefill B={b} x {s} tokens "
+              f"chunked {prefill_s['chunked']:.3f} s, scan "
+              f"{prefill_s['scan']:.3f} s, last logits max |scan - chunked| "
+              f"{gap:.3g} (logits up to {scale:.3g}); {steps} greedy decode "
+              f"steps at B={b}: median {med:.3f} ms per step (first "
+              f"{step_ms[0]:.3f}, min {min(step_ms):.3f}, max "
+              f"{max(step_ms):.3f}), {b / med * 1e3:.1f} tokens/s; weights "
+              f"read per step {read} bytes, {floor_ms:.3f} ms at 3.35 TB/s ("
+              f"{floor_ms / med:.1%} of the median); {per_step:.0f} CUDA "
+              f"kernel launches per step ({kernels / 2:.0f} kernels on the "
+              f"device); peak memory {peak} bytes; K8 launches "
+              f"{launches['swa_decode']} = {k8_per_step(cfg)} x {steps}")
+        print(f"[ssm lm] {cfg.name} greedy tokens of sequence 0: "
+              f"{torch.cat(generated, 1)[0].tolist()}")
+        profile = profile_decode(params, cfg, cache, tok, s + steps,
+                                 tag="ssm lm")
+        out[arch] = dict(params=cfg.param_count(), param_bytes=nbytes,
+                         prefill_s=prefill_s, scan_chunked_gap=gap,
+                         step_ms_median=med, floor_ms=floor_ms,
+                         launches_per_step=per_step,
+                         device_idle_share=profile["device_idle_share"],
+                         peak_bytes=peak, k8_launches=launches["swa_decode"])
+        del params, cache, logits, last
+        free_cuda()
+    return out
+
+
+def phase_ssm_lm_check() -> dict:
+    """Each ssm / hybrid config at full width cut to SSM_CHECK_LAYERS in
+    float32 (perturbed weights drawn on the card, then copied to the CPU):
+    a prompt's prefill and SSM_CHECK_STEPS greedy decode steps on the card
+    (K8 once per shared-block application per step), and the chunked
+    form's prefill, then the same on the CPU fed the card's tokens: logits
+    within MOE_LOGIT_TOL (the same 2e-4) at every step, greedy tokens
+    exact where the margin allows. Runs after every phase timed on the
+    host's clock."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(CFG.get(arch),
+                                  n_layers=SSM_CHECK_LAYERS[arch],
+                                  dtype=torch.float32)
+        chunked = dataclasses.replace(cfg, ssm_impl="chunked")
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        params = perturbed(cfg, gen)
+        b, s = SSM_CHECK_BATCH, SSM_CHECK_PROMPT
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device="cuda").cpu()
+        ops.reset_launch_counts()        # the card's path starts here
+        card = lm_serve(params, cfg, tokens, SSM_CHECK_STEPS, "cuda")
+        sync()
+        k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
+        assert k8 == k8_per_step(cfg) * SSM_CHECK_STEPS, (arch, k8)
+        card_chunked = E.prefill(params, chunked, {"tokens": tokens.to("cuda")},
+                                 E.init_cache(chunked, b, s, "cuda"))[0].cpu()
+        params = MB.tree_map(lambda a: a.cpu(), params)
+        free_cuda()
+        t0 = time.perf_counter()
+        cpu = lm_serve(params, cfg, tokens, SSM_CHECK_STEPS, "cpu",
+                       feed=card["fed"])
+        cpu_chunked = E.prefill(params, chunked, {"tokens": tokens},
+                                E.init_cache(chunked, b, s, "cpu"))[0]
+        cpu_s = time.perf_counter() - t0
+        greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}") for i, (g, w)
+                     in enumerate(zip(card["logits"], cpu["logits"])))
+        greedy += check_greedy(card_chunked[:, -1], cpu_chunked[:, -1],
+                               f"{cfg.name} chunked prefill")
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(card["logits"], cpu["logits"]))
+        err_chunked = float((card_chunked - cpu_chunked).abs().max())
+        scale = max(float(w.abs().max()) for w in cpu["logits"])
+        print(f"[ssm lm check] {cfg.name} at full width, {cfg.n_layers} "
+              f"layers, float32, perturbed ({cfg.param_count()} parameters): "
+              f"prefill of {b} x {s} tokens + {SSM_CHECK_STEPS} greedy decode "
+              f"steps (K8 x {k8}) on the card against the CPU ({cpu_s:.1f} "
+              f"s): max |err| {err:.3g}, chunked prefill {err_chunked:.3g} "
+              f"(bar {MOE_LOGIT_TOL}; logits up to {scale:.3g}), {greedy} "
+              "greedy tokens equal")
+        out[arch] = dict(err=err, err_chunked=err_chunked, k8_launches=k8)
+        del params
+    return out
+
+
+def phase_ssm_train() -> dict:
+    """The launcher's --target lm on the card for each ssm / hybrid config
+    at full width cut to SSM_CHECK_LAYERS: SSM_TRAIN_STEPS Adam steps at
+    SSM_TRAIN_LR (the weights drawn on the CPU from the seed, so both
+    devices start alike), finite losses within LM_TRAIN_RTOL of the same
+    steps on the CPU (checked once both configs have run)."""
+    out = {}
+    for arch in SSM_ARCHS:
+        layers = SSM_CHECK_LAYERS[arch]
+        args = ["--target", "lm", "--arch", arch, "--layers", str(layers),
+                "--steps", str(SSM_TRAIN_STEPS), "--batch",
+                str(SSM_TRAIN_BATCH), "--seq", str(SSM_TRAIN_SEQ), "--lr",
+                str(SSM_TRAIN_LR)]
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            card = TLT.main(args + ["--device", "cuda"])
+            sync()
+            seconds = time.perf_counter() - t0
+            free_cuda()
+            t0 = time.perf_counter()
+            cpu = TLT.main(args + ["--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+        head = log.getvalue().splitlines()[0]
+        assert f"{layers} layers" in head, head
+        assert len(card) == SSM_TRAIN_STEPS and np.isfinite(card).all(), card
+        errs = [abs(a - c) / abs(c) for a, c in zip(card, cpu)]
+        err = max(errs)
+        print(f"[ssm train] {head.removeprefix('[train] ')}: B="
+              f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ} tokens, lr "
+              f"{SSM_TRAIN_LR}, {seconds:.2f} s on the card (first-call work "
+              f"included), {cpu_s:.2f} s on the CPU; losses "
+              f"{[round(v, 4) for v in card]}, relative err against the CPU "
+              f"per step {[float(f'{e:.3g}') for e in errs]} (bar "
+              f"{LM_TRAIN_RTOL})")
+        out[arch] = dict(losses=card, cpu_losses=cpu, max_rel_err=err)
+    for arch, r in out.items():
+        np.testing.assert_allclose(r["losses"], r["cpu_losses"],
+                                   rtol=LM_TRAIN_RTOL, err_msg=arch)
+    return out
 
 
 def main() -> None:
@@ -3240,18 +3577,28 @@ def main() -> None:
     launches["swa_decode"] = lm["k8_launches"]
     phase_lm_check()
     moe_lm = phase_moe_lm(card)
+    ssm_lm = phase_ssm_lm(card)
     phase_slice("filter", params, te,
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     free_cuda()
     phase_train_lm()
     moe_parity = phase_moe_parity()
-    moe_check = phase_moe_lm_check()     # last: its CPU part is the largest
+    moe_check = phase_moe_lm_check()     # its CPU part is the largest
+    ssm_parity = phase_ssm_parity()
+    ssm_check = phase_ssm_lm_check()
+    phase_ssm_train()
     extra["swa_decode"] = {
         **{f"moe_lm_{a}_launches": r["k8_launches"]
            for a, r in moe_lm.items()},
         **{f"moe_parity_{a}_launches": r["k8_launches"]
            for a, r in moe_parity.items()},
-        "moe_lm_check_launches": moe_check["k8_launches"]}
+        "moe_lm_check_launches": moe_check["k8_launches"],
+        **{f"ssm_lm_{a}_launches": r["k8_launches"]
+           for a, r in ssm_lm.items()},
+        **{f"ssm_parity_{a}_launches": r["k8_launches"]
+           for a, r in ssm_parity.items()},
+        **{f"ssm_lm_check_{a}_launches": r["k8_launches"]
+           for a, r in ssm_check.items()}}
     extra["query_bias"] = dict(
         score_launches=qb_score_launches,
         pump_launches=pump["qb_launches"],
@@ -3270,7 +3617,7 @@ def main() -> None:
                        n_split=tm["plan"]["n_split"],
                        blocks=tm["plan"]["blocks"],
                        blocks_per_sm=tm["plan"]["blocks_per_sm"])
-            for shape in ("ring", "long"):
+            for shape in ("ring", "long", "zamba2"):
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                             "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]

@@ -4,9 +4,10 @@ the LLM architecture zoo behind the neural final stage.
 Every zoo module exposes CONFIG (the full assigned architecture) and SMOKE
 (a reduced same-family variant: <=2 layers, d_model<=512) used by the CPU
 tests. `get(name)` / `get_smoke(name)` are the public API. The port
-carries the dense family (gemma3, qwen3, yi, starcoder2, pixtral) and the
-moe family (dbrx, arctic); the ssm, hybrid and encdec families are not
-ported yet, and asking for one raises NotImplementedError.
+carries the dense family (gemma3, qwen3, yi, starcoder2, pixtral), the moe
+family (dbrx, arctic), the ssm family (rwkv6) and the hybrid family
+(zamba2); the encdec family (seamless) is not ported yet, and asking for
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,10 +35,7 @@ ALIASES = {
 }
 
 # module -> family, for the architectures whose family is not ported yet
-_NOT_PORTED = {
-    "zamba2_1p2b": "hybrid", "rwkv6_1p6b": "ssm",
-    "seamless_m4t_large_v2": "encdec",
-}
+_NOT_PORTED = {"seamless_m4t_large_v2": "encdec"}
 
 
 def _module(name: str):
@@ -46,7 +44,7 @@ def _module(name: str):
         raise NotImplementedError(
             f"{name}: the {_NOT_PORTED[mod]} family is not ported to "
             "PyTorch yet (ROADMAP Queue 1 item 12); the port serves the "
-            "dense and moe families")
+            "dense, moe, ssm and hybrid families")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -196,7 +196,9 @@ def load_serving_state(serve_dir: str, *, device="cuda"):
 
 def build_neural(arch: str, device="cuda") -> NeuralScorer:
     """The neural final stage of `--neural ARCH`: the architecture's smoke
-    variant in float32, random weights from seed 7 (the reference's key)."""
+    variant in float32, random weights from seed 7 (the reference's key).
+    A family the scorer cannot run (ssm, hybrid) raises ValueError before
+    a weight is drawn."""
     ncfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
     return NeuralScorer.create(ncfg, 7, device=device)
 

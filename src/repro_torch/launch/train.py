@@ -12,13 +12,15 @@ Two paths:
     trains on `cuda:{LOCAL_RANK}` over a 1-D ("data",) mesh of the ranks
     (`launch.mesh.data_parallel_mesh`), rank 0 prints and writes the
     checkpoints; one process takes the plain path.
-  * `--target lm --arch <id>` — train a dense or moe architecture of the
-    model zoo (`--smoke`: its reduced variant, in float32) with Adam on
-    random tokens: the neural final-stage ranker's substrate; a moe
-    model's loss adds its weighted aux loss. `--layers N` keeps the first
-    N layers at the published widths. The weights are drawn in float32
-    whatever the config's dtype, as the reference's launcher draws them.
-    The ssm, hybrid and encdec families are not ported and raise.
+  * `--target lm --arch <id>` — train a dense, moe, ssm or hybrid
+    architecture of the model zoo (`--smoke`: its reduced variant, in
+    float32) with Adam on random tokens: the neural final-stage ranker's
+    substrate; a moe model's loss adds its weighted aux loss. `--layers N`
+    keeps the first N layers at the published widths (a hybrid keeps
+    N // attn_every applications of its shared block, none for N below
+    attn_every; the header says how many). The weights are drawn in
+    float32 whatever the config's dtype, as the reference's launcher draws
+    them. The encdec family is not ported and raises.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --target cloes \
@@ -28,7 +30,8 @@ Usage:
        [--crash-after-epoch 2]]
   torchrun --nproc-per-node N -m repro_torch.launch.train --target cloes ...
   PYTHONPATH=src python -m repro_torch.launch.train --target lm \
-      --arch starcoder2-3b|dbrx-132b|... [--smoke | --layers 2] \
+      --arch starcoder2-3b|dbrx-132b|rwkv6-1.6b|zamba2-1.2b|... \
+      [--smoke | --layers 2] \
       [--steps 30] [--batch 4] [--seq 64]
 
 `--device cpu` runs the kernels' plain versions (and gloo under torchrun).
@@ -164,8 +167,10 @@ def train_lm(args) -> list[float]:
         MB.materialize(Z.templates(cfg),
                        torch.Generator().manual_seed(args.seed)))
     n_params = sum(p.numel() for p in MB.tree_leaves(params))
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, {n_params / 1e6:.1f}M "
-          f"params, {args.steps} steps on {device}")
+    shared = (f", {Z.shared_applications(cfg)} shared-block applications"
+              if cfg.arch_type == "hybrid" else "")
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers{shared}, "
+          f"{n_params / 1e6:.1f}M params, {args.steps} steps on {device}")
     opt = adam(args.lr)
     opt_state = opt.init(params)
     rng = np.random.default_rng(args.seed)

@@ -1,4 +1,6 @@
-"""Functional building blocks of the dense and moe model families.
+"""Functional building blocks of the model zoo: attention, MLPs and the
+moe layer of the dense and moe families, and the sequence mixers of the
+ssm (RWKV-6) and hybrid (Mamba2) families.
 
 Plain functions over explicit parameter dicts, with the reference's
 conventions (src/repro/models/layers.py):
@@ -10,7 +12,10 @@ Decode attention of one token runs K8 (`kernels.ops.swa_decode`): the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on a
 CPU tensor. The reference's mesh-only variants (`shmap_attention`,
 `_seq_shard`, `attn_shard="seqkv"`, the expert-parallel `moe_ffn_shmap`)
-are not ported: the port runs on one card.
+are not ported: the port runs on one card. The Mamba2 and RWKV-6
+recurrences have no kernel in the reference (it leaves them to XLA's
+`jax.lax.scan`), and run here as plain PyTorch loops over the sequence
+or its chunks.
 """
 
 from __future__ import annotations
@@ -346,3 +351,245 @@ def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ce = F.one_hot(gate_i[:, 0], e).float().mean(dim=0)
     aux = e * torch.sum(me * ce)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) mixer: the sequential recurrence and the chunked form, each
+# with explicit (conv, ssm) state for decode. The reference runs both in
+# XLA (`jax.lax.scan`); here the scan is a Python loop carrying the f32
+# state, and each form keeps the reference's own casts.
+# ---------------------------------------------------------------------------
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(x, 0). F.softplus returns x itself above
+    its threshold of 20, which this does not."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _mamba_in(p, cfg, x, state):
+    """The mixer's input projection and depthwise causal conv: (z, xc, Bc,
+    Cc, dt, new conv state). The conv is the einsum "bskc,kc->bsc" over
+    the windows of the input left-padded with zeros (or prefixed with the
+    carried conv state), plus conv_b, then silu."""
+    di, n, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    z, xc, Bc, Cc, dt = torch.split(x @ p["in_proj"], [di, di, n, n, nh],
+                                    dim=-1)
+    conv_in = torch.cat([xc, Bc, Cc], dim=-1)                 # (B,S,di+2n)
+    kw = cfg.ssm_conv
+    if state is not None:
+        full = torch.cat([state["conv"], conv_in], dim=1)
+    else:
+        full = F.pad(conv_in, (0, 0, kw - 1, 0))
+    windows = full.unfold(1, kw, 1)                           # (B,S,C,kw)
+    conv = torch.einsum("bsck,kc->bsc", windows, p["conv_w"]) + p["conv_b"]
+    xc, Bc, Cc = torch.split(F.silu(conv), [di, n, n], dim=-1)
+    return z, xc, Bc, Cc, dt, full[:, -(kw - 1):]
+
+
+def _mamba_out(p, cfg, y, z):
+    b, s = y.shape[:2]
+    y = rms_norm(y.reshape(b, s, cfg.ssm_d_inner), p["out_norm"]) * F.silu(z)
+    return y @ p["out_proj"]
+
+
+def _ssm_init(state, key, shape, device) -> torch.Tensor:
+    return (state[key] if state is not None
+            else torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def mamba2_scan(p, cfg, x: torch.Tensor, state: dict | None = None):
+    """x: (B, S, d_model). Returns (y, new_state), state {"conv": (B,
+    conv-1, di+2n), "ssm": (B, H, hd, N) f32}. softplus(dt + dt_bias) and
+    the decay are taken in x's dtype, and cast to f32 only for the scan."""
+    b, s, _ = x.shape
+    n, hdim, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_heads
+    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state)
+    xh = xc.reshape(b, s, nh, hdim)
+    dt = softplus(dt + p["dt_bias"])                          # (B,S,nh)
+    decay = torch.exp(-torch.exp(p["A_log"]) * dt)
+    xdt = xh.float() * dt.float()[..., None]                  # dt_t x_t
+    Bf, Cf, decf = Bc.float(), Cc.float(), decay.float()
+    S_ = _ssm_init(state, "ssm", (b, nh, hdim, n), x.device)
+    ys = []
+    for t in range(s):
+        S_ = torch.addcmul(xdt[:, t, :, :, None] * Bf[:, t, None, None, :],
+                           S_, decf[:, t, :, None, None])
+        ys.append(torch.einsum("bhpn,bn->bhp", S_, Cf[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype) + xh * p["D"][:, None]
+    return _mamba_out(p, cfg, y, z), {"conv": new_conv, "ssm": S_}
+
+
+def mamba2_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
+                   chunk: int = 128):
+    """The chunked SSD form of mamba2_scan (the Mamba2 paper's algorithm):
+    within a chunk the recurrence is a masked decay-weighted matmul, and
+    only the per-chunk states are carried. dt is cast to f32 after the
+    softplus and the log-decay is taken in f32. The sequence is padded to
+    whole chunks with zeros (decay 1, no input), so the final state is the
+    unpadded one."""
+    b, s, _ = x.shape
+    n, hdim, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_heads
+    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state)
+    xh = xc.reshape(b, s, nh, hdim).float()
+    dt = softplus(dt + p["dt_bias"]).float()                  # (B,S,nh)
+    la = -torch.exp(p["A_log"].float()) * dt                  # log a_t
+    Bf, Cf = Bc.float(), Cc.float()
+    pad = (-s) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        Bf, Cf, dt, la = (F.pad(a, (0, 0, 0, pad)) for a in (Bf, Cf, dt, la))
+    nc = xh.shape[1] // chunk
+    xh, Bf, Cf, dt, la = (a.reshape((b, nc, chunk) + a.shape[2:])
+                          for a in (xh, Bf, Cf, dt, la))
+    cum = torch.cumsum(la, dim=2)                             # log P_t
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    S_ = _ssm_init(state, "ssm", (b, nh, hdim, n), x.device)
+    ys = []
+    for c in range(nc):
+        xh_c, B_c, C_c, dt_c, cum_c = (a[:, c] for a in (xh, Bf, Cf, dt, cum))
+        # intra-chunk: M[t,i] = (C_t.B_i) dt_i exp(cum_t - cum_i), i <= t
+        cb = torch.einsum("btn,bin->bti", C_c, B_c)           # (B,L,L)
+        dh = cum_c.transpose(1, 2)                            # (B,nh,L)
+        ratio = torch.exp(torch.clamp(dh[:, :, :, None] - dh[:, :, None, :],
+                                      -60.0, 0.0))
+        m = (cb[:, None] * dt_c.transpose(1, 2)[:, :, None, :]
+             * ratio * causal)                                # (B,nh,L,L)
+        y = torch.einsum("bhti,bihp->bthp", m, xh_c)
+        # inter-chunk: the carried state's contribution
+        y = y + torch.einsum("btn,bhpn->bthp", C_c,
+                             S_) * torch.exp(cum_c)[..., None]
+        # S_end = P_L S_prev + sum_i (P_L / P_i) dt_i B_i x_i
+        w = torch.exp(torch.clamp(cum_c[:, -1:] - cum_c, min=-60.0)) * dt_c
+        S_in = torch.einsum("bih,bin,bihp->bhpn", w, B_c, xh_c)
+        S_ = S_ * torch.exp(cum_c[:, -1])[..., None, None] + S_in
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, nh, hdim)[:, :s]
+    y = y.to(x.dtype) + xc.reshape(b, s, nh, hdim).to(x.dtype) \
+        * p["D"][:, None]
+    return _mamba_out(p, cfg, y, z), {"conv": new_conv, "ssm": S_}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (Finch): time-mix with data-dependent decay, and channel-mix
+# ---------------------------------------------------------------------------
+
+
+def _lora(x, A, B):          # low-rank adapter: x @ A @ B
+    return (x @ A) @ B
+
+
+def _token_shift(x, state):
+    """(prev - x, new shift): prev is x one step back, its first row the
+    carried shift (or zeros)."""
+    if state is not None:
+        prev = torch.cat([state["shift"][:, None], x[:, :-1]], dim=1)
+    else:
+        prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return prev - x, x[:, -1]
+
+
+def _rwkv6_mix(p, cfg, x, state):
+    """The time-mix's projections: (r, k, v (B,S,nh,hd) in x's dtype, g, log
+    w (B,S,nh,hd) f32, new shift), with the data-dependent token shift."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+    dx, new_shift = _token_shift(x, state)
+
+    def shifted(nm, lora):
+        return x + dx * (p[f"mu_{nm}"] + _lora(x, p[f"{lora}_A"],
+                                               p[f"{lora}_B"]))
+
+    xr, xk, xv = shifted("r", "lr"), shifted("k", "lk"), shifted("v", "lv")
+    xw, xg = shifted("w", "lw"), shifted("g", "lg")
+    r = (xr @ p["wr"]).reshape(b, s, nh, hd)
+    k = (xk @ p["wk"]).reshape(b, s, nh, hd)
+    v = (xv @ p["wv"]).reshape(b, s, nh, hd)
+    g = F.silu(xg @ p["wg"])
+    lw = -torch.exp((p["w0"] + _lora(xw, p["ww_A"], p["ww_B"])).float())
+    return r, k, v, g, lw.reshape(b, s, nh, hd), new_shift
+
+
+def _rwkv6_out(p, x, y, g):
+    """ln_x, an RMS norm over each head's hd channels of y (B,S,nh,hd)
+    f32, then the gate and the output projection."""
+    b, s, d = x.shape
+    y = rms_norm(y, p["ln_x"]).reshape(b, s, d).to(x.dtype)
+    return (y * g) @ p["wo"]
+
+
+def rwkv6_timemix(p, cfg, x: torch.Tensor, state: dict | None = None):
+    """x: (B, S, d). state: {"shift": (B, d), "wkv": (B, H, hd, hd) f32}.
+    Each step reads y = r (S + u k^T v) before S = S w + k^T v."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state)
+    w = torch.exp(lw)                                         # in (0, 1)
+    u = p["u"].reshape(d // hd, hd)[None, :, :, None]
+    rf, kf, vf = r.float(), k.float(), v.float()
+    S_ = _ssm_init(state, "wkv", (b, d // hd, hd, hd), x.device)
+    ys = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]     # (B,nh,hd,hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S_ + u * kv))
+        S_ = torch.addcmul(kv, S_, w[:, t, :, :, None])
+    y = torch.stack(ys, dim=1)                                # (B,S,nh,hd)
+    return _rwkv6_out(p, x, y, g), {"shift": new_shift, "wkv": S_}
+
+
+def rwkv6_timemix_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
+                          chunk: int = 32):
+    """The chunked-parallel form of rwkv6_timemix. Within a chunk
+        y_t = r_t S_{t-1} + (r_t . u . k_t) v_t,
+        A[t,i] = sum_c r_tc k_ic exp(cum_{t-1,c} - cum_{i,c})   (i < t),
+    the exponent a partial sum of log-decays, so <= 0; the state carries
+    across chunks as in the sequential form. r, k, v are cast to f32 here,
+    and the sequence is padded to whole chunks with zeros (log-decay 0)."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    nh = d // hd
+    r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state)
+    r, k, v = r.float(), k.float(), v.float()
+    u = p["u"].reshape(nh, hd).float()
+    pad = (-s) % chunk
+    if pad:
+        r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, lw))
+    nc = r.shape[1] // chunk
+    r, k, v, lw = (a.reshape(b, nc, chunk, nh, hd) for a in (r, k, v, lw))
+    cum = torch.cumsum(lw, dim=2)                             # inclusive
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device), diagonal=-1)   # i < t
+    S_ = _ssm_init(state, "wkv", (b, nh, hd, hd), x.device)
+    ys = []
+    for c in range(nc):
+        rt, kt, vt, ci, lwt = (a[:, c].transpose(1, 2)       # (B,nh,L,hd)
+                               for a in (r, k, v, cum, lw))
+        ct = ci - lwt                                         # cum_{t-1}
+        ed = torch.exp(torch.clamp(ct[:, :, :, None, :] - ci[:, :, None, :, :],
+                                   -60.0, 0.0))               # (B,nh,t,i,hd)
+        A = torch.einsum("bhtc,bhic,bhtic->bhti", rt, kt, ed) * tri
+        y = torch.einsum("bhti,bhiv->bhtv", A, vt)
+        # the diagonal (bonus) term (r_t . u . k_t) v_t
+        diag = torch.einsum("bhtc,hc,bhtc->bht", rt, u, kt)
+        y = y + diag[..., None] * vt
+        # inter-chunk: r_t . P_{t-1} applied to the carried state
+        y = y + torch.einsum("bhtc,bhcv->bhtv", rt * torch.exp(ct), S_)
+        # S = diag(P_L) S_prev + sum_i diag(P_L / P_i) k_i v_i^T
+        wL = torch.exp(torch.clamp(ci[:, :, -1:] - ci, -60.0, 0.0))
+        S_in = torch.einsum("bhic,bhiv->bhcv", kt * wL, vt)
+        S_ = S_ * torch.exp(ci[:, :, -1])[..., None] + S_in
+        ys.append(y.transpose(1, 2))                          # (B,L,nh,hd)
+    y = torch.stack(ys, dim=1).reshape(b, nc * chunk, nh, hd)[:, :s]
+    return _rwkv6_out(p, x, y, g), {"shift": new_shift, "wkv": S_}
+
+
+def rwkv6_channelmix(p, x: torch.Tensor, state: dict | None = None):
+    """state: {"shift": (B, d)}."""
+    dx, new_shift = _token_shift(x, state)
+    xk = x + dx * p["mu_k"]
+    xr = x + dx * p["mu_r"]
+    k = torch.square(F.relu(xk @ p["wk"]))
+    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    return out, {"shift": new_shift}

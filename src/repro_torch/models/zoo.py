@@ -1,12 +1,14 @@
-"""Architecture zoo, dense and moe families: parameter templates and the
-forward pass.
+"""Architecture zoo: parameter templates and the forward pass.
 
 Dense — llama-style GQA (yi, qwen3, starcoder2, gemma3 local:global) and
 pixtral's dense decoder over [patch embeds ; token embeds] (frontend
 stubbed, as in the reference). Moe — token-choice top-k MoE (dbrx; arctic
 adds a dense residual MLP beside the experts), whose forward also returns
-the Switch aux loss summed over the layers. The ssm, hybrid and encdec
-families are not ported yet (ROADMAP Queue 1 item 12).
+the Switch aux loss summed over the layers. Ssm — RWKV-6 (attention-free).
+Hybrid — zamba2: a Mamba2 backbone and one *shared* attention block applied
+after every `attn_every` layers (weights reused, input [h ; embed0]). The
+ssm and hybrid forwards return an aux loss of 0. The encdec family is not
+ported yet (ROADMAP Queue 1 item 12).
 
 Parameters keep the reference's tree (src/repro/models/zoo.py), with layer
 params STACKED on a leading axis; the forward walks the layers in a
@@ -102,8 +104,78 @@ def _moe_block_templates(cfg: ModelConfig) -> dict:
     return t
 
 
+def _mamba_templates(cfg: ModelConfig) -> dict:
+    d, di, n = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
+    nh = cfg.ssm_heads
+    conv_ch = di + 2 * n
+    return {
+        "in_proj": P((d, 2 * di + 2 * n + nh), ("embed", "ff")),
+        "conv_w": P((cfg.ssm_conv, conv_ch), (None, "ff")),
+        "conv_b": P((conv_ch,), ("ff",), "zeros"),
+        "dt_bias": P((nh,), (None,), "zeros"),
+        "A_log": P((nh,), (None,), "ones"),
+        "D": P((nh,), (None,), "ones"),
+        "out_norm": P((di,), ("ff",), "zeros"),
+        "out_proj": P((di, d), ("ff", "embed")),
+    }
+
+
+def _rwkv_block_templates(cfg: ModelConfig) -> dict:
+    d, r = cfg.d_model, cfg.rwkv_lora_dim
+    tm = {
+        "wr": P((d, d), ("embed", "qout")),
+        "wk": P((d, d), ("embed", "qout")),
+        "wv": P((d, d), ("embed", "qout")),
+        "wg": P((d, d), ("embed", "qout")),
+        "wo": P((d, d), ("qout", "embed")),
+        "w0": P((d,), (None,), "zeros"),
+        "u": P((d,), (None,), "zeros"),
+        "ln_x": P((cfg.rwkv_head_dim,), (None,), "zeros"),
+    }
+    for nm in ["r", "k", "v", "w", "g"]:
+        tm[f"mu_{nm}"] = P((d,), (None,), "zeros")
+    for nm in ["lr", "lk", "lv", "lw", "lg", "ww"]:
+        tm[f"{nm}_A"] = P((d, r), ("embed", None))
+        tm[f"{nm}_B"] = P((r, d), (None, "embed"), "zeros")
+    cm = {
+        "mu_k": P((d,), (None,), "zeros"),
+        "mu_r": P((d,), (None,), "zeros"),
+        "wk": P((d, cfg.d_ff), ("embed", "ff")),
+        "wv": P((cfg.d_ff, d), ("ff", "embed")),
+        "wr": P((d, d), ("embed", "qout")),
+    }
+    return {"ln1": P((d,), (None,), "zeros"), "tm": tm,
+            "ln2": P((d,), (None,), "zeros"), "cm": cm}
+
+
+def _mamba_block_templates(cfg: ModelConfig) -> dict:
+    return {"ln": P((cfg.d_model,), (None,), "zeros"),
+            "mixer": _mamba_templates(cfg)}
+
+
+def _shared_attn_templates(cfg: ModelConfig) -> dict:
+    """zamba2's shared block: input [h ; embed0] (2d) -> proj -> attn + mlp."""
+    d = cfg.d_model
+    return {
+        "proj_in": P((2 * d, d), ("embed", None)),
+        "ln1": P((d,), (None,), "zeros"),
+        "attn": _attn_templates(cfg),
+        "ln2": P((d,), (None,), "zeros"),
+        "mlp": _mlp_templates(cfg),
+    }
+
+
 _BLOCK_TEMPLATES = {"dense": _dense_block_templates,
-                    "moe": _moe_block_templates}
+                    "moe": _moe_block_templates,
+                    "ssm": _rwkv_block_templates,
+                    "hybrid": _mamba_block_templates}
+
+
+def shared_applications(cfg: ModelConfig) -> int:
+    """How often a hybrid model applies its shared attention block: once
+    after each whole group of `attn_every` layers; the layers of a partial
+    last group (the tail) follow the last application."""
+    return cfg.n_layers // cfg.attn_every
 
 
 def templates(cfg: ModelConfig) -> dict:
@@ -117,6 +189,8 @@ def templates(cfg: ModelConfig) -> dict:
         t["head"] = P((d, cfg.vocab), ("embed", "vocab"))
     t["blocks"] = stack_tree(_BLOCK_TEMPLATES[cfg.arch_type](cfg),
                              cfg.n_layers)
+    if cfg.arch_type == "hybrid":
+        t["shared_attn"] = _shared_attn_templates(cfg)
     return t
 
 
@@ -124,9 +198,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The port's parameter tree from numpy arrays of the reference's tree
     (e.g. `jax.device_get` of its `materialize`), checked leaf by leaf
     against this config's templates (a moe config's stacked expert leaves,
-    (L, E, d, ff), included). Values arrive bit for bit: a bfloat16
-    array (numpy's `ml_dtypes.bfloat16`, which torch.from_numpy rejects)
-    crosses as its uint16 bit pattern."""
+    (L, E, d, ff), and a hybrid's unstacked `shared_attn` included).
+    Values arrive bit for bit: a bfloat16 array (numpy's
+    `ml_dtypes.bfloat16`, which torch.from_numpy rejects) crosses as its
+    uint16 bit pattern."""
     def one(a, t: P) -> torch.Tensor:
         a = np.asarray(a)
         if tuple(a.shape) != tuple(t.shape):
@@ -210,6 +285,47 @@ def _block_fwd(p, cfg, x, positions, window, kv_cache=None, cache_len=None,
     return x, cache, 0.0
 
 
+def _chunked(cfg, x) -> bool:
+    """The recurrent blocks take the chunked form for cfg.ssm_impl ==
+    "chunked" and more than one position, else the sequential scan."""
+    return cfg.ssm_impl == "chunked" and x.shape[1] > 1
+
+
+def _rwkv_block_fwd(p, cfg, x, state=None):
+    """One RWKV-6 layer: (x, new state {"tm_shift", "wkv", "cm_shift"})."""
+    st_tm = None if state is None else {"shift": state["tm_shift"],
+                                        "wkv": state["wkv"]}
+    tm = (Lyr.rwkv6_timemix_chunked if _chunked(cfg, x)
+          else Lyr.rwkv6_timemix)
+    h, new_tm = tm(p["tm"], cfg, Lyr.rms_norm(x, p["ln1"]), st_tm)
+    x = x + h
+    st_cm = None if state is None else {"shift": state["cm_shift"]}
+    h, new_cm = Lyr.rwkv6_channelmix(p["cm"], Lyr.rms_norm(x, p["ln2"]),
+                                     st_cm)
+    x = x + h
+    return x, {"tm_shift": new_tm["shift"], "wkv": new_tm["wkv"],
+               "cm_shift": new_cm["shift"]}
+
+
+def _mamba_block_fwd(p, cfg, x, state=None):
+    """One Mamba2 layer: (x, new state {"conv", "ssm"})."""
+    impl = Lyr.mamba2_chunked if _chunked(cfg, x) else Lyr.mamba2_scan
+    h, new_state = impl(p["mixer"], cfg, Lyr.rms_norm(x, p["ln"]), state)
+    return x + h, new_state
+
+
+def _shared_attn_fwd(p, cfg, x, emb0, positions, kv_cache=None,
+                     cache_len=None, mode="decode"):
+    """zamba2's shared block on [x ; emb0] @ proj_in, with no window."""
+    inp = torch.cat([x, emb0], dim=-1) @ p["proj_in"]
+    h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(inp, p["ln1"]),
+                             positions=positions, window=BIG_WINDOW,
+                             kv_cache=kv_cache, cache_len=cache_len, mode=mode)
+    x = x + h
+    x = x + Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp_act)
+    return x, cache
+
+
 def embed_inputs(params, cfg, batch):
     tok_emb = params["embed"][batch["tokens"]]
     if cfg.frontend_positions:
@@ -221,18 +337,38 @@ def embed_inputs(params, cfg, batch):
 def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Returns (logits, aux_loss): the moe family's aux summed over the
-    layers (float32), 0 for the dense family."""
+    layers (float32), 0 for the other families."""
     check_ported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), device=x.device)
-    wins = window_schedule(cfg)
-    for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
-        x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]))
-        aux_total = aux_total + aux
+    layers = unstack(params["blocks"], cfg.n_layers)
+    if cfg.arch_type == "ssm":
+        for p in layers:
+            x, _ = _rwkv_block_fwd(p, cfg, x)
+    elif cfg.arch_type == "hybrid":
+        x = _hybrid_forward(params, cfg, x, layers, positions)
+    else:
+        wins = window_schedule(cfg)
+        for i, p in enumerate(layers):
+            x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]))
+            aux_total = aux_total + aux
     x = Lyr.rms_norm(x, params["final_norm"])
     return _lm_head(params, cfg, x), aux_total
+
+
+def _hybrid_forward(params, cfg, x, layers, positions):
+    """zamba2: the mamba layers, the shared block after each whole group
+    of `attn_every` of them (its second input emb0 the embedded input),
+    the tail's layers after the last application."""
+    emb0 = x
+    for i, p in enumerate(layers):
+        x, _ = _mamba_block_fwd(p, cfg, x)
+        if (i + 1) % cfg.attn_every == 0:
+            x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, emb0,
+                                    positions)
+    return x
 
 
 def _lm_head(params, cfg, x):
@@ -257,13 +393,20 @@ def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     return nll + aux_weight * aux
 
 
+def _or_zeros(g, p_):
+    return torch.zeros_like(p_) if g is None else g
+
+
 def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update):
     """One optimizer step on the parameter tree: (params, opt_state, loss).
-    Each update is cast to its parameter's dtype before it is added."""
+    Each update is cast to its parameter's dtype before it is added. A
+    leaf the loss does not reach (a hybrid's shared block when the depth
+    keeps no application of it) gets a zero gradient, as under jax.grad."""
     leaves = tree_map(lambda p_: p_.detach().requires_grad_(True), params)
     loss = lm_loss(leaves, cfg, batch)
-    grads = iter(torch.autograd.grad(loss, list(tree_leaves(leaves))))
-    grads = tree_map(lambda _: next(grads), leaves)
+    grads = iter(torch.autograd.grad(loss, list(tree_leaves(leaves)),
+                                     allow_unused=True))
+    grads = tree_map(lambda p_: _or_zeros(next(grads), p_), leaves)
     updates, opt_state = opt_update(grads, opt_state, params)
     params = tree_map(lambda p_, u: p_ + u.to(p_.dtype), params, updates)
     return params, opt_state, loss.detach()

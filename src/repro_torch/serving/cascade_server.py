@@ -6,7 +6,9 @@ scorer that the cascade shields from the bulk of the traffic.
 The scorer runs the model's blocks over the window schedule: a dense
 architecture, as in the reference, or a moe one (the port's addition: the
 reference's scorer runs the dense block alone, so a moe model does not
-score there); a moe block's aux loss is dropped.
+score there); a moe block's aux loss is dropped. The ssm and hybrid
+families cannot score (the reference's scorer cannot run them either):
+asking for one raises ValueError before a weight is drawn.
 
 CascadeServer is the thin COMPATIBILITY SHIM over the streaming
 serving.session.CascadeSession engine: submit() queues unboundedly and
@@ -39,6 +41,19 @@ from repro_torch.serving.session import (CascadeSession, DegradePolicy,
 # tokenizer (the real system embeds item text/ids; the *compute* is real).
 # ---------------------------------------------------------------------------
 
+SCORING_FAMILIES = ("dense", "moe")
+
+
+def check_scorable(cfg: MB.ModelConfig) -> None:
+    """Raise ValueError unless cfg's family runs the scorer's blocks."""
+    if cfg.arch_type not in SCORING_FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.arch_type} family cannot be the neural "
+            f"final stage; the scorer runs the {' and '.join(SCORING_FAMILIES)}"
+            " families' attention blocks, as the reference's runs the dense "
+            "block")
+
+
 @dataclasses.dataclass
 class NeuralScorer:
     cfg: MB.ModelConfig
@@ -52,6 +67,7 @@ class NeuralScorer:
         """Random weights on `device`, by the reference's init rule, from
         a torch generator seeded with `seed` (the reference draws from
         `jax.random`, so the numbers differ)."""
+        check_scorable(cfg)
         gen = torch.Generator(device=device).manual_seed(seed)
         params = MB.materialize(Z.templates(cfg), gen, dtype=torch.float32)
         # small head: an untrained final stage should perturb, not
@@ -82,6 +98,7 @@ class NeuralScorer:
         return hidden.mean(dim=1) @ self.head
 
     def _hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        check_scorable(self.cfg)
         params = self.params
         x = params["embed"][tokens]
         b, s, _ = x.shape

@@ -1,5 +1,6 @@
-"""Serving engine, dense and moe families: cache construction, prefill and
-single-token decode (the reference's src/repro/serving/engine.py).
+"""Serving engine: cache construction, prefill and single-token decode for
+the dense, moe, ssm and hybrid families (the reference's
+src/repro/serving/engine.py).
 
 Caches are dicts of tensors with the per-layer state STACKED on a leading
 axis, in the reference's layout (M = max cache length):
@@ -7,15 +8,26 @@ axis, in the reference's layout (M = max cache length):
   dense, gemma3  : {"gk","gv"}: (n_groups, B, M, Hkv, hd)   global layers
                    {"lk","lv"}: (n_groups, g-1, B, W, Hkv, hd) local rings
                    {"tlk","tlv"}: (tail, B, W, Hkv, hd)     local tail
+  ssm (rwkv6)    : {"tm_shift","cm_shift"}: (L, B, d), "wkv": (L, B, nh,
+                   hd, hd) float32
+  hybrid (zamba2): {"conv": (L, B, kw-1, di+2n), "ssm": (L, B, nh, hd, N)
+                   float32, "attn_k","attn_v": (G, B, M, Hkv, hd)}, G the
+                   shared block's applications (zoo.shared_applications)
 with W = min(sliding_window, M): a local layer keeps only a window-sized
-ring buffer (slot = position % W).
+ring buffer (slot = position % W). Every tensor is in cfg.dtype unless
+marked float32.
 
 Prefill and decode write the cache IN PLACE and return it; its contents
 equal the reference's. `cache_len` is a host int, so a decode step
 launches its work without waiting for the card. Every decode step runs K8
-once per layer (`layers.decode_attention`). A moe layer's capacity comes
-from the tokens of the call (B * S at prefill, B at decode), as in the
-reference: choices past an expert's capacity are dropped.
+once per attention layer (`layers.decode_attention`): once per layer of a
+dense or moe model, once per shared-block application of a hybrid, never
+for the ssm family. A moe layer's capacity comes from the tokens of the
+call (B * S at prefill, B at decode), as in the reference: choices past
+an expert's capacity are dropped. The recurrent layers' prefill starts
+from zero state whatever the cache holds, as the reference's does; a
+layer's new state is written over its old one after the layer has read
+it.
 """
 
 from __future__ import annotations
@@ -40,8 +52,21 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int
                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of every tensor of the serving cache."""
     Z.check_ported(cfg)
-    L, b = cfg.n_layers, batch
+    L, b, d = cfg.n_layers, batch, cfg.d_model
     hkv, hd = cfg.n_kv_heads, cfg.hd
+    f32 = torch.float32
+    if cfg.arch_type == "ssm":
+        nh, rhd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        return {"tm_shift": ((L, b, d), cfg.dtype),
+                "wkv": ((L, b, nh, rhd, rhd), f32),
+                "cm_shift": ((L, b, d), cfg.dtype)}
+    if cfg.arch_type == "hybrid":
+        g = Z.shared_applications(cfg)
+        di, n = cfg.ssm_d_inner, cfg.ssm_state
+        return {"conv": ((L, b, cfg.ssm_conv - 1, di + 2 * n), cfg.dtype),
+                "ssm": ((L, b, cfg.ssm_heads, cfg.ssm_head_dim, n), f32),
+                "attn_k": ((g, b, max_len, hkv, hd), cfg.dtype),
+                "attn_v": ((g, b, max_len, hkv, hd), cfg.dtype)}
     if _windowed(cfg):
         g = cfg.global_every
         n_groups, tail = divmod(L, g)
@@ -96,6 +121,10 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
 
 def _run_layers(params, cfg, x, positions, cache, cache_len, mode):
     Z.check_ported(cfg)
+    if cfg.arch_type == "ssm":
+        return _rwkv_run(params, cfg, x, cache, mode)
+    if cfg.arch_type == "hybrid":
+        return _hybrid_run(params, cfg, x, positions, cache, cache_len, mode)
     if _windowed(cfg):
         return _dense_serve_windowed(params, cfg, x, positions, cache,
                                      cache_len, mode)
@@ -137,4 +166,45 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode):
             cache_len=cache_len, mode=mode)
     for ti, p in enumerate(layers[n_groups * g:]):
         x = local_block(x, p, cache["tlk"][ti], cache["tlv"][ti])
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: rwkv6 (ssm) and zamba2 (hybrid). Prefill runs each
+# recurrent layer from zero state; decode from the cached one.
+# ---------------------------------------------------------------------------
+
+def _layer_state(cache, keys, i, mode) -> dict | None:
+    return {k: cache[k][i] for k in keys} if mode == "decode" else None
+
+
+def _write_state(cache, i, new: dict) -> None:
+    for k, v in new.items():
+        cache[k][i].copy_(v)
+
+
+def _rwkv_run(params, cfg, x, cache, mode):
+    for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        x, new = Z._rwkv_block_fwd(
+            p, cfg, x, _layer_state(cache, ("tm_shift", "wkv", "cm_shift"),
+                                    i, mode))
+        _write_state(cache, i, new)
+    return x
+
+
+def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode):
+    """zamba2: the mamba layers with their conv / ssm state, and after each
+    whole group of `attn_every` the shared block on its own KV cache
+    attn_k[g] / attn_v[g] (one set of weights for every application)."""
+    emb0 = x
+    for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        x, new = Z._mamba_block_fwd(
+            p, cfg, x, _layer_state(cache, ("conv", "ssm"), i, mode))
+        _write_state(cache, i, new)
+        if (i + 1) % cfg.attn_every == 0:
+            g = i // cfg.attn_every
+            x, _ = Z._shared_attn_fwd(
+                params["shared_attn"], cfg, x, emb0, positions,
+                kv_cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
+                cache_len=cache_len, mode=mode)
     return x

@@ -1,9 +1,10 @@
-"""The port's model zoo (dense and moe families) on the CPU against the
-reference: the configs, the parameter templates and `materialize`'s init
-rule, every dense layer on the same numpy inputs, and `zoo.forward` (logits
+"""The port's model zoo (dense, moe, ssm and hybrid families) on the CPU
+against the reference: the configs, the parameter templates and
+`materialize`'s init rule, every dense layer on the same numpy inputs, and `zoo.forward` (logits
 and the moe aux loss) for every ported smoke config from the reference's
 own `materialize` carried over by `params_from_numpy` (bit for bit,
-bfloat16 included). The moe layer itself: tests/test_torch_moe.py.
+bfloat16 included). The moe layer itself: tests/test_torch_moe.py; the
+ssm and hybrid mixers: tests/test_torch_ssm.py.
 
 Tolerances: layers rtol/atol 1e-5 in float32 (sums taken in another
 order); forward logits 2e-4, the reference's own bar between its prefill
@@ -205,27 +206,28 @@ def test_attention_matches_reference(arch, window):
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_forward_matches_reference(arch):
     """Logits at LOGIT_TOL; the aux loss (the moe family's Switch loss
-    summed over the layers, 0 for the dense family) at 1e-6."""
+    summed over the layers, 0 for the other families) at 1e-6."""
     jcfg, tcfg, jp, tp = dense_model(arch)
     jb, tb = token_batch(jcfg, 2, 40, seed=1)       # > gemma3-smoke's window
     want, want_aux = JZ.forward(jp, jcfg, jb)
     got, aux = TZ.forward(tp, tcfg, tb)
     assert tuple(got.shape) == (2, 40 + jcfg.frontend_positions, jcfg.vocab)
     assert aux.dtype == torch.float32 and aux.shape == ()
-    if jcfg.arch_type == "dense":
-        assert float(aux) == 0.0
-    else:
+    if jcfg.arch_type == "moe":
         assert float(aux) > 0.0
+    else:
+        assert float(aux) == 0.0
     close(aux, want_aux, 1e-6, 1e-6)
     close(got, want, LOGIT_TOL, LOGIT_TOL)
 
 
 def test_non_dense_families_are_not_ported():
-    """The families still to port (ssm, hybrid, encdec) raise."""
-    ssm = dataclasses.replace(TCFG.get_smoke("gemma3-27b"), arch_type="ssm")
+    """The family still to port (encdec) raises."""
+    encdec = dataclasses.replace(TCFG.get_smoke("gemma3-27b"),
+                                 arch_type="encdec")
     for fn in (TZ.templates, lambda c: TZ.forward({}, c, {})):
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            fn(ssm)
+            fn(encdec)
 
 
 def test_forward_in_bf16_stays_near_reference():

@@ -217,7 +217,7 @@ def test_unknown_plan_and_neural_stage_are_refused():
     with pytest.raises(ValueError, match="neural stage"):
         TS.CascadeSession(_TP, _TCFG, neural_stage=elsewhere, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TL.build_neural("rwkv6-1.6b", device="cpu")
+        TL.build_neural("seamless-m4t-large-v2", device="cpu")
 
 
 def test_cuda_device_without_a_card_raises():

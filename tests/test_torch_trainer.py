@@ -630,8 +630,8 @@ def test_train_launcher_lm_target_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[train] yi-smoke" in out and "final loss" in out
     with pytest.raises(NotImplementedError, match="not ported"):
-        TLT.main(["--target", "lm", "--arch", "rwkv6-1.6b", "--smoke",
-                  "--device", "cpu"])
+        TLT.main(["--target", "lm", "--arch", "seamless-m4t-large-v2",
+                  "--smoke", "--device", "cpu"])
 
 
 def test_train_launcher_lm_layers_cuts_depth_only(capsys):

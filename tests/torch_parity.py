@@ -241,7 +241,8 @@ def assert_same_serve(jres, tres, jses, tses):
 DENSE_ARCHS = ["gemma3-27b", "qwen3-8b", "yi-34b", "starcoder2-3b",
                "pixtral-12b"]
 MOE_ARCHS = ["dbrx-132b", "arctic-480b"]
-PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS
+SSM_ARCHS = ["rwkv6-1.6b", "zamba2-1.2b"]      # the ssm and hybrid families
+PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
 
 
 def dense_model(arch, dtype="float32", seed=1):
