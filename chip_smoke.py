@@ -150,8 +150,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    1e-5), the ring-buffer mapping against the reference's masked formula
    over ring_slot_positions, float32 at 2e-5 at gemma3-27b's decode shapes
    (global layer B=4, S=4096; local ring S=W=1024, wrapped and not; B=1 at
-   128k) and at zamba2-1.2b's (B=4, 32 heads of 64, S=547), and two
-   launches giving the same bits; then K8 timed as the
+   128k), at zamba2-1.2b's (B=4, 32 heads of 64, S=547) and at
+   seamless-m4t-large-v2's cross attention (B=4, 16 heads of 64, S=4096),
+   and two launches giving the same bits; then K8 timed as the
    other kernels at those shapes in bfloat16 (held to the same bar),
    beside its plain version, its bound (in-window K+V bytes at 3.35 TB/s)
    and one PyTorch call computing the same function
@@ -192,6 +193,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    shared block's once per application), CUDA kernel launches per step,
    the device's idle share (a profile of 3 more steps) and peak memory,
    beside the card's name and power limit;
+8d. `[encdec lm]` seamless-m4t-large-v2 at its published widths and full
+   depth (24 encoder + 24 decoder layers) in bfloat16, the weights drawn on
+   the card: prefill of 4 prompts of 512 tokens over 4096 frontend frames
+   (configs/shapes.py's decode context), 32 greedy decode steps with K8
+   launched twice per decoder layer per step (self attention, and cross
+   attention over the cached encoder K/V) and nothing else, the logits
+   against the model's forward over the same tokens; prefill s, median and
+   p90 ms per step beside the floor of the bytes a step reads, CUDA kernel
+   launches per step, the device's idle share, tokens/s and peak memory;
 10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
    2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
    the card: finite losses within 1e-4 of the same steps on the CPU, and
@@ -220,11 +230,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    form's prefill, on the card against the CPU within 2e-4;
 15. `[ssm train]` --target lm at those cuts, 3 Adam steps on 2 x 32
    tokens at lr 1e-4, the card's losses within 1e-4 of the CPU's;
-16. one JSON line with each kernel's launches on its path (K2, K4 and
+16. `[encdec parity]` seamless-smoke in float32, its norms perturbed, on
+   the card against the CPU: forward, prefill of 2 x 24 tokens over 16
+   frames and 16 greedy decode steps fed the CPU's tokens, and
+   `build_neural`'s scorer on 37 items, all within 1e-5, greedy tokens
+   exact where the margin allows; K8 = 2 x layers x steps and no other
+   kernel, none for the scorer;
+17. `[encdec lm check]` seamless at full width cut to 2 + 2 layers in
+   float32, perturbed: prefill of 2 x 128 tokens over 256 frames and 8
+   greedy decode steps, held to the model's own forward on the card
+   (2e-3) and to the CPU (2e-4);
+18. `[encdec train]` --target lm on seamless-smoke, 3 Adam steps at lr
+   1e-4 within 1e-4 of the CPU; then at full depth on the card alone (3
+   steps of 2 x 64 tokens + 16 frames, float32 weights): finite losses, s
+   per step, peak memory;
+19. one JSON line with each kernel's launches on its path (K2, K4 and
    K5 also on the restart, data-parallel and warm-restart paths; K8 also
-   on the moe and ssm paths; query_bias on the serving main path and the
-   others), error and times; the last line is {"ok": true, "device":
-   {...}}.
+   on the moe, ssm and encdec paths; query_bias on the serving main path
+   and the others), error and times; the last line is {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -259,6 +283,7 @@ from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 from repro_torch import configs as CFG  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.configs import cloes  # noqa: E402
+from repro_torch.configs.shapes import DECODE_ENC_LEN  # noqa: E402
 from repro_torch.core import baselines as B  # noqa: E402
 from repro_torch.core import cascade as C  # noqa: E402
 from repro_torch.core import losses as L  # noqa: E402
@@ -282,7 +307,8 @@ from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
     PinnedBatch, RequestBatcher, alloc_batch, bucket_of, pack_into)
-from repro_torch.serving.cascade_server import CascadeServer  # noqa: E402
+from repro_torch.serving.cascade_server import (  # noqa: E402
+    CascadeServer, NeuralScorer)
 from repro_torch.serving.loadgen import (  # noqa: E402
     run_open_loop, run_open_loop_router)
 from repro_torch.serving.pump import SessionPump, run_wall_clock  # noqa: E402
@@ -310,9 +336,12 @@ K8_BF16_RTOL, K8_BF16_ATOL = 2.0 ** -7, 1e-5
 # K8 timing shapes (B, H, Hkv, hd, S): gemma3-27b's decode attention at
 # the LM phase's batch: a global layer's cache, a local layer's full ring,
 # and one sequence at 128k context; and zamba2-1.2b's shared block in
-# [ssm lm] (32 heads of 64, no GQA) over its cache of 512 + 32 + 3.
+# [ssm lm] (32 heads of 64, no GQA) over its cache of 512 + 32 + 3; and
+# seamless-m4t-large-v2's cross attention in [encdec lm] (16 heads of 64,
+# no GQA) over its 4096 cached encoder frames.
 K8_SHAPES = {"global": (4, 32, 16, 128, 4096), "ring": (4, 32, 16, 128, 1024),
-             "long": (1, 32, 16, 128, 131072), "zamba2": (4, 32, 32, 64, 547)}
+             "long": (1, 32, 16, 128, 131072), "zamba2": (4, 32, 32, 64, 547),
+             "encdec_cross": (4, 16, 16, 64, DECODE_ENC_LEN)}
 # ... and one whose grid (B=1, 2 kv heads, 32 splits: 64 blocks) leaves room
 # for a second call's on the card, for the two-stream check.
 K8_PAIR_SHAPE = (1, 4, 2, 128, 2048)
@@ -382,6 +411,34 @@ SSM_CHECK_BATCH, SSM_CHECK_PROMPT, SSM_CHECK_STEPS = 2, 128, 8
 # steps) and by 8.27e-5 at lr 1e-3, against the bar of 1e-4; the first
 # loss agreed to every printed digit at both rates.
 SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_LR = 3, 2, 32, 1e-4
+# The encdec family (seamless-m4t-large-v2). [encdec parity]: the smoke
+# config in float32, its zero-initialised leaves (the norms) perturbed as
+# [ssm parity]'s, on the card against the CPU: forward, prefill of
+# ENCDEC_PARITY_BATCH x ENCDEC_PARITY_PROMPT tokens over
+# ENCDEC_PARITY_FRAMES frontend frames, ENCDEC_PARITY_STEPS greedy decode
+# steps and the neural scorer, all within ENCDEC_PARITY_TOL. [encdec lm]:
+# the config at published widths and full depth (24 + 24 layers) in
+# bfloat16, B = 4 over DECODE_ENC_LEN frames (configs/shapes.py's decode
+# context), a prompt's prefill and ENCDEC_LM_STEPS greedy decode steps.
+# [encdec lm check]: full width cut to ENCDEC_CHECK_LAYERS encoder and
+# decoder layers in float32 (perturbed) on the card against the CPU.
+# [encdec train]: --target lm on the smoke config, card against CPU at
+# [ssm train]'s lr and bar, then at full depth on the card alone.
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_PARITY_BATCH, ENCDEC_PARITY_PROMPT = 2, 24
+ENCDEC_PARITY_FRAMES, ENCDEC_PARITY_STEPS = 16, 16
+ENCDEC_PARITY_TOL = 1e-5
+ENCDEC_NEURAL_ITEMS = 37
+ENCDEC_LM_BATCH, ENCDEC_LM_PROMPT, ENCDEC_LM_STEPS = 4, 512, 32
+# [encdec lm]'s decode against its own forward in bfloat16: the gap as a
+# share of the logits' scale. The reference's 2e-3 is below one bfloat16
+# unit of logits that reach ~3; [encdec lm check] holds decode to the
+# forward at 2e-3 in float32.
+ENCDEC_BF16_GAP = 0.1
+ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_BATCH, ENCDEC_CHECK_PROMPT = 2, 2, 128
+ENCDEC_CHECK_FRAMES, ENCDEC_CHECK_STEPS = 256, 8
+ENCDEC_TRAIN_STEPS = 3
+ENCDEC_FULL_TRAIN_BATCH, ENCDEC_FULL_TRAIN_SEQ = 2, 64
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -2996,26 +3053,30 @@ def check_routes(got, want, k, label) -> tuple[int, int]:
     return compared, skipped
 
 
-def check_greedy(got, want, label) -> int:
-    """Logits (B, V) within MOE_LOGIT_TOL; the greedy token equal wherever
-    want's top-2 margin exceeds twice the bar. Returns tokens compared."""
-    torch.testing.assert_close(got, want, rtol=MOE_LOGIT_TOL,
-                               atol=MOE_LOGIT_TOL, msg=lambda m: f"{label}: {m}")
+def check_greedy(got, want, label, tol=MOE_LOGIT_TOL) -> int:
+    """Logits (B, V) within tol; the greedy token equal wherever want's
+    top-2 margin exceeds twice the bar. Returns tokens compared."""
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                               msg=lambda m: f"{label}: {m}")
     top2 = torch.topk(want, 2, dim=-1).values
-    sure = (top2[:, 0] - top2[:, 1]) > 2 * MOE_LOGIT_TOL
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
     assert torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure]), label
     return int(sure.sum())
 
 
-def lm_serve(params, cfg, tokens, steps, device, feed=None) -> dict:
-    """Prefill `tokens` (B, S), then `steps` greedy decode steps on
-    `device`, each fed feed[i] (B, 1) if given, else this run's own greedy
-    token: every step's last-position logits (on the CPU), the tokens fed
-    and the routing of every moe layer's call (none in other families)."""
+def lm_serve(params, cfg, tokens, steps, device, feed=None,
+             frontend=None) -> dict:
+    """Prefill `tokens` (B, S) (over an encdec model's `frontend` frames
+    (B, S_enc, d)), then `steps` greedy decode steps on `device`, each fed
+    feed[i] (B, 1) if given, else this run's own greedy token: every
+    step's last-position logits (on the CPU), the tokens fed and the
+    routing of every moe layer's call (none in other families)."""
     b, s = tokens.shape
-    cache = E.init_cache(cfg, b, s + steps, device=device)
-    (lg, cache), routes = routed(E.prefill, params, cfg,
-                                 {"tokens": tokens.to(device)}, cache)
+    batch, enc_len = {"tokens": tokens.to(device)}, 0
+    if frontend is not None:
+        batch["frontend"], enc_len = frontend.to(device), frontend.shape[1]
+    cache = E.init_cache(cfg, b, s + steps, enc_len, device=device)
+    (lg, cache), routes = routed(E.prefill, params, cfg, batch, cache)
     logits, fed = [lg[:, -1].cpu()], []
     for i in range(steps):
         tok = (logits[-1].argmax(-1, keepdim=True) if feed is None
@@ -3438,14 +3499,15 @@ def phase_ssm_lm_check() -> dict:
         k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
         assert k8 == k8_per_step(cfg) * SSM_CHECK_STEPS, (arch, k8)
         card_chunked = E.prefill(params, chunked, {"tokens": tokens.to("cuda")},
-                                 E.init_cache(chunked, b, s, "cuda"))[0].cpu()
+                                 E.init_cache(chunked, b, s,
+                                              device="cuda"))[0].cpu()
         params = MB.tree_map(lambda a: a.cpu(), params)
         free_cuda()
         t0 = time.perf_counter()
         cpu = lm_serve(params, cfg, tokens, SSM_CHECK_STEPS, "cpu",
                        feed=card["fed"])
         cpu_chunked = E.prefill(params, chunked, {"tokens": tokens},
-                                E.init_cache(chunked, b, s, "cpu"))[0]
+                                E.init_cache(chunked, b, s, device="cpu"))[0]
         cpu_s = time.perf_counter() - t0
         greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}") for i, (g, w)
                      in enumerate(zip(card["logits"], cpu["logits"])))
@@ -3507,6 +3569,313 @@ def phase_ssm_train() -> dict:
         np.testing.assert_allclose(r["losses"], r["cpu_losses"],
                                    rtol=LM_TRAIN_RTOL, err_msg=arch)
     return out
+
+
+# -- 8d. the encdec family: seamless-m4t-large-v2 -------------------------------
+
+def encdec_batch(cfg, b, s, frames, gen) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tokens (b, s), frontend (b, frames, d) float32 0.1 N(0, 1)) drawn
+    with `gen` on its device."""
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device=gen.device)
+    frontend = 0.1 * torch.randn((b, frames, cfg.d_model), generator=gen,
+                                 device=gen.device)
+    return tokens, frontend
+
+
+def decode_gap(params, cfg, tokens, frontend, run) -> tuple[float, float]:
+    """The largest gap between an lm_serve run's logits (its prefill's
+    and each decode step's) and the model's forward over the prompt and
+    the tokens fed, and the forward's largest logit there."""
+    s = tokens.shape[1]
+    seq = torch.cat([tokens.to(frontend.device)]
+                    + [t.to(frontend.device) for t in run["fed"]], 1)
+    full, _ = Z.forward(params, cfg, {"tokens": seq, "frontend": frontend})
+    want = full[:, s - 1:].float().cpu()
+    got = torch.stack([lg.float() for lg in run["logits"]], 1)
+    return (float((got - want).abs().max()), float(want.abs().max()))
+
+
+def phase_encdec_parity() -> dict:
+    """seamless-smoke in float32, perturbed, on the card against the same
+    weights on the CPU: the forward's logits, then a prompt's prefill over
+    ENCDEC_PARITY_FRAMES frames and ENCDEC_PARITY_STEPS greedy decode steps
+    fed the CPU's tokens, and the neural scorer (`build_neural`'s) on the
+    same items, all within ENCDEC_PARITY_TOL; the greedy token exactly
+    where the margin allows; K8 twice per decoder layer per step (self and
+    cross attention) and no other kernel (counts set to 0 before the
+    card's prefill, read after its last step); the scorer launches no
+    kernel."""
+    cfg = dataclasses.replace(CFG.get_smoke(ENCDEC_ARCH), dtype=torch.float32)
+    cpu_params = perturbed(cfg, torch.Generator().manual_seed(3))
+    params = MB.tree_map(lambda a: a.to("cuda"), cpu_params)
+    b, s, steps = ENCDEC_PARITY_BATCH, ENCDEC_PARITY_PROMPT, ENCDEC_PARITY_STEPS
+    tokens, frontend = encdec_batch(cfg, b, s, ENCDEC_PARITY_FRAMES,
+                                    torch.Generator().manual_seed(3))
+    tol = ENCDEC_PARITY_TOL
+    lg, aux = Z.forward(params, cfg, {"tokens": tokens.to("cuda"),
+                                      "frontend": frontend.to("cuda")})
+    lg_c, _ = Z.forward(cpu_params, cfg, {"tokens": tokens,
+                                          "frontend": frontend})
+    torch.testing.assert_close(lg.cpu(), lg_c, rtol=tol, atol=tol)
+    assert float(aux) == 0.0, aux
+    fwd_err = float((lg.cpu() - lg_c).abs().max())
+    cpu = lm_serve(cpu_params, cfg, tokens, steps, "cpu", frontend=frontend)
+    ops.reset_launch_counts()        # the card's engine path starts here
+    card = lm_serve(params, cfg, tokens, steps, "cuda", feed=cpu["fed"],
+                    frontend=frontend)
+    sync()
+    launches = ops.launch_counts()   # ... and ends here
+    want = {k: 0 for k in launches}
+    want["swa_decode"] = 2 * cfg.n_layers * steps
+    assert launches == want, (launches, want)
+    greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}", tol) for i, (g, w)
+                 in enumerate(zip(card["logits"], cpu["logits"])))
+    assert greedy > 0
+    err = max(float((g - w).abs().max())
+              for g, w in zip(card["logits"], cpu["logits"]))
+    scorer = S.build_neural(ENCDEC_ARCH, device="cuda")
+    cpu_scorer = NeuralScorer(
+        cfg=scorer.cfg, params=MB.tree_map(lambda a: a.cpu(), scorer.params),
+        head=scorer.head.cpu())
+    feats = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(ENCDEC_NEURAL_ITEMS, cloes.CASCADE.d_x)).astype(np.float32))
+    ops.reset_launch_counts()
+    scores = scorer.score(feats.to("cuda")).cpu()
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    want_scores = cpu_scorer.score(feats)
+    scale = float(want_scores.abs().max())
+    torch.testing.assert_close(scores, want_scores, rtol=tol,
+                               atol=tol * scale)
+    score_err = float((scores - want_scores).abs().max())
+    print(f"[encdec parity] {cfg.name} ({cfg.n_enc_layers} + {cfg.n_layers} "
+          f"layers, float32, perturbed) on the card against the CPU: forward "
+          f"of {b} x {s} tokens over {ENCDEC_PARITY_FRAMES} frames max |err| "
+          f"{fwd_err:.3g}; prefill + {steps} greedy decode steps max |err| "
+          f"{err:.3g} (bar {tol}), {greedy} greedy tokens equal; K8 x "
+          f"{launches['swa_decode']} = 2 x {cfg.n_layers} x {steps}, no other "
+          f"kernel; neural scorer ({scorer.cfg.name}) on "
+          f"{ENCDEC_NEURAL_ITEMS} items max |err| {score_err:.3g} (scores up "
+          f"to {scale:.3g}), no kernel")
+    del params
+    free_cuda()
+    return dict(fwd_err=fwd_err, decode_err=err, score_err=score_err,
+                k8_launches=launches["swa_decode"])
+
+
+def encdec_step_bytes(params, cfg, cache, pos) -> int:
+    """The bytes one decode step at position `pos` must read: the decoder
+    layers' weights but the cross wk / wv (the cached cross K/V replace
+    them), the final norm and the head, the cross K/V cache and the self
+    K/V cache up to pos."""
+    size = lambda tree: sum(t.numel() * t.element_size()
+                            for t in MB.tree_leaves(tree))
+    blocks = params["blocks"]
+    read = (size(blocks) - size(blocks["cross"]["wk"])
+            - size(blocks["cross"]["wv"]) + size(params["head"])
+            + size(params["final_norm"]))
+    read += size(cache["cross_k"]) + size(cache["cross_v"])
+    k = cache["k"]
+    read += 2 * k[:, :, :pos + 1].numel() * k.element_size()
+    return read
+
+
+def phase_encdec_lm(card: str) -> dict:
+    """seamless-m4t-large-v2 at its published widths and full depth in
+    bfloat16 (the weights drawn on the card): prefill of ENCDEC_LM_BATCH
+    prompts of ENCDEC_LM_PROMPT tokens over DECODE_ENC_LEN frontend frames
+    (timed on the host clock around a sync), then ENCDEC_LM_STEPS greedy
+    decode steps, finite logits; K8 twice per decoder layer per step (self
+    and cross attention) and nothing else counted (counts set to 0 before
+    the prefill, read after the last step); the prefill's and every step's
+    logits against the model's forward over the same tokens (within
+    ENCDEC_BF16_GAP of the logits' scale); ms per step (CUDA events: median
+    and p90) beside the floor of the bytes a step reads, the CUDA kernel
+    launches of one more step, a profile of LM_PROFILE_STEPS more (device
+    idle share) and peak memory; each beside the card's name and power
+    limit."""
+    cfg = CFG.get(ENCDEC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+    sync()
+    make_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in MB.tree_leaves(params))
+    b, s, steps = ENCDEC_LM_BATCH, ENCDEC_LM_PROMPT, ENCDEC_LM_STEPS
+    tokens, frontend = encdec_batch(cfg, b, s, DECODE_ENC_LEN, gen)
+    cache = E.init_cache(cfg, b, s + steps + LM_PROFILE_STEPS, DECODE_ENC_LEN,
+                         device="cuda")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()        # the path starts here
+    t0 = time.perf_counter()
+    logits, cache = E.prefill(params, cfg, {"tokens": tokens,
+                                            "frontend": frontend}, cache)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    run = {"logits": [logits[:, -1]], "fed": []}
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    events[0].record()
+    for i in range(steps):
+        run["fed"].append(tok)
+        logits, cache = E.decode_step(params, cfg, tok, cache, s + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        finite &= torch.isfinite(logits).all()
+        run["logits"].append(logits[:, -1])
+        events[i + 1].record()
+    sync()
+    launches = ops.launch_counts()   # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    assert bool(finite), f"{cfg.name}: non-finite logits"
+    want = {k: 0 for k in launches}
+    want["swa_decode"] = 2 * cfg.n_layers * steps
+    assert launches == want, (launches, want)
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(steps)]
+    med = statistics.median(step_ms)
+    p90 = statistics.quantiles(step_ms, n=10)[-1]
+    run["logits"] = [lg.cpu() for lg in run["logits"]]
+    gap, scale = decode_gap(params, cfg, tokens, frontend, run)
+    assert gap <= ENCDEC_BF16_GAP * scale, (gap, scale)
+    per_step, kernels, _ = cuda_launches_per_call(
+        lambda: E.decode_step(params, cfg, tok, cache, s + steps), calls=2)
+    read = encdec_step_bytes(params, cfg, cache, s + steps // 2)
+    floor_ms = read / HBM_BYTES_PER_S * 1e3
+    print(f"[encdec lm] {cfg.name}: {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers at the published widths, "
+          f"{cfg.param_count()} parameters, {nbytes} bytes in {cfg.dtype} "
+          f"made on the card in {make_s:.1f} s")
+    print(f"[encdec lm] {cfg.name} on {card}: prefill B={b} x {s} tokens over "
+          f"{DECODE_ENC_LEN} frames {prefill_s:.3f} s; {steps} greedy decode "
+          f"steps at B={b}: median {med:.3f} ms per step, p90 {p90:.3f} "
+          f"(first {step_ms[0]:.3f}, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), {b / med * 1e3:.1f} tokens/s; bytes read "
+          f"per step {read}, {floor_ms:.3f} ms at 3.35 TB/s ("
+          f"{floor_ms / med:.1%} of the median); {per_step:.0f} CUDA kernel "
+          f"launches per step ({kernels / 2:.0f} kernels on the device); "
+          f"peak memory {peak} bytes; K8 launches {launches['swa_decode']} = "
+          f"2 x {cfg.n_layers} x {steps}; decode against the forward max "
+          f"|gap| {gap:.3g} (logits up to {scale:.3g}, bar "
+          f"{ENCDEC_BF16_GAP} of it)")
+    print(f"[encdec lm] {cfg.name} greedy tokens of sequence 0: "
+          f"{torch.cat(run['fed'][1:] + [tok], 1)[0].tolist()}")
+    profile = profile_decode(params, cfg, cache, tok, s + steps,
+                             tag="encdec lm")
+    out = dict(params=cfg.param_count(), param_bytes=nbytes,
+               prefill_s=prefill_s, step_ms_median=med, step_ms_p90=p90,
+               floor_ms=floor_ms, tokens_per_s=b / med * 1e3,
+               launches_per_step=per_step,
+               device_idle_share=profile["device_idle_share"],
+               peak_bytes=peak, k8_launches=launches["swa_decode"],
+               decode_gap=gap)
+    del params, cache, logits, run
+    free_cuda()
+    return out
+
+
+def phase_encdec_lm_check() -> dict:
+    """seamless-m4t-large-v2 at full width cut to ENCDEC_CHECK_LAYERS
+    encoder and decoder layers in float32 (perturbed weights drawn on the
+    card): a prompt's prefill over ENCDEC_CHECK_FRAMES frames and
+    ENCDEC_CHECK_STEPS greedy decode steps on the card (K8 twice per layer
+    per step), held to the model's own forward on the card (LM_DECODE_TOL,
+    the reference's bar), then the same on the CPU fed the card's tokens:
+    logits within MOE_LOGIT_TOL (2e-4) at every step, greedy tokens exact
+    where the margin allows. Runs after every phase timed on the host's
+    clock."""
+    cfg = dataclasses.replace(CFG.get(ENCDEC_ARCH),
+                              n_layers=ENCDEC_CHECK_LAYERS,
+                              n_enc_layers=ENCDEC_CHECK_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = perturbed(cfg, gen)
+    b, s, steps = ENCDEC_CHECK_BATCH, ENCDEC_CHECK_PROMPT, ENCDEC_CHECK_STEPS
+    tokens, frontend = encdec_batch(cfg, b, s, ENCDEC_CHECK_FRAMES, gen)
+    tokens = tokens.cpu()
+    ops.reset_launch_counts()        # the card's path starts here
+    card = lm_serve(params, cfg, tokens, steps, "cuda", frontend=frontend)
+    sync()
+    k8 = ops.launch_counts()["swa_decode"]      # ... and ends here
+    assert k8 == 2 * cfg.n_layers * steps, k8
+    fwd_gap, _ = decode_gap(params, cfg, tokens, frontend, card)
+    assert fwd_gap <= LM_DECODE_TOL, fwd_gap
+    params = MB.tree_map(lambda a: a.cpu(), params)
+    frontend = frontend.cpu()
+    free_cuda()
+    t0 = time.perf_counter()
+    cpu = lm_serve(params, cfg, tokens, steps, "cpu", feed=card["fed"],
+                   frontend=frontend)
+    cpu_s = time.perf_counter() - t0
+    greedy = sum(check_greedy(g, w, f"{cfg.name} step {i}") for i, (g, w)
+                 in enumerate(zip(card["logits"], cpu["logits"])))
+    err = max(float((g - w).abs().max())
+              for g, w in zip(card["logits"], cpu["logits"]))
+    scale = max(float(w.abs().max()) for w in cpu["logits"])
+    print(f"[encdec lm check] {cfg.name} at full width, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, float32, perturbed ({cfg.param_count()} "
+          f"parameters): prefill of {b} x {s} tokens over "
+          f"{ENCDEC_CHECK_FRAMES} frames + {steps} greedy decode steps (K8 x "
+          f"{k8}): against the card's forward max |gap| {fwd_gap:.3g} (bar "
+          f"{LM_DECODE_TOL}); against the CPU ({cpu_s:.1f} s) max |err| "
+          f"{err:.3g} (bar {MOE_LOGIT_TOL}; logits up to {scale:.3g}), "
+          f"{greedy} greedy tokens equal")
+    del params
+    return dict(err=err, fwd_gap=fwd_gap, k8_launches=k8)
+
+
+def phase_encdec_train() -> dict:
+    """The launcher's --target lm for seamless: ENCDEC_TRAIN_STEPS Adam
+    steps of the smoke config at SSM_TRAIN_LR on the card and on the CPU
+    (the weights drawn on the CPU from the seed), finite losses within
+    LM_TRAIN_RTOL; then the config at its published widths and full depth
+    (24 + 24 layers, float32 as the launcher draws them) on the card
+    alone, at the launcher's lr: finite losses, s per step and peak
+    memory."""
+    args = ["--target", "lm", "--arch", ENCDEC_ARCH, "--smoke", "--steps",
+            str(ENCDEC_TRAIN_STEPS), "--lr", str(SSM_TRAIN_LR)]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        card = TLT.main(args + ["--device", "cuda"])
+        cpu = TLT.main(args + ["--device", "cpu"])
+    head = log.getvalue().splitlines()[0]
+    assert len(card) == ENCDEC_TRAIN_STEPS and np.isfinite(card).all(), card
+    np.testing.assert_allclose(card, cpu, rtol=LM_TRAIN_RTOL)
+    err = max(abs(a - c) / abs(c) for a, c in zip(card, cpu))
+    print(f"[encdec train] {head.removeprefix('[train] ')}: lr "
+          f"{SSM_TRAIN_LR}, losses {[round(v, 4) for v in card]}, max "
+          f"relative err against the CPU {err:.3g} (bar {LM_TRAIN_RTOL})")
+    free_cuda()
+    full = ["--target", "lm", "--arch", ENCDEC_ARCH, "--steps",
+            str(ENCDEC_TRAIN_STEPS), "--batch", str(ENCDEC_FULL_TRAIN_BATCH),
+            "--seq", str(ENCDEC_FULL_TRAIN_SEQ), "--device", "cuda"]
+    log = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        losses = TLT.main(full)
+        sync()
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lines = log.getvalue().splitlines()
+    per_step = float(re.findall(r"\(([0-9.]+)s/step\)", lines[-2])[0])
+    depth = CFG.get(ENCDEC_ARCH)
+    assert (f"{depth.n_layers} layers + {depth.n_enc_layers} encoder layers"
+            in lines[0]), lines[0]
+    assert len(losses) == ENCDEC_TRAIN_STEPS and np.isfinite(losses).all(), \
+        losses
+    print(f"[encdec train] {lines[0].removeprefix('[train] ')} at full depth: "
+          f"B={ENCDEC_FULL_TRAIN_BATCH} x {ENCDEC_FULL_TRAIN_SEQ} tokens + "
+          f"{TLT.ENC_FRAMES} frames, losses {[round(v, 4) for v in losses]}, "
+          f"{per_step:.3f} s per step (the launcher's mean over "
+          f"{ENCDEC_TRAIN_STEPS} steps, first-call work included), "
+          f"{seconds:.1f} s in all (weights drawn on the CPU), peak memory "
+          f"{peak} bytes")
+    free_cuda()
+    return dict(losses=card, cpu_losses=cpu, max_rel_err=err,
+                full_losses=losses, full_s_per_step=per_step,
+                full_peak_bytes=peak)
 
 
 def main() -> None:
@@ -3578,6 +3947,7 @@ def main() -> None:
     phase_lm_check()
     moe_lm = phase_moe_lm(card)
     ssm_lm = phase_ssm_lm(card)
+    encdec_lm = phase_encdec_lm(card)
     phase_slice("filter", params, te,
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     free_cuda()
@@ -3587,6 +3957,9 @@ def main() -> None:
     ssm_parity = phase_ssm_parity()
     ssm_check = phase_ssm_lm_check()
     phase_ssm_train()
+    encdec_parity = phase_encdec_parity()
+    encdec_check = phase_encdec_lm_check()
+    phase_encdec_train()
     extra["swa_decode"] = {
         **{f"moe_lm_{a}_launches": r["k8_launches"]
            for a, r in moe_lm.items()},
@@ -3598,7 +3971,10 @@ def main() -> None:
         **{f"ssm_parity_{a}_launches": r["k8_launches"]
            for a, r in ssm_parity.items()},
         **{f"ssm_lm_check_{a}_launches": r["k8_launches"]
-           for a, r in ssm_check.items()}}
+           for a, r in ssm_check.items()},
+        "encdec_lm_launches": encdec_lm["k8_launches"],
+        "encdec_parity_launches": encdec_parity["k8_launches"],
+        "encdec_lm_check_launches": encdec_check["k8_launches"]}
     extra["query_bias"] = dict(
         score_launches=qb_score_launches,
         pump_launches=pump["qb_launches"],
@@ -3617,7 +3993,7 @@ def main() -> None:
                        n_split=tm["plan"]["n_split"],
                        blocks=tm["plan"]["blocks"],
                        blocks_per_sm=tm["plan"]["blocks_per_sm"])
-            for shape in ("ring", "long", "zamba2"):
+            for shape in ("ring", "long", "zamba2", "encdec_cross"):
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                             "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]

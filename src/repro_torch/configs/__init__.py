@@ -3,11 +3,10 @@ the LLM architecture zoo behind the neural final stage.
 
 Every zoo module exposes CONFIG (the full assigned architecture) and SMOKE
 (a reduced same-family variant: <=2 layers, d_model<=512) used by the CPU
-tests. `get(name)` / `get_smoke(name)` are the public API. The port
-carries the dense family (gemma3, qwen3, yi, starcoder2, pixtral), the moe
-family (dbrx, arctic), the ssm family (rwkv6) and the hybrid family
-(zamba2); the encdec family (seamless) is not ported yet, and asking for
-it raises NotImplementedError.
+tests. `get(name)` / `get_smoke(name)` are the public API;
+`configs.shapes` defines the four assigned input shapes. The port carries
+every family of the zoo: dense (gemma3, qwen3, yi, starcoder2, pixtral),
+moe (dbrx, arctic), ssm (rwkv6), hybrid (zamba2) and encdec (seamless).
 """
 
 from __future__ import annotations
@@ -34,17 +33,9 @@ ALIASES = {
     "starcoder2-3b": "starcoder2_3b",
 }
 
-# module -> family, for the architectures whose family is not ported yet
-_NOT_PORTED = {"seamless_m4t_large_v2": "encdec"}
-
 
 def _module(name: str):
     mod = ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
-    if mod in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: the {_NOT_PORTED[mod]} family is not ported to "
-            "PyTorch yet (ROADMAP Queue 1 item 12); the port serves the "
-            "dense, moe, ssm and hybrid families")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

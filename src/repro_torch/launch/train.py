@@ -12,15 +12,16 @@ Two paths:
     trains on `cuda:{LOCAL_RANK}` over a 1-D ("data",) mesh of the ranks
     (`launch.mesh.data_parallel_mesh`), rank 0 prints and writes the
     checkpoints; one process takes the plain path.
-  * `--target lm --arch <id>` — train a dense, moe, ssm or hybrid
-    architecture of the model zoo (`--smoke`: its reduced variant, in
-    float32) with Adam on random tokens: the neural final-stage ranker's
-    substrate; a moe model's loss adds its weighted aux loss. `--layers N`
-    keeps the first N layers at the published widths (a hybrid keeps
-    N // attn_every applications of its shared block, none for N below
-    attn_every; the header says how many). The weights are drawn in
-    float32 whatever the config's dtype, as the reference's launcher draws
-    them. The encdec family is not ported and raises.
+  * `--target lm --arch <id>` — train any architecture of the model zoo
+    (`--smoke`: its reduced variant, in float32) with Adam on random
+    tokens: the neural final-stage ranker's substrate; a moe model's loss
+    adds its weighted aux loss, an encdec model's batch adds 16 frontend
+    frames. `--layers N` keeps the first N layers at the published widths
+    (a hybrid keeps N // attn_every applications of its shared block, none
+    for N below attn_every, and the header says how many; an encdec model
+    keeps the first N layers of its encoder and of its decoder). The
+    weights are drawn in float32 whatever the config's dtype, as the
+    reference's launcher draws them.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --target cloes \
@@ -30,7 +31,7 @@ Usage:
        [--crash-after-epoch 2]]
   torchrun --nproc-per-node N -m repro_torch.launch.train --target cloes ...
   PYTHONPATH=src python -m repro_torch.launch.train --target lm \
-      --arch starcoder2-3b|dbrx-132b|rwkv6-1.6b|zamba2-1.2b|... \
+      --arch starcoder2-3b|dbrx-132b|rwkv6-1.6b|seamless-m4t-large-v2|... \
       [--smoke | --layers 2] \
       [--steps 30] [--batch 4] [--seq 64]
 
@@ -59,6 +60,9 @@ from repro_torch.launch.mesh import data_parallel_mesh
 from repro_torch.models import base as MB
 from repro_torch.models import zoo as Z
 from repro_torch.optim import adam
+
+# frontend frames of an encdec model's LM batch (the reference's train_lm)
+ENC_FRAMES = 16
 
 
 def params_digest(params) -> str:
@@ -138,18 +142,22 @@ def _train_cloes(args, device, mesh, rank) -> dict:
 def lm_batch(cfg, rng: np.random.Generator, bsz: int, s: int,
              device) -> dict[str, torch.Tensor]:
     """One batch of random tokens (the reference's `train_lm` draw): s + 1
-    tokens per row, shifted into inputs and targets; a vlm config also
-    gets its frontend stub embeddings, and its text is cut to s - P."""
+    tokens per row, shifted into inputs and targets; then, from the same
+    stream, an encdec config's ENC_FRAMES frontend frames (its tokens
+    uncut), or a vlm config's P frontend positions with its text cut to
+    s - P; frames are 0.1 N(0, 1) in float32."""
     tok = rng.integers(0, cfg.vocab, (bsz, s + 1))
     batch = {"tokens": torch.as_tensor(tok[:, :-1], device=device),
              "targets": torch.as_tensor(tok[:, 1:], device=device)}
     if cfg.frontend_positions:
-        p_ = cfg.frontend_positions
+        p_ = (ENC_FRAMES if cfg.arch_type == "encdec"
+              else cfg.frontend_positions)
         fe = 0.1 * rng.normal(size=(bsz, p_, cfg.d_model))
         batch["frontend"] = torch.as_tensor(fe, dtype=torch.float32,
                                             device=device)
-        batch["tokens"] = batch["tokens"][:, :s - p_]
-        batch["targets"] = batch["targets"][:, :s - p_]
+        if cfg.arch_type != "encdec":
+            batch["tokens"] = batch["tokens"][:, :s - p_]
+            batch["targets"] = batch["targets"][:, :s - p_]
     return batch
 
 
@@ -159,16 +167,20 @@ def train_lm(args) -> list[float]:
     both devices train the same model. Returns every step's loss."""
     device = torch.device(args.device)
     cfg = CFG.get_smoke(args.arch) if args.smoke else CFG.get(args.arch)
-    cfg = dataclasses.replace(cfg, dtype=torch.float32 if args.smoke
-                              else cfg.dtype,
-                              n_layers=args.layers or cfg.n_layers)
+    cfg = dataclasses.replace(
+        cfg, dtype=torch.float32 if args.smoke else cfg.dtype,
+        n_layers=args.layers or cfg.n_layers,
+        n_enc_layers=(args.layers or cfg.n_enc_layers) if cfg.n_enc_layers
+        else 0)
     params = MB.tree_map(
         lambda p: p.to(device),
         MB.materialize(Z.templates(cfg),
                        torch.Generator().manual_seed(args.seed)))
     n_params = sum(p.numel() for p in MB.tree_leaves(params))
     shared = (f", {Z.shared_applications(cfg)} shared-block applications"
-              if cfg.arch_type == "hybrid" else "")
+              if cfg.arch_type == "hybrid" else
+              f" + {cfg.n_enc_layers} encoder layers"
+              if cfg.arch_type == "encdec" else "")
     print(f"[train] {cfg.name}: {cfg.n_layers} layers{shared}, "
           f"{n_params / 1e6:.1f}M params, {args.steps} steps on {device}")
     opt = adam(args.lr)
@@ -194,7 +206,9 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--arch", default="starcoder2-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
-                    help="lm target: keep the first N layers (0: all)")
+                    help="lm target: keep the first N layers (0: all; an "
+                         "encdec model keeps N of its encoder and N of its "
+                         "decoder)")
     ap.add_argument("--queries", type=int, default=1200)
     ap.add_argument("--epochs", type=int, default=6)
     ap.add_argument("--steps", type=int, default=30)

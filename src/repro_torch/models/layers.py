@@ -10,7 +10,8 @@ conventions (src/repro/models/layers.py):
 
 Decode attention of one token runs K8 (`kernels.ops.swa_decode`): the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on a
-CPU tensor. The reference's mesh-only variants (`shmap_attention`,
+CPU tensor; so does an encoder-decoder's cross attention of one query
+over the cached encoder K/V. The reference's mesh-only variants (`shmap_attention`,
 `_seq_shard`, `attn_shard="seqkv"`, the expert-parallel `moe_ffn_shmap`)
 are not ported: the port runs on one card. The Mamba2 and RWKV-6
 recurrences have no kernel in the reference (it leaves them to XLA's
@@ -169,17 +170,21 @@ def _full_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
 def attention(p, cfg, x, *, positions, causal: bool = True,
               window: int = NO_WINDOW, kv_cache: dict | None = None,
               cache_len: int | None = None, mode: str = "decode",
-              ring_window: int = 0):
+              ring_window: int = 0, cross_kv: tuple | None = None):
     """Full attention op: projections + rope + (cached) attention + out proj.
 
     kv_cache: {"k","v"}: (B, S_max, Hkv, hd) written IN PLACE at the host
     int cache_len (or, with ring_window=W, a (B, W, Hkv, hd) ring buffer,
     slot = position % W). mode: "decode" attends q against the whole cache;
     "prefill" writes the fresh K/V into the cache but attends only against
-    the fresh keys (the cache starts empty). Returns (out, kv_cache)."""
+    the fresh keys (the cache starts empty). cross_kv: an encoder's
+    projected (k, v), each (B, S_enc, Hkv, hd), for encoder-decoder cross
+    attention (`cross_attention`). Returns (out, kv_cache)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(b, s, h, hd)
+    if cross_kv is not None:
+        return cross_attention(p, cfg, q, *cross_kv), None
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
@@ -221,6 +226,26 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
             out = decode_attention(q, ck, cv, q_offset=cache_len,
                                    window=window)
     return out.reshape(b, s, h * hd) @ p["wo"], kv_cache
+
+
+def cross_attention(p, cfg, q, k, v) -> torch.Tensor:
+    """Encoder-decoder cross attention of the projected queries q (B, Sq,
+    H, hd) over an encoder's K/V (B, S_enc, Hkv, hd), through the out
+    projection: no rope, q normed only under cfg.qk_norm (k never), no
+    mask. Several queries take the full (or, past _BLOCKWISE_THRESHOLD
+    keys, blockwise) attention; one query — a decode step over the cached
+    cross K/V — runs K8 at cache_len S_enc - 1 with no window, which
+    attends every encoder position. K8 accumulates P.V in float32 where
+    the reference's dot attention first casts the probabilities to q's
+    dtype: the same in float32, closer to exact in bfloat16."""
+    b, s, h, hd = q.shape
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    if s == 1:
+        out = decode_attention(q, k, v, q_offset=k.shape[1] - 1)
+    else:
+        out = _full_attention(q, k, v, causal=False, window=NO_WINDOW)
+    return out.reshape(b, s, h * hd) @ p["wo"]
 
 
 def decode_attention(q, k, v, *, q_offset: int, window: int = NO_WINDOW,

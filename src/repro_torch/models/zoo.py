@@ -7,8 +7,10 @@ adds a dense residual MLP beside the experts), whose forward also returns
 the Switch aux loss summed over the layers. Ssm — RWKV-6 (attention-free).
 Hybrid — zamba2: a Mamba2 backbone and one *shared* attention block applied
 after every `attn_every` layers (weights reused, input [h ; embed0]). The
-ssm and hybrid forwards return an aux loss of 0. The encdec family is not
-ported yet (ROADMAP Queue 1 item 12).
+ssm and hybrid forwards return an aux loss of 0. Encdec — seamless: a
+bidirectional encoder over the frontend's frame embeddings, and a causal
+decoder whose every layer adds cross attention over the encoder's output;
+its aux loss is 0 too.
 
 Parameters keep the reference's tree (src/repro/models/zoo.py), with layer
 params STACKED on a leading axis; the forward walks the layers in a
@@ -29,16 +31,6 @@ from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
                                      unstack)
 
 BIG_WINDOW = 1 << 30     # "no window" sentinel of the per-layer schedule
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise unless cfg's family is ported: the keys of _BLOCK_TEMPLATES
-    are the one list of ported families."""
-    if cfg.arch_type not in _BLOCK_TEMPLATES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} family is not ported to "
-            "PyTorch yet (ROADMAP Queue 1 item 12); the port runs the "
-            f"{' and '.join(_BLOCK_TEMPLATES)} families")
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +157,20 @@ def _shared_attn_templates(cfg: ModelConfig) -> dict:
     }
 
 
+def _decoder_block_templates(cfg: ModelConfig) -> dict:
+    """An encdec decoder layer: the dense block, then cross attention on
+    its own norm (its wk / wv project the encoder's output)."""
+    d = cfg.d_model
+    return {**_dense_block_templates(cfg),
+            "ln_cross": P((d,), (None,), "zeros"),
+            "cross": _attn_templates(cfg)}
+
+
 _BLOCK_TEMPLATES = {"dense": _dense_block_templates,
                     "moe": _moe_block_templates,
                     "ssm": _rwkv_block_templates,
-                    "hybrid": _mamba_block_templates}
+                    "hybrid": _mamba_block_templates,
+                    "encdec": _decoder_block_templates}
 
 
 def shared_applications(cfg: ModelConfig) -> int:
@@ -179,7 +181,8 @@ def shared_applications(cfg: ModelConfig) -> int:
 
 
 def templates(cfg: ModelConfig) -> dict:
-    check_ported(cfg)
+    if cfg.arch_type not in _BLOCK_TEMPLATES:
+        raise ValueError(cfg.arch_type)
     d = cfg.d_model
     t: dict[str, Any] = {
         "embed": P((cfg.vocab, d), ("vocab", "embed"), "normal", 0.02),
@@ -191,6 +194,10 @@ def templates(cfg: ModelConfig) -> dict:
                              cfg.n_layers)
     if cfg.arch_type == "hybrid":
         t["shared_attn"] = _shared_attn_templates(cfg)
+    if cfg.arch_type == "encdec":
+        t["enc_blocks"] = stack_tree(_dense_block_templates(cfg),
+                                     cfg.n_enc_layers)
+        t["enc_norm"] = P((d,), (None,), "zeros")
     return t
 
 
@@ -198,7 +205,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The port's parameter tree from numpy arrays of the reference's tree
     (e.g. `jax.device_get` of its `materialize`), checked leaf by leaf
     against this config's templates (a moe config's stacked expert leaves,
-    (L, E, d, ff), and a hybrid's unstacked `shared_attn` included).
+    (L, E, d, ff), a hybrid's unstacked `shared_attn` and an encdec's
+    `enc_blocks` included).
     Values arrive bit for bit: a bfloat16 array (numpy's
     `ml_dtypes.bfloat16`, which torch.from_numpy rejects) crosses as its
     uint16 bit pattern."""
@@ -275,8 +283,9 @@ def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
 
 def _block_fwd(p, cfg, x, positions, window, kv_cache=None, cache_len=None,
                mode="decode"):
-    """One layer of a dense or moe model: (x, cache, aux), aux the moe
-    block's Switch loss and 0.0 for a dense block."""
+    """One layer of a dense or moe model (an encdec decoder layer's self
+    attention and MLP, as the neural scorer runs it): (x, cache, aux), aux
+    the moe block's Switch loss and 0.0 for the others."""
     if cfg.arch_type == "moe":
         return _moe_block_fwd(p, cfg, x, positions, window, kv_cache,
                               cache_len, mode)
@@ -328,7 +337,7 @@ def _shared_attn_fwd(p, cfg, x, emb0, positions, kv_cache=None,
 
 def embed_inputs(params, cfg, batch):
     tok_emb = params["embed"][batch["tokens"]]
-    if cfg.frontend_positions:
+    if cfg.frontend_positions and cfg.arch_type != "encdec":
         fe = batch["frontend"].to(tok_emb.dtype)     # (B, P, d) stub embeds
         return torch.cat([fe, tok_emb], dim=1)
     return tok_emb
@@ -338,7 +347,8 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Returns (logits, aux_loss): the moe family's aux summed over the
     layers (float32), 0 for the other families."""
-    check_ported(cfg)
+    if cfg.arch_type == "encdec":
+        return _forward_encdec(params, cfg, batch)
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -376,15 +386,76 @@ def _lm_head(params, cfg, x):
     return x @ w.to(x.dtype)
 
 
+def _promoted(x, w):
+    """x in the dtype a JAX product x @ w is taken in: the larger of the
+    two (the frontend arrives in cfg.dtype, the launcher's weights are
+    float32 whatever cfg.dtype says)."""
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
+def encode(params, cfg, frontend: torch.Tensor) -> torch.Tensor:
+    """The encoder over the frontend's frame embeddings (B, S_enc, d), cast
+    to cfg.dtype as in the reference: non-causal attention with rope at
+    positions 0..S_enc-1 and the MLP in each layer, then enc_norm."""
+    x = frontend.to(cfg.dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
+        xn = _promoted(Lyr.rms_norm(x, p["ln1"]), p["attn"]["wq"])
+        h, _ = Lyr.attention(p["attn"], cfg, xn, positions=positions,
+                             causal=False)
+        x = x + h
+        x = x + Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp_act)
+    return Lyr.rms_norm(x, params["enc_norm"])
+
+
+def cross_kv(p, cfg, enc_out) -> tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross K and V, each (B, S_enc, Hkv, hd): its
+    cross wk / wv applied to the encoder's output."""
+    b, s, _ = enc_out.shape
+    enc_out = _promoted(enc_out, p["cross"]["wk"])
+    shape = (b, s, cfg.n_kv_heads, cfg.hd)
+    return ((enc_out @ p["cross"]["wk"]).reshape(shape),
+            (enc_out @ p["cross"]["wv"]).reshape(shape))
+
+
+def _decoder_block_fwd(p, cfg, x, positions, kv, kv_cache=None,
+                       cache_len=None, mode="decode"):
+    """One encdec decoder layer: the dense block (no window), then cross
+    attention over the encoder's kv = (k, v) on rms_norm(x, ln_cross)."""
+    x, cache = _dense_block_fwd(p, cfg, x, positions, BIG_WINDOW, kv_cache,
+                                cache_len, mode)
+    h, _ = Lyr.attention(p["cross"], cfg, Lyr.rms_norm(x, p["ln_cross"]),
+                         positions=positions, causal=False, cross_kv=kv)
+    return x + h, cache
+
+
+def _forward_encdec(params, cfg, batch):
+    """seamless: the encoder over batch["frontend"], then the decoder over
+    batch["tokens"] with each layer's cross attention over the encoder's
+    output; aux 0. (The reference's jax.checkpoint is remat, not
+    semantics.)"""
+    enc_out = encode(params, cfg, batch["frontend"])
+    x = params["embed"][batch["tokens"]]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for p in unstack(params["blocks"], cfg.n_layers):
+        x, _ = _decoder_block_fwd(p, cfg, x, positions,
+                                  cross_kv(p, cfg, enc_out))
+    x = Lyr.rms_norm(x, params["final_norm"])
+    return _lm_head(params, cfg, x), torch.zeros((), device=x.device)
+
+
 # ---------------------------------------------------------------------------
 # Loss / train step
 # ---------------------------------------------------------------------------
 
 def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     """Mean next-token NLL over batch["targets"] (float32 logits) plus the
-    weighted aux loss; a vlm's frontend positions carry no target."""
+    weighted aux loss; a vlm's frontend positions carry no target (an
+    encdec's frontend is the encoder's input, not part of the logits)."""
     logits, aux = forward(params, cfg, batch)
-    if cfg.frontend_positions:
+    if cfg.frontend_positions and cfg.arch_type != "encdec":
         logits = logits[:, cfg.frontend_positions:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)

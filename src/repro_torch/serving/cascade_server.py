@@ -6,7 +6,9 @@ scorer that the cascade shields from the bulk of the traffic.
 The scorer runs the model's blocks over the window schedule: a dense
 architecture, as in the reference, or a moe one (the port's addition: the
 reference's scorer runs the dense block alone, so a moe model does not
-score there); a moe block's aux loss is dropped. The ssm and hybrid
+score there); a moe block's aux loss is dropped. An encdec model scores
+as in the reference: its decoder layers' self attention and MLP over the
+item tokens, with no encoder and no cross attention. The ssm and hybrid
 families cannot score (the reference's scorer cannot run them either):
 asking for one raises ValueError before a weight is drawn.
 
@@ -41,7 +43,7 @@ from repro_torch.serving.session import (CascadeSession, DegradePolicy,
 # tokenizer (the real system embeds item text/ids; the *compute* is real).
 # ---------------------------------------------------------------------------
 
-SCORING_FAMILIES = ("dense", "moe")
+SCORING_FAMILIES = ("dense", "moe", "encdec")
 
 
 def check_scorable(cfg: MB.ModelConfig) -> None:
@@ -49,7 +51,7 @@ def check_scorable(cfg: MB.ModelConfig) -> None:
     if cfg.arch_type not in SCORING_FAMILIES:
         raise ValueError(
             f"{cfg.name}: the {cfg.arch_type} family cannot be the neural "
-            f"final stage; the scorer runs the {' and '.join(SCORING_FAMILIES)}"
+            f"final stage; the scorer runs the {', '.join(SCORING_FAMILIES)}"
             " families' attention blocks, as the reference's runs the dense "
             "block")
 

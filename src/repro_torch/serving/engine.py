@@ -1,6 +1,5 @@
 """Serving engine: cache construction, prefill and single-token decode for
-the dense, moe, ssm and hybrid families (the reference's
-src/repro/serving/engine.py).
+every family of the zoo (the reference's src/repro/serving/engine.py).
 
 Caches are dicts of tensors with the per-layer state STACKED on a leading
 axis, in the reference's layout (M = max cache length):
@@ -13,6 +12,8 @@ axis, in the reference's layout (M = max cache length):
   hybrid (zamba2): {"conv": (L, B, kw-1, di+2n), "ssm": (L, B, nh, hd, N)
                    float32, "attn_k","attn_v": (G, B, M, Hkv, hd)}, G the
                    shared block's applications (zoo.shared_applications)
+  encdec (seamless): the dense {"k","v"} + {"cross_k","cross_v"}: (L, B,
+                   S_enc, Hkv, hd), the encoder's projected K/V per layer
 with W = min(sliding_window, M): a local layer keeps only a window-sized
 ring buffer (slot = position % W). Every tensor is in cfg.dtype unless
 marked float32.
@@ -22,9 +23,13 @@ equal the reference's. `cache_len` is a host int, so a decode step
 launches its work without waiting for the card. Every decode step runs K8
 once per attention layer (`layers.decode_attention`): once per layer of a
 dense or moe model, once per shared-block application of a hybrid, never
-for the ssm family. A moe layer's capacity comes from the tokens of the
-call (B * S at prefill, B at decode), as in the reference: choices past
-an expert's capacity are dropped. The recurrent layers' prefill starts
+for the ssm family, and twice per decoder layer of an encdec model — its
+self attention and its cross attention over the cached cross K/V. An
+encdec prefill runs the encoder once and writes each layer's cross K/V
+into the cache; its frontend must span the cache's S_enc frames. A moe
+layer's capacity comes from the tokens of the call (B * S at prefill, B
+at decode), as in the reference: choices past an expert's capacity are
+dropped. The recurrent layers' prefill starts
 from zero state whatever the cache holds, as the reference's does; a
 layer's new state is written over its old one after the layer has read
 it.
@@ -48,10 +53,11 @@ def _windowed(cfg: ModelConfig) -> bool:
 # Cache construction
 # ---------------------------------------------------------------------------
 
-def cache_shapes(cfg: ModelConfig, batch: int, max_len: int
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 enc_len: int = 0
                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of every tensor of the serving cache."""
-    Z.check_ported(cfg)
+    """(shape, dtype) of every tensor of the serving cache; enc_len is an
+    encdec model's encoder length S_enc (ignored by the other families)."""
     L, b, d = cfg.n_layers, batch, cfg.d_model
     hkv, hd = cfg.n_kv_heads, cfg.hd
     f32 = torch.float32
@@ -80,13 +86,17 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int
     else:
         shapes = {"k": (L, b, max_len, hkv, hd),
                   "v": (L, b, max_len, hkv, hd)}
+        if cfg.arch_type == "encdec":
+            shapes.update(cross_k=(L, b, enc_len, hkv, hd),
+                          cross_v=(L, b, enc_len, hkv, hd))
     return {k: (s, cfg.dtype) for k, s in shapes.items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> dict[str, torch.Tensor]:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device="cuda") -> dict[str, torch.Tensor]:
     return {k: torch.zeros(s, dtype=dt, device=device)
-            for k, (s, dt) in cache_shapes(cfg, batch, max_len).items()}
+            for k, (s, dt) in cache_shapes(cfg, batch, max_len,
+                                           enc_len).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +105,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params, cfg: ModelConfig, batch, cache
             ) -> tuple[torch.Tensor, dict]:
+    if cfg.arch_type == "encdec":
+        return _prefill_encdec(params, cfg, batch, cache)
     x = Z.embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -114,13 +126,16 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.int64,
                            device=x.device)
-    x = _run_layers(params, cfg, x, positions, cache, cache_len, "decode")
+    if cfg.arch_type == "encdec":
+        x = _decode_encdec(params, cfg, x, positions, cache, cache_len)
+    else:
+        x = _run_layers(params, cfg, x, positions, cache, cache_len,
+                        "decode")
     x = Lyr.rms_norm(x, params["final_norm"])
     return Z._lm_head(params, cfg, x), cache
 
 
 def _run_layers(params, cfg, x, positions, cache, cache_len, mode):
-    Z.check_ported(cfg)
     if cfg.arch_type == "ssm":
         return _rwkv_run(params, cfg, x, cache, mode)
     if cfg.arch_type == "hybrid":
@@ -207,4 +222,46 @@ def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode):
                 params["shared_attn"], cfg, x, emb0, positions,
                 kv_cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
                 cache_len=cache_len, mode=mode)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless): the encoder runs once at prefill; each layer's
+# projected cross K/V live in the cache for decode.
+# ---------------------------------------------------------------------------
+
+def _prefill_encdec(params, cfg, batch, cache):
+    """The encoder over batch["frontend"], then the decoder over
+    batch["tokens"]: each layer writes its self K/V (prefill mode) and its
+    cross K/V, cast to the cache's dtype, into cache["cross_k"][i] /
+    ["cross_v"][i]. Its own cross attention attends the uncast K/V, as the
+    reference's does."""
+    enc_len = cache["cross_k"].shape[2]
+    if batch["frontend"].shape[1] != enc_len:
+        raise ValueError(f"a cache of {enc_len} encoder frames cannot take "
+                         f"a frontend of {batch['frontend'].shape[1]}")
+    enc_out = Z.encode(params, cfg, batch["frontend"])
+    x = params["embed"][batch["tokens"]]
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        ck, cv = Z.cross_kv(p, cfg, enc_out)
+        x, _ = Z._decoder_block_fwd(
+            p, cfg, x, positions, (ck, cv),
+            kv_cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_len=0,
+            mode="prefill")
+        cache["cross_k"][i].copy_(ck)
+        cache["cross_v"][i].copy_(cv)
+    x = Lyr.rms_norm(x[:, -1:], params["final_norm"])
+    return Z._lm_head(params, cfg, x), cache
+
+
+def _decode_encdec(params, cfg, x, positions, cache, cache_len):
+    """One token through the decoder: self attention through K8 at
+    cache_len, cross attention through K8 over the cached cross K/V."""
+    for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        x, _ = Z._decoder_block_fwd(
+            p, cfg, x, positions, (cache["cross_k"][i], cache["cross_v"][i]),
+            kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
+            cache_len=cache_len, mode="decode")
     return x

@@ -1,10 +1,11 @@
-"""The port's model zoo (dense, moe, ssm and hybrid families) on the CPU
-against the reference: the configs, the parameter templates and
+"""The port's model zoo (every family: dense, moe, ssm, hybrid and
+encdec) on the CPU against the reference: the configs, the parameter templates and
 `materialize`'s init rule, every dense layer on the same numpy inputs, and `zoo.forward` (logits
 and the moe aux loss) for every ported smoke config from the reference's
 own `materialize` carried over by `params_from_numpy` (bit for bit,
 bfloat16 included). The moe layer itself: tests/test_torch_moe.py; the
-ssm and hybrid mixers: tests/test_torch_ssm.py.
+ssm and hybrid mixers: tests/test_torch_ssm.py; cross attention and the
+encdec engine: tests/test_torch_encdec.py.
 
 Tolerances: layers rtol/atol 1e-5 in float32 (sums taken in another
 order); forward logits 2e-4, the reference's own bar between its prefill
@@ -46,11 +47,7 @@ def test_configs_match_reference(arch):
     assert TCFG.ARCH_IDS == JCFG.ARCH_IDS
     assert TCFG.ALIASES == JCFG.ALIASES
     assert TCFG.all_archs() == JCFG.all_archs()
-    if arch not in PORTED_ARCHS:
-        for get in (TCFG.get, TCFG.get_smoke):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-                get(arch)
-        return
+    assert arch in PORTED_ARCHS
     for jget, tget in ((JCFG.get, TCFG.get), (JCFG.get_smoke, TCFG.get_smoke)):
         jc, tc = dataclasses.asdict(jget(arch)), dataclasses.asdict(tget(arch))
         assert (jc.pop("dtype"), tc.pop("dtype")) == (jnp.bfloat16,
@@ -211,7 +208,8 @@ def test_forward_matches_reference(arch):
     jb, tb = token_batch(jcfg, 2, 40, seed=1)       # > gemma3-smoke's window
     want, want_aux = JZ.forward(jp, jcfg, jb)
     got, aux = TZ.forward(tp, tcfg, tb)
-    assert tuple(got.shape) == (2, 40 + jcfg.frontend_positions, jcfg.vocab)
+    prepended = 0 if jcfg.arch_type == "encdec" else jcfg.frontend_positions
+    assert tuple(got.shape) == (2, 40 + prepended, jcfg.vocab)
     assert aux.dtype == torch.float32 and aux.shape == ()
     if jcfg.arch_type == "moe":
         assert float(aux) > 0.0
@@ -222,12 +220,15 @@ def test_forward_matches_reference(arch):
 
 
 def test_non_dense_families_are_not_ported():
-    """The family still to port (encdec) raises."""
-    encdec = dataclasses.replace(TCFG.get_smoke("gemma3-27b"),
-                                 arch_type="encdec")
-    for fn in (TZ.templates, lambda c: TZ.forward({}, c, {})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            fn(encdec)
+    """Every family of the zoo is ported; an unknown arch_type raises
+    ValueError from `templates`, as the reference's does."""
+    for zoo, cfgs in ((JZ, JCFG), (TZ, TCFG)):
+        unknown = dataclasses.replace(cfgs.get_smoke("gemma3-27b"),
+                                      arch_type="vlm")
+        with pytest.raises(ValueError, match="vlm"):
+            zoo.templates(unknown)
+    assert {TCFG.get(a).arch_type for a in TCFG.all_archs()} == {
+        "dense", "moe", "ssm", "hybrid", "encdec"}
 
 
 def test_forward_in_bf16_stays_near_reference():

@@ -207,17 +207,20 @@ def test_warmup_runs_every_shape_and_manifest_matches_reference():
 
 
 def test_unknown_plan_and_neural_stage_are_refused():
-    """An unknown plan, a neural stage whose weights live on another
-    device than the session's, and a neural stage of a family the port
-    does not carry yet are refused."""
+    """An unknown plan and a neural stage whose weights live on another
+    device than the session's are refused; an encdec neural stage (the
+    last family ported) builds and scores, as the reference's does."""
     with pytest.raises(ValueError, match="unknown pipeline plan"):
         TS.CascadeSession(_TP, _TCFG, scfg=serving_config(TS, plan="fused"),
                           device="cpu")
     elsewhere = types.SimpleNamespace(device=torch.device("meta"))
     with pytest.raises(ValueError, match="neural stage"):
         TS.CascadeSession(_TP, _TCFG, neural_stage=elsewhere, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TL.build_neural("seamless-m4t-large-v2", device="cpu")
+    scorer = TL.build_neural("seamless-m4t-large-v2", device="cpu")
+    feats = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(5, 24)).astype(np.float32))
+    scores = scorer.score(feats)
+    assert tuple(scores.shape) == (5,) and torch.isfinite(scores).all()
 
 
 def test_cuda_device_without_a_card_raises():

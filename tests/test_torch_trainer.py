@@ -629,9 +629,12 @@ def test_train_launcher_lm_target_on_cpu(capsys):
     assert len(losses) == 3 and np.isfinite(losses).all()
     out = capsys.readouterr().out
     assert "[train] yi-smoke" in out and "final loss" in out
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TLT.main(["--target", "lm", "--arch", "seamless-m4t-large-v2",
-                  "--smoke", "--device", "cpu"])
+    losses = TLT.main(["--target", "lm", "--arch", "seamless-m4t-large-v2",
+                       "--smoke", "--steps", "2", "--seq", "16", "--device",
+                       "cpu"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert ("[train] seamless-smoke: 2 layers + 2 encoder layers"
+            in capsys.readouterr().out)
 
 
 def test_train_launcher_lm_layers_cuts_depth_only(capsys):

@@ -26,6 +26,7 @@ from repro.models import base as JMB
 from repro.models import zoo as JZ
 from repro_torch.core import cascade as TC
 from repro_torch.core import pipeline as TPIPE
+from repro_torch.launch.train import ENC_FRAMES
 from repro_torch.models import zoo as TZ
 from repro_torch.serving import batching as TB
 from repro_torch.kernels.cascade_filter.ref import assert_decision_margin
@@ -242,7 +243,8 @@ DENSE_ARCHS = ["gemma3-27b", "qwen3-8b", "yi-34b", "starcoder2-3b",
                "pixtral-12b"]
 MOE_ARCHS = ["dbrx-132b", "arctic-480b"]
 SSM_ARCHS = ["rwkv6-1.6b", "zamba2-1.2b"]      # the ssm and hybrid families
-PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
+ENCDEC_ARCHS = ["seamless-m4t-large-v2"]
+PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + ENCDEC_ARCHS
 
 
 def dense_model(arch, dtype="float32", seed=1):
@@ -260,13 +262,16 @@ def dense_model(arch, dtype="float32", seed=1):
 
 def token_batch(cfg, b, s, seed=0):
     """A (JAX batch, port batch) pair of s random tokens per row, plus the
-    frontend stub embeddings of a vlm config, drawn with numpy."""
+    frontend stub embeddings of a vlm config (its frontend positions) or
+    of an encdec one (ENC_FRAMES encoder frames), drawn with numpy."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (b, s))
     jb = {"tokens": jnp.asarray(toks, jnp.int32)}
     tb = {"tokens": torch.from_numpy(toks)}
     if cfg.frontend_positions:
-        fe = (0.1 * rng.normal(size=(b, cfg.frontend_positions,
+        frames = (ENC_FRAMES if cfg.arch_type == "encdec"
+                  else cfg.frontend_positions)
+        fe = (0.1 * rng.normal(size=(b, frames,
                                      cfg.d_model))).astype(np.float32)
         jb["frontend"], tb["frontend"] = jnp.asarray(fe), torch.from_numpy(fe)
     return jb, tb
