@@ -6,6 +6,10 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. device: a CUDA card must be present; prints its name and power limit;
+1b. `[lint]` the port's cascade-lint (`python -m repro_torch.analysis`,
+   stdlib `ast` only, CL001-CL011) over src/repro_torch, the port's tests
+   and this script, in-process: files scanned, findings and ms; any
+   finding fails the run;
 2. build: compiles the CUDA kernels from `src/repro_torch/csrc` (nvcc,
    sm_90a, one process per source) and loads them;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -142,6 +146,16 @@ Phases, in order; any failure raises and the script exits nonzero:
    the warm server's latency. Every pipeline run launches query_bias once
    beside the plan's kernel, and each router kill run's responses equal
    the run without the kill bit for bit;
+6c. `[witness]` the port's runtime lock-order witness
+   (`repro_torch.analysis.witness`) installed around a wall-clock pump
+   with --faults 0.2 (200 requests, 4 submitter threads), the router's
+   pump-mode kill run at 200 requests (held bit for bit to the
+   unwitnessed run) and an adopted backlog of 24, each with its
+   unwitnessed phase's checks: the locks wrapped (session, pool, router,
+   injector, `_build`'s build and launch), their acquisitions, the
+   distinct edges by node name, K2 and query_bias launches under the
+   witness (nonzero), and no inversion, unresolved future or open
+   identity. The timed 6b phases run unwitnessed;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -247,7 +261,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 19. one JSON line with each kernel's launches on its path (K2, K4 and
    K5 also on the restart, data-parallel and warm-restart paths; K8 also
    on the moe, ssm and encdec paths; query_bias on the serving main path
-   and the others), error and times; the last line is {"ok": true,
+   and the others; K2 and query_bias also under the witness), error and
+   times; the last line is {"ok": true,
    "device": {...}}.
 """
 
@@ -479,6 +494,9 @@ DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
 # run; every wait on a future is bounded by RESULT_TIMEOUT_S.
 PUMP_THREADS, N_REPLICAS, CHAOS_RATE, RESULT_TIMEOUT_S = 4, 2, 0.2, 60.0
 ADOPT_BACKLOG = 48
+# [witness]: the pump with --faults and the router's kill run at this many
+# requests, and the adopted backlog, under the lock-order witness.
+WITNESS_REQUESTS, WITNESS_ADOPT_BACKLOG = 200, 24
 SHIM_REQUESTS = 200
 # The injector's own exceptions (and the session's guard against the
 # corrupt scores it plants): the only errors a chaos run may end in.
@@ -590,6 +608,27 @@ def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
+
+
+# -- 1b. lint ------------------------------------------------------------------
+
+def phase_lint() -> dict:
+    """The port's cascade-lint (`repro_torch.analysis`, stdlib `ast`
+    only) over this checkout, in-process: src/repro_torch, the port's
+    tests and this script. Any finding fails the run. Imported here, not
+    at the top: kernel_ab.py runs this script's code on trees that
+    predate the package."""
+    from repro_torch.analysis import core as lint
+    t0 = time.perf_counter()
+    files = lint.collect_files(lint.default_targets())
+    findings = lint.run(files)
+    ms = 1e3 * (time.perf_counter() - t0)
+    for f in findings:
+        print(f"[lint] {f}")
+    print(f"[lint] {len(files)} files scanned, {len(lint.all_rules())} "
+          f"rules, {len(findings)} findings in {ms:.1f} ms")
+    assert not findings, f"[lint] {len(findings)} findings"
+    return dict(files=len(files), findings=len(findings), ms=ms)
 
 
 # -- 2. build -----------------------------------------------------------------
@@ -2028,21 +2067,23 @@ def check_injected_errors(futures, injectors) -> tuple[int, int]:
     return errors, poisoned
 
 
-def phase_pump(params, te, *, fault_rate=0.0) -> dict:
+def phase_pump(params, te, *, fault_rate=0.0, n_requests=DES_REQUESTS,
+               label=None) -> dict:
     """The launcher's --pump path on the card: a SessionPump over the
-    launcher's session (plan "filter", K2), 500 requests at 400 QPS offered
-    from 4 submitter threads, deadline 130 ms, with the launch counts set
-    to 0 before warmup and read after the pump has closed. Without faults:
-    no errors, cycle errors or restarts, K2 launched once per pipeline run
-    and at least once per executed chunk, the page-locked pool reusing
-    its buffers, every served response against the plain pipeline on the
-    CPU. With --faults: errors only from the injector."""
+    launcher's session (plan "filter", K2), 500 requests (`n_requests`) at
+    400 QPS offered from 4 submitter threads, deadline 130 ms, with the
+    launch counts set to 0 before warmup and read after the pump has
+    closed. Without faults: no errors, cycle errors or restarts, K2
+    launched once per pipeline run and at least once per executed chunk,
+    the page-locked pool reusing its buffers, every served response
+    against the plain pipeline on the CPU. With --faults: errors only from
+    the injector."""
     cfg = cloes.CASCADE
     injector = S.build_injector(fault_rate, seed=0)
     ses = S.build_session(params, cfg, plan="filter", faults=injector,
                           device="cuda")
-    label = "pump filter" if injector is None else "pump faults"
-    reqs = S.make_requests(te, DES_REQUESTS, seed=0)
+    label = label or ("pump filter" if injector is None else "pump faults")
+    reqs = S.make_requests(te, n_requests, seed=0)
     ops.reset_launch_counts()        # the path starts here
     shapes = ses.warmup()
     warm = ops.launch_counts()
@@ -2107,119 +2148,131 @@ def phase_router(params, te) -> dict:
     (`replica_devices`), each on its own stream (distinct, neither the
     default). The DES (`run_open_loop_router`) and the wall-clock run (one
     pump per replica, 4 submitter threads), each once plain and once with
-    replica 0's executor forced dead (--kill-replica): every future
-    resolved, the fleet identity, Σ adopted = Σ drained, failovers in the
-    kill runs, K2 once per pipeline run on either replica (counts set to 0
-    before each run's warmup and read after it), every served response
-    against the plain pipeline on the CPU, and each kill run's responses
-    (adopted ones included) bit-equal to the same mode's run without the
-    kill wherever both served the request whole."""
-    cfg = cloes.CASCADE
+    replica 0's executor forced dead (--kill-replica), each run as
+    `router_run` checks it; each kill run's responses (adopted ones
+    included) bit-equal to the same mode's run without the kill wherever
+    both served the request whole. Then `[router adopt]`. Returns the K2
+    launches and, under "plain", each mode's plain responses by request
+    id."""
     reqs = S.make_requests(te, DES_REQUESTS, seed=0)
-    out = {"launches": 0}
+    out = {"launches": 0, "plain": {}}
     for mode in ("des", "pump"):
-        plain_run = {}
+        plain_run = out["plain"][mode] = {}
         for kill in (False, True):
-            label = f"router {mode}" + (" kill-replica" if kill else "")
-            router = S.build_router(params, cfg, n=N_REPLICAS,
-                                    kill_replica=kill, device="cuda")
-            reps = router.replicas
-            streams = [r.stream for r in reps]
-            default = torch.cuda.default_stream(reps[0].device)
-            handles = {s.cuda_stream for s in streams if s is not None}
-            assert len(handles) == N_REPLICAS and \
-                default.cuda_stream not in handles, (streams, default)
-            ops.reset_launch_counts()        # this run starts here
-            shapes = router.warmup()
-            warm = ops.launch_counts()["cascade_filter"]
-            tally = Tally()
-            for r in reps:
-                tally.wrap(r, "rank_batch")
-                tally.wrap(r, "execute_chunk")
-            if mode == "des":
-                res = run_open_loop_router(router, reqs, DES_QPS,
-                                           deadline_ms=DES_DEADLINE_MS,
-                                           seed=0)
-                router.close()
-            else:
-                router.attach_pumps([
-                    SessionPump(r, name=f"pump-{r.name}").start()
-                    for r in reps])
-                res = run_wall_clock(router, reqs, DES_QPS,
-                                     deadline_ms=DES_DEADLINE_MS,
-                                     n_threads=PUMP_THREADS, seed=0,
-                                     result_timeout_s=RESULT_TIMEOUT_S)
-                router.close(timeout=RESULT_TIMEOUT_S)
-                assert not any(p.running for p in router.pumps), label
-            sync()
-            launches = ops.launch_counts()["cascade_filter"] - warm
-            st = router.stats_export()
-            per = [p.get("session", p) for p in st["replicas"]]
-            g = st["global"]
-            futures = in_request_order(reqs, res.futures)
-            assert res.unresolved == 0 and all(f.done() for f in futures), \
-                f"{label}: unresolved futures"
-            assert g["submitted"] == g["completed"] + g["shed"] \
-                + g["errors"], g
-            assert g["pending"] == 0 and g["inflight"] == 0, g
-            assert g["adopted"] == g["drained"], g
-            assert launches == tally.calls["rank_batch"] > 0, \
-                (launches, tally.calls)
-            if mode == "pump":
-                for p in st["replicas"]:
-                    assert p["cycle_errors"] == 0 and p["restarts"] == 0, p
-            if kill:
-                assert st["failovers"] >= 1 and st["failed"] == [0], st
-            else:
-                assert st["failovers"] == 0 and g["errors"] == 0 \
-                    and g["faults"] == 0, st
-                assert all(p["submitted"] > 0 for p in per), per
-            checked = check_responses(reqs, futures, params, cfg, reps[0])
-            assert checked > 0
-            # failover changes placement and chunking, never a request's
-            # bits: each response served whole in both runs equals the
-            # plain run's bit for bit, adopted ones included
-            equal = 0
-            for f in futures:
-                r = f.result()
-                if r.status != "ok" or r.degraded:
-                    continue
-                if not kill:
-                    plain_run[r.request_id] = r
-                elif r.request_id in plain_run:
-                    p0 = plain_run[r.request_id]
-                    assert np.array_equal(r.scores, p0.scores), \
-                        (label, r.request_id)
-                    assert np.array_equal(r.order, p0.order), r.request_id
-                    equal += 1
-            assert equal > 0 or not kill, label
-            if mode == "des" and not kill:
-                plain_des = plain_run
-            out["launches"] += launches
-            out[label] = res.summary()
-            detail = wall_summary(res) if mode == "pump" else (
-                f"p50 {res.pct(50):.3f} ms, p95 {res.pct(95):.3f} ms, p99 "
-                f"{res.pct(99):.3f} ms; {res.achieved_qps:.1f} QPS over "
-                f"{res.sim_s:.3f}s simulated, {res.serve_s:.4f}s compute; "
-                f"served {res.completed}/{res.n_requests}, errors "
-                f"{res.errors}")
-            print(f"[{label}] {len(shapes)} shapes warmed per replica; "
-                  f"{detail}; failovers {st['failovers']}, drained "
-                  f"{[p['drained'] for p in per]} adopted "
-                  f"{[p['adopted'] for p in per]}, probes {st['probes']}, "
-                  f"submitted {[p['submitted'] for p in per]}; "
-                  f"{tally.calls['execute_chunk']} chunks executed, longest "
-                  f"{1e3 * tally.longest['execute_chunk']:.3f} ms; K2 x "
-                  f"{launches} (warmup {warm}); streams "
-                  f"{[hex(s.cuda_stream) for s in streams]}; {checked} "
-                  "responses match the plain pipeline on the CPU"
-                  + (f"; {equal} bit-equal to the run without the kill"
-                     if kill else ""))
-    out["launches"] += phase_router_adopt(params, reqs, plain_des)
+            run = router_run(params, reqs, mode, kill, plain_run)
+            out["launches"] += run["launches"]
+            out[run["label"]] = run["res"].summary()
+    out["launches"] += phase_router_adopt(params, reqs, out["plain"]["des"])
     return out
 
 
-def phase_router_adopt(params, reqs, plain_run) -> int:
+def router_run(params, reqs, mode, kill, plain_run, label=None) -> dict:
+    """One run of `phase_router`: every future resolved, the fleet
+    identity, Σ adopted = Σ drained, failovers in a kill run, K2 and
+    query_bias once per pipeline run on either replica (counts set to 0
+    before the run's warmup and read after it), every served response
+    against the plain pipeline on the CPU. A run without the kill records
+    its whole, undegraded responses in `plain_run` (request id ->
+    response); a kill run's are held to them bit for bit."""
+    cfg = cloes.CASCADE
+    label = label or f"router {mode}" + (" kill-replica" if kill else "")
+    router = S.build_router(params, cfg, n=N_REPLICAS,
+                            kill_replica=kill, device="cuda")
+    reps = router.replicas
+    streams = [r.stream for r in reps]
+    default = torch.cuda.default_stream(reps[0].device)
+    handles = {s.cuda_stream for s in streams if s is not None}
+    assert len(handles) == N_REPLICAS and \
+        default.cuda_stream not in handles, (streams, default)
+    ops.reset_launch_counts()        # this run starts here
+    shapes = router.warmup()
+    warm_counts = ops.launch_counts()
+    warm = warm_counts["cascade_filter"]
+    tally = Tally()
+    for r in reps:
+        tally.wrap(r, "rank_batch")
+        tally.wrap(r, "execute_chunk")
+    if mode == "des":
+        res = run_open_loop_router(router, reqs, DES_QPS,
+                                   deadline_ms=DES_DEADLINE_MS, seed=0)
+        router.close()
+    else:
+        router.attach_pumps([
+            SessionPump(r, name=f"pump-{r.name}").start() for r in reps])
+        res = run_wall_clock(router, reqs, DES_QPS,
+                             deadline_ms=DES_DEADLINE_MS,
+                             n_threads=PUMP_THREADS, seed=0,
+                             result_timeout_s=RESULT_TIMEOUT_S)
+        router.close(timeout=RESULT_TIMEOUT_S)
+        assert not any(p.running for p in router.pumps), label
+    sync()
+    counts = ops.launch_counts()
+    launches = counts["cascade_filter"] - warm
+    qb_launches = counts["query_bias"] - warm_counts["query_bias"]
+    st = router.stats_export()
+    per = [p.get("session", p) for p in st["replicas"]]
+    g = st["global"]
+    futures = in_request_order(reqs, res.futures)
+    assert res.unresolved == 0 and all(f.done() for f in futures), \
+        f"{label}: unresolved futures"
+    assert g["submitted"] == g["completed"] + g["shed"] \
+        + g["errors"], g
+    assert g["pending"] == 0 and g["inflight"] == 0, g
+    assert g["adopted"] == g["drained"], g
+    assert launches == qb_launches == tally.calls["rank_batch"] > 0, \
+        (launches, qb_launches, tally.calls)
+    if mode == "pump":
+        for p in st["replicas"]:
+            assert p["cycle_errors"] == 0 and p["restarts"] == 0, p
+    if kill:
+        assert st["failovers"] >= 1 and st["failed"] == [0], st
+    else:
+        assert st["failovers"] == 0 and g["errors"] == 0 \
+            and g["faults"] == 0, st
+        assert all(p["submitted"] > 0 for p in per), per
+    checked = check_responses(reqs, futures, params, cfg, reps[0])
+    assert checked > 0
+    # failover changes placement and chunking, never a request's
+    # bits: each response served whole in both runs equals the
+    # plain run's bit for bit, adopted ones included
+    equal = 0
+    for f in futures:
+        r = f.result()
+        if r.status != "ok" or r.degraded:
+            continue
+        if not kill:
+            plain_run[r.request_id] = r
+        elif r.request_id in plain_run:
+            p0 = plain_run[r.request_id]
+            assert np.array_equal(r.scores, p0.scores), \
+                (label, r.request_id)
+            assert np.array_equal(r.order, p0.order), r.request_id
+            equal += 1
+    assert equal > 0 or not kill, label
+    detail = wall_summary(res) if mode == "pump" else (
+        f"p50 {res.pct(50):.3f} ms, p95 {res.pct(95):.3f} ms, p99 "
+        f"{res.pct(99):.3f} ms; {res.achieved_qps:.1f} QPS over "
+        f"{res.sim_s:.3f}s simulated, {res.serve_s:.4f}s compute; "
+        f"served {res.completed}/{res.n_requests}, errors "
+        f"{res.errors}")
+    print(f"[{label}] {len(shapes)} shapes warmed per replica; "
+          f"{detail}; failovers {st['failovers']}, drained "
+          f"{[p['drained'] for p in per]} adopted "
+          f"{[p['adopted'] for p in per]}, probes {st['probes']}, "
+          f"submitted {[p['submitted'] for p in per]}; "
+          f"{tally.calls['execute_chunk']} chunks executed, longest "
+          f"{1e3 * tally.longest['execute_chunk']:.3f} ms; K2 x "
+          f"{launches} (warmup {warm}), query_bias x {qb_launches}; "
+          f"streams {[hex(s.cuda_stream) for s in streams]}; {checked} "
+          "responses match the plain pipeline on the CPU"
+          + (f"; {equal} bit-equal to the run without the kill"
+             if kill else ""))
+    return dict(label=label, res=res, launches=launches,
+                qb_launches=qb_launches, equal=equal)
+
+
+def phase_router_adopt(params, reqs, plain_run, *, backlog_n=ADOPT_BACKLOG,
+                       label="router adopt") -> int:
     """Failover with a backlog on the card. In the kill runs above replica
     0 holds nothing queued when its breaker opens (it quarantines each
     chunk as it comes), so nothing is adopted. Here ADOPT_BACKLOG requests
@@ -2229,14 +2282,15 @@ def phase_router_adopt(params, reqs, plain_run) -> int:
     serves them on the card. At least one request must be adopted, Σ
     adopted = Σ drained, and every adopted response must equal the plain
     DES run's response to the same request bit for bit, though it was
-    served in another chunk of another size. Returns K2's launches,
-    asserted = the adopting replica's pipeline runs."""
+    served in another chunk of another size; every future resolved and
+    the fleet identity closed. Returns K2's launches, asserted = the
+    adopting replica's pipeline runs (`backlog_n` requests queued)."""
     router = S.build_router(params, cloes.CASCADE, n=N_REPLICAS,
                             kill_replica=True, device="cuda")
     dead, live = router.replicas
     dead._sleep = lambda s: None        # no backoff between its attempts
     router.warmup()
-    backlog = [r for r in reqs if r.request_id in plain_run][:ADOPT_BACKLOG]
+    backlog = [r for r in reqs if r.request_id in plain_run][:backlog_n]
     futs = [dead.submit(r, now_ms=0.0) for r in backlog]
     quarantined = 0
     while not dead._breaker_open():
@@ -2259,6 +2313,9 @@ def phase_router_adopt(params, reqs, plain_run) -> int:
     assert launches == tally.calls["rank_batch"] > 0, \
         (launches, tally.calls)
     router.close()
+    g = router.stats_export()["global"]
+    assert all(f.done() for f in futs), f"{label}: unresolved futures"
+    assert g["submitted"] == g["completed"] + g["shed"] + g["errors"], g
     equal = 0
     for f in futs:
         r = f.result()
@@ -2270,12 +2327,66 @@ def phase_router_adopt(params, reqs, plain_run) -> int:
         assert np.array_equal(r.order, p0.order), r.request_id
         equal += 1
     assert equal == adopted, (equal, adopted)
-    print(f"[router adopt] {len(backlog)} queued on the dead replica, "
+    print(f"[{label}] {len(backlog)} queued on the dead replica, "
           f"{quarantined} quarantined before its breaker opened, {adopted} "
           f"adopted and served by the survivor in {tally.calls['rank_batch']} "
           f"pipeline runs (K2 x {launches}); {equal} bit-equal to the plain "
           "DES run")
     return launches
+
+
+def phase_witness(params, te, plain) -> dict:
+    """The serving paths under the port's runtime lock-order witness
+    (`repro_torch.analysis.witness`), where the real interleavings exist:
+    the session, pool, router and injector locks and `_build`'s build and
+    launch locks wrapped while installed, every K2 and query_bias launch
+    counting under the wrapped launch lock while pump, submitter, router
+    control and probe threads take the others. A wall-clock pump with
+    --faults 0.2 (WITNESS_REQUESTS requests from 4 threads), the
+    two-replica router's pump-mode kill run (its whole responses held bit
+    for bit to `plain["pump"]`, the unwitnessed run's) and an adopted
+    backlog of WITNESS_ADOPT_BACKLOG (held to `plain["des"]`), each with
+    the checks of its unwitnessed phase (every future resolved, the
+    identity). Fails on any inversion, or when no K2 or query_bias launch
+    ran under the witness. A phase of its own: the timed pump and router
+    phases above run unwitnessed."""
+    from repro_torch.analysis import witness as lock_witness
+    t0 = time.perf_counter()
+    witness, uninstall = lock_witness.install_witness()
+    try:
+        pump = phase_pump(params, te, fault_rate=CHAOS_RATE,
+                          n_requests=WITNESS_REQUESTS,
+                          label="witness pump faults")
+        reqs = S.make_requests(te, WITNESS_REQUESTS, seed=0)
+        router = router_run(params, reqs, "pump", True, plain["pump"],
+                            label="witness router pump kill-replica")
+        adopt_k2 = phase_router_adopt(
+            params, S.make_requests(te, DES_REQUESTS, seed=0), plain["des"],
+            backlog_n=WITNESS_ADOPT_BACKLOG, label="witness router adopt")
+        adopt_qb = ops.launch_counts()["query_bias"]
+    finally:
+        uninstall()
+    assert adopt_qb == adopt_k2, (adopt_qb, adopt_k2)
+    k2 = pump["launches"] + router["launches"] + adopt_k2
+    qb = pump["qb_launches"] + router["qb_launches"] + adopt_qb
+    wrapped = collections.Counter(
+        lock_witness.kind(w._name) for w in witness.locks)
+    acquired = witness.acquisitions()
+    edges = ["->".join(e) for e in sorted(witness.edge_kinds())]
+    seconds = time.perf_counter() - t0
+    print(f"[witness] locks wrapped {dict(sorted(wrapped.items()))}; "
+          f"acquisitions {dict(sorted(acquired.items()))}; distinct edges "
+          f"{edges or 'none'}; K2 x {k2}, query_bias x {qb} under the "
+          f"witness (pump {pump['launches']}, router "
+          f"{router['launches']}, adopt {adopt_k2}; warmups not counted); "
+          f"inversions {len(witness.inversions)}; {seconds:.1f} s")
+    witness.assert_clean()
+    assert k2 > 0 and qb > 0, (k2, qb)
+    assert acquired["launch"] > 0 and acquired["session"] > 0, acquired
+    assert {"session", "pool", "router", "injector", "build",
+            "launch"} <= set(wrapped), wrapped
+    return dict(k2=k2, qb=qb, edges=edges, wrapped=dict(wrapped),
+                acquisitions=acquired, seconds=seconds)
 
 
 def phase_replica_streams(params, te) -> int:
@@ -3881,6 +3992,7 @@ def phase_encdec_train() -> dict:
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
+    phase_lint()
     phase_build()
     errs = phase_parity()
     errs.update(cascade_score_batched_bwd=0.0, cascade_loss=0.0,
@@ -3921,13 +4033,15 @@ def main() -> None:
     shim = phase_shim(params, te)
     with tempfile.TemporaryDirectory() as tmp:
         warm = phase_warm_restart(tmp)
+    witnessed = phase_witness(params, te, router["plain"])
     extra = {"cascade_filter": dict(
                  pump_launches=pump["launches"],
                  pump_faults_launches=chaos["launches"],
                  router_launches=router["launches"],
                  replica_streams_launches=streams_launches,
                  shim_launches=shim["cascade_filter"],
-                 warm_restart_launches=warm["launches"]),
+                 warm_restart_launches=warm["launches"],
+                 witness_launches=witnessed["k2"]),
              "cascade_score_batched": dict(
                  shim_launches=shim["cascade_score_batched"])}
     for name in ("cascade_loss", "cascade_loss_bwd"):
@@ -3978,7 +4092,8 @@ def main() -> None:
     extra["query_bias"] = dict(
         score_launches=qb_score_launches,
         pump_launches=pump["qb_launches"],
-        warm_restart_launches=warm["qb_launches"])
+        warm_restart_launches=warm["qb_launches"],
+        witness_launches=witnessed["qb"])
     rows = []
     for name, info in KERNEL_INFO.items():
         row = {"name": name, **info, "launches": launches[name],

@@ -47,6 +47,7 @@ from repro_torch.serving import batching as TBT
 from repro_torch.serving import session as TS
 from repro_torch.serving.faults import FsFaultConfig, FsFaultInjector
 from repro_torch.serving.loadgen import run_open_loop as t_run
+from torch_parity import torch_lock_order_witness  # noqa: F401
 from torch_parity import (FakeTimer, assert_margin, assert_same_serve,
                           cascades, close, one_cpu_thread, requests,
                           serving_arrays, serving_config)

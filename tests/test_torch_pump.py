@@ -19,6 +19,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.serving import batching as TB
 from repro_torch.serving import session as TS
 from repro_torch.serving.pump import SessionPump, run_wall_clock
+from torch_parity import torch_lock_order_witness  # noqa: F401
 from torch_parity import assert_margin, cascades, close
 
 _JP, _TP, _JCFG, _TCFG = cascades()

@@ -30,6 +30,7 @@ from repro_torch.serving import loadgen as TG
 from repro_torch.serving import pump as TP
 from repro_torch.serving import router as TR
 from repro_torch.serving import session as TS
+from torch_parity import torch_lock_order_witness  # noqa: F401
 from torch_parity import FakeTimer, assert_margin, cascades, close
 
 _JP, _TP, _JCFG, _TCFG = cascades()

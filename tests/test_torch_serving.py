@@ -35,6 +35,7 @@ from repro_torch.serving import faults as TF
 from repro_torch.serving import session as TS
 from repro_torch.serving.pump import SessionPump
 from repro_torch.serving.loadgen import run_open_loop as t_run
+from torch_parity import torch_lock_order_witness  # noqa: F401
 from torch_parity import (FakeTimer, assert_margin, assert_same_serve,
                           cascades, close, requests, serving_arrays,
                           serving_config)

@@ -16,6 +16,7 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import repro.configs as JCFG
@@ -25,6 +26,7 @@ from repro.data import features as JF
 from repro.models import base as JMB
 from repro.models import zoo as JZ
 from repro_torch.core import cascade as TC
+from repro_torch.analysis.witness import install_witness
 from repro_torch.core import pipeline as TPIPE
 from repro_torch.launch.train import ENC_FRAMES
 from repro_torch.models import zoo as TZ
@@ -33,6 +35,24 @@ from repro_torch.kernels.cascade_filter.ref import assert_decision_margin
 from repro_torch.kernels.cascade_score.ref import cascade_score_batched_ref
 
 RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True)
+def torch_lock_order_witness():
+    """The port's serving tests run under its runtime lock-order witness
+    (repro_torch.analysis.witness), as the reference's run under its own
+    (tests/conftest.py): every lock a port serving class constructs, and
+    `_build`'s build and launch locks, are wrapped in a recording proxy,
+    and an acquisition order that closes a cycle fails the test at
+    teardown even when the unlucky interleaving never happened. Autouse
+    in each test file that imports it (test_torch_serving, _pump,
+    _router, _checkpoint)."""
+    witness, uninstall = install_witness()
+    try:
+        yield witness
+        witness.assert_clean()
+    finally:
+        uninstall()
 
 
 @contextlib.contextmanager
