@@ -10,6 +10,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    stdlib `ast` only, CL001-CL011) over src/repro_torch, the port's tests
    and this script, in-process: files scanned, findings and ms; any
    finding fails the run;
+1c. `[costs]` the dry-run cost report (`repro_torch.launch.dryrun`) on
+   the host: every (arch x shape) step of `configs/shapes.py` at
+   `--variant auto` traced on `meta` tensors (no allocation) but the
+   recurrent archs' chunked train and prefill (minutes of host time;
+   `python -m repro_torch.launch.dryrun --all` has them): one line per
+   combo with its FLOPs, bytes accessed, bound at one H100's peaks (989
+   TFLOP/s bf16, 3.35 TB/s) and what bounds it, argument and peak temp
+   GB, whether it fits one card; any failed combo fails the run. The LM
+   phases below take their decode steps' bounds from the same report;
 2. build: compiles the CUDA kernels from `src/repro_torch/csrc` (nvcc,
    sm_90a, one process per source) and loads them;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
@@ -183,8 +192,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    synthetic tokens (every local ring wraps), 32 greedy decode steps with
    K8 launched once per layer per step, finite logits; prefill time, ms
    per step, tokens/s and peak memory, and a few more steps under
-   torch.profiler. Then, at full width and 6 layers (one local:global
-   period) in float32, prefill of 1100 tokens plus one decode step held
+   torch.profiler. Here and in 8b-8d the median step is asserted no faster
+   than the cost report's bound for the step (its FLOPs at the bf16 peak,
+   its bytes at 3.35 TB/s, at the last step's cache_len), printed with
+   the share of the median it is: a faster step means the count is
+   wrong. Then, at full width and 6 layers (one local:global period) in
+   float32, prefill of 1100 tokens plus one decode step held
    to the model's own forward over the extended sequence (2e-3, the
    reference's bar), a forward that never runs K8;
 9. serving with the neural final stage (`launch.serve --neural
@@ -195,16 +208,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    28.1 GB) at their published widths in bfloat16, the weights drawn leaf
    by leaf on the card: prefill of 4 prompts of 512 tokens, 32 greedy
    decode steps, K8 launched once per layer per step and nothing else;
-   ms per step, CUDA kernel launches per step and peak memory beside the
-   card's name and power limit;
+   ms per step beside the report's bound and the reference formula's
+   floor (which charges only the experts a batch's top-k choices can
+   hit; the capacity dispatch reads all of them), CUDA kernel launches
+   per step and peak memory beside the card's name and power limit;
 8c. `[ssm lm]` rwkv6-1.6b (24 layers) and zamba2-1.2b (38 layers, 6
    shared-block applications) at their published widths and full depth in
    bfloat16, the weights drawn on the card: prefill of 4 prompts of 512
    tokens through the chunked form and through the scan (seconds each, the
    largest gap between their last logits), 32 greedy decode steps from the
    scan's cache, K8 = 6 x 32 for zamba2 and no kernel at all for rwkv6;
-   ms per step beside the floor of the weight bytes a step reads (the
-   shared block's once per application), CUDA kernel launches per step,
+   ms per step beside the report's bound, CUDA kernel launches per step,
    the device's idle share (a profile of 3 more steps) and peak memory,
    beside the card's name and power limit;
 8d. `[encdec lm]` seamless-m4t-large-v2 at its published widths and full
@@ -214,12 +228,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    launched twice per decoder layer per step (self attention, and cross
    attention over the cached encoder K/V) and nothing else, the logits
    against the model's forward over the same tokens; prefill s, median and
-   p90 ms per step beside the floor of the bytes a step reads, CUDA kernel
-   launches per step, the device's idle share, tokens/s and peak memory;
+   p90 ms per step beside the report's bound, CUDA kernel launches per
+   step, the device's idle share, tokens/s and peak memory;
 10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
    2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
    the card: finite losses within 1e-4 of the same steps on the CPU, and
-   the same steps with the weights in bfloat16 more than 1e-4 from them.
+   the same steps with the weights in bfloat16 more than 1e-4 from them;
+   the card's peak memory beside the report's argument + temp bytes.
    It and the phases after it run last: their CPU work stays out of every
    phase timed on the host's clock;
 11. `[moe parity]` dbrx-smoke and arctic-smoke in float32 on the card
@@ -257,7 +272,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 18. `[encdec train]` --target lm on seamless-smoke, 3 Adam steps at lr
    1e-4 within 1e-4 of the CPU; then at full depth on the card alone (3
    steps of 2 x 64 tokens + 16 frames, float32 weights): finite losses, s
-   per step, peak memory;
+   per step, peak memory beside the report's argument + temp bytes;
 19. one JSON line with each kernel's launches on its path (K2, K4 and
    K5 also on the restart, data-parallel and warm-restart paths; K8 also
    on the moe, ssm and encdec paths; query_bias on the serving main path
@@ -269,6 +284,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -276,6 +292,7 @@ import gc
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import statistics
@@ -284,6 +301,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 # The port's source tree: this checkout's `src`, or CHIP_SMOKE_SRC (kernel_ab.py
 # points it at another tree to run these checks and timings on that tree).
@@ -298,7 +316,7 @@ from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 from repro_torch import configs as CFG  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.configs import cloes  # noqa: E402
-from repro_torch.configs.shapes import DECODE_ENC_LEN  # noqa: E402
+from repro_torch.configs.shapes import DECODE_ENC_LEN, SHAPES  # noqa: E402
 from repro_torch.core import baselines as B  # noqa: E402
 from repro_torch.core import cascade as C  # noqa: E402
 from repro_torch.core import losses as L  # noqa: E402
@@ -377,6 +395,7 @@ NEURAL_ARCH = "gemma3-27b"
 # the third step. The same steps with the weights in bfloat16 must miss
 # the bar, so it is one that bf16 rounding fails.
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_STEPS = "starcoder2-3b", 2, 3
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 64      # the launcher's defaults
 LM_TRAIN_RTOL = 1e-4
 # The moe family. [moe parity]: each smoke config in float32 on the card
 # against the CPU (forward, prefill, MOE_PARITY_STEPS greedy decode
@@ -629,6 +648,93 @@ def phase_lint() -> dict:
           f"rules, {len(findings)} findings in {ms:.1f} ms")
     assert not findings, f"[lint] {len(findings)} findings"
     return dict(files=len(files), findings=len(findings), ms=ms)
+
+
+# -- 1c. the cost report --------------------------------------------------------
+
+def cost_report():
+    """The cost report's modules (`launch/dryrun.py`, `launch/roofline.py`),
+    imported here, not at the top: kernel_ab.py runs this script's code on
+    trees that predate them."""
+    from repro_torch.launch import dryrun, roofline
+    return dryrun, roofline
+
+
+def costs_combos() -> list[tuple[str, str]]:
+    """`configs/shapes.py`'s (arch, shape) combos that `[costs]` traces:
+    all but the recurrent archs' train and prefill, whose chunked forms'
+    Python loops over chunks take minutes of host time to trace (the CLI's
+    --all runs them)."""
+    out = []
+    for arch in CFG.all_archs():
+        recurrent = CFG.get(arch).arch_type in ("ssm", "hybrid")
+        for shape, sh in SHAPES.items():
+            if not (recurrent and sh.step != "decode"):
+                out.append((arch, shape))
+    return out
+
+
+def phase_costs(tmp: str) -> dict:
+    """The dry-run cost report on the host at --variant auto over
+    `costs_combos()`, written under tmp: one line per combo (skipped ones
+    with the reason) and the phase's wall time. The combos are traced in
+    a pool of spawned processes, one per core up to 8, the longest (the
+    32k-token prefills' KV-chunk loops) first. A combo that fails to trace
+    fails the run."""
+    DR, RL = cost_report()
+    t0 = time.perf_counter()
+    combos = sorted(costs_combos(),
+                    key=lambda c: ("prefill", "train", "decode").index(
+                        SHAPES[c[1]].step))
+    ctx = multiprocessing.get_context("spawn")
+    workers = min(8, os.cpu_count() or 1)
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as pool:
+        futures = {(arch, shape): pool.submit(
+            DR.run_one, arch, shape, out_dir=Path(tmp),
+            variant=DR.recommended_variant(CFG.get(arch), shape))
+            for arch, shape in combos}
+        done = {c: f.result() for c, f in futures.items()}
+    recs = {}
+    for arch, shape in costs_combos():
+        rec = done[(arch, shape)]
+        if rec["status"] == "skipped":
+            print(f"[costs] {arch} x {shape}: skipped ({rec['skipped']})")
+            continue
+        recs[(arch, shape)] = rec
+        print(f"[costs] {arch} x {shape} ({rec['variant']}): "
+              f"{DR.summary(rec)}")
+    seconds = time.perf_counter() - t0
+    print(f"[costs] {len(recs)} combos traced on meta tensors in "
+          f"{seconds:.1f} s on the host ({workers} processes; one H100's "
+          f"peaks: {RL.PEAK_FLOPS:.3g} FLOP/s bf16, {RL.HBM_BW:.3g} B/s)")
+    return dict(records=recs, seconds=seconds)
+
+
+def decode_bound(cfg, b: int, max_len: int, pos: int, enc_len: int = 0
+                 ) -> dict:
+    """The cost report's record of one decode step of cfg (its layers as
+    cut) at batch b against a cache of max_len positions at cache_len pos,
+    with its bound (ms) and what bounds it."""
+    DR, RL = cost_report()
+    rec = DR.step_record(cfg, "decode", batch=b, seq_len=max_len,
+                         cache_len=pos, enc_len=enc_len)
+    seconds, by = RL.bound(rec)
+    return dict(rec=rec, bound_ms=seconds * 1e3, by=by)
+
+
+def bound_note(tag: str, med: float, bnd: dict) -> str:
+    """Assert the median step no faster than the report's bound (else the
+    count is wrong) and say how far it is."""
+    if med < bnd["bound_ms"]:
+        raise AssertionError(
+            f"[{tag}] median step {med:.4f} ms is faster than the cost "
+            f"report's bound {bnd['bound_ms']:.4f} ms: the count is wrong")
+    cost = bnd["rec"]["cost"]
+    return (f"report bound {bnd['bound_ms']:.3f} ms by {bnd['by']} "
+            f"({cost['bytes accessed']:.0f} bytes, {cost['flops']:.4g} FLOPs "
+            f"at cache_len {bnd['rec']['cache_len']}; "
+            f"{bnd['bound_ms'] / med:.1%} of the median)")
 
 
 # -- 2. build -----------------------------------------------------------------
@@ -1781,13 +1887,16 @@ def phase_train_lm() -> dict:
     same steps with the weights rounded to bfloat16 (on the card, the
     launcher's batches) must differ from the card's by more than the bar."""
     args = ["--target", "lm", "--arch", LM_TRAIN_ARCH, "--layers",
-            str(LM_TRAIN_LAYERS), "--steps", str(LM_TRAIN_STEPS)]
+            str(LM_TRAIN_LAYERS), "--steps", str(LM_TRAIN_STEPS), "--batch",
+            str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ)]
     out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(out):
         t0 = time.perf_counter()
         card = TLT.main(args + ["--device", "cuda"])
         sync()
         seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         t0 = time.perf_counter()
         cpu = TLT.main(args + ["--device", "cpu"])
         cpu_s = time.perf_counter() - t0
@@ -1799,13 +1908,15 @@ def phase_train_lm() -> dict:
 
     cfg = dataclasses.replace(CFG.get(LM_TRAIN_ARCH),
                               n_layers=LM_TRAIN_LAYERS)
+    need = train_need(dataclasses.replace(cfg, dtype=torch.float32),
+                      LM_TRAIN_BATCH, LM_TRAIN_SEQ)
     params = MB.tree_map(
         lambda p: p.to("cuda", torch.bfloat16),
         MB.materialize(Z.templates(cfg), torch.Generator().manual_seed(0)))
     opt = adam(0.01)                       # the launcher's defaults
     opt_state, rng, bf16 = opt.init(params), np.random.default_rng(0), []
     for _ in range(LM_TRAIN_STEPS):
-        batch = TLT.lm_batch(cfg, rng, 4, 64, "cuda")
+        batch = TLT.lm_batch(cfg, rng, LM_TRAIN_BATCH, LM_TRAIN_SEQ, "cuda")
         params, opt_state, loss = Z.train_step(params, opt_state, batch, cfg,
                                                opt.update)
         bf16.append(float(loss))
@@ -1818,7 +1929,21 @@ def phase_train_lm() -> dict:
           f"{cpu_s:.2f} s on the CPU; losses {[round(v, 4) for v in card]}, "
           f"max relative err against the CPU {err:.3g} (bar {LM_TRAIN_RTOL});"
           f" the same steps in bfloat16 {bf16_err:.3g} from the card's")
-    return dict(losses=card, max_rel_err=err, bf16_err=bf16_err)
+    print(f"[train lm] peak memory on the card {peak} bytes; the cost "
+          f"report's argument + temp for one step {need} bytes "
+          f"({peak / need:.3f} of it)")
+    return dict(losses=card, max_rel_err=err, bf16_err=bf16_err,
+                peak_bytes=peak, report_bytes=need)
+
+
+def train_need(cfg, b: int, s: int, enc_len: int = 0) -> int:
+    """The cost report's argument + peak temp bytes of one train step
+    (`zoo.train_step` with Adam) of cfg at b x s: what the card must hold
+    for it."""
+    DR, _ = cost_report()
+    mem = DR.step_record(cfg, "train", batch=b, seq_len=s,
+                         enc_len=enc_len)["memory"]
+    return mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
 
 
 class Tally:
@@ -2855,8 +2980,9 @@ def phase_k8_timing() -> dict[str, dict]:
             q, k, v, cache_len, window), kvs), reps=5, calls=5)
         library, _ = time_ms(rotate(lib, kvs), reps=5, calls=5)
         n_valid = min(cache_len + 1, window)
-        nbytes = (2 * b * n_valid * hkv * hd + 2 * b * h * hd) * 2
-        nops = 4 * b * h * n_valid * hd
+        nops, kv_bytes, q_bytes = ops.swa_decode_work(b, h, hkv, hd, 2,
+                                                      cache_len, window)
+        nbytes = kv_bytes + 2 * q_bytes
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = nops / BF16_OPS_PER_S * 1e3
         per_sm, tile = swa_kernel._instance(
@@ -3013,6 +3139,7 @@ def phase_lm() -> dict:
     assert launches == want, (launches, want)
     step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(LM_STEPS)]
     med = statistics.median(step_ms)
+    bnd = decode_bound(cfg, LM_BATCH, max_len, LM_PROMPT + LM_STEPS - 1)
     print(f"[lm] prefill B={LM_BATCH} x {LM_PROMPT} tokens: {prefill_s:.3f} s "
           f"({LM_BATCH * LM_PROMPT / prefill_s:.0f} tokens/s); {LM_STEPS} "
           f"greedy decode steps in {decode_s:.3f} s: median {med:.3f} ms "
@@ -3021,6 +3148,7 @@ def phase_lm() -> dict:
           f"median, {LM_BATCH * LM_STEPS / decode_s:.1f} tokens/s overall; "
           f"peak memory {peak} bytes; K8 launches {launches['swa_decode']} "
           f"= {cfg.n_layers} x {LM_STEPS}; logits finite")
+    print(f"[lm] decode step: {bound_note('lm', med, bnd)}")
     print(f"[lm] greedy tokens of sequence 0: "
           f"{torch.cat(generated, 1)[0].tolist()}")
     profile = profile_decode(params, cfg, cache, tok, LM_PROMPT + LM_STEPS)
@@ -3029,6 +3157,7 @@ def phase_lm() -> dict:
     free_cuda()
     return dict(params=cfg.param_count(), param_bytes=nbytes,
                 prefill_s=prefill_s, step_ms=step_ms, step_ms_median=med,
+                floor_ms=bnd["bound_ms"],
                 tokens_per_s=LM_BATCH / med * 1e3, peak_bytes=peak,
                 k8_launches=launches["swa_decode"], profile=profile)
 
@@ -3267,8 +3396,9 @@ def phase_moe_lm(card: str) -> dict:
     MOE_LM_PROMPT tokens, then MOE_LM_STEPS greedy decode steps, finite
     logits; K8 launched once per layer per step and nothing else counted
     (counts set to 0 before the prefill, read after the last step); ms per
-    step (CUDA events, median) beside the floor of the weight bytes a step
-    reads, the CUDA kernel launches of one more step and a profile of
+    step (CUDA events, median), asserted no faster than the cost report's
+    bound for the step and printed beside it and the reference formula's
+    floor, the CUDA kernel launches of one more step and a profile of
     LM_PROFILE_STEPS more (torch.profiler: device busy and idle share),
     peak memory; each beside the card's name and power limit."""
     out = {}
@@ -3319,10 +3449,14 @@ def phase_moe_lm(card: str) -> dict:
         per_step, kernels, _ = cuda_launches_per_call(
             lambda: E.decode_step(params, cfg, tok, cache, s + steps),
             calls=2)
-        # a decode step reads every weight but the embedding's (the
-        # capacity dispatch runs all E experts): its floor on the card
-        read = nbytes - params["embed"].numel() * params["embed"].element_size()
-        floor_ms = read / HBM_BYTES_PER_S * 1e3
+        bnd = decode_bound(cfg, b, s + steps + LM_PROFILE_STEPS,
+                           s + steps - 1)
+        floor_ms = bnd["bound_ms"]
+        # the reference's formula charges only the experts the batch's
+        # top-k choices can hit; the capacity dispatch reads all E
+        RL = cost_report()[1]
+        ref_ms = RL.streaming_floor_bytes(bnd["rec"], 1) / RL.HBM_BW * 1e3
+        hit = min(1.0, b * cfg.top_k / cfg.n_experts)
         print(f"[moe lm] {cfg.name}: {cfg.n_layers} of "
               f"{CFG.get(arch).n_layers} layers at the published widths, {cfg.param_count()} parameters, {nbytes} "
               f"bytes in {cfg.dtype} made on the card in {make_s:.1f} s; "
@@ -3332,12 +3466,14 @@ def phase_moe_lm(card: str) -> dict:
               f"{prefill_s:.3f} s; {steps} greedy decode steps at B={b}: "
               f"median {med:.3f} ms per step (first {step_ms[0]:.3f}, min "
               f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
-              f"{b / med * 1e3:.1f} tokens/s; weights read per step "
-              f"{read} bytes, {floor_ms:.3f} ms at 3.35 TB/s ("
-              f"{floor_ms / med:.1%} of the median); {per_step:.0f} CUDA kernel "
+              f"{b / med * 1e3:.1f} tokens/s; {per_step:.0f} CUDA kernel "
               f"launches per step ({kernels / 2:.0f} kernels on the device); "
               f"peak memory {peak} bytes; K8 launches "
               f"{launches['swa_decode']} = {cfg.n_layers} x {steps}")
+        print(f"[moe lm] {cfg.name} decode step: "
+              f"{bound_note('moe lm', med, bnd)}; the reference formula's "
+              f"floor {ref_ms:.3f} ms (it charges {hit:.2%} of the experts "
+              f"at B={b}, top-{cfg.top_k} of {cfg.n_experts})")
         print(f"[moe lm] {cfg.name} greedy tokens of sequence 0: "
               f"{torch.cat(generated, 1)[0].tolist()}")
         profile = profile_decode(params, cfg, cache, tok, s + steps,
@@ -3345,7 +3481,7 @@ def phase_moe_lm(card: str) -> dict:
         out[arch] = dict(layers=cfg.n_layers, params=cfg.param_count(),
                          param_bytes=nbytes, prefill_s=prefill_s,
                          step_ms_median=med, floor_ms=floor_ms,
-                         launches_per_step=per_step,
+                         ref_floor_ms=ref_ms, launches_per_step=per_step,
                          device_idle_share=profile["device_idle_share"],
                          peak_bytes=peak, k8_launches=launches["swa_decode"])
         del params, cache, logits
@@ -3485,10 +3621,10 @@ def phase_ssm_lm(card: str) -> dict:
     steps from the scan's cache, finite logits; K8 once per shared-block
     application per step and nothing else counted (counts set to 0 before
     the first prefill, read after the last step); ms per step (CUDA events,
-    median) beside the floor of the weight bytes a step reads (the shared
-    block's once per application), the CUDA kernel launches of one more
-    step, a profile of LM_PROFILE_STEPS more (device idle share) and peak
-    memory; each beside the card's name and power limit."""
+    median), asserted no faster than the cost report's bound for the step
+    and printed beside it, the CUDA kernel launches of one more step, a
+    profile of LM_PROFILE_STEPS more (device idle share) and peak memory;
+    each beside the card's name and power limit."""
     out = {}
     for arch in SSM_ARCHS:
         cfg = CFG.get(arch)
@@ -3543,15 +3679,9 @@ def phase_ssm_lm(card: str) -> dict:
         per_step, kernels, _ = cuda_launches_per_call(
             lambda: E.decode_step(params, cfg, tok, cache, s + steps),
             calls=2)
-        # a decode step reads every weight but the embedding's, the shared
-        # block's once per application: its floor on the card
-        size = lambda tree: sum(t.numel() * t.element_size()
-                                for t in MB.tree_leaves(tree))
-        read = nbytes - size(params["embed"])
-        if cfg.arch_type == "hybrid":
-            read += (Z.shared_applications(cfg) - 1) * size(
-                params["shared_attn"])
-        floor_ms = read / HBM_BYTES_PER_S * 1e3
+        bnd = decode_bound(cfg, b, s + steps + LM_PROFILE_STEPS,
+                           s + steps - 1)
+        floor_ms = bnd["bound_ms"]
         extra = (f", {Z.shared_applications(cfg)} shared-block applications"
                  if cfg.arch_type == "hybrid" else "")
         print(f"[ssm lm] {cfg.name}: {cfg.n_layers} layers{extra} at the "
@@ -3563,12 +3693,13 @@ def phase_ssm_lm(card: str) -> dict:
               f"{gap:.3g} (logits up to {scale:.3g}); {steps} greedy decode "
               f"steps at B={b}: median {med:.3f} ms per step (first "
               f"{step_ms[0]:.3f}, min {min(step_ms):.3f}, max "
-              f"{max(step_ms):.3f}), {b / med * 1e3:.1f} tokens/s; weights "
-              f"read per step {read} bytes, {floor_ms:.3f} ms at 3.35 TB/s ("
-              f"{floor_ms / med:.1%} of the median); {per_step:.0f} CUDA "
-              f"kernel launches per step ({kernels / 2:.0f} kernels on the "
-              f"device); peak memory {peak} bytes; K8 launches "
-              f"{launches['swa_decode']} = {k8_per_step(cfg)} x {steps}")
+              f"{max(step_ms):.3f}), {b / med * 1e3:.1f} tokens/s; "
+              f"{per_step:.0f} CUDA kernel launches per step "
+              f"({kernels / 2:.0f} kernels on the device); peak memory "
+              f"{peak} bytes; K8 launches {launches['swa_decode']} = "
+              f"{k8_per_step(cfg)} x {steps}")
+        print(f"[ssm lm] {cfg.name} decode step: "
+              f"{bound_note('ssm lm', med, bnd)}")
         print(f"[ssm lm] {cfg.name} greedy tokens of sequence 0: "
               f"{torch.cat(generated, 1)[0].tolist()}")
         profile = profile_decode(params, cfg, cache, tok, s + steps,
@@ -3774,23 +3905,6 @@ def phase_encdec_parity() -> dict:
                 k8_launches=launches["swa_decode"])
 
 
-def encdec_step_bytes(params, cfg, cache, pos) -> int:
-    """The bytes one decode step at position `pos` must read: the decoder
-    layers' weights but the cross wk / wv (the cached cross K/V replace
-    them), the final norm and the head, the cross K/V cache and the self
-    K/V cache up to pos."""
-    size = lambda tree: sum(t.numel() * t.element_size()
-                            for t in MB.tree_leaves(tree))
-    blocks = params["blocks"]
-    read = (size(blocks) - size(blocks["cross"]["wk"])
-            - size(blocks["cross"]["wv"]) + size(params["head"])
-            + size(params["final_norm"]))
-    read += size(cache["cross_k"]) + size(cache["cross_v"])
-    k = cache["k"]
-    read += 2 * k[:, :, :pos + 1].numel() * k.element_size()
-    return read
-
-
 def phase_encdec_lm(card: str) -> dict:
     """seamless-m4t-large-v2 at its published widths and full depth in
     bfloat16 (the weights drawn on the card): prefill of ENCDEC_LM_BATCH
@@ -3801,7 +3915,8 @@ def phase_encdec_lm(card: str) -> dict:
     the prefill, read after the last step); the prefill's and every step's
     logits against the model's forward over the same tokens (within
     ENCDEC_BF16_GAP of the logits' scale); ms per step (CUDA events: median
-    and p90) beside the floor of the bytes a step reads, the CUDA kernel
+    and p90), the median asserted no faster than the cost report's bound
+    for the step and printed beside it, the CUDA kernel
     launches of one more step, a profile of LM_PROFILE_STEPS more (device
     idle share) and peak memory; each beside the card's name and power
     limit."""
@@ -3852,8 +3967,9 @@ def phase_encdec_lm(card: str) -> dict:
     assert gap <= ENCDEC_BF16_GAP * scale, (gap, scale)
     per_step, kernels, _ = cuda_launches_per_call(
         lambda: E.decode_step(params, cfg, tok, cache, s + steps), calls=2)
-    read = encdec_step_bytes(params, cfg, cache, s + steps // 2)
-    floor_ms = read / HBM_BYTES_PER_S * 1e3
+    bnd = decode_bound(cfg, b, s + steps + LM_PROFILE_STEPS, s + steps - 1,
+                       DECODE_ENC_LEN)
+    floor_ms = bnd["bound_ms"]
     print(f"[encdec lm] {cfg.name}: {cfg.n_enc_layers} encoder + "
           f"{cfg.n_layers} decoder layers at the published widths, "
           f"{cfg.param_count()} parameters, {nbytes} bytes in {cfg.dtype} "
@@ -3862,14 +3978,15 @@ def phase_encdec_lm(card: str) -> dict:
           f"{DECODE_ENC_LEN} frames {prefill_s:.3f} s; {steps} greedy decode "
           f"steps at B={b}: median {med:.3f} ms per step, p90 {p90:.3f} "
           f"(first {step_ms[0]:.3f}, min {min(step_ms):.3f}, max "
-          f"{max(step_ms):.3f}), {b / med * 1e3:.1f} tokens/s; bytes read "
-          f"per step {read}, {floor_ms:.3f} ms at 3.35 TB/s ("
-          f"{floor_ms / med:.1%} of the median); {per_step:.0f} CUDA kernel "
+          f"{max(step_ms):.3f}), {b / med * 1e3:.1f} tokens/s; "
+          f"{per_step:.0f} CUDA kernel "
           f"launches per step ({kernels / 2:.0f} kernels on the device); "
           f"peak memory {peak} bytes; K8 launches {launches['swa_decode']} = "
           f"2 x {cfg.n_layers} x {steps}; decode against the forward max "
           f"|gap| {gap:.3g} (logits up to {scale:.3g}, bar "
           f"{ENCDEC_BF16_GAP} of it)")
+    print(f"[encdec lm] {cfg.name} decode step: "
+          f"{bound_note('encdec lm', med, bnd)}")
     print(f"[encdec lm] {cfg.name} greedy tokens of sequence 0: "
           f"{torch.cat(run['fed'][1:] + [tok], 1)[0].tolist()}")
     profile = profile_decode(params, cfg, cache, tok, s + steps,
@@ -3972,6 +4089,9 @@ def phase_encdec_train() -> dict:
     lines = log.getvalue().splitlines()
     per_step = float(re.findall(r"\(([0-9.]+)s/step\)", lines[-2])[0])
     depth = CFG.get(ENCDEC_ARCH)
+    need = train_need(dataclasses.replace(depth, dtype=torch.float32),
+                      ENCDEC_FULL_TRAIN_BATCH, ENCDEC_FULL_TRAIN_SEQ,
+                      TLT.ENC_FRAMES)
     assert (f"{depth.n_layers} layers + {depth.n_enc_layers} encoder layers"
             in lines[0]), lines[0]
     assert len(losses) == ENCDEC_TRAIN_STEPS and np.isfinite(losses).all(), \
@@ -3982,17 +4102,20 @@ def phase_encdec_train() -> dict:
           f"{per_step:.3f} s per step (the launcher's mean over "
           f"{ENCDEC_TRAIN_STEPS} steps, first-call work included), "
           f"{seconds:.1f} s in all (weights drawn on the CPU), peak memory "
-          f"{peak} bytes")
+          f"{peak} bytes; the cost report's argument + temp for one step "
+          f"{need} bytes ({peak / need:.3f} of it)")
     free_cuda()
     return dict(losses=card, cpu_losses=cpu, max_rel_err=err,
                 full_losses=losses, full_s_per_step=per_step,
-                full_peak_bytes=peak)
+                full_peak_bytes=peak, full_report_bytes=need)
 
 
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
     phase_lint()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_costs(tmp)
     phase_build()
     errs = phase_parity()
     errs.update(cascade_score_batched_bwd=0.0, cascade_loss=0.0,

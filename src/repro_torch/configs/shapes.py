@@ -70,25 +70,36 @@ def _tokens(shape) -> tuple:
 def batch_specs(cfg: ModelConfig, shape_name: str) -> dict[str, tuple]:
     """The step's data inputs (no cache)."""
     sh = SHAPES[shape_name]
-    b, s, d = sh.global_batch, sh.seq_len, cfg.d_model
-    if sh.step == "decode":
+    return step_batch_specs(cfg, sh.step, sh.global_batch, sh.seq_len)
+
+
+def step_batch_specs(cfg: ModelConfig, step: str, b: int, s: int,
+                     enc_len: int = 0) -> dict[str, tuple]:
+    """The data inputs of a train / prefill / decode step at batch b and
+    sequence length s. An encdec model's frontend at train and prefill
+    has enc_len frames and its decoder s tokens where enc_len is given;
+    else (the assigned shapes' rule) s frames and s / 8 tokens within
+    [16, 1024]."""
+    d = cfg.d_model
+    if step == "decode":
         return {"tokens": _tokens((b, 1))}
     if cfg.arch_type == "encdec":
-        s_dec = min(max(s // 8, 16), 1024)
-        out = {"frontend": ((b, s, d), cfg.dtype),
+        frames, s_dec = (enc_len, s) if enc_len else (s, min(max(s // 8, 16),
+                                                             1024))
+        out = {"frontend": ((b, frames, d), cfg.dtype),
                "tokens": _tokens((b, s_dec))}
-        if sh.step == "train":
+        if step == "train":
             out["targets"] = _tokens((b, s_dec))
         return out
     if cfg.frontend_positions:          # vlm: patches + text = seq_len total
         p = cfg.frontend_positions
         out = {"frontend": ((b, p, d), cfg.dtype),
                "tokens": _tokens((b, s - p))}
-        if sh.step == "train":
+        if step == "train":
             out["targets"] = _tokens((b, s - p))
         return out
     out = {"tokens": _tokens((b, s))}
-    if sh.step == "train":
+    if step == "train":
         out["targets"] = _tokens((b, s))
     return out
 
@@ -98,10 +109,17 @@ def cache_specs(cfg: ModelConfig, shape_name: str) -> dict[str, tuple]:
     encoder context is DECODE_ENC_LEN frames at decode, seq_len at
     prefill."""
     sh = SHAPES[shape_name]
-    enc_len = 0
-    if cfg.arch_type == "encdec":
-        enc_len = sh.seq_len if sh.step == "prefill" else DECODE_ENC_LEN
-    return cache_shapes(cfg, sh.global_batch, sh.seq_len, enc_len)
+    return step_cache_specs(cfg, sh.step, sh.global_batch, sh.seq_len)
+
+
+def step_cache_specs(cfg: ModelConfig, step: str, b: int, max_len: int,
+                     enc_len: int = 0) -> dict[str, tuple]:
+    """The serving cache of a prefill or decode step of max_len
+    positions; an encdec model's encoder context is enc_len frames where
+    given, else max_len at prefill and DECODE_ENC_LEN at decode."""
+    if cfg.arch_type == "encdec" and not enc_len:
+        enc_len = max_len if step == "prefill" else DECODE_ENC_LEN
+    return cache_shapes(cfg, b, max_len, enc_len)
 
 
 def input_specs(cfg: ModelConfig, shape_name: str) -> dict:

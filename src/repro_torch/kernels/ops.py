@@ -28,9 +28,20 @@ reference computes zq in XLA). Serving only, not differentiable.
 
 Each kernel wrapper counts its launches (`launch_counts()`), so a run can
 show that its hot path went through the kernels.
+
+A `meta` tensor (the cost report's trace, `launch/dryrun.py`) reaches a
+kernel only through `swa_decode`: K8 is the one kernel on a traced step
+(an LLM's decode), and on `meta` it launches nothing, counts no launch
+and hands its work to the sink of `kernel_work_sink`. Every other kernel
+wrapper raises a ValueError naming its kernel on a `meta` tensor.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+import operator
+from typing import Callable
 
 import torch
 
@@ -93,6 +104,52 @@ def _require_ranks(op: str, **named) -> None:
 
 def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
+
+
+# The callable a traced step reports the work of a kernel on `meta`
+# tensors to: fn(name, operations, reads, out), reads a list of (input
+# tensor, bytes the kernel reads of it), out the tensor it returns.
+_work_sink: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
+    "kernel_work_sink", default=None)
+
+
+@contextlib.contextmanager
+def kernel_work_sink(fn: Callable):
+    """Within the block, each kernel call on `meta` tensors in this
+    context reports its work to fn (the cost report's counter)."""
+    token = _work_sink.set(fn)
+    try:
+        yield fn
+    finally:
+        _work_sink.reset(token)
+
+
+def swa_decode_work(b: int, h: int, hkv: int, hd: int, itemsize: int,
+                    cache_len: int, window: int) -> tuple[int, int, int]:
+    """K8's work on one call: (operations, bytes of K and V read, bytes of
+    q read = bytes written). It visits n_valid = min(cache_len + 1,
+    window) positions: 4 B H n_valid hd operations (q.k and p.v), and
+    reads n_valid slots of K and of V for each kv head."""
+    n_valid = min(cache_len + 1, window)
+    return (4 * b * h * n_valid * hd, 2 * b * n_valid * hkv * hd * itemsize,
+            b * h * hd * itemsize)
+
+
+def _swa_decode_meta(q, k, v, cache_len, window) -> torch.Tensor:
+    """K8 on `meta` tensors: the checks of the CUDA wrapper, an empty
+    (B, H, hd) output in q's dtype, no launch; the work goes to the sink."""
+    cache_len, window = operator.index(cache_len), operator.index(window)
+    b, _, h, hkv, hd = _swa_kernel.check_args("swa_decode", q, k, v,
+                                              cache_len, window)
+    ops_, kv_bytes, q_bytes = swa_decode_work(b, h, hkv, hd,
+                                              q.element_size(), cache_len,
+                                              window)
+    out = torch.empty((b, h, hd), dtype=q.dtype, device="meta")
+    sink = _work_sink.get()
+    if sink is not None:
+        sink("swa_decode", ops_,
+             [(q, q_bytes), (k, kv_bytes // 2), (v, kv_bytes // 2)], out)
+    return out
 
 
 class _ScoreBatched(torch.autograd.Function):
@@ -255,10 +312,13 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-decode attention of one token against a (sliding-window) KV
     cache: q (B, H, hd), k/v (B, S, Hkv, hd), the host int cache_len (the
     query's position) -> (B, H, hd) over the positions
-    (cache_len - window, cache_len] (K8 on the card)."""
+    (cache_len - window, cache_len] (K8 on the card; on `meta` tensors
+    no launch, its work reported to `kernel_work_sink`'s sink)."""
     _require_ranks("swa_decode", q=(q, 3), k=(k, 4), v=(v, 4))
     if _on_cpu(q):
         return swa_decode_ref(q, k, v, cache_len, window)
+    if q.device.type == "meta":
+        return _swa_decode_meta(q, k, v, cache_len, window)
     return _swa_kernel.swa_decode(q, k, v, cache_len, window)
 
 
@@ -280,4 +340,5 @@ __all__ = ["KERNELS", "NO_WINDOW", "cascade_filter", "cascade_filter_ref",
            "cascade_score_batched_bwd_ref", "cascade_score_batched_ref",
            "cascade_score_bwd_ref", "cascade_score_fm", "cascade_score_ref",
            "launch_counts", "load_library", "query_bias", "query_bias_ref",
-           "reset_launch_counts", "swa_decode", "swa_decode_ref"]
+           "reset_launch_counts", "swa_decode", "swa_decode_ref",
+           "swa_decode_work"]

@@ -181,6 +181,16 @@ def materialize(templates, generator: torch.Generator,
     return tree_map(one, templates)
 
 
+def shape_structs(templates, dtype: torch.dtype) -> dict:
+    """The parameter tree as `meta` tensors of the templates' shapes in
+    `dtype`: no storage is allocated (the reference's ShapeDtypeStruct
+    tree for its dry runs). The cost report (`launch/dryrun.py`) traces a
+    step on it."""
+    return tree_map(
+        lambda t: torch.empty(t.shape, dtype=dtype, device="meta"),
+        templates)
+
+
 def stack_templates(t: ParamTemplate, n: int) -> ParamTemplate:
     """Add a leading stacked-layers dim."""
     return ParamTemplate((n,) + t.shape, ("layers",) + t.axes, t.init, t.scale)
