@@ -165,6 +165,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    distinct edges by node name, K2 and query_bias launches under the
    witness (nonzero), and no inversion, unresolved future or open
    identity. The timed 6b phases run unwitnessed;
+6d. `[paper]` the paper's evaluation (`repro_torch.paper`): at the
+   reference's benchmark scale (1,200 queries x 64 items, seed 42) Table
+   3, Table 4 and Figs 3-5 on the card, each suite with the launch counts
+   set to 0 before it and read after it (Table 3: K1 = K3 = 4 x the fit's
+   steps (+ 10 K1 for `evaluate`), K4 = K5 = 2 x; Table 4 and Fig 4 the
+   fits' K4 / K5, K1 and QB; Fig 3 K1; Fig 5 K4 / K5, K2 and QB in its
+   sessions), every claim of the reference's asserts held; Table 3 again
+   on the CPU, the card's AUC within 1e-4 and cost ratio within 1e-4
+   relative of it. Then Table 3 at the paper's scale (61,500 x 64:
+   1,998,780 instances) on the card: data generation s, each row beside
+   the paper's numbers, each fit's steps/s, the launches per fit (held to
+   the same counts), the claims printed held or not (findings, not
+   failures); finite values and the launch counts asserted;
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -274,7 +287,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    steps of 2 x 64 tokens + 16 frames, float32 weights): finite losses, s
    per step, peak memory beside the report's argument + temp bytes;
 19. one JSON line with each kernel's launches on its path (K2, K4 and
-   K5 also on the restart, data-parallel and warm-restart paths; K8 also
+   K5 also on the restart, data-parallel and warm-restart paths; K1-K5
+   and QB also on `[paper]`'s suites and its paper-scale Table 3; K8 also
    on the moe, ssm and encdec paths; query_bias on the serving main path
    and the others; K2 and query_bias also under the witness), error and
    times; the last line is {"ok": true,
@@ -513,6 +527,23 @@ DES_REQUESTS, DES_QPS, DES_DEADLINE_MS = 500, 400.0, 130.0
 # run; every wait on a future is bounded by RESULT_TIMEOUT_S.
 PUMP_THREADS, N_REPLICAS, CHAOS_RATE, RESULT_TIMEOUT_S = 4, 2, 0.2, 60.0
 ADOPT_BACKLOG = 48
+# [paper]: the paper's suites (repro_torch.paper). Table 3 on the card is
+# held to the same suite on the CPU: AUC within PAPER_AUC_TOL, the cost
+# ratio within PAPER_COST_RTOL relative. Each suite must launch the
+# kernels listed (the fits: K1 + K3 per L1 step, K4 + K5 per L3 step;
+# evaluate's and the Eq-16 latency's forward: K1; run_cascade's zq: QB;
+# Fig 5's sessions: K2); fig3 reuses table4's beta=5 fit.
+PAPER_AUC_TOL, PAPER_COST_RTOL = 1e-4, 1e-4
+PAPER_SUITE_KERNELS = {
+    "table3": ("cascade_score_batched", "cascade_score_batched_bwd",
+               "cascade_loss", "cascade_loss_bwd"),
+    "table4": ("cascade_loss", "cascade_loss_bwd", "cascade_score_batched",
+               "query_bias"),
+    "fig3": ("cascade_score_batched",),
+    "fig4": ("cascade_loss", "cascade_loss_bwd", "cascade_score_batched",
+             "query_bias"),
+    "fig5": ("cascade_loss", "cascade_loss_bwd", "cascade_filter",
+             "query_bias")}
 # [witness]: the pump with --faults and the router's kill run at this many
 # requests, and the adopted backlog, under the lock-order witness.
 WITNESS_REQUESTS, WITNESS_ADOPT_BACKLOG = 200, 24
@@ -3082,6 +3113,117 @@ def phase_k8_streams() -> None:
           f"one-stream bits, 3 rounds each: " + "; ".join(done))
 
 
+# -- 6d. the paper's evaluation ---------------------------------------------------
+
+def check_table3_launches(counts: dict[str, int], steps: int, tag: str):
+    """Table 3 launches exactly this for fits of `steps` steps: four L1
+    fits (K1 + K3 a step), two L3 fits (K4 + K5 a step) and ten
+    `evaluate` forwards (K1; the 2-stage evaluation scores in plain
+    torch)."""
+    want = {"cascade_score_batched": 4 * steps + 10,
+            "cascade_score_batched_bwd": 4 * steps,
+            "cascade_loss": 2 * steps, "cascade_loss_bwd": 2 * steps}
+    got = {k: v for k, v in counts.items() if v}
+    assert got == want, f"[{tag}] Table 3 launches {got} != {want}"
+
+
+def phase_paper(card: str) -> dict:
+    """[paper] the paper's evaluation (`repro_torch.paper`) on the card.
+
+    At the reference's benchmark scale (1,200 x 64, seed 42): all five
+    suites, each with the launch counts set to 0 before it and read after
+    it, every claim asserted; Table 3 again on the CPU, the card's rows
+    within PAPER_AUC_TOL / PAPER_COST_RTOL of it. At the paper's scale
+    (61,500 x 64: 1,998,780 instances): Table 3 on the card, each row
+    beside the paper's numbers, its claims printed as held or not (a
+    finding there: the reference never checked them at that size), the
+    data generation time, each fit's steps/s and the launches per fit.
+    Imported here, not at the top: kernel_ab.py runs this script's code on
+    trees that predate the package."""
+    import importlib
+    from repro_torch.paper import MODULES, common
+    from repro_torch.paper import table3_offline as T3
+    t0 = time.perf_counter()
+    split = common.bench_split("ci")
+    steps = 6 * T.epoch_steps(split[0].x.shape[0], 64)[0]
+    common.clear_fits()
+    results, launches = {}, collections.Counter()
+    for name, module in MODULES.items():
+        run = importlib.import_module(f"repro_torch.paper.{module}").run
+        ops.reset_launch_counts()          # this suite's path starts here
+        res = common.run_suite(name, run, split, "cuda")
+        sync()
+        counts = ops.launch_counts()       # ... and ends here
+        common.emit_claims(res)
+        missing = [k for k in PAPER_SUITE_KERNELS[name] if not counts[k]]
+        assert not missing, f"[paper] {name} launched no {missing}: {counts}"
+        if name == "table3":
+            check_table3_launches(counts, steps, "paper ci")
+        assert not res.failed, f"[paper] {name} claims failed: {res.claims}"
+        launches.update(counts)
+        results[name] = res
+        print(f"[paper] {name} at ci scale on the card: {len(res.claims)} "
+              f"claims held in {res.seconds:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    ci_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cpu_rows = T3.rows(split, "cpu")
+    cpu_s = time.perf_counter() - t1
+    worst = {"auc": 0.0, "cost": 0.0}
+    for got, want in zip(results["table3"].rows, cpu_rows):
+        for k in ("train_auc", "test_auc"):
+            err = abs(got[k] - want[k])
+            worst["auc"] = max(worst["auc"], err)
+            assert err <= PAPER_AUC_TOL, (got["algo"], k, got[k], want[k])
+        err = abs(got["cost"] - want["cost"]) / abs(want["cost"])
+        worst["cost"] = max(worst["cost"], err)
+        assert err <= PAPER_COST_RTOL, (got["algo"], got["cost"], want["cost"])
+    print(f"[paper] Table 3 at ci scale on the CPU in {cpu_s:.2f} s: the "
+          f"card's rows within {worst['auc']:.3g} AUC and "
+          f"{worst['cost']:.3g} relative cost of it; the five suites took "
+          f"{ci_s:.1f} s on the card")
+    common.clear_fits()
+    common.bench_split.cache_clear()
+
+    t1 = time.perf_counter()
+    psplit = common.bench_split("paper")
+    gen_s = time.perf_counter() - t1
+    n_inst = psplit[0].n_instances + psplit[1].n_instances
+    psteps = 6 * T.epoch_steps(psplit[0].x.shape[0], 64)[0]
+    print(f"[paper 2M] {n_inst} instances ({psplit[0].x.shape[0]} train + "
+          f"{psplit[1].x.shape[0]} test groups of {psplit[0].x.shape[1]}) "
+          f"generated and split in {gen_s:.1f} s on the host; {psteps} "
+          f"steps a fit")
+    ops.reset_launch_counts()              # the paper-scale path starts here
+    rows = T3.rows(psplit, "cuda")
+    sync()
+    counts = ops.launch_counts()           # ... and ends here
+    check_table3_launches(counts, psteps, "paper 2M")
+    for r in rows:
+        vals = (r["train_auc"], r["test_auc"], r["cost"])
+        assert all(math.isfinite(v) for v in vals), r
+        assert 0.0 < r["test_auc"] <= 1.0 and r["cost"] > 0.0, r
+        paper = r["paper"]
+        ptxt = (f"paper {paper[0]} / {paper[1]} / {paper[2]}" if paper
+                else "paper: not in the table")
+        print(f"[paper 2M] {r['algo']}: train AUC {r['train_auc']:.4f}, test "
+              f"AUC {r['test_auc']:.4f}, cost ratio {r['cost']:.4f} ({ptxt}); "
+              f"fit {r['fit_s']:.2f} s = {psteps / r['fit_s']:.1f} steps/s, "
+              f"evaluation {r['eval_s']:.2f} s")
+    print(f"[paper 2M] launches per L1 fit: K1 = K3 = {psteps}; per L3 fit: "
+          f"K4 = K5 = {psteps}; evaluate: K1 x 10; in all {dict(counts)}")
+    for name, held, detail in T3.claims(rows):
+        print(f"[paper 2M] claim {name}: {'held' if held else 'NOT held'} "
+              f"({detail})")
+    paper_s = time.perf_counter() - t0
+    print(f"[paper] done in {paper_s:.1f} s ({card})")
+    common.clear_fits()
+    common.bench_split.cache_clear()
+    common.bench_log.cache_clear()
+    return {"launches": dict(launches), "paper_scale_launches": counts,
+            "seconds": paper_s}
+
+
 # -- 8. the LLM engine: gemma3-27b prefill + greedy decode -------------------
 
 def free_cuda() -> None:
@@ -4174,6 +4316,8 @@ def main() -> None:
     launches["cascade_score_fm"] = phase_fm_scoring(
         params, te)["cascade_score_fm"]
     free_cuda()
+    paper = phase_paper(card)
+    free_cuda()
     errs["swa_decode"] = 0.0
     phase_k8_parity(errs)
     k8 = phase_k8_timing()
@@ -4217,6 +4361,10 @@ def main() -> None:
         pump_launches=pump["qb_launches"],
         warm_restart_launches=warm["qb_launches"],
         witness_launches=witnessed["qb"])
+    for name, n in paper["launches"].items():
+        extra.setdefault(name, {})["paper_launches"] = n
+    for name, n in paper["paper_scale_launches"].items():
+        extra.setdefault(name, {})["paper_scale_table3_launches"] = n
     rows = []
     for name, info in KERNEL_INFO.items():
         row = {"name": name, **info, "launches": launches[name],

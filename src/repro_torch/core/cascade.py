@@ -56,7 +56,9 @@ def init_params(cfg: CascadeConfig, generator: torch.Generator,
                 scale: float = 0.01, *, device="cuda") -> Params:
     """Paper §3.2: 'parameters are first initialized to be random values
     around zero'. Draws on the CPU from `generator` (so a seed gives the
-    same weights on every device), then moves to `device`."""
+    same weights on every device), then moves to `device`. `fit` starts
+    from `prng.reference_init` instead: the reference's own draw for a
+    seed."""
     w_x = scale * torch.randn((cfg.n_stages, cfg.d_x), generator=generator)
     w_q = scale * torch.randn((cfg.n_stages, cfg.d_q), generator=generator)
     params = {"w_x": w_x, "w_q": w_q, "b": torch.zeros(cfg.n_stages)}

@@ -45,6 +45,7 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import cascade as C
 from repro_torch.core import losses as L
 from repro_torch.core import metrics as M
+from repro_torch.core import prng
 from repro_torch.data.synthetic import SearchLog
 from repro_torch.kernels.cascade_loss.kernel import pack_items
 from repro_torch.optim.sgd import apply_updates, momentum_sgd
@@ -201,8 +202,7 @@ def _ravel(params: C.Params) -> tuple[torch.Tensor, Callable]:
 def _initial_params(cfg: C.CascadeConfig, tcfg: TrainConfig, init_params,
                     device) -> C.Params:
     if init_params is None:
-        return C.init_params(cfg, torch.Generator().manual_seed(tcfg.seed),
-                             device=device)
+        init_params = prng.reference_init(cfg, tcfg.seed)
     return C.params_from_numpy(
         {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
          for k, v in init_params.items()}, device=device)
@@ -221,13 +221,6 @@ def _train_sig(tcfg: TrainConfig, cfg: C.CascadeConfig, n_groups: int) -> dict:
         "n_groups": n_groups, "d_x": cfg.d_x, "d_q": cfg.d_q,
         "n_stages": cfg.n_stages,
     }
-
-
-def _prng_key(seed: int) -> np.ndarray:
-    """The uint32 pair `jax.random.PRNGKey(seed)` gives for an int32 seed
-    (the default threefry key, 64-bit mode off): the reference's
-    checkpoints carry it as `rng_key`, so the port's do too."""
-    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
 
 
 def _data_shard(mesh, batch_groups: int):
@@ -266,9 +259,12 @@ def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
 
     loss_fn overrides the objective looked up from tcfg.loss.
     init_params (numpy arrays or tensors of the reference layout) sets the
-    starting weights — the reference initialises from jax.random, which
-    torch cannot replay, so a parity check passes the reference's initial
-    weights here; without it the seeded `init_params` starts the fit.
+    starting weights. Without it the fit starts where the reference's fit
+    of the same tcfg.seed starts: `prng.reference_init(cfg, tcfg.seed)`,
+    the reference's `init_params(cfg, PRNGKey(seed))` replayed in numpy
+    (Threefry-2x32 bit for bit, the normal draws within 3 float32 ulp),
+    drawn on the host and moved to `device`, so a seed gives the same
+    start on every device and in both packages.
     callback(step, loss) sees every log_every-th step's loss.
 
     mesh (scan engine only): a 1-D torch.distributed DeviceMesh with the
@@ -420,7 +416,7 @@ def fit(log: SearchLog, cfg: C.CascadeConfig, lcfg: L.LossConfig,
                     "opt_state": {"mu": opt_state["mu"],
                                   "step": np.asarray(opt_state["step"],
                                                      np.int32)},
-                    "epoch": done, "rng_key": _prng_key(tcfg.seed)},
+                    "epoch": done, "rng_key": prng.prng_key(tcfg.seed)},
                     meta={"train_sig": sig})
             if crash_after_epoch is not None and done >= crash_after_epoch:
                 if group is not None:

@@ -1,4 +1,5 @@
-"""Device placement: serving replicas and the data-parallel training mesh.
+"""Device placement: the entry points' device, serving replicas and the
+data-parallel training mesh.
 
 Functions, never module-level constants, so importing this module never
 touches CUDA or process-group state. The reference's
@@ -11,6 +12,16 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+
+def device_of(device) -> torch.device:
+    """`device` as a torch.device; asking for CUDA without a card raises
+    (an entry point never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "(device='cpu') to run on the CPU")
+    return dev
 
 
 def data_parallel_mesh(batch_groups: int, device_type: str = "cuda"):

@@ -39,6 +39,7 @@ from repro_torch.checkpoint import (CheckpointCorrupt, CheckpointError,
 from repro_torch.core import baselines as TB
 from repro_torch.core import cascade as TC
 from repro_torch.core import losses as TL
+from repro_torch.core import prng
 from repro_torch.core import trainer as TT
 from repro_torch.data import LogConfig, generate_log
 from repro_torch.data import features as F
@@ -106,7 +107,7 @@ def test_roundtrip_dtypes_exact(tmp_path):
         "bf16_0d": torch.tensor(-7.5, dtype=torch.bfloat16),
         "t32": torch.arange(6, dtype=torch.float32).reshape(2, 3),
         "zero_d": np.float32(2.5),
-        "rng_key": TT._prng_key(3),
+        "rng_key": prng.prng_key(3),
     }
     save_pytree(tmp_path / "ck", tree)
     out = load_pytree(tmp_path / "ck")
@@ -403,9 +404,9 @@ def test_restored_checkpoint_wins_over_init_params(tmp_path):
 
 def test_prng_key_matches_jax():
     for seed in (0, 3, 12345, 2**31 - 1, -1, -5):
-        np.testing.assert_array_equal(TT._prng_key(seed),
+        np.testing.assert_array_equal(prng.prng_key(seed),
                                       np.asarray(jax.random.PRNGKey(seed)))
-        assert TT._prng_key(seed).dtype == np.uint32
+        assert prng.prng_key(seed).dtype == np.uint32
 
 
 def _both_fits(tmp_path, epochs, writer, resumer=None, losses=None):
