@@ -173,11 +173,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    fits' K4 / K5, K1 and QB; Fig 3 K1; Fig 5 K4 / K5, K2 and QB in its
    sessions), every claim of the reference's asserts held; Table 3 again
    on the CPU, the card's AUC within 1e-4 and cost ratio within 1e-4
-   relative of it. Then Table 3 at the paper's scale (61,500 x 64:
-   1,998,780 instances) on the card: data generation s, each row beside
-   the paper's numbers, each fit's steps/s, the launches per fit (held to
-   the same counts), the claims printed held or not (findings, not
-   failures); finite values and the launch counts asserted;
+   relative of it (the paper's scale, 61,500 x 64 = 1,998,780 instances,
+   runs on its own: `python -m repro_torch.paper.table3_offline --scale
+   paper`);
 7. K8 (`swa_decode`, the LLM engine's one-token decode attention) against
    its plain version on the card: float32 and bfloat16, hd 64 and 128, rep
    1, 2, 4, 7, 12, windows NO_WINDOW / 1024 / 100 and cache_len at 0, at
@@ -225,6 +223,30 @@ Phases, in order; any failure raises and the script exits nonzero:
    floor (which charges only the experts a batch's top-k choices can
    hit; the capacity dispatch reads all of them), CUDA kernel launches
    per step and peak memory beside the card's name and power limit;
+8e. `[tp parity]` model parallelism (`models/parallel.py`, the "tp"
+   layout: heads, ffn, vocabulary and experts over the ranks) on
+   gemma3-smoke and dbrx-smoke in float32 over 2 ranks
+   (`launch.mesh.spawn_ranks`; one card: gloo, the ranks sharing it; a
+   card a rank: NCCL) against the card's unsharded run of the same
+   params: prefill and 8 decode steps fed the unsharded run's greedy
+   tokens, logits rtol 1e-5 / atol 2e-4, greedy tokens exact where the
+   margin exceeds 4e-4, expert choices exact where the router leaves a
+   margin, the ranks' logits bit-equal, K8 = layers x steps on each rank
+   (its counts set to 0 in the rank before its run, read after);
+   `[tp lm]` gemma3-27b at full width and depth in bfloat16 over 4 ranks
+   (8 q / 4 kv heads, a quarter of d_ff and 65,536 of the vocabulary a
+   rank; each rank draws [lm]'s weights from the same seed, keeping only
+   its blocks): prefill of [lm]'s 4 x 2048 tokens and 8 decode steps fed
+   [lm]'s greedy tokens, logits within TP_BF16_STD_TOL of the step's
+   logit std of [lm]'s (teacher-fed rerun), greedy tokens equal where
+   its top-2 margin exceeds that; per rank K8 = 62 x 8, peak memory,
+   prefill s, median ms a step and the collectives a step; `[tp moe]`
+   the same for dbrx-132b at [moe lm]'s 2 layers (4 of 16 experts a
+   rank), rows whose own token's routing leaves no margin excluded from
+   the logit bar and counted, the expert choices equal where they and
+   the token's earlier layers have margin. The transport and the card
+   count are printed; on one card the times are four processes sharing
+   it over gloo, not a sharded deployment's;
 8c. `[ssm lm]` rwkv6-1.6b (24 layers) and zamba2-1.2b (38 layers, 6
    shared-block applications) at their published widths and full depth in
    bfloat16, the weights drawn on the card: prefill of 4 prompts of 512
@@ -288,8 +310,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    per step, peak memory beside the report's argument + temp bytes;
 19. one JSON line with each kernel's launches on its path (K2, K4 and
    K5 also on the restart, data-parallel and warm-restart paths; K1-K5
-   and QB also on `[paper]`'s suites and its paper-scale Table 3; K8 also
-   on the moe, ssm and encdec paths; query_bias on the serving main path
+   and QB also on `[paper]`'s suites; K8 also on the moe, ssm, encdec
+   and model-parallel paths, per rank; query_bias on the serving main path
    and the others; K2 and query_bias also under the witness), error and
    times; the last line is {"ok": true,
    "device": {...}}.
@@ -345,8 +367,9 @@ from repro_torch.kernels.cascade_score import kernel as score_kernel  # noqa: E4
 from repro_torch.kernels.swa_decode import kernel as swa_kernel  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.launch import train as TLT  # noqa: E402
+from repro_torch.launch import sharding as SHD  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
-    data_parallel_mesh, replica_devices)
+    data_parallel_mesh, replica_devices, spawn_ranks, transport)
 from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
@@ -432,6 +455,31 @@ MOE_AUX_TOL = 1e-6          # a mean of E products of probabilities
 # Expert choices are compared exactly where the k-th and (k+1)-th router
 # probabilities differ by more than this in log space.
 ROUTE_LOG_MARGIN = 1e-3
+# Model parallelism ("tp": models/parallel.py). [tp parity]: the smoke
+# configs in float32 over TP_PARITY_WORLD ranks against the card's
+# unsharded run, at the CPU tests' bars (tests/test_torch_tp.py). [tp lm]
+# / [tp moe]: [lm]'s gemma3-27b and [moe lm]'s dbrx-132b over TP_WORLD
+# ranks in bfloat16, TP_STEPS decode steps fed [lm]'s / [moe lm]'s greedy
+# tokens, held to a teacher-fed rerun of the unsharded run. bfloat16 bar:
+# a rank sums bfloat16 partial products where the unsharded matmul rounds
+# once, so the runs part by a few bfloat16 units a layer; on the CPU
+# (gloo, 4 ranks, a dense config of d_model 1024 and 4-36 layers, and a
+# moe one of 2 layers) the largest logit difference was 0.05-0.11 of the
+# logits' standard deviation, so the bar is TP_BF16_STD_TOL of it, and
+# greedy tokens are compared where the unsharded top-2 margin exceeds it
+# (on the H100 the largest difference was 0.117 of the std, 0.47 of the
+# bar, for gemma3-27b: a token cannot flip past a margin of 0.94 of the
+# bar). [tp moe]'s ranks route every moe layer's tokens to the unsharded
+# run's experts, so no token's path parts from the reference's and every
+# row is held; their own routing is held to the reference's beside it
+# (`check_rank_routes`).
+TP_PARITY_ARCHS = ("gemma3-27b", "dbrx-132b")
+TP_PARITY_WORLD, TP_PARITY_BATCH, TP_PARITY_PROMPT = 2, 2, 40
+TP_PARITY_STEPS = 8
+TP_RTOL, TP_ATOL, TP_TOKEN_MARGIN = 1e-5, 2e-4, 4e-4
+TP_WORLD, TP_STEPS = 4, 8
+TP_MOE_ARCH = "dbrx-132b"
+TP_BF16_STD_TOL = 0.25
 # The ssm (rwkv6) and hybrid (zamba2) families. [ssm parity]: each smoke
 # config (and zamba2-smoke at 3 layers: a tail layer after its last shared
 # block) in float32 on the card against the CPU, every leaf the templates
@@ -3133,11 +3181,9 @@ def phase_paper(card: str) -> dict:
     At the reference's benchmark scale (1,200 x 64, seed 42): all five
     suites, each with the launch counts set to 0 before it and read after
     it, every claim asserted; Table 3 again on the CPU, the card's rows
-    within PAPER_AUC_TOL / PAPER_COST_RTOL of it. At the paper's scale
-    (61,500 x 64: 1,998,780 instances): Table 3 on the card, each row
-    beside the paper's numbers, its claims printed as held or not (a
-    finding there: the reference never checked them at that size), the
-    data generation time, each fit's steps/s and the launches per fit.
+    within PAPER_AUC_TOL / PAPER_COST_RTOL of it. (The paper's scale,
+    61,500 x 64 = 1,998,780 instances, is `python -m
+    repro_torch.paper.table3_offline --scale paper`, run on its own.)
     Imported here, not at the top: kernel_ab.py runs this script's code on
     trees that predate the package."""
     import importlib
@@ -3182,46 +3228,12 @@ def phase_paper(card: str) -> dict:
           f"card's rows within {worst['auc']:.3g} AUC and "
           f"{worst['cost']:.3g} relative cost of it; the five suites took "
           f"{ci_s:.1f} s on the card")
-    common.clear_fits()
-    common.bench_split.cache_clear()
-
-    t1 = time.perf_counter()
-    psplit = common.bench_split("paper")
-    gen_s = time.perf_counter() - t1
-    n_inst = psplit[0].n_instances + psplit[1].n_instances
-    psteps = 6 * T.epoch_steps(psplit[0].x.shape[0], 64)[0]
-    print(f"[paper 2M] {n_inst} instances ({psplit[0].x.shape[0]} train + "
-          f"{psplit[1].x.shape[0]} test groups of {psplit[0].x.shape[1]}) "
-          f"generated and split in {gen_s:.1f} s on the host; {psteps} "
-          f"steps a fit")
-    ops.reset_launch_counts()              # the paper-scale path starts here
-    rows = T3.rows(psplit, "cuda")
-    sync()
-    counts = ops.launch_counts()           # ... and ends here
-    check_table3_launches(counts, psteps, "paper 2M")
-    for r in rows:
-        vals = (r["train_auc"], r["test_auc"], r["cost"])
-        assert all(math.isfinite(v) for v in vals), r
-        assert 0.0 < r["test_auc"] <= 1.0 and r["cost"] > 0.0, r
-        paper = r["paper"]
-        ptxt = (f"paper {paper[0]} / {paper[1]} / {paper[2]}" if paper
-                else "paper: not in the table")
-        print(f"[paper 2M] {r['algo']}: train AUC {r['train_auc']:.4f}, test "
-              f"AUC {r['test_auc']:.4f}, cost ratio {r['cost']:.4f} ({ptxt}); "
-              f"fit {r['fit_s']:.2f} s = {psteps / r['fit_s']:.1f} steps/s, "
-              f"evaluation {r['eval_s']:.2f} s")
-    print(f"[paper 2M] launches per L1 fit: K1 = K3 = {psteps}; per L3 fit: "
-          f"K4 = K5 = {psteps}; evaluate: K1 x 10; in all {dict(counts)}")
-    for name, held, detail in T3.claims(rows):
-        print(f"[paper 2M] claim {name}: {'held' if held else 'NOT held'} "
-              f"({detail})")
     paper_s = time.perf_counter() - t0
     print(f"[paper] done in {paper_s:.1f} s ({card})")
     common.clear_fits()
     common.bench_split.cache_clear()
     common.bench_log.cache_clear()
-    return {"launches": dict(launches), "paper_scale_launches": counts,
-            "seconds": paper_s}
+    return {"launches": dict(launches), "seconds": paper_s}
 
 
 # -- 8. the LLM engine: gemma3-27b prefill + greedy decode -------------------
@@ -3295,13 +3307,26 @@ def phase_lm() -> dict:
           f"{torch.cat(generated, 1)[0].tolist()}")
     profile = profile_decode(params, cfg, cache, tok, LM_PROMPT + LM_STEPS)
     cprofile_decode(params, cfg, cache, tok)
-    del params, cache, logits
+    del cache, logits
+    tp_ref = tp_reference(params, cfg, tokens, generated)
+    del params
     free_cuda()
     return dict(params=cfg.param_count(), param_bytes=nbytes,
                 prefill_s=prefill_s, step_ms=step_ms, step_ms_median=med,
                 floor_ms=bnd["bound_ms"],
                 tokens_per_s=LM_BATCH / med * 1e3, peak_bytes=peak,
-                k8_launches=launches["swa_decode"], profile=profile)
+                k8_launches=launches["swa_decode"], profile=profile,
+                tp_ref=tp_ref)
+
+
+def tp_reference(params, cfg, tokens, generated) -> dict:
+    """What [tp lm] / [tp moe] hold their ranks to: the unsharded model's
+    prefill of `tokens` and TP_STEPS decode steps fed the timed run's
+    first greedy tokens, rerun untimed (lm_serve: logits and routes on
+    the CPU), with the prompt and the tokens fed."""
+    feed = [g.cpu() for g in generated[:TP_STEPS]]
+    ref = lm_serve(params, cfg, tokens.cpu(), TP_STEPS, "cuda", feed=feed)
+    return dict(tokens=tokens.cpu(), **ref)
 
 
 def profile_decode(params, cfg, cache, tok, pos, tag="lm") -> dict:
@@ -3401,17 +3426,28 @@ def phase_lm_check() -> dict:
 
 # -- 8b. the moe family: dbrx and arctic ----------------------------------------
 
-def routed(fn, *args):
+def routed(fn, *args, host=True, feed=None):
     """fn(*args) with every moe layer's routing recorded: (fn's result,
-    [(probs (T, E) on the CPU, gate_i (T, k) on the CPU), ...] in call
-    order). The zoo reaches `layers.moe_route` through the module."""
+    [(probs (T, E), gate_i (T, k)), ...] in call order), on the CPU, or
+    with host=False left on the device (no copy waits for the card). The
+    zoo reaches `layers.moe_route` through the module. feed: an iterator
+    of gate_i (T, k) on the device, one a call: each call then routes its
+    tokens to feed's experts, their gates this run's own probabilities of
+    them renormalised as moe_route renormalises its top k, and records its
+    own choices."""
     routes = []
     orig = Lyr.moe_route
 
     def rec(p, cfg, xt):
         out = orig(p, cfg, xt)
-        routes.append((out[0].detach().cpu(), out[2].cpu()))
-        return out
+        r = (out[0].detach(), out[2])
+        routes.append(tuple(a.cpu() for a in r) if host else r)
+        if feed is None:
+            return out
+        gate_i = next(feed)
+        gate_v = out[0].gather(1, gate_i)
+        gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
+        return out[0], gate_v, gate_i
     Lyr.moe_route = rec
     try:
         return fn(*args), routes
@@ -3447,25 +3483,26 @@ def check_greedy(got, want, label, tol=MOE_LOGIT_TOL) -> int:
 
 
 def lm_serve(params, cfg, tokens, steps, device, feed=None,
-             frontend=None) -> dict:
+             frontend=None, mp=None) -> dict:
     """Prefill `tokens` (B, S) (over an encdec model's `frontend` frames
     (B, S_enc, d)), then `steps` greedy decode steps on `device`, each fed
     feed[i] (B, 1) if given, else this run's own greedy token: every
     step's last-position logits (on the CPU), the tokens fed and the
-    routing of every moe layer's call (none in other families)."""
+    routing of every moe layer's call (none in other families). mp: a
+    rank of a model-parallel run, params its shard."""
     b, s = tokens.shape
     batch, enc_len = {"tokens": tokens.to(device)}, 0
     if frontend is not None:
         batch["frontend"], enc_len = frontend.to(device), frontend.shape[1]
-    cache = E.init_cache(cfg, b, s + steps, enc_len, device=device)
-    (lg, cache), routes = routed(E.prefill, params, cfg, batch, cache)
+    cache = E.init_cache(cfg, b, s + steps, enc_len, device=device, mp=mp)
+    (lg, cache), routes = routed(E.prefill, params, cfg, batch, cache, mp)
     logits, fed = [lg[:, -1].cpu()], []
     for i in range(steps):
         tok = (logits[-1].argmax(-1, keepdim=True) if feed is None
                else feed[i])
         fed.append(tok)
         (lg, cache), r = routed(E.decode_step, params, cfg, tok.to(device),
-                                cache, s + i)
+                                cache, s + i, mp)
         logits.append(lg[:, -1].cpu())
         routes += r
     return dict(logits=logits, fed=fed, routes=routes)
@@ -3620,12 +3657,15 @@ def phase_moe_lm(card: str) -> dict:
               f"{torch.cat(generated, 1)[0].tolist()}")
         profile = profile_decode(params, cfg, cache, tok, s + steps,
                                  tag="moe lm")
+        tp_ref = (tp_reference(params, cfg, tokens, generated)
+                  if arch == TP_MOE_ARCH else None)
         out[arch] = dict(layers=cfg.n_layers, params=cfg.param_count(),
                          param_bytes=nbytes, prefill_s=prefill_s,
                          step_ms_median=med, floor_ms=floor_ms,
                          ref_floor_ms=ref_ms, launches_per_step=per_step,
                          device_idle_share=profile["device_idle_share"],
-                         peak_bytes=peak, k8_launches=launches["swa_decode"])
+                         peak_bytes=peak, k8_launches=launches["swa_decode"],
+                         tp_ref=tp_ref)
         del params, cache, logits
         free_cuda()
     return out
@@ -3673,6 +3713,322 @@ def phase_moe_lm_check() -> dict:
           "margin)")
     del params
     return dict(err=err, k8_launches=k8)
+
+
+# -- 8e. model parallelism: the "tp" layout over ranks ------------------------
+
+def tp_shard(mp, cfg, seed: int) -> dict:
+    """Rank mp's shard of the params `MB.materialize` draws on the CPU
+    from `seed`, on the rank's card."""
+    tmpl = Z.templates(cfg)
+    full = MB.materialize(tmpl, torch.Generator().manual_seed(seed))
+    shard = MB.shard_params(full, tmpl, SHD.param_layouts(tmpl, mp.mesh),
+                            mp)
+    return MB.tree_map(lambda a: a.to(mp.device), shard)
+
+
+def tp_parity_rank(mp, cases) -> dict:
+    """[tp parity], one rank: for each (arch, tokens, feed) its shard of
+    the smoke config in float32 (seed 3), prefill and decode fed `feed`
+    through lm_serve; K8's count set to 0 before the run and read after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, tokens, feed in cases:
+        cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+        params = tp_shard(mp, cfg, 3)
+        ops.reset_launch_counts()            # this rank's path starts here
+        mp.reset_counts()
+        run = lm_serve(params, cfg, torch.as_tensor(tokens),
+                       len(feed), mp.device, feed=[torch.as_tensor(f)
+                                                   for f in feed], mp=mp)
+        sync()
+        k8 = ops.launch_counts()["swa_decode"]   # ... and ends here
+        out[arch] = dict(logits=run["logits"], routes=run["routes"], k8=k8,
+                         calls=dict(mp.calls))
+    return out
+
+
+def phase_tp_parity(card: str) -> dict:
+    """[tp parity] gemma3-smoke and dbrx-smoke in float32 over
+    TP_PARITY_WORLD ranks against the card's unsharded run of the same
+    params (drawn on the CPU from one seed): prefill of TP_PARITY_BATCH x
+    TP_PARITY_PROMPT tokens (past gemma3-smoke's window: its rings wrap)
+    and TP_PARITY_STEPS decode steps, the ranks fed the unsharded run's
+    greedy tokens: logits within TP_RTOL / TP_ATOL, greedy tokens exact
+    where the margin exceeds TP_TOKEN_MARGIN, expert choices exact where
+    the router leaves ROUTE_LOG_MARGIN, the ranks' logits bit-equal, K8
+    = layers x steps on every rank."""
+    t0 = time.perf_counter()
+    backend, devices = transport(TP_PARITY_WORLD, "cuda")
+    refs, cases = {}, []
+    for arch in TP_PARITY_ARCHS:
+        cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+        params = MB.tree_map(lambda a: a.to("cuda"), MB.materialize(
+            Z.templates(cfg), torch.Generator().manual_seed(3)))
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (TP_PARITY_BATCH, TP_PARITY_PROMPT)))
+        refs[arch] = lm_serve(params, cfg, tokens, TP_PARITY_STEPS, "cuda")
+        cases.append((arch, tokens.numpy(),
+                      [f.numpy() for f in refs[arch]["fed"]]))
+        del params
+    free_cuda()
+    ranks = spawn_ranks(TP_PARITY_WORLD, tp_parity_rank, (cases,),
+                        device="cuda", timeout_s=600)
+    out = {}
+    for arch in TP_PARITY_ARCHS:
+        cfg = CFG.get_smoke(arch)
+        want = refs[arch]
+        err, greedy, routes = 0.0, 0, 0
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            assert got["k8"] == cfg.n_layers * TP_PARITY_STEPS, (arch, r,
+                                                                 got["k8"])
+            for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+                g = torch.from_numpy(g)
+                torch.testing.assert_close(
+                    g, w, rtol=TP_RTOL, atol=TP_ATOL,
+                    msg=lambda m: f"[tp parity] {arch} rank {r} step {i}: "
+                    f"{m}")
+                err = max(err, float((g - w).abs().max()))
+                top2 = torch.topk(w, 2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > TP_TOKEN_MARGIN
+                assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
+                greedy += int(sure.sum())
+                np.testing.assert_array_equal(
+                    ranks[0][arch]["logits"][i], rank[arch]["logits"][i])
+            if cfg.arch_type == "moe":
+                routes += check_routes(
+                    [(torch.from_numpy(p), torch.from_numpy(i))
+                     for p, i in got["routes"]], want["routes"], cfg.top_k,
+                    f"[tp parity] {arch} rank {r}")[0]
+        assert greedy > 0, arch
+        print(f"[tp parity] {cfg.name} (float32) over {TP_PARITY_WORLD} "
+              f"ranks ({backend}, {len(set(map(str, devices)))} card(s), "
+              f"{card}) against the card's unsharded run: prefill of "
+              f"{TP_PARITY_BATCH} x {TP_PARITY_PROMPT} tokens + "
+              f"{TP_PARITY_STEPS} decode steps fed its greedy tokens, max "
+              f"|err| {err:.3g} (bars rtol {TP_RTOL}, atol {TP_ATOL}), "
+              f"{greedy} greedy tokens equal"
+              + (f", expert choices equal for {routes} token-layers"
+                 if routes else "")
+              + f"; the ranks' logits bit-equal; K8 per rank "
+              f"{[rank[arch]['k8'] for rank in ranks]} = {cfg.n_layers} x "
+              f"{TP_PARITY_STEPS}; collectives per rank "
+              f"{ranks[0][arch]['calls']}")
+        out[arch] = dict(err=err, k8_per_rank=[rank[arch]["k8"]
+                                               for rank in ranks])
+    print(f"[tp parity] done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tp_lm_rank(mp, jobs) -> dict:
+    """[tp lm] / [tp moe], one rank: for each job its shard of the config
+    at full width (cut to job["layers"] where given) in bfloat16, drawn
+    as the unsharded phase drew it (seed 0 on the card) keeping only this
+    rank's blocks; prefill of job["tokens"] and decode steps fed
+    job["feed"], every moe layer's call routed to job["gates"]'s experts
+    (`routed(feed=)`) where given: logits and the rank's own routes (kept
+    on the card until the last step), K8's count (0 before the prefill,
+    read after the last step), peak memory, prefill s, ms per step (CUDA
+    events), the collectives of the decode steps."""
+    dev = mp.device
+    out = {}
+    for job in jobs:
+        cfg = CFG.get(job["arch"])
+        if job["layers"]:
+            cfg = dataclasses.replace(cfg, n_layers=job["layers"])
+        tmpl = Z.templates(cfg)
+        t0 = time.perf_counter()
+        params = MB.materialize_shard(
+            tmpl, torch.Generator(device=dev).manual_seed(0), cfg.dtype,
+            SHD.param_layouts(tmpl, mp.mesh), mp)
+        sync()
+        make_s = time.perf_counter() - t0
+        shard_bytes = sum(a.numel() * a.element_size()
+                          for a in MB.tree_leaves(params))
+        tokens = torch.as_tensor(job["tokens"]).to(dev)
+        feed = [torch.as_tensor(f).to(dev) for f in job["feed"]]
+        gates = (iter([torch.as_tensor(g).to(dev) for g in job["gates"]])
+                 if job["gates"] is not None else None)
+        b, s = tokens.shape
+        cache = E.init_cache(cfg, b, s + len(feed), device=dev, mp=mp)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()            # this rank's path starts here
+        t0 = time.perf_counter()
+        (lg, cache), routes = routed(E.prefill, params, cfg,
+                                     {"tokens": tokens}, cache, mp,
+                                     host=False, feed=gates)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        logits = [lg[:, -1]]
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(feed) + 1)]
+        mp.reset_counts()
+        events[0].record()
+        for i, tok in enumerate(feed):
+            (lg, cache), r = routed(E.decode_step, params, cfg, tok, cache,
+                                    s + i, mp, host=False, feed=gates)
+            logits.append(lg[:, -1])
+            routes += r
+            events[i + 1].record()
+        sync()
+        k8 = ops.launch_counts()["swa_decode"]   # ... and ends here
+        step_ms = [events[i].elapsed_time(events[i + 1])
+                   for i in range(len(feed))]
+        out[job["arch"]] = dict(
+            logits=[a.cpu() for a in logits],
+            routes=[(p.cpu(), i.cpu()) for p, i in routes], k8=k8,
+            make_s=make_s, shard_bytes=shard_bytes, prefill_s=prefill_s,
+            step_ms=step_ms, peak=torch.cuda.max_memory_allocated(),
+            calls=dict(mp.calls), bytes=dict(mp.bytes))
+        del params, cache, lg, logits, routes
+        free_cuda()
+    return out
+
+
+def check_rank_routes(rank_routes, want, k: int, tag: str
+                      ) -> tuple[float, float, int, int]:
+    """Each rank's own routing (`routes` of `routed`, as numpy) against
+    the unsharded run's `want`, layer call by layer call. Every router
+    log-probability within TP_BF16_STD_TOL of the standard deviation of
+    the call's unsharded ones (the router's logits round to bfloat16, at
+    their own magnitude, on inputs that already differ by a few bfloat16
+    units: the output logits' bar, at the router). Then, with d the
+    call's largest difference on any rank, the set of each token's k
+    experts equal wherever the unsharded k-th and (k+1)-th
+    log-probabilities are more than 2d apart, where no difference within
+    d can swap them (the order within the k follows near-equal
+    probabilities and moves no token in a buffer). Returns (the largest
+    d, its largest share of its bar, rank-token-layers compared, not
+    compared)."""
+    for r, got in enumerate(rank_routes):
+        assert len(got) == len(want), (tag, r, len(got), len(want))
+    worst_d = worst_share = 0.0
+    compared = skipped = 0
+    for j, (w_p, w_i) in enumerate(want):
+        w_log = w_p.clamp_min(1e-30).log()
+        g_logs = [torch.from_numpy(got[j][0]).clamp_min(1e-30).log()
+                  for got in rank_routes]
+        d = max(float((g - w_log).abs().max()) for g in g_logs)
+        bar = TP_BF16_STD_TOL * float(w_log.std())
+        assert d <= bar, (f"[{tag}] call {j}: a router log-probability "
+                          f"{d:.4g} from the unsharded run's, over {bar:.4g}")
+        worst_d, worst_share = max(worst_d, d), max(worst_share, d / bar)
+        top = w_log.sort(-1, descending=True).values
+        sure = (top[:, k - 1] - top[:, k]) > 2 * d
+        for r, got in enumerate(rank_routes):
+            assert torch.equal(
+                torch.from_numpy(got[j][1])[sure].sort(-1).values,
+                w_i[sure].sort(-1).values), (tag, r, j)
+            compared += int(sure.sum())
+            skipped += int((~sure).sum())
+    return worst_d, worst_share, compared, skipped
+
+
+def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
+    """[tp lm] gemma3-27b at full width and depth and [tp moe] dbrx-132b
+    at [moe lm]'s depth, in bfloat16 over TP_WORLD ranks (one spawn for
+    both), against [lm]'s / [moe lm]'s teacher-fed reruns: the logits of
+    the prefill and of each of TP_STEPS decode steps within
+    TP_BF16_STD_TOL of the step's logit standard deviation on every row,
+    greedy tokens equal where the unsharded top-2 margin exceeds the bar;
+    dbrx's ranks routed to the unsharded run's experts in every layer
+    (`routed(feed=)`, so no token's path parts from the reference's), and
+    their own routing held to it (`check_rank_routes`); the ranks'
+    logits bit-equal, K8 = layers x steps on every rank; per rank the
+    shard's bytes, the peak memory, prefill s, median ms a step and the
+    collectives a step."""
+    t0 = time.perf_counter()
+    backend, devices = transport(TP_WORLD, "cuda")
+    n_cards = len(set(map(str, devices)))
+    jobs = [dict(arch=LM_ARCH, layers=None, ref=lm_ref),
+            dict(arch=TP_MOE_ARCH, layers=MOE_LM_LAYERS[TP_MOE_ARCH],
+                 ref=moe_ref)]
+    ranks = spawn_ranks(
+        TP_WORLD, tp_lm_rank,
+        ([dict(arch=j["arch"], layers=j["layers"],
+               tokens=j["ref"]["tokens"].numpy(),
+               feed=[f.numpy() for f in j["ref"]["fed"]],
+               gates=([i.numpy() for _, i in j["ref"]["routes"]]
+                      if j["arch"] == TP_MOE_ARCH else None))
+          for j in jobs],),
+        device="cuda", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    for job in jobs:
+        arch, ref = job["arch"], job["ref"]
+        tag = "tp lm" if arch == LM_ARCH else "tp moe"
+        cfg = CFG.get(arch)
+        layers = job["layers"] or cfg.n_layers
+        b, s = ref["tokens"].shape
+        worst, greedy = 0.0, 0
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            assert got["k8"] == layers * TP_STEPS, (tag, r, got["k8"])
+            for i, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
+                g = torch.from_numpy(g)
+                w = w.float()
+                np.testing.assert_array_equal(
+                    ranks[0][arch]["logits"][i], rank[arch]["logits"][i])
+                tol = TP_BF16_STD_TOL * float(w.std())
+                err = (g - w).abs().amax(-1)
+                assert bool((err <= tol).all()), (
+                    f"[{tag}] rank {r} step {i}: max |err| "
+                    f"{err.tolist()} over {tol:.4g}")
+                worst = max(worst, float(err.max()) / tol)
+                top2 = torch.topk(w, 2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > tol
+                assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]), (
+                    f"[{tag}] rank {r} step {i}: greedy tokens")
+                greedy += int(sure.sum())
+        if cfg.arch_type == "moe":
+            dlog, dshare, compared, skipped = check_rank_routes(
+                [rank[arch]["routes"] for rank in ranks], ref["routes"],
+                cfg.top_k, tag)
+        print(f"[{tag}] {cfg.name}, {layers} of {cfg.n_layers} layers in "
+              f"bfloat16, over {TP_WORLD} ranks ({backend}; {n_cards} "
+              f"card(s): {card}): prefill {b} x {s} tokens + {TP_STEPS} "
+              f"decode steps fed the unsharded run's greedy tokens; logits "
+              f"within {worst:.3f} of the bar ({TP_BF16_STD_TOL} x the "
+              f"step's logit std) on all {len(ranks) * (TP_STEPS + 1) * b} "
+              f"rank-rows, "
+              f"{greedy} greedy tokens equal (where the top-2 margin "
+              f"exceeds the bar); the ranks' logits bit-equal"
+              + (f"; every layer routed to the unsharded run's experts, "
+                 f"the ranks' own router log-probabilities within "
+                 f"{dlog:.4g} of it ({dshare:.3f} of the bar, "
+                 f"{TP_BF16_STD_TOL} x the call's std) and their expert "
+                 f"choices equal for {compared} rank-token-layers, all "
+                 f"those whose k-th and (k+1)-th are more than twice the "
+                 f"call's largest difference apart ({skipped} are not)"
+                 if cfg.arch_type == "moe" else ""))
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            med = statistics.median(got["step_ms"])
+            print(f"[{tag}]   rank {r}: shard {got['shard_bytes']} bytes "
+                  f"drawn in {got['make_s']:.2f} s; prefill "
+                  f"{got['prefill_s']:.3f} s; median {med:.3f} ms a decode "
+                  f"step (min {min(got['step_ms']):.3f}, max "
+                  f"{max(got['step_ms']):.3f}); peak memory {got['peak']} "
+                  f"bytes; K8 launches {got['k8']} = {layers} x {TP_STEPS}; "
+                  f"collectives a step "
+                  f"{ {k: v / TP_STEPS for k, v in got['calls'].items()} }, "
+                  f"bytes a step {sum(got['bytes'].values()) / TP_STEPS:.0f}")
+        out[arch] = dict(
+            k8_per_rank=[rank[arch]["k8"] for rank in ranks],
+            step_ms_median=[statistics.median(rank[arch]["step_ms"])
+                            for rank in ranks],
+            prefill_s=[rank[arch]["prefill_s"] for rank in ranks],
+            peak_bytes=[rank[arch]["peak"] for rank in ranks],
+            worst_share_of_bar=worst, backend=backend, cards=n_cards,
+            **({"route_log_err": dlog, "route_share_of_bar": dshare}
+               if cfg.arch_type == "moe" else {}))
+    print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the ranks "
+          f"{spawn_s:.1f} s of it); the times are {TP_WORLD} processes "
+          + ("sharing one card over gloo, not a sharded deployment's"
+             if n_cards < TP_WORLD else f"on {n_cards} cards over {backend}"))
+    return out
 
 
 # -- 8c. the ssm and hybrid families: rwkv6 and zamba2 -------------------------
@@ -4327,6 +4683,11 @@ def main() -> None:
     launches["swa_decode"] = lm["k8_launches"]
     phase_lm_check()
     moe_lm = phase_moe_lm(card)
+    tp_parity = phase_tp_parity(card)
+    tp_lm = phase_tp_lm(card, lm["tp_ref"], moe_lm[TP_MOE_ARCH]["tp_ref"])
+    del lm["tp_ref"]
+    for r in moe_lm.values():
+        del r["tp_ref"]
     ssm_lm = phase_ssm_lm(card)
     encdec_lm = phase_encdec_lm(card)
     phase_slice("filter", params, te,
@@ -4355,7 +4716,11 @@ def main() -> None:
            for a, r in ssm_check.items()},
         "encdec_lm_launches": encdec_lm["k8_launches"],
         "encdec_parity_launches": encdec_parity["k8_launches"],
-        "encdec_lm_check_launches": encdec_check["k8_launches"]}
+        "encdec_lm_check_launches": encdec_check["k8_launches"],
+        **{f"tp_parity_{a}_launches_per_rank": r["k8_per_rank"]
+           for a, r in tp_parity.items()},
+        "tp_lm_launches_per_rank": tp_lm[LM_ARCH]["k8_per_rank"],
+        "tp_moe_launches_per_rank": tp_lm[TP_MOE_ARCH]["k8_per_rank"]}
     extra["query_bias"] = dict(
         score_launches=qb_score_launches,
         pump_launches=pump["qb_launches"],
@@ -4363,8 +4728,6 @@ def main() -> None:
         witness_launches=witnessed["qb"])
     for name, n in paper["launches"].items():
         extra.setdefault(name, {})["paper_launches"] = n
-    for name, n in paper["paper_scale_launches"].items():
-        extra.setdefault(name, {})["paper_scale_table3_launches"] = n
     rows = []
     for name, info in KERNEL_INFO.items():
         row = {"name": name, **info, "launches": launches[name],

@@ -52,19 +52,6 @@ class CascadeConfig:
         return np.asarray(self.stage_times)
 
 
-def init_params(cfg: CascadeConfig, generator: torch.Generator,
-                scale: float = 0.01, *, device="cuda") -> Params:
-    """Paper §3.2: 'parameters are first initialized to be random values
-    around zero'. Draws on the CPU from `generator` (so a seed gives the
-    same weights on every device), then moves to `device`. `fit` starts
-    from `prng.reference_init` instead: the reference's own draw for a
-    seed."""
-    w_x = scale * torch.randn((cfg.n_stages, cfg.d_x), generator=generator)
-    w_q = scale * torch.randn((cfg.n_stages, cfg.d_q), generator=generator)
-    params = {"w_x": w_x, "w_q": w_q, "b": torch.zeros(cfg.n_stages)}
-    return {k: v.to(device) for k, v in params.items()}
-
-
 def params_from_numpy(params: dict[str, np.ndarray], device="cuda") -> Params:
     """The port's params from numpy arrays of the reference layout — e.g.
     `jax.device_get` of a JAX fit or init, or a `.npz` of one — so that

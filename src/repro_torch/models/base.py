@@ -20,6 +20,8 @@ from typing import Any, Callable, Iterator
 
 import torch
 
+from repro_torch.models.parallel import local_slices
+
 ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
@@ -60,7 +62,8 @@ class ModelConfig:
     # layers, weights shared across applications
     attn_every: int = 0
     # attention-activation partitioning policy of the reference's mesh
-    # runs; the port runs on one card and reads only "auto"
+    # runs; the port reads none: its model-parallel runs take the plain
+    # "tp" layout (models/parallel.py)
     attn_shard: str = "auto"
     # SSM sequence-mixing implementation: "scan" | "chunked"
     ssm_impl: str = "scan"
@@ -150,6 +153,45 @@ class ParamTemplate:
 _DRAW_CHUNK = 1 << 28
 
 
+def _draw(t: ParamTemplate, generator: torch.Generator, dtype: torch.dtype,
+          block: list[tuple[int, int]]) -> torch.Tensor:
+    """The part `block` ((start, length) per dim) of leaf t as
+    `materialize` draws it: the leaf, viewed as (rows, the rest), is drawn
+    in float32 slices of whole rows, each scaled and cut to the block
+    before the cast; the generator advances over the whole leaf, so the
+    next leaf's draw does not depend on the block."""
+    device = generator.device
+    shape = tuple(n for _, n in block)
+    if t.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if t.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    fan_in = t.shape[-1] if len(t.shape) > 1 else 1
+    scale = t.scale if t.init == "normal" else t.scale / math.sqrt(fan_in)
+    if len(t.shape) == 1:                  # one row of the whole leaf
+        full, block = (1,) + t.shape, [(0, 1)] + block
+    else:
+        full = t.shape
+    cols = math.prod(full[1:])
+    out = torch.empty(shape, dtype=dtype, device=device).view(
+        (block[0][1],) + tuple(n for _, n in block[1:]))
+    rows = max(1, _DRAW_CHUNK // max(cols, 1))
+    r0, nr = block[0]
+    for i in range(0, full[0], rows):
+        n = min(rows, full[0] - i)
+        draw = torch.randn((n, cols), generator=generator,
+                           dtype=torch.float32, device=device)
+        lo, hi = max(i, r0), min(i + n, r0 + nr)
+        if lo >= hi:
+            continue
+        part = draw.mul_(scale)[lo - i:hi - i].view((hi - lo,) + full[1:])
+        for d, (start, length) in enumerate(block[1:], 1):
+            if length != full[d]:
+                part = part.narrow(d, start, length)
+        out[lo - r0:hi - r0].copy_(part)
+    return out.view(shape)
+
+
 def materialize(templates, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32) -> dict:
     """Real parameters from a template tree, made on the generator's device
@@ -159,26 +201,18 @@ def materialize(templates, generator: torch.Generator,
     are drawn in sorted-key order, so a seed fixes the whole tree. The
     numbers differ from the reference's `jax.random` draw: tests carry the
     reference's tree over with `zoo.params_from_numpy` instead."""
-    device = generator.device
+    return tree_map(lambda t: _draw(t, generator, dtype,
+                                    [(0, n) for n in t.shape]), templates)
 
-    def one(t: ParamTemplate) -> torch.Tensor:
-        if t.init == "zeros":
-            return torch.zeros(t.shape, dtype=dtype, device=device)
-        if t.init == "ones":
-            return torch.ones(t.shape, dtype=dtype, device=device)
-        fan_in = t.shape[-1] if len(t.shape) > 1 else 1
-        scale = t.scale if t.init == "normal" else t.scale / math.sqrt(fan_in)
-        out = torch.empty(t.shape, dtype=dtype, device=device)
-        flat = out.view(t.shape[0], -1) if len(t.shape) > 1 else out.view(1, -1)
-        rows = max(1, _DRAW_CHUNK // max(flat.shape[1], 1))
-        for i in range(0, flat.shape[0], rows):
-            part = flat[i:i + rows]
-            draw = torch.randn(part.shape, generator=generator,
-                               dtype=torch.float32, device=device)
-            part.copy_(draw.mul_(scale))
-        return out
 
-    return tree_map(one, templates)
+def materialize_shard(templates, generator: torch.Generator,
+                      dtype: torch.dtype, layout, mp) -> dict:
+    """Rank mp.rank's shard under `layout` (`launch.sharding
+    .param_layouts` on mp.mesh) of what `materialize` makes from the same
+    generator state, bit for bit, without holding any whole leaf: every
+    rank draws the whole random stream and keeps its blocks."""
+    return tree_map(lambda t, spec: _draw(t, generator, dtype, local_slices(
+        t.shape, spec, mp.mesh, mp.rank)), templates, layout)
 
 
 def shape_structs(templates, dtype: torch.dtype) -> dict:
@@ -189,6 +223,51 @@ def shape_structs(templates, dtype: torch.dtype) -> dict:
     return tree_map(
         lambda t: torch.empty(t.shape, dtype=dtype, device="meta"),
         templates)
+
+
+def logical_specs(templates) -> dict:
+    """Tree of logical-axis tuples, same structure as params."""
+    return tree_map(lambda t: t.axes, templates)
+
+
+def shard_params(params, templates, layout, mp) -> dict:
+    """Rank mp.rank's shard of the full parameter tree `params` (e.g. from
+    `materialize` or `zoo.params_from_numpy`) under `layout`, a layout
+    tree on mp.mesh (`launch.sharding.param_layouts`): each cut leaf is
+    cut to this rank's block and copied, so the full leaf can be freed;
+    a whole leaf is the same tensor. Leaves are checked against the
+    templates' shapes."""
+    def one(a: torch.Tensor, t: ParamTemplate, spec: tuple) -> torch.Tensor:
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"parameter of shape {tuple(a.shape)}, the "
+                             f"template wants {t.shape}")
+        out = a
+        for dim, (start, length) in enumerate(
+                local_slices(t.shape, spec, mp.mesh, mp.rank)):
+            if length != t.shape[dim]:
+                out = out.narrow(dim, start, length)
+        return a if out is a else out.clone()
+
+    return tree_map(one, params, templates, layout)
+
+
+def gather_params(shards, templates, layout, mp) -> dict:
+    """The inverse of `shard_params` on every rank of a model-parallel
+    run: each cut leaf all-gathered along its cut dim (the run's only
+    axis of more than one rank is "model"); whole leaves as they are."""
+    def one(a: torch.Tensor, t: ParamTemplate, spec: tuple) -> torch.Tensor:
+        out = a
+        for dim, (_, length) in enumerate(
+                local_slices(t.shape, spec, mp.mesh, mp.rank)):
+            if length != t.shape[dim]:
+                if t.shape[dim] != length * mp.world:
+                    raise ValueError(f"a dim of {t.shape[dim]} cut to "
+                                     f"{length} is not cut over the "
+                                     f"{mp.world} ranks")
+                out = mp.all_gather(out, dim)
+        return out
+
+    return tree_map(one, shards, templates, layout)
 
 
 def stack_templates(t: ParamTemplate, n: int) -> ParamTemplate:

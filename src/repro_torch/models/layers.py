@@ -11,9 +11,14 @@ conventions (src/repro/models/layers.py):
 Decode attention of one token runs K8 (`kernels.ops.swa_decode`): the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on a
 CPU tensor; so does an encoder-decoder's cross attention of one query
-over the cached encoder K/V. The reference's mesh-only variants (`shmap_attention`,
-`_seq_shard`, `attn_shard="seqkv"`, the expert-parallel `moe_ffn_shmap`)
-are not ported: the port runs on one card. The Mamba2 and RWKV-6
+over the cached encoder K/V. Under model parallelism (`models.parallel`)
+attention and the MLP run on a rank's shard as they are: the head counts
+come from the local weights' shapes, and the caller sums the output
+projection's partial sums over the ranks; the expert-parallel
+`moe_ffn_shmap` routes over every expert, runs the rank's own and sums
+over the ranks itself. The reference's sequence-sharded variants
+(`shmap_attention`, `_seq_shard`, `attn_shard="seqkv"`) are not ported
+yet. The Mamba2 and RWKV-6
 recurrences have no kernel in the reference (it leaves them to XLA's
 `jax.lax.scan`), and run here as plain PyTorch loops over the sequence
 or its chunks.
@@ -179,9 +184,13 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     "prefill" writes the fresh K/V into the cache but attends only against
     the fresh keys (the cache starts empty). cross_kv: an encoder's
     projected (k, v), each (B, S_enc, Hkv, hd), for encoder-decoder cross
-    attention (`cross_attention`). Returns (out, kv_cache)."""
+    attention (`cross_attention`). The head counts are the weights': a
+    rank's shard (its wq / wk / wv columns, wo rows) attends with its own
+    heads, and `out` is then its partial sum of the output projection.
+    Returns (out, kv_cache)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    h, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     if cross_kv is not None:
         return cross_attention(p, cfg, q, *cross_kv), None
@@ -330,6 +339,33 @@ def moe_positions(gate_i: torch.Tensor, n_experts: int
     return flat_e, pos
 
 
+def _expert_mlps(p, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU MLPs on their buffers buf (E, C, d): plain
+    batched matmuls (the reference leaves them to XLA)."""
+    hidden = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_in"])
+    return torch.bmm(hidden, p["w_out"])                       # (E, C, d)
+
+
+def _combine(gathered: torch.Tensor, keep: torch.Tensor,
+             gate_v: torch.Tensor) -> torch.Tensor:
+    """Each token's (T, d) gate-weighted sum of its k choices' outputs
+    gathered (T * k, d), a dropped choice (keep False) adding zero."""
+    t, k = gate_v.shape
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=gathered.device))
+    return (gathered.reshape(t, k, -1)
+            * gate_v.reshape(t, k, 1).to(gathered.dtype)).sum(dim=1)
+
+
+def _switch_aux(probs: torch.Tensor, gate_i: torch.Tensor,
+                e: int) -> torch.Tensor:
+    """The Switch-transformer load-balance loss (float32)."""
+    me = probs.mean(dim=0)                                     # (E,)
+    ce = F.one_hot(gate_i[:, 0], e).float().mean(dim=0)
+    return e * torch.sum(me * ce)
+
+
 def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with capacity-factor scatter dispatch (the
     reference's `moe_ffn`, src/repro/models/layers.py).
@@ -339,8 +375,7 @@ def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     expert's buffer from a cumsum of one-hot memberships in token-major
     (T * k) order — the reference's order, not a sort; a choice at or past
     the capacity is dropped (its scatter lands in the spare row `cap`,
-    which is sliced away). The expert products are plain batched matmuls
-    (the reference leaves them to XLA)."""
+    which is sliced away)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -355,27 +390,76 @@ def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
     buf = xt.new_zeros((e, cap + 1, d))
     buf = buf.index_put((flat_e, safe_pos), xt[tok_idx])
-    buf = buf[:, :cap]                                         # (E, C, d)
-
-    hidden = F.silu(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_in"])
-    out_buf = torch.bmm(hidden, p["w_out"])                    # (E, C, d)
+    out_buf = _expert_mlps(p, buf[:, :cap])                    # (E, C, d)
 
     # A dropped choice's index `cap` lies past the buffer's last row: the
     # reference's gather clamps it there and masks the value; indexing
     # raises in torch (a device-side assert on the card), so clamp it here
     # and mask the same way (no value, no gradient reaches that row).
     gathered = out_buf[flat_e, torch.clamp_max(safe_pos, cap - 1)]
-    gathered = torch.where(keep[:, None], gathered,
-                           torch.zeros((), dtype=gathered.dtype,
-                                       device=gathered.device))
-    y = (gathered.reshape(t, k, d)
-         * gate_v.reshape(t, k, 1).to(gathered.dtype)).sum(dim=1)
-
-    # Switch-transformer load-balance aux loss
-    me = probs.mean(dim=0)                                     # (E,)
-    ce = F.one_hot(gate_i[:, 0], e).float().mean(dim=0)
-    aux = e * torch.sum(me * ce)
+    y = _combine(gathered, keep, gate_v)
+    aux = _switch_aux(probs, gate_i, e)
     return y.reshape(b, s, d), aux
+
+
+def _local_experts(p, cfg, xt, gate_v, gate_i, e0: int) -> torch.Tensor:
+    """The (T, d) part of moe_ffn's output that experts e0 .. e0 + E_loc - 1
+    make (p holds their w_gate / w_in / w_out (E_loc, ...)) for the routing
+    (gate_v, gate_i) of the tokens xt (T, d) over all E experts. A choice
+    takes moe_ffn's position in its expert's buffer (`moe_positions` over
+    all E), so each local expert's buffer is moe_ffn's; a choice of another
+    rank's expert, or at or past the capacity, is dropped (its scatter
+    lands in the spare row E_loc or column `cap`, both sliced away) and
+    adds zero."""
+    t, d = xt.shape
+    e_loc = p["w_gate"].shape[0]
+    cap = moe_capacity(cfg, t)
+    flat_e, pos = moe_positions(gate_i, cfg.n_experts)
+    loc_e = flat_e - e0
+    keep = (loc_e >= 0) & (loc_e < e_loc) & (pos < cap)
+    safe_e = torch.where(keep, loc_e, e_loc)                   # e_loc: dropped
+    safe_pos = torch.where(keep, pos, cap)
+
+    tok_idx = torch.arange(t, device=xt.device).repeat_interleave(cfg.top_k)
+    buf = xt.new_zeros((e_loc + 1, cap + 1, d))
+    buf = buf.index_put((safe_e, safe_pos), xt[tok_idx])
+    out_buf = _expert_mlps(p, buf[:e_loc, :cap])               # (E_loc, C, d)
+
+    # clamped into the buffer and masked, as moe_ffn's dropped choices
+    gathered = out_buf[torch.clamp_max(safe_e, e_loc - 1),
+                       torch.clamp_max(safe_pos, cap - 1)]
+    return _combine(gathered, keep, gate_v)
+
+
+def moe_ffn_shmap(p, cfg, x: torch.Tensor, mp, *,
+                  wire: torch.dtype = torch.bfloat16
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE (the reference's `moe_ffn_shmap`): rank r holds
+    experts r * E_loc .. (r + 1) * E_loc - 1 of w_gate / w_in / w_out
+    (E_loc = E / world) and the whole router. The activations are whole on
+    every rank, so each routes every token over all E experts exactly as
+    `moe_ffn` does (the same capacity ceil(capacity_factor T k / E), the
+    same positions), runs only its own experts (`_local_experts`), and one
+    all-reduce of the (T, d) output sums the ranks' parts: no dispatch
+    all-to-all.
+
+    The output crosses the wire in `wire`'s dtype and is returned in it:
+    bfloat16 as the reference's `psum(y.astype(bfloat16))` (its "shmap"
+    variant), or x's dtype for the plain "tp" layout, whose reference
+    (GSPMD's partition of `moe_ffn`) casts nothing. aux: every rank routes
+    every token, so each computes moe_ffn's aux; the reference's pmean of
+    it runs over the data axes, of which a model-parallel run has none."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    probs, gate_v, gate_i = moe_route(p, cfg, xt)
+    e_loc = p["w_gate"].shape[0]
+    if e_loc * mp.world != cfg.n_experts:
+        raise ValueError(f"{cfg.name}: {e_loc} experts on each of "
+                         f"{mp.world} ranks, the config has "
+                         f"{cfg.n_experts}")
+    y = _local_experts(p, cfg, xt, gate_v, gate_i, mp.rank * e_loc)
+    y = mp.all_reduce_sum(y.to(wire))
+    return y.reshape(b, s, d), _switch_aux(probs, gate_i, cfg.n_experts)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,148 @@
+"""Model parallelism over torch.distributed ranks: the port's `shard_map`.
+
+The reference lays a model over a device mesh in two ways: GSPMD turns
+`launch/sharding.param_shardings` into a compiled SPMD program, and
+`shard_map` writes a layer explicitly (`moe_ffn_shmap`). The port has no
+GSPMD, so it does what `shard_map` does, explicitly, under the "tp"
+layout (`launch/sharding.py`):
+  * each rank holds its shard of every parameter (`models.base
+    .shard_params`): its heads and kv heads (wq / wk / wv columns, wo
+    rows), its columns of the MLP, its experts, its rows of the
+    vocabulary; norms and the router whole;
+  * it runs the layer code on those local shapes;
+  * it calls a collective where the reference's sharded program reduces:
+    an all-reduce after every row-parallel output projection (attention's
+    wo, the MLP's wo) and at the end of the expert-parallel MoE, an
+    all-reduce in the vocabulary-parallel embedding, an all-gather of the
+    vocabulary-parallel logits.
+
+Every collective of such a run goes through one `ModelParallel`, which
+counts each kind's calls and the bytes each rank puts in. With no
+ModelParallel (`mp=None`, the default of every entry point) nothing is
+sharded and nothing is reduced. `launch.mesh.model_parallel` builds one in
+each rank of a run; `launch.mesh.spawn_ranks` starts the ranks.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+# the arch types the "tp" layout runs on; the recurrent and encdec
+# families' cache layouts come in a later slice
+TP_ARCH_TYPES = ("dense", "moe")
+
+
+@dataclasses.dataclass
+class ModelParallel:
+    """One rank's view of a model-parallel run: its rank on the ("data",
+    "model") mesh `mesh` (`launch.mesh.MeshShape`, data of size 1), the
+    world size, the transport ("nccl" or "gloo") and the rank's device;
+    the collectives run on the default process group. `calls` and `bytes`
+    count them by kind ("all_reduce_sum", "all_reduce_max",
+    "all_gather"): calls, and the bytes of the tensor this rank puts in."""
+
+    rank: int
+    world: int
+    mesh: Any
+    backend: str
+    device: torch.device = torch.device("cpu")
+    calls: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    bytes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+
+    def _count(self, kind: str, x: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += x.numel() * x.element_size()
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the ranks, IN PLACE (the reference's psum); every
+        rank then holds the same bits."""
+        self._count("all_reduce_sum", x)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        return x
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """x's elementwise max over the ranks, in place (pmax)."""
+        self._count("all_reduce_max", x)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' x concatenated along `dim` in rank order (the gather
+        GSPMD inserts to make a cut tensor whole)."""
+        x = x.contiguous()
+        self._count("all_gather", x)
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts, dim=dim)
+
+    def reset_counts(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+
+
+def check_tp(cfg, world: int) -> None:
+    """Raise ValueError unless `world` ranks can run cfg under the "tp"
+    layout as the port executes it: a dense or moe model whose heads, kv
+    heads, vocabulary, dense MLP columns and experts `world` divides. (The
+    reference's rules keep an undivided dim whole, and its cache rule
+    splits a kv head across ranks (`sharding.py` cache_shardings); the
+    port refuses both.)"""
+    if cfg.arch_type not in TP_ARCH_TYPES:
+        raise ValueError(f"{cfg.name}: the \"tp\" layout runs the "
+                         f"{TP_ARCH_TYPES} families, not {cfg.arch_type!r}")
+    dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads,
+            "vocab": cfg.vocab}
+    if cfg.arch_type == "dense" or cfg.dense_residual:
+        dims["ffn"] = cfg.d_ff
+    if cfg.arch_type == "moe":
+        dims["experts"] = cfg.n_experts
+    bad = {k: v for k, v in dims.items() if v % world}
+    if bad:
+        raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
+                         f"needs {world} to divide its {bad}")
+
+
+def reduce_partial(mp: ModelParallel | None,
+                   y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sum on this rank, summed over the
+    ranks (y itself without model parallelism)."""
+    return y if mp is None else mp.all_reduce_sum(y)
+
+
+# ---------------------------------------------------------------------------
+# A rank's part of a laid-out tensor (layouts: launch/sharding.py)
+# ---------------------------------------------------------------------------
+
+def rank_coords(mesh, rank: int) -> dict[str, int]:
+    """The coordinate of `rank` on each mesh axis, ranks numbered
+    row-major over the axes (the last axis fastest)."""
+    coords = {}
+    for a in reversed(mesh.axis_names):
+        rank, coords[a] = divmod(rank, mesh.shape[a])
+    return coords
+
+
+def local_slices(shape: tuple[int, ...], spec: tuple, mesh,
+                 rank: int) -> list[tuple[int, int]]:
+    """(start, length) along every dim of the part of a tensor of `shape`
+    laid out by `spec` that `rank` holds: a dim cut over axes (a1, a2, ...)
+    is cut into their product of equal blocks, block index the ranks'
+    coordinates on those axes, row-major."""
+    coords = rank_coords(mesh, rank)
+    out = []
+    for dim, axes in zip(shape, spec):
+        n, idx = 1, 0
+        for a in (axes,) if isinstance(axes, str) else tuple(axes or ()):
+            n, idx = n * mesh.shape[a], idx * mesh.shape[a] + coords[a]
+        if dim % n:
+            raise ValueError(f"a dim of {dim} cannot be cut {n} ways "
+                             f"(layout {spec})")
+        out.append((idx * (dim // n), dim // n))
+    return out

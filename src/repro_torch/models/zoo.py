@@ -16,6 +16,15 @@ Parameters keep the reference's tree (src/repro/models/zoo.py), with layer
 params STACKED on a leading axis; the forward walks the layers in a
 Python loop over per-layer views (`base.unstack`). `lm_loss` and
 `train_step` are the reference's next-token objective and optimizer step.
+
+Model parallelism (`mp`, a `models.parallel.ModelParallel`; the dense and
+moe families): the params are a rank's shard under the "tp" layout
+(`base.shard_params`); each block sums attention's and the MLP's output
+projections over the ranks, the moe block runs `layers.moe_ffn_shmap`
+(arctic's dense MLP row-parallel beside it), the embedding is a masked
+lookup of the rank's vocabulary rows summed over the ranks (exact: one
+rank holds each row, the others add zeros) and the head's logits of the
+rank's vocabulary columns are gathered to the full vocabulary.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as Lyr
+from repro_torch.models.parallel import check_tp, reduce_partial
 from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
                                      stack_tree, tree_leaves, tree_map,
                                      unstack)
@@ -257,40 +267,49 @@ def window_schedule(cfg: ModelConfig, n_layers: int | None = None) -> np.ndarray
 # ---------------------------------------------------------------------------
 
 def _dense_block_fwd(p, cfg, x, positions, window, kv_cache=None,
-                     cache_len=None, mode="decode"):
+                     cache_len=None, mode="decode", mp=None):
     h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
                              positions=positions, window=window,
                              kv_cache=kv_cache, cache_len=cache_len, mode=mode)
-    x = x + h
-    x = x + Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp_act)
+    x = x + reduce_partial(mp, h)
+    x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"],
+                                       cfg.mlp_act))
     return x, cache
 
 
 def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
-                   cache_len=None, mode="decode"):
+                   cache_len=None, mode="decode", mp=None):
     """The dense block with the MLP replaced by the experts (plus arctic's
-    dense residual MLP on the same normed input): (x, cache, aux)."""
+    dense residual MLP on the same normed input): (x, cache, aux). Under
+    mp the experts are expert-parallel (`layers.moe_ffn_shmap`), their sum
+    crossing the wire in the activations' dtype (the reference's plain
+    "tp" layout)."""
     h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
                              positions=positions, window=window,
                              kv_cache=kv_cache, cache_len=cache_len, mode=mode)
-    x = x + h
+    x = x + reduce_partial(mp, h)
     xn = Lyr.rms_norm(x, p["ln2"])
-    moe_out, aux = Lyr.moe_ffn(p["moe"], cfg, xn)
+    if mp is None:
+        moe_out, aux = Lyr.moe_ffn(p["moe"], cfg, xn)
+    else:
+        moe_out, aux = Lyr.moe_ffn_shmap(p["moe"], cfg, xn, mp,
+                                         wire=xn.dtype)
     if cfg.dense_residual:
-        moe_out = moe_out + Lyr.mlp(xn, p["dense_mlp"], cfg.mlp_act)
+        moe_out = moe_out + reduce_partial(
+            mp, Lyr.mlp(xn, p["dense_mlp"], cfg.mlp_act))
     return x + moe_out, cache, aux
 
 
 def _block_fwd(p, cfg, x, positions, window, kv_cache=None, cache_len=None,
-               mode="decode"):
+               mode="decode", mp=None):
     """One layer of a dense or moe model (an encdec decoder layer's self
     attention and MLP, as the neural scorer runs it): (x, cache, aux), aux
     the moe block's Switch loss and 0.0 for the others."""
     if cfg.arch_type == "moe":
         return _moe_block_fwd(p, cfg, x, positions, window, kv_cache,
-                              cache_len, mode)
+                              cache_len, mode, mp)
     x, cache = _dense_block_fwd(p, cfg, x, positions, window, kv_cache,
-                                cache_len, mode)
+                                cache_len, mode, mp)
     return x, cache, 0.0
 
 
@@ -335,21 +354,40 @@ def _shared_attn_fwd(p, cfg, x, emb0, positions, kv_cache=None,
     return x, cache
 
 
-def embed_inputs(params, cfg, batch):
-    tok_emb = params["embed"][batch["tokens"]]
+def embed_tokens(params, tokens, mp=None) -> torch.Tensor:
+    """The embedding rows of `tokens`. Under mp the rank holds the rows
+    of its block of the vocabulary: it looks up the tokens inside it,
+    zeros for the others, and the sum over the ranks is the lookup."""
+    emb = params["embed"]
+    if mp is None:
+        return emb[tokens]
+    v_loc = emb.shape[0]
+    local = tokens - mp.rank * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    rows = emb[torch.where(inside, local, 0)]
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return mp.all_reduce_sum(rows)
+
+
+def embed_inputs(params, cfg, batch, mp=None):
+    tok_emb = embed_tokens(params, batch["tokens"], mp)
     if cfg.frontend_positions and cfg.arch_type != "encdec":
         fe = batch["frontend"].to(tok_emb.dtype)     # (B, P, d) stub embeds
         return torch.cat([fe, tok_emb], dim=1)
     return tok_emb
 
 
-def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
-                                                      torch.Tensor]:
+def forward(params, cfg: ModelConfig, batch, mp=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux_loss): the moe family's aux summed over the
-    layers (float32), 0 for the other families."""
+    layers (float32), 0 for the other families. mp: a rank's shard of a
+    dense or moe model (module docstring); the logits are whole."""
+    if mp is not None:
+        check_tp(cfg, mp.world)
     if cfg.arch_type == "encdec":
         return _forward_encdec(params, cfg, batch)
-    x = embed_inputs(params, cfg, batch)
+    x = embed_inputs(params, cfg, batch, mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), device=x.device)
@@ -362,10 +400,11 @@ def forward(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor,
     else:
         wins = window_schedule(cfg)
         for i, p in enumerate(layers):
-            x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]))
+            x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]),
+                                   mp=mp)
             aux_total = aux_total + aux
     x = Lyr.rms_norm(x, params["final_norm"])
-    return _lm_head(params, cfg, x), aux_total
+    return _lm_head(params, cfg, x, mp), aux_total
 
 
 def _hybrid_forward(params, cfg, x, layers, positions):
@@ -381,9 +420,13 @@ def _hybrid_forward(params, cfg, x, layers, positions):
     return x
 
 
-def _lm_head(params, cfg, x):
+def _lm_head(params, cfg, x, mp=None):
+    """Logits over the vocabulary; under mp the rank's columns gathered
+    from every rank in rank order (the argmax of the whole row then keeps
+    the lowest index on ties, as without mp)."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x @ w.to(x.dtype)
+    logits = x @ w.to(x.dtype)
+    return logits if mp is None else mp.all_gather(logits, dim=-1)
 
 
 def _promoted(x, w):

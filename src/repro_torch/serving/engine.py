@@ -33,6 +33,14 @@ dropped. The recurrent layers' prefill starts
 from zero state whatever the cache holds, as the reference's does; a
 layer's new state is written over its old one after the layer has read
 it.
+
+Model parallelism (`mp`, `models.parallel.ModelParallel`; the dense and
+moe families, params a rank's shard from `models.base.shard_params`): the
+cache takes the reference's "heads" layout (`launch.sharding
+.cache_layouts`), each rank holding its kv heads of every K/V entry
+(gemma3's rings included), and prefill and decode run the zoo's blocks
+with mp; K8 runs on every rank over its local heads. Every rank returns
+the same, whole logits.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from repro_torch.models import layers as Lyr
 from repro_torch.models import zoo as Z
 from repro_torch.models.base import ModelConfig, unstack
+from repro_torch.models.parallel import check_tp, reduce_partial
 
 
 def _windowed(cfg: ModelConfig) -> bool:
@@ -92,27 +101,44 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     return {k: (s, cfg.dtype) for k, s in shapes.items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
-               *, device="cuda") -> dict[str, torch.Tensor]:
-    return {k: torch.zeros(s, dtype=dt, device=device)
+def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
+                       enc_len: int = 0
+                       ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """cache_shapes of the part one rank of `mp` holds under the "heads"
+    layout (`launch.sharding.cache_layouts`): every entry of a dense or
+    moe model's cache is K or V, (..., Hkv, hd), its kv heads cut over the
+    ranks (checked to divide: no within-head split)."""
+    check_tp(cfg, mp.world)
+    return {k: (s[:-2] + (s[-2] // mp.world, s[-1]), dt)
             for k, (s, dt) in cache_shapes(cfg, batch, max_len,
                                            enc_len).items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+               *, device="cuda", mp=None) -> dict[str, torch.Tensor]:
+    """The zeroed serving cache; under mp this rank's part of it."""
+    shapes = (cache_shapes(cfg, batch, max_len, enc_len) if mp is None
+              else local_cache_shapes(cfg, batch, max_len, mp, enc_len))
+    return {k: torch.zeros(s, dtype=dt, device=device)
+            for k, (s, dt) in shapes.items()}
 
 
 # ---------------------------------------------------------------------------
 # Prefill: consume the full prompt, fill the cache, return last-token logits.
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, batch, cache
+def prefill(params, cfg: ModelConfig, batch, cache, mp=None
             ) -> tuple[torch.Tensor, dict]:
+    if mp is not None:
+        check_tp(cfg, mp.world)
     if cfg.arch_type == "encdec":
         return _prefill_encdec(params, cfg, batch, cache)
-    x = Z.embed_inputs(params, cfg, batch)
+    x = Z.embed_inputs(params, cfg, batch, mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x = _run_layers(params, cfg, x, positions, cache, 0, "prefill")
+    x = _run_layers(params, cfg, x, positions, cache, 0, "prefill", mp)
     x = Lyr.rms_norm(x[:, -1:], params["final_norm"])
-    return Z._lm_head(params, cfg, x), cache
+    return Z._lm_head(params, cfg, x, mp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +146,11 @@ def prefill(params, cfg: ModelConfig, batch, cache
 # ---------------------------------------------------------------------------
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
-                cache_len: int) -> tuple[torch.Tensor, dict]:
+                cache_len: int, mp=None) -> tuple[torch.Tensor, dict]:
     """tokens: (B, 1) int; cache_len: host int (current cache fill)."""
-    x = params["embed"][tokens]
+    if mp is not None:
+        check_tp(cfg, mp.world)
+    x = Z.embed_tokens(params, tokens, mp)
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.int64,
                            device=x.device)
@@ -130,25 +158,25 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
         x = _decode_encdec(params, cfg, x, positions, cache, cache_len)
     else:
         x = _run_layers(params, cfg, x, positions, cache, cache_len,
-                        "decode")
+                        "decode", mp)
     x = Lyr.rms_norm(x, params["final_norm"])
-    return Z._lm_head(params, cfg, x), cache
+    return Z._lm_head(params, cfg, x, mp), cache
 
 
-def _run_layers(params, cfg, x, positions, cache, cache_len, mode):
+def _run_layers(params, cfg, x, positions, cache, cache_len, mode, mp=None):
     if cfg.arch_type == "ssm":
         return _rwkv_run(params, cfg, x, cache, mode)
     if cfg.arch_type == "hybrid":
         return _hybrid_run(params, cfg, x, positions, cache, cache_len, mode)
     if _windowed(cfg):
         return _dense_serve_windowed(params, cfg, x, positions, cache,
-                                     cache_len, mode)
+                                     cache_len, mode, mp)
     wins = Z.window_schedule(cfg)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, _, _ = Z._block_fwd(
             p, cfg, x, positions, int(wins[i]),
             kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_len=cache_len, mode=mode)
+            cache_len=cache_len, mode=mode, mp=mp)
     return x
 
 
@@ -157,7 +185,8 @@ def _run_layers(params, cfg, x, positions, cache, cache_len, mode):
 # local layers + 1 full-cache global layer, then the local tail.
 # ---------------------------------------------------------------------------
 
-def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode):
+def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode,
+                          mp=None):
     g = cfg.global_every
     n_groups = cfg.n_layers // g
     w = cache["lk"].shape[3]
@@ -168,8 +197,9 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode):
             p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]), positions=positions,
             kv_cache={"k": lk, "v": lv}, cache_len=cache_len, mode=mode,
             ring_window=w)
-        x = x + h
-        return x + Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp_act)
+        x = x + reduce_partial(mp, h)
+        return x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]),
+                                              p["mlp"], cfg.mlp_act))
 
     for gi in range(n_groups):
         for li in range(g - 1):
@@ -178,7 +208,7 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode):
         x, _ = Z._dense_block_fwd(
             layers[gi * g + g - 1], cfg, x, positions, Lyr.NO_WINDOW,
             kv_cache={"k": cache["gk"][gi], "v": cache["gv"][gi]},
-            cache_len=cache_len, mode=mode)
+            cache_len=cache_len, mode=mode, mp=mp)
     for ti, p in enumerate(layers[n_groups * g:]):
         x = local_block(x, p, cache["tlk"][ti], cache["tlv"][ti])
     return x

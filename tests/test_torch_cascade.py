@@ -46,18 +46,6 @@ def test_params_from_numpy_rejects_bad_layouts():
         TC.params_from_numpy({**host, "b": np.zeros(5)}, device="cpu")
 
 
-def test_init_params_seeded_and_shaped():
-    cfg = cascades()[3]
-    a = TC.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
-    b = TC.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
-    c = TC.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
-    assert a["w_x"].shape == (3, 24) and a["w_q"].shape == (3, 8)
-    assert torch.equal(a["b"], torch.zeros(3))
-    assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["w_x"], c["w_x"])
-    assert float(a["w_x"].abs().max()) < 0.1     # scale 0.01 around zero
-
-
 def test_config_hashable_and_validated():
     cfg = cascades()[3]
     assert hash(cfg) == hash(TC.CascadeConfig(cfg.n_stages, cfg.d_x, cfg.d_q,

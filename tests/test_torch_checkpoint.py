@@ -581,8 +581,8 @@ def _cascade_cfg():
 
 def test_warm_restart_replays_manifest_with_zero_new_compiles(tmp_path):
     cfg = _cascade_cfg()
-    params = TC.init_params(cfg, torch.Generator().manual_seed(0),
-                            scale=0.3, device="cpu")
+    params = TC.params_from_numpy(prng.reference_init(cfg, 0, scale=0.3),
+                                  device="cpu")
     ses = _serving_session(params, cfg)
     shapes = ses.warmup()
     manifest = ses.warmup_manifest()
@@ -606,8 +606,8 @@ def test_warm_restart_replays_manifest_with_zero_new_compiles(tmp_path):
 
 def test_warm_restart_rejects_mismatched_manifest():
     cfg = _cascade_cfg()
-    params = TC.init_params(cfg, torch.Generator().manual_seed(0),
-                            scale=0.3, device="cpu")
+    params = TC.params_from_numpy(prng.reference_init(cfg, 0, scale=0.3),
+                                  device="cpu")
     ses = _serving_session(params, cfg)
     man = ses.warmup_manifest()
     with pytest.raises(ValueError, match="shape surface"):

@@ -1,0 +1,113 @@
+"""Rank functions of tests/test_torch_tp.py. Each runs in a process that
+`launch.mesh.spawn_ranks` starts, one rank of a model-parallel run over
+gloo on the CPU, and returns what the test compares (tensors come back as
+numpy arrays). This module imports torch and the port only, so a rank
+starts without jax."""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+
+import torch
+
+from repro_torch import configs as TCFG
+from repro_torch.launch import sharding as SH
+from repro_torch.models import base as MB
+from repro_torch.models import layers as Lyr
+from repro_torch.models import zoo as Z
+from repro_torch.serving import engine as E
+
+
+def _digest(x: torch.Tensor) -> str:
+    return hashlib.sha256(x.detach().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def record_reductions(mp) -> list[str]:
+    """A digest of every all-reduce's result on this rank, in call order
+    (the list fills as the run goes)."""
+    seen = []
+    reduce = mp.all_reduce_sum
+
+    def recorded(x):
+        out = reduce(x)
+        seen.append(_digest(out))
+        return out
+
+    mp.all_reduce_sum = recorded
+    return seen
+
+
+def smoke_cfg(arch: str):
+    return dataclasses.replace(TCFG.get_smoke(arch), dtype=torch.float32)
+
+
+def model_rank(mp, arch: str, params_np: dict, tokens, feed, steps: int,
+               max_len: int) -> dict:
+    """One rank serving the arch's smoke config from the reference's
+    numpy params: its shard and the gather back, the forward over
+    `tokens`, and the engine's prefill of `tokens` then `steps` decode
+    steps fed feed[i] (B, 1). The collectives of each part are counted,
+    and every all-reduce's result digested; last, the ranks' max rank by
+    `all_reduce_max` in bfloat16."""
+    cfg = smoke_cfg(arch)
+    full = Z.params_from_numpy(params_np, cfg, device="cpu")
+    tmpl = Z.templates(cfg)
+    layout = SH.param_layouts(tmpl, mp.mesh, "tp")
+    shard = MB.shard_params(full, tmpl, layout, mp)
+    back = MB.gather_params(shard, tmpl, layout, mp)
+    round_trip = [torch.equal(a, b) for a, b in
+                  zip(MB.tree_leaves(back), MB.tree_leaves(full))]
+    shard_shapes = [tuple(a.shape) for a in MB.tree_leaves(shard)]
+    del full, back
+
+    digests = record_reductions(mp)
+    tokens = torch.as_tensor(tokens)
+    mp.reset_counts()
+    logits, aux = Z.forward(shard, cfg, {"tokens": tokens}, mp)
+    calls = {"forward": dict(mp.calls)}
+
+    b, s = tokens.shape
+    cache = E.init_cache(cfg, b, max_len, device="cpu", mp=mp)
+    mp.reset_counts()
+    lg, cache = E.prefill(shard, cfg, {"tokens": tokens}, cache, mp)
+    calls["prefill"] = dict(mp.calls)
+    step_logits = [lg[:, -1]]
+    mp.reset_counts()
+    for i in range(steps):
+        lg, cache = E.decode_step(shard, cfg, torch.as_tensor(feed[i]),
+                                  cache, s + i, mp)
+        step_logits.append(lg[:, -1])
+    calls["decode"] = dict(mp.calls)
+    top = mp.all_reduce_max(torch.tensor([float(mp.rank)],
+                                         dtype=torch.bfloat16))
+    return dict(round_trip=round_trip, shard_shapes=shard_shapes,
+                logits=logits, aux=aux, step_logits=step_logits,
+                cache=cache, digests=digests, calls=calls, top_rank=top)
+
+
+def moe_rank(mp, arch: str, params_np: dict, x, capacity_factors) -> dict:
+    """One rank of `layers.moe_ffn_shmap` on the arch's smoke moe layer
+    (the reference's numpy params of `zoo._moe_templates`, its experts cut
+    by `shard_params`), at each capacity factor: the output over the bf16
+    wire (the reference's) and over the float32 wire, the aux, and this
+    rank's float32 partial sum before the wire."""
+    out = {}
+    x = torch.as_tensor(x)
+    for cf in capacity_factors:
+        cfg = dataclasses.replace(smoke_cfg(arch), capacity_factor=cf)
+        tmpl = Z._moe_templates(cfg)
+        full = {k: torch.as_tensor(v) for k, v in params_np.items()}
+        p = MB.shard_params(full, tmpl, SH.param_layouts(tmpl, mp.mesh),
+                            mp)
+        y16, aux = Lyr.moe_ffn_shmap(p, cfg, x, mp)
+        y32, _ = Lyr.moe_ffn_shmap(p, cfg, x, mp, wire=torch.float32)
+        xt = x.reshape(-1, x.shape[-1])
+        _, gate_v, gate_i = Lyr.moe_route(p, cfg, xt)
+        e_loc = p["w_gate"].shape[0]
+        partial = Lyr._local_experts(p, cfg, xt, gate_v, gate_i,
+                                     mp.rank * e_loc)
+        out[cf] = dict(y_bf16=y16, y_f32=y32, aux=aux, n_local=e_loc,
+                       partial=partial.reshape(x.shape))
+    return out
