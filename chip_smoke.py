@@ -197,7 +197,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    launched back to back on two side streams with no sync between them
    (at 128k with the same and with different inputs, at the ring shape
    and at a shape whose two grids fit on the card together) equal to the
-   one-stream results bit for bit;
+   one-stream results bit for bit. `[k8 partial]` K8's partials mode (the
+   softmax state (m, l, acc) of one rank's block of a sequence-cut cache)
+   at the global / ring / 128k shapes in float32 and bfloat16, each cache
+   cut into 4 blocks one of which holds no valid slot (it launches
+   nothing): each block against its plain version, the four combined
+   against K8's normalising call at K8's bar; one 32k quarter of the 128k
+   shape timed beside its plain version, its bound and whole K8, with one
+   CUDA launch per call;
 8. the LLM engine: gemma3-27b at full width and depth in bfloat16
    (random weights made on the card), prefill of 4 prompts of 2048
    synthetic tokens (every local ring wraps), 32 greedy decode steps with
@@ -242,11 +249,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    its top-2 margin exceeds that; per rank K8 = 62 x 8, peak memory,
    prefill s, median ms a step and the collectives a step; `[tp moe]`
    the same for dbrx-132b at [moe lm]'s 2 layers (4 of 16 experts a
-   rank), rows whose own token's routing leaves no margin excluded from
-   the logit bar and counted, the expert choices equal where they and
-   the token's earlier layers have margin. The transport and the card
-   count are printed; on one card the times are four processes sharing
-   it over gloo, not a sharded deployment's;
+   rank), every layer routed to the unsharded run's experts and the
+   ranks' own routing held to it. The transport and the card count are
+   printed; on one card the times are four processes sharing it over
+   gloo, not a sharded deployment's. The sequence-sharded variants
+   (attn_shard "seqkv" / "shmap", the "seq" cache: the KV sequence over
+   the ranks, decode through K8's partials mode combined across them):
+   `[seq parity]` inside [tp parity]'s spawn, both smoke configs under
+   both variants against the card's unsharded run (see SEQ_BF16_UNIT),
+   K8 partials = layers x steps a rank and K8 0; `[seq lm]` inside [tp
+   lm]'s spawn, on its shards, gemma3-27b under "seqkv" held to [lm]'s
+   teacher-fed rerun at [tp lm]'s bar, per rank the cache's bytes,
+   prefill s, median ms a step, the collectives a step by kind and K8
+   partials = 62 x 8;
 8c. `[ssm lm]` rwkv6-1.6b (24 layers) and zamba2-1.2b (38 layers, 6
    shared-block applications) at their published widths and full depth in
    bfloat16, the weights drawn on the card: prefill of 4 prompts of 512
@@ -373,6 +388,8 @@ from repro_torch.launch.mesh import (  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
+from repro_torch.models.parallel import (  # noqa: E402
+    SEQ_VARIANTS, combine_partials)
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
@@ -480,6 +497,34 @@ TP_RTOL, TP_ATOL, TP_TOKEN_MARGIN = 1e-5, 2e-4, 4e-4
 TP_WORLD, TP_STEPS = 4, 8
 TP_MOE_ARCH = "dbrx-132b"
 TP_BF16_STD_TOL = 0.25
+# Sequence-sharded serving (cfg.attn_shard "seqkv" / "shmap": the "tp"
+# parameter layout, the KV sequence over the ranks; decode through K8's
+# partials mode, combined across the ranks). [k8 partial]: the partials
+# mode at K8_PARTIAL_SHAPES of K8_SHAPES, each cache cut into
+# K8_PARTIAL_BLOCKS blocks, one of which holds no valid slot, in float32
+# and bfloat16: each block against its plain version (m within 1e-5 (1 +
+# |m|), l rescaled to the plain m within K8_F32_TOL relative, acc / l
+# within K8_F32_TOL: both compute in float32), the blocks combined against
+# K8's normalising call at its bar; one 32k quarter of the 128k shape
+# timed against its bound and whole K8. [seq parity]: inside [tp
+# parity]'s spawn, the smoke configs in float32 under both variants
+# against the card's unsharded run: "seqkv" at TP_RTOL / TP_ATOL; "shmap"
+# crosses bfloat16 wires (its attention combine over fresh keys and its
+# experts' sum, as the reference's), which move the smoke logits by ~3e-3
+# on the CPU (tests/test_torch_seq.py), so it is held to one bfloat16 unit
+# of the step's largest logit (SEQ_BF16_UNIT x max |logit|). [seq lm]:
+# inside [tp lm]'s spawn, on its shards, gemma3-27b under SEQ_LM_VARIANT
+# with the "seq" cache, held to [lm]'s teacher-fed rerun as [tp lm] is.
+SEQ_BF16_UNIT = 2.0 ** -7
+SEQ_LM_VARIANT = "seqkv"
+K8_PARTIAL_SHAPES = ("global", "ring", "long")
+K8_PARTIAL_BLOCKS = 4
+# the library yardstick of the partials mode (aten's flash attention with
+# its logsumexp) is first held to the kernel: its bfloat16 output within
+# K8_LIB_TOL of the largest |acc / l| (it rounds P to bfloat16 before P.V,
+# so it sits a unit or two from K8), its logsumexp to m + log l within
+# K8_F32_TOL
+K8_LIB_TOL = 2.0 ** -5
 # The ssm (rwkv6) and hybrid (zamba2) families. [ssm parity]: each smoke
 # config (and zamba2-smoke at 3 layers: a tail layer after its last shared
 # block) in float32 on the card against the CPU, every leaf the templates
@@ -662,6 +707,12 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/cascade_loss/kernel.py:271"},
     "swa_decode": {
         "id": "K8", "route": "cuda",
+        "source": "src/repro_torch/csrc/swa_decode.cu",
+        "replaces": "src/repro/kernels/swa_decode/kernel.py:75"},
+    # K8's partials mode: the same kernel, writing the softmax state of a
+    # rank's block of a sequence-cut cache
+    "swa_decode_partial": {
+        "id": "K8 partial", "route": "cuda",
         "source": "src/repro_torch/csrc/swa_decode.cu",
         "replaces": "src/repro/kernels/swa_decode/kernel.py:75"},
     "cascade_score": {
@@ -2995,6 +3046,24 @@ def sdpa_call(q, cache_len, window):
     return call
 
 
+def sdpa_lse_call(q, hkv):
+    """One PyTorch call computing K8's partials mode over a whole block:
+    aten's flash attention, which returns the output and its logsumexp
+    (the state (m, l, acc) as out = acc / l, lse = m + log l; what
+    PyTorch's context-parallel attention combines across ranks), each kv
+    head's GQA group of q as its query rows, K / V as views (timed as a
+    yardstick; the port never calls it). Returns (out (B, H, hd), lse (B,
+    H))."""
+    b, h, hd = q.shape
+    qg = q.reshape(b, hkv, h // hkv, hd)
+
+    def call(k, v):
+        r = torch.ops.aten._scaled_dot_product_flash_attention(
+            qg, k.transpose(1, 2), v.transpose(1, 2))
+        return r[0].reshape(b, h, hd), r[1].reshape(b, h)
+    return call
+
+
 # the CUDA runtime and driver calls that launch one kernel each
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
@@ -3159,6 +3228,157 @@ def phase_k8_streams() -> None:
                     f"splits x {p['units']} tickets)")
     print(f"[k8 streams] two calls in flight on two side streams equal the "
           f"one-stream bits, 3 rounds each: " + "; ".join(done))
+
+
+
+def k8_partial_cut(name: str, s: int) -> tuple[int, int, bool]:
+    """[k8 partial]'s query at a K8_SHAPES cache of s slots: (cache_len,
+    window, ring) that leave one of K8_PARTIAL_BLOCKS blocks without a
+    valid slot. A cache of positions: the last slot, window 3s/4 (block 0
+    lies wholly before the window); the ring: its first 3/4 of slots
+    written (cache_len 3s/4 - 1: the last block is empty; the ring's
+    mapping onto K8, `layers.decode_attention`, has no window)."""
+    if name == "ring":
+        return 3 * s // 4 - 1, ops.NO_WINDOW, True
+    return s - 1, 3 * s // 4, False
+
+
+def k8_partial_check(got, want, label) -> float:
+    """K8's partials (m, l, acc) against the plain version's: both -inf /
+    0 / 0 where the block has no slot; else m within 1e-5 (1 + |m|), l
+    rescaled to the plain m within K8_F32_TOL relative, and the block's
+    normalised output acc / l within K8_F32_TOL (both compute in float32
+    from the same inputs). Returns the largest |acc / l| error."""
+    (m, l, acc), (wm, wl, wacc) = got, want
+    if not torch.isfinite(wm).any():
+        assert not torch.isfinite(m).any() and not l.any() and not acc.any(), (
+            f"{label}: an empty block's partials are not -inf / 0 / 0")
+        return 0.0
+    torch.testing.assert_close(m, wm, rtol=1e-5, atol=1e-5,
+                               msg=lambda x: f"{label} m: {x}")
+    torch.testing.assert_close(l * torch.exp(m - wm), wl, rtol=K8_F32_TOL,
+                               atol=0.0, msg=lambda x: f"{label} l: {x}")
+    out, want_out = acc / l[..., None], wacc / wl[..., None]
+    torch.testing.assert_close(out, want_out, rtol=K8_F32_TOL,
+                               atol=K8_F32_TOL,
+                               msg=lambda x: f"{label} acc / l: {x}")
+    return float((out - want_out).abs().max())
+
+
+def phase_k8_partial(errs, k8: dict) -> dict:
+    """[k8 partial] K8's partials mode against its plain version at the
+    K8_PARTIAL_SHAPES of K8_SHAPES in float32 and bfloat16, each cache cut
+    into K8_PARTIAL_BLOCKS blocks (each its own tensor, as a rank holds
+    it) one of which has no valid slot (`k8_partial_cut`): every block's
+    partials held to the plain version's, the empty one launching
+    nothing; the blocks' partials combined (`combine_partials`, no mp)
+    against K8's normalising call on the whole cache at K8's bar. Then one
+    32k quarter of the 128k shape in bfloat16 timed (device time, inputs
+    past the L2) beside its plain version, its bound, the library call
+    that returns the same state (`sdpa_lse_call`, held to the kernel
+    first) and whole K8 at 128k (`k8`, phase_k8_timing's), with its launch
+    plan and the CUDA launches per call (one)."""
+    readings = []
+    for name in K8_PARTIAL_SHAPES:
+        b, h, hkv, hd, s = K8_SHAPES[name]
+        cache_len, window, ring = k8_partial_cut(name, s)
+        n = s // K8_PARTIAL_BLOCKS
+        if ring:
+            lo_g, hi_g = 0, min(cache_len, s - 1) + 1
+        else:
+            lo_g, hi_g = max(0, cache_len - window + 1), cache_len + 1
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = k8_inputs(b, h, hkv, hd, s, dtype, seed=40)
+            if ring:
+                whole = Lyr.decode_attention(q[:, None], k, v,
+                                             q_offset=cache_len, window=s,
+                                             ring=True)[:, 0]
+            else:
+                whole = ops.swa_decode(q, k, v, cache_len, window=window)
+            parts, launched, err, empty = [], 0, 0.0, 0
+            for r in range(K8_PARTIAL_BLOCKS):
+                kb = k[:, r * n:(r + 1) * n].contiguous()
+                vb = v[:, r * n:(r + 1) * n].contiguous()
+                lo = min(max(lo_g - r * n, 0), n)
+                hi = min(max(hi_g - r * n, 0), n)
+                empty += lo >= hi
+                before = ops.launch_counts()["swa_decode_partial"]
+                got = ops.swa_decode_partial(q, kb, vb, lo, hi)
+                sync()
+                launched += ops.launch_counts()["swa_decode_partial"] - before
+                want = ops.swa_decode_partial_ref(q, kb, vb, lo, hi)
+                err = max(err, k8_partial_check(
+                    got, want, f"[k8 partial] {name} {dtype} block {r}"))
+                parts.append(got)
+                del kb, vb
+            assert empty == 1 and launched == K8_PARTIAL_BLOCKS - 1, (
+                name, dtype, empty, launched)
+            combined = combine_partials(
+                None, *map(torch.stack, zip(*parts)), torch.float32).to(dtype)
+            c_err, mag, use = k8_check(combined, whole,
+                                       f"[k8 partial] {name} {dtype} "
+                                       "combined vs K8")
+            errs["swa_decode_partial"] = max(errs["swa_decode_partial"],
+                                             err)
+            readings.append(f"{name} {str(dtype)[6:]}: blocks |acc/l err| "
+                            f"{err:.3g}, combined vs K8 {c_err:.3g} "
+                            f"({use:.3f} of its bar)")
+            del q, k, v, whole, parts
+    print(f"[k8 partial] partials mode vs its plain version on "
+          f"{K8_PARTIAL_BLOCKS} blocks a cache (one empty: no launch), "
+          f"combined vs K8's normalising call at K8's bar: "
+          + "; ".join(readings))
+    # one 32k quarter of the 128k shape, as a rank of 4 holds it
+    b, h, hkv, hd, s = K8_SHAPES["long"]
+    n = s // K8_PARTIAL_BLOCKS
+    q, kvs = k8_timing_case((b, h, hkv, hd, n), seed=41)
+    kern, lone = time_ms(rotate(lambda k, v: ops.swa_decode_partial(
+        q, k, v, 0, n), kvs))
+    plain, _ = time_ms(rotate(lambda k, v: ops.swa_decode_partial_ref(
+        q, k, v, 0, n), kvs), reps=5, calls=5)
+    lib_fn = sdpa_lse_call(q, hkv)
+    m, l, acc = ops.swa_decode_partial(q, *kvs[0], 0, n)
+    lib_out, lib_lse = lib_fn(*kvs[0])
+    want_out = acc / l[..., None]
+    lib_err = float((lib_out.float() - want_out).abs().max())
+    assert lib_err <= K8_LIB_TOL * float(want_out.abs().max()), (
+        "[k8 partial] flash attention's output vs the partials' acc / l",
+        lib_err, float(want_out.abs().max()))
+    torch.testing.assert_close(lib_lse, m + torch.log(l), rtol=K8_F32_TOL,
+                               atol=K8_F32_TOL,
+                               msg=lambda x: f"[k8 partial] lse vs m + log l: "
+                               f"{x}")
+    library, _ = time_ms(rotate(lib_fn, kvs))
+    del m, l, acc, lib_out, lib_lse, want_out
+    nops, kv_bytes, q_bytes = ops.swa_decode_range_work(b, h, hkv, hd, 2, n)
+    nbytes = kv_bytes + q_bytes + b * h * (hd + 2) * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / BF16_OPS_PER_S * 1e3
+    per_sm, tile = swa_kernel._instance(
+        0, hd, swa_kernel.head_group(h // hkv), True)
+    plan = swa_kernel.plan_range(b, h, hkv, 0, n, swa_kernel._sm_count(0),
+                                 per_sm, tile)
+    n_cuda, n_device, names = cuda_launches_per_call(
+        lambda: ops.swa_decode_partial(q, *kvs[0], 0, n))
+    assert n_cuda == 1 and names == ["swa_decode_kernel"], (n_cuda, names)
+    out = dict(ms=kern, lone_ms=lone, plain_ms=plain,
+               bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations",
+               library_ms=library, bytes=nbytes, ops=nops, plan=plan,
+               whole_k8_ms=k8["long"]["ms"], cuda_launches_per_call=n_cuda)
+    print(f"[k8 partial] one quarter of the 128k shape (B={b} H={h} "
+          f"Hkv={hkv} hd={hd}, {n} slots, bf16; {plan['n_split']} splits x "
+          f"{plan['split_len']} = {plan['blocks']} blocks at "
+          f"{plan['blocks_per_sm']} per SM, {plan['waves']} wave(s)): "
+          f"kernel {kern:.4f} ms (lone call {lone:.4f} ms), plain "
+          f"{plain:.4f} ms, aten flash attention with its logsumexp "
+          f"{library:.4f} ms (|out err| {lib_err:.3g}), bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']} ({nbytes} bytes -> {by_bytes:.4f} ms; {nops} "
+          f"ops -> {by_ops:.5f} ms), {out['bound_ms'] / kern:.1%} of bound; "
+          f"whole K8 at 128k {k8['long']['ms']:.4f} ms ({kern / k8['long']['ms']:.3f}"
+          f" of it); {n_cuda:g} CUDA launch per call, the device ran "
+          f"{n_device} kernel(s) {names}")
+    return out
 
 
 # -- 6d. the paper's evaluation ---------------------------------------------------
@@ -3728,23 +3948,30 @@ def tp_shard(mp, cfg, seed: int) -> dict:
 
 
 def tp_parity_rank(mp, cases) -> dict:
-    """[tp parity], one rank: for each (arch, tokens, feed) its shard of
-    the smoke config in float32 (seed 3), prefill and decode fed `feed`
-    through lm_serve; K8's count set to 0 before the run and read after."""
+    """[tp parity] and [seq parity], one rank: for each (arch, tokens,
+    feed) its shard of the smoke config in float32 (seed 3), prefill and
+    decode fed `feed` through lm_serve under the "tp" layout and then
+    under each of SEQ_VARIANTS (the "seq" cache); the launch counts set to
+    0 before each run and read after. Keys "arch/variant" ("auto": tp)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for arch, tokens, feed in cases:
         cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
         params = tp_shard(mp, cfg, 3)
-        ops.reset_launch_counts()            # this rank's path starts here
-        mp.reset_counts()
-        run = lm_serve(params, cfg, torch.as_tensor(tokens),
-                       len(feed), mp.device, feed=[torch.as_tensor(f)
-                                                   for f in feed], mp=mp)
-        sync()
-        k8 = ops.launch_counts()["swa_decode"]   # ... and ends here
-        out[arch] = dict(logits=run["logits"], routes=run["routes"], k8=k8,
-                         calls=dict(mp.calls))
+        for variant in ("auto", *SEQ_VARIANTS):
+            vcfg = dataclasses.replace(cfg, attn_shard=variant)
+            ops.reset_launch_counts()        # this rank's path starts here
+            mp.reset_counts()
+            run = lm_serve(params, vcfg, torch.as_tensor(tokens),
+                           len(feed), mp.device, feed=[torch.as_tensor(f)
+                                                       for f in feed], mp=mp)
+            sync()
+            counts = ops.launch_counts()     # ... and ends here
+            out[f"{arch}/{variant}"] = dict(
+                logits=run["logits"], routes=run["routes"],
+                k8=counts["swa_decode"],
+                k8_partial=counts["swa_decode_partial"],
+                calls=dict(mp.calls))
     return out
 
 
@@ -3774,8 +4001,11 @@ def phase_tp_parity(card: str) -> dict:
     free_cuda()
     ranks = spawn_ranks(TP_PARITY_WORLD, tp_parity_rank, (cases,),
                         device="cuda", timeout_s=600)
+    ranks = [{k: v for k, v in rank.items()} for rank in ranks]
     out = {}
     for arch in TP_PARITY_ARCHS:
+        for rank in ranks:
+            rank[arch] = rank[f"{arch}/auto"]
         cfg = CFG.get_smoke(arch)
         want = refs[arch]
         err, greedy, routes = 0.0, 0, 0
@@ -3817,20 +4047,77 @@ def phase_tp_parity(card: str) -> dict:
               f"{ranks[0][arch]['calls']}")
         out[arch] = dict(err=err, k8_per_rank=[rank[arch]["k8"]
                                                for rank in ranks])
-    print(f"[tp parity] done in {time.perf_counter() - t0:.1f} s")
+        for variant in SEQ_VARIANTS:
+            out[f"{arch}/{variant}"] = seq_parity_check(
+                cfg, variant, [rank[f"{arch}/{variant}"] for rank in ranks],
+                want, backend, card)
+    print(f"[tp parity] done in {time.perf_counter() - t0:.1f} s (with "
+          f"[seq parity])")
     return out
 
 
+def seq_parity_check(cfg, variant, got, want, backend, card) -> dict:
+    """[seq parity] one smoke config under one sequence-sharded variant
+    (`got` per rank, from tp_parity_rank) against the card's unsharded run
+    `want`: "seqkv" at TP_RTOL / TP_ATOL, greedy tokens exact where the
+    margin exceeds TP_TOKEN_MARGIN; "shmap" (bfloat16 wires) within one
+    bfloat16 unit of the step's largest logit, greedy tokens exact where
+    the margin exceeds twice that; expert choices exact where the router
+    leaves ROUTE_LOG_MARGIN; the ranks' logits bit-equal; K8's partials
+    mode launched once per layer a step on every rank (no block of these
+    caches is empty: the prompt fills every rank's block) and K8 itself
+    never."""
+    tag = f"[seq parity] {cfg.name} {variant}"
+    err, share, greedy, routes = 0.0, 0.0, 0, 0
+    for r, rank in enumerate(got):
+        assert rank["k8_partial"] == cfg.n_layers * TP_PARITY_STEPS \
+            and rank["k8"] == 0, (tag, r, rank["k8_partial"], rank["k8"])
+        for i, (g, w) in enumerate(zip(rank["logits"], want["logits"])):
+            g = torch.from_numpy(g)
+            np.testing.assert_array_equal(got[0]["logits"][i],
+                                          rank["logits"][i])
+            if variant == "shmap":
+                rtol, atol = 0.0, SEQ_BF16_UNIT * float(w.abs().max())
+                margin = 2 * atol
+            else:
+                rtol, atol, margin = TP_RTOL, TP_ATOL, TP_TOKEN_MARGIN
+            torch.testing.assert_close(
+                g, w, rtol=rtol, atol=atol,
+                msg=lambda m: f"{tag} rank {r} step {i}: {m}")
+            e = float((g - w).abs().max())
+            err, share = max(err, e), max(share, e / atol)
+            top2 = torch.topk(w, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > margin
+            assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]), tag
+            greedy += int(sure.sum())
+        if cfg.arch_type == "moe":
+            routes += check_routes(
+                [(torch.from_numpy(p), torch.from_numpy(i))
+                 for p, i in rank["routes"]], want["routes"], cfg.top_k,
+                f"{tag} rank {r}")[0]
+    assert greedy > 0, tag
+    print(f"{tag} (float32, the \"seq\" cache) over {len(got)} ranks "
+          f"({backend}, {card}) against the card's unsharded run: max |err| "
+          f"{err:.3g}, {share:.3f} of the largest atol "
+          + ("(one bfloat16 unit of the step's largest logit)"
+             if variant == "shmap" else f"(rtol {TP_RTOL}, atol {TP_ATOL})")
+          + f", {greedy} greedy tokens equal"
+          + (f", expert choices equal for {routes} token-layers"
+             if routes else "")
+          + f"; the ranks' logits bit-equal; K8 partials per rank "
+          f"{[rank['k8_partial'] for rank in got]} = {cfg.n_layers} x "
+          f"{TP_PARITY_STEPS}, K8 0; collectives per rank {got[0]['calls']}")
+    return dict(err=err, share=share,
+                k8_partial_per_rank=[rank["k8_partial"] for rank in got])
+
+
 def tp_lm_rank(mp, jobs) -> dict:
-    """[tp lm] / [tp moe], one rank: for each job its shard of the config
-    at full width (cut to job["layers"] where given) in bfloat16, drawn
-    as the unsharded phase drew it (seed 0 on the card) keeping only this
-    rank's blocks; prefill of job["tokens"] and decode steps fed
-    job["feed"], every moe layer's call routed to job["gates"]'s experts
-    (`routed(feed=)`) where given: logits and the rank's own routes (kept
-    on the card until the last step), K8's count (0 before the prefill,
-    read after the last step), peak memory, prefill s, ms per step (CUDA
-    events), the collectives of the decode steps."""
+    """[tp lm] / [tp moe] and [seq lm], one rank: for each job its shard
+    of the config at full width (cut to job["layers"] where given) in
+    bfloat16, drawn as the unsharded phase drew it (seed 0 on the card)
+    keeping only this rank's blocks, served by `tp_lm_serve` (key: the
+    arch); where job["seq"] names a sequence-sharded variant, the same
+    shard served again under it with the "seq" cache (key: "arch/seq")."""
     dev = mp.device
     out = {}
     for job in jobs:
@@ -3846,44 +4133,66 @@ def tp_lm_rank(mp, jobs) -> dict:
         make_s = time.perf_counter() - t0
         shard_bytes = sum(a.numel() * a.element_size()
                           for a in MB.tree_leaves(params))
-        tokens = torch.as_tensor(job["tokens"]).to(dev)
-        feed = [torch.as_tensor(f).to(dev) for f in job["feed"]]
-        gates = (iter([torch.as_tensor(g).to(dev) for g in job["gates"]])
-                 if job["gates"] is not None else None)
-        b, s = tokens.shape
-        cache = E.init_cache(cfg, b, s + len(feed), device=dev, mp=mp)
-        sync()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()            # this rank's path starts here
-        t0 = time.perf_counter()
-        (lg, cache), routes = routed(E.prefill, params, cfg,
-                                     {"tokens": tokens}, cache, mp,
-                                     host=False, feed=gates)
-        sync()
-        prefill_s = time.perf_counter() - t0
-        logits = [lg[:, -1]]
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(len(feed) + 1)]
-        mp.reset_counts()
-        events[0].record()
-        for i, tok in enumerate(feed):
-            (lg, cache), r = routed(E.decode_step, params, cfg, tok, cache,
-                                    s + i, mp, host=False, feed=gates)
-            logits.append(lg[:, -1])
-            routes += r
-            events[i + 1].record()
-        sync()
-        k8 = ops.launch_counts()["swa_decode"]   # ... and ends here
-        step_ms = [events[i].elapsed_time(events[i + 1])
-                   for i in range(len(feed))]
-        out[job["arch"]] = dict(
-            logits=[a.cpu() for a in logits],
-            routes=[(p.cpu(), i.cpu()) for p, i in routes], k8=k8,
-            make_s=make_s, shard_bytes=shard_bytes, prefill_s=prefill_s,
-            step_ms=step_ms, peak=torch.cuda.max_memory_allocated(),
-            calls=dict(mp.calls), bytes=dict(mp.bytes))
-        del params, cache, lg, logits, routes
+        out[job["arch"]] = dict(make_s=make_s, shard_bytes=shard_bytes,
+                                **tp_lm_serve(mp, params, cfg, job))
+        if job["seq"]:
+            out[f"{job['arch']}/seq"] = tp_lm_serve(
+                mp, params, dataclasses.replace(cfg, attn_shard=job["seq"]),
+                job)
+        del params
         free_cuda()
+    return out
+
+
+def tp_lm_serve(mp, params, cfg, job) -> dict:
+    """One rank's prefill of job["tokens"] and decode steps fed
+    job["feed"], every moe layer's call routed to job["gates"]'s experts
+    (`routed(feed=)`) where given, into a cache of the layout cfg's
+    attn_shard gives (`engine.cache_policy`): logits and the rank's own
+    routes (kept on the card until the last step), the launch counts (0
+    before the prefill, read after the last step), the cache's bytes, peak
+    memory, prefill s, ms per step (CUDA events), the collectives of the
+    decode steps."""
+    dev = mp.device
+    tokens = torch.as_tensor(job["tokens"]).to(dev)
+    feed = [torch.as_tensor(f).to(dev) for f in job["feed"]]
+    gates = (iter([torch.as_tensor(g).to(dev) for g in job["gates"]])
+             if job["gates"] is not None else None)
+    b, s = tokens.shape
+    cache = E.init_cache(cfg, b, s + len(feed), device=dev, mp=mp)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                # this rank's path starts here
+    t0 = time.perf_counter()
+    (lg, cache), routes = routed(E.prefill, params, cfg, {"tokens": tokens},
+                                 cache, mp, host=False, feed=gates)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    logits = [lg[:, -1]]
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(feed) + 1)]
+    mp.reset_counts()
+    events[0].record()
+    for i, tok in enumerate(feed):
+        (lg, cache), r = routed(E.decode_step, params, cfg, tok, cache,
+                                s + i, mp, host=False, feed=gates)
+        logits.append(lg[:, -1])
+        routes += r
+        events[i + 1].record()
+    sync()
+    counts = ops.launch_counts()             # ... and ends here
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(len(feed))]
+    out = dict(
+        logits=[a.cpu() for a in logits],
+        routes=[(p.cpu(), i.cpu()) for p, i in routes],
+        k8=counts["swa_decode"], k8_partial=counts["swa_decode_partial"],
+        cache_bytes=cache_bytes, prefill_s=prefill_s, step_ms=step_ms,
+        peak=torch.cuda.max_memory_allocated(), calls=dict(mp.calls),
+        bytes=dict(mp.bytes))
+    del cache, lg
+    free_cuda()
     return out
 
 
@@ -3926,28 +4235,56 @@ def check_rank_routes(rank_routes, want, k: int, tag: str
     return worst_d, worst_share, compared, skipped
 
 
+def check_tp_logits(got, ref, tag) -> tuple[float, int]:
+    """Each rank's logits (`got`: per rank, the prefill's and each decode
+    step's) against the unsharded teacher-fed rerun `ref`: every row
+    within TP_BF16_STD_TOL of the step's logit standard deviation, greedy
+    tokens equal where the unsharded top-2 margin exceeds the bar, the
+    ranks' logits bit-equal. Returns (the largest share of the bar, greedy
+    tokens compared)."""
+    worst, greedy = 0.0, 0
+    for r, rank in enumerate(got):
+        for i, (g, w) in enumerate(zip(rank, ref["logits"])):
+            np.testing.assert_array_equal(got[0][i], g)
+            g, w = torch.from_numpy(g), w.float()
+            tol = TP_BF16_STD_TOL * float(w.std())
+            err = (g - w).abs().amax(-1)
+            assert bool((err <= tol).all()), (
+                f"[{tag}] rank {r} step {i}: max |err| {err.tolist()} over "
+                f"{tol:.4g}")
+            worst = max(worst, float(err.max()) / tol)
+            top2 = torch.topk(w, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > tol
+            assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]), (
+                f"[{tag}] rank {r} step {i}: greedy tokens")
+            greedy += int(sure.sum())
+    return worst, greedy
+
+
 def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
     """[tp lm] gemma3-27b at full width and depth and [tp moe] dbrx-132b
     at [moe lm]'s depth, in bfloat16 over TP_WORLD ranks (one spawn for
     both), against [lm]'s / [moe lm]'s teacher-fed reruns: the logits of
     the prefill and of each of TP_STEPS decode steps within
     TP_BF16_STD_TOL of the step's logit standard deviation on every row,
-    greedy tokens equal where the unsharded top-2 margin exceeds the bar;
-    dbrx's ranks routed to the unsharded run's experts in every layer
-    (`routed(feed=)`, so no token's path parts from the reference's), and
-    their own routing held to it (`check_rank_routes`); the ranks'
-    logits bit-equal, K8 = layers x steps on every rank; per rank the
-    shard's bytes, the peak memory, prefill s, median ms a step and the
-    collectives a step."""
+    greedy tokens equal where the unsharded top-2 margin exceeds the bar
+    (`check_tp_logits`); dbrx's ranks routed to the unsharded run's
+    experts in every layer (`routed(feed=)`, so no token's path parts from
+    the reference's), and their own routing held to it
+    (`check_rank_routes`); the ranks' logits bit-equal, K8 = layers x
+    steps on every rank; per rank the shard's bytes, the peak memory,
+    prefill s, median ms a step and the collectives a step. Then [seq lm]:
+    gemma3-27b on the same shards under SEQ_LM_VARIANT with the "seq"
+    cache (`seq_lm_report`)."""
     t0 = time.perf_counter()
     backend, devices = transport(TP_WORLD, "cuda")
     n_cards = len(set(map(str, devices)))
-    jobs = [dict(arch=LM_ARCH, layers=None, ref=lm_ref),
+    jobs = [dict(arch=LM_ARCH, layers=None, ref=lm_ref, seq=SEQ_LM_VARIANT),
             dict(arch=TP_MOE_ARCH, layers=MOE_LM_LAYERS[TP_MOE_ARCH],
-                 ref=moe_ref)]
+                 ref=moe_ref, seq=None)]
     ranks = spawn_ranks(
         TP_WORLD, tp_lm_rank,
-        ([dict(arch=j["arch"], layers=j["layers"],
+        ([dict(arch=j["arch"], layers=j["layers"], seq=j["seq"],
                tokens=j["ref"]["tokens"].numpy(),
                feed=[f.numpy() for f in j["ref"]["fed"]],
                gates=([i.numpy() for _, i in j["ref"]["routes"]]
@@ -3962,26 +4299,11 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
         cfg = CFG.get(arch)
         layers = job["layers"] or cfg.n_layers
         b, s = ref["tokens"].shape
-        worst, greedy = 0.0, 0
         for r, rank in enumerate(ranks):
-            got = rank[arch]
-            assert got["k8"] == layers * TP_STEPS, (tag, r, got["k8"])
-            for i, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
-                g = torch.from_numpy(g)
-                w = w.float()
-                np.testing.assert_array_equal(
-                    ranks[0][arch]["logits"][i], rank[arch]["logits"][i])
-                tol = TP_BF16_STD_TOL * float(w.std())
-                err = (g - w).abs().amax(-1)
-                assert bool((err <= tol).all()), (
-                    f"[{tag}] rank {r} step {i}: max |err| "
-                    f"{err.tolist()} over {tol:.4g}")
-                worst = max(worst, float(err.max()) / tol)
-                top2 = torch.topk(w, 2, dim=-1).values
-                sure = (top2[:, 0] - top2[:, 1]) > tol
-                assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]), (
-                    f"[{tag}] rank {r} step {i}: greedy tokens")
-                greedy += int(sure.sum())
+            assert rank[arch]["k8"] == layers * TP_STEPS, (tag, r,
+                                                          rank[arch]["k8"])
+        worst, greedy = check_tp_logits(
+            [rank[arch]["logits"] for rank in ranks], ref, tag)
         if cfg.arch_type == "moe":
             dlog, dshare, compared, skipped = check_rank_routes(
                 [rank[arch]["routes"] for rank in ranks], ref["routes"],
@@ -4024,11 +4346,64 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
             worst_share_of_bar=worst, backend=backend, cards=n_cards,
             **({"route_log_err": dlog, "route_share_of_bar": dshare}
                if cfg.arch_type == "moe" else {}))
+        if job["seq"]:
+            out[f"{arch}/seq"] = seq_lm_report(
+                [rank[f"{arch}/seq"] for rank in ranks], ref, cfg,
+                job["seq"], backend, n_cards, card)
     print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the ranks "
-          f"{spawn_s:.1f} s of it); the times are {TP_WORLD} processes "
+          f"{spawn_s:.1f} s of it, [seq lm] included); the times are "
+          f"{TP_WORLD} processes "
           + ("sharing one card over gloo, not a sharded deployment's"
              if n_cards < TP_WORLD else f"on {n_cards} cards over {backend}"))
     return out
+
+
+def seq_lm_report(got, ref, cfg, variant, backend, n_cards, card) -> dict:
+    """[seq lm]: each rank's run of gemma3-27b under `variant` with the
+    "seq" cache (`got`, per rank) held to [lm]'s teacher-fed rerun as [tp
+    lm] is (`check_tp_logits`); K8's partials mode launched once per
+    layer a step on every rank (no rank's block of any leaf is empty: the
+    prompt fills them) and K8 itself never; per rank the cache's bytes,
+    prefill s, median ms a step, the collectives a step by kind."""
+    tag = "seq lm"
+    b, s = ref["tokens"].shape
+    for r, rank in enumerate(got):
+        assert rank["k8_partial"] == cfg.n_layers * TP_STEPS \
+            and rank["k8"] == 0, (tag, r, rank["k8_partial"], rank["k8"])
+    worst, greedy = check_tp_logits([rank["logits"] for rank in got], ref,
+                                    tag)
+    print(f"[{tag}] {cfg.name} in bfloat16 under attn_shard={variant!r} "
+          f"(the \"seq\" cache: {s + TP_STEPS} positions, "
+          f"{(s + TP_STEPS) // TP_WORLD} a rank; rings of "
+          f"{min(cfg.sliding_window, s + TP_STEPS)}, "
+          f"{min(cfg.sliding_window, s + TP_STEPS) // TP_WORLD} a rank) over "
+          f"{TP_WORLD} ranks ({backend}; {n_cards} card(s): {card}) on [tp "
+          f"lm]'s shards: prefill {b} x {s} tokens + {TP_STEPS} decode steps "
+          f"fed the unsharded run's greedy tokens; logits within "
+          f"{worst:.3f} of the bar ({TP_BF16_STD_TOL} x the step's logit "
+          f"std) on all {len(got) * (TP_STEPS + 1) * b} rank-rows, {greedy} "
+          f"greedy tokens equal; the ranks' logits bit-equal")
+    for r, rank in enumerate(got):
+        med = statistics.median(rank["step_ms"])
+        print(f"[{tag}]   rank {r}: cache {rank['cache_bytes']} bytes; "
+              f"prefill {rank['prefill_s']:.3f} s; median {med:.3f} ms a "
+              f"decode step (min {min(rank['step_ms']):.3f}, max "
+              f"{max(rank['step_ms']):.3f}); peak memory {rank['peak']} "
+              f"bytes; K8 partial launches {rank['k8_partial']} = "
+              f"{cfg.n_layers} x {TP_STEPS}, K8 {rank['k8']}; collectives a "
+              f"step {({k: v / TP_STEPS for k, v in rank['calls'].items()})}"
+              f", bytes a step "
+              f"{sum(rank['bytes'].values()) / TP_STEPS:.0f}")
+    return dict(k8_partial_per_rank=[rank["k8_partial"] for rank in got],
+                step_ms_median=[statistics.median(rank["step_ms"])
+                                for rank in got],
+                prefill_s=[rank["prefill_s"] for rank in got],
+                cache_bytes=[rank["cache_bytes"] for rank in got],
+                peak_bytes=[rank["peak"] for rank in got],
+                calls_per_step=[{k: v / TP_STEPS
+                                 for k, v in rank["calls"].items()}
+                                for rank in got],
+                worst_share_of_bar=worst, variant=variant)
 
 
 # -- 8c. the ssm and hybrid families: rwkv6 and zamba2 -------------------------
@@ -4674,9 +5049,10 @@ def main() -> None:
     free_cuda()
     paper = phase_paper(card)
     free_cuda()
-    errs["swa_decode"] = 0.0
+    errs["swa_decode"] = errs["swa_decode_partial"] = 0.0
     phase_k8_parity(errs)
     k8 = phase_k8_timing()
+    k8_partial = phase_k8_partial(errs, k8)
     phase_k8_streams()
     free_cuda()
     lm = phase_lm()
@@ -4718,9 +5094,16 @@ def main() -> None:
         "encdec_parity_launches": encdec_parity["k8_launches"],
         "encdec_lm_check_launches": encdec_check["k8_launches"],
         **{f"tp_parity_{a}_launches_per_rank": r["k8_per_rank"]
-           for a, r in tp_parity.items()},
+           for a, r in tp_parity.items() if "/" not in a},
         "tp_lm_launches_per_rank": tp_lm[LM_ARCH]["k8_per_rank"],
         "tp_moe_launches_per_rank": tp_lm[TP_MOE_ARCH]["k8_per_rank"]}
+    seq_lm = tp_lm[f"{LM_ARCH}/seq"]
+    launches["swa_decode_partial"] = seq_lm["k8_partial_per_rank"][0]
+    extra["swa_decode_partial"] = {
+        "seq_lm_launches_per_rank": seq_lm["k8_partial_per_rank"],
+        **{f"seq_parity_{a.replace('/', '_')}_launches_per_rank":
+           r["k8_partial_per_rank"]
+           for a, r in tp_parity.items() if "/" in a}}
     extra["query_bias"] = dict(
         score_launches=qb_score_launches,
         pump_launches=pump["qb_launches"],
@@ -4747,6 +5130,17 @@ def main() -> None:
                             "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]
                 row[f"{shape}_n_split"] = k8[shape]["plan"]["n_split"]
+        elif name == "swa_decode_partial":
+            tm = k8_partial
+            row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],
+                       bound_ms=tm["bound_ms"], bound_by=tm["bound_by"],
+                       library_ms=tm["library_ms"], lone_ms=tm["lone_ms"],
+                       whole_k8_long_ms=tm["whole_k8_ms"],
+                       cuda_launches_per_call=tm["cuda_launches_per_call"],
+                       n_split=tm["plan"]["n_split"],
+                       blocks=tm["plan"]["blocks"],
+                       launches_per_decode_step=CFG.get(LM_ARCH).n_layers,
+                       timed_shape="one 32k quarter of the 128k shape")
         elif name == "query_bias":
             tm = timing_qb[QB_TIMING_ROWS[0]]
             row.update(ms=tm["ms"], plain_ms=tm["plain_ms"],

@@ -55,6 +55,17 @@
 //     keeps one array per (device, stream): calls on one stream run in
 //     order, so they never share a ticket, and calls on two streams get
 //     two arrays (kernels/swa_decode/kernel.py `_tickets`).
+//
+// Partials mode (`res_acc` non-null; the `swa_decode_partial` entry): the
+// same launch over one rank's block of a sequence-cut cache, whose slots
+// [lo, hi) the wrapper gives directly. Where the normalising mode writes
+// acc / l, the block that finishes a (batch, head) row writes the row's
+// combined softmax state instead: m (the largest logit q.k * scale,
+// converted from the kernel's log2 domain to natural-log units, the
+// reference's `blockwise_attention` stats), l and acc (unnormalised),
+// all float32, so that the ranks' states combine across the cut
+// (models/parallel.py `combine_partials`). The normalising mode's
+// arithmetic is untouched.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +83,7 @@ constexpr int kStageBytes = 32768;          // K and V of one tile
 constexpr int kStages = 3;
 constexpr int kCombineBatch = 16;           // partials in flight at a time
 constexpr int kSmemBytes = kStages * kStageBytes;
+constexpr float kLn2 = 0.6931471805599453f;  // log2 units -> natural
 
 template <typename T, int HD>
 struct Shape {
@@ -134,6 +146,8 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out,
                   float* __restrict__ part_m, float* __restrict__ part_l,
                   float* __restrict__ part_acc, int* __restrict__ tickets,
+                  float* __restrict__ res_m, float* __restrict__ res_l,
+                  float* __restrict__ res_acc,
                   int s, int h, int hkv, int lo, int hi, int split_len,
                   float scale) {
   using S = Shape<T, HD>;
@@ -331,7 +345,15 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const size_t bh = (size_t)b * h + kvh * rep + r0 + r;
     if (n_split == 1) {
-      store(out + bh * HD + d, asum / fmaxf(lsum, 1e-30f));
+      if (res_acc != nullptr) {
+        res_acc[bh * HD + d] = asum;
+        if (d == 0) {
+          res_m[bh] = mx * kLn2;
+          res_l[bh] = lsum;
+        }
+      } else {
+        store(out + bh * HD + d, asum / fmaxf(lsum, 1e-30f));
+      }
     } else {
       const size_t pi = bh * n_split + split;
       part_acc[pi * HD + d] = asum;
@@ -390,7 +412,15 @@ swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         asum = fmaf(aj[u], c, asum);
       }
     }
-    store(out + bh * HD + d, asum / fmaxf(lsum, 1e-30f));
+    if (res_acc != nullptr) {
+      res_acc[bh * HD + d] = asum;
+      if (d == 0) {
+        res_m[bh] = mx * kLn2;
+        res_l[bh] = lsum;
+      }
+    } else {
+      store(out + bh * HD + d, asum / fmaxf(lsum, 1e-30f));
+    }
   }
   if (tid == 0) tickets[unit] = 0;    // ready for the next call
 }
@@ -400,6 +430,7 @@ struct Args {
   void* out;
   float *part_m, *part_l, *part_acc;
   int* tickets;
+  float *res_m, *res_l, *res_acc;   // partials mode; null to normalise
   int b, s, h, hkv, lo, hi, n_split, split_len;
   float scale;
   cudaStream_t stream;
@@ -423,7 +454,8 @@ cudaError_t launch(const Args& a) {
   swa_decode_kernel<T, HD, REPG><<<grid, kThreads, kSmemBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part_m,
-      a.part_l, a.part_acc, a.tickets, a.s, a.h, a.hkv, a.lo, a.hi,
+      a.part_l, a.part_acc, a.tickets, a.res_m, a.res_l, a.res_acc, a.s,
+      a.h, a.hkv, a.lo, a.hi,
       a.split_len, a.scale);
   return cudaGetLastError();
 }
@@ -500,8 +532,27 @@ int swa_decode(const void* q, const void* k, const void* v, void* out,
                void* stream) {
   Instance in;
   if (!find(hd, group, is_bf16, &in)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, part_m, part_l, part_acc, tickets, b, s, h,
-               hkv, lo, hi, n_split, split_len, scale, (cudaStream_t)stream};
+  const Args a{q, k, v, out, part_m, part_l, part_acc, tickets,
+               nullptr, nullptr, nullptr, b, s, h, hkv, lo, hi, n_split,
+               split_len, scale, (cudaStream_t)stream};
+  return (int)in.run(a);
+}
+
+// The partials mode: the same launch over the slots [lo, hi) of k/v,
+// writing each (batch, head) row's m (natural-log units), l and
+// unnormalised acc (float32, (B, H), (B, H), (B, H, hd)) instead of an
+// output. The wrapper launches it only for a non-empty range.
+int swa_decode_partial(const void* q, const void* k, const void* v,
+                       float* res_m, float* res_l, float* res_acc,
+                       float* part_m, float* part_l, float* part_acc,
+                       int* tickets, int b, int s, int h, int hkv, int hd,
+                       int group, int is_bf16, int lo, int hi, int n_split,
+                       int split_len, float scale, void* stream) {
+  Instance in;
+  if (!find(hd, group, is_bf16, &in)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, nullptr, part_m, part_l, part_acc, tickets,
+               res_m, res_l, res_acc, b, s, h, hkv, lo, hi, n_split,
+               split_len, scale, (cudaStream_t)stream};
   return (int)in.run(a);
 }
 

@@ -60,6 +60,7 @@ _SIGNATURES = {
     "cascade_loss_bwd": ([_P] * 11 + [_I] * 4 + [_P], _I),
     "cascade_loss_bwd_smem": ([_I, _I], ctypes.c_size_t),
     "swa_decode": ([_P] * 8 + [_I] * 11 + [_F, _P], _I),
+    "swa_decode_partial": ([_P] * 10 + [_I] * 11 + [_F, _P], _I),
     "swa_decode_blocks_per_sm": ([_I, _I, _I], _I),
     "swa_decode_tile": ([_I, _I], _I),
     "cascade_score_groups": ([_P] * 4 + [_I] * 6 + [_P], _I),

@@ -20,6 +20,9 @@ forward only, as in the reference.
 
 `swa_decode` (K8) is the one-token decode attention of the LLM engine; it
 takes float32 or bfloat16 and is not differentiable (serving only).
+`swa_decode_partial` is K8's partials mode: the unnormalised softmax
+state of one rank's block of a sequence-cut cache, which the ranks
+combine (`models.parallel.combine_partials`).
 
 `query_bias` is the serving cascade's per-query stage biases zq = q @
 w_q.T + b, each row summed in a fixed order, so a request's bits do not
@@ -30,9 +33,10 @@ Each kernel wrapper counts its launches (`launch_counts()`), so a run can
 show that its hot path went through the kernels.
 
 A `meta` tensor (the cost report's trace, `launch/dryrun.py`) reaches a
-kernel only through `swa_decode`: K8 is the one kernel on a traced step
-(an LLM's decode), and on `meta` it launches nothing, counts no launch
-and hands its work to the sink of `kernel_work_sink`. Every other kernel
+kernel only through `swa_decode` (and its partials mode): K8 is the one
+kernel on a traced step (an LLM's decode), and on `meta` it launches
+nothing, counts no launch and hands its work to the sink of
+`kernel_work_sink`. Every other kernel
 wrapper raises a ValueError naming its kernel on a `meta` tensor.
 """
 
@@ -59,7 +63,9 @@ from repro_torch.kernels.cascade_score.ref import (
 from repro_torch.kernels.query_bias import kernel as _qb_kernel
 from repro_torch.kernels.query_bias.ref import query_bias_ref
 from repro_torch.kernels.swa_decode import kernel as _swa_kernel
-from repro_torch.kernels.swa_decode.ref import NO_WINDOW, swa_decode_ref
+from repro_torch.kernels.swa_decode.ref import (NO_WINDOW,
+                                                swa_decode_partial_ref,
+                                                swa_decode_ref)
 
 # name -> the wrapper that launches the kernel (and carries `.launches`)
 KERNELS = {
@@ -69,6 +75,7 @@ KERNELS = {
     "cascade_loss": _loss_kernel.cascade_loss,
     "cascade_loss_bwd": _loss_kernel.cascade_loss_bwd,
     "swa_decode": _swa_kernel.swa_decode,
+    "swa_decode_partial": _swa_kernel.swa_decode_partial,
     "cascade_score": _score_kernel.cascade_score,
     "cascade_score_bwd": _score_kernel.cascade_score_bwd,
     "cascade_score_fm": _score_kernel.cascade_score_fm,
@@ -130,7 +137,14 @@ def swa_decode_work(b: int, h: int, hkv: int, hd: int, itemsize: int,
     q read = bytes written). It visits n_valid = min(cache_len + 1,
     window) positions: 4 B H n_valid hd operations (q.k and p.v), and
     reads n_valid slots of K and of V for each kv head."""
-    n_valid = min(cache_len + 1, window)
+    return swa_decode_range_work(b, h, hkv, hd, itemsize,
+                                 min(cache_len + 1, window))
+
+
+def swa_decode_range_work(b: int, h: int, hkv: int, hd: int, itemsize: int,
+                          n_valid: int) -> tuple[int, int, int]:
+    """swa_decode_work over n_valid slots (the partials mode's hi - lo)."""
+    n_valid = max(n_valid, 0)
     return (4 * b * h * n_valid * hd, 2 * b * n_valid * hkv * hd * itemsize,
             b * h * hd * itemsize)
 
@@ -148,6 +162,23 @@ def _swa_decode_meta(q, k, v, cache_len, window) -> torch.Tensor:
     sink = _work_sink.get()
     if sink is not None:
         sink("swa_decode", ops_,
+             [(q, q_bytes), (k, kv_bytes // 2), (v, kv_bytes // 2)], out)
+    return out
+
+
+def _swa_decode_partial_meta(q, k, v, lo, hi):
+    """The partials mode on `meta` tensors: the checks, empty float32 (m,
+    l, acc), no launch; the work of the hi - lo slots goes to the sink."""
+    lo, hi = operator.index(lo), operator.index(hi)
+    b, _, h, hkv, hd = _swa_kernel.check_range("swa_decode_partial", q, k,
+                                               v, lo, hi)
+    ops_, kv_bytes, q_bytes = swa_decode_range_work(
+        b, h, hkv, hd, q.element_size(), hi - lo)
+    out = tuple(torch.empty(shape, device="meta")
+                for shape in ((b, h), (b, h), (b, h, hd)))
+    sink = _work_sink.get()
+    if sink is not None:
+        sink("swa_decode_partial", ops_,
              [(q, q_bytes), (k, kv_bytes // 2), (v, kv_bytes // 2)], out)
     return out
 
@@ -322,6 +353,23 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _swa_kernel.swa_decode(q, k, v, cache_len, window)
 
 
+def swa_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lo: int, hi: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's partials mode: q (B, H, hd) over the slots [lo, hi) of one
+    block k/v (B, S, Hkv, hd) -> the float32 softmax state (m (B, H) in
+    natural-log units, l (B, H), unnormalised acc (B, H, hd)); m = -inf,
+    l = acc = 0 for an empty range (the CUDA kernel on the card, which
+    launches nothing for an empty range; its plain version on the CPU; on
+    `meta` no launch, the work reported to `kernel_work_sink`'s sink)."""
+    _require_ranks("swa_decode_partial", q=(q, 3), k=(k, 4), v=(v, 4))
+    if _on_cpu(q):
+        return swa_decode_partial_ref(q, k, v, lo, hi)
+    if q.device.type == "meta":
+        return _swa_decode_partial_meta(q, k, v, lo, hi)
+    return _swa_kernel.swa_decode_partial(q, k, v, lo, hi)
+
+
 def query_bias(q: torch.Tensor, w_q: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """Per-query stage biases: q (R, d_q), w_q (T, d_q), b (T,) -> zq (R, T)
@@ -340,5 +388,6 @@ __all__ = ["KERNELS", "NO_WINDOW", "cascade_filter", "cascade_filter_ref",
            "cascade_score_batched_bwd_ref", "cascade_score_batched_ref",
            "cascade_score_bwd_ref", "cascade_score_fm", "cascade_score_ref",
            "launch_counts", "load_library", "query_bias", "query_bias_ref",
-           "reset_launch_counts", "swa_decode", "swa_decode_ref",
+           "reset_launch_counts", "swa_decode", "swa_decode_partial",
+           "swa_decode_partial_ref", "swa_decode_ref", "swa_decode_range_work",
            "swa_decode_work"]

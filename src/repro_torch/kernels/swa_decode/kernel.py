@@ -15,7 +15,13 @@ cache_len, window and the card, so two launches on the same inputs give
 the same bits.
 
 Launches on the current stream of the inputs' device and counts them in
-`swa_decode.launches` (one CUDA launch per call). The combine's tickets
+`swa_decode.launches` (one CUDA launch per call).
+
+`swa_decode_partial` is the same kernel in its partials mode, over the
+slots [lo, hi) of one rank's block of a sequence-cut cache: one launch
+(counted in `swa_decode_partial.launches`) that returns the block's
+unnormalised softmax state (m, l, acc) for `models.parallel
+.combine_partials`. An empty range launches nothing. The combine's tickets
 are kept per (device, stream), so calls in flight on several streams of
 one card never share, reset or free each other's (see `_tickets`).
 """
@@ -71,7 +77,16 @@ def plan(b: int, s: int, h: int, hkv: int, cache_len: int, window: int,
     at least MIN_SPLIT positions that keep the grid within one wave of
     n_sm * blocks_per_sm blocks, each split a whole number of `tile`
     positions (the kernel's shared-memory stage) but the last."""
-    lo, hi = max(0, cache_len - window + 1), cache_len + 1
+    return plan_range(b, h, hkv, max(0, cache_len - window + 1),
+                      cache_len + 1, n_sm, blocks_per_sm, tile)
+
+
+def plan_range(b: int, h: int, hkv: int, lo: int, hi: int, n_sm: int,
+               blocks_per_sm: int, tile: int) -> dict:
+    """`plan` over the slots [lo, hi) (non-empty: every split must hold a
+    position)."""
+    if lo >= hi:
+        raise ValueError(f"swa_decode: empty range [{lo}, {hi})")
     rep = h // hkv
     group = head_group(rep)
     units = b * hkv * (-(-rep // group))
@@ -91,6 +106,30 @@ def check_args(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                cache_len: int, window: int) -> tuple[int, int, int, int, int]:
     """Raise unless the shapes, types and positions are ones the kernel
     takes; returns (B, S, H, Hkv, hd)."""
+    b, s, h, hkv, hd = check_shapes(op, q, k, v)
+    if not 0 <= cache_len < s:
+        raise ValueError(f"{op}: cache_len {cache_len} outside the cache "
+                         f"of {s} slots")
+    if window < 1:
+        raise ValueError(f"{op}: window {window} < 1")
+    return b, s, h, hkv, hd
+
+
+def check_range(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lo: int, hi: int) -> tuple[int, int, int, int, int]:
+    """check_args for the partials mode's slots [lo, hi) of the block
+    (empty when lo >= hi)."""
+    b, s, h, hkv, hd = check_shapes(op, q, k, v)
+    if lo < 0 or hi > s:
+        raise ValueError(f"{op}: slots [{lo}, {hi}) outside the block of "
+                         f"{s} slots")
+    return b, s, h, hkv, hd
+
+
+def check_shapes(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> tuple[int, int, int, int, int]:
+    """Raise unless q (B, H, hd) and k / v (B, S, Hkv, hd) are shapes and
+    types the kernel takes; returns (B, S, H, Hkv, hd)."""
     if q.ndim != 3 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"{op}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}: expected (B, H, hd) and two "
@@ -105,12 +144,29 @@ def check_args(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (k.dtype == v.dtype == q.dtype):
         raise TypeError(f"{op}: q, k, v must share one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not 0 <= cache_len < s:
-        raise ValueError(f"{op}: cache_len {cache_len} outside the cache "
-                         f"of {s} slots")
-    if window < 1:
-        raise ValueError(f"{op}: window {window} < 1")
     return b, s, h, hkv, hd
+
+
+def _check_aligned(op: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} is not 16-byte aligned")
+
+
+def _launch_plan(device: torch.device, q: torch.Tensor, b: int, h: int,
+                 hkv: int, hd: int, lo: int, hi: int):
+    """(plan, split partials (2, n) and (n, hd), tickets, stream, group,
+    bf16) of one launch over the slots [lo, hi)."""
+    bf16 = q.dtype == torch.bfloat16
+    group = head_group(h // hkv)
+    per_sm, tile = _instance(device.index, hd, group, bf16)
+    p = plan_range(b, h, hkv, lo, hi, _sm_count(device.index), per_sm, tile)
+    n_part = b * h * p["n_split"] if p["n_split"] > 1 else 0
+    part_ml = torch.empty((2, n_part), dtype=torch.float32, device=device)
+    part_acc = torch.empty((n_part, hd), dtype=torch.float32, device=device)
+    stream = _build.stream_handle(device)
+    tickets = _tickets(device, stream, p["units"])
+    return p, part_ml, part_acc, tickets, stream, group, bf16
 
 
 def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,22 +175,13 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cache_len, window = operator.index(cache_len), operator.index(window)
     device = _build.check_inputs(op, dtypes=DTYPES, q=q, k=k, v=v)
     b, s, h, hkv, hd = check_args(op, q, k, v, cache_len, window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{op}: {name} is not 16-byte aligned")
+    _check_aligned(op, q=q, k=k, v=v)
     out = torch.empty((b, h, hd), dtype=q.dtype, device=device)
     if out.numel() == 0:
         return out
-    bf16 = q.dtype == torch.bfloat16
-    group = head_group(h // hkv)
-    per_sm, tile = _instance(device.index, hd, group, bf16)
-    p = plan(b, s, h, hkv, cache_len, window, _sm_count(device.index),
-             per_sm, tile)
-    n_part = b * h * p["n_split"] if p["n_split"] > 1 else 0
-    part_ml = torch.empty((2, n_part), dtype=torch.float32, device=device)
-    part_acc = torch.empty((n_part, hd), dtype=torch.float32, device=device)
-    stream = _build.stream_handle(device)
-    tickets = _tickets(device, stream, p["units"])
+    p, part_ml, part_acc, tickets, stream, group, bf16 = _launch_plan(
+        device, q, b, h, hkv, hd, max(0, cache_len - window + 1),
+        cache_len + 1)
     lib = _build.load_library()
     with torch.cuda.device(device):
         rc = lib.swa_decode(
@@ -149,6 +196,46 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 swa_decode.launches = 0
+
+
+def swa_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lo: int, hi: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's partials mode: q (B, H, hd) over the slots [lo, hi) of one
+    block k/v (B, S, Hkv, hd) -> (m (B, H), l (B, H), acc (B, H, hd)),
+    float32, m in natural-log units (`ref.swa_decode_partial_ref`). One
+    launch, planned as `swa_decode`'s over [lo, hi), with its tickets,
+    streams and checks. An empty range (lo >= hi: a block wholly past the
+    query's position) launches nothing, counts no launch and returns m =
+    -inf, l = 0, acc = 0."""
+    op = "swa_decode_partial"
+    lo, hi = operator.index(lo), operator.index(hi)
+    device = _build.check_inputs(op, dtypes=DTYPES, q=q, k=k, v=v)
+    b, s, h, hkv, hd = check_range(op, q, k, v, lo, hi)
+    _check_aligned(op, q=q, k=k, v=v)
+    if lo >= hi or b * h == 0:
+        return (torch.full((b, h), -torch.inf, device=device),
+                torch.zeros((b, h), device=device),
+                torch.zeros((b, h, hd), device=device))
+    m = torch.empty((b, h), dtype=torch.float32, device=device)
+    l = torch.empty((b, h), dtype=torch.float32, device=device)
+    acc = torch.empty((b, h, hd), dtype=torch.float32, device=device)
+    p, part_ml, part_acc, tickets, stream, group, bf16 = _launch_plan(
+        device, q, b, h, hkv, hd, lo, hi)
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.swa_decode_partial(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), part_ml[0].data_ptr(),
+            part_ml[1].data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
+            b, s, h, hkv, hd, group, int(bf16), p["lo"], p["hi"],
+            p["n_split"], p["split_len"], 1.0 / math.sqrt(hd), stream)
+    _build.check_launch(lib, op, rc)
+    _build.count_launch(swa_decode_partial)
+    return m, l, acc
+
+
+swa_decode_partial.launches = 0
 
 # (device, stream handle) -> that stream's int32 tickets
 _ticket_arrays: dict[tuple[torch.device, int], torch.Tensor] = {}

@@ -17,8 +17,15 @@ come from the local weights' shapes, and the caller sums the output
 projection's partial sums over the ranks; the expert-parallel
 `moe_ffn_shmap` routes over every expert, runs the rank's own and sums
 over the ranks itself. The reference's sequence-sharded variants
-(`shmap_attention`, `_seq_shard`, `attn_shard="seqkv"`) are not ported
-yet. The Mamba2 and RWKV-6
+(cfg.attn_shard "seqkv" / "shmap", its `_seq_shard` constraints and
+`shmap_attention`) cut the keys over the ranks instead: `attention`
+gathers the rank's q / k / v heads whole where a step needs them, each
+rank attends over its block of the keys and `models.parallel
+.combine_partials` merges the ranks' softmax states — `shmap_attention`
+over fresh keys (a forward, a prefill), `seq_decode_attention` (K8's
+partials mode) over a cache leaf cut over the sequence ("seq" layout) at
+decode — and the rank keeps its own heads of the output for its rows of
+wo. The Mamba2 and RWKV-6
 recurrences have no kernel in the reference (it leaves them to XLA's
 `jax.lax.scan`), and run here as plain PyTorch loops over the sequence
 or its chunks.
@@ -32,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.parallel import SEQ_VARIANTS, combine_partials
 
 # ---------------------------------------------------------------------------
 # Norms and activations
@@ -136,11 +144,18 @@ def dot_attention(q, k, v, *, causal: bool, window: int = NO_WINDOW,
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int = NO_WINDOW,
-                        q_offset: int = 0,
-                        kv_chunk: int = _KV_CHUNK) -> torch.Tensor:
+                        q_offset: int = 0, kv_chunk: int = _KV_CHUNK,
+                        k_offset: int = 0, return_stats: bool = False):
     """Online-softmax attention over KV chunks: O(Sq*chunk) memory instead
     of O(Sq*Sk). The flash-attention recurrence in plain PyTorch (K8 covers
-    decode; this covers long prefill)."""
+    decode; this covers long prefill). The keys sit at positions k_offset
+    .. k_offset + Sk - 1 (a rank's block of them under `shmap_attention`).
+    return_stats: the softmax state instead of the output, (m, l, acc) of
+    shapes (B, H, Sq), (B, H, Sq), (B, H, Sq, hd), float32, m in natural-log
+    units. A masked logit is -1e30, as in the reference, so a row with no
+    key in the block has m = -1e30 (and an l that counts its keys; the
+    reference's also counts its zero padding of the last chunk); such a
+    row's weight in a combine is 0."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     n_rep = h // hkv
@@ -153,7 +168,7 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = NO_WINDOW,
         kb = _expand_kv(k[:, c0:c0 + kv_chunk], n_rep).float()
         vb = _expand_kv(v[:, c0:c0 + kv_chunk], n_rep).float()
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) / math.sqrt(hd)
-        k_pos = c0 + torch.arange(kb.shape[1], device=q.device)
+        k_pos = k_offset + c0 + torch.arange(kb.shape[1], device=q.device)
         s = torch.where(_attn_mask(q_pos, k_pos, causal, window)[None, None],
                         s, -1e30)
         m_new = torch.maximum(m, s.amax(-1))
@@ -162,8 +177,62 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = NO_WINDOW,
         l = l * scale + p.sum(-1)
         acc = acc * scale[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
+    if return_stats:
+        return m, l, acc
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)                 # (B, Sq, H, hd)
+
+
+def shmap_attention(q, k_loc, v_loc, mp, *, causal: bool,
+                    window: int = NO_WINDOW, q_offset: int = 0,
+                    k_offset: int = 0,
+                    wire: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Sequence-sharded attention (the reference's `shmap_attention`): q
+    (B, Sq, H, hd) whole on every rank, k_loc / v_loc (B, Sk_loc, Hkv, hd)
+    the rank's block of the keys, at positions k_offset ...; each rank's
+    blockwise softmax state (chunks of min(1024, max(Sk_loc // 4, 8))
+    keys, as the reference) combined over the ranks by `combine_partials`:
+    l in float32, acc crossing in `wire` (bfloat16 as the reference's
+    psum; float32 for the "seqkv" variant, whose reference GSPMD reduces
+    in float32). Returns (B, Sq, H, hd) in q's dtype, the same bits on
+    every rank."""
+    kv_chunk = min(_KV_CHUNK, max(k_loc.shape[1] // 4, 8))
+    m, l, acc = blockwise_attention(
+        q, k_loc, v_loc, causal=causal, window=window, q_offset=q_offset,
+        kv_chunk=kv_chunk, k_offset=k_offset, return_stats=True)
+    out = combine_partials(mp, m, l, acc, wire)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def seq_decode_attention(q, ck_loc, cv_loc, mp, *, cache_len: int,
+                         window: int = NO_WINDOW, offset: int,
+                         ring: bool = False) -> torch.Tensor:
+    """Decode attention of the one token at position cache_len (q (B, 1,
+    H, hd), every head) over a cache cut over the sequence: this rank
+    holds slots offset .. offset + n - 1 (ck_loc / cv_loc (B, n, Hkv, hd),
+    every kv head) of the leaf's n * world. K8's partials mode
+    (`ops.swa_decode_partial`) over the rank's part of the valid slots,
+    then `combine_partials` with a float32 wire, as GSPMD reduces the
+    reference's `decode_attention` over the sharded cache. The valid
+    global slots are the positions (cache_len - window, cache_len] or,
+    for a ring of W = n * world slots (window >= W), the slots 0 ..
+    min(cache_len, W - 1) with no window (`decode_attention`'s mapping).
+    Returns (B, 1, H, hd) in q's dtype, the same bits on every rank."""
+    if q.shape[1] != 1:
+        raise ValueError(f"seq_decode_attention decodes one token at a "
+                         f"time, got {q.shape[1]}")
+    n = ck_loc.shape[1]
+    if ring:
+        if window < n * mp.world:
+            raise ValueError(f"a ring of {n * mp.world} slots needs window "
+                             f">= it, got {window}")
+        lo, hi = 0, min(cache_len, n * mp.world - 1) + 1
+    else:
+        lo, hi = max(0, cache_len - window + 1), cache_len + 1
+    lo, hi = (min(max(a - offset, 0), n) for a in (lo, hi))
+    m, l, acc = ops.swa_decode_partial(q[:, 0], ck_loc, cv_loc, lo, hi)
+    out = combine_partials(mp, m, l, acc, torch.float32)
+    return out.to(q.dtype)[:, None]
 
 
 def _full_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
@@ -172,10 +241,107 @@ def _full_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     return fn(q, k, v, causal=causal, window=window)
 
 
+def seq_cut(mp, leaf: torch.Tensor, n_kv_heads: int) -> bool:
+    """Whether a rank's K/V cache leaf (..., S_loc, Hkv, hd) is cut over
+    its slots (the "seq" layout: every kv head, a block of the slots)
+    rather than over the kv heads."""
+    return mp is not None and mp.world > 1 and leaf.shape[-2] == n_kv_heads
+
+
+def _gather_heads(mp, *parts) -> list[torch.Tensor]:
+    """Each of `parts` (B, S, n_i, hd), a rank's block of heads, whole:
+    one all-gather of them packed along the head dim, each returned as
+    (B, S, world * n_i, hd) in rank order (the "tp" layout's head
+    order)."""
+    sizes = [t.shape[2] for t in parts]
+    full = mp.all_gather(torch.cat(parts, dim=2), dim=2)
+    b, s, _, hd = full.shape
+    full = full.view(b, s, mp.world, sum(sizes), hd)
+    return [t.reshape(b, s, mp.world * t.shape[3], hd)
+            for t in full.split(sizes, dim=3)]
+
+
+def _own_heads(mp, out: torch.Tensor, h: int) -> torch.Tensor:
+    """The rank's h heads of a whole-head output (B, S, H, hd)."""
+    return out[:, :, mp.rank * h:(mp.rank + 1) * h]
+
+
+def _shmap_fresh(q, k, v, mp, *, causal: bool, window: int,
+                 wire: torch.dtype):
+    """`shmap_attention` over the fresh tokens (a forward, a prefill):
+    q / k / v's heads gathered whole, the keys cut into the ranks' blocks
+    of S / world positions. Returns (the rank's heads of the output (B, S,
+    h, hd), k and v whole)."""
+    qf, kf, vf = _gather_heads(mp, q, k, v)
+    n = kf.shape[1] // mp.world
+    blk = slice(mp.rank * n, (mp.rank + 1) * n)
+    out = shmap_attention(qf, kf[:, blk], vf[:, blk], mp, causal=causal,
+                          window=window, k_offset=mp.rank * n, wire=wire)
+    return _own_heads(mp, out, q.shape[2]), kf, vf
+
+
+def _write_block(ck, cv, kf, vf, j0: int, slot0: int, mp) -> None:
+    """Write the tokens kf / vf[:, j0:] (every kv head) at the slots
+    slot0, slot0 + 1, ... (mod the leaf's n * world) of a cache leaf cut
+    over its slots: this rank writes those in its block of n."""
+    n = ck.shape[1]
+    total, off = n * mp.world, mp.rank * n
+    j, slot = j0, slot0 % total
+    while j < kf.shape[1]:
+        run = min(kf.shape[1] - j, total - slot)
+        lo, hi = max(slot, off), min(slot + run, off + n)
+        if lo < hi:
+            rows = slice(j + lo - slot, j + hi - slot)
+            ck[:, lo - off:hi - off] = kf[:, rows].to(ck.dtype)
+            cv[:, lo - off:hi - off] = vf[:, rows].to(cv.dtype)
+        j, slot = j + run, 0
+
+
+def _seq_cached(q, k, v, ck, cv, mp, variant: str, *, causal: bool,
+                window: int, cache_len: int, mode: str, ring_window: int):
+    """Attention with a cache leaf cut over its slots (`seq_cut`): the
+    rank's heads of the output (B, S, h, hd). Prefill attends the fresh
+    tokens as under "heads" ("seqkv", a ring, or "shmap" when the ranks
+    do not divide S: the reference's `:307-318`) or through
+    `shmap_attention` ("shmap", a cache of positions, S divided: its
+    `:311-314`), and writes the fresh K / V, gathered whole, into the
+    rank's block. Decode gathers the token's q / k / v whole; the rank
+    whose block holds slot cache_len (a ring's cache_len % W) writes the
+    new K / V; `seq_decode_attention` attends."""
+    s, h = q.shape[1], q.shape[2]
+    total = ck.shape[1] * mp.world
+    if not ring_window and cache_len + s > total:
+        raise ValueError(f"cache of {total} positions cannot take {s} more "
+                         f"at {cache_len}")
+    if mode == "prefill":
+        if variant == "shmap" and not ring_window and s % mp.world == 0:
+            out, kf, vf = _shmap_fresh(q, k, v, mp, causal=causal,
+                                       window=window, wire=SEQ_VARIANTS[variant])
+        else:
+            out = _full_attention(q, k, v, causal=causal,
+                                  window=ring_window or window)
+            kf, vf = _gather_heads(mp, k, v)
+        if ring_window:
+            m = min(s, total)
+            _write_block(ck, cv, kf, vf, s - m, s - m, mp)
+        else:
+            _write_block(ck, cv, kf, vf, 0, cache_len, mp)
+        return out
+    if s != 1:
+        raise ValueError(f"sequence-cut decode writes one token, got {s}")
+    qf, kf, vf = _gather_heads(mp, q, k, v)
+    _write_block(ck, cv, kf, vf, 0, cache_len, mp)
+    out = seq_decode_attention(qf, ck, cv, mp, cache_len=cache_len,
+                               window=ring_window or window,
+                               offset=mp.rank * ck.shape[1],
+                               ring=bool(ring_window))
+    return _own_heads(mp, out, h)
+
+
 def attention(p, cfg, x, *, positions, causal: bool = True,
               window: int = NO_WINDOW, kv_cache: dict | None = None,
               cache_len: int | None = None, mode: str = "decode",
-              ring_window: int = 0, cross_kv: tuple | None = None):
+              ring_window: int = 0, cross_kv: tuple | None = None, mp=None):
     """Full attention op: projections + rope + (cached) attention + out proj.
 
     kv_cache: {"k","v"}: (B, S_max, Hkv, hd) written IN PLACE at the host
@@ -187,6 +353,14 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     attention (`cross_attention`). The head counts are the weights': a
     rank's shard (its wq / wk / wv columns, wo rows) attends with its own
     heads, and `out` is then its partial sum of the output projection.
+
+    mp with cfg.attn_shard "seqkv" / "shmap" (module docstring): with no
+    cache, `shmap_attention` over the ranks' blocks of the keys when the
+    ranks divide S (the reference's `:269-272`, `:325-327`), else as under
+    "heads"; a cache leaf cut over its slots (`seq_cut`) goes through
+    `_seq_cached`; a leaf cut over the kv heads (the "seq" rule's fallback)
+    is attended as under "heads", but for a "shmap" prefill of a cache of
+    positions, which takes `shmap_attention` as the reference does.
     Returns (out, kv_cache)."""
     b, s, _ = x.shape
     hd = cfg.hd
@@ -202,11 +376,21 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    variant = cfg.attn_shard if mp is not None else "auto"
+    shmap = variant in SEQ_VARIANTS and s % mp.world == 0
     if kv_cache is None:
-        out = _full_attention(q, k, v, causal=causal, window=window)
+        if shmap:
+            out = _shmap_fresh(q, k, v, mp, causal=causal, window=window,
+                               wire=SEQ_VARIANTS[variant])[0]
+        else:
+            out = _full_attention(q, k, v, causal=causal, window=window)
         return out.reshape(b, s, h * hd) @ p["wo"], None
     ck, cv = kv_cache["k"], kv_cache["v"]
-    if ring_window:
+    if seq_cut(mp, ck, cfg.n_kv_heads):
+        out = _seq_cached(q, k, v, ck, cv, mp, variant, causal=causal,
+                          window=window, cache_len=cache_len, mode=mode,
+                          ring_window=ring_window)
+    elif ring_window:
         w = ring_window
         if mode == "prefill":
             out = _full_attention(q, k, v, causal=causal, window=w)
@@ -229,7 +413,10 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
                              f"{s} more at {cache_len}")
         ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
-        if mode == "prefill":
+        if mode == "prefill" and shmap and variant == "shmap":
+            out = _shmap_fresh(q, k, v, mp, causal=causal, window=window,
+                               wire=SEQ_VARIANTS[variant])[0]
+        elif mode == "prefill":
             out = _full_attention(q, k, v, causal=causal, window=window)
         else:
             out = decode_attention(q, ck, cv, q_offset=cache_len,

@@ -16,6 +16,13 @@ layout (`launch/sharding.py`):
     all-reduce in the vocabulary-parallel embedding, an all-gather of the
     vocabulary-parallel logits.
 
+The reference's sequence-sharded variants (`attn_shard="seqkv"` /
+`"shmap"`) keep the "tp" parameter layout and cut the KV sequence over
+the ranks instead of the kv heads (the "seq" cache layout): each rank
+attends over its block of the keys and `combine_partials` merges the
+ranks' softmax states, as the reference's `shmap_attention` does with a
+pmax and two psums.
+
 Every collective of such a run goes through one `ModelParallel`, which
 counts each kind's calls and the bytes each rank puts in. With no
 ModelParallel (`mp=None`, the default of every entry point) nothing is
@@ -35,6 +42,12 @@ import torch.distributed as dist
 # the arch types the "tp" layout runs on; the recurrent and encdec
 # families' cache layouts come in a later slice
 TP_ARCH_TYPES = ("dense", "moe")
+# ModelConfig.attn_shard: "auto" (heads over the ranks) or one of the
+# reference's sequence-sharded variants, each with the wire its attention
+# combine over fresh keys crosses ("shmap" casts to bfloat16, as the
+# reference's shmap_attention; "seqkv" reduces in float32, as its GSPMD)
+SEQ_VARIANTS = {"seqkv": torch.float32, "shmap": torch.bfloat16}
+ATTN_SHARDS = ("auto", *SEQ_VARIANTS)
 
 
 @dataclasses.dataclass
@@ -97,6 +110,9 @@ def check_tp(cfg, world: int) -> None:
     if cfg.arch_type not in TP_ARCH_TYPES:
         raise ValueError(f"{cfg.name}: the \"tp\" layout runs the "
                          f"{TP_ARCH_TYPES} families, not {cfg.arch_type!r}")
+    if cfg.attn_shard not in ATTN_SHARDS:
+        raise ValueError(f"{cfg.name}: attn_shard {cfg.attn_shard!r}, "
+                         f"expected one of {ATTN_SHARDS}")
     dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads,
             "vocab": cfg.vocab}
     if cfg.arch_type == "dense" or cfg.dense_residual:
@@ -114,6 +130,38 @@ def reduce_partial(mp: ModelParallel | None,
     """A row-parallel product's partial sum on this rank, summed over the
     ranks (y itself without model parallelism)."""
     return y if mp is None else mp.all_reduce_sum(y)
+
+
+def combine_partials(mp: ModelParallel | None, m: torch.Tensor,
+                     l: torch.Tensor, acc: torch.Tensor,
+                     wire: torch.dtype) -> torch.Tensor:
+    """The attention output, float32, of softmax states over disjoint
+    blocks of the keys: m and l (...), acc (..., hd), float32, m in
+    natural-log units (-inf where a block holds no key of a row). M is the
+    largest m; each state's l and acc are scaled by exp(m - M) (0 where m
+    is -inf) and summed, acc in `wire`; returns acc / max(l, 1e-30).
+
+    Across the ranks of mp (one state each): one `all_reduce_max` of m,
+    then one `all_reduce_sum` of l and acc packed into one tensor when
+    `wire` is float32; with a narrower wire acc crosses in it (the
+    reference's `shmap_attention` casts to bfloat16) beside l in float32,
+    two all-reduces. The same bits on every rank. With mp None, m, l and
+    acc carry a leading axis of blocks (one process's states, stacked)
+    and the same combine runs over it with no collective."""
+    big = m.amax(0) if mp is None else mp.all_reduce_max(m.clone())
+    scale = torch.where(torch.isfinite(m), torch.exp(m - big), 0.0)
+    l = l * scale
+    acc = acc * scale[..., None]
+    if mp is None:
+        l, acc = l.sum(0), acc.to(wire).sum(0).float()
+    elif wire == torch.float32:
+        both = mp.all_reduce_sum(torch.cat([l.reshape(-1), acc.reshape(-1)]))
+        l, acc = both[:l.numel()].view(l.shape), both[l.numel():].view(
+            acc.shape)
+    else:
+        l = mp.all_reduce_sum(l)
+        acc = mp.all_reduce_sum(acc.to(wire)).float()
+    return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,9 @@ Python loop over per-layer views (`base.unstack`). `lm_loss` and
 
 Model parallelism (`mp`, a `models.parallel.ModelParallel`; the dense and
 moe families): the params are a rank's shard under the "tp" layout
-(`base.shard_params`); each block sums attention's and the MLP's output
+(`base.shard_params`); attention runs on the rank's heads, or under
+cfg.attn_shard "seqkv" / "shmap" over the rank's block of the keys
+(`layers.attention`); each block sums attention's and the MLP's output
 projections over the ranks, the moe block runs `layers.moe_ffn_shmap`
 (arctic's dense MLP row-parallel beside it), the embedding is a masked
 lookup of the rank's vocabulary rows summed over the ranks (exact: one
@@ -270,7 +272,8 @@ def _dense_block_fwd(p, cfg, x, positions, window, kv_cache=None,
                      cache_len=None, mode="decode", mp=None):
     h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
                              positions=positions, window=window,
-                             kv_cache=kv_cache, cache_len=cache_len, mode=mode)
+                             kv_cache=kv_cache, cache_len=cache_len, mode=mode,
+                             mp=mp)
     x = x + reduce_partial(mp, h)
     x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"],
                                        cfg.mlp_act))
@@ -283,17 +286,19 @@ def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
     dense residual MLP on the same normed input): (x, cache, aux). Under
     mp the experts are expert-parallel (`layers.moe_ffn_shmap`), their sum
     crossing the wire in the activations' dtype (the reference's plain
-    "tp" layout)."""
+    "tp" layout) or, under cfg.attn_shard "shmap", in bfloat16 (the
+    reference's `moe_ffn_shmap`, which that variant selects)."""
     h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
                              positions=positions, window=window,
-                             kv_cache=kv_cache, cache_len=cache_len, mode=mode)
+                             kv_cache=kv_cache, cache_len=cache_len, mode=mode,
+                             mp=mp)
     x = x + reduce_partial(mp, h)
     xn = Lyr.rms_norm(x, p["ln2"])
     if mp is None:
         moe_out, aux = Lyr.moe_ffn(p["moe"], cfg, xn)
     else:
-        moe_out, aux = Lyr.moe_ffn_shmap(p["moe"], cfg, xn, mp,
-                                         wire=xn.dtype)
+        wire = torch.bfloat16 if cfg.attn_shard == "shmap" else xn.dtype
+        moe_out, aux = Lyr.moe_ffn_shmap(p["moe"], cfg, xn, mp, wire=wire)
     if cfg.dense_residual:
         moe_out = moe_out + reduce_partial(
             mp, Lyr.mlp(xn, p["dense_mlp"], cfg.mlp_act))

@@ -36,11 +36,18 @@ it.
 
 Model parallelism (`mp`, `models.parallel.ModelParallel`; the dense and
 moe families, params a rank's shard from `models.base.shard_params`): the
-cache takes the reference's "heads" layout (`launch.sharding
-.cache_layouts`), each rank holding its kv heads of every K/V entry
-(gemma3's rings included), and prefill and decode run the zoo's blocks
-with mp; K8 runs on every rank over its local heads. Every rank returns
-the same, whole logits.
+cache takes one of the reference's layouts (`launch.sharding
+.cache_layouts` computes the same), and prefill and decode run the zoo's
+blocks with mp.
+Under "heads" (cfg.attn_shard "auto") each rank holds its kv heads of
+every K/V entry (gemma3's rings included) and K8 runs on every rank over
+its local heads. Under "seq" (cfg.attn_shard "seqkv" or "shmap", the
+reference's decode layout) a leaf whose slots the ranks divide holds the
+rank's block of them (positions, or a ring's slots) with every kv head,
+and decode combines K8's partials over the blocks across the ranks
+(`layers.seq_decode_attention`); a leaf they do not divide keeps the
+"heads" cut, so one cache can mix both (attention reads each leaf's own).
+Every rank returns the same, whole logits.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import torch
 from repro_torch.models import layers as Lyr
 from repro_torch.models import zoo as Z
 from repro_torch.models.base import ModelConfig, unstack
-from repro_torch.models.parallel import check_tp, reduce_partial
+from repro_torch.models.parallel import SEQ_VARIANTS, check_tp, reduce_partial
 
 
 def _windowed(cfg: ModelConfig) -> bool:
@@ -101,22 +108,35 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     return {k: (s, cfg.dtype) for k, s in shapes.items()}
 
 
+def cache_policy(cfg: ModelConfig) -> str:
+    """The cache layout a model-parallel run of cfg takes: the reference's
+    decode layout, "seq" under its sequence-sharded variants, else
+    "heads"."""
+    return "seq" if cfg.attn_shard in SEQ_VARIANTS else "heads"
+
+
 def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
                        enc_len: int = 0
                        ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """cache_shapes of the part one rank of `mp` holds under the "heads"
-    layout (`launch.sharding.cache_layouts`): every entry of a dense or
-    moe model's cache is K or V, (..., Hkv, hd), its kv heads cut over the
-    ranks (checked to divide: no within-head split)."""
+    """cache_shapes of the part one rank of `mp` holds under the layout
+    `cache_policy(cfg)`, leaf by leaf, as the reference's rule
+    (`launch.sharding.cache_layouts`). Every entry of a dense or moe
+    model's cache is K or V, (..., S, Hkv, hd): under "seq" a leaf whose S
+    the ranks divide is cut into blocks of S / world slots with every kv
+    head; any other leaf has its kv heads cut over the ranks (checked to
+    divide: no within-head split)."""
     check_tp(cfg, mp.world)
-    return {k: (s[:-2] + (s[-2] // mp.world, s[-1]), dt)
+    seq, n = cache_policy(cfg) == "seq", mp.world
+    return {k: ((s[:-3] + (s[-3] // n,) + s[-2:]) if seq and s[-3] % n == 0
+                else s[:-2] + (s[-2] // n, s[-1]), dt)
             for k, (s, dt) in cache_shapes(cfg, batch, max_len,
                                            enc_len).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
                *, device="cuda", mp=None) -> dict[str, torch.Tensor]:
-    """The zeroed serving cache; under mp this rank's part of it."""
+    """The zeroed serving cache; under mp this rank's part of it
+    (`local_cache_shapes`)."""
     shapes = (cache_shapes(cfg, batch, max_len, enc_len) if mp is None
               else local_cache_shapes(cfg, batch, max_len, mp, enc_len))
     return {k: torch.zeros(s, dtype=dt, device=device)
@@ -190,13 +210,15 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode,
     g = cfg.global_every
     n_groups = cfg.n_layers // g
     w = cache["lk"].shape[3]
+    if Lyr.seq_cut(mp, cache["lk"], cfg.n_kv_heads):
+        w *= mp.world                   # the rank holds a block of the ring
     layers = unstack(params["blocks"], cfg.n_layers)
 
     def local_block(x, p, lk, lv):
         h, _ = Lyr.attention(
             p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]), positions=positions,
             kv_cache={"k": lk, "v": lv}, cache_len=cache_len, mode=mode,
-            ring_window=w)
+            ring_window=w, mp=mp)
         x = x + reduce_partial(mp, h)
         return x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]),
                                               p["mlp"], cfg.mlp_act))

@@ -1,8 +1,8 @@
-"""Rank functions of tests/test_torch_tp.py. Each runs in a process that
-`launch.mesh.spawn_ranks` starts, one rank of a model-parallel run over
-gloo on the CPU, and returns what the test compares (tensors come back as
-numpy arrays). This module imports torch and the port only, so a rank
-starts without jax."""
+"""Rank functions of tests/test_torch_tp.py and tests/test_torch_seq.py.
+Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
+a model-parallel run over gloo on the CPU, and returns what the test
+compares (tensors come back as numpy arrays). This module imports torch
+and the port only, so a rank starts without jax."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import hashlib
 import torch
 
 from repro_torch import configs as TCFG
+from repro_torch.kernels import ops
 from repro_torch.launch import sharding as SH
 from repro_torch.models import base as MB
 from repro_torch.models import layers as Lyr
@@ -111,3 +112,87 @@ def moe_rank(mp, arch: str, params_np: dict, x, capacity_factors) -> dict:
         out[cf] = dict(y_bf16=y16, y_f32=y32, aux=aux, n_local=e_loc,
                        partial=partial.reshape(x.shape))
     return out
+
+
+def _record_partials(calls: list):
+    """Wrap `ops.swa_decode_partial` (which `layers` reaches through the
+    module) to record each call's (lo, hi); returns the undo."""
+    orig = ops.swa_decode_partial
+
+    def recorded(q, k, v, lo, hi):
+        calls.append((lo, hi))
+        return orig(q, k, v, lo, hi)
+
+    ops.swa_decode_partial = recorded
+    return lambda: setattr(ops, "swa_decode_partial", orig)
+
+
+def seq_rank(mp, cases) -> list[dict]:
+    """One rank of the sequence-sharded serving tests: for each case
+    (arch, variant, params_np, tokens, feed, max_len) the smoke config
+    in float32 under attn_shard=variant, its "tp" shard of the reference's
+    numpy params, the forward over `tokens`, then the engine's prefill of
+    them into the "seq" cache and a decode step per feed[i] (B, 1). The
+    collectives of the forward, the prefill and each decode step, the
+    partials calls' (lo, hi) of each step, and the cache."""
+    out = []
+    for arch, variant, params_np, tokens, feed, max_len in cases:
+        cfg = dataclasses.replace(smoke_cfg(arch), attn_shard=variant)
+        full = Z.params_from_numpy(params_np, cfg, device="cpu")
+        tmpl = Z.templates(cfg)
+        shard = MB.shard_params(full, tmpl,
+                                SH.param_layouts(tmpl, mp.mesh, "tp"), mp)
+        tokens = torch.as_tensor(tokens)
+        mp.reset_counts()
+        logits, aux = Z.forward(shard, cfg, {"tokens": tokens}, mp)
+        calls = {"forward": dict(mp.calls)}
+        b, s = tokens.shape
+        cache = E.init_cache(cfg, b, max_len, device="cpu", mp=mp)
+        mp.reset_counts()
+        lg, cache = E.prefill(shard, cfg, {"tokens": tokens}, cache, mp)
+        calls["prefill"] = dict(mp.calls)
+        step_logits, step_calls, step_ranges = [lg[:, -1]], [], []
+        for i, tok in enumerate(feed):
+            mp.reset_counts()
+            ranges = []
+            undo = _record_partials(ranges)
+            try:
+                lg, cache = E.decode_step(shard, cfg, torch.as_tensor(tok),
+                                          cache, s + i, mp)
+            finally:
+                undo()
+            step_logits.append(lg[:, -1])
+            step_calls.append(dict(mp.calls))
+            step_ranges.append(ranges)
+        out.append(dict(logits=logits, aux=aux, step_logits=step_logits,
+                        cache=cache, calls=calls, step_calls=step_calls,
+                        step_ranges=step_ranges))
+    return out
+
+
+def shmap_rank(mp, cases) -> list[dict]:
+    """One rank of `layers.shmap_attention` for each case (q, k, v, causal,
+    window, q_offset): over the rank's block of the keys, with the
+    bfloat16 and the float32 wire, and the rank's blockwise softmax state
+    (m, l, acc) over its block."""
+    out = []
+    for q, k, v, causal, window, q_offset in cases:
+        q, k, v = (torch.as_tensor(a) for a in (q, k, v))
+        n = k.shape[1] // mp.world
+        blk = slice(mp.rank * n, (mp.rank + 1) * n)
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  k_offset=mp.rank * n)
+        res = {str(w): Lyr.shmap_attention(q, k[:, blk], v[:, blk], mp,
+                                           wire=w, **kw)
+               for w in (torch.bfloat16, torch.float32)}
+        res["stats"] = Lyr.blockwise_attention(
+            q, k[:, blk], v[:, blk], kv_chunk=min(1024, max(n // 4, 8)),
+            return_stats=True, **kw)
+        out.append(res)
+    return out
+
+
+def seq_tests_rank(mp, engine_cases, attn_cases) -> dict:
+    """tests/test_torch_seq.py's one spawn: `seq_rank` and `shmap_rank`."""
+    return dict(engine=seq_rank(mp, engine_cases),
+                attn=shmap_rank(mp, attn_cases))
