@@ -425,10 +425,13 @@ K8_BF16_RTOL, K8_BF16_ATOL = 2.0 ** -7, 1e-5
 # and one sequence at 128k context; and zamba2-1.2b's shared block in
 # [ssm lm] (32 heads of 64, no GQA) over its cache of 512 + 32 + 3; and
 # seamless-m4t-large-v2's cross attention in [encdec lm] (16 heads of 64,
-# no GQA) over its 4096 cached encoder frames.
+# no GQA) over its 4096 cached encoder frames; and those two at one of 4
+# ranks' heads ([tp families lm]: 8 and 4 heads).
 K8_SHAPES = {"global": (4, 32, 16, 128, 4096), "ring": (4, 32, 16, 128, 1024),
              "long": (1, 32, 16, 128, 131072), "zamba2": (4, 32, 32, 64, 547),
-             "encdec_cross": (4, 16, 16, 64, DECODE_ENC_LEN)}
+             "encdec_cross": (4, 16, 16, 64, DECODE_ENC_LEN),
+             "zamba2_tp4": (4, 8, 8, 64, 547),
+             "encdec_cross_tp4": (4, 4, 4, 64, DECODE_ENC_LEN)}
 # ... and one whose grid (B=1, 2 kv heads, 32 splits: 64 blocks) leaves room
 # for a second call's on the card, for the two-stream check.
 K8_PAIR_SHAPE = (1, 4, 2, 128, 2048)
@@ -580,6 +583,35 @@ ENCDEC_CHECK_LAYERS, ENCDEC_CHECK_BATCH, ENCDEC_CHECK_PROMPT = 2, 2, 128
 ENCDEC_CHECK_FRAMES, ENCDEC_CHECK_STEPS = 256, 8
 ENCDEC_TRAIN_STEPS = 3
 ENCDEC_FULL_TRAIN_BATCH, ENCDEC_FULL_TRAIN_SEQ = 2, 64
+# The ssm, hybrid and encdec families under "tp" (RWKV-6's and Mamba2's
+# heads, zamba2's shared block, seamless's encoder and decoder, the cross
+# K/V by head over the ranks). [tp families parity]: the smoke configs in
+# float32, perturbed as [ssm parity]'s, over TP_PARITY_WORLD ranks against
+# the card's unsharded run of the same params at [tp parity]'s bars:
+# TP_FAMILY_CASES, rwkv6 and zamba2 in both ssm_impl forms, seamless at its
+# smoke vocabulary and at TP_ODD_VOCAB, which the ranks do not divide (the
+# embedding and the head stay whole on every rank). [tp families lm]:
+# rwkv6-1.6b, zamba2-1.2b and seamless-m4t-large-v2 at published widths and
+# full depth in bfloat16 over TP_WORLD ranks, [ssm lm]'s / [encdec lm]'s
+# batch and prompt (and frames), TP_STEPS decode steps fed the unsharded
+# run's greedy tokens, held to a teacher-fed rerun of [ssm lm] / [encdec
+# lm] at [tp lm]'s bar (`check_tp_logits`).
+# bfloat16 bar of [tp families lm]: rwkv6-1.6b at random init is
+# sensitive enough that two one-card runs of the same function part by
+# more than check_tp_logits's bar at full depth ([ssm lm]'s scan and
+# chunked prefill by 0.398 with logits up to 4.75, ~1.75 of it, on the
+# H100; on the CPU at its full width and 8 / 12 layers 0.50 / 0.65 of it,
+# the same model with float32 weights 1.58 / 1.66). So each step's bar is
+# also TP_SPREAD_FACTOR x the step's `one_card_spread`, the distance of
+# one card's bfloat16 run from the same run in float32: a rank run that
+# is as close to the float32 function as one card's is within twice that
+# of it (the triangle inequality); check_tp_logits takes the larger bar.
+TP_SPREAD_FACTOR = 2.0
+TP_ODD_VOCAB = 511
+TP_FAMILY_CASES = (("rwkv6-1.6b", "scan", 0), ("rwkv6-1.6b", "chunked", 0),
+                   ("zamba2-1.2b", "scan", 0), ("zamba2-1.2b", "chunked", 0),
+                   (ENCDEC_ARCH, "scan", 0), (ENCDEC_ARCH, "scan", TP_ODD_VOCAB))
+TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -3539,13 +3571,15 @@ def phase_lm() -> dict:
                 tp_ref=tp_ref)
 
 
-def tp_reference(params, cfg, tokens, generated) -> dict:
-    """What [tp lm] / [tp moe] hold their ranks to: the unsharded model's
-    prefill of `tokens` and TP_STEPS decode steps fed the timed run's
-    first greedy tokens, rerun untimed (lm_serve: logits and routes on
-    the CPU), with the prompt and the tokens fed."""
+def tp_reference(params, cfg, tokens, generated, frontend=None) -> dict:
+    """What [tp lm] / [tp moe] / [tp families lm] hold their ranks to: the
+    unsharded model's prefill of `tokens` (over an encdec model's
+    `frontend`) and TP_STEPS decode steps fed the timed run's first greedy
+    tokens, rerun untimed (lm_serve: logits and routes on the CPU), with
+    the prompt and the tokens fed."""
     feed = [g.cpu() for g in generated[:TP_STEPS]]
-    ref = lm_serve(params, cfg, tokens.cpu(), TP_STEPS, "cuda", feed=feed)
+    ref = lm_serve(params, cfg, tokens.cpu(), TP_STEPS, "cuda", feed=feed,
+                   frontend=frontend)
     return dict(tokens=tokens.cpu(), **ref)
 
 
@@ -3709,13 +3743,15 @@ def lm_serve(params, cfg, tokens, steps, device, feed=None,
     feed[i] (B, 1) if given, else this run's own greedy token: every
     step's last-position logits (on the CPU), the tokens fed and the
     routing of every moe layer's call (none in other families). mp: a
-    rank of a model-parallel run, params its shard."""
+    rank of a model-parallel run, params its shard (prefill_calls: its
+    collectives up to the end of the prefill)."""
     b, s = tokens.shape
     batch, enc_len = {"tokens": tokens.to(device)}, 0
     if frontend is not None:
         batch["frontend"], enc_len = frontend.to(device), frontend.shape[1]
     cache = E.init_cache(cfg, b, s + steps, enc_len, device=device, mp=mp)
     (lg, cache), routes = routed(E.prefill, params, cfg, batch, cache, mp)
+    prefill_calls = {} if mp is None else dict(mp.calls)
     logits, fed = [lg[:, -1].cpu()], []
     for i in range(steps):
         tok = (logits[-1].argmax(-1, keepdim=True) if feed is None
@@ -3725,7 +3761,8 @@ def lm_serve(params, cfg, tokens, steps, device, feed=None,
                                 cache, s + i, mp)
         logits.append(lg[:, -1].cpu())
         routes += r
-    return dict(logits=logits, fed=fed, routes=routes)
+    return dict(logits=logits, fed=fed, routes=routes,
+                prefill_calls=prefill_calls)
 
 
 def phase_moe_parity() -> dict:
@@ -4144,28 +4181,31 @@ def tp_lm_rank(mp, jobs) -> dict:
     return out
 
 
-def tp_lm_serve(mp, params, cfg, job) -> dict:
-    """One rank's prefill of job["tokens"] and decode steps fed
-    job["feed"], every moe layer's call routed to job["gates"]'s experts
-    (`routed(feed=)`) where given, into a cache of the layout cfg's
-    attn_shard gives (`engine.cache_policy`): logits and the rank's own
-    routes (kept on the card until the last step), the launch counts (0
-    before the prefill, read after the last step), the cache's bytes, peak
-    memory, prefill s, ms per step (CUDA events), the collectives of the
-    decode steps."""
+def tp_lm_serve(mp, params, cfg, job, frontend=None) -> dict:
+    """One rank's prefill of job["tokens"] (over an encdec model's
+    `frontend` frames) and decode steps fed job["feed"], every moe layer's
+    call routed to job["gates"]'s experts (`routed(feed=)`) where given,
+    into a cache of the layout cfg's attn_shard gives
+    (`engine.cache_policy`): logits and the rank's own routes (kept on the
+    card until the last step), the launch counts (0 before the prefill,
+    read after the last step), the cache's bytes, peak memory, prefill s,
+    ms per step (CUDA events), the collectives of the decode steps."""
     dev = mp.device
     tokens = torch.as_tensor(job["tokens"]).to(dev)
     feed = [torch.as_tensor(f).to(dev) for f in job["feed"]]
     gates = (iter([torch.as_tensor(g).to(dev) for g in job["gates"]])
              if job["gates"] is not None else None)
     b, s = tokens.shape
-    cache = E.init_cache(cfg, b, s + len(feed), device=dev, mp=mp)
+    batch, enc_len = {"tokens": tokens}, 0
+    if frontend is not None:
+        batch["frontend"], enc_len = frontend, frontend.shape[1]
+    cache = E.init_cache(cfg, b, s + len(feed), enc_len, device=dev, mp=mp)
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     sync()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()                # this rank's path starts here
     t0 = time.perf_counter()
-    (lg, cache), routes = routed(E.prefill, params, cfg, {"tokens": tokens},
+    (lg, cache), routes = routed(E.prefill, params, cfg, batch,
                                  cache, mp, host=False, feed=gates)
     sync()
     prefill_s = time.perf_counter() - t0
@@ -4235,19 +4275,23 @@ def check_rank_routes(rank_routes, want, k: int, tag: str
     return worst_d, worst_share, compared, skipped
 
 
-def check_tp_logits(got, ref, tag) -> tuple[float, int]:
+def check_tp_logits(got, ref, tag, spread=None) -> tuple[float, int]:
     """Each rank's logits (`got`: per rank, the prefill's and each decode
     step's) against the unsharded teacher-fed rerun `ref`: every row
     within TP_BF16_STD_TOL of the step's logit standard deviation, greedy
     tokens equal where the unsharded top-2 margin exceeds the bar, the
-    ranks' logits bit-equal. Returns (the largest share of the bar, greedy
-    tokens compared)."""
+    ranks' logits bit-equal. spread (per step, `one_card_spread`): where
+    given, a step's bar is the larger of that and TP_SPREAD_FACTOR x the
+    step's spread between two one-card runs of the same function. Returns
+    (the largest share of the bar, greedy tokens compared)."""
     worst, greedy = 0.0, 0
     for r, rank in enumerate(got):
         for i, (g, w) in enumerate(zip(rank, ref["logits"])):
             np.testing.assert_array_equal(got[0][i], g)
             g, w = torch.from_numpy(g), w.float()
             tol = TP_BF16_STD_TOL * float(w.std())
+            if spread is not None:
+                tol = max(tol, TP_SPREAD_FACTOR * spread[i])
             err = (g - w).abs().amax(-1)
             assert bool((err <= tol).all()), (
                 f"[{tag}] rank {r} step {i}: max |err| {err.tolist()} over "
@@ -4404,6 +4448,311 @@ def seq_lm_report(got, ref, cfg, variant, backend, n_cards, card) -> dict:
                                  for k, v in rank["calls"].items()}
                                 for rank in got],
                 worst_share_of_bar=worst, variant=variant)
+
+
+# -- 8f. "tp" for the ssm, hybrid and encdec families -------------------------
+
+def tp_calls_per_step(cfg, world: int) -> dict[str, int]:
+    """The collectives of one decode step on each rank of cfg (rwkv6,
+    zamba2 or seamless) under "tp" over `world` ranks: an all-reduce per
+    row-parallel output projection (RWKV-6's time-mix wo and channel-mix
+    wv; Mamba2's out_proj; the shared block's and seamless's attention wo,
+    cross-attention wo and MLP wo) and per Mamba2 out_norm (its sum of
+    squares over d_inner), an all-gather per RWKV-6 channel mix (the gated
+    channels); with a vocabulary the ranks divide, one all-reduce for the
+    embedding and one all-gather of the logits."""
+    n = cfg.n_layers
+    if cfg.arch_type == "ssm":
+        sums, gathers = 2 * n, n
+    elif cfg.arch_type == "hybrid":
+        sums, gathers = 2 * n + 2 * Z.shared_applications(cfg), 0
+    else:
+        sums, gathers = 3 * n, 0
+    cut = int(cfg.vocab % world == 0)
+    want = {"all_reduce_sum": sums + cut, "all_gather": gathers + cut}
+    return {k: v for k, v in want.items() if v}
+
+
+def k8_decode_calls(cfg) -> int:
+    """K8 launches of one decode step: k8_per_step's, or seamless's two a
+    decoder layer (self and cross attention)."""
+    return 2 * cfg.n_layers if cfg.arch_type == "encdec" else k8_per_step(cfg)
+
+
+def one_card_spread(params, cfg, ref, frontend=None) -> list[float]:
+    """Per step of the teacher-fed rerun `ref` (tp_reference's, on the
+    card), the largest |difference| between its logits and those of the
+    same run with every weight upcast to float32 (exactly) and cfg.dtype
+    float32: how far one card's bfloat16 run is from the function it
+    computes. A rank run of that function in bfloat16, with other
+    roundings, as far from it is within twice this of one card's
+    (TP_SPREAD_FACTOR)."""
+    exact = lm_serve(MB.tree_map(lambda a: a.float(), params),
+                     dataclasses.replace(cfg, dtype=torch.float32),
+                     ref["tokens"], TP_STEPS, "cuda", feed=ref["fed"],
+                     frontend=frontend)
+    free_cuda()
+    return [float((a.float() - b.float()).abs().max())
+            for a, b in zip(exact["logits"], ref["logits"])]
+
+
+def std_share(got, ref) -> float:
+    """The ranks' largest |logit difference| from `ref` as a share of
+    check_tp_logits's own bar (TP_BF16_STD_TOL x the step's std)."""
+    return max(float((torch.from_numpy(g) - w.float()).abs().max())
+               / (TP_BF16_STD_TOL * float(w.float().std()))
+               for rank in got for g, w in zip(rank, ref["logits"]))
+
+
+def tp_family_cfg(arch: str, impl: str, vocab: int):
+    """A [tp families parity] case's smoke config in float32."""
+    cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32,
+                              ssm_impl=impl)
+    return dataclasses.replace(cfg, vocab=vocab) if vocab else cfg
+
+
+def tp_family_inputs(cfg):
+    """(tokens, frontend or None) of a [tp families parity] case, from
+    numpy seed 3."""
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TP_PARITY_BATCH, TP_PARITY_PROMPT)))
+    if cfg.arch_type != "encdec":
+        return tokens, None
+    return tokens, torch.from_numpy((0.1 * rng.normal(size=(
+        TP_PARITY_BATCH, ENCDEC_PARITY_FRAMES, cfg.d_model))).astype(
+            np.float32))
+
+
+def tp_families_parity_rank(mp, cases) -> dict:
+    """[tp families parity], one rank: for each (key, arch, impl, vocab,
+    feed) its shard of the perturbed float32 smoke config (`perturbed`,
+    seed 3 on the CPU), prefill and decode fed `feed` through lm_serve;
+    the launch counts set to 0 before the run and read after it, the
+    collectives of the prefill and of the decode steps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, arch, impl, vocab, feed in cases:
+        cfg = tp_family_cfg(arch, impl, vocab)
+        tmpl = Z.templates(cfg)
+        params = MB.shard_params(
+            perturbed(cfg, torch.Generator().manual_seed(3)), tmpl,
+            SHD.param_layouts(tmpl, mp.mesh), mp)
+        params = MB.tree_map(lambda a: a.to(mp.device), params)
+        tokens, frontend = tp_family_inputs(cfg)
+        ops.reset_launch_counts()            # this rank's path starts here
+        mp.reset_counts()
+        run = lm_serve(params, cfg, tokens, len(feed), mp.device,
+                       feed=[torch.as_tensor(f) for f in feed],
+                       frontend=frontend, mp=mp)
+        sync()
+        counts = ops.launch_counts()         # ... and ends here
+        decode = {k: v - run["prefill_calls"].get(k, 0)
+                  for k, v in mp.calls.items()}
+        out[key] = dict(logits=run["logits"], launches=counts,
+                        prefill_calls=run["prefill_calls"],
+                        decode_calls={k: v for k, v in decode.items() if v})
+        del params
+    return out
+
+
+def phase_tp_families_parity(card: str) -> dict:
+    """[tp families parity] TP_FAMILY_CASES (smoke configs, float32,
+    perturbed) over TP_PARITY_WORLD ranks against the card's unsharded run
+    of the same params: prefill of TP_PARITY_BATCH x TP_PARITY_PROMPT
+    tokens (seamless over ENCDEC_PARITY_FRAMES frames) and TP_PARITY_STEPS
+    decode steps, the ranks fed the unsharded run's greedy tokens: logits
+    within TP_RTOL / TP_ATOL, greedy tokens exact where the margin exceeds
+    TP_TOKEN_MARGIN, the ranks' logits bit-equal, on every rank K8 =
+    k8_decode_calls x steps and no other kernel, and the collectives of
+    each decode step `tp_calls_per_step`'s."""
+    t0 = time.perf_counter()
+    backend, devices = transport(TP_PARITY_WORLD, "cuda")
+    refs, cases = {}, []
+    for arch, impl, vocab in TP_FAMILY_CASES:
+        cfg = tp_family_cfg(arch, impl, vocab)
+        key = f"{cfg.name}/{impl}" + (f"/vocab{vocab}" if vocab else "")
+        params = MB.tree_map(lambda a: a.to("cuda"), perturbed(
+            cfg, torch.Generator().manual_seed(3)))
+        tokens, frontend = tp_family_inputs(cfg)
+        refs[key] = lm_serve(params, cfg, tokens, TP_PARITY_STEPS, "cuda",
+                             frontend=frontend)
+        cases.append((key, arch, impl, vocab,
+                      [f.numpy() for f in refs[key]["fed"]]))
+        del params
+    free_cuda()
+    ranks = spawn_ranks(TP_PARITY_WORLD, tp_families_parity_rank, (cases,),
+                        device="cuda", timeout_s=600)
+    out = {}
+    for key, arch, impl, vocab, _ in cases:
+        cfg = tp_family_cfg(arch, impl, vocab)
+        want = refs[key]
+        per_step = tp_calls_per_step(cfg, TP_PARITY_WORLD)
+        err, greedy = 0.0, 0
+        for r, rank in enumerate(ranks):
+            got = rank[key]
+            launches = {k: 0 for k in got["launches"]}
+            launches["swa_decode"] = k8_decode_calls(cfg) * TP_PARITY_STEPS
+            assert got["launches"] == launches, (key, r, got["launches"])
+            assert got["decode_calls"] == {
+                k: v * TP_PARITY_STEPS for k, v in per_step.items()}, (
+                key, r, got["decode_calls"], per_step)
+            for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+                g = torch.from_numpy(g)
+                torch.testing.assert_close(
+                    g, w, rtol=TP_RTOL, atol=TP_ATOL,
+                    msg=lambda m: f"[tp families parity] {key} rank {r} "
+                    f"step {i}: {m}")
+                err = max(err, float((g - w).abs().max()))
+                top2 = torch.topk(w, 2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > TP_TOKEN_MARGIN
+                assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
+                greedy += int(sure.sum())
+                np.testing.assert_array_equal(ranks[0][key]["logits"][i],
+                                              got["logits"][i])
+        assert greedy > 0, key
+        k8 = [rank[key]["launches"]["swa_decode"] for rank in ranks]
+        print(f"[tp families parity] {key} (float32, perturbed, vocab "
+              f"{cfg.vocab}{' whole' if cfg.vocab % TP_PARITY_WORLD else ''})"
+              f" over {TP_PARITY_WORLD} ranks ({backend}, "
+              f"{len(set(map(str, devices)))} card(s), {card}) against the "
+              f"card's unsharded run: prefill of {TP_PARITY_BATCH} x "
+              f"{TP_PARITY_PROMPT} tokens + {TP_PARITY_STEPS} decode steps "
+              f"fed its greedy tokens, max |err| {err:.3g} (bars rtol "
+              f"{TP_RTOL}, atol {TP_ATOL}), {greedy} greedy tokens equal; the "
+              f"ranks' logits bit-equal; K8 per rank {k8} = "
+              f"{k8_decode_calls(cfg)} x {TP_PARITY_STEPS}, no other kernel; "
+              f"collectives per rank: prefill {ranks[0][key]['prefill_calls']}"
+              f", a decode step {per_step}")
+        out[key] = dict(err=err, k8_per_rank=k8, calls_per_step=per_step)
+    print(f"[tp families parity] done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tp_families_lm_rank(mp, jobs) -> dict:
+    """[tp families lm], one rank: for each job its shard of the config at
+    full width and depth in bfloat16, drawn as [ssm lm] / [encdec lm] drew
+    it (seed 0 on the card) keeping only this rank's pieces, then the
+    prompt (and an encdec model's frames) drawn on from the same generator
+    as there (checked equal to the job's tokens), served by `tp_lm_serve`."""
+    dev = mp.device
+    out = {}
+    for job in jobs:
+        cfg = CFG.get(job["arch"])
+        tmpl = Z.templates(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = MB.materialize_shard(tmpl, gen, cfg.dtype,
+                                      SHD.param_layouts(tmpl, mp.mesh), mp)
+        sync()
+        make_s = time.perf_counter() - t0
+        b, s = job["tokens"].shape
+        if cfg.arch_type == "encdec":
+            tokens, frontend = encdec_batch(cfg, b, s, DECODE_ENC_LEN, gen)
+        else:
+            tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                   device=dev)
+            frontend = None
+        assert torch.equal(tokens.cpu(), torch.as_tensor(job["tokens"])), (
+            job["arch"], "the prompt differs from the unsharded run's")
+        shard_bytes = sum(a.numel() * a.element_size()
+                          for a in MB.tree_leaves(params))
+        out[job["arch"]] = dict(make_s=make_s, shard_bytes=shard_bytes,
+                                **tp_lm_serve(mp, params, cfg, job, frontend))
+        del params, frontend
+        free_cuda()
+    return out
+
+
+def phase_tp_families_lm(card: str, refs: dict) -> dict:
+    """[tp families lm] rwkv6-1.6b, zamba2-1.2b and seamless-m4t-large-v2
+    at published widths and full depth in bfloat16 over TP_WORLD ranks
+    (one spawn), against [ssm lm]'s / [encdec lm]'s teacher-fed reruns
+    (`refs`, by arch): the logits of the prefill and of each of TP_STEPS
+    decode steps within the larger of TP_BF16_STD_TOL of the step's logit
+    standard deviation and TP_SPREAD_FACTOR x one card's own bfloat16
+    spread (`one_card_spread`) on every row, greedy tokens equal where the
+    unsharded top-2 margin exceeds the bar (`check_tp_logits`), the
+    ranks' logits bit-equal; on every rank K8 = k8_decode_calls x steps (its partials
+    mode never) and the collectives of a decode step `tp_calls_per_step`'s;
+    per rank the shard's and the cache's bytes, the peak memory, prefill
+    s, median ms a step."""
+    t0 = time.perf_counter()
+    backend, devices = transport(TP_WORLD, "cuda")
+    n_cards = len(set(map(str, devices)))
+    jobs = [dict(arch=arch, tokens=refs[arch]["tokens"].numpy(),
+                 feed=[f.numpy() for f in refs[arch]["fed"]], gates=None)
+            for arch in TP_FAMILY_ARCHS]
+    ranks = spawn_ranks(TP_WORLD, tp_families_lm_rank, (jobs,),
+                        device="cuda", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    out = {}
+    where = ("sharing one card over gloo, not a sharded deployment's"
+             if n_cards < TP_WORLD else f"on {n_cards} cards over {backend}")
+    for arch in TP_FAMILY_ARCHS:
+        cfg, ref = CFG.get(arch), refs[arch]
+        b, s = ref["tokens"].shape
+        per_step = tp_calls_per_step(cfg, TP_WORLD)
+        k8_want = k8_decode_calls(cfg) * TP_STEPS
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            assert got["k8"] == k8_want and got["k8_partial"] == 0, (
+                arch, r, got["k8"], got["k8_partial"])
+            assert got["calls"] == {k: v * TP_STEPS
+                                    for k, v in per_step.items()}, (
+                arch, r, got["calls"], per_step)
+        got = [rank[arch]["logits"] for rank in ranks]
+        worst, greedy = check_tp_logits(got, ref, "tp families lm",
+                                        spread=ref["spread"])
+        spread = max(sp / (TP_BF16_STD_TOL * float(w.float().std()))
+                     for sp, w in zip(ref["spread"], ref["logits"]))
+        alone = std_share(got, ref)
+        frames = (f" over {DECODE_ENC_LEN} frames"
+                  if cfg.arch_type == "encdec" else "")
+        print(f"[tp families lm] {cfg.name}, {cfg.n_layers} layers"
+              + (f" + {cfg.n_enc_layers} encoder layers"
+                 if cfg.arch_type == "encdec" else "")
+              + f" in bfloat16 (vocab {cfg.vocab}, "
+              f"{'cut' if cfg.vocab % TP_WORLD == 0 else 'whole'} on each "
+              f"rank), over {TP_WORLD} ranks ({backend}; {n_cards} card(s): "
+              f"{card}): prefill {b} x {s} tokens{frames} + {TP_STEPS} decode "
+              f"steps fed the unsharded run's greedy tokens; logits within "
+              f"{worst:.3f} of the bar (the larger of {TP_BF16_STD_TOL} x the "
+              f"step's logit std and {TP_SPREAD_FACTOR} x one card's own "
+              f"bfloat16 spread) on all {len(ranks) * (TP_STEPS + 1) * b} "
+              f"rank-rows: {alone:.3f} of the std bar alone, "
+              f"where one card's bfloat16 run lies {spread:.3f} of it from "
+              f"the same run in float32; {greedy} greedy tokens equal "
+              f"(where the top-2 margin exceeds the bar); the ranks' logits "
+              f"bit-equal; the times are {TP_WORLD} processes {where}")
+        for r, rank in enumerate(ranks):
+            got = rank[arch]
+            med = statistics.median(got["step_ms"])
+            print(f"[tp families lm]   {cfg.name} rank {r}: shard "
+                  f"{got['shard_bytes']} bytes drawn in {got['make_s']:.2f} s;"
+                  f" cache {got['cache_bytes']} bytes; prefill "
+                  f"{got['prefill_s']:.3f} s; median {med:.3f} ms a decode "
+                  f"step (min {min(got['step_ms']):.3f}, max "
+                  f"{max(got['step_ms']):.3f}); peak memory {got['peak']} "
+                  f"bytes; K8 launches {got['k8']} = {k8_decode_calls(cfg)} x "
+                  f"{TP_STEPS}; collectives a step "
+                  f"{ {k: v / TP_STEPS for k, v in got['calls'].items()} }, "
+                  f"bytes a step {sum(got['bytes'].values()) / TP_STEPS:.0f}")
+        out[arch] = dict(
+            k8_per_rank=[rank[arch]["k8"] for rank in ranks],
+            step_ms_median=[statistics.median(rank[arch]["step_ms"])
+                            for rank in ranks],
+            prefill_s=[rank[arch]["prefill_s"] for rank in ranks],
+            shard_bytes=[rank[arch]["shard_bytes"] for rank in ranks],
+            cache_bytes=[rank[arch]["cache_bytes"] for rank in ranks],
+            peak_bytes=[rank[arch]["peak"] for rank in ranks],
+            calls_per_step=per_step, worst_share_of_bar=worst,
+            std_bar_share=alone, one_card_spread_share=spread,
+            backend=backend, cards=n_cards)
+    print(f"[tp families lm] done in {time.perf_counter() - t0:.1f} s (the "
+          f"ranks {spawn_s:.1f} s of it); the times are {TP_WORLD} processes "
+          + where)
+    return out
 
 
 # -- 8c. the ssm and hybrid families: rwkv6 and zamba2 -------------------------
@@ -4577,13 +4926,17 @@ def phase_ssm_lm(card: str) -> dict:
               f"{torch.cat(generated, 1)[0].tolist()}")
         profile = profile_decode(params, cfg, cache, tok, s + steps,
                                  tag="ssm lm")
+        del cache
+        tp_ref = tp_reference(params, cfg, tokens, generated)
+        tp_ref["spread"] = one_card_spread(params, cfg, tp_ref)
         out[arch] = dict(params=cfg.param_count(), param_bytes=nbytes,
                          prefill_s=prefill_s, scan_chunked_gap=gap,
                          step_ms_median=med, floor_ms=floor_ms,
                          launches_per_step=per_step,
                          device_idle_share=profile["device_idle_share"],
-                         peak_bytes=peak, k8_launches=launches["swa_decode"])
-        del params, cache, logits, last
+                         peak_bytes=peak, k8_launches=launches["swa_decode"],
+                         tp_ref=tp_ref)
+        del params, logits, last
         free_cuda()
     return out
 
@@ -4864,14 +5217,17 @@ def phase_encdec_lm(card: str) -> dict:
           f"{torch.cat(run['fed'][1:] + [tok], 1)[0].tolist()}")
     profile = profile_decode(params, cfg, cache, tok, s + steps,
                              tag="encdec lm")
+    del cache
+    tp_ref = tp_reference(params, cfg, tokens, run["fed"], frontend)
+    tp_ref["spread"] = one_card_spread(params, cfg, tp_ref, frontend)
     out = dict(params=cfg.param_count(), param_bytes=nbytes,
                prefill_s=prefill_s, step_ms_median=med, step_ms_p90=p90,
                floor_ms=floor_ms, tokens_per_s=b / med * 1e3,
                launches_per_step=per_step,
                device_idle_share=profile["device_idle_share"],
                peak_bytes=peak, k8_launches=launches["swa_decode"],
-               decode_gap=gap)
-    del params, cache, logits, run
+               decode_gap=gap, tp_ref=tp_ref)
+    del params, logits, run
     free_cuda()
     return out
 
@@ -5060,12 +5416,16 @@ def main() -> None:
     phase_lm_check()
     moe_lm = phase_moe_lm(card)
     tp_parity = phase_tp_parity(card)
+    tp_families_parity = phase_tp_families_parity(card)
     tp_lm = phase_tp_lm(card, lm["tp_ref"], moe_lm[TP_MOE_ARCH]["tp_ref"])
     del lm["tp_ref"]
     for r in moe_lm.values():
         del r["tp_ref"]
     ssm_lm = phase_ssm_lm(card)
     encdec_lm = phase_encdec_lm(card)
+    tp_families_lm = phase_tp_families_lm(
+        card, {**{a: r.pop("tp_ref") for a, r in ssm_lm.items()},
+               ENCDEC_ARCH: encdec_lm.pop("tp_ref")})
     phase_slice("filter", params, te,
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     free_cuda()
@@ -5096,7 +5456,12 @@ def main() -> None:
         **{f"tp_parity_{a}_launches_per_rank": r["k8_per_rank"]
            for a, r in tp_parity.items() if "/" not in a},
         "tp_lm_launches_per_rank": tp_lm[LM_ARCH]["k8_per_rank"],
-        "tp_moe_launches_per_rank": tp_lm[TP_MOE_ARCH]["k8_per_rank"]}
+        "tp_moe_launches_per_rank": tp_lm[TP_MOE_ARCH]["k8_per_rank"],
+        **{f"tp_families_parity_{re.sub(r'[^0-9a-z]+', '_', a)}"
+           f"_launches_per_rank": r["k8_per_rank"]
+           for a, r in tp_families_parity.items()},
+        **{f"tp_families_lm_{a}_launches_per_rank": r["k8_per_rank"]
+           for a, r in tp_families_lm.items()}}
     seq_lm = tp_lm[f"{LM_ARCH}/seq"]
     launches["swa_decode_partial"] = seq_lm["k8_partial_per_rank"][0]
     extra["swa_decode_partial"] = {
@@ -5125,7 +5490,8 @@ def main() -> None:
                        n_split=tm["plan"]["n_split"],
                        blocks=tm["plan"]["blocks"],
                        blocks_per_sm=tm["plan"]["blocks_per_sm"])
-            for shape in ("ring", "long", "zamba2", "encdec_cross"):
+            for shape in ("ring", "long", "zamba2", "encdec_cross",
+                          "zamba2_tp4", "encdec_cross_tp4"):
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                             "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]

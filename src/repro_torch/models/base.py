@@ -20,7 +20,7 @@ from typing import Any, Callable, Iterator
 
 import torch
 
-from repro_torch.models.parallel import local_slices
+from repro_torch.models.parallel import rank_pieces, take_pieces
 
 ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
@@ -154,14 +154,15 @@ _DRAW_CHUNK = 1 << 28
 
 
 def _draw(t: ParamTemplate, generator: torch.Generator, dtype: torch.dtype,
-          block: list[tuple[int, int]]) -> torch.Tensor:
-    """The part `block` ((start, length) per dim) of leaf t as
-    `materialize` draws it: the leaf, viewed as (rows, the rest), is drawn
-    in float32 slices of whole rows, each scaled and cut to the block
-    before the cast; the generator advances over the whole leaf, so the
-    next leaf's draw does not depend on the block."""
+          pieces: list) -> torch.Tensor:
+    """The part `pieces` (per dim, a list of (start, length); see
+    `parallel.rank_pieces`) of leaf t as `materialize` draws it: the leaf,
+    viewed as (rows, the rest), is drawn in float32 slices of whole rows,
+    each scaled and cut to the pieces before the cast; the generator
+    advances over the whole leaf, so the next leaf's draw does not depend
+    on the part. The row dim holds one piece."""
     device = generator.device
-    shape = tuple(n for _, n in block)
+    shape = tuple(sum(m for _, m in held) for held in pieces)
     if t.init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
     if t.init == "ones":
@@ -169,14 +170,17 @@ def _draw(t: ParamTemplate, generator: torch.Generator, dtype: torch.dtype,
     fan_in = t.shape[-1] if len(t.shape) > 1 else 1
     scale = t.scale if t.init == "normal" else t.scale / math.sqrt(fan_in)
     if len(t.shape) == 1:                  # one row of the whole leaf
-        full, block = (1,) + t.shape, [(0, 1)] + block
+        full, pieces = (1,) + t.shape, [[(0, 1)]] + pieces
     else:
         full = t.shape
+    if len(pieces[0]) != 1:
+        raise ValueError(f"a leaf of {t.shape} is drawn in whole rows: its "
+                         f"first dim holds one piece, not {pieces[0]}")
     cols = math.prod(full[1:])
-    out = torch.empty(shape, dtype=dtype, device=device).view(
-        (block[0][1],) + tuple(n for _, n in block[1:]))
+    out = torch.empty(tuple(sum(m for _, m in held) for held in pieces),
+                      dtype=dtype, device=device)
     rows = max(1, _DRAW_CHUNK // max(cols, 1))
-    r0, nr = block[0]
+    r0, nr = pieces[0][0]
     for i in range(0, full[0], rows):
         n = min(rows, full[0] - i)
         draw = torch.randn((n, cols), generator=generator,
@@ -185,10 +189,8 @@ def _draw(t: ParamTemplate, generator: torch.Generator, dtype: torch.dtype,
         if lo >= hi:
             continue
         part = draw.mul_(scale)[lo - i:hi - i].view((hi - lo,) + full[1:])
-        for d, (start, length) in enumerate(block[1:], 1):
-            if length != full[d]:
-                part = part.narrow(d, start, length)
-        out[lo - r0:hi - r0].copy_(part)
+        out[lo - r0:hi - r0].copy_(
+            take_pieces(part, [[(0, hi - lo)]] + pieces[1:]))
     return out.view(shape)
 
 
@@ -202,7 +204,7 @@ def materialize(templates, generator: torch.Generator,
     numbers differ from the reference's `jax.random` draw: tests carry the
     reference's tree over with `zoo.params_from_numpy` instead."""
     return tree_map(lambda t: _draw(t, generator, dtype,
-                                    [(0, n) for n in t.shape]), templates)
+                                    [[(0, n)] for n in t.shape]), templates)
 
 
 def materialize_shard(templates, generator: torch.Generator,
@@ -210,9 +212,11 @@ def materialize_shard(templates, generator: torch.Generator,
     """Rank mp.rank's shard under `layout` (`launch.sharding
     .param_layouts` on mp.mesh) of what `materialize` makes from the same
     generator state, bit for bit, without holding any whole leaf: every
-    rank draws the whole random stream and keeps its blocks."""
-    return tree_map(lambda t, spec: _draw(t, generator, dtype, local_slices(
-        t.shape, spec, mp.mesh, mp.rank)), templates, layout)
+    rank draws the whole random stream and keeps its pieces
+    (`parallel.rank_pieces`)."""
+    return tree_map(lambda t, held: _draw(t, generator, dtype, held),
+                    templates, rank_pieces(templates, layout, mp.mesh,
+                                           mp.rank))
 
 
 def shape_structs(templates, dtype: torch.dtype) -> dict:
@@ -234,40 +238,56 @@ def shard_params(params, templates, layout, mp) -> dict:
     """Rank mp.rank's shard of the full parameter tree `params` (e.g. from
     `materialize` or `zoo.params_from_numpy`) under `layout`, a layout
     tree on mp.mesh (`launch.sharding.param_layouts`): each cut leaf is
-    cut to this rank's block and copied, so the full leaf can be freed;
-    a whole leaf is the same tensor. Leaves are checked against the
-    templates' shapes."""
-    def one(a: torch.Tensor, t: ParamTemplate, spec: tuple) -> torch.Tensor:
+    cut to the pieces this rank holds (`parallel.rank_pieces`: its block,
+    or a Mamba2 mixer's head-aligned pieces) and copied, so the full leaf
+    can be freed; a whole leaf is the same tensor. Leaves are checked
+    against the templates' shapes."""
+    def one(a: torch.Tensor, t: ParamTemplate, held: list) -> torch.Tensor:
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"parameter of shape {tuple(a.shape)}, the "
                              f"template wants {t.shape}")
-        out = a
-        for dim, (start, length) in enumerate(
-                local_slices(t.shape, spec, mp.mesh, mp.rank)):
-            if length != t.shape[dim]:
-                out = out.narrow(dim, start, length)
-        return a if out is a else out.clone()
+        out = take_pieces(a, held)
+        if out is a:
+            return a
+        return out.clone() if out.untyped_storage().data_ptr() \
+            == a.untyped_storage().data_ptr() else out
 
-    return tree_map(one, params, templates, layout)
+    return tree_map(one, params, templates,
+                    rank_pieces(templates, layout, mp.mesh, mp.rank))
 
 
 def gather_params(shards, templates, layout, mp) -> dict:
     """The inverse of `shard_params` on every rank of a model-parallel
     run: each cut leaf all-gathered along its cut dim (the run's only
-    axis of more than one rank is "model"); whole leaves as they are."""
-    def one(a: torch.Tensor, t: ParamTemplate, spec: tuple) -> torch.Tensor:
+    axis of more than one rank is "model") and every rank's pieces put
+    back where `parallel.rank_pieces` takes them from (a piece held by
+    every rank, as a Mamba2 mixer's B / C columns, is the same bits on
+    each); whole leaves as they are."""
+    held = [rank_pieces(templates, layout, mp.mesh, r)
+            for r in range(mp.world)]
+
+    def one(a: torch.Tensor, t: ParamTemplate, *ranks) -> torch.Tensor:
         out = a
-        for dim, (_, length) in enumerate(
-                local_slices(t.shape, spec, mp.mesh, mp.rank)):
-            if length != t.shape[dim]:
-                if t.shape[dim] != length * mp.world:
-                    raise ValueError(f"a dim of {t.shape[dim]} cut to "
-                                     f"{length} is not cut over the "
-                                     f"{mp.world} ranks")
-                out = mp.all_gather(out, dim)
+        for dim, mine in enumerate(ranks[mp.rank]):
+            if mine == [(0, t.shape[dim])]:
+                continue
+            covered = sum(m for rank in ranks for _, m in rank[dim])
+            if covered < t.shape[dim]:
+                raise ValueError(f"a dim of {t.shape[dim]} cut to "
+                                 f"{[m for _, m in mine]} is not covered "
+                                 f"by the {mp.world} ranks")
+            parts = mp.all_gather(out, dim).split(out.shape[dim], dim)
+            whole = out.new_empty(out.shape[:dim] + (t.shape[dim],)
+                                  + out.shape[dim + 1:])
+            for part, rank in zip(parts, ranks):
+                at = 0
+                for s, m in rank[dim]:
+                    whole.narrow(dim, s, m).copy_(part.narrow(dim, at, m))
+                    at += m
+            out = whole
         return out
 
-    return tree_map(one, shards, templates, layout)
+    return tree_map(one, shards, templates, *held)
 
 
 def stack_templates(t: ParamTemplate, n: int) -> ParamTemplate:

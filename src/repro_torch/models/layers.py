@@ -11,10 +11,10 @@ conventions (src/repro/models/layers.py):
 Decode attention of one token runs K8 (`kernels.ops.swa_decode`): the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on a
 CPU tensor; so does an encoder-decoder's cross attention of one query
-over the cached encoder K/V. Under model parallelism (`models.parallel`)
-attention and the MLP run on a rank's shard as they are: the head counts
-come from the local weights' shapes, and the caller sums the output
-projection's partial sums over the ranks; the expert-parallel
+over the cached encoder K/V. Under model parallelism (`models.parallel`;
+every family) attention and the MLP run on a rank's shard as they are:
+the head counts come from the local weights' shapes, and the caller sums
+the output projection's partial sums over the ranks; the expert-parallel
 `moe_ffn_shmap` routes over every expert, runs the rank's own and sums
 over the ranks itself. The reference's sequence-sharded variants
 (cfg.attn_shard "seqkv" / "shmap", its `_seq_shard` constraints and
@@ -25,10 +25,14 @@ rank attends over its block of the keys and `models.parallel
 over fresh keys (a forward, a prefill), `seq_decode_attention` (K8's
 partials mode) over a cache leaf cut over the sequence ("seq" layout) at
 decode — and the rank keeps its own heads of the output for its rows of
-wo. The Mamba2 and RWKV-6
-recurrences have no kernel in the reference (it leaves them to XLA's
-`jax.lax.scan`), and run here as plain PyTorch loops over the sequence
-or its chunks.
+wo. The Mamba2 and RWKV-6 mixers run a rank's heads the same way: their
+head counts come from the local weights, the whole leaves indexed per
+head (dt_bias / A_log / D, w0 / u / the decay LoRA's output) are taken at
+the rank's heads, Mamba2's out_norm over the whole d_inner sums its
+squares over the ranks (`rms_norm_cut`), and RWKV-6's channel mix reduces
+and gathers itself. The Mamba2 and RWKV-6 recurrences have no kernel in
+the reference (it leaves them to XLA's `jax.lax.scan`), and run here as
+plain PyTorch loops over the sequence or its chunks.
 """
 
 from __future__ import annotations
@@ -433,7 +437,9 @@ def cross_attention(p, cfg, q, k, v) -> torch.Tensor:
     cross K/V — runs K8 at cache_len S_enc - 1 with no window, which
     attends every encoder position. K8 accumulates P.V in float32 where
     the reference's dot attention first casts the probabilities to q's
-    dtype: the same in float32, closer to exact in bfloat16."""
+    dtype: the same in float32, closer to exact in bfloat16. Under model
+    parallelism q, k and v are the rank's heads and the output its partial
+    sum of wo."""
     b, s, h, hd = q.shape
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
@@ -663,12 +669,24 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
-def _mamba_in(p, cfg, x, state):
+def _mamba_heads(p, cfg, mp) -> tuple[int, int, int]:
+    """(d_inner, heads, first head) of the mixer's weights p: the whole
+    model's, or under mp the rank's (its rows of out_proj; its heads are
+    the rank's block of the whole model's)."""
+    di = p["out_proj"].shape[0]
+    nh = di // cfg.ssm_head_dim
+    return di, nh, 0 if mp is None else mp.rank * nh
+
+
+def _mamba_in(p, cfg, x, state, di: int, nh: int):
     """The mixer's input projection and depthwise causal conv: (z, xc, Bc,
-    Cc, dt, new conv state). The conv is the einsum "bskc,kc->bsc" over
-    the windows of the input left-padded with zeros (or prefixed with the
+    Cc, dt, new conv state), for di channels and nh heads (a rank's, under
+    model parallelism: in_proj holds its z, x and dt columns and B / C
+    whole, conv_w / conv_b its x channels and B / C; `parallel
+    .mamba_pieces`). The conv is the einsum "bskc,kc->bsc" over the
+    windows of the input left-padded with zeros (or prefixed with the
     carried conv state), plus conv_b, then silu."""
-    di, n, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    n = cfg.ssm_state
     z, xc, Bc, Cc, dt = torch.split(x @ p["in_proj"], [di, di, n, n, nh],
                                     dim=-1)
     conv_in = torch.cat([xc, Bc, Cc], dim=-1)                 # (B,S,di+2n)
@@ -683,10 +701,26 @@ def _mamba_in(p, cfg, x, state):
     return z, xc, Bc, Cc, dt, full[:, -(kw - 1):]
 
 
-def _mamba_out(p, cfg, y, z):
+def rms_norm_cut(x: torch.Tensor, gamma: torch.Tensor, mp, width: int,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """`rms_norm` over a dim cut over the ranks of mp: x and gamma are the
+    rank's part of a dim `width` wide. The float32 sum of squares of each
+    rank's part, summed over the ranks (one all-reduce), over width is the
+    mean; each rank scales its own part."""
+    x32 = x.float()
+    var = mp.all_reduce_sum((x32 * x32).sum(-1, keepdim=True)) / width
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
+
+
+def _mamba_out(p, cfg, y, z, mp=None):
+    """out_norm (an RMS norm over the whole d_inner: under mp over the
+    ranks' parts, `rms_norm_cut`), the z gate and out_proj; under mp the
+    product is the rank's partial sum."""
     b, s = y.shape[:2]
-    y = rms_norm(y.reshape(b, s, cfg.ssm_d_inner), p["out_norm"]) * F.silu(z)
-    return y @ p["out_proj"]
+    y = y.reshape(b, s, -1)
+    y = (rms_norm(y, p["out_norm"]) if mp is None else
+         rms_norm_cut(y, p["out_norm"], mp, cfg.ssm_d_inner))
+    return (y * F.silu(z)) @ p["out_proj"]
 
 
 def _ssm_init(state, key, shape, device) -> torch.Tensor:
@@ -694,16 +728,27 @@ def _ssm_init(state, key, shape, device) -> torch.Tensor:
             else torch.zeros(shape, dtype=torch.float32, device=device))
 
 
-def mamba2_scan(p, cfg, x: torch.Tensor, state: dict | None = None):
+def _head_slices(p, h0: int, nh: int):
+    """dt_bias, A_log and D (whole leaves) at the heads h0 .. h0 + nh - 1."""
+    return (p[k][h0:h0 + nh] for k in ("dt_bias", "A_log", "D"))
+
+
+def mamba2_scan(p, cfg, x: torch.Tensor, state: dict | None = None,
+                mp=None):
     """x: (B, S, d_model). Returns (y, new_state), state {"conv": (B,
     conv-1, di+2n), "ssm": (B, H, hd, N) f32}. softplus(dt + dt_bias) and
-    the decay are taken in x's dtype, and cast to f32 only for the scan."""
+    the decay are taken in x's dtype, and cast to f32 only for the scan.
+    Under mp (p the rank's shard, x whole) the rank runs its heads: its
+    state is (B, conv-1, di / world + 2n) and (B, H / world, hd, N), and y
+    its partial sum of out_proj."""
     b, s, _ = x.shape
-    n, hdim, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_heads
-    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state)
+    n, hdim = cfg.ssm_state, cfg.ssm_head_dim
+    di, nh, h0 = _mamba_heads(p, cfg, mp)
+    dt_bias, a_log, d_skip = _head_slices(p, h0, nh)
+    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state, di, nh)
     xh = xc.reshape(b, s, nh, hdim)
-    dt = softplus(dt + p["dt_bias"])                          # (B,S,nh)
-    decay = torch.exp(-torch.exp(p["A_log"]) * dt)
+    dt = softplus(dt + dt_bias)                               # (B,S,nh)
+    decay = torch.exp(-torch.exp(a_log) * dt)
     xdt = xh.float() * dt.float()[..., None]                  # dt_t x_t
     Bf, Cf, decf = Bc.float(), Cc.float(), decay.float()
     S_ = _ssm_init(state, "ssm", (b, nh, hdim, n), x.device)
@@ -712,24 +757,26 @@ def mamba2_scan(p, cfg, x: torch.Tensor, state: dict | None = None):
         S_ = torch.addcmul(xdt[:, t, :, :, None] * Bf[:, t, None, None, :],
                            S_, decf[:, t, :, None, None])
         ys.append(torch.einsum("bhpn,bn->bhp", S_, Cf[:, t]))
-    y = torch.stack(ys, dim=1).to(x.dtype) + xh * p["D"][:, None]
-    return _mamba_out(p, cfg, y, z), {"conv": new_conv, "ssm": S_}
+    y = torch.stack(ys, dim=1).to(x.dtype) + xh * d_skip[:, None]
+    return _mamba_out(p, cfg, y, z, mp), {"conv": new_conv, "ssm": S_}
 
 
 def mamba2_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
-                   chunk: int = 128):
+                   chunk: int = 128, mp=None):
     """The chunked SSD form of mamba2_scan (the Mamba2 paper's algorithm):
     within a chunk the recurrence is a masked decay-weighted matmul, and
     only the per-chunk states are carried. dt is cast to f32 after the
     softplus and the log-decay is taken in f32. The sequence is padded to
     whole chunks with zeros (decay 1, no input), so the final state is the
-    unpadded one."""
+    unpadded one. mp: the rank's heads, as mamba2_scan."""
     b, s, _ = x.shape
-    n, hdim, nh = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_heads
-    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state)
+    n, hdim = cfg.ssm_state, cfg.ssm_head_dim
+    di, nh, h0 = _mamba_heads(p, cfg, mp)
+    dt_bias, a_log, d_skip = _head_slices(p, h0, nh)
+    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state, di, nh)
     xh = xc.reshape(b, s, nh, hdim).float()
-    dt = softplus(dt + p["dt_bias"]).float()                  # (B,S,nh)
-    la = -torch.exp(p["A_log"].float()) * dt                  # log a_t
+    dt = softplus(dt + dt_bias).float()                       # (B,S,nh)
+    la = -torch.exp(a_log.float()) * dt                       # log a_t
     Bf, Cf = Bc.float(), Cc.float()
     pad = (-s) % chunk
     if pad:
@@ -763,8 +810,8 @@ def mamba2_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, nc * chunk, nh, hdim)[:, :s]
     y = y.to(x.dtype) + xc.reshape(b, s, nh, hdim).to(x.dtype) \
-        * p["D"][:, None]
-    return _mamba_out(p, cfg, y, z), {"conv": new_conv, "ssm": S_}
+        * d_skip[:, None]
+    return _mamba_out(p, cfg, y, z, mp), {"conv": new_conv, "ssm": S_}
 
 
 # ---------------------------------------------------------------------------
@@ -786,12 +833,24 @@ def _token_shift(x, state):
     return prev - x, x[:, -1]
 
 
-def _rwkv6_mix(p, cfg, x, state):
-    """The time-mix's projections: (r, k, v (B,S,nh,hd) in x's dtype, g, log
-    w (B,S,nh,hd) f32, new shift), with the data-dependent token shift."""
-    b, s, d = x.shape
+def _rwkv_heads(p, cfg, mp) -> tuple[int, int, int]:
+    """(heads, head dim, first channel) of the time mix's weights p: the
+    whole model's, or under mp the rank's (its columns of wr; its heads
+    are the rank's block of the whole model's)."""
     hd = cfg.rwkv_head_dim
-    nh = d // hd
+    dl = p["wr"].shape[1]
+    return dl // hd, hd, 0 if mp is None else mp.rank * dl
+
+
+def _rwkv6_mix(p, cfg, x, state, mp=None):
+    """The time-mix's projections: (r, k, v (B,S,nh,hd) in x's dtype, g, log
+    w (B,S,nh,hd) f32, new shift), with the data-dependent token shift.
+    Under mp x and the shift are whole and the rank's wr / wk / wv / wg
+    columns give its heads' r, k, v, g; w0 and the decay LoRA's output
+    (whole leaves) are taken at its channels."""
+    b, s, _ = x.shape
+    nh, hd, c0 = _rwkv_heads(p, cfg, mp)
+    c1 = c0 + nh * hd
     dx, new_shift = _token_shift(x, state)
 
     def shifted(nm, lora):
@@ -804,28 +863,33 @@ def _rwkv6_mix(p, cfg, x, state):
     k = (xk @ p["wk"]).reshape(b, s, nh, hd)
     v = (xv @ p["wv"]).reshape(b, s, nh, hd)
     g = F.silu(xg @ p["wg"])
-    lw = -torch.exp((p["w0"] + _lora(xw, p["ww_A"], p["ww_B"])).float())
+    lw = -torch.exp((p["w0"][c0:c1]
+                     + _lora(xw, p["ww_A"], p["ww_B"][:, c0:c1])).float())
     return r, k, v, g, lw.reshape(b, s, nh, hd), new_shift
 
 
 def _rwkv6_out(p, x, y, g):
     """ln_x, an RMS norm over each head's hd channels of y (B,S,nh,hd)
-    f32, then the gate and the output projection."""
-    b, s, d = x.shape
-    y = rms_norm(y, p["ln_x"]).reshape(b, s, d).to(x.dtype)
+    f32, then the gate and the output projection (under model parallelism
+    the rank's heads and its partial sum of wo)."""
+    b, s = y.shape[:2]
+    y = rms_norm(y, p["ln_x"]).reshape(b, s, -1).to(x.dtype)
     return (y * g) @ p["wo"]
 
 
-def rwkv6_timemix(p, cfg, x: torch.Tensor, state: dict | None = None):
+def rwkv6_timemix(p, cfg, x: torch.Tensor, state: dict | None = None,
+                  mp=None):
     """x: (B, S, d). state: {"shift": (B, d), "wkv": (B, H, hd, hd) f32}.
-    Each step reads y = r (S + u k^T v) before S = S w + k^T v."""
-    b, s, d = x.shape
-    hd = cfg.rwkv_head_dim
-    r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state)
+    Each step reads y = r (S + u k^T v) before S = S w + k^T v. Under mp
+    the rank runs its heads (wkv (B, H / world, hd, hd), the shift whole)
+    and y is its partial sum of wo."""
+    b, s, _ = x.shape
+    nh, hd, c0 = _rwkv_heads(p, cfg, mp)
+    r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state, mp)
     w = torch.exp(lw)                                         # in (0, 1)
-    u = p["u"].reshape(d // hd, hd)[None, :, :, None]
+    u = p["u"][c0:c0 + nh * hd].reshape(nh, hd)[None, :, :, None]
     rf, kf, vf = r.float(), k.float(), v.float()
-    S_ = _ssm_init(state, "wkv", (b, d // hd, hd, hd), x.device)
+    S_ = _ssm_init(state, "wkv", (b, nh, hd, hd), x.device)
     ys = []
     for t in range(s):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]     # (B,nh,hd,hd)
@@ -836,19 +900,19 @@ def rwkv6_timemix(p, cfg, x: torch.Tensor, state: dict | None = None):
 
 
 def rwkv6_timemix_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
-                          chunk: int = 32):
+                          chunk: int = 32, mp=None):
     """The chunked-parallel form of rwkv6_timemix. Within a chunk
         y_t = r_t S_{t-1} + (r_t . u . k_t) v_t,
         A[t,i] = sum_c r_tc k_ic exp(cum_{t-1,c} - cum_{i,c})   (i < t),
     the exponent a partial sum of log-decays, so <= 0; the state carries
     across chunks as in the sequential form. r, k, v are cast to f32 here,
-    and the sequence is padded to whole chunks with zeros (log-decay 0)."""
-    b, s, d = x.shape
-    hd = cfg.rwkv_head_dim
-    nh = d // hd
-    r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state)
+    and the sequence is padded to whole chunks with zeros (log-decay 0).
+    mp: the rank's heads, as rwkv6_timemix."""
+    b, s, _ = x.shape
+    nh, hd, c0 = _rwkv_heads(p, cfg, mp)
+    r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state, mp)
     r, k, v = r.float(), k.float(), v.float()
-    u = p["u"].reshape(nh, hd).float()
+    u = p["u"][c0:c0 + nh * hd].reshape(nh, hd).float()
     pad = (-s) % chunk
     if pad:
         r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, lw))
@@ -881,11 +945,22 @@ def rwkv6_timemix_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
     return _rwkv6_out(p, x, y, g), {"shift": new_shift, "wkv": S_}
 
 
-def rwkv6_channelmix(p, x: torch.Tensor, state: dict | None = None):
-    """state: {"shift": (B, d)}."""
+def rwkv6_channelmix(p, x: torch.Tensor, state: dict | None = None,
+                     mp=None):
+    """state: {"shift": (B, d)}. Under mp (x and the shift whole) the rank
+    holds wk's columns and wv's rows of its ffn block and wr's columns of
+    its channels: k @ wv is its partial sum, summed over the ranks (one
+    all-reduce); the gate sigmoid(xr @ wr) covers its channels of that
+    sum, and the gated channels are gathered whole (one all-gather)."""
     dx, new_shift = _token_shift(x, state)
     xk = x + dx * p["mu_k"]
     xr = x + dx * p["mu_r"]
     k = torch.square(F.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    kv = k @ p["wv"]
+    gate = torch.sigmoid(xr @ p["wr"])
+    if mp is None:
+        return gate * kv, {"shift": new_shift}
+    kv = mp.all_reduce_sum(kv)
+    c0 = mp.rank * gate.shape[-1]
+    out = mp.all_gather(gate * kv[..., c0:c0 + gate.shape[-1]], dim=-1)
     return out, {"shift": new_shift}

@@ -4,17 +4,24 @@ The reference lays a model over a device mesh in two ways: GSPMD turns
 `launch/sharding.param_shardings` into a compiled SPMD program, and
 `shard_map` writes a layer explicitly (`moe_ffn_shmap`). The port has no
 GSPMD, so it does what `shard_map` does, explicitly, under the "tp"
-layout (`launch/sharding.py`):
+layout (`launch/sharding.py`), for every family of the zoo:
   * each rank holds its shard of every parameter (`models.base
     .shard_params`): its heads and kv heads (wq / wk / wv columns, wo
-    rows), its columns of the MLP, its experts, its rows of the
-    vocabulary; norms and the router whole;
+    rows; RWKV-6's wr / wk / wv / wg columns and wo rows; Mamba2's heads),
+    its columns of the MLP, its experts, its rows of the vocabulary where
+    the ranks divide it; norms and the router whole. Where the
+    reference's cut of a leaf is not a block a rank can compute on alone
+    (Mamba2's fused in_proj / conv_w / conv_b), the rank holds the pieces
+    `rank_pieces` names instead;
   * it runs the layer code on those local shapes;
   * it calls a collective where the reference's sharded program reduces:
     an all-reduce after every row-parallel output projection (attention's
-    wo, the MLP's wo) and at the end of the expert-parallel MoE, an
-    all-reduce in the vocabulary-parallel embedding, an all-gather of the
-    vocabulary-parallel logits.
+    wo, the MLP's wo, Mamba2's out_proj, RWKV-6's time-mix wo and
+    channel-mix wv) and at the end of the expert-parallel MoE, one in
+    Mamba2's out_norm (the sum of squares over d_inner), an all-gather of
+    RWKV-6's channel-mix output, an all-reduce in the vocabulary-parallel
+    embedding and an all-gather of the vocabulary-parallel logits (none
+    of those two where the vocabulary stays whole).
 
 The reference's sequence-sharded variants (`attn_shard="seqkv"` /
 `"shmap"`) keep the "tp" parameter layout and cut the KV sequence over
@@ -39,9 +46,12 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-# the arch types the "tp" layout runs on; the recurrent and encdec
-# families' cache layouts come in a later slice
-TP_ARCH_TYPES = ("dense", "moe")
+# the arch types the "tp" layout runs on: every family of the zoo
+TP_ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec")
+# the families whose attention leaves the sequence-sharded variants do not
+# cut yet (ROADMAP item 23); the ssm family has no attention, so under
+# those variants it runs the "auto" path
+SEQ_REFUSED = ("hybrid", "encdec")
 # ModelConfig.attn_shard: "auto" (heads over the ranks) or one of the
 # reference's sequence-sharded variants, each with the wire its attention
 # combine over fresh keys crosses ("shmap" casts to bfloat16, as the
@@ -100,26 +110,46 @@ class ModelParallel:
         self.bytes.clear()
 
 
+def tp_dims(cfg) -> dict[str, int]:
+    """The dims the "tp" layout cuts over the ranks for cfg's family, by
+    name: RWKV-6's heads (d_model / rwkv_head_dim) and channel-mix ffn;
+    attention's heads and kv heads and the dense MLP's ffn (a zamba2
+    shared block's, an encdec model's encoder and decoder); Mamba2's
+    heads; the experts."""
+    if cfg.arch_type == "ssm":
+        return {"heads": cfg.d_model // cfg.rwkv_head_dim, "ffn": cfg.d_ff}
+    dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
+    if cfg.arch_type == "hybrid":
+        dims["ssm heads"] = cfg.ssm_heads
+    if cfg.arch_type != "moe" or cfg.dense_residual:
+        dims["ffn"] = cfg.d_ff
+    if cfg.arch_type == "moe":
+        dims["experts"] = cfg.n_experts
+    return dims
+
+
 def check_tp(cfg, world: int) -> None:
     """Raise ValueError unless `world` ranks can run cfg under the "tp"
-    layout as the port executes it: a dense or moe model whose heads, kv
-    heads, vocabulary, dense MLP columns and experts `world` divides. (The
-    reference's rules keep an undivided dim whole, and its cache rule
-    splits a kv head across ranks (`sharding.py` cache_shardings); the
-    port refuses both.)"""
+    layout as the port executes it: `world` divides every dim of
+    `tp_dims(cfg)`. The vocabulary need not divide: the reference's rules
+    keep an undivided dim whole, and so does the port (every rank then
+    looks its tokens up and computes the whole logits). The reference's
+    cache rule splits a kv head across ranks where the ranks do not divide
+    the kv heads (`sharding.py` cache_shardings); the port refuses that
+    (ROADMAP item 19). The sequence-sharded variants run the dense, moe
+    and ssm families (the last has no attention to cut) and refuse hybrid
+    and encdec (ROADMAP item 23)."""
     if cfg.arch_type not in TP_ARCH_TYPES:
         raise ValueError(f"{cfg.name}: the \"tp\" layout runs the "
                          f"{TP_ARCH_TYPES} families, not {cfg.arch_type!r}")
     if cfg.attn_shard not in ATTN_SHARDS:
         raise ValueError(f"{cfg.name}: attn_shard {cfg.attn_shard!r}, "
                          f"expected one of {ATTN_SHARDS}")
-    dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads,
-            "vocab": cfg.vocab}
-    if cfg.arch_type == "dense" or cfg.dense_residual:
-        dims["ffn"] = cfg.d_ff
-    if cfg.arch_type == "moe":
-        dims["experts"] = cfg.n_experts
-    bad = {k: v for k, v in dims.items() if v % world}
+    if cfg.attn_shard in SEQ_VARIANTS and cfg.arch_type in SEQ_REFUSED:
+        raise ValueError(f"{cfg.name}: attn_shard {cfg.attn_shard!r} does not "
+                         f"cut the {cfg.arch_type} family's attention leaves "
+                         f"yet (ROADMAP item 23); use \"auto\"")
+    bad = {k: v for k, v in tp_dims(cfg).items() if v % world}
     if bad:
         raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
                          f"needs {world} to divide its {bad}")
@@ -193,4 +223,68 @@ def local_slices(shape: tuple[int, ...], spec: tuple, mesh,
             raise ValueError(f"a dim of {dim} cannot be cut {n} ways "
                              f"(layout {spec})")
         out.append((idx * (dim // n), dim // n))
+    return out
+
+
+def mamba_pieces(di: int, n: int, nh: int, world: int,
+                 rank: int) -> dict[str, list[tuple[int, int]]]:
+    """The (start, length) pieces of a Mamba2 mixer's fused channel dims
+    that `rank` of `world` holds, in the order it holds them (its heads
+    are nh / world of nh, each d_inner / nh channels wide):
+      "in_proj": of the columns [z (di) | x (di) | B (n) | C (n) | dt
+                 (nh)], the z and x columns of its heads, B and C whole,
+                 the dt columns of its heads;
+      "conv":    of the conv channels [x (di) | B (n) | C (n)] (conv_w,
+                 conv_b and the conv state), the x channels of its heads,
+                 B and C whole.
+    The reference cuts those dims into world equal blocks, which split
+    the z / x / B / C / dt groups where they fall; no rank can compute on
+    such a block alone."""
+    dl, hl = di // world, nh // world
+    return {"in_proj": [(rank * dl, dl), (di + rank * dl, dl), (2 * di, 2 * n),
+                        (2 * di + 2 * n + rank * hl, hl)],
+            "conv": [(rank * dl, dl), (di, 2 * n)]}
+
+
+_MAMBA_FUSED = {"in_proj": "in_proj", "conv_w": "conv", "conv_b": "conv"}
+
+
+def rank_pieces(templates, layout, mesh, rank: int) -> dict:
+    """What `rank` holds of every leaf of a parameter template tree under
+    `layout` (`launch.sharding.param_layouts` on mesh): per leaf, per dim,
+    the list of (start, length) pieces it holds along that dim, in order.
+    A leaf the design holds as the reference lays it out has one piece a
+    dim, its block (`local_slices`). The exceptions are a Mamba2 mixer's
+    in_proj, conv_w and conv_b (a template dict holding in_proj, conv_w,
+    conv_b, out_proj and D), whose last dim holds `mamba_pieces` when the
+    "model" axis has more than one rank: `models.base.shard_params`,
+    `gather_params` and `materialize_shard` read this."""
+    if not isinstance(templates, dict):
+        return [[blk] for blk in local_slices(templates.shape, layout, mesh,
+                                              rank)]
+    out = {k: rank_pieces(templates[k], layout[k], mesh, rank)
+           for k in templates}
+    coord, world = rank_coords(mesh, rank)["model"], mesh.shape["model"]
+    if world > 1 and {"in_proj", "out_proj", "D", *_MAMBA_FUSED} <= set(
+            templates):
+        di = templates["out_proj"].shape[-2]
+        n = (templates["conv_w"].shape[-1] - di) // 2
+        pieces = mamba_pieces(di, n, templates["D"].shape[-1], world, coord)
+        for k, group in _MAMBA_FUSED.items():
+            out[k] = [[(0, m)] for m in templates[k].shape[:-1]] + [
+                pieces[group]]
+    return out
+
+
+def take_pieces(a: torch.Tensor, pieces: list) -> torch.Tensor:
+    """The part of `a` that `pieces` (per dim, a list of (start, length))
+    names: each dim narrowed to its pieces, several pieces concatenated in
+    order. A dim held whole is left as it is, so a leaf held whole is `a`
+    itself; a part of one piece a dim is a view."""
+    out = a
+    for dim, held in enumerate(pieces):
+        if held == [(0, a.shape[dim])]:
+            continue
+        out = (out.narrow(dim, *held[0]) if len(held) == 1 else
+               torch.cat([out.narrow(dim, s, m) for s, m in held], dim))
     return out

@@ -17,16 +17,25 @@ params STACKED on a leading axis; the forward walks the layers in a
 Python loop over per-layer views (`base.unstack`). `lm_loss` and
 `train_step` are the reference's next-token objective and optimizer step.
 
-Model parallelism (`mp`, a `models.parallel.ModelParallel`; the dense and
-moe families): the params are a rank's shard under the "tp" layout
+Model parallelism (`mp`, a `models.parallel.ModelParallel`; every
+family): the params are a rank's shard under the "tp" layout
 (`base.shard_params`); attention runs on the rank's heads, or under
 cfg.attn_shard "seqkv" / "shmap" over the rank's block of the keys
 (`layers.attention`); each block sums attention's and the MLP's output
 projections over the ranks, the moe block runs `layers.moe_ffn_shmap`
-(arctic's dense MLP row-parallel beside it), the embedding is a masked
-lookup of the rank's vocabulary rows summed over the ranks (exact: one
-rank holds each row, the others add zeros) and the head's logits of the
-rank's vocabulary columns are gathered to the full vocabulary.
+(arctic's dense MLP row-parallel beside it); an RWKV-6 layer runs the
+rank's heads and sums its time mix's wo (its channel mix reduces and
+gathers itself, `layers.rwkv6_channelmix`), a Mamba2 layer runs the
+rank's heads and sums out_proj, zamba2's shared block (proj_in whole)
+and seamless's encoder and decoder layers (self attention, cross
+attention over the rank's heads of the cross K/V, the MLP) sum each
+output projection. Where the ranks divide the vocabulary the embedding
+is a masked lookup of the rank's vocabulary rows summed over the ranks
+(exact: one rank holds each row, the others add zeros) and the head's
+logits of the rank's vocabulary columns are gathered to the full
+vocabulary; where they do not (seamless's 256,206 over 4), both leaves
+are whole and every rank looks its tokens up and computes the whole
+logits, with no collective.
 """
 
 from __future__ import annotations
@@ -324,47 +333,57 @@ def _chunked(cfg, x) -> bool:
     return cfg.ssm_impl == "chunked" and x.shape[1] > 1
 
 
-def _rwkv_block_fwd(p, cfg, x, state=None):
+def _rwkv_block_fwd(p, cfg, x, state=None, mp=None):
     """One RWKV-6 layer: (x, new state {"tm_shift", "wkv", "cm_shift"})."""
     st_tm = None if state is None else {"shift": state["tm_shift"],
                                         "wkv": state["wkv"]}
     tm = (Lyr.rwkv6_timemix_chunked if _chunked(cfg, x)
           else Lyr.rwkv6_timemix)
-    h, new_tm = tm(p["tm"], cfg, Lyr.rms_norm(x, p["ln1"]), st_tm)
-    x = x + h
+    h, new_tm = tm(p["tm"], cfg, Lyr.rms_norm(x, p["ln1"]), st_tm, mp=mp)
+    x = x + reduce_partial(mp, h)
     st_cm = None if state is None else {"shift": state["cm_shift"]}
     h, new_cm = Lyr.rwkv6_channelmix(p["cm"], Lyr.rms_norm(x, p["ln2"]),
-                                     st_cm)
+                                     st_cm, mp)
     x = x + h
     return x, {"tm_shift": new_tm["shift"], "wkv": new_tm["wkv"],
                "cm_shift": new_cm["shift"]}
 
 
-def _mamba_block_fwd(p, cfg, x, state=None):
+def _mamba_block_fwd(p, cfg, x, state=None, mp=None):
     """One Mamba2 layer: (x, new state {"conv", "ssm"})."""
     impl = Lyr.mamba2_chunked if _chunked(cfg, x) else Lyr.mamba2_scan
-    h, new_state = impl(p["mixer"], cfg, Lyr.rms_norm(x, p["ln"]), state)
-    return x + h, new_state
+    h, new_state = impl(p["mixer"], cfg, Lyr.rms_norm(x, p["ln"]), state,
+                        mp=mp)
+    return x + reduce_partial(mp, h), new_state
 
 
 def _shared_attn_fwd(p, cfg, x, emb0, positions, kv_cache=None,
-                     cache_len=None, mode="decode"):
+                     cache_len=None, mode="decode", mp=None):
     """zamba2's shared block on [x ; emb0] @ proj_in, with no window."""
     inp = torch.cat([x, emb0], dim=-1) @ p["proj_in"]
     h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(inp, p["ln1"]),
                              positions=positions, window=BIG_WINDOW,
-                             kv_cache=kv_cache, cache_len=cache_len, mode=mode)
-    x = x + h
-    x = x + Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp_act)
+                             kv_cache=kv_cache, cache_len=cache_len, mode=mode,
+                             mp=mp)
+    x = x + reduce_partial(mp, h)
+    x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"],
+                                       cfg.mlp_act))
     return x, cache
 
 
-def embed_tokens(params, tokens, mp=None) -> torch.Tensor:
-    """The embedding rows of `tokens`. Under mp the rank holds the rows
-    of its block of the vocabulary: it looks up the tokens inside it,
-    zeros for the others, and the sum over the ranks is the lookup."""
+def vocab_cut(cfg, w: torch.Tensor, dim: int) -> bool:
+    """Whether w's vocabulary dim `dim` is a rank's block of it (the "tp"
+    layout cuts it where the ranks divide it) rather than whole."""
+    return w.shape[dim] != cfg.vocab
+
+
+def embed_tokens(params, cfg, tokens, mp=None) -> torch.Tensor:
+    """The embedding rows of `tokens`. Under mp with the vocabulary cut,
+    the rank holds the rows of its block of the vocabulary: it looks up
+    the tokens inside it, zeros for the others, and the sum over the
+    ranks is the lookup; with it whole, the plain lookup."""
     emb = params["embed"]
-    if mp is None:
+    if mp is None or not vocab_cut(cfg, emb, 0):
         return emb[tokens]
     v_loc = emb.shape[0]
     local = tokens - mp.rank * v_loc
@@ -376,7 +395,7 @@ def embed_tokens(params, tokens, mp=None) -> torch.Tensor:
 
 
 def embed_inputs(params, cfg, batch, mp=None):
-    tok_emb = embed_tokens(params, batch["tokens"], mp)
+    tok_emb = embed_tokens(params, cfg, batch["tokens"], mp)
     if cfg.frontend_positions and cfg.arch_type != "encdec":
         fe = batch["frontend"].to(tok_emb.dtype)     # (B, P, d) stub embeds
         return torch.cat([fe, tok_emb], dim=1)
@@ -386,12 +405,12 @@ def embed_inputs(params, cfg, batch, mp=None):
 def forward(params, cfg: ModelConfig, batch, mp=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux_loss): the moe family's aux summed over the
-    layers (float32), 0 for the other families. mp: a rank's shard of a
-    dense or moe model (module docstring); the logits are whole."""
+    layers (float32), 0 for the other families. mp: a rank's shard of the
+    model (module docstring); the logits are whole."""
     if mp is not None:
         check_tp(cfg, mp.world)
     if cfg.arch_type == "encdec":
-        return _forward_encdec(params, cfg, batch)
+        return _forward_encdec(params, cfg, batch, mp)
     x = embed_inputs(params, cfg, batch, mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -399,9 +418,9 @@ def forward(params, cfg: ModelConfig, batch, mp=None
     layers = unstack(params["blocks"], cfg.n_layers)
     if cfg.arch_type == "ssm":
         for p in layers:
-            x, _ = _rwkv_block_fwd(p, cfg, x)
+            x, _ = _rwkv_block_fwd(p, cfg, x, mp=mp)
     elif cfg.arch_type == "hybrid":
-        x = _hybrid_forward(params, cfg, x, layers, positions)
+        x = _hybrid_forward(params, cfg, x, layers, positions, mp)
     else:
         wins = window_schedule(cfg)
         for i, p in enumerate(layers):
@@ -412,26 +431,29 @@ def forward(params, cfg: ModelConfig, batch, mp=None
     return _lm_head(params, cfg, x, mp), aux_total
 
 
-def _hybrid_forward(params, cfg, x, layers, positions):
+def _hybrid_forward(params, cfg, x, layers, positions, mp=None):
     """zamba2: the mamba layers, the shared block after each whole group
     of `attn_every` of them (its second input emb0 the embedded input),
     the tail's layers after the last application."""
     emb0 = x
     for i, p in enumerate(layers):
-        x, _ = _mamba_block_fwd(p, cfg, x)
+        x, _ = _mamba_block_fwd(p, cfg, x, mp=mp)
         if (i + 1) % cfg.attn_every == 0:
             x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, emb0,
-                                    positions)
+                                    positions, mp=mp)
     return x
 
 
 def _lm_head(params, cfg, x, mp=None):
-    """Logits over the vocabulary; under mp the rank's columns gathered
-    from every rank in rank order (the argmax of the whole row then keeps
-    the lowest index on ties, as without mp)."""
+    """Logits over the vocabulary; under mp with the vocabulary cut the
+    rank's columns gathered from every rank in rank order (the argmax of
+    the whole row then keeps the lowest index on ties, as without mp);
+    with it whole every rank computes the whole logits."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ w.to(x.dtype)
-    return logits if mp is None else mp.all_gather(logits, dim=-1)
+    if mp is None or not vocab_cut(cfg, w, -1):
+        return logits
+    return mp.all_gather(logits, dim=-1)
 
 
 def _promoted(x, w):
@@ -441,57 +463,61 @@ def _promoted(x, w):
     return x.to(torch.promote_types(x.dtype, w.dtype))
 
 
-def encode(params, cfg, frontend: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg, frontend: torch.Tensor, mp=None) -> torch.Tensor:
     """The encoder over the frontend's frame embeddings (B, S_enc, d), cast
     to cfg.dtype as in the reference: non-causal attention with rope at
-    positions 0..S_enc-1 and the MLP in each layer, then enc_norm."""
+    positions 0..S_enc-1 and the MLP in each layer, then enc_norm. Under mp
+    each layer runs the rank's heads and MLP columns and sums both output
+    projections over the ranks; the output is whole."""
     x = frontend.to(cfg.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
         xn = _promoted(Lyr.rms_norm(x, p["ln1"]), p["attn"]["wq"])
         h, _ = Lyr.attention(p["attn"], cfg, xn, positions=positions,
-                             causal=False)
-        x = x + h
-        x = x + Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"], cfg.mlp_act)
+                             causal=False, mp=mp)
+        x = x + reduce_partial(mp, h)
+        x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]),
+                                           p["mlp"], cfg.mlp_act))
     return Lyr.rms_norm(x, params["enc_norm"])
 
 
 def cross_kv(p, cfg, enc_out) -> tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross K and V, each (B, S_enc, Hkv, hd): its
-    cross wk / wv applied to the encoder's output."""
+    cross wk / wv applied to the encoder's output (a rank's shard: its kv
+    heads)."""
     b, s, _ = enc_out.shape
     enc_out = _promoted(enc_out, p["cross"]["wk"])
-    shape = (b, s, cfg.n_kv_heads, cfg.hd)
+    shape = (b, s, p["cross"]["wk"].shape[1] // cfg.hd, cfg.hd)
     return ((enc_out @ p["cross"]["wk"]).reshape(shape),
             (enc_out @ p["cross"]["wv"]).reshape(shape))
 
 
 def _decoder_block_fwd(p, cfg, x, positions, kv, kv_cache=None,
-                       cache_len=None, mode="decode"):
+                       cache_len=None, mode="decode", mp=None):
     """One encdec decoder layer: the dense block (no window), then cross
     attention over the encoder's kv = (k, v) on rms_norm(x, ln_cross)."""
     x, cache = _dense_block_fwd(p, cfg, x, positions, BIG_WINDOW, kv_cache,
-                                cache_len, mode)
+                                cache_len, mode, mp)
     h, _ = Lyr.attention(p["cross"], cfg, Lyr.rms_norm(x, p["ln_cross"]),
                          positions=positions, causal=False, cross_kv=kv)
-    return x + h, cache
+    return x + reduce_partial(mp, h), cache
 
 
-def _forward_encdec(params, cfg, batch):
+def _forward_encdec(params, cfg, batch, mp=None):
     """seamless: the encoder over batch["frontend"], then the decoder over
     batch["tokens"] with each layer's cross attention over the encoder's
     output; aux 0. (The reference's jax.checkpoint is remat, not
     semantics.)"""
-    enc_out = encode(params, cfg, batch["frontend"])
-    x = params["embed"][batch["tokens"]]
+    enc_out = encode(params, cfg, batch["frontend"], mp)
+    x = embed_tokens(params, cfg, batch["tokens"], mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["blocks"], cfg.n_layers):
         x, _ = _decoder_block_fwd(p, cfg, x, positions,
-                                  cross_kv(p, cfg, enc_out))
+                                  cross_kv(p, cfg, enc_out), mp=mp)
     x = Lyr.rms_norm(x, params["final_norm"])
-    return _lm_head(params, cfg, x), torch.zeros((), device=x.device)
+    return _lm_head(params, cfg, x, mp), torch.zeros((), device=x.device)
 
 
 # ---------------------------------------------------------------------------

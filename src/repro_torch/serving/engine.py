@@ -34,20 +34,25 @@ from zero state whatever the cache holds, as the reference's does; a
 layer's new state is written over its old one after the layer has read
 it.
 
-Model parallelism (`mp`, `models.parallel.ModelParallel`; the dense and
-moe families, params a rank's shard from `models.base.shard_params`): the
-cache takes one of the reference's layouts (`launch.sharding
-.cache_layouts` computes the same), and prefill and decode run the zoo's
-blocks with mp.
+Model parallelism (`mp`, `models.parallel.ModelParallel`; every family,
+params a rank's shard from `models.base.shard_params`): the cache takes
+one of the reference's layouts (`launch.sharding.cache_layouts` computes
+the same) leaf by leaf, and prefill and decode run the zoo's blocks with
+mp.
 Under "heads" (cfg.attn_shard "auto") each rank holds its kv heads of
-every K/V entry (gemma3's rings included) and K8 runs on every rank over
-its local heads. Under "seq" (cfg.attn_shard "seqkv" or "shmap", the
-reference's decode layout) a leaf whose slots the ranks divide holds the
-rank's block of them (positions, or a ring's slots) with every kv head,
-and decode combines K8's partials over the blocks across the ranks
-(`layers.seq_decode_attention`); a leaf they do not divide keeps the
-"heads" cut, so one cache can mix both (attention reads each leaf's own).
-Every rank returns the same, whole logits.
+every K/V entry (gemma3's rings, zamba2's attn_k / attn_v and seamless's
+cross K/V included) and K8 runs on every rank over its local heads; the
+recurrent states hold the rank's heads ("wkv", "ssm") as the reference
+cuts them, and two leaves are held otherwise (`local_cache_shapes`):
+Mamba2's "conv" at the channels of the rank's heads plus B / C whole, and
+RWKV-6's "tm_shift" / "cm_shift" whole (every rank's token shift reads the
+whole previous x). Under "seq" (cfg.attn_shard "seqkv" or "shmap", the
+reference's decode layout; the dense, moe and ssm families) a leaf whose
+slots the ranks divide holds the rank's block of them (positions, or a
+ring's slots) with every kv head, and decode combines K8's partials over
+the blocks across the ranks (`layers.seq_decode_attention`); a leaf they
+do not divide keeps the "heads" cut, so one cache can mix both (attention
+reads each leaf's own). Every rank returns the same, whole logits.
 """
 
 from __future__ import annotations
@@ -119,18 +124,32 @@ def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
                        enc_len: int = 0
                        ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """cache_shapes of the part one rank of `mp` holds under the layout
-    `cache_policy(cfg)`, leaf by leaf, as the reference's rule
-    (`launch.sharding.cache_layouts`). Every entry of a dense or moe
-    model's cache is K or V, (..., S, Hkv, hd): under "seq" a leaf whose S
-    the ranks divide is cut into blocks of S / world slots with every kv
-    head; any other leaf has its kv heads cut over the ranks (checked to
-    divide: no within-head split)."""
+    `cache_policy(cfg)`, leaf by leaf. A K/V leaf, (..., S, Hkv, hd), as
+    the reference's rule (`launch.sharding.cache_layouts`): under "seq" a
+    leaf whose S the ranks divide is cut into blocks of S / world slots
+    with every kv head; any other has its kv heads cut over the ranks
+    (checked to divide: no within-head split). "wkv" / "ssm" have their
+    head dim (2) cut, as the reference's. Two leaves differ from the
+    reference's channel cut, which splits them where no rank can compute
+    on its block: "conv" holds the x channels of the rank's heads and B / C
+    whole (`parallel.mamba_pieces`: d_inner / world + 2 N), and
+    "tm_shift" / "cm_shift" are whole."""
     check_tp(cfg, mp.world)
     seq, n = cache_policy(cfg) == "seq", mp.world
-    return {k: ((s[:-3] + (s[-3] // n,) + s[-2:]) if seq and s[-3] % n == 0
-                else s[:-2] + (s[-2] // n, s[-1]), dt)
-            for k, (s, dt) in cache_shapes(cfg, batch, max_len,
-                                           enc_len).items()}
+
+    def one(k, s):
+        if k in ("tm_shift", "cm_shift"):
+            return s
+        if k in ("wkv", "ssm"):
+            return s[:2] + (s[2] // n,) + s[3:]
+        if k == "conv":
+            return s[:-1] + (cfg.ssm_d_inner // n + 2 * cfg.ssm_state,)
+        if seq and s[-3] % n == 0:
+            return s[:-3] + (s[-3] // n,) + s[-2:]
+        return s[:-2] + (s[-2] // n, s[-1])
+
+    return {k: (one(k, s), dt) for k, (s, dt) in cache_shapes(
+        cfg, batch, max_len, enc_len).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
@@ -152,7 +171,7 @@ def prefill(params, cfg: ModelConfig, batch, cache, mp=None
     if mp is not None:
         check_tp(cfg, mp.world)
     if cfg.arch_type == "encdec":
-        return _prefill_encdec(params, cfg, batch, cache)
+        return _prefill_encdec(params, cfg, batch, cache, mp)
     x = Z.embed_inputs(params, cfg, batch, mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -170,12 +189,12 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
     """tokens: (B, 1) int; cache_len: host int (current cache fill)."""
     if mp is not None:
         check_tp(cfg, mp.world)
-    x = Z.embed_tokens(params, tokens, mp)
+    x = Z.embed_tokens(params, cfg, tokens, mp)
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.int64,
                            device=x.device)
     if cfg.arch_type == "encdec":
-        x = _decode_encdec(params, cfg, x, positions, cache, cache_len)
+        x = _decode_encdec(params, cfg, x, positions, cache, cache_len, mp)
     else:
         x = _run_layers(params, cfg, x, positions, cache, cache_len,
                         "decode", mp)
@@ -185,9 +204,10 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
 
 def _run_layers(params, cfg, x, positions, cache, cache_len, mode, mp=None):
     if cfg.arch_type == "ssm":
-        return _rwkv_run(params, cfg, x, cache, mode)
+        return _rwkv_run(params, cfg, x, cache, mode, mp)
     if cfg.arch_type == "hybrid":
-        return _hybrid_run(params, cfg, x, positions, cache, cache_len, mode)
+        return _hybrid_run(params, cfg, x, positions, cache, cache_len, mode,
+                           mp)
     if _windowed(cfg):
         return _dense_serve_windowed(params, cfg, x, positions, cache,
                                      cache_len, mode, mp)
@@ -250,30 +270,30 @@ def _write_state(cache, i, new: dict) -> None:
         cache[k][i].copy_(v)
 
 
-def _rwkv_run(params, cfg, x, cache, mode):
+def _rwkv_run(params, cfg, x, cache, mode, mp=None):
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, new = Z._rwkv_block_fwd(
             p, cfg, x, _layer_state(cache, ("tm_shift", "wkv", "cm_shift"),
-                                    i, mode))
+                                    i, mode), mp)
         _write_state(cache, i, new)
     return x
 
 
-def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode):
+def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode, mp=None):
     """zamba2: the mamba layers with their conv / ssm state, and after each
     whole group of `attn_every` the shared block on its own KV cache
     attn_k[g] / attn_v[g] (one set of weights for every application)."""
     emb0 = x
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, new = Z._mamba_block_fwd(
-            p, cfg, x, _layer_state(cache, ("conv", "ssm"), i, mode))
+            p, cfg, x, _layer_state(cache, ("conv", "ssm"), i, mode), mp)
         _write_state(cache, i, new)
         if (i + 1) % cfg.attn_every == 0:
             g = i // cfg.attn_every
             x, _ = Z._shared_attn_fwd(
                 params["shared_attn"], cfg, x, emb0, positions,
                 kv_cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
-                cache_len=cache_len, mode=mode)
+                cache_len=cache_len, mode=mode, mp=mp)
     return x
 
 
@@ -282,18 +302,18 @@ def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode):
 # projected cross K/V live in the cache for decode.
 # ---------------------------------------------------------------------------
 
-def _prefill_encdec(params, cfg, batch, cache):
+def _prefill_encdec(params, cfg, batch, cache, mp=None):
     """The encoder over batch["frontend"], then the decoder over
     batch["tokens"]: each layer writes its self K/V (prefill mode) and its
-    cross K/V, cast to the cache's dtype, into cache["cross_k"][i] /
-    ["cross_v"][i]. Its own cross attention attends the uncast K/V, as the
-    reference's does."""
+    cross K/V (under mp the rank's kv heads), cast to the cache's dtype,
+    into cache["cross_k"][i] / ["cross_v"][i]. Its own cross attention
+    attends the uncast K/V, as the reference's does."""
     enc_len = cache["cross_k"].shape[2]
     if batch["frontend"].shape[1] != enc_len:
         raise ValueError(f"a cache of {enc_len} encoder frames cannot take "
                          f"a frontend of {batch['frontend'].shape[1]}")
-    enc_out = Z.encode(params, cfg, batch["frontend"])
-    x = params["embed"][batch["tokens"]]
+    enc_out = Z.encode(params, cfg, batch["frontend"], mp)
+    x = Z.embed_tokens(params, cfg, batch["tokens"], mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
@@ -301,19 +321,19 @@ def _prefill_encdec(params, cfg, batch, cache):
         x, _ = Z._decoder_block_fwd(
             p, cfg, x, positions, (ck, cv),
             kv_cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_len=0,
-            mode="prefill")
+            mode="prefill", mp=mp)
         cache["cross_k"][i].copy_(ck)
         cache["cross_v"][i].copy_(cv)
     x = Lyr.rms_norm(x[:, -1:], params["final_norm"])
-    return Z._lm_head(params, cfg, x), cache
+    return Z._lm_head(params, cfg, x, mp), cache
 
 
-def _decode_encdec(params, cfg, x, positions, cache, cache_len):
+def _decode_encdec(params, cfg, x, positions, cache, cache_len, mp=None):
     """One token through the decoder: self attention through K8 at
     cache_len, cross attention through K8 over the cached cross K/V."""
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, _ = Z._decoder_block_fwd(
             p, cfg, x, positions, (cache["cross_k"][i], cache["cross_v"][i]),
             kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_len=cache_len, mode="decode")
+            cache_len=cache_len, mode="decode", mp=mp)
     return x

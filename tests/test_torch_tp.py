@@ -37,6 +37,7 @@ import torch
 from repro.models import base as JMB
 from repro.models import zoo as JZ
 from repro.serving import engine as JE
+from repro_torch import configs as CFG
 from repro_torch.kernels import ops
 from repro_torch.kernels.swa_decode import kernel as swa_kernel
 from repro_torch.launch import sharding as SH
@@ -339,35 +340,73 @@ def test_tp_refuses_a_world_that_does_not_divide_the_kv_heads():
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
                                   "seamless-m4t-large-v2"])
 def test_tp_refuses_the_families_of_later_slices(arch):
+    """The ssm, hybrid and encdec families run the "tp" layout ("auto"):
+    their smoke configs over 2 and 4 ranks and their full configs over 4
+    pass `check_tp` and take a rank's cache. The sequence-sharded variants
+    are a later slice's for hybrid and encdec (ROADMAP item 23) and
+    refused; the ssm family, with no attention to cut, runs them as
+    "auto"."""
     cfg = torch_tp_ranks.smoke_cfg(arch)
-    with pytest.raises(ValueError, match="families"):
-        check_tp(cfg, 2)
-    with pytest.raises(ValueError, match="families"):
-        TE.init_cache(cfg, 1, 8, 4, device="cpu", mp=_rank(0, 2))
+    for world in (2, 4):
+        check_tp(cfg, world)
+    check_tp(CFG.get(arch), 4)
+    cache = TE.init_cache(cfg, 1, 8, 4, device="cpu", mp=_rank(0, 2))
+    assert set(cache) == set(TE.cache_shapes(cfg, 1, 8, 4))
+    for variant in ("seqkv", "shmap"):
+        vcfg = dataclasses.replace(cfg, attn_shard=variant)
+        if cfg.arch_type == "ssm":
+            check_tp(vcfg, 2)
+            continue
+        with pytest.raises(ValueError, match="item 23"):
+            check_tp(vcfg, 2)
+        with pytest.raises(ValueError, match="item 23"):
+            TE.init_cache(vcfg, 1, 8, 4, device="cpu", mp=_rank(0, 2))
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_shard_params_blocks_tile_the_full_leaf(arch):
     """Under "tp" at world 2 every leaf's shards, laid side by side along
     the cut dim in rank order, are the full leaf bit for bit; a whole leaf
-    is the same tensor on every rank."""
+    is the same tensor on every rank. A Mamba2 mixer's in_proj / conv_w /
+    conv_b (the leaves whose reference cut no rank can compute on) hold
+    `parallel.rank_pieces`' head-aligned pieces instead: each rank's
+    pieces, put where they are taken from, cover the leaf, and every
+    element a rank holds is the leaf's."""
     cfg = torch_tp_ranks.smoke_cfg(arch)
     tmpl = TZ.templates(cfg)
     full = MB.materialize(tmpl, torch.Generator().manual_seed(1))
     layout = SH.param_layouts(tmpl, model_mesh(WORLD), "tp")
     shards = [MB.shard_params(full, tmpl, layout, _rank(r, WORLD))
               for r in range(WORLD)]
-    for leaf, spec, *parts in zip(MB.tree_leaves(full),
-                                  MB.tree_leaves(layout),
-                                  *(MB.tree_leaves(s) for s in shards)):
+    pieces = [TPAR.rank_pieces(tmpl, layout, model_mesh(WORLD), r)
+              for r in range(WORLD)]
+    excepted = 0
+    for leaf, spec, held, *parts in zip(
+            MB.tree_leaves(full), MB.tree_leaves(layout),
+            zip(*(MB.tree_leaves(p) for p in pieces)),
+            *(MB.tree_leaves(s) for s in shards)):
         assert len(spec) == leaf.ndim
         if "model" not in spec:
             assert all(p is leaf for p in parts)
             continue
         dim = spec.index("model")
-        assert torch.equal(torch.cat(parts, dim), leaf)
+        if len(held[0][dim]) == 1:
+            assert torch.equal(torch.cat(parts, dim), leaf)
+        else:
+            excepted += 1
+            covered = torch.zeros(leaf.shape[dim], dtype=torch.bool)
+            for part, mine in zip(parts, held):
+                at = 0
+                for s, m in mine[dim]:
+                    assert torch.equal(part.narrow(dim, at, m),
+                                       leaf.narrow(dim, s, m))
+                    covered[s:s + m] = True
+                    at += m
+                assert at == part.shape[dim]
+            assert bool(covered.all())
         assert parts[0].untyped_storage().data_ptr() \
             != leaf.untyped_storage().data_ptr()
+    assert excepted == (3 if cfg.arch_type == "hybrid" else 0)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
@@ -406,25 +445,40 @@ def test_local_cache_shapes_cut_the_kv_heads(arch):
             shape, layouts[k], model_mesh(WORLD), 1)) == want
 
 
-@pytest.mark.parametrize("full_heads", [(32, 16, 128), (48, 8, 128)])
-def test_k8_plan_and_plain_version_at_a_ranks_heads(full_heads):
-    """K8 at a rank's heads of gemma3-27b (8 q / 4 kv of 32 / 16) and
-    dbrx-132b (12 / 2 of 48 / 8) over 4 ranks: the GQA ratio and so the
-    kernel instance (head group) are the full model's, the plan fills one
-    wave of an H100 (132 SMs, 2 blocks an SM), and the plain version on
-    each rank's heads is that rank's slice of the full-head result bit
-    for bit."""
-    h, hkv, hd = full_heads
+# (H, Hkv, hd) of the whole model, the cache's S and the (cache_len,
+# window) pairs K8 is planned at: gemma3-27b's and dbrx-132b's decode
+# attention, zamba2-1.2b's shared block over [ssm lm]'s cache of 512 + 32
+# + 3 and seamless-m4t-large-v2's cross attention over its 4096 encoder
+# frames (no window: cache_len S_enc - 1)
+K8_RANK_CASES = {
+    "gemma3": ((32, 16, 128), 2086, ((2047, ops.NO_WINDOW), (2047, 1024),
+                                     (40, 1024))),
+    "dbrx": ((48, 8, 128), 2086, ((2047, ops.NO_WINDOW), (2047, 1024),
+                                  (40, 1024))),
+    "zamba2": ((32, 32, 64), 547, ((543, ops.NO_WINDOW),
+                                   (40, ops.NO_WINDOW))),
+    "seamless-cross": ((16, 16, 64), 4096, ((4095, ops.NO_WINDOW),)),
+}
+
+
+@pytest.mark.parametrize("case", K8_RANK_CASES)
+def test_k8_plan_and_plain_version_at_a_ranks_heads(case):
+    """K8 at a rank's heads of gemma3-27b (8 q / 4 kv of 32 / 16),
+    dbrx-132b (12 / 2 of 48 / 8), zamba2-1.2b's shared block (8 / 8 of 32 /
+    32) and seamless-m4t-large-v2's cross attention (4 / 4 of 16 / 16) over
+    4 ranks: the GQA ratio and so the kernel instance (head group) are the
+    full model's, the plan fills at most one wave of an H100 (132 SMs, 2
+    blocks an SM) with at least the full model's splits, and the plain
+    version on each rank's heads is that rank's slice of the full-head
+    result bit for bit."""
+    (h, hkv, hd), s, positions = K8_RANK_CASES[case]
     world = 4
     hl, hkvl = h // world, hkv // world
     assert swa_kernel.head_group(hl // hkvl) == swa_kernel.head_group(
         h // hkv)
-    for cache_len, window in ((2047, ops.NO_WINDOW), (2047, 1024),
-                              (40, 1024)):
-        full = swa_kernel.plan(4, 2086, h, hkv, cache_len, window, 132, 2,
-                               64)
-        loc = swa_kernel.plan(4, 2086, hl, hkvl, cache_len, window, 132, 2,
-                              64)
+    for cache_len, window in positions:
+        full = swa_kernel.plan(4, s, h, hkv, cache_len, window, 132, 2, 64)
+        loc = swa_kernel.plan(4, s, hl, hkvl, cache_len, window, 132, 2, 64)
         assert loc["group"] == full["group"]
         assert loc["units"] * world == full["units"]
         assert loc["blocks"] <= 132 * 2 and loc["waves"] == 1

@@ -1,4 +1,5 @@
-"""Rank functions of tests/test_torch_tp.py and tests/test_torch_seq.py.
+"""Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py
+and tests/test_torch_seq.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -196,3 +197,56 @@ def seq_tests_rank(mp, engine_cases, attn_cases) -> dict:
     """tests/test_torch_seq.py's one spawn: `seq_rank` and `shmap_rank`."""
     return dict(engine=seq_rank(mp, engine_cases),
                 attn=shmap_rank(mp, attn_cases))
+
+
+def family_rank(mp, cases) -> dict:
+    """One rank of tests/test_torch_tp_families.py: for each case (name,
+    arch, ssm_impl, vocab, params_np, tokens, frontend, feed, max_len) the
+    arch's smoke config in float32 (vocab replaced where given) from the
+    reference's numpy params, its "tp" shard and the gather back (bit for
+    bit, per leaf), the forward, the engine's prefill (the cache right
+    after it) and a decode step per feed[i] (B, 1), each part's
+    collectives counted and every all-reduce's result digested."""
+    digests = record_reductions(mp)
+    out = {}
+    for name, arch, impl, vocab, params_np, tokens, frontend, feed, \
+            max_len in cases:
+        cfg = dataclasses.replace(smoke_cfg(arch), ssm_impl=impl)
+        if vocab:
+            cfg = dataclasses.replace(cfg, vocab=vocab)
+        full = Z.params_from_numpy(params_np, cfg, device="cpu")
+        tmpl = Z.templates(cfg)
+        layout = SH.param_layouts(tmpl, mp.mesh, "tp")
+        shard = MB.shard_params(full, tmpl, layout, mp)
+        back = MB.gather_params(shard, tmpl, layout, mp)
+        round_trip = [torch.equal(a, b) for a, b in
+                      zip(MB.tree_leaves(back), MB.tree_leaves(full))]
+        shard_shapes = [tuple(a.shape) for a in MB.tree_leaves(shard)]
+        del full, back
+        batch = {"tokens": torch.as_tensor(tokens)}
+        enc_len = 0
+        if frontend is not None:
+            batch["frontend"] = torch.as_tensor(frontend)
+            enc_len = batch["frontend"].shape[1]
+        start = len(digests)
+        mp.reset_counts()
+        logits, _ = Z.forward(shard, cfg, batch, mp)
+        calls = {"forward": dict(mp.calls)}
+        b, s = batch["tokens"].shape
+        cache = E.init_cache(cfg, b, max_len, enc_len, device="cpu", mp=mp)
+        mp.reset_counts()
+        lg, cache = E.prefill(shard, cfg, batch, cache, mp)
+        calls["prefill"] = dict(mp.calls)
+        prefill_cache = {k: v.clone() for k, v in cache.items()}
+        step_logits = [lg[:, -1]]
+        mp.reset_counts()
+        for i, tok in enumerate(feed):
+            lg, cache = E.decode_step(shard, cfg, torch.as_tensor(tok),
+                                      cache, s + i, mp)
+            step_logits.append(lg[:, -1])
+        calls["decode"] = dict(mp.calls)
+        out[name] = dict(round_trip=round_trip, shard_shapes=shard_shapes,
+                         logits=logits, step_logits=step_logits,
+                         prefill_cache=prefill_cache, cache=cache,
+                         calls=calls, digests=digests[start:])
+    return out
