@@ -261,7 +261,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    lm]'s spawn, on its shards, gemma3-27b under "seqkv" held to [lm]'s
    teacher-fed rerun at [tp lm]'s bar, per rank the cache's bytes,
    prefill s, median ms a step, the collectives a step by kind and K8
-   partials = 62 x 8;
+   partials = 62 x 8. Where the ranks do not divide the kv heads (each
+   rank holding whole the kv heads its query heads read,
+   `parallel.kv_heads`), inside [tp lm]'s spawn of 4 ranks: `[tp kvrep
+   parity]` starcoder2-smoke and dbrx-smoke (4 query / 2 kv heads: one kv
+   head a rank) in float32 against the card's unsharded run at [tp
+   parity]'s bars, K8 = layers x steps a rank; `[tp kvrep lm]`
+   starcoder2-3b at full width and depth in bfloat16 (24 query / 2 kv
+   heads: 6 / 1 a rank, ranks 0-1 holding kv head 0 and ranks 2-3 kv head
+   1), a prefill of 4 x 2048 tokens and 8 decode steps fed the unsharded
+   run's greedy tokens, held to that run at [tp lm]'s bar; per rank K8 =
+   30 x 8, peak memory, the cache's bytes, prefill s, median ms a step
+   and the collectives a step by kind;
 8c. `[ssm lm]` rwkv6-1.6b (24 layers) and zamba2-1.2b (38 layers, 6
    shared-block applications) at their published widths and full depth in
    bfloat16, the weights drawn on the card: prefill of 4 prompts of 512
@@ -389,7 +400,7 @@ from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
 from repro_torch.models.parallel import (  # noqa: E402
-    SEQ_VARIANTS, combine_partials)
+    SEQ_VARIANTS, combine_partials, kv_heads)
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
@@ -426,12 +437,18 @@ K8_BF16_RTOL, K8_BF16_ATOL = 2.0 ** -7, 1e-5
 # [ssm lm] (32 heads of 64, no GQA) over its cache of 512 + 32 + 3; and
 # seamless-m4t-large-v2's cross attention in [encdec lm] (16 heads of 64,
 # no GQA) over its 4096 cached encoder frames; and those two at one of 4
-# ranks' heads ([tp families lm]: 8 and 4 heads).
+# ranks' heads ([tp families lm]: 8 and 4 heads); and starcoder2-3b's
+# decode attention in [tp kvrep lm] over its cache of 2048 + 8 (24 query /
+# 2 kv heads of 128: rep 12, two blocks of the group-8 instance) and at one
+# of 4 ranks' heads (6 query heads and the one kv head they read: rep 6,
+# one block with 2 heads masked).
 K8_SHAPES = {"global": (4, 32, 16, 128, 4096), "ring": (4, 32, 16, 128, 1024),
              "long": (1, 32, 16, 128, 131072), "zamba2": (4, 32, 32, 64, 547),
              "encdec_cross": (4, 16, 16, 64, DECODE_ENC_LEN),
              "zamba2_tp4": (4, 8, 8, 64, 547),
-             "encdec_cross_tp4": (4, 4, 4, 64, DECODE_ENC_LEN)}
+             "encdec_cross_tp4": (4, 4, 4, 64, DECODE_ENC_LEN),
+             "starcoder2": (4, 24, 2, 128, 2056),
+             "starcoder2_tp4": (4, 6, 1, 128, 2056)}
 # ... and one whose grid (B=1, 2 kv heads, 32 splits: 64 blocks) leaves room
 # for a second call's on the card, for the two-stream check.
 K8_PAIR_SHAPE = (1, 4, 2, 128, 2048)
@@ -612,6 +629,21 @@ TP_FAMILY_CASES = (("rwkv6-1.6b", "scan", 0), ("rwkv6-1.6b", "chunked", 0),
                    ("zamba2-1.2b", "scan", 0), ("zamba2-1.2b", "chunked", 0),
                    (ENCDEC_ARCH, "scan", 0), (ENCDEC_ARCH, "scan", TP_ODD_VOCAB))
 TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
+# "tp" where the ranks do not divide the kv heads: each rank holds whole
+# the kv heads its query heads read (`parallel.kv_heads`), so a kv head
+# sits on several ranks. Both phases run inside [tp lm]'s spawn of
+# TP_WORLD ranks. [tp kvrep parity]: KVREP_PARITY_ARCHS' smoke configs (4
+# query / 2 kv heads: one kv head a rank, ranks 0-1 holding kv head 0 and
+# ranks 2-3 kv head 1; dbrx-smoke 1 expert a rank) in float32 against the
+# card's unsharded run of the same params at [tp parity]'s bars, K8 =
+# layers x steps a rank. [tp kvrep lm]: KVREP_LM_ARCH (24 query / 2 kv
+# heads: 6 / 1 a rank) at its published widths and full depth in
+# bfloat16, drawn on the card from seed 0 (each rank keeping its pieces),
+# a prefill of KVREP_LM_BATCH x KVREP_LM_PROMPT tokens and TP_STEPS decode
+# steps fed the unsharded run's greedy tokens, held to that run at [tp
+# lm]'s bar (`check_tp_logits`).
+KVREP_PARITY_ARCHS = ("starcoder2-3b", "dbrx-132b")
+KVREP_LM_ARCH, KVREP_LM_BATCH, KVREP_LM_PROMPT = "starcoder2-3b", 4, 2048
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -2972,7 +3004,8 @@ def phase_k8_parity(errs) -> None:
 
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (64, 128):
-            for h, hkv in ((4, 4), (8, 4), (16, 4), (14, 2), (24, 2)):
+            for h, hkv in ((4, 4), (8, 4), (16, 4), (14, 2), (24, 2),
+                           (6, 1)):
                 q, k, v = k8_inputs(2, h, hkv, hd, s, dtype, seed=n)
                 for window in (ops.NO_WINDOW, 1024, 100):
                     for cache_len in (0, 255, 256, s - 1):
@@ -3984,18 +4017,19 @@ def tp_shard(mp, cfg, seed: int) -> dict:
     return MB.tree_map(lambda a: a.to(mp.device), shard)
 
 
-def tp_parity_rank(mp, cases) -> dict:
-    """[tp parity] and [seq parity], one rank: for each (arch, tokens,
-    feed) its shard of the smoke config in float32 (seed 3), prefill and
-    decode fed `feed` through lm_serve under the "tp" layout and then
-    under each of SEQ_VARIANTS (the "seq" cache); the launch counts set to
-    0 before each run and read after. Keys "arch/variant" ("auto": tp)."""
+def tp_parity_rank(mp, cases, variants=("auto", *SEQ_VARIANTS)) -> dict:
+    """[tp parity] and [seq parity] (or [tp kvrep parity], "auto" alone),
+    one rank: for each (arch, tokens, feed) its shard of the smoke config
+    in float32 (seed 3), prefill and decode fed `feed` through lm_serve
+    under each of `variants` ("auto": the "tp" layout; a sequence-sharded
+    one: the "seq" cache); the launch counts set to 0 before each run and
+    read after. Keys "arch/variant"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for arch, tokens, feed in cases:
         cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
         params = tp_shard(mp, cfg, 3)
-        for variant in ("auto", *SEQ_VARIANTS):
+        for variant in variants:
             vcfg = dataclasses.replace(cfg, attn_shard=variant)
             ops.reset_launch_counts()        # this rank's path starts here
             mp.reset_counts()
@@ -4012,20 +4046,15 @@ def tp_parity_rank(mp, cases) -> dict:
     return out
 
 
-def phase_tp_parity(card: str) -> dict:
-    """[tp parity] gemma3-smoke and dbrx-smoke in float32 over
-    TP_PARITY_WORLD ranks against the card's unsharded run of the same
-    params (drawn on the CPU from one seed): prefill of TP_PARITY_BATCH x
-    TP_PARITY_PROMPT tokens (past gemma3-smoke's window: its rings wrap)
-    and TP_PARITY_STEPS decode steps, the ranks fed the unsharded run's
-    greedy tokens: logits within TP_RTOL / TP_ATOL, greedy tokens exact
-    where the margin exceeds TP_TOKEN_MARGIN, expert choices exact where
-    the router leaves ROUTE_LOG_MARGIN, the ranks' logits bit-equal, K8
-    = layers x steps on every rank."""
-    t0 = time.perf_counter()
-    backend, devices = transport(TP_PARITY_WORLD, "cuda")
+def tp_parity_refs(archs) -> tuple[dict, list]:
+    """The card's unsharded runs that [tp parity] and [tp kvrep parity]
+    hold their ranks to, per arch: its smoke config in float32 drawn on
+    the CPU from seed 3, a prefill of TP_PARITY_BATCH x TP_PARITY_PROMPT
+    tokens (past gemma3-smoke's window: its rings wrap) and
+    TP_PARITY_STEPS greedy decode steps (lm_serve); and the ranks' cases
+    (arch, tokens, the tokens fed)."""
     refs, cases = {}, []
-    for arch in TP_PARITY_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
         params = MB.tree_map(lambda a: a.to("cuda"), MB.materialize(
             Z.templates(cfg), torch.Generator().manual_seed(3)))
@@ -4036,58 +4065,75 @@ def phase_tp_parity(card: str) -> dict:
                       [f.numpy() for f in refs[arch]["fed"]]))
         del params
     free_cuda()
+    return refs, cases
+
+
+def check_tp_parity(arch, got, want, tag, backend, n_cards, card) -> dict:
+    """One smoke config's "tp" run on every rank (`got`, per rank, from
+    tp_parity_rank) against the card's unsharded run `want`: logits within
+    TP_RTOL / TP_ATOL, greedy tokens exact where the margin exceeds
+    TP_TOKEN_MARGIN, expert choices exact where the router leaves
+    ROUTE_LOG_MARGIN, the ranks' logits bit-equal, K8 = layers x steps on
+    every rank."""
+    cfg = CFG.get_smoke(arch)
+    err, greedy, routes = 0.0, 0, 0
+    for r, rank in enumerate(got):
+        assert rank["k8"] == cfg.n_layers * TP_PARITY_STEPS, (tag, arch, r,
+                                                              rank["k8"])
+        for i, (g, w) in enumerate(zip(rank["logits"], want["logits"])):
+            g = torch.from_numpy(g)
+            torch.testing.assert_close(
+                g, w, rtol=TP_RTOL, atol=TP_ATOL,
+                msg=lambda m: f"[{tag}] {arch} rank {r} step {i}: {m}")
+            err = max(err, float((g - w).abs().max()))
+            top2 = torch.topk(w, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > TP_TOKEN_MARGIN
+            assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
+            greedy += int(sure.sum())
+            np.testing.assert_array_equal(got[0]["logits"][i],
+                                          rank["logits"][i])
+        if cfg.arch_type == "moe":
+            routes += check_routes(
+                [(torch.from_numpy(p), torch.from_numpy(i))
+                 for p, i in rank["routes"]], want["routes"], cfg.top_k,
+                f"[{tag}] {arch} rank {r}")[0]
+    assert greedy > 0, (tag, arch)
+    print(f"[{tag}] {cfg.name} (float32; {cfg.n_heads} query / "
+          f"{cfg.n_kv_heads} kv heads) over {len(got)} ranks ({backend}, "
+          f"{n_cards} card(s), {card}) against the card's unsharded run: "
+          f"prefill of {TP_PARITY_BATCH} x {TP_PARITY_PROMPT} tokens + "
+          f"{TP_PARITY_STEPS} decode steps fed its greedy tokens, max |err| "
+          f"{err:.3g} (bars rtol {TP_RTOL}, atol {TP_ATOL}), {greedy} greedy "
+          f"tokens equal"
+          + (f", expert choices equal for {routes} token-layers"
+             if routes else "")
+          + f"; the ranks' logits bit-equal; K8 per rank "
+          f"{[rank['k8'] for rank in got]} = {cfg.n_layers} x "
+          f"{TP_PARITY_STEPS}; collectives per rank {got[0]['calls']}")
+    return dict(err=err, k8_per_rank=[rank["k8"] for rank in got])
+
+
+def phase_tp_parity(card: str) -> dict:
+    """[tp parity] gemma3-smoke and dbrx-smoke in float32 over
+    TP_PARITY_WORLD ranks against the card's unsharded run of the same
+    params (`tp_parity_refs`), the ranks fed the unsharded run's greedy
+    tokens (`check_tp_parity`); then [seq parity] (`seq_parity_check`)."""
+    t0 = time.perf_counter()
+    backend, devices = transport(TP_PARITY_WORLD, "cuda")
+    refs, cases = tp_parity_refs(TP_PARITY_ARCHS)
     ranks = spawn_ranks(TP_PARITY_WORLD, tp_parity_rank, (cases,),
                         device="cuda", timeout_s=600)
-    ranks = [{k: v for k, v in rank.items()} for rank in ranks]
+    n_cards = len(set(map(str, devices)))
     out = {}
     for arch in TP_PARITY_ARCHS:
-        for rank in ranks:
-            rank[arch] = rank[f"{arch}/auto"]
         cfg = CFG.get_smoke(arch)
-        want = refs[arch]
-        err, greedy, routes = 0.0, 0, 0
-        for r, rank in enumerate(ranks):
-            got = rank[arch]
-            assert got["k8"] == cfg.n_layers * TP_PARITY_STEPS, (arch, r,
-                                                                 got["k8"])
-            for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
-                g = torch.from_numpy(g)
-                torch.testing.assert_close(
-                    g, w, rtol=TP_RTOL, atol=TP_ATOL,
-                    msg=lambda m: f"[tp parity] {arch} rank {r} step {i}: "
-                    f"{m}")
-                err = max(err, float((g - w).abs().max()))
-                top2 = torch.topk(w, 2, dim=-1).values
-                sure = (top2[:, 0] - top2[:, 1]) > TP_TOKEN_MARGIN
-                assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
-                greedy += int(sure.sum())
-                np.testing.assert_array_equal(
-                    ranks[0][arch]["logits"][i], rank[arch]["logits"][i])
-            if cfg.arch_type == "moe":
-                routes += check_routes(
-                    [(torch.from_numpy(p), torch.from_numpy(i))
-                     for p, i in got["routes"]], want["routes"], cfg.top_k,
-                    f"[tp parity] {arch} rank {r}")[0]
-        assert greedy > 0, arch
-        print(f"[tp parity] {cfg.name} (float32) over {TP_PARITY_WORLD} "
-              f"ranks ({backend}, {len(set(map(str, devices)))} card(s), "
-              f"{card}) against the card's unsharded run: prefill of "
-              f"{TP_PARITY_BATCH} x {TP_PARITY_PROMPT} tokens + "
-              f"{TP_PARITY_STEPS} decode steps fed its greedy tokens, max "
-              f"|err| {err:.3g} (bars rtol {TP_RTOL}, atol {TP_ATOL}), "
-              f"{greedy} greedy tokens equal"
-              + (f", expert choices equal for {routes} token-layers"
-                 if routes else "")
-              + f"; the ranks' logits bit-equal; K8 per rank "
-              f"{[rank[arch]['k8'] for rank in ranks]} = {cfg.n_layers} x "
-              f"{TP_PARITY_STEPS}; collectives per rank "
-              f"{ranks[0][arch]['calls']}")
-        out[arch] = dict(err=err, k8_per_rank=[rank[arch]["k8"]
-                                               for rank in ranks])
+        out[arch] = check_tp_parity(
+            arch, [rank[f"{arch}/auto"] for rank in ranks], refs[arch],
+            "tp parity", backend, n_cards, card)
         for variant in SEQ_VARIANTS:
             out[f"{arch}/{variant}"] = seq_parity_check(
                 cfg, variant, [rank[f"{arch}/{variant}"] for rank in ranks],
-                want, backend, card)
+                refs[arch], backend, card)
     print(f"[tp parity] done in {time.perf_counter() - t0:.1f} s (with "
           f"[seq parity])")
     return out
@@ -4148,15 +4194,17 @@ def seq_parity_check(cfg, variant, got, want, backend, card) -> dict:
                 k8_partial_per_rank=[rank["k8_partial"] for rank in got])
 
 
-def tp_lm_rank(mp, jobs) -> dict:
-    """[tp lm] / [tp moe] and [seq lm], one rank: for each job its shard
-    of the config at full width (cut to job["layers"] where given) in
-    bfloat16, drawn as the unsharded phase drew it (seed 0 on the card)
-    keeping only this rank's blocks, served by `tp_lm_serve` (key: the
-    arch); where job["seq"] names a sequence-sharded variant, the same
-    shard served again under it with the "seq" cache (key: "arch/seq")."""
+def tp_lm_rank(mp, jobs, parity=()) -> dict:
+    """[tp lm] / [tp moe] / [tp kvrep lm] and [seq lm], one rank: for each
+    job its shard of the config at full width (cut to job["layers"] where
+    given) in bfloat16, drawn as the unsharded phase drew it (seed 0 on
+    the card) keeping only this rank's pieces, served by `tp_lm_serve`
+    (key: the arch); where job["seq"] names a sequence-sharded variant,
+    the same shard served again under it with the "seq" cache (key:
+    "arch/seq"). First [tp kvrep parity]: `tp_parity_rank` of the `parity`
+    cases under "auto" (key: "kvrep parity")."""
     dev = mp.device
-    out = {}
+    out = {"kvrep parity": tp_parity_rank(mp, parity, ("auto",))}
     for job in jobs:
         cfg = CFG.get(job["arch"])
         if job["layers"]:
@@ -4305,10 +4353,44 @@ def check_tp_logits(got, ref, tag, spread=None) -> tuple[float, int]:
     return worst, greedy
 
 
+def kvrep_lm_reference(card: str) -> dict:
+    """What [tp kvrep lm] holds its ranks to: KVREP_LM_ARCH at full width
+    and depth in bfloat16 on one card, drawn from seed 0 on the card (the
+    tokens the generator's next draw), a prefill of KVREP_LM_BATCH x
+    KVREP_LM_PROMPT tokens and TP_STEPS greedy decode steps (lm_serve:
+    logits on the CPU, the tokens fed)."""
+    cfg = CFG.get(KVREP_LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+    tokens = torch.randint(0, cfg.vocab, (KVREP_LM_BATCH, KVREP_LM_PROMPT),
+                           generator=gen, device="cuda")
+    nbytes = sum(a.numel() * a.element_size()
+                 for a in MB.tree_leaves(params))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = lm_serve(params, cfg, tokens, TP_STEPS, "cuda")
+    sync()
+    run_s = time.perf_counter() - t0
+    assert all(bool(torch.isfinite(a).all()) for a in ref["logits"])
+    print(f"[tp kvrep lm] {cfg.name} unsharded on one card ({card}): "
+          f"{cfg.param_count()} parameters, {nbytes} bytes in {cfg.dtype}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} query / {cfg.n_kv_heads} kv "
+          f"heads of {cfg.hd}; prefill {KVREP_LM_BATCH} x {KVREP_LM_PROMPT} "
+          f"tokens + {TP_STEPS} greedy decode steps in {run_s:.3f} s "
+          f"(logits copied to the host each step); peak memory "
+          f"{torch.cuda.max_memory_allocated()} bytes; logits finite")
+    del params
+    free_cuda()
+    return dict(tokens=tokens.cpu(), **ref)
+
+
 def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
-    """[tp lm] gemma3-27b at full width and depth and [tp moe] dbrx-132b
-    at [moe lm]'s depth, in bfloat16 over TP_WORLD ranks (one spawn for
-    both), against [lm]'s / [moe lm]'s teacher-fed reruns: the logits of
+    """[tp lm] gemma3-27b at full width and depth, [tp moe] dbrx-132b at
+    [moe lm]'s depth and [tp kvrep lm] starcoder2-3b at full depth (its 2
+    kv heads undivided by the ranks), in bfloat16 over TP_WORLD ranks (one
+    spawn for all, [tp kvrep parity] in it too), against [lm]'s / [moe
+    lm]'s teacher-fed reruns and `kvrep_lm_reference`: the logits of
     the prefill and of each of TP_STEPS decode steps within
     TP_BF16_STD_TOL of the step's logit standard deviation on every row,
     greedy tokens equal where the unsharded top-2 margin exceeds the bar
@@ -4319,13 +4401,18 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
     steps on every rank; per rank the shard's bytes, the peak memory,
     prefill s, median ms a step and the collectives a step. Then [seq lm]:
     gemma3-27b on the same shards under SEQ_LM_VARIANT with the "seq"
-    cache (`seq_lm_report`)."""
+    cache (`seq_lm_report`). [tp kvrep parity]: KVREP_PARITY_ARCHS' smoke
+    configs against `tp_parity_refs` (`check_tp_parity`)."""
     t0 = time.perf_counter()
     backend, devices = transport(TP_WORLD, "cuda")
     n_cards = len(set(map(str, devices)))
+    parity_refs, parity_cases = tp_parity_refs(KVREP_PARITY_ARCHS)
     jobs = [dict(arch=LM_ARCH, layers=None, ref=lm_ref, seq=SEQ_LM_VARIANT),
             dict(arch=TP_MOE_ARCH, layers=MOE_LM_LAYERS[TP_MOE_ARCH],
-                 ref=moe_ref, seq=None)]
+                 ref=moe_ref, seq=None),
+            dict(arch=KVREP_LM_ARCH, layers=None,
+                 ref=kvrep_lm_reference(card), seq=None)]
+    ref_s = time.perf_counter() - t0
     ranks = spawn_ranks(
         TP_WORLD, tp_lm_rank,
         ([dict(arch=j["arch"], layers=j["layers"], seq=j["seq"],
@@ -4333,13 +4420,19 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
                feed=[f.numpy() for f in j["ref"]["fed"]],
                gates=([i.numpy() for _, i in j["ref"]["routes"]]
                       if j["arch"] == TP_MOE_ARCH else None))
-          for j in jobs],),
+          for j in jobs], parity_cases),
         device="cuda", timeout_s=900)
-    spawn_s = time.perf_counter() - t0
-    out = {}
+    spawn_s = time.perf_counter() - t0 - ref_s
+    out = {"kvrep parity": {
+        arch: check_tp_parity(
+            arch, [rank["kvrep parity"][f"{arch}/auto"] for rank in ranks],
+            parity_refs[arch], "tp kvrep parity", backend, n_cards, card)
+        for arch in KVREP_PARITY_ARCHS}}
+    tags = {LM_ARCH: "tp lm", TP_MOE_ARCH: "tp moe",
+            KVREP_LM_ARCH: "tp kvrep lm"}
     for job in jobs:
         arch, ref = job["arch"], job["ref"]
-        tag = "tp lm" if arch == LM_ARCH else "tp moe"
+        tag = tags[arch]
         cfg = CFG.get(arch)
         layers = job["layers"] or cfg.n_layers
         b, s = ref["tokens"].shape
@@ -4352,8 +4445,11 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
             dlog, dshare, compared, skipped = check_rank_routes(
                 [rank[arch]["routes"] for rank in ranks], ref["routes"],
                 cfg.top_k, tag)
+        held = kv_heads(cfg.n_heads, cfg.n_kv_heads, TP_WORLD, 0)
         print(f"[{tag}] {cfg.name}, {layers} of {cfg.n_layers} layers in "
-              f"bfloat16, over {TP_WORLD} ranks ({backend}; {n_cards} "
+              f"bfloat16 ({cfg.n_heads} query / {cfg.n_kv_heads} kv heads, "
+              f"{cfg.n_heads // TP_WORLD} / {len(held)} a rank), over "
+              f"{TP_WORLD} ranks ({backend}; {n_cards} "
               f"card(s): {card}): prefill {b} x {s} tokens + {TP_STEPS} "
               f"decode steps fed the unsharded run's greedy tokens; logits "
               f"within {worst:.3f} of the bar ({TP_BF16_STD_TOL} x the "
@@ -4373,7 +4469,8 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
             got = rank[arch]
             med = statistics.median(got["step_ms"])
             print(f"[{tag}]   rank {r}: shard {got['shard_bytes']} bytes "
-                  f"drawn in {got['make_s']:.2f} s; prefill "
+                  f"drawn in {got['make_s']:.2f} s; cache "
+                  f"{got['cache_bytes']} bytes; prefill "
                   f"{got['prefill_s']:.3f} s; median {med:.3f} ms a decode "
                   f"step (min {min(got['step_ms']):.3f}, max "
                   f"{max(got['step_ms']):.3f}); peak memory {got['peak']} "
@@ -4387,6 +4484,10 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
                             for rank in ranks],
             prefill_s=[rank[arch]["prefill_s"] for rank in ranks],
             peak_bytes=[rank[arch]["peak"] for rank in ranks],
+            cache_bytes=[rank[arch]["cache_bytes"] for rank in ranks],
+            calls_per_step=[{k: v / TP_STEPS
+                             for k, v in rank[arch]["calls"].items()}
+                            for rank in ranks],
             worst_share_of_bar=worst, backend=backend, cards=n_cards,
             **({"route_log_err": dlog, "route_share_of_bar": dshare}
                if cfg.arch_type == "moe" else {}))
@@ -4394,8 +4495,10 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
             out[f"{arch}/seq"] = seq_lm_report(
                 [rank[f"{arch}/seq"] for rank in ranks], ref, cfg,
                 job["seq"], backend, n_cards, card)
-    print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the ranks "
-          f"{spawn_s:.1f} s of it, [seq lm] included); the times are "
+    print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the "
+          f"unsharded reference runs {ref_s:.1f} s, the ranks {spawn_s:.1f} "
+          f"s of it, [seq lm], [tp kvrep parity] and [tp kvrep lm] "
+          f"included); the times are "
           f"{TP_WORLD} processes "
           + ("sharing one card over gloo, not a sharded deployment's"
              if n_cards < TP_WORLD else f"on {n_cards} cards over {backend}"))
@@ -5457,6 +5560,9 @@ def main() -> None:
            for a, r in tp_parity.items() if "/" not in a},
         "tp_lm_launches_per_rank": tp_lm[LM_ARCH]["k8_per_rank"],
         "tp_moe_launches_per_rank": tp_lm[TP_MOE_ARCH]["k8_per_rank"],
+        "tp_kvrep_lm_launches_per_rank": tp_lm[KVREP_LM_ARCH]["k8_per_rank"],
+        **{f"tp_kvrep_parity_{a.split('-')[0]}_launches_per_rank":
+           r["k8_per_rank"] for a, r in tp_lm["kvrep parity"].items()},
         **{f"tp_families_parity_{re.sub(r'[^0-9a-z]+', '_', a)}"
            f"_launches_per_rank": r["k8_per_rank"]
            for a, r in tp_families_parity.items()},
@@ -5491,7 +5597,8 @@ def main() -> None:
                        blocks=tm["plan"]["blocks"],
                        blocks_per_sm=tm["plan"]["blocks_per_sm"])
             for shape in ("ring", "long", "zamba2", "encdec_cross",
-                          "zamba2_tp4", "encdec_cross_tp4"):
+                          "zamba2_tp4", "encdec_cross_tp4", "starcoder2",
+                          "starcoder2_tp4"):
                 for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                             "cuda_launches_per_call"):
                     row[f"{shape}_{key}"] = k8[shape][key]

@@ -140,6 +140,9 @@ class ParamTemplate:
     axes: tuple[str | None, ...]      # logical axis name per dim (None = replicated)
     init: str = "normal"              # normal | zeros | ones | small
     scale: float = 0.02
+    # the width of one head along the last dim (attention's wk / wv), so
+    # that `parallel.rank_pieces` can hold whole kv heads; 0 elsewhere
+    head_dim: int = 0
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -239,9 +242,10 @@ def shard_params(params, templates, layout, mp) -> dict:
     `materialize` or `zoo.params_from_numpy`) under `layout`, a layout
     tree on mp.mesh (`launch.sharding.param_layouts`): each cut leaf is
     cut to the pieces this rank holds (`parallel.rank_pieces`: its block,
-    or a Mamba2 mixer's head-aligned pieces) and copied, so the full leaf
-    can be freed; a whole leaf is the same tensor. Leaves are checked
-    against the templates' shapes."""
+    a Mamba2 mixer's head-aligned pieces, or the columns of the kv heads
+    its query heads read) and copied, so the full leaf can be freed; a
+    whole leaf is the same tensor. Leaves are checked against the
+    templates' shapes."""
     def one(a: torch.Tensor, t: ParamTemplate, held: list) -> torch.Tensor:
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f"parameter of shape {tuple(a.shape)}, the "
@@ -261,8 +265,10 @@ def gather_params(shards, templates, layout, mp) -> dict:
     run: each cut leaf all-gathered along its cut dim (the run's only
     axis of more than one rank is "model") and every rank's pieces put
     back where `parallel.rank_pieces` takes them from (a piece held by
-    every rank, as a Mamba2 mixer's B / C columns, is the same bits on
-    each); whole leaves as they are."""
+    several ranks, as a Mamba2 mixer's B / C columns on every rank or a kv
+    head's wk / wv columns on each rank whose query heads read it, is the
+    same bits on each, written once per holder); whole leaves as they
+    are."""
     held = [rank_pieces(templates, layout, mp.mesh, r)
             for r in range(mp.world)]
 
@@ -271,8 +277,11 @@ def gather_params(shards, templates, layout, mp) -> dict:
         for dim, mine in enumerate(ranks[mp.rank]):
             if mine == [(0, t.shape[dim])]:
                 continue
-            covered = sum(m for rank in ranks for _, m in rank[dim])
-            if covered < t.shape[dim]:
+            covered = torch.zeros(t.shape[dim], dtype=torch.bool)
+            for rank in ranks:
+                for s, m in rank[dim]:
+                    covered[s:s + m] = True
+            if not bool(covered.all()):
                 raise ValueError(f"a dim of {t.shape[dim]} cut to "
                                  f"{[m for _, m in mine]} is not covered "
                                  f"by the {mp.world} ranks")
@@ -292,7 +301,8 @@ def gather_params(shards, templates, layout, mp) -> dict:
 
 def stack_templates(t: ParamTemplate, n: int) -> ParamTemplate:
     """Add a leading stacked-layers dim."""
-    return ParamTemplate((n,) + t.shape, ("layers",) + t.axes, t.init, t.scale)
+    return dataclasses.replace(t, shape=(n,) + t.shape,
+                               axes=("layers",) + t.axes)
 
 
 def stack_tree(tree, n: int):

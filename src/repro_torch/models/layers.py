@@ -13,12 +13,15 @@ hand-written flash-decode kernel on a CUDA tensor, its plain version on a
 CPU tensor; so does an encoder-decoder's cross attention of one query
 over the cached encoder K/V. Under model parallelism (`models.parallel`;
 every family) attention and the MLP run on a rank's shard as they are:
-the head counts come from the local weights' shapes, and the caller sums
-the output projection's partial sums over the ranks; the expert-parallel
-`moe_ffn_shmap` routes over every expert, runs the rank's own and sums
-over the ranks itself. The reference's sequence-sharded variants
-(cfg.attn_shard "seqkv" / "shmap", its `_seq_shard` constraints and
-`shmap_attention`) cut the keys over the ranks instead: `attention`
+the head counts come from the local weights' shapes (where the ranks do
+not divide the kv heads, a rank's kv heads are the ones its query heads
+read, `parallel.kv_heads`, so the local GQA is the reference's), and the
+caller sums the output projection's partial sums over the ranks; the
+expert-parallel `moe_ffn_shmap` routes over every expert, runs the
+rank's own and sums over the ranks itself. The reference's
+sequence-sharded variants (cfg.attn_shard "seqkv" / "shmap", its
+`_seq_shard` constraints and `shmap_attention`) cut the keys over the
+ranks instead: `attention`
 gathers the rank's q / k / v heads whole where a step needs them, each
 rank attends over its block of the keys and `models.parallel
 .combine_partials` merges the ranks' softmax states — `shmap_attention`
@@ -43,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.parallel import SEQ_VARIANTS, combine_partials
+from repro_torch.models.parallel import (SEQ_VARIANTS, combine_partials,
+                                         kv_gather_index)
 
 # ---------------------------------------------------------------------------
 # Norms and activations
@@ -248,21 +252,31 @@ def _full_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
 def seq_cut(mp, leaf: torch.Tensor, n_kv_heads: int) -> bool:
     """Whether a rank's K/V cache leaf (..., S_loc, Hkv, hd) is cut over
     its slots (the "seq" layout: every kv head, a block of the slots)
-    rather than over the kv heads."""
+    rather than over the kv heads. A rank's kv heads (`parallel.kv_heads`)
+    are fewer than the model's wherever `check_tp` lets more than one
+    rank run, so the leaf's head count tells the two apart."""
     return mp is not None and mp.world > 1 and leaf.shape[-2] == n_kv_heads
 
 
-def _gather_heads(mp, *parts) -> list[torch.Tensor]:
-    """Each of `parts` (B, S, n_i, hd), a rank's block of heads, whole:
-    one all-gather of them packed along the head dim, each returned as
-    (B, S, world * n_i, hd) in rank order (the "tp" layout's head
-    order)."""
+def _gather_heads(mp, cfg, q, k, v) -> list[torch.Tensor]:
+    """This rank's query heads q (B, S, h, hd), or None, and the kv heads
+    k, v (B, S, n, hd) it holds (`parallel.kv_heads`), whole: one
+    all-gather of them packed along the head dim. q comes back (B, S,
+    world * h, hd) in rank order (the "tp" layout's head order), k and v
+    (B, S, Hkv, hd) in the model's order, a kv head that several ranks
+    hold taken from the first (`parallel.kv_gather_index`). Returns [q
+    (where given), k, v]."""
+    parts = [t for t in (q, k, v) if t is not None]
     sizes = [t.shape[2] for t in parts]
     full = mp.all_gather(torch.cat(parts, dim=2), dim=2)
     b, s, _, hd = full.shape
     full = full.view(b, s, mp.world, sum(sizes), hd)
-    return [t.reshape(b, s, mp.world * t.shape[3], hd)
-            for t in full.split(sizes, dim=3)]
+    out = [t.reshape(b, s, mp.world * t.shape[3], hd)
+           for t in full.split(sizes, dim=3)]
+    pick = kv_gather_index(cfg.n_heads, cfg.n_kv_heads, mp.world)
+    if pick is not None:
+        out[-2:] = [t[:, :, pick] for t in out[-2:]]
+    return out
 
 
 def _own_heads(mp, out: torch.Tensor, h: int) -> torch.Tensor:
@@ -270,13 +284,13 @@ def _own_heads(mp, out: torch.Tensor, h: int) -> torch.Tensor:
     return out[:, :, mp.rank * h:(mp.rank + 1) * h]
 
 
-def _shmap_fresh(q, k, v, mp, *, causal: bool, window: int,
+def _shmap_fresh(q, k, v, mp, cfg, *, causal: bool, window: int,
                  wire: torch.dtype):
     """`shmap_attention` over the fresh tokens (a forward, a prefill):
     q / k / v's heads gathered whole, the keys cut into the ranks' blocks
     of S / world positions. Returns (the rank's heads of the output (B, S,
     h, hd), k and v whole)."""
-    qf, kf, vf = _gather_heads(mp, q, k, v)
+    qf, kf, vf = _gather_heads(mp, cfg, q, k, v)
     n = kf.shape[1] // mp.world
     blk = slice(mp.rank * n, (mp.rank + 1) * n)
     out = shmap_attention(qf, kf[:, blk], vf[:, blk], mp, causal=causal,
@@ -301,7 +315,7 @@ def _write_block(ck, cv, kf, vf, j0: int, slot0: int, mp) -> None:
         j, slot = j + run, 0
 
 
-def _seq_cached(q, k, v, ck, cv, mp, variant: str, *, causal: bool,
+def _seq_cached(q, k, v, ck, cv, mp, cfg, variant: str, *, causal: bool,
                 window: int, cache_len: int, mode: str, ring_window: int):
     """Attention with a cache leaf cut over its slots (`seq_cut`): the
     rank's heads of the output (B, S, h, hd). Prefill attends the fresh
@@ -319,12 +333,13 @@ def _seq_cached(q, k, v, ck, cv, mp, variant: str, *, causal: bool,
                          f"at {cache_len}")
     if mode == "prefill":
         if variant == "shmap" and not ring_window and s % mp.world == 0:
-            out, kf, vf = _shmap_fresh(q, k, v, mp, causal=causal,
-                                       window=window, wire=SEQ_VARIANTS[variant])
+            out, kf, vf = _shmap_fresh(q, k, v, mp, cfg, causal=causal,
+                                       window=window,
+                                       wire=SEQ_VARIANTS[variant])
         else:
             out = _full_attention(q, k, v, causal=causal,
                                   window=ring_window or window)
-            kf, vf = _gather_heads(mp, k, v)
+            kf, vf = _gather_heads(mp, cfg, None, k, v)
         if ring_window:
             m = min(s, total)
             _write_block(ck, cv, kf, vf, s - m, s - m, mp)
@@ -333,7 +348,7 @@ def _seq_cached(q, k, v, ck, cv, mp, variant: str, *, causal: bool,
         return out
     if s != 1:
         raise ValueError(f"sequence-cut decode writes one token, got {s}")
-    qf, kf, vf = _gather_heads(mp, q, k, v)
+    qf, kf, vf = _gather_heads(mp, cfg, q, k, v)
     _write_block(ck, cv, kf, vf, 0, cache_len, mp)
     out = seq_decode_attention(qf, ck, cv, mp, cache_len=cache_len,
                                window=ring_window or window,
@@ -384,14 +399,14 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     shmap = variant in SEQ_VARIANTS and s % mp.world == 0
     if kv_cache is None:
         if shmap:
-            out = _shmap_fresh(q, k, v, mp, causal=causal, window=window,
+            out = _shmap_fresh(q, k, v, mp, cfg, causal=causal, window=window,
                                wire=SEQ_VARIANTS[variant])[0]
         else:
             out = _full_attention(q, k, v, causal=causal, window=window)
         return out.reshape(b, s, h * hd) @ p["wo"], None
     ck, cv = kv_cache["k"], kv_cache["v"]
     if seq_cut(mp, ck, cfg.n_kv_heads):
-        out = _seq_cached(q, k, v, ck, cv, mp, variant, causal=causal,
+        out = _seq_cached(q, k, v, ck, cv, mp, cfg, variant, causal=causal,
                           window=window, cache_len=cache_len, mode=mode,
                           ring_window=ring_window)
     elif ring_window:
@@ -418,7 +433,7 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
         ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
         if mode == "prefill" and shmap and variant == "shmap":
-            out = _shmap_fresh(q, k, v, mp, causal=causal, window=window,
+            out = _shmap_fresh(q, k, v, mp, cfg, causal=causal, window=window,
                                wire=SEQ_VARIANTS[variant])[0]
         elif mode == "prefill":
             out = _full_attention(q, k, v, causal=causal, window=window)

@@ -11,8 +11,11 @@ layout (`launch/sharding.py`), for every family of the zoo:
     its columns of the MLP, its experts, its rows of the vocabulary where
     the ranks divide it; norms and the router whole. Where the
     reference's cut of a leaf is not a block a rank can compute on alone
-    (Mamba2's fused in_proj / conv_w / conv_b), the rank holds the pieces
-    `rank_pieces` names instead;
+    (Mamba2's fused in_proj / conv_w / conv_b; wk / wv where the ranks do
+    not divide the kv heads, which the reference cuts within a head), the
+    rank holds the pieces `rank_pieces` names instead: for wk / wv, the
+    whole kv heads its query heads read (`kv_heads`), so that several
+    ranks hold one kv head;
   * it runs the layer code on those local shapes;
   * it calls a collective where the reference's sharded program reduces:
     an all-reduce after every row-parallel output projection (attention's
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -113,12 +117,16 @@ class ModelParallel:
 def tp_dims(cfg) -> dict[str, int]:
     """The dims the "tp" layout cuts over the ranks for cfg's family, by
     name: RWKV-6's heads (d_model / rwkv_head_dim) and channel-mix ffn;
-    attention's heads and kv heads and the dense MLP's ffn (a zamba2
-    shared block's, an encdec model's encoder and decoder); Mamba2's
-    heads; the experts."""
+    attention's heads and the dense MLP's ffn (a zamba2 shared block's, an
+    encdec model's encoder and decoder); Mamba2's heads; the experts. The
+    hybrid and encdec families' kv heads too: a rank of the dense and moe
+    families holds whole the kv heads its query heads read
+    (`kv_heads`), where the ranks divide them or not."""
     if cfg.arch_type == "ssm":
         return {"heads": cfg.d_model // cfg.rwkv_head_dim, "ffn": cfg.d_ff}
-    dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
+    dims = {"heads": cfg.n_heads}
+    if cfg.arch_type in ("hybrid", "encdec"):
+        dims["kv heads"] = cfg.n_kv_heads
     if cfg.arch_type == "hybrid":
         dims["ssm heads"] = cfg.ssm_heads
     if cfg.arch_type != "moe" or cfg.dense_residual:
@@ -133,12 +141,19 @@ def check_tp(cfg, world: int) -> None:
     layout as the port executes it: `world` divides every dim of
     `tp_dims(cfg)`. The vocabulary need not divide: the reference's rules
     keep an undivided dim whole, and so does the port (every rank then
-    looks its tokens up and computes the whole logits). The reference's
-    cache rule splits a kv head across ranks where the ranks do not divide
-    the kv heads (`sharding.py` cache_shardings); the port refuses that
-    (ROADMAP item 19). The sequence-sharded variants run the dense, moe
-    and ssm families (the last has no attention to cut) and refuse hybrid
-    and encdec (ROADMAP item 23)."""
+    looks its tokens up and computes the whole logits). Nor need the kv
+    heads of the dense and moe families: where the ranks do not divide
+    them, the reference's rules cut wk / wv and the cache within a head
+    (`sharding.py` spec_from_axes, cache_shardings), which would need the
+    scores summed across the ranks before the softmax; each rank holds
+    instead whole the kv heads its query heads read (`kv_heads`), so a kv
+    head sits on several ranks. That holds unless a rank would hold as
+    many kv heads as the model (one kv head, or 24 query / 2 kv heads
+    over 3 ranks), where a rank's cut of a cache leaf could not be told
+    from the "seq" layout's (`layers.seq_cut`; ROADMAP item 24). The
+    sequence-sharded variants run the dense, moe and ssm families (the
+    last has no attention to cut) and refuse hybrid and encdec (ROADMAP
+    item 23)."""
     if cfg.arch_type not in TP_ARCH_TYPES:
         raise ValueError(f"{cfg.name}: the \"tp\" layout runs the "
                          f"{TP_ARCH_TYPES} families, not {cfg.arch_type!r}")
@@ -153,6 +168,39 @@ def check_tp(cfg, world: int) -> None:
     if bad:
         raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
                          f"needs {world} to divide its {bad}")
+    if cfg.arch_type in ("dense", "moe") and world > 1 and len(kv_heads(
+            cfg.n_heads, cfg.n_kv_heads, world, 0)) == cfg.n_kv_heads:
+        raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
+                         f"would hold all its {cfg.n_kv_heads} kv heads on a "
+                         f"rank (ROADMAP item 24)")
+
+
+def kv_heads(h: int, hkv: int, world: int, rank: int) -> list[int]:
+    """The kv heads that `rank` of `world` holds of a GQA attention of h
+    query heads and hkv kv heads (world divides h), in the order it holds
+    them. Its h / world query heads fall into runs of rep = gcd(h / hkv,
+    h / world) heads, each run inside one kv head's group of h / hkv; it
+    holds one kv head per run, so its local query head j reads its local
+    kv head j // rep, the reference's GQA on the rank's shapes. Where
+    world divides hkv that is its block of hkv / world kv heads (the
+    reference's cut); where hkv divides world, the one kv head its query
+    heads read, which world / hkv ranks hold; otherwise a rank may hold a
+    kv head twice (24 query / 2 kv heads over 3 ranks: [0, 0], [0, 1],
+    [1, 1])."""
+    hl, group = h // world, h // hkv
+    rep = math.gcd(group, hl)
+    return [(rank * hl + j * rep) // group for j in range(hl // rep)]
+
+
+def kv_gather_index(h: int, hkv: int, world: int) -> list[int] | None:
+    """Where each kv head first stands among the ranks' `kv_heads` laid
+    side by side in rank order: the index that takes K / V gathered from
+    every rank to the model's hkv kv heads, each once, in order. None
+    where world divides hkv (the gather is that already)."""
+    if hkv % world == 0:
+        return None
+    held = [j for r in range(world) for j in kv_heads(h, hkv, world, r)]
+    return [held.index(j) for j in range(hkv)]
 
 
 def reduce_partial(mp: ModelParallel | None,
@@ -247,6 +295,7 @@ def mamba_pieces(di: int, n: int, nh: int, world: int,
 
 
 _MAMBA_FUSED = {"in_proj": "in_proj", "conv_w": "conv", "conv_b": "conv"}
+_ATTN = {"wq", "wk", "wv", "wo"}
 
 
 def rank_pieces(templates, layout, mesh, rank: int) -> dict:
@@ -254,25 +303,37 @@ def rank_pieces(templates, layout, mesh, rank: int) -> dict:
     `layout` (`launch.sharding.param_layouts` on mesh): per leaf, per dim,
     the list of (start, length) pieces it holds along that dim, in order.
     A leaf the design holds as the reference lays it out has one piece a
-    dim, its block (`local_slices`). The exceptions are a Mamba2 mixer's
-    in_proj, conv_w and conv_b (a template dict holding in_proj, conv_w,
-    conv_b, out_proj and D), whose last dim holds `mamba_pieces` when the
-    "model" axis has more than one rank: `models.base.shard_params`,
-    `gather_params` and `materialize_shard` read this."""
+    dim, its block (`local_slices`). The exceptions, when the "model" axis
+    has more than one rank: a Mamba2 mixer's in_proj, conv_w and conv_b (a
+    template dict holding in_proj, conv_w, conv_b, out_proj and D), whose
+    last dim holds `mamba_pieces`; an attention's wk and wv (a template
+    dict holding wq, wk, wv and wo, wk's `head_dim` set) where the ranks
+    do not divide the kv heads, whose last dim holds the columns of the
+    rank's `kv_heads`, one piece a head (k_norm stays whole).
+    `models.base.shard_params`, `gather_params` and `materialize_shard`
+    read this."""
     if not isinstance(templates, dict):
         return [[blk] for blk in local_slices(templates.shape, layout, mesh,
                                               rank)]
     out = {k: rank_pieces(templates[k], layout[k], mesh, rank)
            for k in templates}
     coord, world = rank_coords(mesh, rank)["model"], mesh.shape["model"]
-    if world > 1 and {"in_proj", "out_proj", "D", *_MAMBA_FUSED} <= set(
-            templates):
+    if world <= 1:
+        return out
+    if {"in_proj", "out_proj", "D", *_MAMBA_FUSED} <= set(templates):
         di = templates["out_proj"].shape[-2]
         n = (templates["conv_w"].shape[-1] - di) // 2
         pieces = mamba_pieces(di, n, templates["D"].shape[-1], world, coord)
         for k, group in _MAMBA_FUSED.items():
             out[k] = [[(0, m)] for m in templates[k].shape[:-1]] + [
                 pieces[group]]
+    if _ATTN <= set(templates) and templates["wk"].head_dim:
+        hd = templates["wk"].head_dim
+        h, hkv = (templates[k].shape[-1] // hd for k in ("wq", "wk"))
+        if hkv % world:
+            cols = [(j * hd, hd) for j in kv_heads(h, hkv, world, coord)]
+            for k in ("wk", "wv"):
+                out[k] = [[(0, m)] for m in templates[k].shape[:-1]] + [cols]
     return out
 
 

@@ -63,8 +63,8 @@ def _attn_templates(cfg: ModelConfig) -> dict:
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t = {
         "wq": P((d, h * hd), ("embed", "qout")),
-        "wk": P((d, hkv * hd), ("embed", "kvout")),
-        "wv": P((d, hkv * hd), ("embed", "kvout")),
+        "wk": P((d, hkv * hd), ("embed", "kvout"), head_dim=hd),
+        "wv": P((d, hkv * hd), ("embed", "kvout"), head_dim=hd),
         "wo": P((h * hd, cfg.d_model), ("qout", "embed")),
     }
     if cfg.qk_norm:

@@ -41,7 +41,10 @@ the same) leaf by leaf, and prefill and decode run the zoo's blocks with
 mp.
 Under "heads" (cfg.attn_shard "auto") each rank holds its kv heads of
 every K/V entry (gemma3's rings, zamba2's attn_k / attn_v and seamless's
-cross K/V included) and K8 runs on every rank over its local heads; the
+cross K/V included) and K8 runs on every rank over its local heads; where
+the ranks do not divide a dense or moe model's kv heads, a rank's kv
+heads are the ones its query heads read, whole, and several ranks hold
+each (`parallel.kv_heads`), where the reference cuts hd; the
 recurrent states hold the rank's heads ("wkv", "ssm") as the reference
 cuts them, and two leaves are held otherwise (`local_cache_shapes`):
 Mamba2's "conv" at the channels of the rank's heads plus B / C whole, and
@@ -62,7 +65,8 @@ import torch
 from repro_torch.models import layers as Lyr
 from repro_torch.models import zoo as Z
 from repro_torch.models.base import ModelConfig, unstack
-from repro_torch.models.parallel import SEQ_VARIANTS, check_tp, reduce_partial
+from repro_torch.models.parallel import (SEQ_VARIANTS, check_tp, kv_heads,
+                                         reduce_partial)
 
 
 def _windowed(cfg: ModelConfig) -> bool:
@@ -127,15 +131,20 @@ def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
     `cache_policy(cfg)`, leaf by leaf. A K/V leaf, (..., S, Hkv, hd), as
     the reference's rule (`launch.sharding.cache_layouts`): under "seq" a
     leaf whose S the ranks divide is cut into blocks of S / world slots
-    with every kv head; any other has its kv heads cut over the ranks
-    (checked to divide: no within-head split). "wkv" / "ssm" have their
-    head dim (2) cut, as the reference's. Two leaves differ from the
+    with every kv head; any other holds the rank's kv heads
+    (`parallel.kv_heads`), whole: its block of Hkv / world where the ranks
+    divide the kv heads, as the reference's rule, and otherwise the kv
+    heads its query heads read, (..., S, 1, hd) for starcoder2-3b's 2 over
+    4 ranks, where the reference's rule cuts hd instead (a within-head
+    split no rank can attend with alone). "wkv" / "ssm" have their head
+    dim (2) cut, as the reference's. Two leaves differ from the
     reference's channel cut, which splits them where no rank can compute
     on its block: "conv" holds the x channels of the rank's heads and B / C
     whole (`parallel.mamba_pieces`: d_inner / world + 2 N), and
     "tm_shift" / "cm_shift" are whole."""
     check_tp(cfg, mp.world)
     seq, n = cache_policy(cfg) == "seq", mp.world
+    held = len(kv_heads(cfg.n_heads, cfg.n_kv_heads, n, mp.rank))
 
     def one(k, s):
         if k in ("tm_shift", "cm_shift"):
@@ -146,7 +155,7 @@ def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
             return s[:-1] + (cfg.ssm_d_inner // n + 2 * cfg.ssm_state,)
         if seq and s[-3] % n == 0:
             return s[:-3] + (s[-3] // n,) + s[-2:]
-        return s[:-2] + (s[-2] // n, s[-1])
+        return s[:-2] + (held, s[-1])
 
     return {k: (one(k, s), dt) for k, (s, dt) in cache_shapes(
         cfg, batch, max_len, enc_len).items()}

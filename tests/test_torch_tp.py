@@ -322,19 +322,37 @@ def _rank(r: int, world: int) -> ModelParallel:
 
 
 def test_tp_refuses_a_world_that_does_not_divide_the_kv_heads():
-    cfg = torch_tp_ranks.smoke_cfg("gemma3-27b")        # 2 kv heads
-    with pytest.raises(ValueError, match=r'"tp" layout over 4 ranks.*kv '
-                                         r'heads'):
+    """A world that does not divide the kv heads runs where it divides the
+    query heads (each rank holds whole the kv heads its query heads read,
+    tests/test_torch_tp_kvrep.py): every 2-kv-head smoke config of the
+    dense and moe families at 4 ranks. It is still refused at 8 ranks (4
+    query heads) and at 3, by check_tp, init_cache and forward, and for
+    the hybrid / encdec / ssm families at such counts."""
+    smoke = [a for a in PORTED_ARCHS
+             if CFG.get_smoke(a).arch_type in ("dense", "moe")]
+    assert len(smoke) == 7
+    for arch in smoke:
+        cfg = torch_tp_ranks.smoke_cfg(arch)
+        assert cfg.n_kv_heads == 2 and cfg.n_heads == 4
         check_tp(cfg, 4)
-    mp = _rank(0, 4)
-    with pytest.raises(ValueError, match='"tp" layout'):
-        TE.init_cache(cfg, 2, 16, device="cpu", mp=mp)
+        check_tp(cfg, 2)
+    cfg = torch_tp_ranks.smoke_cfg("gemma3-27b")        # 2 kv heads
     params = MB.materialize(TZ.templates(cfg),
                             torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(ValueError, match='"tp" layout'):
-        TZ.forward(params, cfg, {"tokens": tokens}, mp)
-    check_tp(cfg, 2)
+    for world in (8, 3):
+        with pytest.raises(ValueError, match=rf'"tp" layout over {world} '
+                                             r"ranks.*'heads': 4"):
+            check_tp(cfg, world)
+        mp = _rank(0, world)
+        with pytest.raises(ValueError, match='"tp" layout'):
+            TE.init_cache(cfg, 2, 16, device="cpu", mp=mp)
+        with pytest.raises(ValueError, match='"tp" layout'):
+            TZ.forward(params, cfg, {"tokens": tokens}, mp)
+    for arch in ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-large-v2"):
+        for world in (3, 16):
+            with pytest.raises(ValueError, match="heads"):
+                check_tp(torch_tp_ranks.smoke_cfg(arch), world)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
@@ -453,6 +471,9 @@ def test_local_cache_shapes_cut_the_kv_heads(arch):
 K8_RANK_CASES = {
     "gemma3": ((32, 16, 128), 2086, ((2047, ops.NO_WINDOW), (2047, 1024),
                                      (40, 1024))),
+    "starcoder2": ((24, 2, 128), 2056, ((2055, ops.NO_WINDOW),
+                                        (2047, ops.NO_WINDOW),
+                                        (40, ops.NO_WINDOW))),
     "dbrx": ((48, 8, 128), 2086, ((2047, ops.NO_WINDOW), (2047, 1024),
                                   (40, 1024))),
     "zamba2": ((32, 32, 64), 547, ((543, ops.NO_WINDOW),
@@ -464,18 +485,25 @@ K8_RANK_CASES = {
 @pytest.mark.parametrize("case", K8_RANK_CASES)
 def test_k8_plan_and_plain_version_at_a_ranks_heads(case):
     """K8 at a rank's heads of gemma3-27b (8 q / 4 kv of 32 / 16),
-    dbrx-132b (12 / 2 of 48 / 8), zamba2-1.2b's shared block (8 / 8 of 32 /
-    32) and seamless-m4t-large-v2's cross attention (4 / 4 of 16 / 16) over
-    4 ranks: the GQA ratio and so the kernel instance (head group) are the
-    full model's, the plan fills at most one wave of an H100 (132 SMs, 2
-    blocks an SM) with at least the full model's splits, and the plain
-    version on each rank's heads is that rank's slice of the full-head
-    result bit for bit."""
+    starcoder2-3b (6 / 1 of 24 / 2: the rank holds the one kv head its
+    query heads read, `parallel.kv_heads`), dbrx-132b (12 / 2 of 48 / 8),
+    zamba2-1.2b's shared block (8 / 8 of 32 / 32) and
+    seamless-m4t-large-v2's cross attention (4 / 4 of 16 / 16) over 4
+    ranks: the kernel instance (head group) is the full model's (for
+    starcoder2-3b the group-8 instance, a rank's rep 6 in one block with 2
+    heads masked, the full model's rep 12 in two blocks of 8), the plan
+    fills at most one wave of an H100 (132 SMs, 2 blocks an SM) with at
+    least the full model's splits, and the plain version on each rank's
+    heads is that rank's slice of the full-head result bit for bit."""
     (h, hkv, hd), s, positions = K8_RANK_CASES[case]
     world = 4
-    hl, hkvl = h // world, hkv // world
+    held = [TPAR.kv_heads(h, hkv, world, r) for r in range(world)]
+    hl, hkvl = h // world, len(held[0])
     assert swa_kernel.head_group(hl // hkvl) == swa_kernel.head_group(
         h // hkv)
+    if case == "starcoder2":
+        assert held == [[0], [0], [1], [1]]
+        assert swa_kernel.head_group(6) == swa_kernel.head_group(12) == 8
     for cache_len, window in positions:
         full = swa_kernel.plan(4, s, h, hkv, cache_len, window, 132, 2, 64)
         loc = swa_kernel.plan(4, s, hl, hkvl, cache_len, window, 132, 2, 64)
@@ -483,13 +511,15 @@ def test_k8_plan_and_plain_version_at_a_ranks_heads(case):
         assert loc["units"] * world == full["units"]
         assert loc["blocks"] <= 132 * 2 and loc["waves"] == 1
         assert loc["n_split"] >= full["n_split"]
+        if case == "starcoder2":
+            assert (loc["units"], full["units"]) == (4 * 1 * 1, 4 * 2 * 2)
+            assert loc["n_split"] * loc["split_len"] >= cache_len + 1
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.normal(size=(2, h, 64)).astype(np.float32))
     k = torch.from_numpy(rng.normal(size=(2, 70, hkv, 64)).astype(np.float32))
     v = torch.from_numpy(rng.normal(size=(2, 70, hkv, 64)).astype(np.float32))
     want = ops.swa_decode(q, k, v, 60, window=32)
     for r in range(world):
-        got = ops.swa_decode(q[:, r * hl:(r + 1) * hl],
-                             k[:, :, r * hkvl:(r + 1) * hkvl],
-                             v[:, :, r * hkvl:(r + 1) * hkvl], 60, window=32)
+        got = ops.swa_decode(q[:, r * hl:(r + 1) * hl], k[:, :, held[r]],
+                             v[:, :, held[r]], 60, window=32)
         assert torch.equal(got, want[:, r * hl:(r + 1) * hl])

@@ -1,5 +1,5 @@
-"""Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py
-and tests/test_torch_seq.py.
+"""Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py,
+tests/test_torch_tp_kvrep.py and tests/test_torch_seq.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -48,12 +48,24 @@ def smoke_cfg(arch: str):
 def model_rank(mp, arch: str, params_np: dict, tokens, feed, steps: int,
                max_len: int) -> dict:
     """One rank serving the arch's smoke config from the reference's
-    numpy params: its shard and the gather back, the forward over
-    `tokens`, and the engine's prefill of `tokens` then `steps` decode
-    steps fed feed[i] (B, 1). The collectives of each part are counted,
-    and every all-reduce's result digested; last, the ranks' max rank by
+    numpy params (`serve_case`, `steps` decode steps fed feed[i] (B, 1)),
+    every all-reduce's result digested; last, the ranks' max rank by
     `all_reduce_max` in bfloat16."""
-    cfg = smoke_cfg(arch)
+    digests = record_reductions(mp)
+    out = serve_case(mp, smoke_cfg(arch), params_np, tokens, feed[:steps],
+                     max_len)
+    top = mp.all_reduce_max(torch.tensor([float(mp.rank)],
+                                         dtype=torch.bfloat16))
+    return dict(out, digests=digests, top_rank=top)
+
+
+def serve_case(mp, cfg, params_np: dict, tokens, feed, max_len: int
+               ) -> dict:
+    """One rank serving cfg from the reference's numpy params: its shard
+    and the gather back, the forward over `tokens` (each moe layer's
+    router probabilities and expert choices recorded), and the engine's
+    prefill of `tokens` then a decode step per feed[i] (B, 1). The
+    collectives of each part are counted."""
     full = Z.params_from_numpy(params_np, cfg, device="cpu")
     tmpl = Z.templates(cfg)
     layout = SH.param_layouts(tmpl, mp.mesh, "tp")
@@ -64,10 +76,20 @@ def model_rank(mp, arch: str, params_np: dict, tokens, feed, steps: int,
     shard_shapes = [tuple(a.shape) for a in MB.tree_leaves(shard)]
     del full, back
 
-    digests = record_reductions(mp)
     tokens = torch.as_tensor(tokens)
+    routes, route = [], Lyr.moe_route
+
+    def recorded(p, cfg_, xt):
+        probs, gate_v, gate_i = route(p, cfg_, xt)
+        routes.append((probs, gate_i))
+        return probs, gate_v, gate_i
+
     mp.reset_counts()
-    logits, aux = Z.forward(shard, cfg, {"tokens": tokens}, mp)
+    Lyr.moe_route = recorded
+    try:
+        logits, aux = Z.forward(shard, cfg, {"tokens": tokens}, mp)
+    finally:
+        Lyr.moe_route = route
     calls = {"forward": dict(mp.calls)}
 
     b, s = tokens.shape
@@ -77,16 +99,29 @@ def model_rank(mp, arch: str, params_np: dict, tokens, feed, steps: int,
     calls["prefill"] = dict(mp.calls)
     step_logits = [lg[:, -1]]
     mp.reset_counts()
-    for i in range(steps):
-        lg, cache = E.decode_step(shard, cfg, torch.as_tensor(feed[i]),
-                                  cache, s + i, mp)
+    for i, tok in enumerate(feed):
+        lg, cache = E.decode_step(shard, cfg, torch.as_tensor(tok), cache,
+                                  s + i, mp)
         step_logits.append(lg[:, -1])
     calls["decode"] = dict(mp.calls)
-    top = mp.all_reduce_max(torch.tensor([float(mp.rank)],
-                                         dtype=torch.bfloat16))
     return dict(round_trip=round_trip, shard_shapes=shard_shapes,
-                logits=logits, aux=aux, step_logits=step_logits,
-                cache=cache, digests=digests, calls=calls, top_rank=top)
+                logits=logits, aux=aux, routes=routes,
+                step_logits=step_logits, cache=cache, calls=calls)
+
+
+def kvrep_rank(mp, cases) -> dict:
+    """One rank of tests/test_torch_tp_kvrep.py: `serve_case` for each
+    case (name, arch, variant, params_np, tokens, feed, max_len), the
+    arch's smoke config in float32 under attn_shard=variant; every
+    all-reduce's result digested, per case."""
+    digests = record_reductions(mp)
+    out = {}
+    for name, arch, variant, params_np, tokens, feed, max_len in cases:
+        start = len(digests)
+        cfg = dataclasses.replace(smoke_cfg(arch), attn_shard=variant)
+        out[name] = dict(serve_case(mp, cfg, params_np, tokens, feed,
+                                    max_len), digests=digests[start:])
+    return out
 
 
 def moe_rank(mp, arch: str, params_np: dict, x, capacity_factors) -> dict:
