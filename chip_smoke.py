@@ -273,6 +273,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    run's greedy tokens, held to that run at [tp lm]'s bar; per rank K8 =
    30 x 8, peak memory, the cache's bytes, prefill s, median ms a step
    and the collectives a step by kind;
+8f. training over a ("data", "model") mesh (`zoo.train_step` with a
+   `parallel.TrainLayout`), one spawn of 2 x 2 ranks after [tp lm]'s:
+   `[fsdp parity]` yi-smoke, gemma3-smoke and dbrx-smoke (capacity 1.0:
+   drops) in float32 under "fsdp" and "zero3", 3 Adam steps against the
+   card's unsharded `train_step` at the CPU tests' bars (losses 1e-5,
+   step 1's gathered m 1e-5 of each leaf's largest, the kept choices
+   exact where the router leaves a margin, each rank's state bytes its
+   layout's); `[fsdp lm]` yi-34b at its published widths cut to 2 layers,
+   float32 weights from seed 0, 3 Adam steps (lr 1e-3) of the launcher's
+   4 x 64 batch under both layouts (`launch.train.train_lm_rank`), the losses
+   within 1e-4 of the launcher's unsharded run on the card (run before
+   the spawn), each rank's params + m + v its layout's bytes and its peak
+   below half of the unsharded run's; per rank and layout the transport,
+   card count, state and peak bytes, seconds a step and the collectives
+   a step by kind with their bytes. No kernel of the table is on this
+   path: each rank's launch counts over its run are held to 0;
 8c. `[ssm lm]` rwkv6-1.6b (24 layers) and zamba2-1.2b (38 layers, 6
    shared-block applications) at their published widths and full depth in
    bfloat16, the weights drawn on the card: prefill of 4 prompts of 512
@@ -395,12 +411,12 @@ from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.launch import train as TLT  # noqa: E402
 from repro_torch.launch import sharding as SHD  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
-    data_parallel_mesh, replica_devices, spawn_ranks, transport)
+    data_parallel_mesh, replica_devices, spawn_ranks, train_mesh, transport)
 from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
 from repro_torch.models.parallel import (  # noqa: E402
-    SEQ_VARIANTS, combine_partials, kv_heads)
+    SEQ_VARIANTS, TrainLayout, combine_partials, kv_heads, rank_pieces)
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
@@ -644,6 +660,32 @@ TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
 # lm]'s bar (`check_tp_logits`).
 KVREP_PARITY_ARCHS = ("starcoder2-3b", "dbrx-132b")
 KVREP_LM_ARCH, KVREP_LM_BATCH, KVREP_LM_PROMPT = "starcoder2-3b", 4, 2048
+# Training over a ("data", "model") mesh (`zoo.train_step` with a
+# `parallel.TrainLayout`), one spawn of FSDP_MESH's ranks after [tp lm]'s.
+# [fsdp parity]: the CPU tests' smoke cases (tests/test_torch_fsdp.py; a
+# capacity factor where the experts drop choices) in float32 under each
+# of FSDP_MODES against the card's unsharded `train_step` of the same
+# params (seed 3) and batches, at the CPU tests' bars: losses
+# FSDP_LOSS_TOL every step, step 1's gathered Adam m within FSDP_M_TOL of
+# each leaf's largest, the kept choices exact where the router leaves
+# every token ROUTE_LOG_MARGIN. [fsdp lm]: FSDP_LM_ARCH at its published
+# widths cut to FSDP_LM_LAYERS layers, float32 weights from seed 0,
+# LM_TRAIN_STEPS Adam steps of the launcher's batch (`launch.train
+# .train_lm_rank`) under each mode, held to the launcher's unsharded run
+# on the card at LM_TRAIN_RTOL; each rank's params + m + v its layout's
+# bytes, its peak below FSDP_PEAK_SHARE of the unsharded run's; the ranks
+# that hold the same pieces of a leaf hold equal bits of it. At lr
+# FSDP_LM_LR, not the launcher's 0.01: there the loss nearly doubles by
+# the third step, and the rounding of the data split or of the model
+# split alone moves it by about the bar (fsdp_controls.py, which also
+# plants faults at FSDP_LM_LR to show what these checks catch).
+FSDP_MESH = (2, 2)
+FSDP_MODES = ("fsdp", "zero3")
+FSDP_PARITY_ARCHS = {"yi-34b": None, "gemma3-27b": None, "dbrx-132b": 1.0}
+FSDP_PARITY_BATCH, FSDP_PARITY_SEQ, FSDP_PARITY_LR = 4, 16, 1e-3
+FSDP_LOSS_TOL, FSDP_M_TOL = 1e-5, 1e-5
+FSDP_LM_ARCH, FSDP_LM_LAYERS, FSDP_LM_LR = "yi-34b", 2, 1e-3
+FSDP_PEAK_SHARE = 0.5
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -4505,6 +4547,301 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
     return out
 
 
+def layout_bytes(cfg, mesh, mode: str) -> int:
+    """A rank's params + Adam's m and v in float32 under `mode` on `mesh`:
+    3 x 4 bytes x, per leaf, its elements over the product of the sizes of
+    the mesh axes its layout cuts it over."""
+    tmpl = Z.templates(cfg)
+    total = 0
+    for t, spec in zip(MB.tree_leaves(tmpl), MB.tree_leaves(
+            SHD.param_layouts(tmpl, mesh, mode))):
+        cut = 1
+        for axes in spec:
+            for a in (axes,) if isinstance(axes, str) else (axes or ()):
+                cut *= mesh.shape[a]
+        total += math.prod(t.shape) // cut
+    return 3 * 4 * total
+
+
+def shared_bits(cfg, mesh, mode: str, got: list) -> tuple[int, list]:
+    """Whether every two ranks of `got` (`train_lm_rank`'s runs on `mesh`
+    under `mode`) that hold the same pieces of a leaf hold the same bits of
+    it in params, m and v after the last step (their digests): the leaves
+    compared, and the (kind, leaf, rank, rank) where they differ."""
+    tmpl = Z.templates(cfg)
+    specs = SHD.param_layouts(tmpl, mesh, mode)
+    held = [list(MB.tree_leaves(rank_pieces(tmpl, specs, mesh, r)))
+            for r in range(mesh.size)]
+    leaves, differ = set(), []
+    for r, run in enumerate(got):
+        for kind, digests in run["digests"].items():
+            for i, digest in digests.items():
+                differ += [(kind, i, r, q) for q, other in enumerate(got)
+                           if held[q][i] == held[r][i]
+                           and other["digests"][kind][i] != digest]
+                leaves.add(i)
+    return len(leaves), differ
+
+
+def fsdp_parity_cfg(arch: str):
+    cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+    cf = FSDP_PARITY_ARCHS[arch]
+    return dataclasses.replace(cfg, capacity_factor=cf) if cf else cfg
+
+
+def fsdp_batches(cfg) -> list[dict]:
+    rng = np.random.default_rng(3)
+    return [TLT.lm_batch(cfg, rng, FSDP_PARITY_BATCH, FSDP_PARITY_SEQ, "cpu")
+            for _ in range(LM_TRAIN_STEPS)]
+
+
+def recorded_dispatch(keeps: list):
+    """Wrap `layers.moe_dispatch` to record each call's router
+    probabilities and kept choices (slot < cap) on the host; returns the
+    undo."""
+    orig = Lyr.moe_dispatch
+
+    def recorded(cfg, probs, gate_i, mp=None):
+        out = orig(cfg, probs, gate_i, mp)
+        keeps.append((probs.detach().cpu(), (out[2] < out[3]).cpu()))
+        return out
+
+    Lyr.moe_dispatch = recorded
+    return lambda: setattr(Lyr, "moe_dispatch", orig)
+
+
+def fsdp_parity_run(params, cfg, device, mp=None, layout=None) -> dict:
+    """LM_TRAIN_STEPS Adam steps of `zoo.train_step` (with mp and layout:
+    a rank's shard and rows of `fsdp_batches`): the losses, step 1's m
+    (gathered under a layout), each step's kept choices and collectives."""
+    opt = adam(FSDP_PARITY_LR)
+    state = opt.init(params)
+    out = dict(losses=[], keeps=[], calls=[])
+    for i, batch in enumerate(fsdp_batches(cfg)):
+        if mp is not None:
+            batch = TLT.batch_rows(batch, mp.mesh, mp.global_rank)
+            mp.reset_counts()
+        batch = {k: v.to(device) for k, v in batch.items()}
+        keeps = []
+        undo = recorded_dispatch(keeps)
+        try:
+            params, state, loss = Z.train_step(params, state, batch, cfg,
+                                               opt.update, mp, layout)
+        finally:
+            undo()
+        out["losses"].append(float(loss))
+        out["keeps"].append(keeps)
+        out["calls"].append(dict(mp.calls) if mp is not None else {})
+        if i == 0:
+            m = state["m"] if mp is None else MB.gather_params(
+                state["m"], Z.templates(cfg), layout.specs, mp)
+            out["m1"] = [a.detach().cpu() for a in MB.tree_leaves(m)]
+    out["state_bytes"] = sum(a.numel() * a.element_size() for t in (
+        params, state["m"], state["v"]) for a in MB.tree_leaves(t))
+    return out
+
+
+def fsdp_rank(mp, lm_layers: int, lm_lr: float) -> dict:
+    """[fsdp parity] and [fsdp lm], one rank of FSDP_MESH: each parity
+    case's shard of its smoke params (seed 3) under each mode, trained as
+    the unsharded run (`fsdp_parity_run`; step 1's m returned by rank 0
+    only); then `train_lm_rank` of FSDP_LM_ARCH at lm_layers layers under
+    each mode, the launch counts set to 0 before it and read after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in FSDP_PARITY_ARCHS:
+        cfg = fsdp_parity_cfg(arch)
+        tmpl = Z.templates(cfg)
+        full = MB.materialize(tmpl, torch.Generator().manual_seed(3))
+        for mode in FSDP_MODES:
+            layout = TrainLayout(mode, SHD.param_layouts(tmpl, mp.mesh,
+                                                         mode))
+            shard = MB.tree_map(lambda a: a.to(mp.device), MB.shard_params(
+                full, tmpl, layout.specs, mp))
+            run = fsdp_parity_run(shard, cfg, mp.device, mp, layout)
+            if mp.global_rank:
+                del run["m1"]
+            out[f"{arch}/{mode}"] = run
+    for mode in FSDP_MODES:
+        free_cuda()
+        ops.reset_launch_counts()            # this rank's path starts here
+        run = TLT.train_lm_rank(mp, FSDP_LM_ARCH, lm_layers, mode,
+                                LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                0, False, lm_lr)
+        sync()
+        run["launches"] = ops.launch_counts()    # ... and ends here
+        out[f"lm/{mode}"] = run
+    return out
+
+
+def fsdp_parity_refs() -> dict:
+    """The card's unsharded runs [fsdp parity] holds its ranks to: each
+    case's smoke params drawn on the CPU from seed 3, `fsdp_parity_run`
+    on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    for arch in FSDP_PARITY_ARCHS:
+        cfg = fsdp_parity_cfg(arch)
+        params = MB.tree_map(lambda a: a.to("cuda"), MB.materialize(
+            Z.templates(cfg), torch.Generator().manual_seed(3)))
+        refs[arch] = fsdp_parity_run(params, cfg, "cuda")
+        del params
+    free_cuda()
+    return refs
+
+
+def check_fsdp_parity(arch, mode, got, want, backend, n_cards, card) -> dict:
+    """One [fsdp parity] case on every rank (`got`) against the card's
+    unsharded run `want`: the losses (equal on every rank) within
+    FSDP_LOSS_TOL each step, step 1's gathered m within FSDP_M_TOL of each
+    leaf's largest, the kept choices of every moe layer over the whole
+    batch (the data ranks' in order) equal where the router leaves every
+    token ROUTE_LOG_MARGIN, each rank's state bytes its layout's, the same
+    collectives every step."""
+    cfg = fsdp_parity_cfg(arch)
+    mesh = train_mesh(*FSDP_MESH)
+    n_model = FSDP_MESH[1]
+    for r, rank in enumerate(got):
+        assert rank["losses"] == got[0]["losses"], (arch, mode, r)
+        np.testing.assert_allclose(rank["losses"], want["losses"],
+                                   rtol=FSDP_LOSS_TOL, atol=FSDP_LOSS_TOL)
+        assert rank["state_bytes"] == layout_bytes(cfg, mesh, mode), (
+            arch, mode, r, rank["state_bytes"])
+        assert all(c == rank["calls"][0] for c in rank["calls"]), rank["calls"]
+    m_err = 0.0
+    for g, w in zip(got[0]["m1"], want["m1"]):
+        scale = float(w.abs().max())
+        err = float((torch.from_numpy(g) - w).abs().max())
+        assert err <= FSDP_M_TOL * scale, (arch, mode, err, scale)
+        m_err = max(m_err, err / max(scale, 1e-30))
+    compared = dropped = 0
+    for step, layers in enumerate(want["keeps"]):
+        for layer, (probs, keep) in enumerate(layers):
+            top = torch.topk(probs.log(), cfg.top_k + 1, dim=-1).values
+            if bool((top[:, -2] - top[:, -1] <= ROUTE_LOG_MARGIN).any()):
+                continue
+            for col in range(n_model):
+                mine = np.concatenate(
+                    [got[d * n_model + col]["keeps"][step][layer][1]
+                     for d in range(FSDP_MESH[0])])
+                np.testing.assert_array_equal(mine, keep.numpy())
+            compared += 1
+            dropped += int((~keep).sum())
+    if cfg.arch_type == "moe":
+        assert compared > 0 and dropped > 0, (arch, mode, compared, dropped)
+    print(f"[fsdp parity] {cfg.name} (float32) under {mode!r} over "
+          f"{FSDP_MESH[0]} x {FSDP_MESH[1]} ranks ({backend}, {n_cards} "
+          f"card(s), {card}) against the card's unsharded train_step: "
+          f"{LM_TRAIN_STEPS} Adam steps of {FSDP_PARITY_BATCH} x "
+          f"{FSDP_PARITY_SEQ} tokens, losses {got[0]['losses']} (the "
+          f"unsharded {want['losses']}; bar {FSDP_LOSS_TOL}), step 1's m "
+          f"within {m_err:.3g} of each leaf's largest (bar {FSDP_M_TOL})"
+          + (f", the kept choices equal in {compared} (step, layer)s with "
+             f"{dropped} dropped" if cfg.arch_type == "moe" else "")
+          + f"; state {got[0]['state_bytes']} bytes a rank; collectives a "
+          f"step {got[0]['calls'][0]}")
+    return dict(m_err=m_err, losses=got[0]["losses"])
+
+
+def phase_fsdp(card: str) -> dict:
+    """[fsdp parity] and [fsdp lm] in one spawn of FSDP_MESH's ranks
+    sharing the card: the card's unsharded references first (the parity
+    cases; `launch.train`'s --target lm of FSDP_LM_ARCH at FSDP_LM_LAYERS
+    layers with its peak memory), then the ranks (`fsdp_rank`). [fsdp lm]
+    holds each mode's losses to the unsharded run's at LM_TRAIN_RTOL, each
+    rank's state bytes to its layout's and its peak below FSDP_PEAK_SHARE
+    of the unsharded run's, and the bits of each leaf piece two ranks hold
+    equal on both (`shared_bits`); it prints per rank and mode the transport and
+    card count, the state and peak bytes, seconds a step and the
+    collectives a step by kind with their bytes. The training step
+    launches no kernel of the table (the reference's reaches no Pallas
+    kernel either): each rank's counts over its run are held to 0."""
+    t0 = time.perf_counter()
+    world = FSDP_MESH[0] * FSDP_MESH[1]
+    backend, devices = transport(world, "cuda")
+    n_cards = len(set(map(str, devices)))
+    refs = fsdp_parity_refs()
+    args = ["--target", "lm", "--arch", FSDP_LM_ARCH, "--layers",
+            str(FSDP_LM_LAYERS), "--steps", str(LM_TRAIN_STEPS), "--batch",
+            str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--lr",
+            str(FSDP_LM_LR), "--device", "cuda"]
+    out_text = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(out_text):
+        t1 = time.perf_counter()
+        want = TLT.main(args)
+        sync()
+        want_s = time.perf_counter() - t1
+    want_peak = torch.cuda.max_memory_allocated()
+    head = out_text.getvalue().splitlines()[0]
+    free_cuda()
+    ref_s = time.perf_counter() - t0
+    ranks = spawn_ranks(world, fsdp_rank, (FSDP_LM_LAYERS, FSDP_LM_LR),
+                        device="cuda", timeout_s=900,
+                        mesh=train_mesh(*FSDP_MESH))
+    spawn_s = time.perf_counter() - t0 - ref_s
+    out = {}
+    for arch in FSDP_PARITY_ARCHS:
+        for mode in FSDP_MODES:
+            out[f"parity/{arch}/{mode}"] = check_fsdp_parity(
+                arch, mode, [rank[f"{arch}/{mode}"] for rank in ranks],
+                refs[arch], backend, n_cards, card)
+    cfg = TLT.lm_config(FSDP_LM_ARCH, False, FSDP_LM_LAYERS)
+    mesh = train_mesh(*FSDP_MESH)
+    print(f"[fsdp lm] {head.removeprefix('[train] ')}, lr {FSDP_LM_LR}: "
+          f"the unsharded run on the card {want_s:.2f} s (first-call work "
+          f"included), losses {want}, peak memory {want_peak} bytes")
+    for mode in FSDP_MODES:
+        want_bytes = layout_bytes(cfg, mesh, mode)
+        got = [rank[f"lm/{mode}"] for rank in ranks]
+        err = max(abs(a - c) / abs(c) for run in got
+                  for a, c in zip(run["losses"], want))
+        print(f"[fsdp lm] {cfg.name}, {cfg.n_layers} layers at the published "
+              f"widths, float32, under {mode!r} over {FSDP_MESH[0]} x "
+              f"{FSDP_MESH[1]} ranks ({backend}; {n_cards} card(s): {card}):"
+              f" losses {got[0]['losses']}, max relative err against the "
+              f"unsharded run {err:.3g} (bar {LM_TRAIN_RTOL}); state "
+              f"{want_bytes} bytes a rank (the unsharded "
+              f"{layout_bytes(cfg, train_mesh(1, 1), mode)})")
+        for r, run in enumerate(got):
+            calls = {k: (v, run["bytes"][-1][k])
+                     for k, v in run["calls"][-1].items()}
+            print(f"[fsdp lm]   {mode} rank {r}: {run['backend']}, "
+                  f"{run['cards']} card(s); state {run['state_bytes']} bytes;"
+                  f" peak {run['peak_bytes']} bytes "
+                  f"({run['peak_bytes'] / want_peak:.3f} of the unsharded "
+                  f"run's); seconds a step "
+                  f"{[round(v, 3) for v in run['seconds']]}; collectives a "
+                  f"step (calls, bytes) {calls}; kernel launches "
+                  f"{sum(run['launches'].values())}")
+        for r, run in enumerate(got):
+            assert np.isfinite(run["losses"]).all(), run["losses"]
+            np.testing.assert_allclose(run["losses"], want,
+                                       rtol=LM_TRAIN_RTOL)
+            assert run["state_bytes"] == want_bytes, (mode, r,
+                                                      run["state_bytes"])
+            assert run["peak_bytes"] < FSDP_PEAK_SHARE * want_peak, (
+                mode, r, run["peak_bytes"], want_peak)
+            assert not any(run["launches"].values()), run["launches"]
+        shared, differ = shared_bits(cfg, mesh, mode, got)
+        assert shared and not differ, (mode, shared, differ)
+        print(f"[fsdp lm]   {mode}: every two ranks holding the same pieces "
+              f"of a leaf hold equal bits of it in params, m and v "
+              f"({shared} such leaves)")
+        out[f"lm/{mode}"] = dict(
+            losses=got[0]["losses"], max_rel_err=err, state_bytes=want_bytes,
+            shared_leaves=shared,
+            peak_bytes=[run["peak_bytes"] for run in got],
+            step_s=[run["seconds"] for run in got],
+            calls=got[0]["calls"][-1])
+    print(f"[fsdp lm] done in {time.perf_counter() - t0:.1f} s (the "
+          f"unsharded references {ref_s:.1f} s, the ranks {spawn_s:.1f} s, "
+          f"[fsdp parity] included); the times are {world} processes "
+          + ("sharing one card over gloo, not a sharded deployment's"
+             if n_cards < world else f"on {n_cards} cards over {backend}"))
+    return dict(out, unsharded_losses=want, unsharded_peak=want_peak)
+
+
 def seq_lm_report(got, ref, cfg, variant, backend, n_cards, card) -> dict:
     """[seq lm]: each rank's run of gemma3-27b under `variant` with the
     "seq" cache (`got`, per rank) held to [lm]'s teacher-fed rerun as [tp
@@ -5524,6 +5861,8 @@ def main() -> None:
     del lm["tp_ref"]
     for r in moe_lm.values():
         del r["tp_ref"]
+    free_cuda()
+    phase_fsdp(card)
     ssm_lm = phase_ssm_lm(card)
     encdec_lm = phase_encdec_lm(card)
     tp_families_lm = phase_tp_families_lm(

@@ -7,7 +7,8 @@ names and sizes, no devices) stands for the reference's meshes where the
 layout rules (`launch/sharding.py`) need one: `production_mesh` is the
 reference's `make_production_mesh` shape (a 256- or 512-chip pod), and
 `model_mesh(world)` the ("data", "model") mesh of a model-parallel run of
-`world` ranks, which `model_parallel` joins and `spawn_ranks` starts.
+`world` ranks, which `model_parallel` joins and `spawn_ranks` starts;
+`train_mesh(data, model)` that of a training run over data x model ranks.
 """
 
 from __future__ import annotations
@@ -111,6 +112,13 @@ def model_mesh(world: int) -> MeshShape:
     return MeshShape(("data", "model"), (1, world))
 
 
+def train_mesh(data: int, model: int) -> MeshShape:
+    """The ("data", "model") mesh of a training run of data x model ranks
+    (`zoo.train_step` with a `parallel.TrainLayout`): the batch cut over
+    "data", the layout's cuts over both."""
+    return MeshShape(("data", "model"), (data, model))
+
+
 def model_axis(mesh) -> str:
     return "model"
 
@@ -137,13 +145,21 @@ def transport(world: int, device) -> tuple[str, list[torch.device]]:
 
 
 def model_parallel(world: int, device, *, rank: int, init_method: str,
-                   timeout_s: float = 600.0) -> ModelParallel:
-    """Join rank `rank` of a model-parallel run of `world` ranks: pick the
-    transport (`transport`), bind this process to its device (on the CPU:
-    one torch thread), initialise the default process group at
-    `init_method` (collectives time out after timeout_s) and return its
-    ModelParallel. Rank 0 prints the choice. A failing transport raises:
-    there is no fallback to the other one."""
+                   timeout_s: float = 600.0,
+                   mesh: MeshShape | None = None) -> ModelParallel:
+    """Join rank `rank` of a model-parallel run of `world` ranks on the
+    ("data", "model") `mesh` (default `model_mesh(world)`; ranks numbered
+    row-major): pick the transport (`transport`), bind this process to its
+    device (on the CPU: one torch thread), initialise the default process
+    group at `init_method` (collectives time out after timeout_s), create
+    a process group for each row and each column of the mesh where both
+    axes have more than one rank (every rank creates every group, in the
+    same order) and return its ModelParallel. Rank 0 prints the choice. A
+    failing transport raises: there is no fallback to the other one."""
+    mesh = model_mesh(world) if mesh is None else mesh
+    if tuple(mesh.axis_names) != ("data", "model") or mesh.size != world:
+        raise ValueError(f"a run of {world} ranks on a (\"data\", "
+                         f"\"model\") mesh, not {mesh}")
     backend, devices = transport(world, device)
     dev = devices[rank]
     kw = {}
@@ -157,14 +173,28 @@ def model_parallel(world: int, device, *, rank: int, init_method: str,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s),
                             **kw)
+    n_data, n_model = mesh.sizes
+    groups = {}
+    if n_data > 1 and n_model > 1:
+        for d in range(n_data):
+            groups[("row", d)] = dist.new_group(
+                [d * n_model + m for m in range(n_model)])
+        for m in range(n_model):
+            groups[("col", m)] = dist.new_group(
+                [d * n_model + m for d in range(n_data)])
+    data_rank, model_rank = divmod(rank, n_model)
     if rank == 0:
         cards = sorted({str(d) for d in devices})
-        print(f"[model parallel] {world} ranks over {backend} on "
-              f"{', '.join(cards)}"
+        print(f"[model parallel] {world} ranks"
+              + (f" (data {n_data} x model {n_model})" if n_data > 1 else "")
+              + f" over {backend} on {', '.join(cards)}"
               + (" (the ranks share the card)" if dev.type == "cuda"
                  and len(cards) < world else ""), flush=True)
-    return ModelParallel(rank=rank, world=world, mesh=model_mesh(world),
-                         backend=backend, device=dev)
+    return ModelParallel(rank=model_rank, world=n_model, mesh=mesh,
+                         backend=backend, device=dev, data_rank=data_rank,
+                         data_world=n_data,
+                         model_group=groups.get(("row", data_rank)),
+                         data_group=groups.get(("col", model_rank)))
 
 
 def _to_host(value):
@@ -182,9 +212,9 @@ def _to_host(value):
 
 
 def _rank_main(rank, world, device, init_method, timeout_s, fn, args,
-               results) -> None:
+               results, mesh) -> None:
     mp = model_parallel(world, device, rank=rank, init_method=init_method,
-                        timeout_s=timeout_s)
+                        timeout_s=timeout_s, mesh=mesh)
     try:
         value = _to_host(fn(mp, *args))
     finally:
@@ -193,11 +223,13 @@ def _rank_main(rank, world, device, init_method, timeout_s, fn, args,
 
 
 def spawn_ranks(world: int, fn: Callable, args: tuple = (), *,
-                device="cpu", timeout_s: float = 600.0) -> list[Any]:
+                device="cpu", timeout_s: float = 600.0,
+                mesh: MeshShape | None = None) -> list[Any]:
     """Run fn(mp, *args) in `world` spawned processes, one rank each, each
-    with its ModelParallel `mp` (`model_parallel`; the group meets at a
-    file under a temporary directory), and return their results in rank
-    order, tensors as numpy arrays. `fn` and `args` must pickle (fn a
+    with its ModelParallel `mp` (`model_parallel` on `mesh`, default
+    `model_mesh(world)`; the group meets at a file under a temporary
+    directory), and return their results in rank order, tensors as numpy
+    arrays. `fn` and `args` must pickle (fn a
     module-level function). A rank that exits without a result, or no
     result within timeout_s, raises RuntimeError naming the rank (its
     traceback is on its stderr); every rank still running is then
@@ -208,7 +240,7 @@ def spawn_ranks(world: int, fn: Callable, args: tuple = (), *,
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world, str(device),
                                    f"file://{tmp}/init", timeout_s, fn,
-                                   args, results))
+                                   args, results, mesh))
                  for r in range(world)]
         for p in procs:
             p.start()

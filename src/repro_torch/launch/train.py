@@ -22,6 +22,13 @@ Two paths:
     keeps the first N layers of its encoder and of its decoder). The
     weights are drawn in float32 whatever the config's dtype, as the
     reference's launcher draws them.
+  * `train_lm_rank` — the same LM training of the dense and moe families
+    over a ("data", "model") mesh of ranks under the reference's "tp",
+    "fsdp" or "zero3" layout (`launch.mesh.spawn_ranks(world,
+    train_lm_rank, args, mesh=train_mesh(data, model))`; no CLI flag,
+    as the reference's launcher has none): each rank holds its shard of
+    the weights and of Adam's moments and trains on its rows of each
+    batch; the losses are the unsharded run's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --target cloes \
@@ -56,9 +63,13 @@ from repro_torch.core import baselines as B
 from repro_torch.core import losses as L
 from repro_torch.core import trainer as T
 from repro_torch.data import LogConfig, generate_log
-from repro_torch.launch.mesh import data_parallel_mesh
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import data_parallel_mesh, transport
 from repro_torch.models import base as MB
 from repro_torch.models import zoo as Z
+from repro_torch.models.parallel import (TrainLayout, check_train,
+                                         local_slices, rank_pieces,
+                                         take_pieces)
 from repro_torch.optim import adam
 
 # frontend frames of an encdec model's LM batch (the reference's train_lm)
@@ -161,17 +172,113 @@ def lm_batch(cfg, rng: np.random.Generator, bsz: int, s: int,
     return batch
 
 
+def batch_rows(batch: dict, mesh, rank: int) -> dict:
+    """Rank `rank`'s part of an LM batch on `mesh` (`sharding
+    .batch_layouts`): its block of the rows, every row where the mesh has
+    one data rank. A batch the data ranks do not divide raises: each rank
+    would hold every row, and the rows would count once a rank."""
+    n_data = mesh.shape["data"]
+    specs = SH.batch_layouts({k: tuple(v.shape) for k, v in batch.items()},
+                             mesh)
+    out = {}
+    for k, v in batch.items():
+        if n_data > 1 and specs[k][0] is None:
+            raise ValueError(f"a batch of {v.shape[0]} rows cannot be cut "
+                             f"over {n_data} data ranks")
+        out[k] = take_pieces(v, [[blk] for blk in local_slices(
+            tuple(v.shape), specs[k], mesh, rank)])
+    return out
+
+
+def lm_config(arch: str, smoke: bool, layers: int):
+    """The launcher's LM config: the arch's (its smoke variant in
+    float32), cut to its first `layers` layers (0: all)."""
+    cfg = CFG.get_smoke(arch) if smoke else CFG.get(arch)
+    return dataclasses.replace(
+        cfg, dtype=torch.float32 if smoke else cfg.dtype,
+        n_layers=layers or cfg.n_layers,
+        n_enc_layers=(layers or cfg.n_enc_layers) if cfg.n_enc_layers
+        else 0)
+
+
+def shared_leaves(templates, specs, mesh, rank: int) -> list[int]:
+    """The leaves (tree order) of which another rank of `mesh` holds the
+    same pieces as `rank` under the layout `specs` (the norms everywhere,
+    a leaf along the axes its layout leaves out): two such ranks hold the
+    same bits of it after every step."""
+    held = [list(MB.tree_leaves(rank_pieces(templates, specs, mesh, r)))
+            for r in range(mesh.size)]
+    return [i for i, mine in enumerate(held[rank])
+            if any(other[i] == mine for r, other in enumerate(held)
+                   if r != rank)]
+
+
+def _digest(a: torch.Tensor) -> str:
+    return hashlib.sha256(a.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def train_lm_rank(mp, arch: str, layers: int, mode: str, steps: int,
+                  batch: int, seq: int, seed: int, smoke: bool = False,
+                  lr: float = 0.01) -> dict:
+    """One rank of `train_lm` over mp's ("data", "model") mesh under the
+    layout `mode` ("tp", "fsdp", "zero3"; `parallel.check_train`): it
+    draws the weights on the CPU from the seed as `train_lm` does and keeps
+    its shard (`materialize_shard`, float32), draws each of the launcher's
+    batches and keeps its rows (`batch_rows`), and takes `steps` Adam steps
+    (`zoo.train_step` with the layout). Returns the losses (the unsharded
+    run's), each step's collectives by kind (calls and bytes) and seconds,
+    the bytes of its params + Adam's m and v, its peak device memory (None
+    on the CPU), its transport and the number of cards of the run, and
+    after the last step a sha256 of each leaf of params, m and v that
+    another rank holds too (`shared_leaves`; leaf index -> digest)."""
+    cfg = lm_config(arch, smoke, layers)
+    check_train(cfg, mp.mesh, mode)
+    dev = mp.device
+    tmpl = Z.templates(cfg)
+    layout = TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh, mode))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = MB.tree_map(lambda a: a.to(dev), MB.materialize_shard(
+        tmpl, torch.Generator().manual_seed(seed), torch.float32,
+        layout.specs, mp))
+    opt = adam(lr)
+    opt_state = opt.init(params)
+    state_bytes = sum(a.numel() * a.element_size() for tree in (
+        params, opt_state["m"], opt_state["v"]) for a in MB.tree_leaves(tree))
+    rng = np.random.default_rng(seed)
+    losses, calls, nbytes, seconds = [], [], [], []
+    for _ in range(steps):
+        rows = batch_rows(lm_batch(cfg, rng, batch, seq, "cpu"), mp.mesh,
+                          mp.global_rank)
+        rows = {k: v.to(dev) for k, v in rows.items()}
+        mp.reset_counts()
+        t0 = time.perf_counter()
+        params, opt_state, loss = Z.train_step(params, opt_state, rows, cfg,
+                                               opt.update, mp, layout)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+        calls.append(dict(mp.calls))
+        nbytes.append(dict(mp.bytes))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    cards = (len({str(d) for d in transport(mp.mesh.size, dev)[1]})
+             if dev.type == "cuda" else 0)
+    shared = shared_leaves(tmpl, layout.specs, mp.mesh, mp.global_rank)
+    digests = {kind: {i: _digest(a) for i, a in enumerate(MB.tree_leaves(
+        tree)) if i in shared} for kind, tree in (
+            ("params", params), ("m", opt_state["m"]), ("v", opt_state["v"]))}
+    return dict(losses=losses, calls=calls, bytes=nbytes, seconds=seconds,
+                state_bytes=state_bytes, digests=digests,
+                peak_bytes=peak, backend=mp.backend, cards=cards)
+
+
 def train_lm(args) -> list[float]:
     """Adam on random tokens from the seed's numpy stream; the weights are
     `materialize`d on the CPU from the seed and moved to `--device`, so
     both devices train the same model. Returns every step's loss."""
     device = torch.device(args.device)
-    cfg = CFG.get_smoke(args.arch) if args.smoke else CFG.get(args.arch)
-    cfg = dataclasses.replace(
-        cfg, dtype=torch.float32 if args.smoke else cfg.dtype,
-        n_layers=args.layers or cfg.n_layers,
-        n_enc_layers=(args.layers or cfg.n_enc_layers) if cfg.n_enc_layers
-        else 0)
+    cfg = lm_config(args.arch, args.smoke, args.layers)
     params = MB.tree_map(
         lambda p: p.to(device),
         MB.materialize(Z.templates(cfg),

@@ -212,14 +212,13 @@ def materialize(templates, generator: torch.Generator,
 
 def materialize_shard(templates, generator: torch.Generator,
                       dtype: torch.dtype, layout, mp) -> dict:
-    """Rank mp.rank's shard under `layout` (`launch.sharding
-    .param_layouts` on mp.mesh) of what `materialize` makes from the same
-    generator state, bit for bit, without holding any whole leaf: every
-    rank draws the whole random stream and keeps its pieces
-    (`parallel.rank_pieces`)."""
+    """Rank mp's shard under `layout` (`launch.sharding.param_layouts` on
+    mp.mesh) of what `materialize` makes from the same generator state,
+    bit for bit, without holding any whole leaf: every rank draws the
+    whole random stream and keeps its pieces (`parallel.rank_pieces`)."""
     return tree_map(lambda t, held: _draw(t, generator, dtype, held),
                     templates, rank_pieces(templates, layout, mp.mesh,
-                                           mp.rank))
+                                           mp.global_rank))
 
 
 def shape_structs(templates, dtype: torch.dtype) -> dict:
@@ -238,7 +237,7 @@ def logical_specs(templates) -> dict:
 
 
 def shard_params(params, templates, layout, mp) -> dict:
-    """Rank mp.rank's shard of the full parameter tree `params` (e.g. from
+    """Rank mp's shard of the full parameter tree `params` (e.g. from
     `materialize` or `zoo.params_from_numpy`) under `layout`, a layout
     tree on mp.mesh (`launch.sharding.param_layouts`): each cut leaf is
     cut to the pieces this rank holds (`parallel.rank_pieces`: its block,
@@ -257,46 +256,52 @@ def shard_params(params, templates, layout, mp) -> dict:
             == a.untyped_storage().data_ptr() else out
 
     return tree_map(one, params, templates,
-                    rank_pieces(templates, layout, mp.mesh, mp.rank))
+                    rank_pieces(templates, layout, mp.mesh, mp.global_rank))
 
 
 def gather_params(shards, templates, layout, mp) -> dict:
     """The inverse of `shard_params` on every rank of a model-parallel
-    run: each cut leaf all-gathered along its cut dim (the run's only
-    axis of more than one rank is "model") and every rank's pieces put
-    back where `parallel.rank_pieces` takes them from (a piece held by
-    several ranks, as a Mamba2 mixer's B / C columns on every rank or a kv
-    head's wk / wv columns on each rank whose query heads read it, is the
-    same bits on each, written once per holder); whole leaves as they
-    are."""
+    run: each cut dim of a leaf all-gathered from the ranks along the
+    mesh axes its layout cuts it over (a rank's kv-head or Mamba2 pieces:
+    along "model"; fsdp's `embed` along "data", zero3's along every axis),
+    and every rank's pieces put back where `parallel.rank_pieces` takes
+    them from (a piece held by several ranks, as a Mamba2 mixer's B / C
+    columns on every rank or a kv head's wk / wv columns on each rank
+    whose query heads read it, is the same bits on each, written once per
+    holder); whole leaves as they are."""
     held = [rank_pieces(templates, layout, mp.mesh, r)
-            for r in range(mp.world)]
+            for r in range(mp.mesh.size)]
 
-    def one(a: torch.Tensor, t: ParamTemplate, *ranks) -> torch.Tensor:
+    def one(a: torch.Tensor, t: ParamTemplate, spec, *ranks) -> torch.Tensor:
         out = a
-        for dim, mine in enumerate(ranks[mp.rank]):
+        for dim, mine in enumerate(ranks[mp.global_rank]):
             if mine == [(0, t.shape[dim])]:
                 continue
+            axes = spec[dim] or "model"
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            members = mp.axis_ranks(axes)
             covered = torch.zeros(t.shape[dim], dtype=torch.bool)
-            for rank in ranks:
-                for s, m in rank[dim]:
+            for rank in members:
+                for s, m in ranks[rank][dim]:
                     covered[s:s + m] = True
             if not bool(covered.all()):
                 raise ValueError(f"a dim of {t.shape[dim]} cut to "
                                  f"{[m for _, m in mine]} is not covered "
-                                 f"by the {mp.world} ranks")
-            parts = mp.all_gather(out, dim).split(out.shape[dim], dim)
+                                 f"by the {len(members)} ranks along "
+                                 f"{axes}")
+            parts = mp.gather_axes(out, dim, axes).split(
+                out.shape[dim], dim)
             whole = out.new_empty(out.shape[:dim] + (t.shape[dim],)
                                   + out.shape[dim + 1:])
-            for part, rank in zip(parts, ranks):
+            for part, rank in zip(parts, members):
                 at = 0
-                for s, m in rank[dim]:
+                for s, m in ranks[rank][dim]:
                     whole.narrow(dim, s, m).copy_(part.narrow(dim, at, m))
                     at += m
             out = whole
         return out
 
-    return tree_map(one, shards, templates, *held)
+    return tree_map(one, shards, templates, layout, *held)
 
 
 def stack_templates(t: ParamTemplate, n: int) -> ParamTemplate:

@@ -47,7 +47,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.parallel import (SEQ_VARIANTS, combine_partials,
-                                         kv_gather_index)
+                                         enter_partial, kv_gather_index,
+                                         reduce_partial, sum_over)
 
 # ---------------------------------------------------------------------------
 # Norms and activations
@@ -390,8 +391,10 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        # whole on every rank, applied to the rank's heads: in training
+        # their gradients are summed over the ranks
+        q = rms_norm(q, enter_partial(mp, p["q_norm"]))
+        k = rms_norm(k, enter_partial(mp, p["k_norm"]))
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -574,7 +577,51 @@ def _switch_aux(probs: torch.Tensor, gate_i: torch.Tensor,
     return e * torch.sum(me * ce)
 
 
-def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_dispatch(cfg, probs: torch.Tensor, gate_i: torch.Tensor, mp=None):
+    """Where each of the T * k choices of the tokens (probs (T, E), gate_i
+    (T, k)) goes, and the Switch aux: (flat_e, pos, slot, cap, aux).
+    flat_e and pos are `moe_positions` over these tokens; slot is each
+    choice's position in its expert's buffer over the whole batch; a choice
+    is kept iff slot < cap, the capacity of the whole batch.
+
+    Without mp, or over one "data" rank, the tokens are the batch: slot is
+    pos, cap `moe_capacity` of T, aux `_switch_aux`. Over several "data"
+    ranks (each holding its rows of the batch, in order) the unsharded
+    step's choices are made: cap counts every rank's tokens, a rank's slots
+    follow the per-expert counts of the ranks before it (the token-major
+    cumsum over the batch), and the aux takes the router probabilities'
+    mean and the top-1 shares over the batch. One all-reduce over "data"
+    carries the three (`parallel.sum_over`: the probabilities' gradient
+    passes through to this rank's tokens)."""
+    t, e = gate_i.shape[0], cfg.n_experts
+    flat_e, pos = moe_positions(gate_i, e)
+    if mp is None or mp.data_world == 1:
+        return flat_e, pos, pos, moe_capacity(cfg, t), _switch_aux(
+            probs, gate_i, e)
+    n = mp.data_world
+    counts = probs.new_zeros((n, e))
+    counts[mp.data_rank] = F.one_hot(flat_e, e).sum(0).to(probs.dtype)
+    top1 = F.one_hot(gate_i[:, 0], e).sum(0).to(probs.dtype)
+    total = sum_over(mp, torch.cat([probs.sum(0), top1, counts.reshape(-1)]),
+                     ("data",))
+    before = total[2 * e:].view(n, e)[:mp.data_rank].sum(0).round().long()
+    aux = e * torch.sum((total[:e] / (t * n)) * (total[e:2 * e] / (t * n)))
+    return flat_e, pos, pos + before[flat_e], moe_capacity(cfg, t * n), aux
+
+
+def _dispatch_rows(pos, slot, cap: int, t: int, k: int):
+    """(keep, the buffer rows, each choice's row): a choice is kept iff
+    its slot < cap and takes the row pos in its expert's buffer; a dropped
+    one the spare row. The buffer holds cap rows when the tokens are the
+    whole batch (slot is pos), else min(cap, T * k), enough for this
+    rank's kept choices (pos <= slot < cap)."""
+    keep = slot < cap
+    rows = cap if slot is pos else min(cap, t * k)
+    return keep, rows, torch.where(keep, pos, rows)
+
+
+def moe_ffn(p, cfg, x: torch.Tensor, mp=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with capacity-factor scatter dispatch (the
     reference's `moe_ffn`, src/repro/models/layers.py).
 
@@ -583,59 +630,59 @@ def moe_ffn(p, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     expert's buffer from a cumsum of one-hot memberships in token-major
     (T * k) order — the reference's order, not a sort; a choice at or past
     the capacity is dropped (its scatter lands in the spare row `cap`,
-    which is sliced away)."""
+    which is sliced away). Under mp x is this "data" rank's rows of the
+    batch and the choices are the whole batch's (`moe_dispatch`)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
     xt = x.reshape(t, d)
     probs, gate_v, gate_i = moe_route(p, cfg, xt)
 
-    cap = moe_capacity(cfg, t)
-    flat_e, pos = moe_positions(gate_i, e)
-    keep = pos < cap
-    safe_pos = torch.where(keep, pos, cap)                     # cap: dropped
+    flat_e, pos, slot, cap, aux = moe_dispatch(cfg, probs, gate_i, mp)
+    keep, rows, safe_pos = _dispatch_rows(pos, slot, cap, t, k)
 
     tok_idx = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = xt.new_zeros((e, cap + 1, d))
+    buf = xt.new_zeros((e, rows + 1, d))
     buf = buf.index_put((flat_e, safe_pos), xt[tok_idx])
-    out_buf = _expert_mlps(p, buf[:, :cap])                    # (E, C, d)
+    out_buf = _expert_mlps(p, buf[:, :rows])                   # (E, C, d)
 
     # A dropped choice's index `cap` lies past the buffer's last row: the
     # reference's gather clamps it there and masks the value; indexing
     # raises in torch (a device-side assert on the card), so clamp it here
     # and mask the same way (no value, no gradient reaches that row).
-    gathered = out_buf[flat_e, torch.clamp_max(safe_pos, cap - 1)]
+    gathered = out_buf[flat_e, torch.clamp_max(safe_pos, rows - 1)]
     y = _combine(gathered, keep, gate_v)
-    aux = _switch_aux(probs, gate_i, e)
     return y.reshape(b, s, d), aux
 
 
-def _local_experts(p, cfg, xt, gate_v, gate_i, e0: int) -> torch.Tensor:
+def _local_experts(p, cfg, xt, gate_v, gate_i, e0: int,
+                   dispatch: tuple) -> torch.Tensor:
     """The (T, d) part of moe_ffn's output that experts e0 .. e0 + E_loc - 1
     make (p holds their w_gate / w_in / w_out (E_loc, ...)) for the routing
-    (gate_v, gate_i) of the tokens xt (T, d) over all E experts. A choice
-    takes moe_ffn's position in its expert's buffer (`moe_positions` over
-    all E), so each local expert's buffer is moe_ffn's; a choice of another
-    rank's expert, or at or past the capacity, is dropped (its scatter
-    lands in the spare row E_loc or column `cap`, both sliced away) and
-    adds zero."""
+    (gate_v, gate_i) of the tokens xt (T, d) over all E experts, the
+    choices placed by `dispatch` (`moe_dispatch`'s flat_e, pos, slot,
+    cap). A choice takes moe_ffn's position in its expert's buffer, so
+    each local expert's buffer is moe_ffn's; a choice of another rank's
+    expert, or at or past the capacity, is dropped (its scatter lands in
+    the spare row E_loc or column `rows`, both sliced away) and adds
+    zero."""
     t, d = xt.shape
     e_loc = p["w_gate"].shape[0]
-    cap = moe_capacity(cfg, t)
-    flat_e, pos = moe_positions(gate_i, cfg.n_experts)
+    flat_e, pos, slot, cap = dispatch
+    keep, rows, _ = _dispatch_rows(pos, slot, cap, t, cfg.top_k)
     loc_e = flat_e - e0
-    keep = (loc_e >= 0) & (loc_e < e_loc) & (pos < cap)
+    keep = (loc_e >= 0) & (loc_e < e_loc) & keep
     safe_e = torch.where(keep, loc_e, e_loc)                   # e_loc: dropped
-    safe_pos = torch.where(keep, pos, cap)
+    safe_pos = torch.where(keep, pos, rows)
 
     tok_idx = torch.arange(t, device=xt.device).repeat_interleave(cfg.top_k)
-    buf = xt.new_zeros((e_loc + 1, cap + 1, d))
+    buf = xt.new_zeros((e_loc + 1, rows + 1, d))
     buf = buf.index_put((safe_e, safe_pos), xt[tok_idx])
-    out_buf = _expert_mlps(p, buf[:e_loc, :cap])               # (E_loc, C, d)
+    out_buf = _expert_mlps(p, buf[:e_loc, :rows])              # (E_loc, C, d)
 
     # clamped into the buffer and masked, as moe_ffn's dropped choices
     gathered = out_buf[torch.clamp_max(safe_e, e_loc - 1),
-                       torch.clamp_max(safe_pos, cap - 1)]
+                       torch.clamp_max(safe_pos, rows - 1)]
     return _combine(gathered, keep, gate_v)
 
 
@@ -649,14 +696,18 @@ def moe_ffn_shmap(p, cfg, x: torch.Tensor, mp, *,
     `moe_ffn` does (the same capacity ceil(capacity_factor T k / E), the
     same positions), runs only its own experts (`_local_experts`), and one
     all-reduce of the (T, d) output sums the ranks' parts: no dispatch
-    all-to-all.
+    all-to-all. In training the tokens and their gates enter the rank's
+    experts through `parallel.enter_partial` (their gradients summed over
+    the ranks in the backward) and the sum passes its gradient through;
+    the routing and the aux, the same on every rank, stay outside.
 
     The output crosses the wire in `wire`'s dtype and is returned in it:
     bfloat16 as the reference's `psum(y.astype(bfloat16))` (its "shmap"
     variant), or x's dtype for the plain "tp" layout, whose reference
     (GSPMD's partition of `moe_ffn`) casts nothing. aux: every rank routes
     every token, so each computes moe_ffn's aux; the reference's pmean of
-    it runs over the data axes, of which a model-parallel run has none."""
+    it runs over the data axes, which `moe_dispatch` stands for where the
+    mesh has them (x is then this "data" rank's rows)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate_v, gate_i = moe_route(p, cfg, xt)
@@ -665,9 +716,12 @@ def moe_ffn_shmap(p, cfg, x: torch.Tensor, mp, *,
         raise ValueError(f"{cfg.name}: {e_loc} experts on each of "
                          f"{mp.world} ranks, the config has "
                          f"{cfg.n_experts}")
-    y = _local_experts(p, cfg, xt, gate_v, gate_i, mp.rank * e_loc)
-    y = mp.all_reduce_sum(y.to(wire))
-    return y.reshape(b, s, d), _switch_aux(probs, gate_i, cfg.n_experts)
+    *dispatch, aux = moe_dispatch(cfg, probs, gate_i, mp)
+    y = _local_experts(p, cfg, enter_partial(mp, xt),
+                       enter_partial(mp, gate_v), gate_i, mp.rank * e_loc,
+                       tuple(dispatch))
+    y = reduce_partial(mp, y.to(wire))
+    return y.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,21 @@ attends over its block of the keys and `combine_partials` merges the
 ranks' softmax states, as the reference's `shmap_attention` does with a
 pmax and two psums.
 
+Training (`zoo.train_step` with a `TrainLayout`; the dense and moe
+families, `check_train`) runs over a ("data", "model") mesh under the
+reference's "tp", "fsdp" and "zero3" layouts, as GSPMD partitions its
+unsharded step: the batch is cut over "data"; a leaf whose `embed` dim
+the layout cuts over the data axes (and, under "zero3", "model" too) is
+all-gathered where it is used (`gather_for_use`) and its gradient
+reduce-scattered back to the rank's block; an op that saves the gathered
+weight for the backward saves the shard instead, and the backward gathers
+it again (`regather_saved`); a leaf the layout leaves whole over "data"
+has its gradient summed over "data" after the backward
+(`reduce_replicated_grads`). The model-axis collectives of the forward
+have autograd forms (Megatron's pair: `reduce_partial` sums forward and
+passes the gradient through, `enter_partial` passes forward and sums the
+gradient; `gather_logits`), so that the "tp" partial sums train.
+
 Every collective of such a run goes through one `ModelParallel`, which
 counts each kind's calls and the bytes each rank puts in. With no
 ModelParallel (`mp=None`, the default of every entry point) nothing is
@@ -43,8 +58,10 @@ each rank of a run; `launch.mesh.spawn_ranks` starts the ranks.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
+import weakref
 from typing import Any
 
 import torch
@@ -66,48 +83,126 @@ ATTN_SHARDS = ("auto", *SEQ_VARIANTS)
 
 @dataclasses.dataclass
 class ModelParallel:
-    """One rank's view of a model-parallel run: its rank on the ("data",
-    "model") mesh `mesh` (`launch.mesh.MeshShape`, data of size 1), the
-    world size, the transport ("nccl" or "gloo") and the rank's device;
-    the collectives run on the default process group. `calls` and `bytes`
-    count them by kind ("all_reduce_sum", "all_reduce_max",
-    "all_gather"): calls, and the bytes of the tensor this rank puts in."""
+    """One rank's view of a model-parallel run on the ("data", "model")
+    mesh `mesh` (`launch.mesh.MeshShape`): `rank` and `world` are its
+    coordinate on and the size of the "model" axis (what the layer code
+    reads), `data_rank` / `data_world` those of "data"; the ranks are
+    numbered row-major (`global_rank`). The transport ("nccl" or "gloo"),
+    the rank's device, and the process groups of its mesh row (the ranks
+    along "model") and column (along "data"): None is the default group.
+    Only where both axes have more than one rank are there groups of their
+    own; a collective over an axis of one rank is not made and not
+    counted, so a collective on the default group is over an axis that
+    spans every rank. `calls` and `bytes` count the collectives by kind
+    ("all_reduce_sum", "all_reduce_max", "all_gather", "reduce_scatter"):
+    calls, and the bytes of the tensor this rank puts in."""
 
     rank: int
     world: int
     mesh: Any
     backend: str
     device: torch.device = torch.device("cpu")
+    data_rank: int = 0
+    data_world: int = 1
+    model_group: Any = None
+    data_group: Any = None
     calls: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     bytes: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    # storage of a weight gathered for use -> what gathers it again
+    # (`regather_saved`); None outside a training forward
+    regather: dict | None = None
+
+    @property
+    def global_rank(self) -> int:
+        return self.data_rank * self.world + self.rank
 
     def _count(self, kind: str, x: torch.Tensor) -> None:
         self.calls[kind] += 1
         self.bytes[kind] += x.numel() * x.element_size()
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the ranks, IN PLACE (the reference's psum); every
-        rank then holds the same bits."""
+        """x summed over the "model" axis, IN PLACE (the reference's
+        psum); every rank then holds the same bits."""
+        if self.world == 1:
+            return x
         self._count("all_reduce_sum", x)
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.model_group)
         return x
 
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
-        """x's elementwise max over the ranks, in place (pmax)."""
+        """x's elementwise max over the "model" axis, in place (pmax)."""
+        if self.world == 1:
+            return x
         self._count("all_reduce_max", x)
-        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model_group)
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The ranks' x concatenated along `dim` in rank order (the gather
-        GSPMD inserts to make a cut tensor whole)."""
+        """The "model" axis' x concatenated along `dim` in rank order (the
+        gather GSPMD inserts to make a cut tensor whole)."""
+        return self.gather_axes(x, dim, ("model",))
+
+    def axis_ranks(self, axes) -> list[int]:
+        """The global ranks that differ from this one only on `axes` (a
+        tuple of mesh axis names), in row-major order: the members of the
+        collective over those axes, a cut dim's blocks in order."""
+        rows = range(self.data_world) if "data" in axes else [self.data_rank]
+        cols = range(self.world) if "model" in axes else [self.rank]
+        return [d * self.world + m for d in rows for m in cols]
+
+    def _group(self, axes):
+        if "data" in axes and "model" in axes:
+            return None
+        return self.data_group if "data" in axes else self.model_group
+
+    def all_reduce_axes(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """x summed IN PLACE over the ranks along `axes`."""
+        if axes == ("model",):
+            return self.all_reduce_sum(x)
+        if len(self.axis_ranks(axes)) == 1:
+            return x
+        self._count("all_reduce_sum", x)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._group(axes))
+        return x
+
+    def gather_axes(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """The blocks of x that the ranks along `axes` hold, concatenated
+        along `dim` in their order (`axis_ranks`): a fresh contiguous
+        tensor; over one rank, x itself."""
+        n = len(self.axis_ranks(axes))
+        if n == 1:
+            return x
         x = x.contiguous()
         self._count("all_gather", x)
-        parts = [torch.empty_like(x) for _ in range(self.world)]
-        dist.all_gather(parts, x)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._group(axes))
         return torch.cat(parts, dim=dim)
+
+    def reduce_scatter_axes(self, g: torch.Tensor, dim: int,
+                            axes) -> torch.Tensor:
+        """The inverse of `gather_axes` for a gradient: this rank's block
+        along `dim` (of the len(axis_ranks(axes)) blocks g is cut into) of
+        g summed over the "data" ranks. The ranks along "model" of one data
+        row hold the same rows of the batch, so g is the same on each of
+        them: their blocks are not summed, each takes its own (ZeRO-3's
+        cut over ("data", "model")). The data ranks sum the blocks the
+        members of this rank's column hold: one reduce-scatter over the
+        column."""
+        members = self.axis_ranks(axes)
+        n = g.shape[dim] // len(members)
+        col = [members.index(r) for r in self.axis_ranks(("data",))]
+        if len(col) == 1:
+            return g.narrow(dim, members.index(self.global_rank) * n, n)
+        blocks = [g.narrow(dim, i * n, n).contiguous() for i in col]
+        self.calls["reduce_scatter"] += 1
+        self.bytes["reduce_scatter"] += sum(b.numel() * b.element_size()
+                                            for b in blocks)
+        out = torch.empty_like(blocks[0])
+        dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM,
+                            group=self.data_group)
+        return out
 
     def reset_counts(self) -> None:
         self.calls.clear()
@@ -203,11 +298,94 @@ def kv_gather_index(h: int, hkv: int, world: int) -> list[int] | None:
     return [held.index(j) for j in range(hkv)]
 
 
+class _SumForward(torch.autograd.Function):
+    """x summed over the ranks along `axes`; the gradient passes through
+    (each rank's x is its own part of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mp, axes):
+        return mp.all_reduce_axes(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """x as it is; the gradient summed over the ranks along `axes` (x is
+    the same on each, and each computes its own part of what follows)."""
+
+    @staticmethod
+    def forward(ctx, x, mp, axes):
+        ctx.mp, ctx.axes = mp, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.mp.all_reduce_axes(g, ctx.axes), None, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """The "model" ranks' x concatenated along the last dim; the gradient
+    is this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp, ctx.n = mp, x.shape[-1]
+        return mp.all_gather(x, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.mp.rank * ctx.n, ctx.n), None
+
+
+class _GatherForUse(torch.autograd.Function):
+    """A leaf's shard gathered whole along `dim` over `axes`; the gradient
+    reduce-scattered back to the shard (`ModelParallel
+    .reduce_scatter_axes`). Saves nothing."""
+
+    @staticmethod
+    def forward(ctx, shard, mp, dim, axes):
+        ctx.mp, ctx.dim, ctx.axes = mp, dim, axes
+        return mp.gather_axes(shard, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mp.reduce_scatter_axes(g, ctx.dim, ctx.axes), None, None,
+                None)
+
+
+def sum_over(mp: ModelParallel, x: torch.Tensor, axes) -> torch.Tensor:
+    """x summed over the ranks along `axes`, the gradient passed through
+    (`_SumForward`); in place, as `all_reduce_axes`, where x carries no
+    gradient."""
+    if x.requires_grad:
+        return _SumForward.apply(x, mp, axes)
+    return mp.all_reduce_axes(x, axes)
+
+
 def reduce_partial(mp: ModelParallel | None,
                    y: torch.Tensor) -> torch.Tensor:
     """A row-parallel product's partial sum on this rank, summed over the
-    ranks (y itself without model parallelism)."""
-    return y if mp is None else mp.all_reduce_sum(y)
+    "model" ranks (y itself without model parallelism; `sum_over`)."""
+    return y if mp is None else sum_over(mp, y, ("model",))
+
+
+def enter_partial(mp: ModelParallel | None, x: torch.Tensor) -> torch.Tensor:
+    """x, the same on every "model" rank, as it enters a block whose ranks
+    each compute their part (a column-parallel projection, the rank's
+    experts): x itself, its gradient summed over the "model" ranks in the
+    backward. x itself without model parallelism or gradient."""
+    if mp is None or mp.world == 1 or not x.requires_grad:
+        return x
+    return _SumBackward.apply(x, mp, ("model",))
+
+
+def gather_logits(mp: ModelParallel, logits: torch.Tensor) -> torch.Tensor:
+    """The ranks' vocabulary blocks of the logits gathered in rank order;
+    the gradient is the rank's block."""
+    return _GatherLast.apply(logits, mp)
 
 
 def combine_partials(mp: ModelParallel | None, m: torch.Tensor,
@@ -255,6 +433,10 @@ def rank_coords(mesh, rank: int) -> dict[str, int]:
     return coords
 
 
+def _flat(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes or ())
+
+
 def local_slices(shape: tuple[int, ...], spec: tuple, mesh,
                  rank: int) -> list[tuple[int, int]]:
     """(start, length) along every dim of the part of a tensor of `shape`
@@ -265,7 +447,7 @@ def local_slices(shape: tuple[int, ...], spec: tuple, mesh,
     out = []
     for dim, axes in zip(shape, spec):
         n, idx = 1, 0
-        for a in (axes,) if isinstance(axes, str) else tuple(axes or ()):
+        for a in _flat(axes):
             n, idx = n * mesh.shape[a], idx * mesh.shape[a] + coords[a]
         if dim % n:
             raise ValueError(f"a dim of {dim} cannot be cut {n} ways "
@@ -303,13 +485,15 @@ def rank_pieces(templates, layout, mesh, rank: int) -> dict:
     `layout` (`launch.sharding.param_layouts` on mesh): per leaf, per dim,
     the list of (start, length) pieces it holds along that dim, in order.
     A leaf the design holds as the reference lays it out has one piece a
-    dim, its block (`local_slices`). The exceptions, when the "model" axis
-    has more than one rank: a Mamba2 mixer's in_proj, conv_w and conv_b (a
-    template dict holding in_proj, conv_w, conv_b, out_proj and D), whose
-    last dim holds `mamba_pieces`; an attention's wk and wv (a template
-    dict holding wq, wk, wv and wo, wk's `head_dim` set) where the ranks
-    do not divide the kv heads, whose last dim holds the columns of the
-    rank's `kv_heads`, one piece a head (k_norm stays whole).
+    dim, its block (`local_slices`; a dim cut over "data" too, as
+    "fsdp" / "zero3" cut `embed`). The exceptions, on the last dim, when
+    the "model" axis has more than one rank: a Mamba2 mixer's in_proj,
+    conv_w and conv_b (a template dict holding in_proj, conv_w, conv_b,
+    out_proj and D), whose last dim holds `mamba_pieces`; an attention's
+    wk and wv (a template dict holding wq, wk, wv and wo, wk's `head_dim`
+    set) where the ranks do not divide the kv heads, whose last dim holds
+    the columns of the rank's `kv_heads`, one piece a head (k_norm stays
+    whole).
     `models.base.shard_params`, `gather_params` and `materialize_shard`
     read this."""
     if not isinstance(templates, dict):
@@ -325,15 +509,14 @@ def rank_pieces(templates, layout, mesh, rank: int) -> dict:
         n = (templates["conv_w"].shape[-1] - di) // 2
         pieces = mamba_pieces(di, n, templates["D"].shape[-1], world, coord)
         for k, group in _MAMBA_FUSED.items():
-            out[k] = [[(0, m)] for m in templates[k].shape[:-1]] + [
-                pieces[group]]
+            out[k] = out[k][:-1] + [pieces[group]]
     if _ATTN <= set(templates) and templates["wk"].head_dim:
         hd = templates["wk"].head_dim
         h, hkv = (templates[k].shape[-1] // hd for k in ("wq", "wk"))
         if hkv % world:
             cols = [(j * hd, hd) for j in kv_heads(h, hkv, world, coord)]
             for k in ("wk", "wv"):
-                out[k] = [[(0, m)] for m in templates[k].shape[:-1]] + [cols]
+                out[k] = out[k][:-1] + [cols]
     return out
 
 
@@ -348,4 +531,147 @@ def take_pieces(a: torch.Tensor, pieces: list) -> torch.Tensor:
             continue
         out = (out.narrow(dim, *held[0]) if len(held) == 1 else
                torch.cat([out.narrow(dim, s, m) for s, m in held], dim))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training over a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# the families `zoo.train_step` trains over ranks, and the layouts it
+# trains under (launch/sharding.py's rule sets)
+TRAIN_ARCH_TYPES = ("dense", "moe")
+TRAIN_MODES = ("tp", "fsdp", "zero3")
+
+
+def check_train(cfg, mesh, mode: str) -> None:
+    """Raise ValueError unless cfg trains over the ("data", "model") mesh
+    `mesh` under `mode`: a layout of TRAIN_MODES, the dense or moe family
+    (the ssm, hybrid and encdec families: ROADMAP), attn_shard "auto" (the
+    "shmap" variant's training: ROADMAP item 24), and a "model" axis that
+    `check_tp` lets serve."""
+    if mode not in TRAIN_MODES:
+        raise ValueError(f"{cfg.name}: layout {mode!r}, expected one of "
+                         f"{TRAIN_MODES}")
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"{cfg.name}: training runs on a (\"data\", "
+                         f"\"model\") mesh, not {tuple(mesh.axis_names)}")
+    if cfg.arch_type not in TRAIN_ARCH_TYPES:
+        raise ValueError(f"{cfg.name}: training over ranks runs the "
+                         f"{TRAIN_ARCH_TYPES} families, not "
+                         f"{cfg.arch_type!r}")
+    if cfg.attn_shard != "auto":
+        raise ValueError(f"{cfg.name}: training over ranks runs attn_shard "
+                         f"\"auto\", not {cfg.attn_shard!r} (the \"shmap\" "
+                         f"variant's training: ROADMAP item 24)")
+    check_tp(cfg, mesh.shape["model"])
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """The layout a training step runs under: `mode` ("tp", "fsdp" or
+    "zero3") and `specs`, its layout tree on the run's mesh
+    (`launch.sharding.param_layouts(templates, mesh, mode)`)."""
+
+    mode: str
+    specs: dict
+
+
+def _spec_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_specs(specs: dict) -> dict:
+    """The layouts of one layer's views of stacked leaves: the stacked
+    layouts without their leading "layers" entry."""
+    return _spec_map(lambda s: s[1:], specs)
+
+
+def data_cut(spec) -> tuple[int, tuple[str, ...]] | None:
+    """(dim, its axes) of the dim a layout cuts over "data" (fsdp's
+    `embed` over ("data",), zero3's over ("data", "model")), or None."""
+    for dim, axes in enumerate(spec):
+        if "data" in _flat(axes):
+            return dim, _flat(axes)
+    return None
+
+
+def gather_for_use(mp: ModelParallel, shard: torch.Tensor,
+                   spec) -> torch.Tensor:
+    """A leaf (or a layer's view of a stacked one) whole along the dim its
+    layout `spec` cuts over "data", gathered from the ranks along its
+    axes; its gradient is reduce-scattered back to the shard. Inside
+    `regather_saved` the gathered weight is registered, so that an op that
+    saves it for the backward saves the shard instead. A leaf not cut over
+    "data" is the shard itself."""
+    cut = data_cut(spec)
+    if cut is None or len(mp.axis_ranks(cut[1])) == 1:
+        return shard
+    full = _GatherForUse.apply(shard, mp, *cut)
+    if mp.regather is not None:
+        mp.regather[full.untyped_storage().data_ptr()] = (
+            weakref.ref(full), shard.detach(), *cut)
+    return full
+
+
+def gather_tree(mp: ModelParallel, tree, specs):
+    """`gather_for_use` over a (sub)tree of leaves and their layouts."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(mp, v, specs[k]) for k, v in tree.items()}
+    return gather_for_use(mp, tree, specs)
+
+
+@contextlib.contextmanager
+def regather_saved(mp: ModelParallel):
+    """Within: a tensor an op saves for its backward that is (a view of) a
+    weight `gather_for_use` gathered is saved as the shard, and gathered
+    again (no gradient) when the backward reads it, so no gathered weight
+    lives from its forward to its backward. The weight is known by its
+    storage while it is alive (a weak reference: a storage freed and reused
+    is not taken for it)."""
+    reg: dict = {}
+
+    def pack(t: torch.Tensor):
+        entry = reg.get(t.untyped_storage().data_ptr())
+        if entry is None or entry[0]() is None:
+            return t
+        return entry[1:], tuple(t.shape), t.stride(), t.storage_offset()
+
+    def unpack(saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        (shard, dim, axes), size, stride, offset = saved
+        with torch.no_grad():
+            full = mp.gather_axes(shard, dim, axes)
+        return full.as_strided(size, stride, offset)
+
+    mp.regather = reg
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+    finally:
+        mp.regather = None
+
+
+def reduce_replicated_grads(mp: ModelParallel, grads: list, specs: list
+                            ) -> list:
+    """The gradients of a step's leaves (in tree order, with their
+    layouts), each leaf the layout does not cut over "data" (the norms;
+    zero3's experts) summed over the "data" ranks: every rank's rows of
+    the batch give it a part. One all-reduce of them packed; the others
+    (reduce-scattered by `gather_for_use`) as they are."""
+    if mp.data_world == 1:
+        return grads
+    idx = [i for i, s in enumerate(specs) if data_cut(s) is None]
+    if not idx:
+        return grads
+    flat = mp.all_reduce_axes(torch.cat([grads[i].reshape(-1)
+                                         for i in idx]), ("data",))
+    out, at = list(grads), 0
+    for i in idx:
+        n = grads[i].numel()
+        out[i] = flat[at:at + n].view(grads[i].shape).to(grads[i].dtype)
+        at += n
     return out

@@ -36,17 +36,36 @@ logits of the rank's vocabulary columns are gathered to the full
 vocabulary; where they do not (seamless's 256,206 over 4), both leaves
 are whole and every rank looks its tokens up and computes the whole
 logits, with no collective.
+
+Training over a ("data", "model") mesh (`train_step` with mp and a
+`parallel.TrainLayout`; the dense and moe families): the params are a
+rank's shard under the layout ("tp", "fsdp", "zero3"), the batch its rows
+(the "data" axis). Each block gathers the leaves of a sublayer (its
+attention, MLP, experts) that the layout cuts over "data" where it runs
+them (`parallel.gather_for_use`), and "tp" / "fsdp" run the heads, the MLP
+and the vocabulary cut over "model" as serving does, through the
+collectives' autograd forms (the model-replicated input of each sublayer
+through `parallel.enter_partial`); "zero3" computes them whole on every
+rank and keeps the experts over "model". The loss is the reference's over
+the whole batch: each rank's NLL summed over "data" (`parallel.sum_over`),
+the aux over the whole batch (`layers.moe_dispatch`).
 """
 
 from __future__ import annotations
 
+import operator
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.models import layers as Lyr
-from repro_torch.models.parallel import check_tp, reduce_partial
+from repro_torch.models.parallel import (check_tp, check_train, enter_partial,
+                                         gather_logits, gather_tree,
+                                         layer_specs,
+                                         reduce_partial,
+                                         reduce_replicated_grads,
+                                         regather_saved, sum_over)
 from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
                                      stack_tree, tree_leaves, tree_map,
                                      unstack)
@@ -278,52 +297,65 @@ def window_schedule(cfg: ModelConfig, n_layers: int | None = None) -> np.ndarray
 # ---------------------------------------------------------------------------
 
 def _dense_block_fwd(p, cfg, x, positions, window, kv_cache=None,
-                     cache_len=None, mode="decode", mp=None):
-    h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
+                     cache_len=None, mode="decode", mp=None,
+                     use=operator.getitem):
+    """One dense layer: (x, cache). use(p, key): a sublayer's weights where
+    they are used (as held, or gathered by a training layout)."""
+    h, cache = Lyr.attention(use(p, "attn"), cfg,
+                             enter_partial(mp, Lyr.rms_norm(x, p["ln1"])),
                              positions=positions, window=window,
                              kv_cache=kv_cache, cache_len=cache_len, mode=mode,
                              mp=mp)
     x = x + reduce_partial(mp, h)
-    x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"],
-                                       cfg.mlp_act))
+    x = x + reduce_partial(mp, Lyr.mlp(
+        enter_partial(mp, Lyr.rms_norm(x, p["ln2"])), use(p, "mlp"),
+        cfg.mlp_act))
     return x, cache
 
 
 def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
-                   cache_len=None, mode="decode", mp=None):
+                   cache_len=None, mode="decode", mp=None,
+                   use=operator.getitem, ep=None):
     """The dense block with the MLP replaced by the experts (plus arctic's
     dense residual MLP on the same normed input): (x, cache, aux). Under
     mp the experts are expert-parallel (`layers.moe_ffn_shmap`), their sum
     crossing the wire in the activations' dtype (the reference's plain
     "tp" layout) or, under cfg.attn_shard "shmap", in bfloat16 (the
-    reference's `moe_ffn_shmap`, which that variant selects)."""
-    h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]),
+    reference's `moe_ffn_shmap`, which that variant selects). `ep`, where
+    given, is what the experts run over instead of mp (zero3 in training:
+    attention and the dense MLP whole, mp None; the experts over
+    "model")."""
+    ep = mp if ep is None else ep
+    h, cache = Lyr.attention(use(p, "attn"), cfg,
+                             enter_partial(mp, Lyr.rms_norm(x, p["ln1"])),
                              positions=positions, window=window,
                              kv_cache=kv_cache, cache_len=cache_len, mode=mode,
                              mp=mp)
     x = x + reduce_partial(mp, h)
     xn = Lyr.rms_norm(x, p["ln2"])
-    if mp is None:
-        moe_out, aux = Lyr.moe_ffn(p["moe"], cfg, xn)
+    if ep is None or ep.world == 1:
+        moe_out, aux = Lyr.moe_ffn(use(p, "moe"), cfg, xn, ep)
     else:
         wire = torch.bfloat16 if cfg.attn_shard == "shmap" else xn.dtype
-        moe_out, aux = Lyr.moe_ffn_shmap(p["moe"], cfg, xn, mp, wire=wire)
+        moe_out, aux = Lyr.moe_ffn_shmap(use(p, "moe"), cfg, xn, ep,
+                                         wire=wire)
     if cfg.dense_residual:
         moe_out = moe_out + reduce_partial(
-            mp, Lyr.mlp(xn, p["dense_mlp"], cfg.mlp_act))
+            mp, Lyr.mlp(enter_partial(mp, xn), use(p, "dense_mlp"),
+                        cfg.mlp_act))
     return x + moe_out, cache, aux
 
 
 def _block_fwd(p, cfg, x, positions, window, kv_cache=None, cache_len=None,
-               mode="decode", mp=None):
+               mode="decode", mp=None, use=operator.getitem, ep=None):
     """One layer of a dense or moe model (an encdec decoder layer's self
     attention and MLP, as the neural scorer runs it): (x, cache, aux), aux
     the moe block's Switch loss and 0.0 for the others."""
     if cfg.arch_type == "moe":
         return _moe_block_fwd(p, cfg, x, positions, window, kv_cache,
-                              cache_len, mode, mp)
+                              cache_len, mode, mp, use, ep)
     x, cache = _dense_block_fwd(p, cfg, x, positions, window, kv_cache,
-                                cache_len, mode, mp)
+                                cache_len, mode, mp, use)
     return x, cache, 0.0
 
 
@@ -391,7 +423,7 @@ def embed_tokens(params, cfg, tokens, mp=None) -> torch.Tensor:
     rows = emb[torch.where(inside, local, 0)]
     rows = torch.where(inside[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return mp.all_reduce_sum(rows)
+    return reduce_partial(mp, rows)
 
 
 def embed_inputs(params, cfg, batch, mp=None):
@@ -402,16 +434,33 @@ def embed_inputs(params, cfg, batch, mp=None):
     return tok_emb
 
 
-def forward(params, cfg: ModelConfig, batch, mp=None
+def forward(params, cfg: ModelConfig, batch, mp=None, layout=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits, aux_loss): the moe family's aux summed over the
     layers (float32), 0 for the other families. mp: a rank's shard of the
-    model (module docstring); the logits are whole."""
-    if mp is not None:
+    model (module docstring); the logits are whole.
+
+    layout (with mp, a `parallel.TrainLayout`; the dense and moe families):
+    params are the rank's shard and batch its rows of a training run. Each
+    sublayer's leaves cut over "data" are gathered where they run
+    (`parallel.gather_tree`), the embedding and the head where they are
+    used; the heads, the MLP and the vocabulary are cut over "model" as in
+    serving unless the layout is "zero3" (computed whole on every rank,
+    the experts still over "model"); the aux is the whole batch's."""
+    tp, use = mp, operator.getitem
+    if layout is not None:
+        check_train(cfg, mp.mesh, layout.mode)
+        tp = None if layout.mode == "zero3" else mp
+        # the top level's layouts and a layer's (no name is in both)
+        specs = {**layout.specs, **layer_specs(layout.specs["blocks"])}
+
+        def use(p, key):
+            return gather_tree(mp, p[key], specs[key])
+    elif mp is not None:
         check_tp(cfg, mp.world)
     if cfg.arch_type == "encdec":
         return _forward_encdec(params, cfg, batch, mp)
-    x = embed_inputs(params, cfg, batch, mp)
+    x = embed_inputs({"embed": use(params, "embed")}, cfg, batch, tp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), device=x.device)
@@ -425,10 +474,11 @@ def forward(params, cfg: ModelConfig, batch, mp=None
         wins = window_schedule(cfg)
         for i, p in enumerate(layers):
             x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]),
-                                   mp=mp)
+                                   mp=tp, use=use, ep=mp)
             aux_total = aux_total + aux
     x = Lyr.rms_norm(x, params["final_norm"])
-    return _lm_head(params, cfg, x, mp), aux_total
+    w = "embed" if cfg.tie_embeddings else "head"
+    return _lm_head({w: use(params, w)}, cfg, x, tp), aux_total
 
 
 def _hybrid_forward(params, cfg, x, layers, positions, mp=None):
@@ -450,10 +500,9 @@ def _lm_head(params, cfg, x, mp=None):
     the whole row then keeps the lowest index on ties, as without mp);
     with it whole every rank computes the whole logits."""
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = x @ w.to(x.dtype)
     if mp is None or not vocab_cut(cfg, w, -1):
-        return logits
-    return mp.all_gather(logits, dim=-1)
+        return x @ w.to(x.dtype)
+    return gather_logits(mp, enter_partial(mp, x) @ w.to(x.dtype))
 
 
 def _promoted(x, w):
@@ -524,17 +573,28 @@ def _forward_encdec(params, cfg, batch, mp=None):
 # Loss / train step
 # ---------------------------------------------------------------------------
 
-def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+def lm_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
+            mp=None, layout=None):
     """Mean next-token NLL over batch["targets"] (float32 logits) plus the
     weighted aux loss; a vlm's frontend positions carry no target (an
-    encdec's frontend is the encoder's input, not part of the logits)."""
-    logits, aux = forward(params, cfg, batch)
+    encdec's frontend is the encoder's input, not part of the logits).
+    With mp and a layout (a rank of a training run, batch its rows): the
+    mean over the whole batch, each "data" rank's NLL summed over them
+    (`parallel.sum_over`: its gradient reaches this rank's rows only), so
+    every rank returns the unsharded loss and the sum over the ranks of
+    their gradients is its gradient."""
+    logits, aux = forward(params, cfg, batch, mp, layout)
     if cfg.frontend_positions and cfg.arch_type != "encdec":
         logits = logits[:, cfg.frontend_positions:]
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, batch["targets"][..., None])[..., 0]
-    nll = (logz - gold).mean()
+    if layout is None:
+        nll = (logz - gold).mean()
+    else:
+        nll = sum_over(mp, (logz - gold).sum() / (gold.numel()
+                                                  * mp.data_world),
+                       ("data",))
     return nll + aux_weight * aux
 
 
@@ -542,16 +602,38 @@ def _or_zeros(g, p_):
     return torch.zeros_like(p_) if g is None else g
 
 
-def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update):
+def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update,
+               mp=None, layout=None):
     """One optimizer step on the parameter tree: (params, opt_state, loss).
     Each update is cast to its parameter's dtype before it is added. A
     leaf the loss does not reach (a hybrid's shared block when the depth
-    keeps no application of it) gets a zero gradient, as under jax.grad."""
+    keeps no application of it) gets a zero gradient, as under jax.grad.
+
+    With mp and a `parallel.TrainLayout` (the dense and moe families,
+    `parallel.check_train`): params and opt_state are this rank's shards
+    under the layout, batch its rows of the batch; the step is the
+    unsharded one's. The weights gathered for use are not saved for the
+    backward (`parallel.regather_saved`); the leaves the layout leaves
+    whole over "data" have their gradients summed over it
+    (`parallel.reduce_replicated_grads`); Adam runs on the shards."""
     leaves = tree_map(lambda p_: p_.detach().requires_grad_(True), params)
-    loss = lm_loss(leaves, cfg, batch)
-    grads = iter(torch.autograd.grad(loss, list(tree_leaves(leaves)),
-                                     allow_unused=True))
-    grads = tree_map(lambda p_: _or_zeros(next(grads), p_), leaves)
+    if layout is None:
+        loss = lm_loss(leaves, cfg, batch)
+    else:
+        with regather_saved(mp):
+            loss = lm_loss(leaves, cfg, batch, mp=mp, layout=layout)
+    flat = list(tree_leaves(leaves))
+    grads = [_or_zeros(g, p_) for g, p_ in zip(
+        torch.autograd.grad(loss, flat, allow_unused=True), flat)]
+    if layout is not None:
+        grads = reduce_replicated_grads(mp, grads,
+                                        list(tree_leaves(layout.specs)))
+    grads = iter(grads)
+    grads = tree_map(lambda p_: next(grads), leaves)
     updates, opt_state = opt_update(grads, opt_state, params)
+    # freed before the new params are made: the step's peak is then the
+    # optimizer's own (params, both states and the updates), not one tree
+    # more
+    del grads
     params = tree_map(lambda p_, u: p_ + u.to(p_.dtype), params, updates)
     return params, opt_state, loss.detach()

@@ -1,5 +1,6 @@
 """Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py,
-tests/test_torch_tp_kvrep.py and tests/test_torch_seq.py.
+tests/test_torch_tp_kvrep.py, tests/test_torch_seq.py and
+tests/test_torch_fsdp.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -15,9 +16,12 @@ import torch
 from repro_torch import configs as TCFG
 from repro_torch.kernels import ops
 from repro_torch.launch import sharding as SH
+from repro_torch.launch import train as TLT
 from repro_torch.models import base as MB
 from repro_torch.models import layers as Lyr
+from repro_torch.models import parallel as TPAR
 from repro_torch.models import zoo as Z
+from repro_torch.optim import adam
 from repro_torch.serving import engine as E
 
 
@@ -141,10 +145,11 @@ def moe_rank(mp, arch: str, params_np: dict, x, capacity_factors) -> dict:
         y16, aux = Lyr.moe_ffn_shmap(p, cfg, x, mp)
         y32, _ = Lyr.moe_ffn_shmap(p, cfg, x, mp, wire=torch.float32)
         xt = x.reshape(-1, x.shape[-1])
-        _, gate_v, gate_i = Lyr.moe_route(p, cfg, xt)
+        probs, gate_v, gate_i = Lyr.moe_route(p, cfg, xt)
         e_loc = p["w_gate"].shape[0]
-        partial = Lyr._local_experts(p, cfg, xt, gate_v, gate_i,
-                                     mp.rank * e_loc)
+        partial = Lyr._local_experts(
+            p, cfg, xt, gate_v, gate_i, mp.rank * e_loc,
+            tuple(Lyr.moe_dispatch(cfg, probs, gate_i)[:4]))
         out[cf] = dict(y_bf16=y16, y_f32=y32, aux=aux, n_local=e_loc,
                        partial=partial.reshape(x.shape))
     return out
@@ -284,4 +289,119 @@ def family_rank(mp, cases) -> dict:
                          logits=logits, step_logits=step_logits,
                          prefill_cache=prefill_cache, cache=cache,
                          calls=calls, digests=digests[start:])
+    return out
+
+
+def _record_keeps(keeps: list):
+    """Wrap `layers.moe_dispatch` to record each call's kept choices (slot
+    < cap: this rank's tokens' choices, of the whole batch's dispatch);
+    returns the undo."""
+    orig = Lyr.moe_dispatch
+
+    def recorded(cfg, probs, gate_i, mp=None):
+        out = orig(cfg, probs, gate_i, mp)
+        keeps.append(out[2] < out[3])
+        return out
+
+    Lyr.moe_dispatch = recorded
+    return lambda: setattr(Lyr, "moe_dispatch", orig)
+
+
+def _train_case(mp, arch, mode, cf, params_np, batches, lr) -> dict:
+    """One training case on this rank: the arch's smoke config in float32
+    at capacity factor cf (where given) from the reference's numpy params,
+    its shard under `mode` and the gather back, then an Adam step
+    (`zoo.train_step` with mp and the layout) on the rank's rows of each
+    batch, each step's collectives and kept choices recorded."""
+    cfg = smoke_cfg(arch)
+    if cf:
+        cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    tmpl = Z.templates(cfg)
+    layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh, mode))
+    full = Z.params_from_numpy(params_np, cfg, device="cpu")
+    shard = MB.shard_params(full, tmpl, layout.specs, mp)
+    back = MB.gather_params(shard, tmpl, layout.specs, mp)
+    round_trip = all(torch.equal(a, b) for a, b in
+                     zip(MB.tree_leaves(back), MB.tree_leaves(full)))
+    del full, back
+    opt = adam(lr)
+    state = opt.init(shard)
+    losses, calls, keeps, m1 = [], [], [], None
+    for i, batch in enumerate(batches):
+        rows = TLT.batch_rows({k: torch.as_tensor(v)
+                               for k, v in batch.items()}, mp.mesh,
+                              mp.global_rank)
+        step_keeps = []
+        undo = _record_keeps(step_keeps)
+        mp.reset_counts()
+        try:
+            shard, state, loss = Z.train_step(shard, state, rows, cfg,
+                                              opt.update, mp, layout)
+        finally:
+            undo()
+        losses.append(float(loss))
+        calls.append(dict(mp.calls))
+        keeps.append(step_keeps)
+        if i == 0:
+            m1 = MB.gather_params(state["m"], tmpl, layout.specs, mp)
+    again = MB.shard_params(MB.gather_params(shard, tmpl, layout.specs, mp),
+                            tmpl, layout.specs, mp)
+    gathers_back = all(torch.equal(a, b) for a, b in
+                       zip(MB.tree_leaves(again), MB.tree_leaves(shard)))
+    digests = {k: [_digest(a) for a in MB.tree_leaves(t)] for k, t in
+               (("params", shard), ("m", state["m"]), ("v", state["v"]))}
+    state_bytes = sum(a.numel() * a.element_size() for t in (
+        shard, state["m"], state["v"]) for a in MB.tree_leaves(t))
+    return dict(losses=losses, calls=calls, keeps=keeps,
+                m1=m1 if mp.global_rank == 0 else None,
+                round_trip=round_trip, gathers_back=gathers_back,
+                digests=digests, state_bytes=state_bytes,
+                step=int(state["step"]))
+
+
+def _kept_gathered(mp, arch, mode, params_np, batch, hooks: bool) -> int:
+    """How many of the weights a training forward gathered for use are
+    still alive after it returns (held by the autograd graph for the
+    backward), with `regather_saved`'s hooks or, for contrast, with the
+    gathered weights registered but no hooks; the backward then runs, so
+    that every rank makes the same collectives."""
+    cfg = smoke_cfg(arch)
+    tmpl = Z.templates(cfg)
+    layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh, mode))
+    shard = MB.shard_params(Z.params_from_numpy(params_np, cfg, device="cpu"),
+                            tmpl, layout.specs, mp)
+    leaves = MB.tree_map(lambda a: a.requires_grad_(True), shard)
+    rows = TLT.batch_rows({k: torch.as_tensor(v) for k, v in batch.items()},
+                          mp.mesh, mp.global_rank)
+    if hooks:
+        with TPAR.regather_saved(mp):
+            reg = mp.regather
+            loss = Z.lm_loss(leaves, cfg, rows, mp=mp, layout=layout)
+    else:
+        reg = mp.regather = {}
+        try:
+            loss = Z.lm_loss(leaves, cfg, rows, mp=mp, layout=layout)
+        finally:
+            mp.regather = None
+    alive = sum(ref() is not None for ref, *_ in reg.values())
+    assert reg, "no weight was gathered"
+    torch.autograd.grad(loss, list(MB.tree_leaves(leaves)))
+    return alive
+
+
+def train_rank(mp, cases, kept_case=None, launcher=None) -> dict:
+    """One rank of tests/test_torch_fsdp.py: `_train_case` for each case
+    (name, arch, mode, capacity factor, params_np, batches, lr); where
+    kept_case (arch, mode, params_np, batch) is given, the gathered
+    weights still alive after a forward with and without
+    `regather_saved`; where launcher (arch, mode, steps, batch, seq,
+    seed) is given, `launch.train.train_lm_rank` of its smoke config."""
+    out = {name: _train_case(mp, *case) for name, *case in cases}
+    if kept_case is not None:
+        out["kept"] = {hooks: _kept_gathered(mp, *kept_case, hooks)
+                       for hooks in (True, False)}
+    if launcher is not None:
+        arch, mode, steps, batch, seq, seed = launcher
+        out["launcher"] = TLT.train_lm_rank(mp, arch, 0, mode, steps, batch,
+                                            seq, seed, True, 1e-3)
     return out
