@@ -240,13 +240,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    margin exceeds 4e-4, expert choices exact where the router leaves a
    margin, the ranks' logits bit-equal, K8 = layers x steps on each rank
    (its counts set to 0 in the rank before its run, read after);
-   `[tp lm]` gemma3-27b at full width and depth in bfloat16 over 4 ranks
-   (8 q / 4 kv heads, a quarter of d_ff and 65,536 of the vocabulary a
-   rank; each rank draws [lm]'s weights from the same seed, keeping only
-   its blocks): prefill of [lm]'s 4 x 2048 tokens and 8 decode steps fed
-   [lm]'s greedy tokens, logits within TP_BF16_STD_TOL of the step's
-   logit std of [lm]'s (teacher-fed rerun), greedy tokens equal where
-   its top-2 margin exceeds that; per rank K8 = 62 x 8, peak memory,
+   `[tp lm]` gemma3-27b at full width cut to 12 layers in bfloat16 over 4
+   ranks (8 q / 4 kv heads, a quarter of d_ff and 65,536 of the
+   vocabulary a rank; each rank draws the unsharded run's weights from
+   the same seed, keeping only its blocks): prefill of 4 x 2048 tokens
+   and 8 decode steps fed the unsharded run's greedy tokens, logits within
+   TP_BF16_STD_TOL of the step's logit std of that run's, greedy tokens
+   equal where its top-2 margin exceeds that; per rank K8 = 12 x 8, peak
+   memory,
    prefill s, median ms a step and the collectives a step; `[tp moe]`
    the same for dbrx-132b at [moe lm]'s 2 layers (4 of 16 experts a
    rank), every layer routed to the unsharded run's experts and the
@@ -258,21 +259,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    `[seq parity]` inside [tp parity]'s spawn, both smoke configs under
    both variants against the card's unsharded run (see SEQ_BF16_UNIT),
    K8 partials = layers x steps a rank and K8 0; `[seq lm]` inside [tp
-   lm]'s spawn, on its shards, gemma3-27b under "seqkv" held to [lm]'s
-   teacher-fed rerun at [tp lm]'s bar, per rank the cache's bytes,
-   prefill s, median ms a step, the collectives a step by kind and K8
-   partials = 62 x 8. Where the ranks do not divide the kv heads (each
-   rank holding whole the kv heads its query heads read,
+   lm]'s spawn, on its shards, gemma3-27b under "seqkv" held to [tp lm]'s
+   unsharded run at [tp lm]'s bar, per rank the cache's bytes, prefill s,
+   median ms a step, the collectives a step by kind and K8 partials =
+   12 x 8; `[seq families parity]` inside [tp families parity]'s spawn
+   and `[seq families lm]` inside [tp families lm]'s (8g below). Where
+   the ranks do not divide the kv heads (each rank holding whole the kv
+   heads its query heads read,
    `parallel.kv_heads`), inside [tp lm]'s spawn of 4 ranks: `[tp kvrep
    parity]` starcoder2-smoke and dbrx-smoke (4 query / 2 kv heads: one kv
    head a rank) in float32 against the card's unsharded run at [tp
    parity]'s bars, K8 = layers x steps a rank; `[tp kvrep lm]`
-   starcoder2-3b at full width and depth in bfloat16 (24 query / 2 kv
-   heads: 6 / 1 a rank, ranks 0-1 holding kv head 0 and ranks 2-3 kv head
-   1), a prefill of 4 x 2048 tokens and 8 decode steps fed the unsharded
-   run's greedy tokens, held to that run at [tp lm]'s bar; per rank K8 =
-   30 x 8, peak memory, the cache's bytes, prefill s, median ms a step
-   and the collectives a step by kind;
+   starcoder2-3b at full width cut to 10 layers in bfloat16 (24 query / 2
+   kv heads: 6 / 1 a rank, ranks 0-1 holding kv head 0 and ranks 2-3 kv
+   head 1), a prefill of 4 x 2048 tokens and 8 decode steps fed the
+   unsharded run's greedy tokens, held to that run at [tp lm]'s bar; per
+   rank K8 = 10 x 8, peak memory, the cache's bytes, prefill s, median ms
+   a step and the collectives a step by kind;
 8f. training over a ("data", "model") mesh (`zoo.train_step` with a
    `parallel.TrainLayout`), one spawn of 2 x 2 ranks after [tp lm]'s:
    `[fsdp parity]` yi-smoke, gemma3-smoke and dbrx-smoke (capacity 1.0:
@@ -280,7 +283,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    card's unsharded `train_step` at the CPU tests' bars (losses 1e-5,
    step 1's gathered m 1e-5 of each leaf's largest, the kept choices
    exact where the router leaves a margin, each rank's state bytes its
-   layout's); `[fsdp lm]` yi-34b at its published widths cut to 2 layers,
+   layout's); `[fsdp lm]` yi-34b at its published widths cut to 1 layer,
    float32 weights from seed 0, 3 Adam steps (lr 1e-3) of the launcher's
    4 x 64 batch under both layouts (`launch.train.train_lm_rank`), the losses
    within 1e-4 of the launcher's unsharded run on the card (run before
@@ -307,6 +310,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    against the model's forward over the same tokens; prefill s, median and
    p90 ms per step beside the report's bound, CUDA kernel launches per
    step, the device's idle share, tokens/s and peak memory;
+8g. the ssm, hybrid and encdec families over ranks: `[tp families
+   parity]` (after [tp parity]) their smoke configs in float32, perturbed,
+   over 2 ranks under "tp" against the card's unsharded run, and in the
+   same spawn `[seq families parity]` zamba2-smoke and seamless-smoke
+   under "seqkv" and "shmap" with every K/V leaf cut over its slots, at
+   [seq parity]'s bars, K8 partials = attention layers x steps a rank and
+   K8 0; `[tp families lm]` (after [encdec lm]) rwkv6-1.6b, zamba2-1.2b and
+   seamless at full width and depth in bfloat16 over 4 ranks against [ssm
+   lm]'s / [encdec lm]'s teacher-fed reruns, and on the same shards
+   `[seq families lm]` zamba2-1.2b and seamless under "seqkv" (their K/V
+   over 520 positions and 4096 frames cut over the ranks, K8 partials 6 x
+   8 and 48 x 8 a rank, K8 0); `[tp families train]` rwkv6-1.6b (2
+   layers), zamba2-1.2b (7) and seamless (2 + 2) at full width in float32
+   under "tp" over 2 x 2 ranks, 3 Adam steps at lr 1e-3 (the recurrent
+   ones in the chunked form), the losses within 1e-4 of the unsharded run
+   on the card, equal bits wherever ranks share a leaf's pieces, each
+   rank's state its pieces' bytes, the collectives of every step the
+   formula's;
 10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
    2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
    the card: finite losses within 1e-4 of the same steps on the CPU, and
@@ -532,6 +553,13 @@ TP_PARITY_STEPS = 8
 TP_RTOL, TP_ATOL, TP_TOKEN_MARGIN = 1e-5, 2e-4, 4e-4
 TP_WORLD, TP_STEPS = 4, 8
 TP_MOE_ARCH = "dbrx-132b"
+# [tp lm] / [seq lm] run gemma3-27b at its published widths cut to
+# TP_LM_LAYERS layers (two groups of 5 local and 1 global layer), against
+# an unsharded run of the same cut on one card (`tp_lm_reference`): four
+# ranks sharing one card pay ~1.3 s (heads) / ~2.7 s ("seq") a step and
+# ~30 s a prefill over gloo at full depth (PR 32 F0), which chip_smoke.py's
+# time limit no longer holds beside the later phases.
+TP_LM_LAYERS = 12
 TP_BF16_STD_TOL = 0.25
 # Sequence-sharded serving (cfg.attn_shard "seqkv" / "shmap": the "tp"
 # parameter layout, the KV sequence over the ranks; decode through K8's
@@ -550,7 +578,7 @@ TP_BF16_STD_TOL = 0.25
 # on the CPU (tests/test_torch_seq.py), so it is held to one bfloat16 unit
 # of the step's largest logit (SEQ_BF16_UNIT x max |logit|). [seq lm]:
 # inside [tp lm]'s spawn, on its shards, gemma3-27b under SEQ_LM_VARIANT
-# with the "seq" cache, held to [lm]'s teacher-fed rerun as [tp lm] is.
+# with the "seq" cache, held to [tp lm]'s unsharded run as [tp lm] is.
 SEQ_BF16_UNIT = 2.0 ** -7
 SEQ_LM_VARIANT = "seqkv"
 K8_PARTIAL_SHAPES = ("global", "ring", "long")
@@ -657,9 +685,11 @@ TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
 # bfloat16, drawn on the card from seed 0 (each rank keeping its pieces),
 # a prefill of KVREP_LM_BATCH x KVREP_LM_PROMPT tokens and TP_STEPS decode
 # steps fed the unsharded run's greedy tokens, held to that run at [tp
-# lm]'s bar (`check_tp_logits`).
+# lm]'s bar (`check_tp_logits`); cut to KVREP_LM_LAYERS of its 30 layers,
+# for [tp lm]'s reason.
 KVREP_PARITY_ARCHS = ("starcoder2-3b", "dbrx-132b")
 KVREP_LM_ARCH, KVREP_LM_BATCH, KVREP_LM_PROMPT = "starcoder2-3b", 4, 2048
+KVREP_LM_LAYERS = 10
 # Training over a ("data", "model") mesh (`zoo.train_step` with a
 # `parallel.TrainLayout`), one spawn of FSDP_MESH's ranks after [tp lm]'s.
 # [fsdp parity]: the CPU tests' smoke cases (tests/test_torch_fsdp.py; a
@@ -684,8 +714,37 @@ FSDP_MODES = ("fsdp", "zero3")
 FSDP_PARITY_ARCHS = {"yi-34b": None, "gemma3-27b": None, "dbrx-132b": 1.0}
 FSDP_PARITY_BATCH, FSDP_PARITY_SEQ, FSDP_PARITY_LR = 4, 16, 1e-3
 FSDP_LOSS_TOL, FSDP_M_TOL = 1e-5, 1e-5
-FSDP_LM_ARCH, FSDP_LM_LAYERS, FSDP_LM_LR = "yi-34b", 2, 1e-3
+# [fsdp lm] keeps 1 of yi-34b's 60 layers (2 until PR 31; cut for [tp
+# lm]'s reason: its steps move ~3.6 GB a rank per layer and embedding
+# through the host).
+FSDP_LM_ARCH, FSDP_LM_LAYERS, FSDP_LM_LR = "yi-34b", 1, 1e-3
 FSDP_PEAK_SHARE = 0.5
+# The ssm, hybrid and encdec families over ranks, as the reference's pod
+# dry run lowers them. [seq families parity]: inside [tp families
+# parity]'s spawn, SEQ_FAMILY_ARCHS' smoke configs (scan form, smoke
+# vocabulary) under both sequence-sharded variants with the "seq" cache
+# (zamba2's attn_k / attn_v, seamless's self and cross K/V cut over their
+# slots: M = 48 and 16 frames over 2 ranks) against the card's unsharded
+# run, at [seq parity]'s bars. [seq families lm]: inside [tp families
+# lm]'s spawn, on its shards, zamba2-1.2b and seamless-m4t-large-v2 under
+# SEQ_LM_VARIANT with the "seq" cache (M = 512 + TP_STEPS and 4096 frames,
+# both divided by TP_WORLD), held to the same teacher-fed reruns at the
+# same bar as [tp families lm]. [tp families train]: one spawn of
+# FAMILY_TRAIN_MESH's ranks sharing the card, FAMILY_TRAIN_ARCHS at their
+# published widths cut to [ssm lm check]'s / [encdec lm check]'s depth
+# (zamba2 7 layers: its shared block on the path), float32 weights from
+# seed 0, LM_TRAIN_STEPS Adam steps of the launcher's batch at
+# FAMILY_TRAIN_LR under "tp" (rwkv6 and zamba2 in the chunked form, the
+# dry run's choice for training; `launch.train.train_lm_rank`), held to
+# the unsharded run of the same steps on the card at LM_TRAIN_RTOL, the
+# ranks sharing a leaf's pieces holding equal bits of it.
+SEQ_FAMILY_ARCHS = ("zamba2-1.2b", ENCDEC_ARCH)
+FAMILY_TRAIN_MESH = (2, 2)
+FAMILY_TRAIN_ARCHS = {
+    "rwkv6-1.6b": ("chunked", SSM_CHECK_LAYERS["rwkv6-1.6b"]),
+    "zamba2-1.2b": ("chunked", SSM_CHECK_LAYERS["zamba2-1.2b"]),
+    ENCDEC_ARCH: (None, ENCDEC_CHECK_LAYERS)}
+FAMILY_TRAIN_LR = FSDP_LM_LR
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -1682,7 +1741,9 @@ def time_shape(shape, seed, names=None) -> dict[str, dict]:
     out = {}
     for name, (kern_fn, plain_fn) in calls.items():
         kern, lone = time_ms(kern_fn)
-        plain, _ = time_ms(plain_fn)
+        # the plain versions (up to ~20 ms a call) over fewer calls, as in
+        # time_single
+        plain, _ = time_ms(plain_fn, reps=5, calls=5)
         nbytes, nops = costs[name]
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = nops / F32_OPS_PER_S * 1e3
@@ -3635,15 +3696,13 @@ def phase_lm() -> dict:
     profile = profile_decode(params, cfg, cache, tok, LM_PROMPT + LM_STEPS)
     cprofile_decode(params, cfg, cache, tok)
     del cache, logits
-    tp_ref = tp_reference(params, cfg, tokens, generated)
     del params
     free_cuda()
     return dict(params=cfg.param_count(), param_bytes=nbytes,
                 prefill_s=prefill_s, step_ms=step_ms, step_ms_median=med,
                 floor_ms=bnd["bound_ms"],
                 tokens_per_s=LM_BATCH / med * 1e3, peak_bytes=peak,
-                k8_launches=launches["swa_decode"], profile=profile,
-                tp_ref=tp_ref)
+                k8_launches=launches["swa_decode"], profile=profile)
 
 
 def tp_reference(params, cfg, tokens, generated, frontend=None) -> dict:
@@ -4181,21 +4240,24 @@ def phase_tp_parity(card: str) -> dict:
     return out
 
 
-def seq_parity_check(cfg, variant, got, want, backend, card) -> dict:
-    """[seq parity] one smoke config under one sequence-sharded variant
+def seq_parity_check(cfg, variant, got, want, backend, card,
+                     tag="seq parity") -> dict:
+    """[seq parity] (or [seq families parity], `tag`) one smoke config
+    under one sequence-sharded variant
     (`got` per rank, from tp_parity_rank) against the card's unsharded run
     `want`: "seqkv" at TP_RTOL / TP_ATOL, greedy tokens exact where the
     margin exceeds TP_TOKEN_MARGIN; "shmap" (bfloat16 wires) within one
     bfloat16 unit of the step's largest logit, greedy tokens exact where
     the margin exceeds twice that; expert choices exact where the router
     leaves ROUTE_LOG_MARGIN; the ranks' logits bit-equal; K8's partials
-    mode launched once per layer a step on every rank (no block of these
-    caches is empty: the prompt fills every rank's block) and K8 itself
-    never."""
-    tag = f"[seq parity] {cfg.name} {variant}"
+    mode launched once per attention layer a step on every rank
+    (`k8_decode_calls`: no block of these caches is empty, the prompt
+    fills every rank's block) and K8 itself never."""
+    tag = f"[{tag}] {cfg.name} {variant}"
+    per_step = k8_decode_calls(cfg)
     err, share, greedy, routes = 0.0, 0.0, 0, 0
     for r, rank in enumerate(got):
-        assert rank["k8_partial"] == cfg.n_layers * TP_PARITY_STEPS \
+        assert rank["k8_partial"] == per_step * TP_PARITY_STEPS \
             and rank["k8"] == 0, (tag, r, rank["k8_partial"], rank["k8"])
         for i, (g, w) in enumerate(zip(rank["logits"], want["logits"])):
             g = torch.from_numpy(g)
@@ -4230,7 +4292,7 @@ def seq_parity_check(cfg, variant, got, want, backend, card) -> dict:
           + (f", expert choices equal for {routes} token-layers"
              if routes else "")
           + f"; the ranks' logits bit-equal; K8 partials per rank "
-          f"{[rank['k8_partial'] for rank in got]} = {cfg.n_layers} x "
+          f"{[rank['k8_partial'] for rank in got]} = {per_step} x "
           f"{TP_PARITY_STEPS}, K8 0; collectives per rank {got[0]['calls']}")
     return dict(err=err, share=share,
                 k8_partial_per_rank=[rank["k8_partial"] for rank in got])
@@ -4395,17 +4457,18 @@ def check_tp_logits(got, ref, tag, spread=None) -> tuple[float, int]:
     return worst, greedy
 
 
-def kvrep_lm_reference(card: str) -> dict:
-    """What [tp kvrep lm] holds its ranks to: KVREP_LM_ARCH at full width
-    and depth in bfloat16 on one card, drawn from seed 0 on the card (the
-    tokens the generator's next draw), a prefill of KVREP_LM_BATCH x
-    KVREP_LM_PROMPT tokens and TP_STEPS greedy decode steps (lm_serve:
+def tp_lm_reference(arch: str, layers: int, batch: int, prompt: int,
+                    tag: str, card: str) -> dict:
+    """What [tp lm] / [tp kvrep lm] hold their ranks to: the arch at full
+    width cut to `layers` layers in bfloat16 on one card, drawn from seed
+    0 on the card (the tokens the generator's next draw), a prefill of
+    batch x prompt tokens and TP_STEPS greedy decode steps (lm_serve:
     logits on the CPU, the tokens fed)."""
-    cfg = CFG.get(KVREP_LM_ARCH)
+    cfg = dataclasses.replace(CFG.get(arch), n_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
-    tokens = torch.randint(0, cfg.vocab, (KVREP_LM_BATCH, KVREP_LM_PROMPT),
-                           generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                           device="cuda")
     nbytes = sum(a.numel() * a.element_size()
                  for a in MB.tree_leaves(params))
     sync()
@@ -4415,24 +4478,25 @@ def kvrep_lm_reference(card: str) -> dict:
     sync()
     run_s = time.perf_counter() - t0
     assert all(bool(torch.isfinite(a).all()) for a in ref["logits"])
-    print(f"[tp kvrep lm] {cfg.name} unsharded on one card ({card}): "
+    print(f"[{tag}] {cfg.name} unsharded on one card ({card}): "
           f"{cfg.param_count()} parameters, {nbytes} bytes in {cfg.dtype}, "
           f"{cfg.n_layers} layers, {cfg.n_heads} query / {cfg.n_kv_heads} kv "
-          f"heads of {cfg.hd}; prefill {KVREP_LM_BATCH} x {KVREP_LM_PROMPT} "
-          f"tokens + {TP_STEPS} greedy decode steps in {run_s:.3f} s "
-          f"(logits copied to the host each step); peak memory "
+          f"heads of {cfg.hd}; prefill {batch} x {prompt} tokens + "
+          f"{TP_STEPS} greedy decode steps in {run_s:.3f} s (logits copied "
+          f"to the host each step); peak memory "
           f"{torch.cuda.max_memory_allocated()} bytes; logits finite")
     del params
     free_cuda()
     return dict(tokens=tokens.cpu(), **ref)
 
 
-def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
-    """[tp lm] gemma3-27b at full width and depth, [tp moe] dbrx-132b at
-    [moe lm]'s depth and [tp kvrep lm] starcoder2-3b at full depth (its 2
-    kv heads undivided by the ranks), in bfloat16 over TP_WORLD ranks (one
-    spawn for all, [tp kvrep parity] in it too), against [lm]'s / [moe
-    lm]'s teacher-fed reruns and `kvrep_lm_reference`: the logits of
+def phase_tp_lm(card: str, moe_ref: dict) -> dict:
+    """[tp lm] gemma3-27b at full width and TP_LM_LAYERS layers, [tp moe]
+    dbrx-132b at [moe lm]'s depth and [tp kvrep lm] starcoder2-3b at
+    KVREP_LM_LAYERS layers (its 2 kv heads undivided by the ranks), in
+    bfloat16 over TP_WORLD ranks (one spawn for all, [tp kvrep parity] in
+    it too), against `tp_lm_reference`'s unsharded runs and [moe lm]'s
+    teacher-fed rerun: the logits of
     the prefill and of each of TP_STEPS decode steps within
     TP_BF16_STD_TOL of the step's logit standard deviation on every row,
     greedy tokens equal where the unsharded top-2 margin exceeds the bar
@@ -4449,11 +4513,15 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
     backend, devices = transport(TP_WORLD, "cuda")
     n_cards = len(set(map(str, devices)))
     parity_refs, parity_cases = tp_parity_refs(KVREP_PARITY_ARCHS)
-    jobs = [dict(arch=LM_ARCH, layers=None, ref=lm_ref, seq=SEQ_LM_VARIANT),
+    jobs = [dict(arch=LM_ARCH, layers=TP_LM_LAYERS, seq=SEQ_LM_VARIANT,
+                 ref=tp_lm_reference(LM_ARCH, TP_LM_LAYERS, LM_BATCH,
+                                     LM_PROMPT, "tp lm", card)),
             dict(arch=TP_MOE_ARCH, layers=MOE_LM_LAYERS[TP_MOE_ARCH],
                  ref=moe_ref, seq=None),
-            dict(arch=KVREP_LM_ARCH, layers=None,
-                 ref=kvrep_lm_reference(card), seq=None)]
+            dict(arch=KVREP_LM_ARCH, layers=KVREP_LM_LAYERS, seq=None,
+                 ref=tp_lm_reference(KVREP_LM_ARCH, KVREP_LM_LAYERS,
+                                     KVREP_LM_BATCH, KVREP_LM_PROMPT,
+                                     "tp kvrep lm", card))]
     ref_s = time.perf_counter() - t0
     ranks = spawn_ranks(
         TP_WORLD, tp_lm_rank,
@@ -4473,10 +4541,9 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
     tags = {LM_ARCH: "tp lm", TP_MOE_ARCH: "tp moe",
             KVREP_LM_ARCH: "tp kvrep lm"}
     for job in jobs:
-        arch, ref = job["arch"], job["ref"]
+        arch, ref, layers = job["arch"], job["ref"], job["layers"]
         tag = tags[arch]
         cfg = CFG.get(arch)
-        layers = job["layers"] or cfg.n_layers
         b, s = ref["tokens"].shape
         for r, rank in enumerate(ranks):
             assert rank[arch]["k8"] == layers * TP_STEPS, (tag, r,
@@ -4535,8 +4602,9 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
                if cfg.arch_type == "moe" else {}))
         if job["seq"]:
             out[f"{arch}/seq"] = seq_lm_report(
-                [rank[f"{arch}/seq"] for rank in ranks], ref, cfg,
-                job["seq"], backend, n_cards, card)
+                [rank[f"{arch}/seq"] for rank in ranks], ref,
+                dataclasses.replace(cfg, n_layers=layers), job["seq"],
+                backend, n_cards, card)
     print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded reference runs {ref_s:.1f} s, the ranks {spawn_s:.1f} "
           f"s of it, [seq lm], [tp kvrep parity] and [tp kvrep lm] "
@@ -4547,20 +4615,16 @@ def phase_tp_lm(card: str, lm_ref: dict, moe_ref: dict) -> dict:
     return out
 
 
-def layout_bytes(cfg, mesh, mode: str) -> int:
-    """A rank's params + Adam's m and v in float32 under `mode` on `mesh`:
-    3 x 4 bytes x, per leaf, its elements over the product of the sizes of
-    the mesh axes its layout cuts it over."""
+def layout_bytes(cfg, mesh, mode: str, rank: int) -> int:
+    """params + Adam's m and v in float32 of the pieces `rank` holds under
+    `mode` on `mesh` (`parallel.rank_pieces`: a leaf's block, or Mamba2's
+    head-aligned pieces with B / C whole on every rank)."""
     tmpl = Z.templates(cfg)
-    total = 0
-    for t, spec in zip(MB.tree_leaves(tmpl), MB.tree_leaves(
-            SHD.param_layouts(tmpl, mesh, mode))):
-        cut = 1
-        for axes in spec:
-            for a in (axes,) if isinstance(axes, str) else (axes or ()):
-                cut *= mesh.shape[a]
-        total += math.prod(t.shape) // cut
-    return 3 * 4 * total
+    held = MB.tree_leaves(rank_pieces(tmpl, SHD.param_layouts(tmpl, mesh,
+                                                              mode),
+                                      mesh, rank))
+    return 3 * 4 * sum(math.prod(sum(m for _, m in dim) for dim in leaf)
+                       for leaf in held)
 
 
 def shared_bits(cfg, mesh, mode: str, got: list) -> tuple[int, list]:
@@ -4705,7 +4769,7 @@ def check_fsdp_parity(arch, mode, got, want, backend, n_cards, card) -> dict:
         assert rank["losses"] == got[0]["losses"], (arch, mode, r)
         np.testing.assert_allclose(rank["losses"], want["losses"],
                                    rtol=FSDP_LOSS_TOL, atol=FSDP_LOSS_TOL)
-        assert rank["state_bytes"] == layout_bytes(cfg, mesh, mode), (
+        assert rank["state_bytes"] == layout_bytes(cfg, mesh, mode, r), (
             arch, mode, r, rank["state_bytes"])
         assert all(c == rank["calls"][0] for c in rank["calls"]), rank["calls"]
     m_err = 0.0
@@ -4792,7 +4856,7 @@ def phase_fsdp(card: str) -> dict:
           f"the unsharded run on the card {want_s:.2f} s (first-call work "
           f"included), losses {want}, peak memory {want_peak} bytes")
     for mode in FSDP_MODES:
-        want_bytes = layout_bytes(cfg, mesh, mode)
+        want_bytes = layout_bytes(cfg, mesh, mode, 0)
         got = [rank[f"lm/{mode}"] for rank in ranks]
         err = max(abs(a - c) / abs(c) for run in got
                   for a, c in zip(run["losses"], want))
@@ -4802,7 +4866,7 @@ def phase_fsdp(card: str) -> dict:
               f" losses {got[0]['losses']}, max relative err against the "
               f"unsharded run {err:.3g} (bar {LM_TRAIN_RTOL}); state "
               f"{want_bytes} bytes a rank (the unsharded "
-              f"{layout_bytes(cfg, train_mesh(1, 1), mode)})")
+              f"{layout_bytes(cfg, train_mesh(1, 1), mode, 0)})")
         for r, run in enumerate(got):
             calls = {k: (v, run["bytes"][-1][k])
                      for k, v in run["calls"][-1].items()}
@@ -4818,8 +4882,8 @@ def phase_fsdp(card: str) -> dict:
             assert np.isfinite(run["losses"]).all(), run["losses"]
             np.testing.assert_allclose(run["losses"], want,
                                        rtol=LM_TRAIN_RTOL)
-            assert run["state_bytes"] == want_bytes, (mode, r,
-                                                      run["state_bytes"])
+            assert run["state_bytes"] == layout_bytes(cfg, mesh, mode, r), (
+                mode, r, run["state_bytes"])
             assert run["peak_bytes"] < FSDP_PEAK_SHARE * want_peak, (
                 mode, r, run["peak_bytes"], want_peak)
             assert not any(run["launches"].values()), run["launches"]
@@ -4844,7 +4908,7 @@ def phase_fsdp(card: str) -> dict:
 
 def seq_lm_report(got, ref, cfg, variant, backend, n_cards, card) -> dict:
     """[seq lm]: each rank's run of gemma3-27b under `variant` with the
-    "seq" cache (`got`, per rank) held to [lm]'s teacher-fed rerun as [tp
+    "seq" cache (`got`, per rank) held to [tp lm]'s unsharded run as [tp
     lm] is (`check_tp_logits`); K8's partials mode launched once per
     layer a step on every rank (no rank's block of any leaf is empty: the
     prompt fills them) and K8 itself never; per rank the cache's bytes,
@@ -4914,9 +4978,28 @@ def tp_calls_per_step(cfg, world: int) -> dict[str, int]:
 
 
 def k8_decode_calls(cfg) -> int:
-    """K8 launches of one decode step: k8_per_step's, or seamless's two a
-    decoder layer (self and cross attention)."""
-    return 2 * cfg.n_layers if cfg.arch_type == "encdec" else k8_per_step(cfg)
+    """K8 launches of one decode step (or, under a sequence-sharded
+    variant with every K/V leaf cut over its slots, launches of its
+    partials mode): one a layer of a dense or moe model, k8_per_step's for
+    the ssm and hybrid families, seamless's two a decoder layer (self and
+    cross attention)."""
+    if cfg.arch_type == "encdec":
+        return 2 * cfg.n_layers
+    if cfg.arch_type in ("ssm", "hybrid"):
+        return k8_per_step(cfg)
+    return cfg.n_layers
+
+
+def seq_calls_per_step(cfg, world: int) -> dict[str, int]:
+    """The collectives of one decode step of zamba2 or seamless under a
+    sequence-sharded variant with every K/V leaf cut over its slots:
+    `tp_calls_per_step`'s, and for each attention over such a leaf
+    (k8_decode_calls of them) the all-gather of the token's heads, the
+    all-reduce max and the one float32 sum of the partials' combine."""
+    want = dict(tp_calls_per_step(cfg, world))
+    for kind in ("all_gather", "all_reduce_max", "all_reduce_sum"):
+        want[kind] = want.get(kind, 0) + k8_decode_calls(cfg)
+    return want
 
 
 def one_card_spread(params, cfg, ref, frontend=None) -> list[float]:
@@ -4964,12 +5047,21 @@ def tp_family_inputs(cfg):
             np.float32))
 
 
+def seq_family_case(arch: str, impl: str, vocab: int) -> bool:
+    """Whether a [tp families parity] case is run again under the
+    sequence-sharded variants ([seq families parity])."""
+    return arch in SEQ_FAMILY_ARCHS and impl == "scan" and not vocab
+
+
 def tp_families_parity_rank(mp, cases) -> dict:
-    """[tp families parity], one rank: for each (key, arch, impl, vocab,
-    feed) its shard of the perturbed float32 smoke config (`perturbed`,
-    seed 3 on the CPU), prefill and decode fed `feed` through lm_serve;
-    the launch counts set to 0 before the run and read after it, the
-    collectives of the prefill and of the decode steps."""
+    """[tp families parity] and [seq families parity], one rank: for each
+    (key, arch, impl, vocab, feed) its shard of the perturbed float32
+    smoke config (`perturbed`, seed 3 on the CPU), prefill and decode fed
+    `feed` through lm_serve, under "auto" and, for a `seq_family_case`,
+    under each sequence-sharded variant with the "seq" cache (key
+    "key/variant"); the launch counts set to 0 before each run and read
+    after it, the collectives of the prefill and of the decode steps, the
+    run's seconds."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for key, arch, impl, vocab, feed in cases:
@@ -4980,18 +5072,27 @@ def tp_families_parity_rank(mp, cases) -> dict:
             SHD.param_layouts(tmpl, mp.mesh), mp)
         params = MB.tree_map(lambda a: a.to(mp.device), params)
         tokens, frontend = tp_family_inputs(cfg)
-        ops.reset_launch_counts()            # this rank's path starts here
-        mp.reset_counts()
-        run = lm_serve(params, cfg, tokens, len(feed), mp.device,
-                       feed=[torch.as_tensor(f) for f in feed],
-                       frontend=frontend, mp=mp)
-        sync()
-        counts = ops.launch_counts()         # ... and ends here
-        decode = {k: v - run["prefill_calls"].get(k, 0)
-                  for k, v in mp.calls.items()}
-        out[key] = dict(logits=run["logits"], launches=counts,
-                        prefill_calls=run["prefill_calls"],
-                        decode_calls={k: v for k, v in decode.items() if v})
+        variants = (("auto", *SEQ_VARIANTS)
+                    if seq_family_case(arch, impl, vocab) else ("auto",))
+        for variant in variants:
+            vcfg = dataclasses.replace(cfg, attn_shard=variant)
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()        # this rank's path starts here
+            mp.reset_counts()
+            run = lm_serve(params, vcfg, tokens, len(feed), mp.device,
+                           feed=[torch.as_tensor(f) for f in feed],
+                           frontend=frontend, mp=mp)
+            sync()
+            counts = ops.launch_counts()     # ... and ends here
+            decode = {k: v - run["prefill_calls"].get(k, 0)
+                      for k, v in mp.calls.items()}
+            out[key if variant == "auto" else f"{key}/{variant}"] = dict(
+                logits=run["logits"], launches=counts,
+                k8=counts["swa_decode"],
+                k8_partial=counts["swa_decode_partial"],
+                prefill_calls=run["prefill_calls"],
+                decode_calls={k: v for k, v in decode.items() if v},
+                calls=dict(mp.calls), seconds=time.perf_counter() - t0)
         del params
     return out
 
@@ -5065,16 +5166,44 @@ def phase_tp_families_parity(card: str) -> dict:
               f"collectives per rank: prefill {ranks[0][key]['prefill_calls']}"
               f", a decode step {per_step}")
         out[key] = dict(err=err, k8_per_rank=k8, calls_per_step=per_step)
-    print(f"[tp families parity] done in {time.perf_counter() - t0:.1f} s")
+    seq_s = 0.0
+    for key, arch, impl, vocab, _ in cases:
+        if not seq_family_case(arch, impl, vocab):
+            continue
+        cfg = tp_family_cfg(arch, impl, vocab)
+        per_step = seq_calls_per_step(cfg, TP_PARITY_WORLD)
+        for variant in SEQ_VARIANTS:
+            got = [rank[f"{key}/{variant}"] for rank in ranks]
+            for r, rank in enumerate(got):
+                launches = {k: 0 for k in rank["launches"]}
+                launches["swa_decode_partial"] = (k8_decode_calls(cfg)
+                                                  * TP_PARITY_STEPS)
+                assert rank["launches"] == launches, (key, variant, r,
+                                                      rank["launches"])
+                assert rank["decode_calls"] == {
+                    k: v * TP_PARITY_STEPS for k, v in per_step.items()}, (
+                    key, variant, r, rank["decode_calls"], per_step)
+            out[f"{key}/{variant}"] = seq_parity_check(
+                dataclasses.replace(cfg, attn_shard=variant), variant, got,
+                refs[key], backend, card, tag="seq families parity")
+            seq_s += got[0]["seconds"]
+    print(f"[seq families parity] done: rank 0's runs {seq_s:.1f} s of "
+          f"[tp families parity]'s spawn; a decode step's collectives per "
+          f"rank as `seq_calls_per_step`")
+    print(f"[tp families parity] done in {time.perf_counter() - t0:.1f} s "
+          f"(with [seq families parity])")
     return out
 
 
 def tp_families_lm_rank(mp, jobs) -> dict:
-    """[tp families lm], one rank: for each job its shard of the config at
-    full width and depth in bfloat16, drawn as [ssm lm] / [encdec lm] drew
-    it (seed 0 on the card) keeping only this rank's pieces, then the
-    prompt (and an encdec model's frames) drawn on from the same generator
-    as there (checked equal to the job's tokens), served by `tp_lm_serve`."""
+    """[tp families lm] and [seq families lm], one rank: for each job its
+    shard of the config at full width and depth in bfloat16, drawn as [ssm
+    lm] / [encdec lm] drew it (seed 0 on the card) keeping only this
+    rank's pieces, then the prompt (and an encdec model's frames) drawn on
+    from the same generator as there (checked equal to the job's tokens),
+    served by `tp_lm_serve` (key: the arch); where job["seq"] names a
+    sequence-sharded variant, the same shard served again under it with
+    the "seq" cache (key: "arch/seq", with its seconds)."""
     dev = mp.device
     out = {}
     for job in jobs:
@@ -5099,6 +5228,11 @@ def tp_families_lm_rank(mp, jobs) -> dict:
                           for a in MB.tree_leaves(params))
         out[job["arch"]] = dict(make_s=make_s, shard_bytes=shard_bytes,
                                 **tp_lm_serve(mp, params, cfg, job, frontend))
+        if job["seq"]:
+            t0 = time.perf_counter()
+            out[f"{job['arch']}/seq"] = dict(tp_lm_serve(
+                mp, params, dataclasses.replace(cfg, attn_shard=job["seq"]),
+                job, frontend), seconds=time.perf_counter() - t0)
         del params, frontend
         free_cuda()
     return out
@@ -5121,7 +5255,8 @@ def phase_tp_families_lm(card: str, refs: dict) -> dict:
     backend, devices = transport(TP_WORLD, "cuda")
     n_cards = len(set(map(str, devices)))
     jobs = [dict(arch=arch, tokens=refs[arch]["tokens"].numpy(),
-                 feed=[f.numpy() for f in refs[arch]["fed"]], gates=None)
+                 feed=[f.numpy() for f in refs[arch]["fed"]], gates=None,
+                 seq=SEQ_LM_VARIANT if arch in SEQ_FAMILY_ARCHS else None)
             for arch in TP_FAMILY_ARCHS]
     ranks = spawn_ranks(TP_WORLD, tp_families_lm_rank, (jobs,),
                         device="cuda", timeout_s=900)
@@ -5189,9 +5324,211 @@ def phase_tp_families_lm(card: str, refs: dict) -> dict:
             calls_per_step=per_step, worst_share_of_bar=worst,
             std_bar_share=alone, one_card_spread_share=spread,
             backend=backend, cards=n_cards)
+    for arch in SEQ_FAMILY_ARCHS:
+        out[f"{arch}/seq"] = seq_families_lm_report(
+            [rank[f"{arch}/seq"] for rank in ranks], refs[arch],
+            CFG.get(arch), backend, n_cards, card)
     print(f"[tp families lm] done in {time.perf_counter() - t0:.1f} s (the "
-          f"ranks {spawn_s:.1f} s of it); the times are {TP_WORLD} processes "
-          + where)
+          f"ranks {spawn_s:.1f} s of it, [seq families lm] included); the "
+          f"times are {TP_WORLD} processes " + where)
+    return out
+
+
+def seq_families_lm_report(got, ref, cfg, backend, n_cards, card) -> dict:
+    """[seq families lm]: each rank's run of zamba2-1.2b or
+    seamless-m4t-large-v2 under SEQ_LM_VARIANT with the "seq" cache
+    (`got`, per rank) held to the teacher-fed rerun `ref` as [tp families
+    lm] is (`check_tp_logits` with the one-card spread); on every rank
+    K8's partials mode launched k8_decode_calls x TP_STEPS times, K8
+    itself never, the collectives of a decode step `seq_calls_per_step`'s;
+    per rank the cache's bytes, prefill s, median ms a step."""
+    tag = "seq families lm"
+    b, s = ref["tokens"].shape
+    per_step = seq_calls_per_step(cfg, TP_WORLD)
+    for r, rank in enumerate(got):
+        assert rank["k8_partial"] == k8_decode_calls(cfg) * TP_STEPS \
+            and rank["k8"] == 0, (tag, cfg.name, r, rank["k8_partial"],
+                                  rank["k8"])
+        assert rank["calls"] == {k: v * TP_STEPS
+                                 for k, v in per_step.items()}, (
+            tag, cfg.name, r, rank["calls"], per_step)
+    logits = [rank["logits"] for rank in got]
+    worst, greedy = check_tp_logits(logits, ref, tag, spread=ref["spread"])
+    frames = (f", cross K/V {DECODE_ENC_LEN} frames, "
+              f"{DECODE_ENC_LEN // TP_WORLD} a rank"
+              if cfg.arch_type == "encdec" else "")
+    print(f"[{tag}] {cfg.name} in bfloat16 under attn_shard="
+          f"{SEQ_LM_VARIANT!r} (the \"seq\" cache: {s + TP_STEPS} positions,"
+          f" {(s + TP_STEPS) // TP_WORLD} a rank{frames}) over {TP_WORLD} "
+          f"ranks ({backend}; {n_cards} card(s): {card}) on [tp families "
+          f"lm]'s shards: prefill {b} x {s} tokens + {TP_STEPS} decode steps "
+          f"fed the unsharded run's greedy tokens; logits within "
+          f"{worst:.3f} of [tp families lm]'s bar on all "
+          f"{len(got) * (TP_STEPS + 1) * b} rank-rows "
+          f"({std_share(logits, ref):.3f} of the std bar alone), {greedy} "
+          f"greedy tokens equal; the ranks' logits bit-equal; "
+          f"{got[0]['seconds']:.1f} s a rank")
+    for r, rank in enumerate(got):
+        med = statistics.median(rank["step_ms"])
+        print(f"[{tag}]   {cfg.name} rank {r}: cache {rank['cache_bytes']} "
+              f"bytes; prefill {rank['prefill_s']:.3f} s; median {med:.3f} "
+              f"ms a decode step (min {min(rank['step_ms']):.3f}, max "
+              f"{max(rank['step_ms']):.3f}); peak memory {rank['peak']} "
+              f"bytes; K8 partial launches {rank['k8_partial']} = "
+              f"{k8_decode_calls(cfg)} x {TP_STEPS}, K8 {rank['k8']}; "
+              f"collectives a step "
+              f"{ {k: v / TP_STEPS for k, v in rank['calls'].items()} }, "
+              f"bytes a step {sum(rank['bytes'].values()) / TP_STEPS:.0f}")
+    return dict(k8_partial_per_rank=[rank["k8_partial"] for rank in got],
+                step_ms_median=[statistics.median(rank["step_ms"])
+                                for rank in got],
+                prefill_s=[rank["prefill_s"] for rank in got],
+                cache_bytes=[rank["cache_bytes"] for rank in got],
+                peak_bytes=[rank["peak"] for rank in got],
+                seconds=[rank["seconds"] for rank in got],
+                calls_per_step=per_step, worst_share_of_bar=worst)
+
+
+# -- 8g. "tp" training of the ssm, hybrid and encdec families -----------------
+
+def family_train_cfg(arch: str):
+    """A [tp families train] config (`train_lm_rank`'s): published widths,
+    FAMILY_TRAIN_ARCHS' depth and ssm_impl; the weights are drawn in
+    float32."""
+    impl, layers = FAMILY_TRAIN_ARCHS[arch]
+    return TLT.lm_config(arch, False, layers, impl)
+
+
+def family_train_calls(cfg, mesh) -> dict[str, int]:
+    """The collectives of one "tp" training step on each rank of a (D, M)
+    mesh, M > 1 (tests/test_torch_train_families.py's formula): with the
+    vocabulary cut (V = 1) the embedding's sum and the logits' gather; the
+    head input's backward sum; per layer rwkv6 14 sums and 1 gather (its
+    channel mix), zamba2 10 sums and 4 per shared-block application,
+    seamless 7 sums and 4 per encoder layer; where D > 1 the loss's and
+    the gradients' sums over "data"."""
+    d, m = mesh
+    vocab = int(cfg.vocab % m == 0)
+    sums, gathers = vocab + 1, vocab
+    if cfg.arch_type == "ssm":
+        sums, gathers = sums + 14 * cfg.n_layers, gathers + cfg.n_layers
+    elif cfg.arch_type == "hybrid":
+        sums += 10 * cfg.n_layers + 4 * Z.shared_applications(cfg)
+    else:
+        sums += 7 * cfg.n_layers + 4 * cfg.n_enc_layers
+    return {"all_reduce_sum": sums + (2 if d > 1 else 0),
+            "all_gather": gathers}
+
+
+def family_train_rank(mp) -> dict:
+    """[tp families train], one rank of FAMILY_TRAIN_MESH: `train_lm_rank`
+    of each FAMILY_TRAIN_ARCHS config under "tp", the launch counts set to
+    0 before it and read after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, (impl, layers) in FAMILY_TRAIN_ARCHS.items():
+        free_cuda()
+        ops.reset_launch_counts()            # this rank's path starts here
+        run = TLT.train_lm_rank(mp, arch, layers, "tp", LM_TRAIN_STEPS,
+                                LM_TRAIN_BATCH, LM_TRAIN_SEQ, 0, False,
+                                FAMILY_TRAIN_LR, impl)
+        sync()
+        run["launches"] = ops.launch_counts()    # ... and ends here
+        out[arch] = run
+    return out
+
+
+def phase_tp_families_train(card: str) -> dict:
+    """[tp families train] FAMILY_TRAIN_ARCHS under "tp" over
+    FAMILY_TRAIN_MESH's ranks sharing the card (one spawn), after the
+    card's unsharded runs of the same steps (`launch.train
+    .lm_train_steps`, the launcher's draw and batches): every rank's
+    losses within LM_TRAIN_RTOL of the unsharded run's, its params + m + v
+    the bytes of its pieces (`layout_bytes`), the collectives of every step
+    `family_train_calls`', no kernel of the table launched (the train
+    step reaches none, in the reference either), and every two ranks
+    holding the same pieces of a leaf holding equal bits of it in params,
+    m and v (`shared_bits`). Prints per rank the state and peak bytes,
+    seconds a step and the collectives a step with their bytes."""
+    t0 = time.perf_counter()
+    world = FAMILY_TRAIN_MESH[0] * FAMILY_TRAIN_MESH[1]
+    backend, devices = transport(world, "cuda")
+    n_cards = len(set(map(str, devices)))
+    mesh = train_mesh(*FAMILY_TRAIN_MESH)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = {}
+    for arch in FAMILY_TRAIN_ARCHS:
+        cfg = family_train_cfg(arch)
+        torch.cuda.reset_peak_memory_stats()
+        out_text = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out_text):
+            losses = TLT.lm_train_steps(cfg, LM_TRAIN_STEPS, LM_TRAIN_BATCH,
+                                        LM_TRAIN_SEQ, 0, FAMILY_TRAIN_LR,
+                                        "cuda")
+        sync()
+        want[arch] = dict(losses=losses, s=time.perf_counter() - t1,
+                          peak=torch.cuda.max_memory_allocated(),
+                          head=out_text.getvalue().splitlines()[0]
+                          .removeprefix("[train] "))
+        free_cuda()
+    ref_s = time.perf_counter() - t0
+    ranks = spawn_ranks(world, family_train_rank, (), device="cuda",
+                        timeout_s=900, mesh=mesh)
+    spawn_s = time.perf_counter() - t0 - ref_s
+    out = {}
+    for arch in FAMILY_TRAIN_ARCHS:
+        cfg, ref = family_train_cfg(arch), want[arch]
+        got = [rank[arch] for rank in ranks]
+        calls = family_train_calls(cfg, FAMILY_TRAIN_MESH)
+        err = max(abs(a - c) / abs(c) for run in got
+                  for a, c in zip(run["losses"], ref["losses"]))
+        for r, run in enumerate(got):
+            assert np.isfinite(run["losses"]).all(), run["losses"]
+            np.testing.assert_allclose(run["losses"], ref["losses"],
+                                       rtol=LM_TRAIN_RTOL)
+            assert run["state_bytes"] == layout_bytes(cfg, mesh, "tp", r), (
+                arch, r, run["state_bytes"])
+            assert all(c == calls for c in run["calls"]), (arch, r,
+                                                           run["calls"])
+            assert not any(run["launches"].values()), run["launches"]
+        shared, differ = shared_bits(cfg, mesh, "tp", got)
+        assert shared and not differ, (arch, shared, differ)
+        print(f"[tp families train] {ref['head']}, {cfg.ssm_impl} form, lr "
+              f"{FAMILY_TRAIN_LR}: the unsharded run on the card "
+              f"{ref['s']:.2f} s (first-call work included), losses "
+              f"{ref['losses']}, peak memory {ref['peak']} bytes")
+        print(f"[tp families train] {cfg.name} under 'tp' over "
+              f"{FAMILY_TRAIN_MESH[0]} x {FAMILY_TRAIN_MESH[1]} ranks "
+              f"({backend}; {n_cards} card(s): {card}): losses "
+              f"{got[0]['losses']}, max relative err against the unsharded "
+              f"run {err:.3g} (bar {LM_TRAIN_RTOL}); every two ranks holding "
+              f"the same pieces of a leaf hold equal bits of it in params, m "
+              f"and v ({shared} such leaves); collectives a step {calls}")
+        for r, run in enumerate(got):
+            step = {k: (v, run["bytes"][-1][k])
+                    for k, v in run["calls"][-1].items()}
+            print(f"[tp families train]   {cfg.name} rank {r}: "
+                  f"{run['backend']}, {run['cards']} card(s); state "
+                  f"{run['state_bytes']} bytes (the unsharded "
+                  f"{layout_bytes(cfg, train_mesh(1, 1), 'tp', 0)}); peak "
+                  f"{run['peak_bytes']} bytes "
+                  f"({run['peak_bytes'] / ref['peak']:.3f} of the unsharded "
+                  f"run's); seconds a step "
+                  f"{[round(v, 3) for v in run['seconds']]}; collectives a "
+                  f"step (calls, bytes) {step}; kernel launches "
+                  f"{sum(run['launches'].values())}")
+        out[arch] = dict(losses=got[0]["losses"], unsharded=ref["losses"],
+                         max_rel_err=err, shared_leaves=shared,
+                         state_bytes=[run["state_bytes"] for run in got],
+                         peak_bytes=[run["peak_bytes"] for run in got],
+                         step_s=[run["seconds"] for run in got],
+                         calls=calls)
+    print(f"[tp families train] done in {time.perf_counter() - t0:.1f} s "
+          f"(the unsharded runs {ref_s:.1f} s, the ranks {spawn_s:.1f} s); "
+          f"the times are {world} processes "
+          + ("sharing one card over gloo, not a sharded deployment's"
+             if n_cards < world else f"on {n_cards} cards over {backend}"))
     return out
 
 
@@ -5779,13 +6116,30 @@ def phase_encdec_train() -> dict:
                 full_peak_bytes=peak, full_report_bytes=need)
 
 
+class Laps:
+    """The seconds of each group of phases: `lap(name)` prints and keeps
+    the time since the previous lap (or the start)."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        self.t = now
+        print(f"[time] {name}: {self.seconds[name]:.1f} s")
+
+
 def main() -> None:
     t0 = time.perf_counter()
+    lap = Laps()
     card = phase_device()
     phase_lint()
     with tempfile.TemporaryDirectory() as tmp:
         phase_costs(tmp)
+    lap("device, lint, costs")
     phase_build()
+    lap("build")
     errs = phase_parity()
     errs.update(cascade_score_batched_bwd=0.0, cascade_loss=0.0,
                 cascade_loss_bwd=0.0, cascade_score=0.0,
@@ -5794,12 +6148,14 @@ def main() -> None:
     phase_single_parity(errs)
     phase_vmap_parity(errs)
     phase_determinism()
+    lap("kernel parity")
     errs["query_bias"] = 0.0
     timing_qb = phase_query_bias(errs)
     timing, timing_train, timing_serve = phase_timing()
     timing_single = phase_single_timing()
     timing_vmap = time_vmap_call(TRAIN_SHAPE, seed=8)
     free_cuda()
+    lap("kernel timing")
     log = generate_log(LogConfig(n_queries=FIT_QUERIES, seed=0))
     tr, te = log.split(0.8)
     params, launches, l3_losses = phase_train(tr, te)
@@ -5809,6 +6165,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         restart = phase_train_restart(tr, params, l3_losses, tmp)
         dp = phase_train_dp(tr, params, l3_losses, tmp)
+    lap("cascade training")
     for plan in ("filter", "score"):
         counts, _ = phase_slice(plan, params, te)
         kernel = ("cascade_filter" if plan == "filter"
@@ -5826,6 +6183,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         warm = phase_warm_restart(tmp)
     witnessed = phase_witness(params, te, router["plain"])
+    lap("cascade serving")
     extra = {"cascade_filter": dict(
                  pump_launches=pump["launches"],
                  pump_faults_launches=chaos["launches"],
@@ -5845,41 +6203,55 @@ def main() -> None:
     free_cuda()
     paper = phase_paper(card)
     free_cuda()
+    lap("fm scoring, paper")
     errs["swa_decode"] = errs["swa_decode_partial"] = 0.0
     phase_k8_parity(errs)
     k8 = phase_k8_timing()
     k8_partial = phase_k8_partial(errs, k8)
     phase_k8_streams()
     free_cuda()
+    lap("k8")
     lm = phase_lm()
     launches["swa_decode"] = lm["k8_launches"]
     phase_lm_check()
     moe_lm = phase_moe_lm(card)
+    lap("lm, moe lm")
     tp_parity = phase_tp_parity(card)
     tp_families_parity = phase_tp_families_parity(card)
-    tp_lm = phase_tp_lm(card, lm["tp_ref"], moe_lm[TP_MOE_ARCH]["tp_ref"])
-    del lm["tp_ref"]
+    lap("tp parity, tp families parity")
+    tp_lm = phase_tp_lm(card, moe_lm[TP_MOE_ARCH]["tp_ref"])
+    lap("tp lm")
     for r in moe_lm.values():
         del r["tp_ref"]
     free_cuda()
     phase_fsdp(card)
+    lap("fsdp")
     ssm_lm = phase_ssm_lm(card)
     encdec_lm = phase_encdec_lm(card)
+    lap("ssm lm, encdec lm")
     tp_families_lm = phase_tp_families_lm(
         card, {**{a: r.pop("tp_ref") for a, r in ssm_lm.items()},
                ENCDEC_ARCH: encdec_lm.pop("tp_ref")})
+    lap("tp families lm")
+    free_cuda()
+    phase_tp_families_train(card)
+    lap("tp families train")
     phase_slice("filter", params, te,
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     free_cuda()
     phase_train_lm()
+    lap("neural slice, train lm")
     moe_parity = phase_moe_parity()
     moe_check = phase_moe_lm_check()     # its CPU part is the largest
+    lap("moe parity, moe lm check")
     ssm_parity = phase_ssm_parity()
     ssm_check = phase_ssm_lm_check()
     phase_ssm_train()
+    lap("ssm parity, ssm lm check, ssm train")
     encdec_parity = phase_encdec_parity()
     encdec_check = phase_encdec_lm_check()
     phase_encdec_train()
+    lap("encdec parity, encdec lm check, encdec train")
     extra["swa_decode"] = {
         **{f"moe_lm_{a}_launches": r["k8_launches"]
            for a, r in moe_lm.items()},
@@ -5904,16 +6276,23 @@ def main() -> None:
            r["k8_per_rank"] for a, r in tp_lm["kvrep parity"].items()},
         **{f"tp_families_parity_{re.sub(r'[^0-9a-z]+', '_', a)}"
            f"_launches_per_rank": r["k8_per_rank"]
-           for a, r in tp_families_parity.items()},
+           for a, r in tp_families_parity.items() if "k8_per_rank" in r},
         **{f"tp_families_lm_{a}_launches_per_rank": r["k8_per_rank"]
-           for a, r in tp_families_lm.items()}}
+           for a, r in tp_families_lm.items() if "k8_per_rank" in r}}
     seq_lm = tp_lm[f"{LM_ARCH}/seq"]
     launches["swa_decode_partial"] = seq_lm["k8_partial_per_rank"][0]
     extra["swa_decode_partial"] = {
         "seq_lm_launches_per_rank": seq_lm["k8_partial_per_rank"],
         **{f"seq_parity_{a.replace('/', '_')}_launches_per_rank":
            r["k8_partial_per_rank"]
-           for a, r in tp_parity.items() if "/" in a}}
+           for a, r in tp_parity.items() if "/" in a},
+        **{f"seq_families_parity_{re.sub(r'[^0-9a-z]+', '_', a)}"
+           f"_launches_per_rank": r["k8_partial_per_rank"]
+           for a, r in tp_families_parity.items()
+           if "k8_partial_per_rank" in r},
+        **{f"seq_families_lm_{a.split('/')[0]}_launches_per_rank":
+           r["k8_partial_per_rank"]
+           for a, r in tp_families_lm.items() if a.endswith("/seq")}}
     extra["query_bias"] = dict(
         score_launches=qb_score_launches,
         pump_launches=pump["qb_launches"],
@@ -5951,7 +6330,7 @@ def main() -> None:
                        cuda_launches_per_call=tm["cuda_launches_per_call"],
                        n_split=tm["plan"]["n_split"],
                        blocks=tm["plan"]["blocks"],
-                       launches_per_decode_step=CFG.get(LM_ARCH).n_layers,
+                       launches_per_decode_step=TP_LM_LAYERS,
                        timed_shape="one 32k quarter of the 128k shape")
         elif name == "query_bias":
             tm = timing_qb[QB_TIMING_ROWS[0]]

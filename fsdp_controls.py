@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Controls of chip_smoke.py's [fsdp lm] checks on one CUDA card: what a
-planted fault does to what they read, and how far each split of the step
-alone moves the losses.
+"""Controls of chip_smoke.py's [fsdp lm] and [tp families train] checks on
+one CUDA card: what a planted fault does to what they read, and how far
+each split of the step alone moves the losses.
 
-    python3 fsdp_controls.py
+    python3 fsdp_controls.py [GROUP ...]
+
+GROUP names a group of runs of CONTROLS ("faults", "splits", "model
+split", "families"); with none, every group runs.
 
 [fsdp lm]'s run (FSDP_LM_ARCH at FSDP_LM_LAYERS layers, published widths,
 float32 weights from seed 0, LM_TRAIN_STEPS Adam steps of the launcher's
@@ -21,6 +24,12 @@ the launcher's unsharded run of the same steps, at two learning rates:
   (the data split alone: it computes each data rank's rows whole) and
   "fsdp" over FSDP_MESH (both).
 
+[tp families train]'s zamba2-1.2b run (FAMILY_TRAIN_ARCHS' depth and form,
+"tp" over FAMILY_TRAIN_MESH at FAMILY_TRAIN_LR) with "raw norm sum"
+planted: Mamba2's out_norm sums its squares over the ranks through the
+raw all-reduce (`layers.rms_norm_cut` as it was before its autograd
+form), so the sum's gradient is this rank's part alone.
+
 Prints the card's name and power limit and per run the losses, their
 largest relative difference from the unsharded run against LM_TRAIN_RTOL,
 and whether the ranks sharing a leaf's pieces hold equal bits of it
@@ -35,6 +44,7 @@ import io
 import json
 import os
 import subprocess
+import sys
 
 # two ranks of the unsharded step's half each fill most of the card;
 # segments that grow keep the allocator's free blocks from splitting
@@ -45,20 +55,40 @@ import torch  # noqa: E402
 
 from repro_torch.launch import train as TLT  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks, train_mesh  # noqa: E402
+from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
 
 LAUNCHER_LR = 0.01
 FAULTS = ("no data sum", "half the rows")
-# (mesh, [(mode, lr, fault)]): one spawn each
-CONTROLS = [(CS.FSDP_MESH, [("fsdp", CS.FSDP_LM_LR, f) for f in FAULTS]
-             + [("zero3", LAUNCHER_LR, None), ("fsdp", LAUNCHER_LR, None)]),
-            ((1, 2), [("tp", LAUNCHER_LR, None)])]
+# the runs: (arch, layers, ssm_impl)
+FSDP_RUN = (CS.FSDP_LM_ARCH, CS.FSDP_LM_LAYERS, None)
+NORM_RUN = ("zamba2-1.2b", CS.FAMILY_TRAIN_ARCHS["zamba2-1.2b"][1],
+            CS.FAMILY_TRAIN_ARCHS["zamba2-1.2b"][0])
+# group -> (mesh, [(run, mode, lr, fault)]): one spawn each
+CONTROLS = {
+    "faults": (CS.FSDP_MESH, [(FSDP_RUN, "fsdp", CS.FSDP_LM_LR, f)
+                              for f in FAULTS]),
+    "splits": (CS.FSDP_MESH, [(FSDP_RUN, "zero3", LAUNCHER_LR, None),
+                              (FSDP_RUN, "fsdp", LAUNCHER_LR, None)]),
+    "model split": ((1, 2), [(FSDP_RUN, "tp", LAUNCHER_LR, None)]),
+    "families": (CS.FAMILY_TRAIN_MESH, [(NORM_RUN, "tp", CS.FAMILY_TRAIN_LR,
+                                         "raw norm sum")]),
+}
+
+
+def raw_norm_sum(x, gamma, mp, width: int, eps: float = 1e-6):
+    """`layers.rms_norm_cut` through the raw all-reduce (no autograd form:
+    the backward takes this rank's part of the sum's gradient alone)."""
+    x32 = x.float()
+    var = mp.all_reduce_sum((x32 * x32).sum(-1, keepdim=True)) / width
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
 
 
 @contextlib.contextmanager
 def planted(fault: str | None):
-    """`zoo` with `fault` planted while inside (module docstring)."""
-    saved = Z.reduce_replicated_grads, Z.sum_over
+    """`zoo` and `layers` with `fault` planted while inside (module
+    docstring)."""
+    saved = Z.reduce_replicated_grads, Z.sum_over, Lyr.rms_norm_cut
     if fault == "no data sum":
         Z.reduce_replicated_grads = lambda mp, grads, specs: grads
     elif fault == "half the rows":
@@ -67,40 +97,47 @@ def planted(fault: str | None):
                 x = x.detach() + 0 * x
             return saved[1](mp, x, axes)
         Z.sum_over = sum_over
+    elif fault == "raw norm sum":
+        Lyr.rms_norm_cut = raw_norm_sum
     try:
         yield
     finally:
-        Z.reduce_replicated_grads, Z.sum_over = saved
+        Z.reduce_replicated_grads, Z.sum_over, Lyr.rms_norm_cut = saved
 
 
 def control_rank(mp, runs: list) -> list[dict]:
-    """One rank: `train_lm_rank` of [fsdp lm]'s run for each (mode, lr,
-    fault) of `runs`, the fault planted."""
+    """One rank: `train_lm_rank` of each (run, mode, lr, fault) of `runs`,
+    the fault planted."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
-    for mode, lr, fault in runs:
+    for (arch, layers, impl), mode, lr, fault in runs:
         CS.free_cuda()
         with planted(fault):
             out.append(TLT.train_lm_rank(
-                mp, CS.FSDP_LM_ARCH, CS.FSDP_LM_LAYERS, mode,
-                CS.LM_TRAIN_STEPS, CS.LM_TRAIN_BATCH, CS.LM_TRAIN_SEQ, 0,
-                False, lr))
+                mp, arch, layers, mode, CS.LM_TRAIN_STEPS, CS.LM_TRAIN_BATCH,
+                CS.LM_TRAIN_SEQ, 0, False, lr, impl))
     return out
 
 
-def unsharded(lr: float) -> list[float]:
-    """The launcher's --target lm run of [fsdp lm]'s config at lr."""
+def unsharded(run, lr: float) -> list[float]:
+    """The launcher's unsharded steps (`launch.train.lm_train_steps`) of
+    the run's config at lr."""
+    arch, layers, impl = run
     with contextlib.redirect_stdout(io.StringIO()):
-        losses = TLT.main([
-            "--target", "lm", "--arch", CS.FSDP_LM_ARCH, "--layers",
-            str(CS.FSDP_LM_LAYERS), "--steps", str(CS.LM_TRAIN_STEPS),
-            "--batch", str(CS.LM_TRAIN_BATCH), "--seq",
-            str(CS.LM_TRAIN_SEQ), "--lr", str(lr), "--device", "cuda"])
+        losses = TLT.lm_train_steps(
+            TLT.lm_config(arch, False, layers, impl), CS.LM_TRAIN_STEPS,
+            CS.LM_TRAIN_BATCH, CS.LM_TRAIN_SEQ, 0, lr, "cuda")
     CS.free_cuda()
     return losses
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
+    groups = argv if argv is not None else sys.argv[1:]
+    unknown = set(groups) - set(CONTROLS)
+    if unknown:
+        raise SystemExit(f"fsdp_controls: unknown groups {sorted(unknown)}, "
+                         f"expected some of {list(CONTROLS)}")
+    groups = groups or list(CONTROLS)
     if not torch.cuda.is_available():
         raise SystemExit("fsdp_controls: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,28 +145,34 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card}")
-    cfg = TLT.lm_config(CS.FSDP_LM_ARCH, False, CS.FSDP_LM_LAYERS)
-    want = {lr: unsharded(lr) for lr in (CS.FSDP_LM_LR, LAUNCHER_LR)}
-    for lr, losses in want.items():
-        print(f"[controls] unsharded, lr {lr}: losses {losses}")
-    summary = {"card": card, "arch": cfg.name, "layers": cfg.n_layers,
-               "unsharded": {str(lr): v for lr, v in want.items()},
-               "runs": []}
-    for shape, runs in CONTROLS:
+    want = {}
+    for group in groups:
+        for run, _, lr, _ in CONTROLS[group][1]:
+            if (run, lr) not in want:
+                want[run, lr] = unsharded(run, lr)
+                print(f"[controls] {run[0]} ({run[1]} layers), unsharded, lr "
+                      f"{lr}: losses {want[run, lr]}")
+    summary = {"card": card, "runs": []}
+    for group in groups:
+        shape, runs = CONTROLS[group]
         ranks = spawn_ranks(shape[0] * shape[1], control_rank, (runs,),
                             device="cuda", timeout_s=1200,
                             mesh=train_mesh(*shape))
-        for i, (mode, lr, fault) in enumerate(runs):
+        for i, (run, mode, lr, fault) in enumerate(runs):
+            cfg = TLT.lm_config(run[0], False, run[1], run[2])
             got = [rank[i] for rank in ranks]
             rel = [max(abs(a - c) / abs(c) for a in step) for step, c in
-                   zip(zip(*(run["losses"] for run in got)), want[lr])]
+                   zip(zip(*(r["losses"] for r in got)), want[run, lr])]
             shared, differ = CS.shared_bits(cfg, train_mesh(*shape), mode,
                                             got)
-            row = dict(mode=mode, mesh=list(shape), lr=lr, fault=fault,
-                       losses=[run["losses"] for run in got], rel=rel,
+            row = dict(arch=cfg.name, layers=cfg.n_layers,
+                       ssm_impl=cfg.ssm_impl, mode=mode, mesh=list(shape),
+                       lr=lr, fault=fault, unsharded=want[run, lr],
+                       losses=[r["losses"] for r in got], rel=rel,
                        loss_bar_met=max(rel) <= CS.LM_TRAIN_RTOL,
                        shared_leaves=shared, shared_bits_equal=not differ)
-            print(f"[controls] {mode} over {shape[0]} x {shape[1]}, lr {lr},"
+            print(f"[controls] {cfg.name} ({cfg.n_layers} layers) {mode} over"
+                  f" {shape[0]} x {shape[1]}, lr {lr},"
                   f" fault {fault}: losses {got[0]['losses']}, relative "
                   f"difference a step {[float(f'{r:.3g}') for r in rel]} "
                   f"(bar {CS.LM_TRAIN_RTOL}: "

@@ -22,13 +22,14 @@ Two paths:
     keeps the first N layers of its encoder and of its decoder). The
     weights are drawn in float32 whatever the config's dtype, as the
     reference's launcher draws them.
-  * `train_lm_rank` — the same LM training of the dense and moe families
-    over a ("data", "model") mesh of ranks under the reference's "tp",
-    "fsdp" or "zero3" layout (`launch.mesh.spawn_ranks(world,
+  * `train_lm_rank` — the same LM training over a ("data", "model") mesh
+    of ranks under the reference's "tp" layout (every family) or its
+    "fsdp" or "zero3" layout (the dense and moe families;
+    `parallel.check_train`) (`launch.mesh.spawn_ranks(world,
     train_lm_rank, args, mesh=train_mesh(data, model))`; no CLI flag,
     as the reference's launcher has none): each rank holds its shard of
     the weights and of Adam's moments and trains on its rows of each
-    batch; the losses are the unsharded run's.
+    batch; the losses are the unsharded run's (`lm_train_steps`).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --target cloes \
@@ -190,15 +191,18 @@ def batch_rows(batch: dict, mesh, rank: int) -> dict:
     return out
 
 
-def lm_config(arch: str, smoke: bool, layers: int):
+def lm_config(arch: str, smoke: bool, layers: int,
+              ssm_impl: str | None = None):
     """The launcher's LM config: the arch's (its smoke variant in
-    float32), cut to its first `layers` layers (0: all)."""
+    float32), cut to its first `layers` layers (0: all), its recurrent
+    layers in the form `ssm_impl` where given ("scan" or "chunked", the
+    reference's dry run's choice for training)."""
     cfg = CFG.get_smoke(arch) if smoke else CFG.get(arch)
     return dataclasses.replace(
         cfg, dtype=torch.float32 if smoke else cfg.dtype,
         n_layers=layers or cfg.n_layers,
         n_enc_layers=(layers or cfg.n_enc_layers) if cfg.n_enc_layers
-        else 0)
+        else 0, ssm_impl=ssm_impl or cfg.ssm_impl)
 
 
 def shared_leaves(templates, specs, mesh, rank: int) -> list[int]:
@@ -220,9 +224,10 @@ def _digest(a: torch.Tensor) -> str:
 
 def train_lm_rank(mp, arch: str, layers: int, mode: str, steps: int,
                   batch: int, seq: int, seed: int, smoke: bool = False,
-                  lr: float = 0.01) -> dict:
-    """One rank of `train_lm` over mp's ("data", "model") mesh under the
-    layout `mode` ("tp", "fsdp", "zero3"; `parallel.check_train`): it
+                  lr: float = 0.01, ssm_impl: str | None = None) -> dict:
+    """One rank of `train_lm` (`lm_config(arch, smoke, layers, ssm_impl)`)
+    over mp's ("data", "model") mesh under the layout `mode` ("tp",
+    "fsdp", "zero3"; `parallel.check_train`): it
     draws the weights on the CPU from the seed as `train_lm` does and keeps
     its shard (`materialize_shard`, float32), draws each of the launcher's
     batches and keeps its rows (`batch_rows`), and takes `steps` Adam steps
@@ -232,7 +237,7 @@ def train_lm_rank(mp, arch: str, layers: int, mode: str, steps: int,
     on the CPU), its transport and the number of cards of the run, and
     after the last step a sha256 of each leaf of params, m and v that
     another rank holds too (`shared_leaves`; leaf index -> digest)."""
-    cfg = lm_config(arch, smoke, layers)
+    cfg = lm_config(arch, smoke, layers, ssm_impl)
     check_train(cfg, mp.mesh, mode)
     dev = mp.device
     tmpl = Z.templates(cfg)
@@ -273,38 +278,45 @@ def train_lm_rank(mp, arch: str, layers: int, mode: str, steps: int,
                 peak_bytes=peak, backend=mp.backend, cards=cards)
 
 
-def train_lm(args) -> list[float]:
-    """Adam on random tokens from the seed's numpy stream; the weights are
-    `materialize`d on the CPU from the seed and moved to `--device`, so
-    both devices train the same model. Returns every step's loss."""
-    device = torch.device(args.device)
-    cfg = lm_config(args.arch, args.smoke, args.layers)
+def lm_train_steps(cfg, steps: int, batch: int, seq: int, seed: int,
+                   lr: float, device) -> list[float]:
+    """`steps` Adam steps of cfg on random tokens from the seed's numpy
+    stream; the weights are `materialize`d on the CPU from the seed and
+    moved to `device`, so every device (and every rank's shard,
+    `train_lm_rank`) trains the same model. Returns every step's loss."""
+    device = torch.device(device)
     params = MB.tree_map(
         lambda p: p.to(device),
-        MB.materialize(Z.templates(cfg),
-                       torch.Generator().manual_seed(args.seed)))
+        MB.materialize(Z.templates(cfg), torch.Generator().manual_seed(seed)))
     n_params = sum(p.numel() for p in MB.tree_leaves(params))
     shared = (f", {Z.shared_applications(cfg)} shared-block applications"
               if cfg.arch_type == "hybrid" else
               f" + {cfg.n_enc_layers} encoder layers"
               if cfg.arch_type == "encdec" else "")
     print(f"[train] {cfg.name}: {cfg.n_layers} layers{shared}, "
-          f"{n_params / 1e6:.1f}M params, {args.steps} steps on {device}")
-    opt = adam(args.lr)
+          f"{n_params / 1e6:.1f}M params, {steps} steps on {device}")
+    opt = adam(lr)
     opt_state = opt.init(params)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     losses = []
     t0 = time.perf_counter()
-    for step in range(args.steps):
-        batch = lm_batch(cfg, rng, args.batch, args.seq, device)
-        params, opt_state, loss = Z.train_step(params, opt_state, batch, cfg,
-                                               opt.update)
+    for step in range(steps):
+        params, opt_state, loss = Z.train_step(
+            params, opt_state, lm_batch(cfg, rng, batch, seq, device), cfg,
+            opt.update)
         losses.append(float(loss))
-        if step % max(1, args.steps // 10) == 0:
+        if step % max(1, steps // 10) == 0:
             print(f"  step {step:4d} loss {losses[-1]:.4f} "
                   f"({(time.perf_counter() - t0) / (step + 1):.2f}s/step)")
     print(f"[train] final loss {losses[-1]:.4f}")
     return losses
+
+
+def train_lm(args) -> list[float]:
+    """`lm_train_steps` of the launcher's LM config on `--device`."""
+    return lm_train_steps(lm_config(args.arch, args.smoke, args.layers),
+                          args.steps, args.batch, args.seq, args.seed,
+                          args.lr, args.device)
 
 
 def main(argv: list[str] | None = None):

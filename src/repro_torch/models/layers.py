@@ -11,7 +11,8 @@ conventions (src/repro/models/layers.py):
 Decode attention of one token runs K8 (`kernels.ops.swa_decode`): the
 hand-written flash-decode kernel on a CUDA tensor, its plain version on a
 CPU tensor; so does an encoder-decoder's cross attention of one query
-over the cached encoder K/V. Under model parallelism (`models.parallel`;
+over the cached encoder K/V (K8's partials mode where that cache is cut
+over its frames). Under model parallelism (`models.parallel`;
 every family) attention and the MLP run on a rank's shard as they are:
 the head counts come from the local weights' shapes (where the ranks do
 not divide the kv heads, a rank's kv heads are the ones its query heads
@@ -33,7 +34,10 @@ head counts come from the local weights, the whole leaves indexed per
 head (dt_bias / A_log / D, w0 / u / the decay LoRA's output) are taken at
 the rank's heads, Mamba2's out_norm over the whole d_inner sums its
 squares over the ranks (`rms_norm_cut`), and RWKV-6's channel mix reduces
-and gathers itself. The Mamba2 and RWKV-6 recurrences have no kernel in
+and gathers itself. In training the inputs and whole leaves that every
+rank computes the same and uses on its own heads enter through
+`parallel.enter_partial`, and those sums through their autograd forms.
+The Mamba2 and RWKV-6 recurrences have no kernel in
 the reference (it leaves them to XLA's `jax.lax.scan`), and run here as
 plain PyTorch loops over the sequence or its chunks.
 """
@@ -47,8 +51,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.parallel import (SEQ_VARIANTS, combine_partials,
-                                         enter_partial, kv_gather_index,
-                                         reduce_partial, sum_over)
+                                         enter_partial, gather_last,
+                                         kv_gather_index, reduce_partial,
+                                         reduce_shared, sum_over)
 
 # ---------------------------------------------------------------------------
 # Norms and activations
@@ -260,13 +265,13 @@ def seq_cut(mp, leaf: torch.Tensor, n_kv_heads: int) -> bool:
 
 
 def _gather_heads(mp, cfg, q, k, v) -> list[torch.Tensor]:
-    """This rank's query heads q (B, S, h, hd), or None, and the kv heads
-    k, v (B, S, n, hd) it holds (`parallel.kv_heads`), whole: one
-    all-gather of them packed along the head dim. q comes back (B, S,
+    """This rank's query heads q (B, S, h, hd) and the kv heads k, v (B,
+    S, n, hd) it holds (`parallel.kv_heads`), each or both None, whole:
+    one all-gather of them packed along the head dim. q comes back (B, S,
     world * h, hd) in rank order (the "tp" layout's head order), k and v
     (B, S, Hkv, hd) in the model's order, a kv head that several ranks
-    hold taken from the first (`parallel.kv_gather_index`). Returns [q
-    (where given), k, v]."""
+    hold taken from the first (`parallel.kv_gather_index`). Returns those
+    given, in the order q, k, v."""
     parts = [t for t in (q, k, v) if t is not None]
     sizes = [t.shape[2] for t in parts]
     full = mp.all_gather(torch.cat(parts, dim=2), dim=2)
@@ -275,7 +280,7 @@ def _gather_heads(mp, cfg, q, k, v) -> list[torch.Tensor]:
     out = [t.reshape(b, s, mp.world * t.shape[3], hd)
            for t in full.split(sizes, dim=3)]
     pick = kv_gather_index(cfg.n_heads, cfg.n_kv_heads, mp.world)
-    if pick is not None:
+    if pick is not None and k is not None:
         out[-2:] = [t[:, :, pick] for t in out[-2:]]
     return out
 
@@ -387,7 +392,7 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     h, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     if cross_kv is not None:
-        return cross_attention(p, cfg, q, *cross_kv), None
+        return cross_attention(p, cfg, q, *cross_kv, mp=mp), None
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
@@ -446,7 +451,7 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     return out.reshape(b, s, h * hd) @ p["wo"], kv_cache
 
 
-def cross_attention(p, cfg, q, k, v) -> torch.Tensor:
+def cross_attention(p, cfg, q, k, v, mp=None) -> torch.Tensor:
     """Encoder-decoder cross attention of the projected queries q (B, Sq,
     H, hd) over an encoder's K/V (B, S_enc, Hkv, hd), through the out
     projection: no rope, q normed only under cfg.qk_norm (k never), no
@@ -457,11 +462,23 @@ def cross_attention(p, cfg, q, k, v) -> torch.Tensor:
     the reference's dot attention first casts the probabilities to q's
     dtype: the same in float32, closer to exact in bfloat16. Under model
     parallelism q, k and v are the rank's heads and the output its partial
-    sum of wo."""
+    sum of wo; where the cached cross K/V is cut over its frames
+    (`seq_cut`: every kv head, the rank's block of S_enc / world frames)
+    the rank's query heads are gathered whole and K8's partials mode runs
+    over its block, combined over the ranks in float32
+    (`seq_decode_attention`: the reference's GSPMD reduction of its dot
+    attention over a sharded S_enc), and the rank keeps its own heads."""
     b, s, h, hd = q.shape
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-    if s == 1:
+        q = rms_norm(q, enter_partial(mp, p["q_norm"]))
+    if s == 1 and seq_cut(mp, k, cfg.n_kv_heads):
+        n = k.shape[1]
+        qf, = _gather_heads(mp, cfg, q, None, None)
+        out = seq_decode_attention(qf, k, v, mp,
+                                   cache_len=n * mp.world - 1,
+                                   offset=mp.rank * n)
+        out = _own_heads(mp, out, h)
+    elif s == 1:
         out = decode_attention(q, k, v, q_offset=k.shape[1] - 1)
     else:
         out = _full_attention(q, k, v, causal=False, window=NO_WINDOW)
@@ -747,16 +764,23 @@ def _mamba_heads(p, cfg, mp) -> tuple[int, int, int]:
     return di, nh, 0 if mp is None else mp.rank * nh
 
 
-def _mamba_in(p, cfg, x, state, di: int, nh: int):
+def _mamba_in(p, cfg, x, state, di: int, nh: int, mp=None):
     """The mixer's input projection and depthwise causal conv: (z, xc, Bc,
     Cc, dt, new conv state), for di channels and nh heads (a rank's, under
     model parallelism: in_proj holds its z, x and dt columns and B / C
     whole, conv_w / conv_b its x channels and B / C; `parallel
     .mamba_pieces`). The conv is the einsum "bskc,kc->bsc" over the
     windows of the input left-padded with zeros (or prefixed with the
-    carried conv state), plus conv_b, then silu."""
+    carried conv state), plus conv_b, then silu. In training under mp
+    the whole input and the B / C pieces, which every rank computes the
+    same and uses on its own heads, enter through `parallel
+    .enter_partial` (their gradients summed over the ranks)."""
     n = cfg.ssm_state
-    z, xc, Bc, Cc, dt = torch.split(x @ p["in_proj"], [di, di, n, n, nh],
+    x = enter_partial(mp, x)
+    in_proj = enter_partial(mp, p["in_proj"], (2 * di, 2 * n))
+    conv_w = enter_partial(mp, p["conv_w"], (di, 2 * n))
+    conv_b = enter_partial(mp, p["conv_b"], (di, 2 * n))
+    z, xc, Bc, Cc, dt = torch.split(x @ in_proj, [di, di, n, n, nh],
                                     dim=-1)
     conv_in = torch.cat([xc, Bc, Cc], dim=-1)                 # (B,S,di+2n)
     kw = cfg.ssm_conv
@@ -765,7 +789,7 @@ def _mamba_in(p, cfg, x, state, di: int, nh: int):
     else:
         full = F.pad(conv_in, (0, 0, kw - 1, 0))
     windows = full.unfold(1, kw, 1)                           # (B,S,C,kw)
-    conv = torch.einsum("bsck,kc->bsc", windows, p["conv_w"]) + p["conv_b"]
+    conv = torch.einsum("bsck,kc->bsc", windows, conv_w) + conv_b
     xc, Bc, Cc = torch.split(F.silu(conv), [di, n, n], dim=-1)
     return z, xc, Bc, Cc, dt, full[:, -(kw - 1):]
 
@@ -775,9 +799,10 @@ def rms_norm_cut(x: torch.Tensor, gamma: torch.Tensor, mp, width: int,
     """`rms_norm` over a dim cut over the ranks of mp: x and gamma are the
     rank's part of a dim `width` wide. The float32 sum of squares of each
     rank's part, summed over the ranks (one all-reduce), over width is the
-    mean; each rank scales its own part."""
+    mean; each rank scales its own part, so the gradient of its part of
+    the sum is the ranks' summed (`parallel.reduce_shared`)."""
     x32 = x.float()
-    var = mp.all_reduce_sum((x32 * x32).sum(-1, keepdim=True)) / width
+    var = reduce_shared(mp, (x32 * x32).sum(-1, keepdim=True)) / width
     return (x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
 
 
@@ -797,9 +822,12 @@ def _ssm_init(state, key, shape, device) -> torch.Tensor:
             else torch.zeros(shape, dtype=torch.float32, device=device))
 
 
-def _head_slices(p, h0: int, nh: int):
-    """dt_bias, A_log and D (whole leaves) at the heads h0 .. h0 + nh - 1."""
-    return (p[k][h0:h0 + nh] for k in ("dt_bias", "A_log", "D"))
+def _head_slices(p, h0: int, nh: int, mp=None):
+    """dt_bias, A_log and D (whole leaves) at the heads h0 .. h0 + nh - 1
+    (under mp in training through `parallel.enter_partial`: each rank
+    uses its heads' entries, so the gradients sum over the ranks)."""
+    return (enter_partial(mp, p[k])[h0:h0 + nh]
+            for k in ("dt_bias", "A_log", "D"))
 
 
 def mamba2_scan(p, cfg, x: torch.Tensor, state: dict | None = None,
@@ -813,8 +841,8 @@ def mamba2_scan(p, cfg, x: torch.Tensor, state: dict | None = None,
     b, s, _ = x.shape
     n, hdim = cfg.ssm_state, cfg.ssm_head_dim
     di, nh, h0 = _mamba_heads(p, cfg, mp)
-    dt_bias, a_log, d_skip = _head_slices(p, h0, nh)
-    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state, di, nh)
+    dt_bias, a_log, d_skip = _head_slices(p, h0, nh, mp)
+    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state, di, nh, mp)
     xh = xc.reshape(b, s, nh, hdim)
     dt = softplus(dt + dt_bias)                               # (B,S,nh)
     decay = torch.exp(-torch.exp(a_log) * dt)
@@ -841,8 +869,8 @@ def mamba2_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
     b, s, _ = x.shape
     n, hdim = cfg.ssm_state, cfg.ssm_head_dim
     di, nh, h0 = _mamba_heads(p, cfg, mp)
-    dt_bias, a_log, d_skip = _head_slices(p, h0, nh)
-    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state, di, nh)
+    dt_bias, a_log, d_skip = _head_slices(p, h0, nh, mp)
+    z, xc, Bc, Cc, dt, new_conv = _mamba_in(p, cfg, x, state, di, nh, mp)
     xh = xc.reshape(b, s, nh, hdim).float()
     dt = softplus(dt + dt_bias).float()                       # (B,S,nh)
     la = -torch.exp(a_log.float()) * dt                       # log a_t
@@ -916,7 +944,10 @@ def _rwkv6_mix(p, cfg, x, state, mp=None):
     w (B,S,nh,hd) f32, new shift), with the data-dependent token shift.
     Under mp x and the shift are whole and the rank's wr / wk / wv / wg
     columns give its heads' r, k, v, g; w0 and the decay LoRA's output
-    (whole leaves) are taken at its channels."""
+    (whole leaves) are taken at its channels. In training the shifted
+    inputs of those columns, the decay LoRA's hidden and the whole leaves
+    taken at the rank's channels enter through `parallel.enter_partial`
+    (every rank computes them the same; each uses them on its heads)."""
     b, s, _ = x.shape
     nh, hd, c0 = _rwkv_heads(p, cfg, mp)
     c1 = c0 + nh * hd
@@ -928,21 +959,24 @@ def _rwkv6_mix(p, cfg, x, state, mp=None):
 
     xr, xk, xv = shifted("r", "lr"), shifted("k", "lk"), shifted("v", "lv")
     xw, xg = shifted("w", "lw"), shifted("g", "lg")
-    r = (xr @ p["wr"]).reshape(b, s, nh, hd)
-    k = (xk @ p["wk"]).reshape(b, s, nh, hd)
-    v = (xv @ p["wv"]).reshape(b, s, nh, hd)
-    g = F.silu(xg @ p["wg"])
-    lw = -torch.exp((p["w0"][c0:c1]
-                     + _lora(xw, p["ww_A"], p["ww_B"][:, c0:c1])).float())
+    r = (enter_partial(mp, xr) @ p["wr"]).reshape(b, s, nh, hd)
+    k = (enter_partial(mp, xk) @ p["wk"]).reshape(b, s, nh, hd)
+    v = (enter_partial(mp, xv) @ p["wv"]).reshape(b, s, nh, hd)
+    g = F.silu(enter_partial(mp, xg) @ p["wg"])
+    hw = enter_partial(mp, xw @ p["ww_A"])               # the LoRA's hidden
+    lw = -torch.exp((enter_partial(mp, p["w0"])[c0:c1]
+                     + hw @ enter_partial(mp, p["ww_B"])[:, c0:c1]).float())
     return r, k, v, g, lw.reshape(b, s, nh, hd), new_shift
 
 
-def _rwkv6_out(p, x, y, g):
+def _rwkv6_out(p, x, y, g, mp=None):
     """ln_x, an RMS norm over each head's hd channels of y (B,S,nh,hd)
     f32, then the gate and the output projection (under model parallelism
-    the rank's heads and its partial sum of wo)."""
+    the rank's heads and its partial sum of wo; ln_x, whole, enters
+    through `parallel.enter_partial`)."""
     b, s = y.shape[:2]
-    y = rms_norm(y, p["ln_x"]).reshape(b, s, -1).to(x.dtype)
+    y = rms_norm(y, enter_partial(mp, p["ln_x"])).reshape(b, s, -1).to(
+        x.dtype)
     return (y * g) @ p["wo"]
 
 
@@ -956,7 +990,8 @@ def rwkv6_timemix(p, cfg, x: torch.Tensor, state: dict | None = None,
     nh, hd, c0 = _rwkv_heads(p, cfg, mp)
     r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state, mp)
     w = torch.exp(lw)                                         # in (0, 1)
-    u = p["u"][c0:c0 + nh * hd].reshape(nh, hd)[None, :, :, None]
+    u = enter_partial(mp, p["u"])[c0:c0 + nh * hd].reshape(nh, hd)[
+        None, :, :, None]
     rf, kf, vf = r.float(), k.float(), v.float()
     S_ = _ssm_init(state, "wkv", (b, nh, hd, hd), x.device)
     ys = []
@@ -965,7 +1000,7 @@ def rwkv6_timemix(p, cfg, x: torch.Tensor, state: dict | None = None,
         ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S_ + u * kv))
         S_ = torch.addcmul(kv, S_, w[:, t, :, :, None])
     y = torch.stack(ys, dim=1)                                # (B,S,nh,hd)
-    return _rwkv6_out(p, x, y, g), {"shift": new_shift, "wkv": S_}
+    return _rwkv6_out(p, x, y, g, mp), {"shift": new_shift, "wkv": S_}
 
 
 def rwkv6_timemix_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
@@ -981,7 +1016,7 @@ def rwkv6_timemix_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
     nh, hd, c0 = _rwkv_heads(p, cfg, mp)
     r, k, v, g, lw, new_shift = _rwkv6_mix(p, cfg, x, state, mp)
     r, k, v = r.float(), k.float(), v.float()
-    u = p["u"][c0:c0 + nh * hd].reshape(nh, hd).float()
+    u = enter_partial(mp, p["u"])[c0:c0 + nh * hd].reshape(nh, hd).float()
     pad = (-s) % chunk
     if pad:
         r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, lw))
@@ -1011,7 +1046,7 @@ def rwkv6_timemix_chunked(p, cfg, x: torch.Tensor, state: dict | None = None,
         S_ = S_ * torch.exp(ci[:, :, -1])[..., None] + S_in
         ys.append(y.transpose(1, 2))                          # (B,L,nh,hd)
     y = torch.stack(ys, dim=1).reshape(b, nc * chunk, nh, hd)[:, :s]
-    return _rwkv6_out(p, x, y, g), {"shift": new_shift, "wkv": S_}
+    return _rwkv6_out(p, x, y, g, mp), {"shift": new_shift, "wkv": S_}
 
 
 def rwkv6_channelmix(p, x: torch.Tensor, state: dict | None = None,
@@ -1020,16 +1055,19 @@ def rwkv6_channelmix(p, x: torch.Tensor, state: dict | None = None,
     holds wk's columns and wv's rows of its ffn block and wr's columns of
     its channels: k @ wv is its partial sum, summed over the ranks (one
     all-reduce); the gate sigmoid(xr @ wr) covers its channels of that
-    sum, and the gated channels are gathered whole (one all-gather)."""
+    sum, and the gated channels are gathered whole (one all-gather). In
+    training xk and xr enter through `parallel.enter_partial`, the sum's
+    gradient is summed too (each rank uses its channels of it, `parallel
+    .reduce_shared`) and the gather's is the rank's block."""
     dx, new_shift = _token_shift(x, state)
     xk = x + dx * p["mu_k"]
     xr = x + dx * p["mu_r"]
-    k = torch.square(F.relu(xk @ p["wk"]))
+    k = torch.square(F.relu(enter_partial(mp, xk) @ p["wk"]))
     kv = k @ p["wv"]
-    gate = torch.sigmoid(xr @ p["wr"])
+    gate = torch.sigmoid(enter_partial(mp, xr) @ p["wr"])
     if mp is None:
         return gate * kv, {"shift": new_shift}
-    kv = mp.all_reduce_sum(kv)
+    kv = reduce_shared(mp, kv)
     c0 = mp.rank * gate.shape[-1]
-    out = mp.all_gather(gate * kv[..., c0:c0 + gate.shape[-1]], dim=-1)
+    out = gather_last(mp, gate * kv[..., c0:c0 + gate.shape[-1]])
     return out, {"shift": new_shift}

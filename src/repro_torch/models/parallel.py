@@ -28,25 +28,29 @@ layout (`launch/sharding.py`), for every family of the zoo:
 
 The reference's sequence-sharded variants (`attn_shard="seqkv"` /
 `"shmap"`) keep the "tp" parameter layout and cut the KV sequence over
-the ranks instead of the kv heads (the "seq" cache layout): each rank
-attends over its block of the keys and `combine_partials` merges the
-ranks' softmax states, as the reference's `shmap_attention` does with a
-pmax and two psums.
+the ranks instead of the kv heads (the "seq" cache layout; every family:
+zamba2's shared-block cache and seamless's self and cross K/V too, the
+ssm family having no attention to cut): each rank attends over its block
+of the keys and `combine_partials` merges the ranks' softmax states, as
+the reference's `shmap_attention` does with a pmax and two psums.
 
-Training (`zoo.train_step` with a `TrainLayout`; the dense and moe
-families, `check_train`) runs over a ("data", "model") mesh under the
-reference's "tp", "fsdp" and "zero3" layouts, as GSPMD partitions its
-unsharded step: the batch is cut over "data"; a leaf whose `embed` dim
-the layout cuts over the data axes (and, under "zero3", "model" too) is
-all-gathered where it is used (`gather_for_use`) and its gradient
-reduce-scattered back to the rank's block; an op that saves the gathered
-weight for the backward saves the shard instead, and the backward gathers
-it again (`regather_saved`); a leaf the layout leaves whole over "data"
-has its gradient summed over "data" after the backward
+Training (`zoo.train_step` with a `TrainLayout`, `check_train`) runs over
+a ("data", "model") mesh under the reference's "tp" layout for every
+family, and "fsdp" and "zero3" for the dense and moe families, as GSPMD
+partitions its unsharded step: the batch is cut over "data"; a leaf whose
+`embed` dim the layout cuts over the data axes (and, under "zero3",
+"model" too) is all-gathered where it is used (`gather_for_use`) and its
+gradient reduce-scattered back to the rank's block; an op that saves the
+gathered weight for the backward saves the shard instead, and the
+backward gathers it again (`regather_saved`); a leaf the layout leaves
+whole over "data" has its gradient summed over "data" after the backward
 (`reduce_replicated_grads`). The model-axis collectives of the forward
 have autograd forms (Megatron's pair: `reduce_partial` sums forward and
 passes the gradient through, `enter_partial` passes forward and sums the
-gradient; `gather_logits`), so that the "tp" partial sums train.
+gradient, also on a whole leaf, or a piece of one, that each rank uses
+on its own heads; `reduce_shared` sums both ways, for a sum each rank
+uses on its own channels; `gather_last`), so that the "tp" partial sums
+train.
 
 Every collective of such a run goes through one `ModelParallel`, which
 counts each kind's calls and the bytes each rank puts in. With no
@@ -69,10 +73,6 @@ import torch.distributed as dist
 
 # the arch types the "tp" layout runs on: every family of the zoo
 TP_ARCH_TYPES = ("dense", "moe", "ssm", "hybrid", "encdec")
-# the families whose attention leaves the sequence-sharded variants do not
-# cut yet (ROADMAP item 23); the ssm family has no attention, so under
-# those variants it runs the "auto" path
-SEQ_REFUSED = ("hybrid", "encdec")
 # ModelConfig.attn_shard: "auto" (heads over the ranks) or one of the
 # reference's sequence-sharded variants, each with the wire its attention
 # combine over fresh keys crosses ("shmap" casts to bfloat16, as the
@@ -246,19 +246,14 @@ def check_tp(cfg, world: int) -> None:
     many kv heads as the model (one kv head, or 24 query / 2 kv heads
     over 3 ranks), where a rank's cut of a cache leaf could not be told
     from the "seq" layout's (`layers.seq_cut`; ROADMAP item 24). The
-    sequence-sharded variants run the dense, moe and ssm families (the
-    last has no attention to cut) and refuse hybrid and encdec (ROADMAP
-    item 23)."""
+    sequence-sharded variants run every family (the ssm family, with no
+    attention to cut, as "auto")."""
     if cfg.arch_type not in TP_ARCH_TYPES:
         raise ValueError(f"{cfg.name}: the \"tp\" layout runs the "
                          f"{TP_ARCH_TYPES} families, not {cfg.arch_type!r}")
     if cfg.attn_shard not in ATTN_SHARDS:
         raise ValueError(f"{cfg.name}: attn_shard {cfg.attn_shard!r}, "
                          f"expected one of {ATTN_SHARDS}")
-    if cfg.attn_shard in SEQ_VARIANTS and cfg.arch_type in SEQ_REFUSED:
-        raise ValueError(f"{cfg.name}: attn_shard {cfg.attn_shard!r} does not "
-                         f"cut the {cfg.arch_type} family's attention leaves "
-                         f"yet (ROADMAP item 23); use \"auto\"")
     bad = {k: v for k, v in tp_dims(cfg).items() if v % world}
     if bad:
         raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
@@ -313,17 +308,23 @@ class _SumForward(torch.autograd.Function):
 
 class _SumBackward(torch.autograd.Function):
     """x as it is; the gradient summed over the ranks along `axes` (x is
-    the same on each, and each computes its own part of what follows)."""
+    the same on each, and each computes its own part of what follows).
+    With `piece` (start, length) along the last dim, only that part of x
+    is the same on each rank, and only its gradient is summed."""
 
     @staticmethod
-    def forward(ctx, x, mp, axes):
-        ctx.mp, ctx.axes = mp, axes
+    def forward(ctx, x, mp, axes, piece):
+        ctx.mp, ctx.axes, ctx.piece = mp, axes, piece
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        return ctx.mp.all_reduce_axes(g, ctx.axes), None, None
+        if ctx.piece is None:
+            return ctx.mp.all_reduce_axes(g, ctx.axes), None, None, None
+        part = g.narrow(-1, *ctx.piece)
+        part.copy_(ctx.mp.all_reduce_axes(part.contiguous(), ctx.axes))
+        return g, None, None, None
 
 
 class _GatherLast(torch.autograd.Function):
@@ -372,20 +373,33 @@ def reduce_partial(mp: ModelParallel | None,
     return y if mp is None else sum_over(mp, y, ("model",))
 
 
-def enter_partial(mp: ModelParallel | None, x: torch.Tensor) -> torch.Tensor:
+def enter_partial(mp: ModelParallel | None, x: torch.Tensor,
+                  piece: tuple[int, int] | None = None) -> torch.Tensor:
     """x, the same on every "model" rank, as it enters a block whose ranks
     each compute their part (a column-parallel projection, the rank's
-    experts): x itself, its gradient summed over the "model" ranks in the
-    backward. x itself without model parallelism or gradient."""
+    experts, a whole leaf taken at the rank's heads): x itself, its
+    gradient summed over the "model" ranks in the backward. With `piece`
+    (start, length), only that part of x's last dim is the same on every
+    rank (a Mamba2 mixer's B / C columns beside the rank's own) and only
+    its gradient is summed. x itself without model parallelism or
+    gradient."""
     if mp is None or mp.world == 1 or not x.requires_grad:
         return x
-    return _SumBackward.apply(x, mp, ("model",))
+    return _SumBackward.apply(x, mp, ("model",), piece)
 
 
-def gather_logits(mp: ModelParallel, logits: torch.Tensor) -> torch.Tensor:
-    """The ranks' vocabulary blocks of the logits gathered in rank order;
-    the gradient is the rank's block."""
-    return _GatherLast.apply(logits, mp)
+def reduce_shared(mp: ModelParallel, x: torch.Tensor) -> torch.Tensor:
+    """x, a rank's partial sum, summed over the "model" ranks (in place
+    where x carries no gradient), where each rank then uses only its own
+    part of the sum (its channels): the gradient of x is the sum of the
+    ranks' gradients of the sum. `reduce_partial` then `enter_partial`."""
+    return enter_partial(mp, reduce_partial(mp, x))
+
+
+def gather_last(mp: ModelParallel, x: torch.Tensor) -> torch.Tensor:
+    """The ranks' blocks of x's last dim (the vocabulary's logits, RWKV-6's
+    channels) gathered in rank order; the gradient is the rank's block."""
+    return _GatherLast.apply(x, mp)
 
 
 def combine_partials(mp: ModelParallel | None, m: torch.Tensor,
@@ -538,28 +552,31 @@ def take_pieces(a: torch.Tensor, pieces: list) -> torch.Tensor:
 # Training over a ("data", "model") mesh
 # ---------------------------------------------------------------------------
 
-# the families `zoo.train_step` trains over ranks, and the layouts it
-# trains under (launch/sharding.py's rule sets)
-TRAIN_ARCH_TYPES = ("dense", "moe")
+# the layouts `zoo.train_step` trains under (launch/sharding.py's rule
+# sets), and the families each trains: "tp" every family, the layouts
+# that cut weights over "data" the dense and moe families
 TRAIN_MODES = ("tp", "fsdp", "zero3")
+TRAIN_ARCH_TYPES = {"tp": TP_ARCH_TYPES, "fsdp": ("dense", "moe"),
+                    "zero3": ("dense", "moe")}
 
 
 def check_train(cfg, mesh, mode: str) -> None:
     """Raise ValueError unless cfg trains over the ("data", "model") mesh
-    `mesh` under `mode`: a layout of TRAIN_MODES, the dense or moe family
-    (the ssm, hybrid and encdec families: ROADMAP), attn_shard "auto" (the
-    "shmap" variant's training: ROADMAP item 24), and a "model" axis that
-    `check_tp` lets serve."""
+    `mesh` under `mode`: a layout of TRAIN_MODES that trains cfg's family
+    (`TRAIN_ARCH_TYPES`: "tp" every family; "fsdp" / "zero3" the dense and
+    moe families, the ssm, hybrid and encdec families' being ROADMAP item
+    29), attn_shard "auto" (the "shmap" variant's training: ROADMAP item
+    24), and a "model" axis that `check_tp` lets serve."""
     if mode not in TRAIN_MODES:
         raise ValueError(f"{cfg.name}: layout {mode!r}, expected one of "
                          f"{TRAIN_MODES}")
     if tuple(mesh.axis_names) != ("data", "model"):
         raise ValueError(f"{cfg.name}: training runs on a (\"data\", "
                          f"\"model\") mesh, not {tuple(mesh.axis_names)}")
-    if cfg.arch_type not in TRAIN_ARCH_TYPES:
-        raise ValueError(f"{cfg.name}: training over ranks runs the "
-                         f"{TRAIN_ARCH_TYPES} families, not "
-                         f"{cfg.arch_type!r}")
+    if cfg.arch_type not in TRAIN_ARCH_TYPES[mode]:
+        raise ValueError(f"{cfg.name}: training over ranks under {mode!r} "
+                         f"runs the {TRAIN_ARCH_TYPES[mode]} families, not "
+                         f"{cfg.arch_type!r} (ROADMAP item 29)")
     if cfg.attn_shard != "auto":
         raise ValueError(f"{cfg.name}: training over ranks runs attn_shard "
                          f"\"auto\", not {cfg.attn_shard!r} (the \"shmap\" "

@@ -38,17 +38,20 @@ are whole and every rank looks its tokens up and computes the whole
 logits, with no collective.
 
 Training over a ("data", "model") mesh (`train_step` with mp and a
-`parallel.TrainLayout`; the dense and moe families): the params are a
-rank's shard under the layout ("tp", "fsdp", "zero3"), the batch its rows
-(the "data" axis). Each block gathers the leaves of a sublayer (its
-attention, MLP, experts) that the layout cuts over "data" where it runs
-them (`parallel.gather_for_use`), and "tp" / "fsdp" run the heads, the MLP
-and the vocabulary cut over "model" as serving does, through the
-collectives' autograd forms (the model-replicated input of each sublayer
-through `parallel.enter_partial`); "zero3" computes them whole on every
-rank and keeps the experts over "model". The loss is the reference's over
-the whole batch: each rank's NLL summed over "data" (`parallel.sum_over`),
-the aux over the whole batch (`layers.moe_dispatch`).
+`parallel.TrainLayout`; "tp" for every family, "fsdp" and "zero3" for the
+dense and moe families, `parallel.check_train`): the params are a rank's
+shard under the layout, the batch its rows (the "data" axis). Each block
+gathers the leaves of a sublayer (its attention, MLP, experts) that the
+layout cuts over "data" where it runs them (`parallel.gather_for_use`),
+and "tp" / "fsdp" run the heads, the MLP, the recurrent mixers' heads and
+the vocabulary cut over "model" as serving does, through the collectives'
+autograd forms (the model-replicated input of each sublayer, zamba2's
+shared block's and seamless's encoder, cross attention and cross K/V
+included, through `parallel.enter_partial`); "zero3" computes them whole
+on every rank and keeps the experts over "model". The loss is the
+reference's over the whole batch: each rank's NLL summed over "data"
+(`parallel.sum_over`), the aux over the whole batch (`layers
+.moe_dispatch`; 0 for the families without experts).
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ import torch
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.parallel import (check_tp, check_train, enter_partial,
-                                         gather_logits, gather_tree,
+                                         gather_last, gather_tree,
                                          layer_specs,
                                          reduce_partial,
                                          reduce_replicated_grads,
@@ -391,15 +394,20 @@ def _mamba_block_fwd(p, cfg, x, state=None, mp=None):
 
 def _shared_attn_fwd(p, cfg, x, emb0, positions, kv_cache=None,
                      cache_len=None, mode="decode", mp=None):
-    """zamba2's shared block on [x ; emb0] @ proj_in, with no window."""
+    """zamba2's shared block on [x ; emb0] @ proj_in, with no window. Its
+    weights (proj_in whole) serve every application; in training autograd
+    sums their gradients over the applications, and under mp the ln1 /
+    ln2 outputs enter the rank's heads and MLP columns through
+    `enter_partial`, as a dense block's."""
     inp = torch.cat([x, emb0], dim=-1) @ p["proj_in"]
-    h, cache = Lyr.attention(p["attn"], cfg, Lyr.rms_norm(inp, p["ln1"]),
+    h, cache = Lyr.attention(p["attn"], cfg,
+                             enter_partial(mp, Lyr.rms_norm(inp, p["ln1"])),
                              positions=positions, window=BIG_WINDOW,
                              kv_cache=kv_cache, cache_len=cache_len, mode=mode,
                              mp=mp)
     x = x + reduce_partial(mp, h)
-    x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]), p["mlp"],
-                                       cfg.mlp_act))
+    x = x + reduce_partial(mp, Lyr.mlp(
+        enter_partial(mp, Lyr.rms_norm(x, p["ln2"])), p["mlp"], cfg.mlp_act))
     return x, cache
 
 
@@ -440,7 +448,7 @@ def forward(params, cfg: ModelConfig, batch, mp=None, layout=None
     layers (float32), 0 for the other families. mp: a rank's shard of the
     model (module docstring); the logits are whole.
 
-    layout (with mp, a `parallel.TrainLayout`; the dense and moe families):
+    layout (with mp, a `parallel.TrainLayout`; `parallel.check_train`):
     params are the rank's shard and batch its rows of a training run. Each
     sublayer's leaves cut over "data" are gathered where they run
     (`parallel.gather_tree`), the embedding and the head where they are
@@ -502,7 +510,7 @@ def _lm_head(params, cfg, x, mp=None):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     if mp is None or not vocab_cut(cfg, w, -1):
         return x @ w.to(x.dtype)
-    return gather_logits(mp, enter_partial(mp, x) @ w.to(x.dtype))
+    return gather_last(mp, enter_partial(mp, x) @ w.to(x.dtype))
 
 
 def _promoted(x, w):
@@ -516,27 +524,32 @@ def encode(params, cfg, frontend: torch.Tensor, mp=None) -> torch.Tensor:
     """The encoder over the frontend's frame embeddings (B, S_enc, d), cast
     to cfg.dtype as in the reference: non-causal attention with rope at
     positions 0..S_enc-1 and the MLP in each layer, then enc_norm. Under mp
-    each layer runs the rank's heads and MLP columns and sums both output
-    projections over the ranks; the output is whole."""
+    each layer runs the rank's heads and MLP columns (its normed inputs
+    through `enter_partial`) and sums both output projections over the
+    ranks; under the sequence-sharded variants its attention, with no
+    cache, runs over the ranks' blocks of the frames where they divide
+    S_enc (`layers.attention`); the output is whole."""
     x = frontend.to(cfg.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
         xn = _promoted(Lyr.rms_norm(x, p["ln1"]), p["attn"]["wq"])
-        h, _ = Lyr.attention(p["attn"], cfg, xn, positions=positions,
-                             causal=False, mp=mp)
+        h, _ = Lyr.attention(p["attn"], cfg, enter_partial(mp, xn),
+                             positions=positions, causal=False, mp=mp)
         x = x + reduce_partial(mp, h)
-        x = x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]),
-                                           p["mlp"], cfg.mlp_act))
+        x = x + reduce_partial(mp, Lyr.mlp(
+            enter_partial(mp, Lyr.rms_norm(x, p["ln2"])), p["mlp"],
+            cfg.mlp_act))
     return Lyr.rms_norm(x, params["enc_norm"])
 
 
-def cross_kv(p, cfg, enc_out) -> tuple[torch.Tensor, torch.Tensor]:
+def cross_kv(p, cfg, enc_out, mp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross K and V, each (B, S_enc, Hkv, hd): its
     cross wk / wv applied to the encoder's output (a rank's shard: its kv
-    heads)."""
+    heads; the whole encoder output enters them through
+    `enter_partial`)."""
     b, s, _ = enc_out.shape
-    enc_out = _promoted(enc_out, p["cross"]["wk"])
+    enc_out = enter_partial(mp, _promoted(enc_out, p["cross"]["wk"]))
     shape = (b, s, p["cross"]["wk"].shape[1] // cfg.hd, cfg.hd)
     return ((enc_out @ p["cross"]["wk"]).reshape(shape),
             (enc_out @ p["cross"]["wv"]).reshape(shape))
@@ -545,11 +558,15 @@ def cross_kv(p, cfg, enc_out) -> tuple[torch.Tensor, torch.Tensor]:
 def _decoder_block_fwd(p, cfg, x, positions, kv, kv_cache=None,
                        cache_len=None, mode="decode", mp=None):
     """One encdec decoder layer: the dense block (no window), then cross
-    attention over the encoder's kv = (k, v) on rms_norm(x, ln_cross)."""
+    attention over the encoder's kv = (k, v) on rms_norm(x, ln_cross):
+    under mp the rank's query heads over its kv heads, or at decode over
+    a cross K/V cut over its frames (`layers.cross_attention`)."""
     x, cache = _dense_block_fwd(p, cfg, x, positions, BIG_WINDOW, kv_cache,
                                 cache_len, mode, mp)
-    h, _ = Lyr.attention(p["cross"], cfg, Lyr.rms_norm(x, p["ln_cross"]),
-                         positions=positions, causal=False, cross_kv=kv)
+    h, _ = Lyr.attention(p["cross"], cfg,
+                         enter_partial(mp, Lyr.rms_norm(x, p["ln_cross"])),
+                         positions=positions, causal=False, cross_kv=kv,
+                         mp=mp)
     return x + reduce_partial(mp, h), cache
 
 
@@ -564,7 +581,7 @@ def _forward_encdec(params, cfg, batch, mp=None):
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["blocks"], cfg.n_layers):
         x, _ = _decoder_block_fwd(p, cfg, x, positions,
-                                  cross_kv(p, cfg, enc_out), mp=mp)
+                                  cross_kv(p, cfg, enc_out, mp), mp=mp)
     x = Lyr.rms_norm(x, params["final_norm"])
     return _lm_head(params, cfg, x, mp), torch.zeros((), device=x.device)
 
@@ -609,8 +626,9 @@ def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update,
     leaf the loss does not reach (a hybrid's shared block when the depth
     keeps no application of it) gets a zero gradient, as under jax.grad.
 
-    With mp and a `parallel.TrainLayout` (the dense and moe families,
-    `parallel.check_train`): params and opt_state are this rank's shards
+    With mp and a `parallel.TrainLayout` (`parallel.check_train`: "tp" for
+    every family, "fsdp" / "zero3" for the dense and moe families): params
+    and opt_state are this rank's shards
     under the layout, batch its rows of the batch; the step is the
     unsharded one's. The weights gathered for use are not saved for the
     backward (`parallel.regather_saved`); the leaves the layout leaves

@@ -50,12 +50,13 @@ cuts them, and two leaves are held otherwise (`local_cache_shapes`):
 Mamba2's "conv" at the channels of the rank's heads plus B / C whole, and
 RWKV-6's "tm_shift" / "cm_shift" whole (every rank's token shift reads the
 whole previous x). Under "seq" (cfg.attn_shard "seqkv" or "shmap", the
-reference's decode layout; the dense, moe and ssm families) a leaf whose
-slots the ranks divide holds the rank's block of them (positions, or a
-ring's slots) with every kv head, and decode combines K8's partials over
-the blocks across the ranks (`layers.seq_decode_attention`); a leaf they
-do not divide keeps the "heads" cut, so one cache can mix both (attention
-reads each leaf's own). Every rank returns the same, whole logits.
+reference's decode layout; every family, the ssm family having no K/V
+leaf) a K/V leaf whose slots the ranks divide holds the rank's block of
+them (positions, a ring's slots, or seamless's encoder frames) with every
+kv head, and decode combines K8's partials over the blocks across the
+ranks (`layers.seq_decode_attention`); a leaf they do not divide keeps the
+"heads" cut, so one cache can mix both (attention reads each leaf's own).
+Every rank returns the same, whole logits.
 """
 
 from __future__ import annotations
@@ -314,23 +315,32 @@ def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode, mp=None):
 def _prefill_encdec(params, cfg, batch, cache, mp=None):
     """The encoder over batch["frontend"], then the decoder over
     batch["tokens"]: each layer writes its self K/V (prefill mode) and its
-    cross K/V (under mp the rank's kv heads), cast to the cache's dtype,
-    into cache["cross_k"][i] / ["cross_v"][i]. Its own cross attention
-    attends the uncast K/V, as the reference's does."""
-    enc_len = cache["cross_k"].shape[2]
-    if batch["frontend"].shape[1] != enc_len:
+    cross K/V, cast to the cache's dtype, into cache["cross_k"][i] /
+    ["cross_v"][i]: under mp the rank's kv heads or, where the leaf is cut
+    over its frames (`layers.seq_cut`), the rank's block of the frames
+    with every kv head (the rank's heads gathered whole). Its own cross
+    attention attends the uncast K/V of its heads, as the reference's
+    does (no cache, no sequence cut)."""
+    frames = batch["frontend"].shape[1]
+    seq = Lyr.seq_cut(mp, cache["cross_k"], cfg.n_kv_heads)
+    enc_len = cache["cross_k"].shape[2] * (mp.world if seq else 1)
+    if frames != enc_len:
         raise ValueError(f"a cache of {enc_len} encoder frames cannot take "
-                         f"a frontend of {batch['frontend'].shape[1]}")
+                         f"a frontend of {frames}")
     enc_out = Z.encode(params, cfg, batch["frontend"], mp)
     x = Z.embed_tokens(params, cfg, batch["tokens"], mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
-        ck, cv = Z.cross_kv(p, cfg, enc_out)
+        ck, cv = Z.cross_kv(p, cfg, enc_out, mp)
         x, _ = Z._decoder_block_fwd(
             p, cfg, x, positions, (ck, cv),
             kv_cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_len=0,
             mode="prefill", mp=mp)
+        if seq:
+            n = cache["cross_k"].shape[2]
+            ck, cv = (t[:, mp.rank * n:(mp.rank + 1) * n] for t in
+                      Lyr._gather_heads(mp, cfg, None, ck, cv))
         cache["cross_k"][i].copy_(ck)
         cache["cross_v"][i].copy_(cv)
     x = Lyr.rms_norm(x[:, -1:], params["final_norm"])

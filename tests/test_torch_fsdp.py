@@ -153,7 +153,8 @@ def runs():
     refs = {arch: _reference(arch) for arch in ARCHS}
     ranks = {}
     for (d, m), modes in MESHES.items():
-        cases = [(f"{arch}-{mode}", arch, mode, ARCHS[arch],
+        cases = [(f"{arch}-{mode}", arch, mode,
+                  {"capacity_factor": ARCHS[arch]} if ARCHS[arch] else {},
                   refs[arch]["params_np"], refs[arch]["batches"], LR)
                  for mode in modes for arch in ARCHS]
         kept = ("dbrx-132b", modes[-1], refs["dbrx-132b"]["params_np"],
@@ -371,7 +372,7 @@ def test_launcher_rank_trains_as_the_launcher(runs, capsys):
 
 REFUSED = [("rwkv6-1.6b", {}, (2, 2), "fsdp", "families"),
            ("zamba2-1.2b", {}, (2, 2), "zero3", "families"),
-           ("seamless-m4t-large-v2", {}, (1, 2), "tp", "families"),
+           ("seamless-m4t-large-v2", {}, (1, 2), "zero3", "families"),
            ("yi-34b", {"attn_shard": "shmap"}, (2, 2), "fsdp", "shmap"),
            ("dbrx-132b", {"attn_shard": "seqkv"}, (1, 2), "tp", "seqkv"),
            ("yi-34b", {}, (1, 8), "fsdp", "divide"),
@@ -382,8 +383,9 @@ REFUSED = [("rwkv6-1.6b", {}, (2, 2), "fsdp", "families"),
 @pytest.mark.parametrize("arch,kw,mesh,mode,why", REFUSED,
                          ids=[f"{r[0]}-{r[4]}" for r in REFUSED])
 def test_check_train_refuses(arch, kw, mesh, mode, why):
-    """check_train refuses the ssm, hybrid and encdec families, a
-    sequence-sharded variant, a "model" axis check_tp refuses (8 ranks
+    """check_train refuses the ssm, hybrid and encdec families under the
+    layouts that cut weights over "data" ("tp" trains them:
+    tests/test_torch_train_families.py), a sequence-sharded variant, a "model" axis check_tp refuses (8 ranks
     over 4 heads; 3 over 4 heads and experts) and an unknown layout, and
     the training forward refuses them too."""
     cfg = dataclasses.replace(TCFG.get_smoke(arch), **kw)

@@ -78,7 +78,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models.parallel import (ModelParallel, check_tp,
                                          combine_partials, local_slices)
 from repro_torch.serving import engine as TE
-from torch_parity import close, dense_model, n, token_batch
+from torch_parity import close, dense_model, flat_arrays, n, token_batch
 import torch_tp_ranks
 
 WORLD = 2
@@ -170,16 +170,6 @@ _REFERENCE = textwrap.dedent("""
 _decode = jax.jit(JE.decode_step, static_argnums=(1,))
 
 
-def _flat(tree, prefix=""):
-    """A nested dict of arrays as {"a/b/c": numpy array}."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
-
 
 def _unsharded(jp, jcfg, jb, prompt, max_len):
     """The reference's unsharded forward and engine: (forward logits, each
@@ -226,8 +216,8 @@ def runs(tmp_path_factory):
             payload[f"{name}/arch"] = np.asarray(arch)
             payload[f"{name}/sizes"] = np.asarray([prompt, max_len, STEPS])
             payload[f"{name}/tokens"] = n(tb["tokens"])
-            payload.update({f"{name}/p/{k}": v
-                            for k, v in _flat(jax.device_get(jp)).items()})
+            payload.update({f"{name}/p/{k}": v for k, v in
+                            flat_arrays(jax.device_get(jp)).items()})
     np.savez(tmp / "in.npz", **payload)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=2",

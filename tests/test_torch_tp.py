@@ -358,12 +358,15 @@ def test_tp_refuses_a_world_that_does_not_divide_the_kv_heads():
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
                                   "seamless-m4t-large-v2"])
 def test_tp_refuses_the_families_of_later_slices(arch):
-    """The ssm, hybrid and encdec families run the "tp" layout ("auto"):
+    """(The name is kept from when the sequence-sharded variants refused
+    these families; the test now checks that they run them.) The ssm,
+    hybrid and encdec families run the "tp" layout ("auto"):
     their smoke configs over 2 and 4 ranks and their full configs over 4
     pass `check_tp` and take a rank's cache. The sequence-sharded variants
-    are a later slice's for hybrid and encdec (ROADMAP item 23) and
-    refused; the ssm family, with no attention to cut, runs them as
-    "auto"."""
+    pass too: the hybrid and encdec families' K/V leaves take the "seq"
+    cut (tests/test_torch_seq_families.py serves them), and the ssm
+    family, with no attention to cut, runs them as "auto", its cache the
+    same as under "auto"."""
     cfg = torch_tp_ranks.smoke_cfg(arch)
     for world in (2, 4):
         check_tp(cfg, world)
@@ -372,13 +375,16 @@ def test_tp_refuses_the_families_of_later_slices(arch):
     assert set(cache) == set(TE.cache_shapes(cfg, 1, 8, 4))
     for variant in ("seqkv", "shmap"):
         vcfg = dataclasses.replace(cfg, attn_shard=variant)
-        if cfg.arch_type == "ssm":
-            check_tp(vcfg, 2)
-            continue
-        with pytest.raises(ValueError, match="item 23"):
-            check_tp(vcfg, 2)
-        with pytest.raises(ValueError, match="item 23"):
-            TE.init_cache(vcfg, 1, 8, 4, device="cpu", mp=_rank(0, 2))
+        check_tp(vcfg, 2)
+        check_tp(dataclasses.replace(CFG.get(arch), attn_shard=variant), 4)
+        seq = TE.init_cache(vcfg, 1, 8, 4, device="cpu", mp=_rank(0, 2))
+        assert set(seq) == set(cache)
+        for k, t in seq.items():
+            if cfg.arch_type == "ssm" or k not in SH.KV_ENTRIES:
+                assert t.shape == cache[k].shape, k
+            else:
+                assert t.shape[-3:] == (cache[k].shape[-3] // 2,
+                                        cfg.n_kv_heads, cfg.hd), k
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)

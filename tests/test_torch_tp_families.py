@@ -27,8 +27,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import repro.configs as JCFG
-from repro.models import base as JMB
 from repro.models import zoo as JZ
 from repro.serving import engine as JE
 from repro_torch.launch import sharding as SH
@@ -37,7 +35,7 @@ from repro_torch.models import base as MB
 from repro_torch.models import zoo as TZ
 from repro_torch.models import parallel as TPAR
 from repro_torch.serving import engine as TE
-from torch_parity import close, token_batch
+from torch_parity import close, perturbed_model, token_batch
 import torch_tp_ranks
 
 WORLD = 2
@@ -59,26 +57,6 @@ HEAD_CUT = ("wkv", "ssm", "attn_k", "attn_v", "k", "v", "cross_k", "cross_v",
             "gk", "gv", "lk", "lv", "tlk", "tlv")
 
 _decode = jax.jit(JE.decode_step, static_argnums=(1,))
-
-
-def _reference(arch, impl, vocab, seed=1):
-    """(JAX cfg, JAX params) of the smoke config in float32, its zero- and
-    one-initialised leaves perturbed by NOISE * N(0, 1)."""
-    jcfg = dataclasses.replace(JCFG.get_smoke(arch), dtype=jnp.float32,
-                               ssm_impl=impl)
-    if vocab:
-        jcfg = dataclasses.replace(jcfg, vocab=vocab)
-    tmpl = JZ.templates(jcfg)
-    jp = JMB.materialize(tmpl, jax.random.PRNGKey(seed), dtype=jnp.float32)
-    rng = np.random.default_rng(seed)
-
-    def perturb(t, a):
-        a = np.asarray(a)
-        if t.init in ("zeros", "ones"):
-            a = a + NOISE * rng.normal(size=a.shape).astype(np.float32)
-        return jnp.asarray(a, jnp.float32)
-
-    return jcfg, jax.tree_util.tree_map(perturb, tmpl, jp)
 
 
 def _serve(jp, jcfg, jb, max_len, enc_len):
@@ -105,7 +83,7 @@ def runs():
     ranks' results (one spawn for every case)."""
     refs, cases = {}, []
     for name, (arch, impl, vocab) in CASES.items():
-        jcfg, jp = _reference(arch, impl, vocab)
+        jcfg, jp = perturbed_model(arch, impl, vocab, noise=NOISE)
         jb, tb = token_batch(jcfg, BATCH, PROMPT, seed=7)
         enc_len = tb["frontend"].shape[1] if "frontend" in tb else 0
         max_len = PROMPT + STEPS + 1

@@ -280,6 +280,45 @@ def dense_model(arch, dtype="float32", seed=1):
     return jcfg, tcfg, jp, tp
 
 
+def flat_arrays(tree, prefix="") -> dict:
+    """A nested dict of arrays as {"a/b/c": numpy array} (a tree crossing
+    to a subprocess or a rank in an npz file)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_arrays(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def perturbed_model(arch, impl="scan", vocab=None, seed=1, noise=0.1,
+                    layers=0):
+    """(JAX cfg, JAX params) of the arch's smoke config in float32 (its
+    ssm_impl `impl`, its vocabulary `vocab` and its first `layers` layers
+    where given) from the reference's `materialize`, every leaf the
+    templates initialise to zeros or ones perturbed by noise * N(0, 1)
+    numpy draws, so that the LoRA, bonus, shift and norm paths are not
+    trivial."""
+    jcfg = dataclasses.replace(JCFG.get_smoke(arch), dtype=jnp.float32,
+                               ssm_impl=impl)
+    if vocab:
+        jcfg = dataclasses.replace(jcfg, vocab=vocab)
+    if layers:
+        jcfg = dataclasses.replace(jcfg, n_layers=layers)
+    tmpl = JZ.templates(jcfg)
+    jp = JMB.materialize(tmpl, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    rng = np.random.default_rng(seed)
+
+    def perturb(t, a):
+        a = np.asarray(a)
+        if t.init in ("zeros", "ones"):
+            a = a + noise * rng.normal(size=a.shape).astype(np.float32)
+        return jnp.asarray(a, jnp.float32)
+
+    return jcfg, jax.tree_util.tree_map(perturb, tmpl, jp)
+
+
 def token_batch(cfg, b, s, seed=0):
     """A (JAX batch, port batch) pair of s random tokens per row, plus the
     frontend stub embeddings of a vlm config (its frontend positions) or

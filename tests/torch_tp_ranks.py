@@ -1,6 +1,7 @@
 """Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py,
-tests/test_torch_tp_kvrep.py, tests/test_torch_seq.py and
-tests/test_torch_fsdp.py.
+tests/test_torch_tp_kvrep.py, tests/test_torch_seq.py,
+tests/test_torch_seq_families.py, tests/test_torch_fsdp.py and
+tests/test_torch_train_families.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 
+import numpy as np
 import torch
 
 from repro_torch import configs as TCFG
@@ -211,6 +213,71 @@ def seq_rank(mp, cases) -> list[dict]:
     return out
 
 
+def _record_k8(calls: list):
+    """Wrap `ops.swa_decode` (whole K8) to count its calls; returns the
+    undo."""
+    orig = ops.swa_decode
+
+    def recorded(*args, **kw):
+        calls.append(1)
+        return orig(*args, **kw)
+
+    ops.swa_decode = recorded
+    return lambda: setattr(ops, "swa_decode", orig)
+
+
+def seq_family_rank(mp, cases) -> dict:
+    """One rank of tests/test_torch_seq_families.py: for each case (name,
+    arch, variant, params_np, tokens, frontend or None, feed, max_len) the
+    arch's smoke config in float32 under attn_shard=variant, its "tp"
+    shard of the reference's numpy params, the forward, then the engine's
+    prefill into the "seq" cache (an encdec model's frontend spanning its
+    cross K/V) and a decode step per feed[i] (B, 1). The collectives of
+    the forward, the prefill and each decode step, each step's partials
+    calls' (lo, hi) and whole-K8 calls, and the cache."""
+    out = {}
+    for name, arch, variant, params_np, tokens, frontend, feed, \
+            max_len in cases:
+        cfg = dataclasses.replace(smoke_cfg(arch), attn_shard=variant)
+        full = Z.params_from_numpy(params_np, cfg, device="cpu")
+        tmpl = Z.templates(cfg)
+        shard = MB.shard_params(full, tmpl,
+                                SH.param_layouts(tmpl, mp.mesh, "tp"), mp)
+        batch = {"tokens": torch.as_tensor(tokens)}
+        enc_len = 0
+        if frontend is not None:
+            batch["frontend"] = torch.as_tensor(frontend)
+            enc_len = frontend.shape[1]
+        mp.reset_counts()
+        logits, _ = Z.forward(shard, cfg, batch, mp)
+        calls = {"forward": dict(mp.calls)}
+        b, s = batch["tokens"].shape
+        cache = E.init_cache(cfg, b, max_len, enc_len, device="cpu", mp=mp)
+        mp.reset_counts()
+        lg, cache = E.prefill(shard, cfg, batch, cache, mp)
+        calls["prefill"] = dict(mp.calls)
+        step_logits, step_calls, step_ranges, step_k8 = [lg[:, -1]], [], \
+            [], []
+        for i, tok in enumerate(feed):
+            mp.reset_counts()
+            ranges, whole = [], []
+            undo, undo_k8 = _record_partials(ranges), _record_k8(whole)
+            try:
+                lg, cache = E.decode_step(shard, cfg, torch.as_tensor(tok),
+                                          cache, s + i, mp)
+            finally:
+                undo()
+                undo_k8()
+            step_logits.append(lg[:, -1])
+            step_calls.append(dict(mp.calls))
+            step_ranges.append(ranges)
+            step_k8.append(len(whole))
+        out[name] = dict(logits=logits, step_logits=step_logits,
+                         cache=cache, calls=calls, step_calls=step_calls,
+                         step_ranges=step_ranges, step_k8=step_k8)
+    return out
+
+
 def shmap_rank(mp, cases) -> list[dict]:
     """One rank of `layers.shmap_attention` for each case (q, k, v, causal,
     window, q_offset): over the rank's block of the keys, with the
@@ -307,15 +374,47 @@ def _record_keeps(keeps: list):
     return lambda: setattr(Lyr, "moe_dispatch", orig)
 
 
-def _train_case(mp, arch, mode, cf, params_np, batches, lr) -> dict:
+def _unflatten(flat: dict) -> dict:
+    """{"a/b/c": array} as a nested dict."""
+    tree: dict = {}
+    for key, a in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return tree
+
+
+def _state_at(path, i, cfg, tmpl, specs, mp):
+    """This rank's shards of the params and the Adam state that the npz
+    file `path` holds for the start of step i (keys "{i}/step" and
+    "{i}/{params,m,v}/<leaf path>")."""
+    with np.load(path) as d:
+        trees = {kind: _unflatten({k[len(f"{i}/{kind}/"):]: d[k]
+                                   for k in d.files
+                                   if k.startswith(f"{i}/{kind}/")})
+                 for kind in ("params", "m", "v")}
+        step = int(d[f"{i}/step"])
+    shards = {kind: MB.shard_params(Z.params_from_numpy(t, cfg, device="cpu"),
+                                    tmpl, specs, mp)
+              for kind, t in trees.items()}
+    return shards.pop("params"), {
+        "step": torch.tensor(step, dtype=torch.int32), **shards}
+
+
+def _train_case(mp, arch, mode, overrides, params_np, batches, lr,
+                states=None) -> dict:
     """One training case on this rank: the arch's smoke config in float32
-    at capacity factor cf (where given) from the reference's numpy params,
-    its shard under `mode` and the gather back, then an Adam step
-    (`zoo.train_step` with mp and the layout) on the rank's rows of each
-    batch, each step's collectives and kept choices recorded."""
-    cfg = smoke_cfg(arch)
-    if cf:
-        cfg = dataclasses.replace(cfg, capacity_factor=cf)
+    with the fields `overrides` names (a capacity factor, an ssm_impl, a
+    depth) from the reference's numpy params, its shard under `mode` and
+    the gather back, then an Adam step (`zoo.train_step` with mp and the
+    layout) on the rank's rows of each batch, each step's collectives and
+    kept choices recorded, and Adam's m after the first step gathered.
+    With `states` (an npz file, `_state_at`) every step after the first
+    starts from the reference's params and Adam state of that step instead
+    of this run's own, and m is gathered after every step."""
+    cfg = dataclasses.replace(smoke_cfg(arch), **overrides)
     tmpl = Z.templates(cfg)
     layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh, mode))
     full = Z.params_from_numpy(params_np, cfg, device="cpu")
@@ -326,8 +425,10 @@ def _train_case(mp, arch, mode, cf, params_np, batches, lr) -> dict:
     del full, back
     opt = adam(lr)
     state = opt.init(shard)
-    losses, calls, keeps, m1 = [], [], [], None
+    losses, calls, keeps, ms = [], [], [], []
     for i, batch in enumerate(batches):
+        if states is not None and i:
+            shard, state = _state_at(states, i, cfg, tmpl, layout.specs, mp)
         rows = TLT.batch_rows({k: torch.as_tensor(v)
                                for k, v in batch.items()}, mp.mesh,
                               mp.global_rank)
@@ -342,8 +443,8 @@ def _train_case(mp, arch, mode, cf, params_np, batches, lr) -> dict:
         losses.append(float(loss))
         calls.append(dict(mp.calls))
         keeps.append(step_keeps)
-        if i == 0:
-            m1 = MB.gather_params(state["m"], tmpl, layout.specs, mp)
+        if i == 0 or states is not None:
+            ms.append(MB.gather_params(state["m"], tmpl, layout.specs, mp))
     again = MB.shard_params(MB.gather_params(shard, tmpl, layout.specs, mp),
                             tmpl, layout.specs, mp)
     gathers_back = all(torch.equal(a, b) for a, b in
@@ -353,7 +454,8 @@ def _train_case(mp, arch, mode, cf, params_np, batches, lr) -> dict:
     state_bytes = sum(a.numel() * a.element_size() for t in (
         shard, state["m"], state["v"]) for a in MB.tree_leaves(t))
     return dict(losses=losses, calls=calls, keeps=keeps,
-                m1=m1 if mp.global_rank == 0 else None,
+                m1=ms[0] if mp.global_rank == 0 else None,
+                ms=ms if mp.global_rank == 0 else None,
                 round_trip=round_trip, gathers_back=gathers_back,
                 digests=digests, state_bytes=state_bytes,
                 step=int(state["step"]))
@@ -390,8 +492,9 @@ def _kept_gathered(mp, arch, mode, params_np, batch, hooks: bool) -> int:
 
 
 def train_rank(mp, cases, kept_case=None, launcher=None) -> dict:
-    """One rank of tests/test_torch_fsdp.py: `_train_case` for each case
-    (name, arch, mode, capacity factor, params_np, batches, lr); where
+    """One rank of tests/test_torch_fsdp.py and tests/test_torch_train
+    _families.py: `_train_case` for each case (name, arch, mode, config
+    overrides, params_np, batches, lr[, states]); where
     kept_case (arch, mode, params_np, batch) is given, the gathered
     weights still alive after a forward with and without
     `regather_saved`; where launcher (arch, mode, steps, batch, seq,
