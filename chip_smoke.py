@@ -437,7 +437,8 @@ from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
 from repro_torch.models.parallel import (  # noqa: E402
-    SEQ_VARIANTS, TrainLayout, combine_partials, kv_heads, rank_pieces)
+    SEQ_VARIANTS, TrainLayout, combine_partials, kv_heads, q_heads,
+    rank_pieces)
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving.batching import (  # noqa: E402
@@ -554,12 +555,13 @@ TP_RTOL, TP_ATOL, TP_TOKEN_MARGIN = 1e-5, 2e-4, 4e-4
 TP_WORLD, TP_STEPS = 4, 8
 TP_MOE_ARCH = "dbrx-132b"
 # [tp lm] / [seq lm] run gemma3-27b at its published widths cut to
-# TP_LM_LAYERS layers (two groups of 5 local and 1 global layer), against
+# TP_LM_LAYERS layers (one group of 5 local and 1 global layer), against
 # an unsharded run of the same cut on one card (`tp_lm_reference`): four
 # ranks sharing one card pay ~1.3 s (heads) / ~2.7 s ("seq") a step and
 # ~30 s a prefill over gloo at full depth (PR 32 F0), which chip_smoke.py's
-# time limit no longer holds beside the later phases.
-TP_LM_LAYERS = 12
+# time limit no longer holds beside the later phases (one group of 6
+# layers leaves room for [tp qsplit lm]'s spawn).
+TP_LM_LAYERS = 6
 TP_BF16_STD_TOL = 0.25
 # Sequence-sharded serving (cfg.attn_shard "seqkv" / "shmap": the "tp"
 # parameter layout, the KV sequence over the ranks; decode through K8's
@@ -652,11 +654,13 @@ ENCDEC_FULL_TRAIN_BATCH, ENCDEC_FULL_TRAIN_SEQ = 2, 64
 # TP_FAMILY_CASES, rwkv6 and zamba2 in both ssm_impl forms, seamless at its
 # smoke vocabulary and at TP_ODD_VOCAB, which the ranks do not divide (the
 # embedding and the head stay whole on every rank). [tp families lm]:
-# rwkv6-1.6b, zamba2-1.2b and seamless-m4t-large-v2 at published widths and
-# full depth in bfloat16 over TP_WORLD ranks, [ssm lm]'s / [encdec lm]'s
+# rwkv6-1.6b, zamba2-1.2b and seamless-m4t-large-v2 at published widths,
+# cut to TP_FAMILY_LAYERS (for the time limit, beside [tp qsplit lm]'s
+# spawn: zamba2's 13 keep two shared-block applications and a tail
+# layer), in bfloat16 over TP_WORLD ranks, [ssm lm]'s / [encdec lm]'s
 # batch and prompt (and frames), TP_STEPS decode steps fed the unsharded
-# run's greedy tokens, held to a teacher-fed rerun of [ssm lm] / [encdec
-# lm] at [tp lm]'s bar (`check_tp_logits`).
+# run's greedy tokens, held to the one-card run of the same cut
+# (`family_reference`) at [tp lm]'s bar (`check_tp_logits`).
 # bfloat16 bar of [tp families lm]: rwkv6-1.6b at random init is
 # sensitive enough that two one-card runs of the same function part by
 # more than check_tp_logits's bar at full depth ([ssm lm]'s scan and
@@ -673,6 +677,7 @@ TP_FAMILY_CASES = (("rwkv6-1.6b", "scan", 0), ("rwkv6-1.6b", "chunked", 0),
                    ("zamba2-1.2b", "scan", 0), ("zamba2-1.2b", "chunked", 0),
                    (ENCDEC_ARCH, "scan", 0), (ENCDEC_ARCH, "scan", TP_ODD_VOCAB))
 TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
+TP_FAMILY_LAYERS = {"rwkv6-1.6b": 6, "zamba2-1.2b": 13, ENCDEC_ARCH: 6}
 # "tp" where the ranks do not divide the kv heads: each rank holds whole
 # the kv heads its query heads read (`parallel.kv_heads`), so a kv head
 # sits on several ranks. Both phases run inside [tp lm]'s spawn of
@@ -685,11 +690,11 @@ TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
 # bfloat16, drawn on the card from seed 0 (each rank keeping its pieces),
 # a prefill of KVREP_LM_BATCH x KVREP_LM_PROMPT tokens and TP_STEPS decode
 # steps fed the unsharded run's greedy tokens, held to that run at [tp
-# lm]'s bar (`check_tp_logits`); cut to KVREP_LM_LAYERS of its 30 layers,
+# lm]'s bar (`check_tp_logits`); cut to KVREP_LM_LAYERS of its 30 layers
 # for [tp lm]'s reason.
 KVREP_PARITY_ARCHS = ("starcoder2-3b", "dbrx-132b")
 KVREP_LM_ARCH, KVREP_LM_BATCH, KVREP_LM_PROMPT = "starcoder2-3b", 4, 2048
-KVREP_LM_LAYERS = 10
+KVREP_LM_LAYERS = 5
 # Training over a ("data", "model") mesh (`zoo.train_step` with a
 # `parallel.TrainLayout`), one spawn of FSDP_MESH's ranks after [tp lm]'s.
 # [fsdp parity]: the CPU tests' smoke cases (tests/test_torch_fsdp.py; a
@@ -731,8 +736,12 @@ FSDP_PEAK_SHARE = 0.5
 # both divided by TP_WORLD), held to the same teacher-fed reruns at the
 # same bar as [tp families lm]. [tp families train]: one spawn of
 # FAMILY_TRAIN_MESH's ranks sharing the card, FAMILY_TRAIN_ARCHS at their
-# published widths cut to [ssm lm check]'s / [encdec lm check]'s depth
-# (zamba2 7 layers: its shared block on the path), float32 weights from
+# published widths cut to the layers given (zamba2 7, [ssm lm check]'s:
+# its shared block on the path and a state carried over layers; rwkv6 1
+# and seamless 1 + 1, for the time limit: with 2 and 2 + 2, as [ssm lm
+# check] / [encdec lm check] keep them, all of this script took 1148.9
+# s of its 1200 on an H100 host whose CPU ran the unchanged phases 1.6x
+# slower than another's), float32 weights from
 # seed 0, LM_TRAIN_STEPS Adam steps of the launcher's batch at
 # FAMILY_TRAIN_LR under "tp" (rwkv6 and zamba2 in the chunked form, the
 # dry run's choice for training; `launch.train.train_lm_rank`), held to
@@ -741,10 +750,79 @@ FSDP_PEAK_SHARE = 0.5
 SEQ_FAMILY_ARCHS = ("zamba2-1.2b", ENCDEC_ARCH)
 FAMILY_TRAIN_MESH = (2, 2)
 FAMILY_TRAIN_ARCHS = {
-    "rwkv6-1.6b": ("chunked", SSM_CHECK_LAYERS["rwkv6-1.6b"]),
+    "rwkv6-1.6b": ("chunked", 1),
     "zamba2-1.2b": ("chunked", SSM_CHECK_LAYERS["zamba2-1.2b"]),
-    ENCDEC_ARCH: (None, ENCDEC_CHECK_LAYERS)}
+    ENCDEC_ARCH: (None, 1)}
 FAMILY_TRAIN_LR = FSDP_LM_LR
+# Query heads the ranks do not divide (`parallel.q_heads`): a rank holds
+# its block of wq's H·hd columns (the reference's cut), gathers q whole,
+# attends the heads its columns touch and keeps its own columns. [tp
+# qsplit parity], inside [tp lm]'s spawn of TP_WORLD ranks:
+# QSPLIT_PARITY's smoke configs (yi-smoke with 6 query / 2 kv heads: 1.5
+# heads a rank; dbrx-smoke with 14 / 2: 3.5) and, inside [tp parity]'s
+# spawn of TP_PARITY_WORLD ranks, QSPLIT_MQA (one kv head, held by every
+# rank: the count check_tp refused before the cache's layout was a tag),
+# each under "auto", "seqkv" and "shmap" in float32 against the card's
+# unsharded run at [tp parity]'s / [seq parity]'s bars, K8 (or its
+# partials) = layers x steps a rank. [tp qsplit lm]: one spawn of
+# QSPLIT_WORLD ranks sharing the card (gloo), QSPLIT_LM_ARCHS at their
+# published widths cut to the layers given, bfloat16, drawn on the card
+# from seed 0: a prefill of QSPLIT_LM_BATCH x QSPLIT_LM_PROMPT tokens
+# under "shmap" (the pod dry run's prefill variant for them) then TP_STEPS
+# decode steps fed the unsharded run's greedy tokens, once into the
+# "heads" cache decoding under "auto" (K8 on the touched heads) and once
+# into the "seq" cache decoding under "seqkv" (K8's partials), each held
+# to the unsharded run at [tp lm]'s bar (`check_tp_logits`).
+QSPLIT_PARITY = {"yi6": ("yi-34b", {"n_heads": 6, "head_dim": 64}),
+                 "dbrx14": ("dbrx-132b", {"n_heads": 14, "head_dim": 64})}
+QSPLIT_MQA = {"yi-mqa": ("yi-34b", {"n_kv_heads": 1})}
+QSPLIT_WORLD = 16
+QSPLIT_LM_ARCHS = {"starcoder2-3b": 4, "yi-34b": 1}
+QSPLIT_LM_BATCH, QSPLIT_LM_PROMPT = 4, 512
+QSPLIT_PREFILL, QSPLIT_SEQ = "shmap", "seqkv"
+# "shmap" training (the reference's shard_map attention and MoE: the max
+# carries no gradient, acc crosses in bfloat16 both ways, the experts'
+# capacity and aux are each data shard's). [shmap train parity], inside
+# [fsdp parity]'s spawn: SHMAP_TRAIN_PARITY's smoke cases under
+# SHMAP_TRAIN_MODES (yi3: 1.5 heads a model rank, its one kv head on
+# both, the layout the pod dry run gives yi-34b), LM_TRAIN_STEPS Adam
+# steps, against the card's one-process run of the same semantics
+# (`layers.one_process_mesh(*FSDP_MESH)`: the keys in two blocks, the
+# experts over two data shards, each with its capacity and aux), the
+# ranks routed to its experts, at bars derived from the bfloat16 wire:
+# step 1's loss FSDP_LOSS_TOL (its forward's roundings agree),
+# every loss SHMAP_LOSS_BAR and step 1's m SHMAP_M_BAR (one bfloat16
+# rounding step) of each leaf's largest; where a rounding to bfloat16
+# flips, an element moves by up to 2^-8 of itself, and the reference's
+# own step moves past fsdp's 1e-5 when its params move by one ulp
+# (tests/test_torch_shmap_train.py holds that spread below these bars).
+# [shmap train lm], inside [tp qsplit lm]'s spawn on its 1 x QSPLIT_WORLD
+# mesh: SHMAP_LM_ARCH at its published widths cut to SHMAP_LM_LAYERS
+# layers, float32, LM_TRAIN_STEPS Adam steps of the launcher's batch at
+# FSDP_LM_LR under "tp" + "shmap" (3.5 heads a rank; each kv head on two
+# ranks, its gradient summed over them), held to the same steps in one
+# process on the card with the same semantics (`layers.one_process_mesh(1,
+# QSPLIT_WORLD)`: the keys in QSPLIT_WORLD blocks, their softmax states
+# combined as the ranks', the max carrying no gradient, acc in bfloat16;
+# the plain step is not that step, since its gradient depends on how the
+# keys are cut): step 1's loss at FSDP_LOSS_TOL, every loss within
+# SHMAP_LM_BAR; the ranks' shared leaves bit-equal, each rank's params +
+# m + v its pieces' bytes. SHMAP_LM_BAR lies between what a sound run and
+# a planted fault read (fsdp_controls.py's "shmap" group, on an H100
+# 80GB HBM3 at 700 W): the sound run 1.81e-5 off at step 1 and 2.82e-3
+# at step 2 (the 16 ranks sum acc in bfloat16 in another order than the
+# one process, and Adam's first step takes the sign of the gradients
+# such rounding moves), "max carries gradient" 1.24e-2 and "no gather
+# sum" 4.09e-2 at step 2; "no kv sum" reads the sound losses and is
+# caught by the unequal bits of the kv heads' two holders.
+SHMAP_TRAIN_PARITY = {"yi6": ("yi-34b", {"n_heads": 6, "head_dim": 64}),
+                      "yi3": ("yi-34b", {"n_heads": 3, "n_kv_heads": 1,
+                                         "head_dim": 64}),
+                      "dbrx": ("dbrx-132b", {"capacity_factor": 1.0})}
+SHMAP_TRAIN_MODES = ("tp", "fsdp")
+SHMAP_LOSS_BAR, SHMAP_M_BAR = 1e-3, 2.0 ** -8
+SHMAP_LM_ARCH, SHMAP_LM_LAYERS = "yi-34b", 1
+SHMAP_LM_BAR = 6e-3
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -4118,17 +4196,27 @@ def tp_shard(mp, cfg, seed: int) -> dict:
     return MB.tree_map(lambda a: a.to(mp.device), shard)
 
 
+def parity_cfg(key: str):
+    """The float32 smoke config of a parity case: `key` an arch, or a name
+    of QSPLIT_PARITY / QSPLIT_MQA (an arch with its head counts
+    replaced)."""
+    arch, over = {**QSPLIT_PARITY, **QSPLIT_MQA}.get(key, (key, {}))
+    return dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32,
+                               **over)
+
+
 def tp_parity_rank(mp, cases, variants=("auto", *SEQ_VARIANTS)) -> dict:
-    """[tp parity] and [seq parity] (or [tp kvrep parity], "auto" alone),
-    one rank: for each (arch, tokens, feed) its shard of the smoke config
-    in float32 (seed 3), prefill and decode fed `feed` through lm_serve
+    """[tp parity] and [seq parity] (or [tp kvrep parity], "auto" alone;
+    [tp qsplit parity]), one rank: for each (key, tokens, feed) its shard
+    of `parity_cfg(key)` (seed 3), prefill and decode fed `feed` through
+    lm_serve
     under each of `variants` ("auto": the "tp" layout; a sequence-sharded
     one: the "seq" cache); the launch counts set to 0 before each run and
     read after. Keys "arch/variant"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for arch, tokens, feed in cases:
-        cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+        cfg = parity_cfg(arch)
         params = tp_shard(mp, cfg, 3)
         for variant in variants:
             vcfg = dataclasses.replace(cfg, attn_shard=variant)
@@ -4156,7 +4244,7 @@ def tp_parity_refs(archs) -> tuple[dict, list]:
     (arch, tokens, the tokens fed)."""
     refs, cases = {}, []
     for arch in archs:
-        cfg = dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32)
+        cfg = parity_cfg(arch)
         params = MB.tree_map(lambda a: a.to("cuda"), MB.materialize(
             Z.templates(cfg), torch.Generator().manual_seed(3)))
         tokens = torch.from_numpy(np.random.default_rng(3).integers(
@@ -4176,7 +4264,7 @@ def check_tp_parity(arch, got, want, tag, backend, n_cards, card) -> dict:
     TP_TOKEN_MARGIN, expert choices exact where the router leaves
     ROUTE_LOG_MARGIN, the ranks' logits bit-equal, K8 = layers x steps on
     every rank."""
-    cfg = CFG.get_smoke(arch)
+    cfg = parity_cfg(arch)
     err, greedy, routes = 0.0, 0, 0
     for r, rank in enumerate(got):
         assert rank["k8"] == cfg.n_layers * TP_PARITY_STEPS, (tag, arch, r,
@@ -4221,27 +4309,31 @@ def phase_tp_parity(card: str) -> dict:
     tokens (`check_tp_parity`); then [seq parity] (`seq_parity_check`)."""
     t0 = time.perf_counter()
     backend, devices = transport(TP_PARITY_WORLD, "cuda")
-    refs, cases = tp_parity_refs(TP_PARITY_ARCHS)
+    refs, cases = tp_parity_refs((*TP_PARITY_ARCHS, *QSPLIT_MQA))
     ranks = spawn_ranks(TP_PARITY_WORLD, tp_parity_rank, (cases,),
                         device="cuda", timeout_s=600)
     n_cards = len(set(map(str, devices)))
     out = {}
-    for arch in TP_PARITY_ARCHS:
-        cfg = CFG.get_smoke(arch)
+    for arch in (*TP_PARITY_ARCHS, *QSPLIT_MQA):
+        tag = "tp qsplit parity" if arch in QSPLIT_MQA else "tp parity"
         out[arch] = check_tp_parity(
             arch, [rank[f"{arch}/auto"] for rank in ranks], refs[arch],
-            "tp parity", backend, n_cards, card)
+            tag, backend, n_cards, card)
         for variant in SEQ_VARIANTS:
             out[f"{arch}/{variant}"] = seq_parity_check(
-                cfg, variant, [rank[f"{arch}/{variant}"] for rank in ranks],
-                refs[arch], backend, card)
+                parity_cfg(arch), variant,
+                [rank[f"{arch}/{variant}"] for rank in ranks], refs[arch],
+                backend, card,
+                tag="tp qsplit parity" if arch in QSPLIT_MQA
+                else "seq parity")
     print(f"[tp parity] done in {time.perf_counter() - t0:.1f} s (with "
-          f"[seq parity])")
+          f"[seq parity] and [tp qsplit parity]'s {list(QSPLIT_MQA)} over "
+          f"{TP_PARITY_WORLD} ranks)")
     return out
 
 
 def seq_parity_check(cfg, variant, got, want, backend, card,
-                     tag="seq parity") -> dict:
+                     tag="seq parity", wire_routes=False) -> dict:
     """[seq parity] (or [seq families parity], `tag`) one smoke config
     under one sequence-sharded variant
     (`got` per rank, from tp_parity_rank) against the card's unsharded run
@@ -4249,7 +4341,11 @@ def seq_parity_check(cfg, variant, got, want, backend, card,
     margin exceeds TP_TOKEN_MARGIN; "shmap" (bfloat16 wires) within one
     bfloat16 unit of the step's largest logit, greedy tokens exact where
     the margin exceeds twice that; expert choices exact where the router
-    leaves ROUTE_LOG_MARGIN; the ranks' logits bit-equal; K8's partials
+    leaves ROUTE_LOG_MARGIN (with wire_routes, under "shmap": at the
+    margin its bfloat16 wires leave, `check_rank_routes`: every router
+    log-probability within TP_BF16_STD_TOL of the call's std, the
+    choices equal where the k-th and (k+1)-th are twice the largest
+    difference apart); the ranks' logits bit-equal; K8's partials
     mode launched once per attention layer a step on every rank
     (`k8_decode_calls`: no block of these caches is empty, the prompt
     fills every rank's block) and K8 itself never."""
@@ -4277,11 +4373,15 @@ def seq_parity_check(cfg, variant, got, want, backend, card,
             sure = (top2[:, 0] - top2[:, 1]) > margin
             assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]), tag
             greedy += int(sure.sum())
-        if cfg.arch_type == "moe":
+        if cfg.arch_type == "moe" and not (wire_routes
+                                           and variant == "shmap"):
             routes += check_routes(
                 [(torch.from_numpy(p), torch.from_numpy(i))
                  for p, i in rank["routes"]], want["routes"], cfg.top_k,
                 f"{tag} rank {r}")[0]
+    if cfg.arch_type == "moe" and wire_routes and variant == "shmap":
+        routes = check_rank_routes([rank["routes"] for rank in got],
+                                   want["routes"], cfg.top_k, tag)[2]
     assert greedy > 0, tag
     print(f"{tag} (float32, the \"seq\" cache) over {len(got)} ranks "
           f"({backend}, {card}) against the card's unsharded run: max |err| "
@@ -4298,17 +4398,24 @@ def seq_parity_check(cfg, variant, got, want, backend, card,
                 k8_partial_per_rank=[rank["k8_partial"] for rank in got])
 
 
-def tp_lm_rank(mp, jobs, parity=()) -> dict:
-    """[tp lm] / [tp moe] / [tp kvrep lm] and [seq lm], one rank: for each
-    job its shard of the config at full width (cut to job["layers"] where
-    given) in bfloat16, drawn as the unsharded phase drew it (seed 0 on
-    the card) keeping only this rank's pieces, served by `tp_lm_serve`
-    (key: the arch); where job["seq"] names a sequence-sharded variant,
-    the same shard served again under it with the "seq" cache (key:
-    "arch/seq"). First [tp kvrep parity]: `tp_parity_rank` of the `parity`
-    cases under "auto" (key: "kvrep parity")."""
+def tp_lm_rank(mp, jobs, parity=(), qsplit=(), train=None) -> dict:
+    """[tp lm] / [tp moe] / [tp kvrep lm] and [seq lm] (or [tp qsplit
+    lm]), one rank: for each job its shard of the config at full width
+    (cut to job["layers"] where given) in bfloat16, drawn as the unsharded
+    phase drew it (seed 0 on the card) keeping only this rank's pieces,
+    served by `tp_lm_serve` (key: the arch; its prefill under
+    job["prefill"] where given); where job["seq"] names a
+    sequence-sharded variant, the same shard served again under it with
+    the "seq" cache (key: "arch/seq"). First [tp kvrep parity]:
+    `tp_parity_rank` of the `parity` cases under "auto" (key: "kvrep
+    parity"), and [tp qsplit parity]: of the `qsplit` cases under every
+    variant (key: "qsplit parity"). Last, where `train` (arch, layers, lr)
+    is given, [shmap train lm]: `launch.train.train_lm_rank` of it under
+    "tp" + "shmap" (key: "train"; its launch counts 0 before, read
+    after)."""
     dev = mp.device
-    out = {"kvrep parity": tp_parity_rank(mp, parity, ("auto",))}
+    out = {"kvrep parity": tp_parity_rank(mp, parity, ("auto",)),
+           "qsplit parity": tp_parity_rank(mp, qsplit)}
     for job in jobs:
         cfg = CFG.get(job["arch"])
         if job["layers"]:
@@ -4322,20 +4429,35 @@ def tp_lm_rank(mp, jobs, parity=()) -> dict:
         make_s = time.perf_counter() - t0
         shard_bytes = sum(a.numel() * a.element_size()
                           for a in MB.tree_leaves(params))
+        pre = (dataclasses.replace(cfg, attn_shard=job["prefill"])
+               if job.get("prefill") else None)
         out[job["arch"]] = dict(make_s=make_s, shard_bytes=shard_bytes,
-                                **tp_lm_serve(mp, params, cfg, job))
+                                **tp_lm_serve(mp, params, cfg, job,
+                                              prefill_cfg=pre))
         if job["seq"]:
             out[f"{job['arch']}/seq"] = tp_lm_serve(
                 mp, params, dataclasses.replace(cfg, attn_shard=job["seq"]),
-                job)
+                job, prefill_cfg=pre)
         del params
+        free_cuda()
+    if train is not None:
+        arch, layers, lr = train
+        ops.reset_launch_counts()            # this rank's path starts here
+        run = TLT.train_lm_rank(mp, arch, layers, "tp", LM_TRAIN_STEPS,
+                                LM_TRAIN_BATCH, LM_TRAIN_SEQ, 0, False, lr,
+                                attn_shard="shmap")
+        sync()
+        run["launches"] = ops.launch_counts()    # ... and ends here
+        out["train"] = run
         free_cuda()
     return out
 
 
-def tp_lm_serve(mp, params, cfg, job, frontend=None) -> dict:
+def tp_lm_serve(mp, params, cfg, job, frontend=None,
+                prefill_cfg=None) -> dict:
     """One rank's prefill of job["tokens"] (over an encdec model's
-    `frontend` frames) and decode steps fed job["feed"], every moe layer's
+    `frontend` frames; under `prefill_cfg`'s attn_shard where given) and
+    decode steps fed job["feed"], every moe layer's
     call routed to job["gates"]'s experts (`routed(feed=)`) where given,
     into a cache of the layout cfg's attn_shard gives
     (`engine.cache_policy`): logits and the rank's own routes (kept on the
@@ -4351,14 +4473,15 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None) -> dict:
     batch, enc_len = {"tokens": tokens}, 0
     if frontend is not None:
         batch["frontend"], enc_len = frontend, frontend.shape[1]
-    cache = E.init_cache(cfg, b, s + len(feed), enc_len, device=dev, mp=mp)
+    cache = E.init_cache(cfg, b, job.get("max_len") or s + len(feed),
+                         enc_len, device=dev, mp=mp)
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     sync()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()                # this rank's path starts here
     t0 = time.perf_counter()
-    (lg, cache), routes = routed(E.prefill, params, cfg, batch,
-                                 cache, mp, host=False, feed=gates)
+    (lg, cache), routes = routed(E.prefill, params, prefill_cfg or cfg,
+                                 batch, cache, mp, host=False, feed=gates)
     sync()
     prefill_s = time.perf_counter() - t0
     logits = [lg[:, -1]]
@@ -4513,6 +4636,7 @@ def phase_tp_lm(card: str, moe_ref: dict) -> dict:
     backend, devices = transport(TP_WORLD, "cuda")
     n_cards = len(set(map(str, devices)))
     parity_refs, parity_cases = tp_parity_refs(KVREP_PARITY_ARCHS)
+    qsplit_refs, qsplit_cases = tp_parity_refs(tuple(QSPLIT_PARITY))
     jobs = [dict(arch=LM_ARCH, layers=TP_LM_LAYERS, seq=SEQ_LM_VARIANT,
                  ref=tp_lm_reference(LM_ARCH, TP_LM_LAYERS, LM_BATCH,
                                      LM_PROMPT, "tp lm", card)),
@@ -4530,7 +4654,7 @@ def phase_tp_lm(card: str, moe_ref: dict) -> dict:
                feed=[f.numpy() for f in j["ref"]["fed"]],
                gates=([i.numpy() for _, i in j["ref"]["routes"]]
                       if j["arch"] == TP_MOE_ARCH else None))
-          for j in jobs], parity_cases),
+          for j in jobs], parity_cases, qsplit_cases),
         device="cuda", timeout_s=900)
     spawn_s = time.perf_counter() - t0 - ref_s
     out = {"kvrep parity": {
@@ -4538,6 +4662,17 @@ def phase_tp_lm(card: str, moe_ref: dict) -> dict:
             arch, [rank["kvrep parity"][f"{arch}/auto"] for rank in ranks],
             parity_refs[arch], "tp kvrep parity", backend, n_cards, card)
         for arch in KVREP_PARITY_ARCHS}}
+    out["qsplit parity"] = {}
+    for key in QSPLIT_PARITY:
+        got = {v: [rank["qsplit parity"][f"{key}/{v}"] for rank in ranks]
+               for v in ("auto", *SEQ_VARIANTS)}
+        out["qsplit parity"][key] = check_tp_parity(
+            key, got["auto"], qsplit_refs[key], "tp qsplit parity", backend,
+            n_cards, card)
+        for variant in SEQ_VARIANTS:
+            out["qsplit parity"][f"{key}/{variant}"] = seq_parity_check(
+                parity_cfg(key), variant, got[variant], qsplit_refs[key],
+                backend, card, tag="tp qsplit parity", wire_routes=True)
     tags = {LM_ARCH: "tp lm", TP_MOE_ARCH: "tp moe",
             KVREP_LM_ARCH: "tp kvrep lm"}
     for job in jobs:
@@ -4607,11 +4742,173 @@ def phase_tp_lm(card: str, moe_ref: dict) -> dict:
                 backend, n_cards, card)
     print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded reference runs {ref_s:.1f} s, the ranks {spawn_s:.1f} "
-          f"s of it, [seq lm], [tp kvrep parity] and [tp kvrep lm] "
-          f"included); the times are "
+          f"s of it, [seq lm], [tp kvrep parity], [tp kvrep lm] and [tp "
+          f"qsplit parity] included); the times are "
           f"{TP_WORLD} processes "
           + ("sharing one card over gloo, not a sharded deployment's"
              if n_cards < TP_WORLD else f"on {n_cards} cards over {backend}"))
+    return out
+
+
+def phase_tp_qsplit_lm(card: str) -> dict:
+    """[tp qsplit lm] and [shmap train lm] in one spawn of QSPLIT_WORLD
+    ranks sharing the card (gloo) on a 1 x QSPLIT_WORLD mesh, the
+    unsharded runs first (never beside the spawn). [tp qsplit lm]: each
+    of QSPLIT_LM_ARCHS (their query heads split: 1.5 and 3.5 a rank) at
+    full width cut to its layers, bfloat16, against `tp_lm_reference`'s
+    unsharded run of the same cut: the prefill under QSPLIT_PREFILL, then
+    decode into the "heads" cache under "auto" (whole K8 on the heads a
+    rank's columns touch) and into the "seq" cache under QSPLIT_SEQ (K8's
+    partials), each at [tp lm]'s bar (`check_tp_logits`), the ranks'
+    logits bit-equal, K8 (or its partials) = layers x steps a rank; per
+    rank the K8 launches, the cache's bytes, peak memory, prefill s, the
+    median ms a step and the collectives a step by kind. [shmap train
+    lm]: SHMAP_LM_ARCH's losses against `shmap_lm_reference`'s
+    one-process run of the same semantics on the card, step 1's at
+    FSDP_LOSS_TOL and every step's within SHMAP_LM_BAR, each rank's
+    params + m + v its pieces' bytes, the ranks holding the same pieces of
+    a leaf holding equal bits of it (`shared_bits`), no kernel
+    launched."""
+    t0 = time.perf_counter()
+    backend, devices = transport(QSPLIT_WORLD, "cuda")
+    n_cards = len(set(map(str, devices)))
+    jobs = [dict(arch=arch, layers=layers, seq=QSPLIT_SEQ,
+                 prefill=QSPLIT_PREFILL,
+                 ref=tp_lm_reference(arch, layers, QSPLIT_LM_BATCH,
+                                     QSPLIT_LM_PROMPT, "tp qsplit lm", card))
+            for arch, layers in QSPLIT_LM_ARCHS.items()]
+    tcfg = TLT.lm_config(SHMAP_LM_ARCH, False, SHMAP_LM_LAYERS,
+                         attn_shard="shmap")
+    want, want_s, want_peak = shmap_lm_reference(tcfg)
+    ref_s = time.perf_counter() - t0
+    mesh = train_mesh(1, QSPLIT_WORLD)
+    t1 = time.perf_counter()
+    # the cache's slots rounded up to a multiple of the ranks: the "seq"
+    # layout cuts each leaf into blocks, every block holding a prompt
+    # position, so every rank launches K8's partials at every step
+    max_len = -(-(QSPLIT_LM_PROMPT + TP_STEPS) // QSPLIT_WORLD) * QSPLIT_WORLD
+    ranks = spawn_ranks(
+        QSPLIT_WORLD, tp_lm_rank,
+        ([dict(arch=j["arch"], layers=j["layers"], seq=j["seq"],
+               prefill=j["prefill"], max_len=max_len,
+               tokens=j["ref"]["tokens"].numpy(),
+               feed=[f.numpy() for f in j["ref"]["fed"]], gates=None)
+          for j in jobs], (), (),
+         (SHMAP_LM_ARCH, SHMAP_LM_LAYERS, FSDP_LM_LR)),
+        device="cuda", timeout_s=900, mesh=mesh)
+    spawn_s = time.perf_counter() - t1
+    out = {}
+    for job in jobs:
+        arch, ref, layers = job["arch"], job["ref"], job["layers"]
+        cfg = dataclasses.replace(CFG.get(arch), n_layers=layers)
+        b, s = ref["tokens"].shape
+        touched = [len(q_heads(cfg.n_heads, QSPLIT_WORLD, r))
+                   for r in range(QSPLIT_WORLD)]
+        held = [len(kv_heads(cfg.n_heads, cfg.n_kv_heads, QSPLIT_WORLD, r))
+                for r in range(QSPLIT_WORLD)]
+        for key, variant in ((arch, "auto"), (f"{arch}/seq", QSPLIT_SEQ)):
+            got = [rank[key] for rank in ranks]
+            kind = "k8" if variant == "auto" else "k8_partial"
+            for r, run in enumerate(got):
+                assert run[kind] == layers * TP_STEPS, (key, r, run[kind])
+                assert run["k8" if kind == "k8_partial" else
+                           "k8_partial"] == 0, (key, r)
+            worst, greedy = check_tp_logits([run["logits"] for run in got],
+                                            ref, "tp qsplit lm")
+            print(f"[tp qsplit lm] {cfg.name}, {layers} of "
+                  f"{CFG.get(arch).n_layers} layers in bfloat16 "
+                  f"({cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
+                  f"{cfg.hd}: {cfg.n_heads / QSPLIT_WORLD} a rank, touching "
+                  f"{sorted(set(touched))}, holding {sorted(set(held))} kv "
+                  f"head(s)), over {QSPLIT_WORLD} ranks ({backend}; "
+                  f"{n_cards} card(s): {card}): prefill {b} x {s} tokens "
+                  f"under {QSPLIT_PREFILL!r}, {TP_STEPS} decode steps under "
+                  f"{variant!r} ({'the heads' if variant == 'auto' else 'the seq'}"
+                  f" cache) fed the unsharded run's greedy tokens; logits "
+                  f"within {worst:.3f} of the bar ({TP_BF16_STD_TOL} x the "
+                  f"step's logit std) on all {len(got) * (TP_STEPS + 1) * b} "
+                  f"rank-rows, {greedy} greedy tokens equal; the ranks' "
+                  f"logits bit-equal")
+            for r, run in enumerate(got):
+                print(f"[tp qsplit lm]   {variant} rank {r}: "
+                      f"{'K8' if variant == 'auto' else 'K8 partials'} "
+                      f"{run[kind]} = {layers} x {TP_STEPS}; cache "
+                      f"{run['cache_bytes']} bytes; peak memory "
+                      f"{run['peak']} bytes; prefill {run['prefill_s']:.3f} "
+                      f"s; median "
+                      f"{statistics.median(run['step_ms']):.3f} ms a decode "
+                      f"step; collectives a step "
+                      f"{ {k: v / TP_STEPS for k, v in run['calls'].items()} }")
+            out[key] = dict(
+                launches_per_rank=[run[kind] for run in got],
+                step_ms_median=[statistics.median(run["step_ms"])
+                                for run in got],
+                prefill_s=[run["prefill_s"] for run in got],
+                peak_bytes=[run["peak"] for run in got],
+                cache_bytes=[run["cache_bytes"] for run in got],
+                worst_share_of_bar=worst)
+    got = [rank["train"] for rank in ranks]
+    err = max(abs(a - c) for run in got
+              for a, c in zip(run["losses"], want))
+    for r, run in enumerate(got):
+        assert np.isfinite(run["losses"]).all(), run["losses"]
+        assert run["losses"] == got[0]["losses"], (r, run["losses"])
+        np.testing.assert_allclose(run["losses"][0], want[0],
+                                   rtol=FSDP_LOSS_TOL, atol=FSDP_LOSS_TOL)
+        np.testing.assert_allclose(run["losses"], want, rtol=0,
+                                   atol=SHMAP_LM_BAR)
+        assert run["state_bytes"] == layout_bytes(tcfg, mesh, "tp", r), (
+            r, run["state_bytes"])
+        assert not any(run["launches"].values()), run["launches"]
+    shared, differ = shared_bits(tcfg, mesh, "tp", got)
+    assert shared and not differ, (shared, differ)
+    print(f"[shmap train lm] {tcfg.name}, {tcfg.n_layers} layer(s) at the "
+          f"published widths, float32, {LM_TRAIN_STEPS} Adam steps of "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens at lr {FSDP_LM_LR} "
+          f"under \"tp\" + \"shmap\" over 1 x {QSPLIT_WORLD} ranks "
+          f"({backend}; {n_cards} card(s): {card}): losses "
+          f"{got[0]['losses']}, the one-process run's of the same "
+          f"semantics on the card {want} ({want_s:.2f} s, peak {want_peak} "
+          f"bytes); step 1 {abs(got[0]['losses'][0] - want[0]):.3g} off "
+          f"(bar {FSDP_LOSS_TOL} + {FSDP_LOSS_TOL} of the loss), max "
+          f"absolute err {err:.3g} ({err / SHMAP_LM_BAR:.3f} of the bar "
+          f"{SHMAP_LM_BAR}); every two ranks holding the same pieces "
+          f"of a leaf hold equal bits of it in params, m and v ({shared} "
+          f"such leaves); state {got[0]['state_bytes']} bytes a rank (its "
+          f"pieces'); kernel launches 0")
+    for r, run in enumerate(got):
+        calls = {k: (v, run["bytes"][-1][k])
+                 for k, v in run["calls"][-1].items()}
+        print(f"[shmap train lm]   rank {r}: peak {run['peak_bytes']} bytes; "
+              f"seconds a step {[round(v, 3) for v in run['seconds']]}; "
+              f"collectives a step (calls, bytes) {calls}")
+    out["train"] = dict(losses=got[0]["losses"], one_process=want, err=err,
+                        shared_leaves=shared,
+                        peak_bytes=[run["peak_bytes"] for run in got])
+    print(f"[tp qsplit lm] done in {time.perf_counter() - t0:.1f} s (the "
+          f"unsharded runs {ref_s:.1f} s; the spawn of {QSPLIT_WORLD} ranks "
+          f"{spawn_s:.1f} s, [shmap train lm] included); the times are "
+          f"{QSPLIT_WORLD} processes "
+          + ("sharing one card over gloo, not a sharded deployment's"
+             if n_cards < QSPLIT_WORLD
+             else f"on {n_cards} cards over {backend}"))
+    return dict(out, spawn_s=spawn_s)
+
+
+def shmap_lm_reference(cfg) -> tuple[list[float], float, int]:
+    """[shmap train lm]'s reference: `launch.train.lm_train_steps` of cfg
+    ("shmap") on the card inside `layers.one_process_mesh(1,
+    QSPLIT_WORLD)`, the 16 ranks' semantics in one process: (losses,
+    seconds, peak bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            Lyr.one_process_mesh(1, QSPLIT_WORLD):
+        want = TLT.lm_train_steps(cfg, LM_TRAIN_STEPS, LM_TRAIN_BATCH,
+                                  LM_TRAIN_SEQ, 0, FSDP_LM_LR, "cuda")
+    sync()
+    out = want, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    free_cuda()
     return out
 
 
@@ -4674,13 +4971,17 @@ def recorded_dispatch(keeps: list):
     return lambda: setattr(Lyr, "moe_dispatch", orig)
 
 
-def fsdp_parity_run(params, cfg, device, mp=None, layout=None) -> dict:
+def fsdp_parity_run(params, cfg, device, mp=None, layout=None,
+                    feed=None) -> dict:
     """LM_TRAIN_STEPS Adam steps of `zoo.train_step` (with mp and layout:
     a rank's shard and rows of `fsdp_batches`): the losses, step 1's m
-    (gathered under a layout), each step's kept choices and collectives."""
+    (gathered under a layout), each step's kept choices, routes (`routed`:
+    each moe layer's probabilities and its own choices) and collectives.
+    feed: per step, the gate_i (T, k) of each moe layer's call, which the
+    step routes its tokens to (`routed(feed=)`)."""
     opt = adam(FSDP_PARITY_LR)
     state = opt.init(params)
-    out = dict(losses=[], keeps=[], calls=[])
+    out = dict(losses=[], keeps=[], calls=[], routes=[])
     for i, batch in enumerate(fsdp_batches(cfg)):
         if mp is not None:
             batch = TLT.batch_rows(batch, mp.mesh, mp.global_rank)
@@ -4688,13 +4989,17 @@ def fsdp_parity_run(params, cfg, device, mp=None, layout=None) -> dict:
         batch = {k: v.to(device) for k, v in batch.items()}
         keeps = []
         undo = recorded_dispatch(keeps)
+        gates = (None if feed is None else
+                 iter([torch.as_tensor(g).to(device) for g in feed[i]]))
         try:
-            params, state, loss = Z.train_step(params, state, batch, cfg,
-                                               opt.update, mp, layout)
+            (params, state, loss), routes = routed(
+                Z.train_step, params, state, batch, cfg, opt.update, mp,
+                layout, feed=gates)
         finally:
             undo()
         out["losses"].append(float(loss))
         out["keeps"].append(keeps)
+        out["routes"].append(routes)
         out["calls"].append(dict(mp.calls) if mp is not None else {})
         if i == 0:
             m = state["m"] if mp is None else MB.gather_params(
@@ -4705,14 +5010,158 @@ def fsdp_parity_run(params, cfg, device, mp=None, layout=None) -> dict:
     return out
 
 
-def fsdp_rank(mp, lm_layers: int, lm_lr: float) -> dict:
-    """[fsdp parity] and [fsdp lm], one rank of FSDP_MESH: each parity
-    case's shard of its smoke params (seed 3) under each mode, trained as
-    the unsharded run (`fsdp_parity_run`; step 1's m returned by rank 0
-    only); then `train_lm_rank` of FSDP_LM_ARCH at lm_layers layers under
-    each mode, the launch counts set to 0 before it and read after."""
+def shmap_parity_cfg(key: str):
+    arch, over = SHMAP_TRAIN_PARITY[key]
+    return dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32,
+                               attn_shard="shmap", **over)
+
+
+def shmap_parity_rank(mp, feeds=None) -> dict:
+    """[shmap train parity], one rank of FSDP_MESH: each
+    SHMAP_TRAIN_PARITY case's shard of its smoke params (seed 3) under
+    each of SHMAP_TRAIN_MODES, trained by `fsdp_parity_run` (step 1's m
+    returned by rank 0 only), routed to feeds[name]'s experts where given
+    (this rank's, per step: `shmap_parity_feeds`); the launch counts set
+    to 0 before and read after. Keys "shmap/key/mode"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    for key in SHMAP_TRAIN_PARITY:
+        cfg = shmap_parity_cfg(key)
+        tmpl = Z.templates(cfg)
+        full = MB.materialize(tmpl, torch.Generator().manual_seed(3))
+        for mode in SHMAP_TRAIN_MODES:
+            layout = TrainLayout(mode, SHD.param_layouts(tmpl, mp.mesh,
+                                                         mode))
+            shard = MB.tree_map(lambda a: a.to(mp.device), MB.shard_params(
+                full, tmpl, layout.specs, mp))
+            name = f"shmap/{key}/{mode}"
+            ops.reset_launch_counts()        # this rank's path starts here
+            run = fsdp_parity_run(shard, cfg, mp.device, mp, layout,
+                                  feed=(feeds or {}).get(name))
+            if mp.device.type == "cuda":
+                sync()
+            run["launches"] = ops.launch_counts()    # ... and ends here
+            if mp.global_rank:
+                del run["m1"]
+            out[name] = run
+    return out
+
+
+def shmap_parity_refs(device="cuda") -> dict:
+    """The runs [shmap train parity] holds its ranks to: each
+    SHMAP_TRAIN_PARITY case's smoke params (seed 3) trained by
+    `fsdp_parity_run` in one process on `device` with the ranks'
+    semantics (`layers.one_process_mesh(*FSDP_MESH)`: the keys in
+    FSDP_MESH[1] blocks, the experts over FSDP_MESH[0] data shards, whose
+    routes and kept choices it records per (layer, data shard) in call
+    order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    refs = {}
+    for key in SHMAP_TRAIN_PARITY:
+        cfg = shmap_parity_cfg(key)
+        params = MB.tree_map(lambda a: a.to(device), MB.materialize(
+            Z.templates(cfg), torch.Generator().manual_seed(3)))
+        with Lyr.one_process_mesh(*FSDP_MESH):
+            refs[key] = fsdp_parity_run(params, cfg, device)
+        del params
+    if torch.device(device).type == "cuda":
+        free_cuda()
+    return refs
+
+
+def shmap_parity_feeds(refs: dict) -> list[dict]:
+    """Per rank of FSDP_MESH, each "shmap/key/mode" case's feed: per step,
+    the one-process run's expert choices (gate_i) of the rank's data shard
+    at each moe layer, which the rank routes its tokens to."""
+    n_data, n_model = FSDP_MESH
+    return [{f"shmap/{key}/{mode}": [
+        [i for j, (_, i) in enumerate(step) if j % n_data == r // n_model]
+        for step in ref["routes"]]
+        for key, ref in refs.items() for mode in SHMAP_TRAIN_MODES}
+        for r in range(n_data * n_model)]
+
+
+def check_shmap_parity(key, mode, got, want, backend, n_cards, card
+                       ) -> dict:
+    """One [shmap train parity] case on every rank of the card's run
+    (`got`) against the one-process run of the same semantics on the card
+    (`want`, `shmap_parity_refs`), the ranks' moe layers routed to its
+    experts (a choice that float rounding flips at the capacity's edge
+    parts two runs' drops by a token's whole output): the losses (equal
+    on every rank) within FSDP_LOSS_TOL at step 1 and SHMAP_LOSS_BAR at
+    every step, step 1's gathered m within SHMAP_M_BAR of each leaf's
+    largest, each rank's own expert choices equal to the one-process
+    run's for its data shard where its router leaves ROUTE_LOG_MARGIN
+    (`check_routes`), its kept choices (its data shard's own dispatch of
+    those experts) equal to that shard's, some dropped, each rank's state
+    bytes its pieces', no kernel launched."""
+    cfg = shmap_parity_cfg(key)
+    mesh = train_mesh(*FSDP_MESH)
+    n_data, n_model = FSDP_MESH
+    for r, rank in enumerate(got):
+        assert rank["losses"] == got[0]["losses"], (key, mode, r)
+        np.testing.assert_allclose(rank["losses"][0], want["losses"][0],
+                                   rtol=FSDP_LOSS_TOL, atol=FSDP_LOSS_TOL)
+        np.testing.assert_allclose(rank["losses"], want["losses"], rtol=0,
+                                   atol=SHMAP_LOSS_BAR)
+        assert rank["state_bytes"] == layout_bytes(cfg, mesh, mode, r), (
+            key, mode, r, rank["state_bytes"])
+        assert not any(rank["launches"].values()), rank["launches"]
+    m_err = 0.0
+    for g, w in zip(got[0]["m1"], want["m1"]):
+        scale = float(w.abs().max())
+        err = float((torch.from_numpy(g) - w).abs().max())
+        assert err <= SHMAP_M_BAR * scale, (key, mode, err, scale)
+        m_err = max(m_err, err / max(scale, 1e-30))
+    compared = dropped = routes = 0
+    for r, rank in enumerate(got):
+        d = r // n_model
+        for step, calls in enumerate(want["keeps"]):
+            shard = calls[d::n_data]
+            assert len(rank["keeps"][step]) == len(shard), (key, mode, r)
+            for (_, mine), (_, keep) in zip(rank["keeps"][step], shard):
+                np.testing.assert_array_equal(mine, keep.numpy())
+                compared += 1
+                dropped += int((~keep).sum())
+            if cfg.arch_type == "moe":
+                routes += check_routes(
+                    [tuple(map(torch.from_numpy, x))
+                     for x in rank["routes"][step]],
+                    want["routes"][step][d::n_data], cfg.top_k,
+                    f"[shmap train parity] {key} {mode} rank {r} step "
+                    f"{step}")[0]
+    if cfg.arch_type == "moe":
+        assert compared > 0 and dropped > 0, (key, mode, compared, dropped)
+    print(f"[shmap train parity] {cfg.name} (float32; {cfg.n_heads} query / "
+          f"{cfg.n_kv_heads} kv heads) under {mode!r} + \"shmap\" over "
+          f"{n_data} x {n_model} ranks ({backend}, {n_cards} card(s), "
+          f"{card}) against the one-process run of the same semantics on "
+          f"the card: {LM_TRAIN_STEPS} Adam steps of {FSDP_PARITY_BATCH} x "
+          f"{FSDP_PARITY_SEQ} tokens, losses {got[0]['losses']} (the one "
+          f"process's {want['losses']}; bars {FSDP_LOSS_TOL} at step 1, "
+          f"{SHMAP_LOSS_BAR} every step), step 1's m within {m_err:.3g} of "
+          f"each leaf's largest (bar {SHMAP_M_BAR}: one bfloat16 rounding "
+          f"step)"
+          + (f", routed to its experts: each rank's own choices equal for "
+             f"{routes} token-layers (where the router leaves "
+             f"{ROUTE_LOG_MARGIN}), the kept choices (each data shard's "
+             f"capacity) equal in {compared} rank-(step, layer)s with "
+             f"{dropped} dropped" if cfg.arch_type == "moe" else "")
+          + f"; state {got[0]['state_bytes']} bytes a rank; collectives a "
+          f"step {got[0]['calls'][0]}; kernel launches 0")
+    return dict(m_err=m_err, losses=got[0]["losses"])
+
+
+def fsdp_rank(mp, lm_layers: int, lm_lr: float, shmap_feeds) -> dict:
+    """[shmap train parity], [fsdp parity] and [fsdp lm], one rank of
+    FSDP_MESH: `shmap_parity_rank` routed to shmap_feeds[its rank]; each
+    parity case's shard of its smoke params (seed 3) under each mode,
+    trained as the unsharded run (`fsdp_parity_run`; step 1's m returned
+    by rank 0 only); then `train_lm_rank` of FSDP_LM_ARCH at lm_layers
+    layers under each mode, the launch counts set to 0 before it and read
+    after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = shmap_parity_rank(mp, shmap_feeds[mp.global_rank])
     for arch in FSDP_PARITY_ARCHS:
         cfg = fsdp_parity_cfg(arch)
         tmpl = Z.templates(cfg)
@@ -4825,6 +5274,7 @@ def phase_fsdp(card: str) -> dict:
     backend, devices = transport(world, "cuda")
     n_cards = len(set(map(str, devices)))
     refs = fsdp_parity_refs()
+    shmap_refs = shmap_parity_refs()
     args = ["--target", "lm", "--arch", FSDP_LM_ARCH, "--layers",
             str(FSDP_LM_LAYERS), "--steps", str(LM_TRAIN_STEPS), "--batch",
             str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--lr",
@@ -4840,11 +5290,20 @@ def phase_fsdp(card: str) -> dict:
     head = out_text.getvalue().splitlines()[0]
     free_cuda()
     ref_s = time.perf_counter() - t0
-    ranks = spawn_ranks(world, fsdp_rank, (FSDP_LM_LAYERS, FSDP_LM_LR),
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(world, fsdp_rank,
+                        (FSDP_LM_LAYERS, FSDP_LM_LR,
+                         shmap_parity_feeds(shmap_refs)),
                         device="cuda", timeout_s=900,
                         mesh=train_mesh(*FSDP_MESH))
-    spawn_s = time.perf_counter() - t0 - ref_s
+    spawn_s = time.perf_counter() - t1
     out = {}
+    for key in SHMAP_TRAIN_PARITY:
+        for mode in SHMAP_TRAIN_MODES:
+            name = f"shmap/{key}/{mode}"
+            out[name] = check_shmap_parity(
+                key, mode, [rank[name] for rank in ranks], shmap_refs[key],
+                backend, n_cards, card)
     for arch in FSDP_PARITY_ARCHS:
         for mode in FSDP_MODES:
             out[f"parity/{arch}/{mode}"] = check_fsdp_parity(
@@ -4900,7 +5359,8 @@ def phase_fsdp(card: str) -> dict:
             calls=got[0]["calls"][-1])
     print(f"[fsdp lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded references {ref_s:.1f} s, the ranks {spawn_s:.1f} s, "
-          f"[fsdp parity] included); the times are {world} processes "
+          f"[fsdp parity] and [shmap train parity] included); the times are "
+          f"{world} processes "
           + ("sharing one card over gloo, not a sharded deployment's"
              if n_cards < world else f"on {n_cards} cards over {backend}"))
     return dict(out, unsharded_losses=want, unsharded_peak=want_peak)
@@ -5197,17 +5657,17 @@ def phase_tp_families_parity(card: str) -> dict:
 
 def tp_families_lm_rank(mp, jobs) -> dict:
     """[tp families lm] and [seq families lm], one rank: for each job its
-    shard of the config at full width and depth in bfloat16, drawn as [ssm
-    lm] / [encdec lm] drew it (seed 0 on the card) keeping only this
-    rank's pieces, then the prompt (and an encdec model's frames) drawn on
-    from the same generator as there (checked equal to the job's tokens),
+    shard of `family_lm_cfg` in bfloat16, drawn as `family_reference`
+    drew it (seed 0 on the card) keeping only this rank's pieces, then the
+    prompt (and an encdec model's frames) drawn on from the same generator
+    as there (checked equal to the job's tokens),
     served by `tp_lm_serve` (key: the arch); where job["seq"] names a
     sequence-sharded variant, the same shard served again under it with
     the "seq" cache (key: "arch/seq", with its seconds)."""
     dev = mp.device
     out = {}
     for job in jobs:
-        cfg = CFG.get(job["arch"])
+        cfg = family_lm_cfg(job["arch"])
         tmpl = Z.templates(cfg)
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
@@ -5238,11 +5698,55 @@ def tp_families_lm_rank(mp, jobs) -> dict:
     return out
 
 
-def phase_tp_families_lm(card: str, refs: dict) -> dict:
+def family_lm_cfg(arch: str):
+    """[tp families lm]'s config of `arch`: its published widths cut to
+    TP_FAMILY_LAYERS[arch] layers (an encdec model's encoder and decoder
+    each)."""
+    cfg, n = CFG.get(arch), TP_FAMILY_LAYERS[arch]
+    return dataclasses.replace(
+        cfg, n_layers=n, n_enc_layers=n if cfg.n_enc_layers else 0)
+
+
+def family_reference(arch: str, card: str) -> dict:
+    """What [tp families lm] holds its ranks to: `family_lm_cfg(arch)` in
+    bfloat16 on one card, drawn from seed 0 on the card, the prompt of
+    [ssm lm]'s / [encdec lm]'s batch (and DECODE_ENC_LEN frames) drawn on
+    from the same generator, a prefill and TP_STEPS greedy decode steps
+    (lm_serve: logits on the CPU, the tokens fed), and each step's
+    `one_card_spread`."""
+    cfg = family_lm_cfg(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = MB.materialize(Z.templates(cfg), gen, dtype=cfg.dtype)
+    if cfg.arch_type == "encdec":
+        tokens, frontend = encdec_batch(cfg, ENCDEC_LM_BATCH,
+                                        ENCDEC_LM_PROMPT, DECODE_ENC_LEN, gen)
+    else:
+        tokens = torch.randint(0, cfg.vocab, (SSM_LM_BATCH, SSM_LM_PROMPT),
+                               generator=gen, device="cuda")
+        frontend = None
+    t0 = time.perf_counter()
+    ref = dict(tokens=tokens.cpu(), **lm_serve(params, cfg, tokens, TP_STEPS,
+                                               "cuda", frontend=frontend))
+    ref["spread"] = one_card_spread(params, cfg, ref, frontend)
+    assert all(bool(torch.isfinite(a).all()) for a in ref["logits"])
+    print(f"[tp families lm] {cfg.name} unsharded on one card ({card}): "
+          f"{cfg.param_count()} parameters in {cfg.dtype}, {cfg.n_layers} "
+          f"layers"
+          + (f" + {cfg.n_enc_layers} encoder layers"
+             if cfg.arch_type == "encdec" else "")
+          + f"; prefill {tuple(tokens.shape)} tokens + {TP_STEPS} greedy "
+          f"decode steps and their float32 rerun in "
+          f"{time.perf_counter() - t0:.3f} s; logits finite")
+    del params, frontend
+    free_cuda()
+    return ref
+
+
+def phase_tp_families_lm(card: str) -> dict:
     """[tp families lm] rwkv6-1.6b, zamba2-1.2b and seamless-m4t-large-v2
-    at published widths and full depth in bfloat16 over TP_WORLD ranks
-    (one spawn), against [ssm lm]'s / [encdec lm]'s teacher-fed reruns
-    (`refs`, by arch): the logits of the prefill and of each of TP_STEPS
+    at published widths cut to TP_FAMILY_LAYERS in bfloat16 over TP_WORLD
+    ranks (one spawn), against the one-card runs of the same cuts
+    (`family_reference`): the logits of the prefill and of each of TP_STEPS
     decode steps within the larger of TP_BF16_STD_TOL of the step's logit
     standard deviation and TP_SPREAD_FACTOR x one card's own bfloat16
     spread (`one_card_spread`) on every row, greedy tokens equal where the
@@ -5254,18 +5758,20 @@ def phase_tp_families_lm(card: str, refs: dict) -> dict:
     t0 = time.perf_counter()
     backend, devices = transport(TP_WORLD, "cuda")
     n_cards = len(set(map(str, devices)))
+    refs = {arch: family_reference(arch, card) for arch in TP_FAMILY_ARCHS}
+    ref_s = time.perf_counter() - t0
     jobs = [dict(arch=arch, tokens=refs[arch]["tokens"].numpy(),
                  feed=[f.numpy() for f in refs[arch]["fed"]], gates=None,
                  seq=SEQ_LM_VARIANT if arch in SEQ_FAMILY_ARCHS else None)
             for arch in TP_FAMILY_ARCHS]
     ranks = spawn_ranks(TP_WORLD, tp_families_lm_rank, (jobs,),
                         device="cuda", timeout_s=900)
-    spawn_s = time.perf_counter() - t0
+    spawn_s = time.perf_counter() - t0 - ref_s
     out = {}
     where = ("sharing one card over gloo, not a sharded deployment's"
              if n_cards < TP_WORLD else f"on {n_cards} cards over {backend}")
     for arch in TP_FAMILY_ARCHS:
-        cfg, ref = CFG.get(arch), refs[arch]
+        cfg, ref = family_lm_cfg(arch), refs[arch]
         b, s = ref["tokens"].shape
         per_step = tp_calls_per_step(cfg, TP_WORLD)
         k8_want = k8_decode_calls(cfg) * TP_STEPS
@@ -5327,7 +5833,7 @@ def phase_tp_families_lm(card: str, refs: dict) -> dict:
     for arch in SEQ_FAMILY_ARCHS:
         out[f"{arch}/seq"] = seq_families_lm_report(
             [rank[f"{arch}/seq"] for rank in ranks], refs[arch],
-            CFG.get(arch), backend, n_cards, card)
+            family_lm_cfg(arch), backend, n_cards, card)
     print(f"[tp families lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"ranks {spawn_s:.1f} s of it, [seq families lm] included); the "
           f"times are {TP_WORLD} processes " + where)
@@ -5704,15 +6210,12 @@ def phase_ssm_lm(card: str) -> dict:
         profile = profile_decode(params, cfg, cache, tok, s + steps,
                                  tag="ssm lm")
         del cache
-        tp_ref = tp_reference(params, cfg, tokens, generated)
-        tp_ref["spread"] = one_card_spread(params, cfg, tp_ref)
         out[arch] = dict(params=cfg.param_count(), param_bytes=nbytes,
                          prefill_s=prefill_s, scan_chunked_gap=gap,
                          step_ms_median=med, floor_ms=floor_ms,
                          launches_per_step=per_step,
                          device_idle_share=profile["device_idle_share"],
-                         peak_bytes=peak, k8_launches=launches["swa_decode"],
-                         tp_ref=tp_ref)
+                         peak_bytes=peak, k8_launches=launches["swa_decode"])
         del params, logits, last
         free_cuda()
     return out
@@ -5995,15 +6498,13 @@ def phase_encdec_lm(card: str) -> dict:
     profile = profile_decode(params, cfg, cache, tok, s + steps,
                              tag="encdec lm")
     del cache
-    tp_ref = tp_reference(params, cfg, tokens, run["fed"], frontend)
-    tp_ref["spread"] = one_card_spread(params, cfg, tp_ref, frontend)
     out = dict(params=cfg.param_count(), param_bytes=nbytes,
                prefill_s=prefill_s, step_ms_median=med, step_ms_p90=p90,
                floor_ms=floor_ms, tokens_per_s=b / med * 1e3,
                launches_per_step=per_step,
                device_idle_share=profile["device_idle_share"],
                peak_bytes=peak, k8_launches=launches["swa_decode"],
-               decode_gap=gap, tp_ref=tp_ref)
+               decode_gap=gap)
     del params, logits, run
     free_cuda()
     return out
@@ -6221,6 +6722,10 @@ def main() -> None:
     lap("tp parity, tp families parity")
     tp_lm = phase_tp_lm(card, moe_lm[TP_MOE_ARCH]["tp_ref"])
     lap("tp lm")
+    free_cuda()
+    tp_qsplit = phase_tp_qsplit_lm(card)
+    lap(f"tp qsplit lm (its spawn of {QSPLIT_WORLD} ranks "
+        f"{tp_qsplit['spawn_s']:.1f} s)")
     for r in moe_lm.values():
         del r["tp_ref"]
     free_cuda()
@@ -6229,9 +6734,7 @@ def main() -> None:
     ssm_lm = phase_ssm_lm(card)
     encdec_lm = phase_encdec_lm(card)
     lap("ssm lm, encdec lm")
-    tp_families_lm = phase_tp_families_lm(
-        card, {**{a: r.pop("tp_ref") for a, r in ssm_lm.items()},
-               ENCDEC_ARCH: encdec_lm.pop("tp_ref")})
+    tp_families_lm = phase_tp_families_lm(card)
     lap("tp families lm")
     free_cuda()
     phase_tp_families_train(card)
@@ -6274,6 +6777,13 @@ def main() -> None:
         "tp_kvrep_lm_launches_per_rank": tp_lm[KVREP_LM_ARCH]["k8_per_rank"],
         **{f"tp_kvrep_parity_{a.split('-')[0]}_launches_per_rank":
            r["k8_per_rank"] for a, r in tp_lm["kvrep parity"].items()},
+        **{f"tp_qsplit_parity_{a.replace('-', '_')}_launches_per_rank":
+           r["k8_per_rank"] for a, r in {**tp_lm["qsplit parity"],
+                                         **tp_parity}.items()
+           if "/" not in a and (a in QSPLIT_PARITY or a in QSPLIT_MQA)},
+        **{f"tp_qsplit_lm_{a.split('-')[0]}_launches_per_rank":
+           r["launches_per_rank"] for a, r in tp_qsplit.items()
+           if a in QSPLIT_LM_ARCHS},
         **{f"tp_families_parity_{re.sub(r'[^0-9a-z]+', '_', a)}"
            f"_launches_per_rank": r["k8_per_rank"]
            for a, r in tp_families_parity.items() if "k8_per_rank" in r},
@@ -6285,7 +6795,11 @@ def main() -> None:
         "seq_lm_launches_per_rank": seq_lm["k8_partial_per_rank"],
         **{f"seq_parity_{a.replace('/', '_')}_launches_per_rank":
            r["k8_partial_per_rank"]
-           for a, r in tp_parity.items() if "/" in a},
+           for a, r in {**tp_parity, **tp_lm["qsplit parity"]}.items()
+           if "/" in a},
+        **{f"seq_qsplit_lm_{a.split('-')[0]}_launches_per_rank":
+           r["launches_per_rank"] for a, r in tp_qsplit.items()
+           if a.endswith("/seq")},
         **{f"seq_families_parity_{re.sub(r'[^0-9a-z]+', '_', a)}"
            f"_launches_per_rank": r["k8_partial_per_rank"]
            for a, r in tp_families_parity.items()

@@ -6,7 +6,7 @@ each split of the step alone moves the losses.
     python3 fsdp_controls.py [GROUP ...]
 
 GROUP names a group of runs of CONTROLS ("faults", "splits", "model
-split", "families"); with none, every group runs.
+split", "families", "shmap"); with none, every group runs.
 
 [fsdp lm]'s run (FSDP_LM_ARCH at FSDP_LM_LAYERS layers, published widths,
 float32 weights from seed 0, LM_TRAIN_STEPS Adam steps of the launcher's
@@ -30,9 +30,22 @@ planted: Mamba2's out_norm sums its squares over the ranks through the
 raw all-reduce (`layers.rms_norm_cut` as it was before its autograd
 form), so the sum's gradient is this rank's part alone.
 
+[shmap train lm]'s run (SHMAP_LM_ARCH at SHMAP_LM_LAYERS layers, "tp" +
+"shmap" over 1 x QSPLIT_WORLD at FSDP_LM_LR) against the one-process run
+of the same semantics (`chip_smoke.shmap_lm_reference`), sound and with
+each of SHMAP_FAULTS planted: "no kv sum" (`parallel.sum_held_kv`
+skipped: a kv head's two holders step on their own parts of its
+gradient), "no gather sum" (the q / k / v gathered whole enter with no
+sum of their gradients over the ranks: each rank's q columns step on
+its own heads' part alone) and "max carries gradient" (the combine's
+scale keeps m's gradient, the plain softmax's exact gradient instead of
+the reference's), held at [shmap train lm]'s bars.
+
 Prints the card's name and power limit and per run the losses, their
-largest relative difference from the unsharded run against LM_TRAIN_RTOL,
-and whether the ranks sharing a leaf's pieces hold equal bits of it
+largest relative difference from the unsharded run against LM_TRAIN_RTOL
+(for the "shmap" group: step 1's absolute difference against
+FSDP_LOSS_TOL and every step's against SHMAP_LM_BAR), and whether the
+ranks sharing a leaf's pieces hold equal bits of it
 (`chip_smoke.shared_bits`); a JSON summary as the last line. Exits
 nonzero without a card.
 """
@@ -57,13 +70,17 @@ from repro_torch.launch import train as TLT  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks, train_mesh  # noqa: E402
 from repro_torch.models import layers as Lyr  # noqa: E402
 from repro_torch.models import zoo as Z  # noqa: E402
+from repro_torch.models.parallel import reduce_shared  # noqa: E402
 
 LAUNCHER_LR = 0.01
 FAULTS = ("no data sum", "half the rows")
-# the runs: (arch, layers, ssm_impl)
-FSDP_RUN = (CS.FSDP_LM_ARCH, CS.FSDP_LM_LAYERS, None)
+SHMAP_FAULTS = (None, "no kv sum", "no gather sum", "max carries gradient")
+# the runs: (arch, layers, ssm_impl, attn_shard)
+FSDP_RUN = (CS.FSDP_LM_ARCH, CS.FSDP_LM_LAYERS, None, None)
 NORM_RUN = ("zamba2-1.2b", CS.FAMILY_TRAIN_ARCHS["zamba2-1.2b"][1],
-            CS.FAMILY_TRAIN_ARCHS["zamba2-1.2b"][0])
+            CS.FAMILY_TRAIN_ARCHS["zamba2-1.2b"][0], None)
+SHMAP_RUN = (CS.SHMAP_LM_ARCH, CS.SHMAP_LM_LAYERS, None, "shmap")
+SHMAP_MESH = (1, CS.QSPLIT_WORLD)
 # group -> (mesh, [(run, mode, lr, fault)]): one spawn each
 CONTROLS = {
     "faults": (CS.FSDP_MESH, [(FSDP_RUN, "fsdp", CS.FSDP_LM_LR, f)
@@ -73,6 +90,8 @@ CONTROLS = {
     "model split": ((1, 2), [(FSDP_RUN, "tp", LAUNCHER_LR, None)]),
     "families": (CS.FAMILY_TRAIN_MESH, [(NORM_RUN, "tp", CS.FAMILY_TRAIN_LR,
                                          "raw norm sum")]),
+    "shmap": (SHMAP_MESH, [(SHMAP_RUN, "tp", CS.FSDP_LM_LR, f)
+                           for f in SHMAP_FAULTS]),
 }
 
 
@@ -84,11 +103,37 @@ def raw_norm_sum(x, gamma, mp, width: int, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps) * (1.0 + gamma.float())).to(x.dtype)
 
 
+def gather_unsummed(mp, cfg, q, k, v):
+    """`layers._gather_heads` with no sum over the ranks of the gathered
+    tensors' gradient (its `enter_partial` an identity)."""
+    saved = Lyr.enter_partial
+    Lyr.enter_partial = lambda mp_, x, piece=None: x
+    try:
+        return _GATHER_HEADS(mp, cfg, q, k, v)
+    finally:
+        Lyr.enter_partial = saved
+
+
+def combine_with_max_gradient(mp, m, l, acc, wire):
+    """`parallel.combine_partials` over the ranks (a training forward)
+    with m's gradient kept through the scale exp(m - M): the unsharded
+    softmax's gradient, not the reference's."""
+    big = mp.all_reduce_max(m.detach().clone())
+    scale = torch.where(torch.isfinite(m), torch.exp(m - big), 0.0)
+    l = reduce_shared(mp, l * scale)
+    acc = reduce_shared(mp, (acc * scale[..., None]).to(wire)).float()
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+_GATHER_HEADS = Lyr._gather_heads
+
+
 @contextlib.contextmanager
 def planted(fault: str | None):
     """`zoo` and `layers` with `fault` planted while inside (module
     docstring)."""
-    saved = Z.reduce_replicated_grads, Z.sum_over, Lyr.rms_norm_cut
+    saved = (Z.reduce_replicated_grads, Z.sum_over, Lyr.rms_norm_cut,
+             Z.sum_held_kv, Lyr._gather_heads, Lyr.combine_partials)
     if fault == "no data sum":
         Z.reduce_replicated_grads = lambda mp, grads, specs: grads
     elif fault == "half the rows":
@@ -99,10 +144,17 @@ def planted(fault: str | None):
         Z.sum_over = sum_over
     elif fault == "raw norm sum":
         Lyr.rms_norm_cut = raw_norm_sum
+    elif fault == "no kv sum":
+        Z.sum_held_kv = lambda mp, cfg, *grads: list(grads)
+    elif fault == "no gather sum":
+        Lyr._gather_heads = gather_unsummed
+    elif fault == "max carries gradient":
+        Lyr.combine_partials = combine_with_max_gradient
     try:
         yield
     finally:
-        Z.reduce_replicated_grads, Z.sum_over, Lyr.rms_norm_cut = saved
+        (Z.reduce_replicated_grads, Z.sum_over, Lyr.rms_norm_cut,
+         Z.sum_held_kv, Lyr._gather_heads, Lyr.combine_partials) = saved
 
 
 def control_rank(mp, runs: list) -> list[dict]:
@@ -110,25 +162,41 @@ def control_rank(mp, runs: list) -> list[dict]:
     the fault planted."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
-    for (arch, layers, impl), mode, lr, fault in runs:
+    for (arch, layers, impl, shard), mode, lr, fault in runs:
         CS.free_cuda()
         with planted(fault):
             out.append(TLT.train_lm_rank(
                 mp, arch, layers, mode, CS.LM_TRAIN_STEPS, CS.LM_TRAIN_BATCH,
-                CS.LM_TRAIN_SEQ, 0, False, lr, impl))
+                CS.LM_TRAIN_SEQ, 0, False, lr, impl, shard))
     return out
 
 
 def unsharded(run, lr: float) -> list[float]:
     """The launcher's unsharded steps (`launch.train.lm_train_steps`) of
-    the run's config at lr."""
-    arch, layers, impl = run
+    the run's config at lr; for a "shmap" run, in one process with its
+    ranks' semantics (`chip_smoke.shmap_lm_reference`)."""
+    arch, layers, impl, shard = run
+    cfg = TLT.lm_config(arch, False, layers, impl, shard)
+    if shard == "shmap":
+        assert lr == CS.FSDP_LM_LR, lr
+        return CS.shmap_lm_reference(cfg)[0]
     with contextlib.redirect_stdout(io.StringIO()):
         losses = TLT.lm_train_steps(
-            TLT.lm_config(arch, False, layers, impl), CS.LM_TRAIN_STEPS,
-            CS.LM_TRAIN_BATCH, CS.LM_TRAIN_SEQ, 0, lr, "cuda")
+            cfg, CS.LM_TRAIN_STEPS, CS.LM_TRAIN_BATCH, CS.LM_TRAIN_SEQ, 0, lr,
+            "cuda")
     CS.free_cuda()
     return losses
+
+
+def bars_met(run, got: list[float], want: list[float]) -> bool:
+    """Whether one rank's losses meet the chip_smoke phase's bars: [shmap
+    train lm]'s for a "shmap" run, else LM_TRAIN_RTOL of each loss."""
+    if run[3] == "shmap":
+        return (abs(got[0] - want[0]) <= CS.FSDP_LOSS_TOL * (1 + abs(want[0]))
+                and max(abs(a - c) for a, c in zip(got, want))
+                <= CS.SHMAP_LM_BAR)
+    return max(abs(a - c) / abs(c) for a, c in zip(got, want)) \
+        <= CS.LM_TRAIN_RTOL
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -150,8 +218,9 @@ def main(argv: list[str] | None = None) -> None:
         for run, _, lr, _ in CONTROLS[group][1]:
             if (run, lr) not in want:
                 want[run, lr] = unsharded(run, lr)
-                print(f"[controls] {run[0]} ({run[1]} layers), unsharded, lr "
-                      f"{lr}: losses {want[run, lr]}")
+                print(f"[controls] {run[0]} ({run[1]} layers, attn_shard "
+                      f"{run[3]}), unsharded, lr {lr}: losses "
+                      f"{want[run, lr]}")
     summary = {"card": card, "runs": []}
     for group in groups:
         shape, runs = CONTROLS[group]
@@ -159,23 +228,33 @@ def main(argv: list[str] | None = None) -> None:
                             device="cuda", timeout_s=1200,
                             mesh=train_mesh(*shape))
         for i, (run, mode, lr, fault) in enumerate(runs):
-            cfg = TLT.lm_config(run[0], False, run[1], run[2])
+            cfg = TLT.lm_config(run[0], False, *run[1:])
             got = [rank[i] for rank in ranks]
             rel = [max(abs(a - c) / abs(c) for a in step) for step, c in
                    zip(zip(*(r["losses"] for r in got)), want[run, lr])]
+            diff = [max(abs(a - c) for a in step) for step, c in
+                    zip(zip(*(r["losses"] for r in got)), want[run, lr])]
             shared, differ = CS.shared_bits(cfg, train_mesh(*shape), mode,
                                             got)
             row = dict(arch=cfg.name, layers=cfg.n_layers,
-                       ssm_impl=cfg.ssm_impl, mode=mode, mesh=list(shape),
-                       lr=lr, fault=fault, unsharded=want[run, lr],
-                       losses=[r["losses"] for r in got], rel=rel,
-                       loss_bar_met=max(rel) <= CS.LM_TRAIN_RTOL,
+                       ssm_impl=cfg.ssm_impl, attn_shard=cfg.attn_shard,
+                       mode=mode, mesh=list(shape), lr=lr, fault=fault,
+                       unsharded=want[run, lr],
+                       losses=[r["losses"] for r in got], rel=rel, abs=diff,
+                       loss_bar_met=all(bars_met(run, r["losses"],
+                                                 want[run, lr]) for r in got),
                        shared_leaves=shared, shared_bits_equal=not differ)
-            print(f"[controls] {cfg.name} ({cfg.n_layers} layers) {mode} over"
+            bars = (f"absolute difference a step "
+                    f"{[float(f'{d:.3g}') for d in diff]} (bars "
+                    f"{CS.FSDP_LOSS_TOL} at step 1, {CS.SHMAP_LM_BAR}"
+                    if run[3] == "shmap" else
+                    f"relative difference a step "
+                    f"{[float(f'{r:.3g}') for r in rel]} (bar "
+                    f"{CS.LM_TRAIN_RTOL}")
+            print(f"[controls] {cfg.name} ({cfg.n_layers} layers, attn_shard "
+                  f"{cfg.attn_shard}) {mode} over"
                   f" {shape[0]} x {shape[1]}, lr {lr},"
-                  f" fault {fault}: losses {got[0]['losses']}, relative "
-                  f"difference a step {[float(f'{r:.3g}') for r in rel]} "
-                  f"(bar {CS.LM_TRAIN_RTOL}: "
+                  f" fault {fault}: losses {got[0]['losses']}, {bars}: "
                   f"{'met' if row['loss_bar_met'] else 'missed'}); ranks "
                   f"sharing a piece of {shared} leaves hold "
                   f"{'equal' if not differ else 'different'} bits"

@@ -228,20 +228,22 @@ def step_record(cfg: ModelConfig, step: str, *, batch: int, seq_len: int,
     args = step_inputs(cfg, step, batch=batch, seq_len=seq_len,
                        enc_len=enc_len)
     inputs = _tensors(args)
+    if step != "train":     # its layout tags: every K/V leaf "heads"
+        cache = E.KVCache(args["cache"], E.cache_cuts(
+            cfg, batch, seq_len, None, enc_len))
     if step == "train":
         def run():
             return Z.train_step(args["params"], args["opt_state"],
                                 args["batch"], cfg, adam(1e-4).update)
     elif step == "prefill":
         def run():
-            return E.prefill(args["params"], cfg, args["batch"],
-                             args["cache"])
+            return E.prefill(args["params"], cfg, args["batch"], cache)
     else:
         cache_len = seq_len - 1 if cache_len is None else cache_len
 
         def run():
             return E.decode_step(args["params"], cfg, args["batch"]["tokens"],
-                                 args["cache"], cache_len)
+                                 cache, cache_len)
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as flops, StepCounter(inputs) as sc, \
             ops.kernel_work_sink(sc.kernel_work):

@@ -223,17 +223,20 @@ def _rank_main(rank, world, device, init_method, timeout_s, fn, args,
 
 
 def spawn_ranks(world: int, fn: Callable, args: tuple = (), *,
-                device="cpu", timeout_s: float = 600.0,
+                device="cuda", timeout_s: float = 600.0,
                 mesh: MeshShape | None = None) -> list[Any]:
     """Run fn(mp, *args) in `world` spawned processes, one rank each, each
     with its ModelParallel `mp` (`model_parallel` on `mesh`, default
     `model_mesh(world)`; the group meets at a file under a temporary
     directory), and return their results in rank order, tensors as numpy
-    arrays. `fn` and `args` must pickle (fn a
+    arrays. The ranks run on the card unless `device` asks for the CPU
+    (`device_of`: without a card "cuda" raises here, before any rank
+    starts). `fn` and `args` must pickle (fn a
     module-level function). A rank that exits without a result, or no
     result within timeout_s, raises RuntimeError naming the rank (its
     traceback is on its stderr); every rank still running is then
     terminated."""
+    device = device_of(device)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:

@@ -24,8 +24,9 @@ Two paths:
     reference's launcher draws them.
   * `train_lm_rank` — the same LM training over a ("data", "model") mesh
     of ranks under the reference's "tp" layout (every family) or its
-    "fsdp" or "zero3" layout (the dense and moe families;
-    `parallel.check_train`) (`launch.mesh.spawn_ranks(world,
+    "fsdp" or "zero3" layout (the dense and moe families, "tp" and
+    "fsdp" also with the "shmap" attention; `parallel.check_train`)
+    (`launch.mesh.spawn_ranks(world,
     train_lm_rank, args, mesh=train_mesh(data, model))`; no CLI flag,
     as the reference's launcher has none): each rank holds its shard of
     the weights and of Adam's moments and trains on its rows of each
@@ -192,17 +193,21 @@ def batch_rows(batch: dict, mesh, rank: int) -> dict:
 
 
 def lm_config(arch: str, smoke: bool, layers: int,
-              ssm_impl: str | None = None):
+              ssm_impl: str | None = None, attn_shard: str | None = None):
     """The launcher's LM config: the arch's (its smoke variant in
     float32), cut to its first `layers` layers (0: all), its recurrent
     layers in the form `ssm_impl` where given ("scan" or "chunked", the
-    reference's dry run's choice for training)."""
+    reference's dry run's choice for training), its attention variant
+    `attn_shard` where given ("shmap": the reference's shard_map attention
+    and MoE, its dry run's choice where the heads or kv heads do not
+    divide the model axis)."""
     cfg = CFG.get_smoke(arch) if smoke else CFG.get(arch)
     return dataclasses.replace(
         cfg, dtype=torch.float32 if smoke else cfg.dtype,
         n_layers=layers or cfg.n_layers,
         n_enc_layers=(layers or cfg.n_enc_layers) if cfg.n_enc_layers
-        else 0, ssm_impl=ssm_impl or cfg.ssm_impl)
+        else 0, ssm_impl=ssm_impl or cfg.ssm_impl,
+        attn_shard=attn_shard or cfg.attn_shard)
 
 
 def shared_leaves(templates, specs, mesh, rank: int) -> list[int]:
@@ -224,8 +229,10 @@ def _digest(a: torch.Tensor) -> str:
 
 def train_lm_rank(mp, arch: str, layers: int, mode: str, steps: int,
                   batch: int, seq: int, seed: int, smoke: bool = False,
-                  lr: float = 0.01, ssm_impl: str | None = None) -> dict:
-    """One rank of `train_lm` (`lm_config(arch, smoke, layers, ssm_impl)`)
+                  lr: float = 0.01, ssm_impl: str | None = None,
+                  attn_shard: str | None = None) -> dict:
+    """One rank of `train_lm` (`lm_config(arch, smoke, layers, ssm_impl,
+    attn_shard)`)
     over mp's ("data", "model") mesh under the layout `mode` ("tp",
     "fsdp", "zero3"; `parallel.check_train`): it
     draws the weights on the CPU from the seed as `train_lm` does and keeps
@@ -237,7 +244,7 @@ def train_lm_rank(mp, arch: str, layers: int, mode: str, steps: int,
     on the CPU), its transport and the number of cards of the run, and
     after the last step a sha256 of each leaf of params, m and v that
     another rank holds too (`shared_leaves`; leaf index -> digest)."""
-    cfg = lm_config(arch, smoke, layers, ssm_impl)
+    cfg = lm_config(arch, smoke, layers, ssm_impl, attn_shard)
     check_train(cfg, mp.mesh, mode)
     dev = mp.device
     tmpl = Z.templates(cfg)

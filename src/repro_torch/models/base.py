@@ -268,7 +268,8 @@ def gather_params(shards, templates, layout, mp) -> dict:
     them from (a piece held by several ranks, as a Mamba2 mixer's B / C
     columns on every rank or a kv head's wk / wv columns on each rank
     whose query heads read it, is the same bits on each, written once per
-    holder); whole leaves as they are."""
+    holder); whole leaves as they are. Ranks holding pieces of unequal
+    lengths along a dim pad theirs for the gather."""
     held = [rank_pieces(templates, layout, mp.mesh, r)
             for r in range(mp.mesh.size)]
 
@@ -289,8 +290,14 @@ def gather_params(shards, templates, layout, mp) -> dict:
                                  f"{[m for _, m in mine]} is not covered "
                                  f"by the {len(members)} ranks along "
                                  f"{axes}")
-            parts = mp.gather_axes(out, dim, axes).split(
-                out.shape[dim], dim)
+            # ranks may hold unequal lengths (kv heads their touched query
+            # heads read, `parallel.kv_slots`): each gathers its own padded
+            # to the longest
+            n = max(sum(m for _, m in ranks[rank][dim]) for rank in members)
+            mine_padded = out if n == out.shape[dim] else torch.cat(
+                [out, out.new_zeros(out.shape[:dim] + (n - out.shape[dim],)
+                                    + out.shape[dim + 1:])], dim)
+            parts = mp.gather_axes(mine_padded, dim, axes).split(n, dim)
             whole = out.new_empty(out.shape[:dim] + (t.shape[dim],)
                                   + out.shape[dim + 1:])
             for part, rank in zip(parts, members):

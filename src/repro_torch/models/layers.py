@@ -44,7 +44,10 @@ plain PyTorch loops over the sequence or its chunks.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import operator
 
 import torch
 import torch.nn.functional as F
@@ -52,7 +55,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.parallel import (SEQ_VARIANTS, combine_partials,
                                          enter_partial, gather_last,
-                                         kv_gather_index, reduce_partial,
+                                         kv_gather_index, kv_slots, q_heads,
+                                         q_split, reduce_partial,
                                          reduce_shared, sum_over)
 
 # ---------------------------------------------------------------------------
@@ -210,12 +214,73 @@ def shmap_attention(q, k_loc, v_loc, mp, *, causal: bool,
     psum; float32 for the "seqkv" variant, whose reference GSPMD reduces
     in float32). Returns (B, Sq, H, hd) in q's dtype, the same bits on
     every rank."""
-    kv_chunk = min(_KV_CHUNK, max(k_loc.shape[1] // 4, 8))
-    m, l, acc = blockwise_attention(
-        q, k_loc, v_loc, causal=causal, window=window, q_offset=q_offset,
-        kv_chunk=kv_chunk, k_offset=k_offset, return_stats=True)
+    m, l, acc = _block_state(q, k_loc, v_loc, causal=causal, window=window,
+                             q_offset=q_offset, k_offset=k_offset)
     out = combine_partials(mp, m, l, acc, wire)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def _block_state(q, k_loc, v_loc, *, causal: bool, window: int,
+                 q_offset: int = 0, k_offset: int = 0):
+    """The softmax state (m, l, acc) of q over one block of the keys, at
+    positions k_offset ..., in the reference's shard_map chunks of
+    min(1024, max(Sk_loc // 4, 8)) keys (`blockwise_attention`)."""
+    return blockwise_attention(
+        q, k_loc, v_loc, causal=causal, window=window, q_offset=q_offset,
+        kv_chunk=min(_KV_CHUNK, max(k_loc.shape[1] // 4, 8)),
+        k_offset=k_offset, return_stats=True)
+
+
+def blocked_attention(q, k, v, blocks: int, *, causal: bool,
+                      window: int = NO_WINDOW,
+                      wire: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """`shmap_attention` over `blocks` ranks, in one process: q (B, Sq, H,
+    hd), k / v (B, Sk, Hkv, hd) whole, the keys cut into `blocks` equal
+    blocks, each block's softmax state the one its rank would hold, the
+    states stacked and combined as the ranks' (`combine_partials` with no
+    mp: the max carries no gradient, acc sums in `wire`). Returns (B, Sq,
+    H, hd) in q's dtype."""
+    n = k.shape[1] // blocks
+    states = [_block_state(q, k[:, i * n:(i + 1) * n],
+                           v[:, i * n:(i + 1) * n], causal=causal,
+                           window=window, k_offset=i * n)
+              for i in range(blocks)]
+    m, l, acc = (torch.stack(t) for t in zip(*states))
+    out = combine_partials(None, m, l, acc, wire)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# The (data, model) shape of the reference's `layers.MESH` whose
+# shard_map semantics a step without ranks keeps (`one_process_mesh`);
+# None outside it.
+_ONE_PROCESS_MESH: tuple[int, int] | None = None
+
+
+@contextlib.contextmanager
+def one_process_mesh(data: int, model: int):
+    """Within: a forward without model parallelism (mp None) of a config
+    whose attn_shard is "seqkv" or "shmap" keeps the reference's shard_map
+    semantics on a (data, model) mesh, as the reference's jitted step does
+    over `data` x `model` host devices, all in this process: attention
+    without a cache cuts the keys into `model` blocks wherever they divide
+    the sequence (`blocked_attention`), and under "shmap" the experts,
+    wherever `model` divides them, run over `data` shards of the batch's
+    rows (`moe_ffn_blocks`). The run that a step over ranks of the same
+    variant is held to, where the plain step's semantics differ."""
+    global _ONE_PROCESS_MESH
+    saved, _ONE_PROCESS_MESH = _ONE_PROCESS_MESH, (data, model)
+    try:
+        yield
+    finally:
+        _ONE_PROCESS_MESH = saved
+
+
+def one_process_shape(cfg) -> tuple[int, int] | None:
+    """`one_process_mesh`'s (data, model) where cfg keeps its semantics
+    (attn_shard "seqkv" or "shmap"), else None."""
+    if cfg.attn_shard not in SEQ_VARIANTS:
+        return None
+    return _ONE_PROCESS_MESH
 
 
 def seq_decode_attention(q, ck_loc, cv_loc, mp, *, cache_len: int,
@@ -255,53 +320,110 @@ def _full_attention(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     return fn(q, k, v, causal=causal, window=window)
 
 
-def seq_cut(mp, leaf: torch.Tensor, n_kv_heads: int) -> bool:
-    """Whether a rank's K/V cache leaf (..., S_loc, Hkv, hd) is cut over
-    its slots (the "seq" layout: every kv head, a block of the slots)
-    rather than over the kv heads. A rank's kv heads (`parallel.kv_heads`)
-    are fewer than the model's wherever `check_tp` lets more than one
-    rank run, so the leaf's head count tells the two apart."""
-    return mp is not None and mp.world > 1 and leaf.shape[-2] == n_kv_heads
+def seq_cut(mp, cut: str) -> bool:
+    """Whether a rank's K/V cache leaf whose layout tag is `cut` ("heads"
+    or "seq", set where the cache is laid out: `serving.engine
+    .init_cache`, `cache_cuts`) is cut over its slots (the "seq" layout:
+    every kv head, a block of the slots) rather than over the kv heads:
+    a "seq" leaf under more than one rank. The tag, not the leaf's shape,
+    tells the two apart (a rank holds every kv head under "heads" too
+    where the model has one, or where its query heads read them all)."""
+    return mp is not None and mp.world > 1 and cut == "seq"
 
 
 def _gather_heads(mp, cfg, q, k, v) -> list[torch.Tensor]:
-    """This rank's query heads q (B, S, h, hd) and the kv heads k, v (B,
-    S, n, hd) it holds (`parallel.kv_heads`), each or both None, whole:
-    one all-gather of them packed along the head dim. q comes back (B, S,
-    world * h, hd) in rank order (the "tp" layout's head order), k and v
-    (B, S, Hkv, hd) in the model's order, a kv head that several ranks
-    hold taken from the first (`parallel.kv_gather_index`). Returns those
-    given, in the order q, k, v."""
-    parts = [t for t in (q, k, v) if t is not None]
-    sizes = [t.shape[2] for t in parts]
-    full = mp.all_gather(torch.cat(parts, dim=2), dim=2)
-    b, s, _, hd = full.shape
-    full = full.view(b, s, mp.world, sum(sizes), hd)
-    out = [t.reshape(b, s, mp.world * t.shape[3], hd)
-           for t in full.split(sizes, dim=3)]
+    """This rank's query columns q ((B, S, h, hd) heads or (B, S, c) the
+    raw columns of a head the ranks split) and the kv heads k, v (B, S,
+    n, hd) it holds (`parallel.kv_heads`), each or both None, whole: one
+    all-gather of them packed along the last dim (a rank holding fewer kv
+    heads than `parallel.kv_slots` pads its own). q comes back (B, S, H,
+    hd) in the "tp" layout's column order, k and v (B, S, Hkv, hd) in the
+    model's order, a kv head that several ranks hold taken from the first
+    (`parallel.kv_gather_index`). Every rank uses the whole, so in
+    training the gradient is summed over the ranks and each keeps its
+    block (`enter_partial` of `gather_last`). Returns those given, in the
+    order q, k, v."""
+    b, s = next(t for t in (q, k, v) if t is not None).shape[:2]
+    parts = [] if q is None else [q.reshape(b, s, -1)]
+    if k is not None:
+        n = kv_slots(cfg.n_heads, cfg.n_kv_heads, mp.world)
+        parts += [F.pad(t, (0, 0, 0, n - t.shape[2])).reshape(b, s, -1)
+                  for t in (k, v) if t is not None]
+    sizes = [t.shape[-1] for t in parts]
+    full = enter_partial(mp, gather_last(mp, torch.cat(parts, dim=-1)))
+    full = full.view(b, s, mp.world, sum(sizes))
+    out = [t.reshape(b, s, -1, cfg.hd) for t in full.split(sizes, dim=-1)]
     pick = kv_gather_index(cfg.n_heads, cfg.n_kv_heads, mp.world)
     if pick is not None and k is not None:
         out[-2:] = [t[:, :, pick] for t in out[-2:]]
     return out
 
 
-def _own_heads(mp, out: torch.Tensor, h: int) -> torch.Tensor:
-    """The rank's h heads of a whole-head output (B, S, H, hd)."""
-    return out[:, :, mp.rank * h:(mp.rank + 1) * h]
+def _own_cols(mp, cfg, out: torch.Tensor, first: int = 0) -> torch.Tensor:
+    """The rank's columns (B, S, c) of an attention output (B, S, n, hd)
+    over the heads first .. first + n - 1: its block of the H·hd, which
+    its rows of wo take."""
+    c = cfg.n_heads * cfg.hd // mp.world
+    return out.reshape(*out.shape[:2], -1).narrow(
+        -1, mp.rank * c - first * cfg.hd, c)
 
 
-def _shmap_fresh(q, k, v, mp, cfg, *, causal: bool, window: int,
+class _RankQ:
+    """A rank's queries of one attention call and the way its output
+    returns to its rows of wo. q: (B, S, c), its columns of x @ wq; prep
+    normalises (qk_norm) and ropes heads (B, S, n, hd). Where the ranks
+    divide the heads (or without model parallelism) the columns are whole
+    heads, prepared at once; where they split them (`parallel.q_split`),
+    the raw columns, prepared once gathered whole (a head's norm and rope
+    need all hd of it)."""
+
+    def __init__(self, mp, cfg, q: torch.Tensor, prep):
+        self.mp, self.cfg, self.prep = mp, cfg, prep
+        self.split = q_split(cfg, mp)
+        self.q = q if self.split else prep(
+            q.reshape(*q.shape[:2], -1, cfg.hd))
+
+    def touched(self) -> range:
+        return q_heads(self.cfg.n_heads, self.mp.world, self.mp.rank)
+
+    def local(self) -> torch.Tensor:
+        """The heads this rank attends over its own keys: its heads, or
+        where the ranks split them the heads its columns touch, gathered
+        whole (one all-gather)."""
+        if not self.split:
+            return self.q
+        qf, = _gather_heads(self.mp, self.cfg, self.q, None, None)
+        t = self.touched()
+        return self.prep(qf[:, :, t.start:t.stop])
+
+    def whole(self, k, v) -> list:
+        """[q, k, v] whole (every head and kv head; k / v None to gather
+        q alone): one all-gather."""
+        qf, *kv = _gather_heads(self.mp, self.cfg, self.q, k, v)
+        return [self.prep(qf) if self.split else qf, *kv]
+
+    def own(self, out: torch.Tensor, whole: bool) -> torch.Tensor:
+        """The rank's columns (B, S, c) of an output over every head
+        (whole) or over `local`'s heads."""
+        if whole:
+            return _own_cols(self.mp, self.cfg, out)
+        if not self.split:
+            return out.reshape(*out.shape[:2], -1)
+        return _own_cols(self.mp, self.cfg, out, self.touched().start)
+
+
+def _shmap_fresh(rq: _RankQ, k, v, mp, *, causal: bool, window: int,
                  wire: torch.dtype):
     """`shmap_attention` over the fresh tokens (a forward, a prefill):
-    q / k / v's heads gathered whole, the keys cut into the ranks' blocks
-    of S / world positions. Returns (the rank's heads of the output (B, S,
-    h, hd), k and v whole)."""
-    qf, kf, vf = _gather_heads(mp, cfg, q, k, v)
+    q / k / v gathered whole, the keys cut into the ranks' blocks of S /
+    world positions. Returns (the rank's columns of the output (B, S, c),
+    k and v whole)."""
+    qf, kf, vf = rq.whole(k, v)
     n = kf.shape[1] // mp.world
     blk = slice(mp.rank * n, (mp.rank + 1) * n)
     out = shmap_attention(qf, kf[:, blk], vf[:, blk], mp, causal=causal,
                           window=window, k_offset=mp.rank * n, wire=wire)
-    return _own_heads(mp, out, q.shape[2]), kf, vf
+    return rq.own(out, True), kf, vf
 
 
 def _write_block(ck, cv, kf, vf, j0: int, slot0: int, mp) -> None:
@@ -321,10 +443,11 @@ def _write_block(ck, cv, kf, vf, j0: int, slot0: int, mp) -> None:
         j, slot = j + run, 0
 
 
-def _seq_cached(q, k, v, ck, cv, mp, cfg, variant: str, *, causal: bool,
-                window: int, cache_len: int, mode: str, ring_window: int):
+def _seq_cached(rq: _RankQ, k, v, ck, cv, mp, variant: str, *,
+                causal: bool, window: int, cache_len: int, mode: str,
+                ring_window: int):
     """Attention with a cache leaf cut over its slots (`seq_cut`): the
-    rank's heads of the output (B, S, h, hd). Prefill attends the fresh
+    rank's columns of the output (B, S, c). Prefill attends the fresh
     tokens as under "heads" ("seqkv", a ring, or "shmap" when the ranks
     do not divide S: the reference's `:307-318`) or through
     `shmap_attention` ("shmap", a cache of positions, S divided: its
@@ -332,20 +455,21 @@ def _seq_cached(q, k, v, ck, cv, mp, cfg, variant: str, *, causal: bool,
     rank's block. Decode gathers the token's q / k / v whole; the rank
     whose block holds slot cache_len (a ring's cache_len % W) writes the
     new K / V; `seq_decode_attention` attends."""
-    s, h = q.shape[1], q.shape[2]
+    s = k.shape[1]
     total = ck.shape[1] * mp.world
     if not ring_window and cache_len + s > total:
         raise ValueError(f"cache of {total} positions cannot take {s} more "
                          f"at {cache_len}")
     if mode == "prefill":
         if variant == "shmap" and not ring_window and s % mp.world == 0:
-            out, kf, vf = _shmap_fresh(q, k, v, mp, cfg, causal=causal,
+            out, kf, vf = _shmap_fresh(rq, k, v, mp, causal=causal,
                                        window=window,
                                        wire=SEQ_VARIANTS[variant])
         else:
-            out = _full_attention(q, k, v, causal=causal,
-                                  window=ring_window or window)
-            kf, vf = _gather_heads(mp, cfg, None, k, v)
+            out = rq.own(_full_attention(rq.local(), k, v, causal=causal,
+                                         window=ring_window or window),
+                         False)
+            kf, vf = _gather_heads(mp, rq.cfg, None, k, v)
         if ring_window:
             m = min(s, total)
             _write_block(ck, cv, kf, vf, s - m, s - m, mp)
@@ -354,13 +478,13 @@ def _seq_cached(q, k, v, ck, cv, mp, cfg, variant: str, *, causal: bool,
         return out
     if s != 1:
         raise ValueError(f"sequence-cut decode writes one token, got {s}")
-    qf, kf, vf = _gather_heads(mp, cfg, q, k, v)
+    qf, kf, vf = rq.whole(k, v)
     _write_block(ck, cv, kf, vf, 0, cache_len, mp)
     out = seq_decode_attention(qf, ck, cv, mp, cache_len=cache_len,
                                window=ring_window or window,
                                offset=mp.rank * ck.shape[1],
                                ring=bool(ring_window))
-    return _own_heads(mp, out, h)
+    return rq.own(out, True)
 
 
 def attention(p, cfg, x, *, positions, causal: bool = True,
@@ -371,13 +495,19 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
 
     kv_cache: {"k","v"}: (B, S_max, Hkv, hd) written IN PLACE at the host
     int cache_len (or, with ring_window=W, a (B, W, Hkv, hd) ring buffer,
-    slot = position % W). mode: "decode" attends q against the whole cache;
+    slot = position % W), and "cut", its layout tag ("heads" or "seq";
+    `seq_cut`). mode: "decode" attends q against the whole cache;
     "prefill" writes the fresh K/V into the cache but attends only against
     the fresh keys (the cache starts empty). cross_kv: an encoder's
-    projected (k, v), each (B, S_enc, Hkv, hd), for encoder-decoder cross
-    attention (`cross_attention`). The head counts are the weights': a
-    rank's shard (its wq / wk / wv columns, wo rows) attends with its own
-    heads, and `out` is then its partial sum of the output projection.
+    projected (k, v, cut), k and v (B, S_enc, Hkv, hd) and cut their
+    layout tag, for encoder-decoder cross attention (`cross_attention`). The head counts
+    are the weights': a rank's shard (its wq / wk / wv columns, wo rows)
+    attends with its own heads, and `out` is then its partial sum of the
+    output projection. Where the ranks split the query heads
+    (`parallel.q_split`: its wq columns are a block of H·hd, not whole
+    heads), the rank gathers q whole (one all-gather), attends the heads
+    its columns touch (`parallel.q_heads`) over the kv heads it holds, and
+    keeps its own columns of the output (`_RankQ`).
 
     mp with cfg.attn_shard "seqkv" / "shmap" (module docstring): with no
     cache, `shmap_attention` over the ranks' blocks of the keys when the
@@ -385,42 +515,56 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
     "heads"; a cache leaf cut over its slots (`seq_cut`) goes through
     `_seq_cached`; a leaf cut over the kv heads (the "seq" rule's fallback)
     is attended as under "heads", but for a "shmap" prefill of a cache of
-    positions, which takes `shmap_attention` as the reference does.
+    positions, which takes `shmap_attention` as the reference does. In
+    training "shmap" is differentiable as the reference's shard_map
+    (`_gather_heads`, `parallel.combine_partials`).
     Returns (out, kv_cache)."""
     b, s, _ = x.shape
     hd = cfg.hd
-    h, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = x @ p["wq"]
     if cross_kv is not None:
-        return cross_attention(p, cfg, q, *cross_kv, mp=mp), None
+        return cross_attention(p, cfg, q.reshape(b, s, -1, hd), *cross_kv,
+                               mp=mp), None
+    hkv = p["wk"].shape[1] // hd
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)
     v = (x @ p["wv"]).reshape(b, s, hkv, hd)
-    if cfg.qk_norm:
+    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
+
+    def prep(q):
         # whole on every rank, applied to the rank's heads: in training
         # their gradients are summed over the ranks
-        q = rms_norm(q, enter_partial(mp, p["q_norm"]))
+        if cfg.qk_norm:
+            q = rms_norm(q, enter_partial(mp, p["q_norm"]))
+        return apply_rope(q, cos, sin)
+
+    rq = _RankQ(mp, cfg, q, prep)
+    if cfg.qk_norm:
         k = rms_norm(k, enter_partial(mp, p["k_norm"]))
-    cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     variant = cfg.attn_shard if mp is not None else "auto"
     shmap = variant in SEQ_VARIANTS and s % mp.world == 0
+    one = one_process_shape(cfg) if mp is None else None
     if kv_cache is None:
         if shmap:
-            out = _shmap_fresh(q, k, v, mp, cfg, causal=causal, window=window,
+            out = _shmap_fresh(rq, k, v, mp, causal=causal, window=window,
                                wire=SEQ_VARIANTS[variant])[0]
+        elif one is not None and s % one[1] == 0:
+            out = rq.own(blocked_attention(
+                rq.local(), k, v, one[1], causal=causal, window=window,
+                wire=SEQ_VARIANTS[cfg.attn_shard]), False)
         else:
-            out = _full_attention(q, k, v, causal=causal, window=window)
-        return out.reshape(b, s, h * hd) @ p["wo"], None
+            out = rq.own(_full_attention(rq.local(), k, v, causal=causal,
+                                         window=window), False)
+        return out @ p["wo"], None
     ck, cv = kv_cache["k"], kv_cache["v"]
-    if seq_cut(mp, ck, cfg.n_kv_heads):
-        out = _seq_cached(q, k, v, ck, cv, mp, cfg, variant, causal=causal,
+    if seq_cut(mp, kv_cache["cut"]):
+        out = _seq_cached(rq, k, v, ck, cv, mp, variant, causal=causal,
                           window=window, cache_len=cache_len, mode=mode,
                           ring_window=ring_window)
     elif ring_window:
         w = ring_window
         if mode == "prefill":
-            out = _full_attention(q, k, v, causal=causal, window=w)
+            out = _full_attention(rq.local(), k, v, causal=causal, window=w)
             m = min(s, w)
             slots = torch.arange(s - m, s, device=x.device) % w
             ck[:, slots] = k[:, -m:].to(ck.dtype)
@@ -432,8 +576,9 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
             slot = cache_len % w
             ck[:, slot:slot + 1] = k.to(ck.dtype)
             cv[:, slot:slot + 1] = v.to(cv.dtype)
-            out = decode_attention(q, ck, cv, q_offset=cache_len, window=w,
-                                   ring=True)
+            out = decode_attention(rq.local(), ck, cv, q_offset=cache_len,
+                                   window=w, ring=True)
+        out = rq.own(out, False)
     else:
         if cache_len + s > ck.shape[1]:
             raise ValueError(f"cache of {ck.shape[1]} positions cannot take "
@@ -441,17 +586,19 @@ def attention(p, cfg, x, *, positions, causal: bool = True,
         ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
         if mode == "prefill" and shmap and variant == "shmap":
-            out = _shmap_fresh(q, k, v, mp, cfg, causal=causal, window=window,
+            out = _shmap_fresh(rq, k, v, mp, causal=causal, window=window,
                                wire=SEQ_VARIANTS[variant])[0]
         elif mode == "prefill":
-            out = _full_attention(q, k, v, causal=causal, window=window)
+            out = rq.own(_full_attention(rq.local(), k, v, causal=causal,
+                                         window=window), False)
         else:
-            out = decode_attention(q, ck, cv, q_offset=cache_len,
-                                   window=window)
-    return out.reshape(b, s, h * hd) @ p["wo"], kv_cache
+            out = rq.own(decode_attention(rq.local(), ck, cv,
+                                          q_offset=cache_len, window=window),
+                         False)
+    return out @ p["wo"], kv_cache
 
 
-def cross_attention(p, cfg, q, k, v, mp=None) -> torch.Tensor:
+def cross_attention(p, cfg, q, k, v, cut: str, mp=None) -> torch.Tensor:
     """Encoder-decoder cross attention of the projected queries q (B, Sq,
     H, hd) over an encoder's K/V (B, S_enc, Hkv, hd), through the out
     projection: no rope, q normed only under cfg.qk_norm (k never), no
@@ -462,22 +609,22 @@ def cross_attention(p, cfg, q, k, v, mp=None) -> torch.Tensor:
     the reference's dot attention first casts the probabilities to q's
     dtype: the same in float32, closer to exact in bfloat16. Under model
     parallelism q, k and v are the rank's heads and the output its partial
-    sum of wo; where the cached cross K/V is cut over its frames
-    (`seq_cut`: every kv head, the rank's block of S_enc / world frames)
-    the rank's query heads are gathered whole and K8's partials mode runs
-    over its block, combined over the ranks in float32
+    sum of wo; where the cached cross K/V is cut over its frames (its tag
+    `cut` "seq", `seq_cut`: every kv head, the rank's block of S_enc /
+    world frames) the rank's query heads are gathered whole and K8's
+    partials mode runs over its block, combined over the ranks in float32
     (`seq_decode_attention`: the reference's GSPMD reduction of its dot
     attention over a sharded S_enc), and the rank keeps its own heads."""
     b, s, h, hd = q.shape
     if cfg.qk_norm:
         q = rms_norm(q, enter_partial(mp, p["q_norm"]))
-    if s == 1 and seq_cut(mp, k, cfg.n_kv_heads):
+    if s == 1 and seq_cut(mp, cut):
         n = k.shape[1]
         qf, = _gather_heads(mp, cfg, q, None, None)
         out = seq_decode_attention(qf, k, v, mp,
                                    cache_len=n * mp.world - 1,
                                    offset=mp.rank * n)
-        out = _own_heads(mp, out, h)
+        out = _own_cols(mp, cfg, out)
     elif s == 1:
         out = decode_attention(q, k, v, q_offset=k.shape[1] - 1)
     else:
@@ -724,7 +871,15 @@ def moe_ffn_shmap(p, cfg, x: torch.Tensor, mp, *,
     (GSPMD's partition of `moe_ffn`) casts nothing. aux: every rank routes
     every token, so each computes moe_ffn's aux; the reference's pmean of
     it runs over the data axes, which `moe_dispatch` stands for where the
-    mesh has them (x is then this "data" rank's rows)."""
+    mesh has them (x is then this "data" rank's rows).
+
+    Under cfg.attn_shard "shmap" the data axes take the reference's
+    shard_map semantics (its `moe_ffn_shmap` `:463`, `:489-491`): the
+    choices are made over this "data" rank's tokens alone (the capacity
+    of its T tokens, its positions from its first token), and the aux is
+    its tokens' Switch loss mean'd over the "data" ranks (one all-reduce,
+    the gradient passed through, 1 / D of it to each); over one "data"
+    rank the two are the same."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate_v, gate_i = moe_route(p, cfg, xt)
@@ -733,12 +888,45 @@ def moe_ffn_shmap(p, cfg, x: torch.Tensor, mp, *,
         raise ValueError(f"{cfg.name}: {e_loc} experts on each of "
                          f"{mp.world} ranks, the config has "
                          f"{cfg.n_experts}")
-    *dispatch, aux = moe_dispatch(cfg, probs, gate_i, mp)
+    per_shard = cfg.attn_shard == "shmap"
+    *dispatch, aux = moe_dispatch(cfg, probs, gate_i,
+                                  None if per_shard else mp)
+    if per_shard and mp.data_world > 1:
+        aux = sum_over(mp, aux, ("data",)) / mp.data_world
     y = _local_experts(p, cfg, enter_partial(mp, xt),
                        enter_partial(mp, gate_v), gate_i, mp.rank * e_loc,
                        tuple(dispatch))
     y = reduce_partial(mp, y.to(wire))
     return y.reshape(b, s, d), aux
+
+
+def moe_ffn_blocks(p, cfg, x: torch.Tensor, data: int, model: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`moe_ffn_shmap` under "shmap" over a (data, model) mesh, in one
+    process (`one_process_mesh`): the batch's rows cut into `data` shards
+    (one where `data` does not divide them: the reference's shard_map then
+    keeps the batch whole), each shard routed and dispatched over its own
+    tokens (the capacity of its tokens, its positions from its first
+    token); the experts in `model` groups of E / model, each group's
+    output cast to bfloat16 and the groups summed in it, as the ranks'
+    psum; the aux each shard's Switch loss, mean'd over the shards.
+    Returns (out (B, S, d) bfloat16, aux)."""
+    b, _, d = x.shape
+    shards = data if b % data == 0 else 1
+    e_loc = cfg.n_experts // model
+    ys, aux = [], 0.0
+    for xs in x.chunk(shards):
+        xt = xs.reshape(-1, d)
+        probs, gate_v, gate_i = moe_route(p, cfg, xt)
+        *dispatch, shard_aux = moe_dispatch(cfg, probs, gate_i)
+        parts = [_local_experts(
+            {k: p[k][g * e_loc:(g + 1) * e_loc]
+             for k in ("w_gate", "w_in", "w_out")}, cfg, xt, gate_v, gate_i,
+            g * e_loc, tuple(dispatch)).to(torch.bfloat16)
+            for g in range(model)]
+        ys.append(functools.reduce(operator.add, parts).reshape(xs.shape))
+        aux = aux + shard_aux
+    return torch.cat(ys), aux / shards
 
 
 # ---------------------------------------------------------------------------

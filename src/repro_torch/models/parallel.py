@@ -64,6 +64,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import math
 import weakref
 from typing import Any
@@ -212,16 +213,19 @@ class ModelParallel:
 def tp_dims(cfg) -> dict[str, int]:
     """The dims the "tp" layout cuts over the ranks for cfg's family, by
     name: RWKV-6's heads (d_model / rwkv_head_dim) and channel-mix ffn;
-    attention's heads and the dense MLP's ffn (a zamba2 shared block's, an
-    encdec model's encoder and decoder); Mamba2's heads; the experts. The
-    hybrid and encdec families' kv heads too: a rank of the dense and moe
-    families holds whole the kv heads its query heads read
-    (`kv_heads`), where the ranks divide them or not."""
+    the dense and moe families' `qout`, wq's H·hd columns (the reference's
+    cut, which may split a head between two ranks: `q_heads`); the hybrid
+    and encdec families' attention heads and kv heads; the dense MLP's ffn
+    (a zamba2 shared block's, an encdec model's encoder and decoder);
+    Mamba2's heads; the experts. A rank of the dense and moe families holds
+    whole the kv heads its query heads read (`kv_heads`), where the ranks
+    divide them or not."""
     if cfg.arch_type == "ssm":
         return {"heads": cfg.d_model // cfg.rwkv_head_dim, "ffn": cfg.d_ff}
-    dims = {"heads": cfg.n_heads}
-    if cfg.arch_type in ("hybrid", "encdec"):
-        dims["kv heads"] = cfg.n_kv_heads
+    if cfg.arch_type in ("dense", "moe"):
+        dims = {"qout": cfg.n_heads * cfg.hd}
+    else:
+        dims = {"heads": cfg.n_heads, "kv heads": cfg.n_kv_heads}
     if cfg.arch_type == "hybrid":
         dims["ssm heads"] = cfg.ssm_heads
     if cfg.arch_type != "moe" or cfg.dense_residual:
@@ -236,16 +240,16 @@ def check_tp(cfg, world: int) -> None:
     layout as the port executes it: `world` divides every dim of
     `tp_dims(cfg)`. The vocabulary need not divide: the reference's rules
     keep an undivided dim whole, and so does the port (every rank then
-    looks its tokens up and computes the whole logits). Nor need the kv
-    heads of the dense and moe families: where the ranks do not divide
-    them, the reference's rules cut wk / wv and the cache within a head
+    looks its tokens up and computes the whole logits). Nor need the
+    query or kv heads of the dense and moe families: the reference's rules
+    cut wq's columns (and wo's rows) into world equal blocks wherever
+    world divides H·hd, and a rank attends the heads its block touches
+    whole (`q_heads`, `layers.attention`); where the ranks do not divide
+    the kv heads, the rules cut wk / wv and the cache within a head
     (`sharding.py` spec_from_axes, cache_shardings), which would need the
-    scores summed across the ranks before the softmax; each rank holds
-    instead whole the kv heads its query heads read (`kv_heads`), so a kv
-    head sits on several ranks. That holds unless a rank would hold as
-    many kv heads as the model (one kv head, or 24 query / 2 kv heads
-    over 3 ranks), where a rank's cut of a cache leaf could not be told
-    from the "seq" layout's (`layers.seq_cut`; ROADMAP item 24). The
+    scores summed across the ranks before the softmax, so each rank holds
+    instead whole the kv heads its query heads read (`kv_heads`), and a kv
+    head sits on several ranks (one kv head on every rank, for MQA). The
     sequence-sharded variants run every family (the ssm family, with no
     attention to cut, as "auto")."""
     if cfg.arch_type not in TP_ARCH_TYPES:
@@ -258,38 +262,86 @@ def check_tp(cfg, world: int) -> None:
     if bad:
         raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
                          f"needs {world} to divide its {bad}")
-    if cfg.arch_type in ("dense", "moe") and world > 1 and len(kv_heads(
-            cfg.n_heads, cfg.n_kv_heads, world, 0)) == cfg.n_kv_heads:
-        raise ValueError(f"{cfg.name}: the \"tp\" layout over {world} ranks "
-                         f"would hold all its {cfg.n_kv_heads} kv heads on a "
-                         f"rank (ROADMAP item 24)")
+
+
+@functools.lru_cache(maxsize=None)
+def q_heads(h: int, world: int, rank: int) -> range:
+    """The query heads that `rank` of `world` touches of an attention of h
+    heads: its block of wq's h·hd columns (the reference's cut of `qout`;
+    world divides h·hd) spans heads rank·h/world .. (rank + 1)·h/world, a
+    head at either end partly (yi-34b's 56 heads over 16 ranks: 3.5 a
+    rank, 4 touched). Where world divides h, its h / world heads whole."""
+    return range(rank * h // world, -(-(rank + 1) * h // world))
+
+
+def q_split(cfg, mp) -> bool:
+    """Whether mp's ranks split cfg's query heads (world does not divide
+    H): a rank's wq columns are then not whole heads, and its attention
+    gathers q whole (`layers.attention`)."""
+    return mp is not None and cfg.n_heads % mp.world != 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_runs(h: int, hkv: int, world: int, rank: int) -> tuple:
+    """((kv head, query heads), ...): the runs of `q_heads` that read the
+    same kv head of a GQA attention of h query heads and hkv kv heads, in
+    order."""
+    group, runs = h // hkv, []
+    for j in q_heads(h, world, rank):
+        if runs and runs[-1][0] == j // group:
+            runs[-1][1] += 1
+        else:
+            runs.append([j // group, 1])
+    return tuple(map(tuple, runs))
+
+
+@functools.lru_cache(maxsize=None)
+def kv_rep(h: int, hkv: int, world: int) -> int:
+    """How many of a rank's touched query heads read each kv head it holds
+    (the same on every rank): the gcd of every rank's runs (`_kv_runs`);
+    gcd(h / hkv, h / world) where world divides h."""
+    return math.gcd(*(n for r in range(world)
+                      for _, n in _kv_runs(h, hkv, world, r)))
 
 
 def kv_heads(h: int, hkv: int, world: int, rank: int) -> list[int]:
     """The kv heads that `rank` of `world` holds of a GQA attention of h
-    query heads and hkv kv heads (world divides h), in the order it holds
-    them. Its h / world query heads fall into runs of rep = gcd(h / hkv,
-    h / world) heads, each run inside one kv head's group of h / hkv; it
-    holds one kv head per run, so its local query head j reads its local
-    kv head j // rep, the reference's GQA on the rank's shapes. Where
-    world divides hkv that is its block of hkv / world kv heads (the
-    reference's cut); where hkv divides world, the one kv head its query
-    heads read, which world / hkv ranks hold; otherwise a rank may hold a
-    kv head twice (24 query / 2 kv heads over 3 ranks: [0, 0], [0, 1],
-    [1, 1])."""
-    hl, group = h // world, h // hkv
-    rep = math.gcd(group, hl)
-    return [(rank * hl + j * rep) // group for j in range(hl // rep)]
+    query heads and hkv kv heads (world divides h·hd), in the order it
+    holds them. Its touched query heads (`q_heads`) fall into runs of rep
+    = `kv_rep` heads, each run inside one kv head's group of h / hkv; it
+    holds one kv head per run, so its touched query head j reads its local
+    kv head j // rep, the reference's GQA on the rank's shapes (K8 takes
+    one rep a launch). Where world divides hkv that is its block of hkv /
+    world kv heads (the reference's cut); where hkv divides world, the one
+    kv head its query heads read, which world / hkv ranks hold (every rank
+    for MQA); otherwise a rank may hold a kv head twice (24 query / 2 kv
+    heads over 3 ranks: [0, 0], [0, 1], [1, 1]), and where the ranks'
+    touched heads straddle the groups unevenly, ranks may hold different
+    counts (`kv_slots`)."""
+    rep = kv_rep(h, hkv, world)
+    return [kv for kv, n in _kv_runs(h, hkv, world, rank)
+            for _ in range(n // rep)]
+
+
+def kv_slots(h: int, hkv: int, world: int) -> int:
+    """The most kv heads a rank holds (`kv_heads`): each rank's share of a
+    gather of K / V, a rank that holds fewer padding its own."""
+    return max(len(kv_heads(h, hkv, world, r)) for r in range(world))
 
 
 def kv_gather_index(h: int, hkv: int, world: int) -> list[int] | None:
     """Where each kv head first stands among the ranks' `kv_heads` laid
-    side by side in rank order: the index that takes K / V gathered from
-    every rank to the model's hkv kv heads, each once, in order. None
-    where world divides hkv (the gather is that already)."""
+    side by side in rank order, each rank's padded to `kv_slots`: the
+    index that takes K / V gathered from every rank to the model's hkv kv
+    heads, each once, in order. None where world divides hkv (the gather
+    is that already)."""
     if hkv % world == 0:
         return None
-    held = [j for r in range(world) for j in kv_heads(h, hkv, world, r)]
+    n = kv_slots(h, hkv, world)
+    held = []
+    for r in range(world):
+        mine = kv_heads(h, hkv, world, r)
+        held += mine + [-1] * (n - len(mine))
     return [held.index(j) for j in range(hkv)]
 
 
@@ -417,13 +469,25 @@ def combine_partials(mp: ModelParallel | None, m: torch.Tensor,
     reference's `shmap_attention` casts to bfloat16) beside l in float32,
     two all-reduces. The same bits on every rank. With mp None, m, l and
     acc carry a leading axis of blocks (one process's states, stacked)
-    and the same combine runs over it with no collective."""
+    and the same combine runs over it with no collective.
+
+    Differentiable as the reference's: the max carries no gradient (its
+    `stop_gradient` around the pmax; the scale exp(m - M) is a constant of
+    the backward), and where l or acc carries one (a training forward)
+    the two sums are `reduce_shared`'s, each rank using only its own
+    columns of the output: the cotangent of each sum, summed over the
+    ranks, reaches every rank's l and acc, acc's crossing in `wire` as the
+    transpose of the reference's bfloat16 psum does."""
+    m = m.detach()
     big = m.amax(0) if mp is None else mp.all_reduce_max(m.clone())
     scale = torch.where(torch.isfinite(m), torch.exp(m - big), 0.0)
     l = l * scale
     acc = acc * scale[..., None]
     if mp is None:
         l, acc = l.sum(0), acc.to(wire).sum(0).float()
+    elif l.requires_grad or acc.requires_grad:
+        l = reduce_shared(mp, l)
+        acc = reduce_shared(mp, acc.to(wire)).float()
     elif wire == torch.float32:
         both = mp.all_reduce_sum(torch.cat([l.reshape(-1), acc.reshape(-1)]))
         l, acc = both[:l.numel()].view(l.shape), both[l.numel():].view(
@@ -558,6 +622,12 @@ def take_pieces(a: torch.Tensor, pieces: list) -> torch.Tensor:
 TRAIN_MODES = ("tp", "fsdp", "zero3")
 TRAIN_ARCH_TYPES = {"tp": TP_ARCH_TYPES, "fsdp": ("dense", "moe"),
                     "zero3": ("dense", "moe")}
+# the attn_shard each layout trains: the reference's "shmap" variant (its
+# shard_map attention and MoE) under "tp" and "fsdp" for the dense and moe
+# families, as its pod dry run combines them; never with "zero3"
+TRAIN_ATTN_SHARDS = {"tp": ("auto", "shmap"), "fsdp": ("auto", "shmap"),
+                     "zero3": ("auto",)}
+SHMAP_TRAIN_ARCH_TYPES = ("dense", "moe")
 
 
 def check_train(cfg, mesh, mode: str) -> None:
@@ -565,8 +635,9 @@ def check_train(cfg, mesh, mode: str) -> None:
     `mesh` under `mode`: a layout of TRAIN_MODES that trains cfg's family
     (`TRAIN_ARCH_TYPES`: "tp" every family; "fsdp" / "zero3" the dense and
     moe families, the ssm, hybrid and encdec families' being ROADMAP item
-    29), attn_shard "auto" (the "shmap" variant's training: ROADMAP item
-    24), and a "model" axis that `check_tp` lets serve."""
+    29), an attn_shard the layout trains (`TRAIN_ATTN_SHARDS`: "auto", or
+    "shmap" under "tp" / "fsdp" for the dense and moe families), and a
+    "model" axis that `check_tp` lets serve."""
     if mode not in TRAIN_MODES:
         raise ValueError(f"{cfg.name}: layout {mode!r}, expected one of "
                          f"{TRAIN_MODES}")
@@ -577,10 +648,13 @@ def check_train(cfg, mesh, mode: str) -> None:
         raise ValueError(f"{cfg.name}: training over ranks under {mode!r} "
                          f"runs the {TRAIN_ARCH_TYPES[mode]} families, not "
                          f"{cfg.arch_type!r} (ROADMAP item 29)")
-    if cfg.attn_shard != "auto":
-        raise ValueError(f"{cfg.name}: training over ranks runs attn_shard "
-                         f"\"auto\", not {cfg.attn_shard!r} (the \"shmap\" "
-                         f"variant's training: ROADMAP item 24)")
+    if cfg.attn_shard not in TRAIN_ATTN_SHARDS[mode] or (
+            cfg.attn_shard != "auto"
+            and cfg.arch_type not in SHMAP_TRAIN_ARCH_TYPES):
+        raise ValueError(f"{cfg.name}: training over ranks under {mode!r} "
+                         f"runs attn_shard {TRAIN_ATTN_SHARDS[mode]} (\"shmap"
+                         f"\" for the {SHMAP_TRAIN_ARCH_TYPES} families), "
+                         f"not {cfg.attn_shard!r}")
     check_tp(cfg, mesh.shape["model"])
 
 
@@ -692,3 +766,27 @@ def reduce_replicated_grads(mp: ModelParallel, grads: list, specs: list
         out[i] = flat[at:at + n].view(grads[i].shape).to(grads[i].dtype)
         at += n
     return out
+
+
+def sum_held_kv(mp: ModelParallel, cfg, *grads: torch.Tensor
+                ) -> list[torch.Tensor]:
+    """The gradients of a rank's kv-head columns (each (..., n·hd), the
+    columns of its `kv_heads`, as `rank_pieces` gives wk and wv where the
+    ranks do not divide the kv heads), each summed over the "model" ranks
+    that hold the same kv head: each holder computed the part its own
+    query heads (or, under "shmap", the first holder the whole) give, so
+    the sum is the unsharded gradient and the holders keep equal bits.
+    Every rank scatters its held columns into the model's hkv kv heads;
+    one all-reduce of them packed; each rank takes its own back."""
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    held = kv_heads(cfg.n_heads, hkv, mp.world, mp.rank)
+    full = []
+    for g in grads:
+        whole = g.new_zeros(g.shape[:-1] + (hkv * hd,))
+        for i, j in enumerate(held):
+            whole[..., j * hd:(j + 1) * hd] += g[..., i * hd:(i + 1) * hd]
+        full.append(whole)
+    flat = mp.all_reduce_sum(torch.cat([t.reshape(-1) for t in full]))
+    return [torch.cat([whole[..., j * hd:(j + 1) * hd] for j in held],
+                      dim=-1)
+            for whole in flat.view(len(full), *full[0].shape)]

@@ -68,7 +68,8 @@ from repro_torch.models.parallel import (check_tp, check_train, enter_partial,
                                          layer_specs,
                                          reduce_partial,
                                          reduce_replicated_grads,
-                                         regather_saved, sum_over)
+                                         regather_saved, sum_over,
+                                         sum_held_kv)
 from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
                                      stack_tree, tree_leaves, tree_map,
                                      unstack)
@@ -324,11 +325,19 @@ def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
     mp the experts are expert-parallel (`layers.moe_ffn_shmap`), their sum
     crossing the wire in the activations' dtype (the reference's plain
     "tp" layout) or, under cfg.attn_shard "shmap", in bfloat16 (the
-    reference's `moe_ffn_shmap`, which that variant selects). `ep`, where
+    reference's `moe_ffn_shmap`, which that variant selects, with its
+    per-"data"-rank capacity and aux; in one process, within
+    `layers.one_process_mesh`, `layers.moe_ffn_blocks`). `ep`, where
     given, is what the experts run over instead of mp (zero3 in training:
     attention and the dense MLP whole, mp None; the experts over
     "model")."""
+    one = Lyr.one_process_shape(cfg) if mp is None and ep is None else None
     ep = mp if ep is None else ep
+    # the reference's "shmap" variant runs its shard_map MoE wherever the
+    # model axis divides the experts (its zoo.py:231-232), one model rank
+    # included
+    per_shard = (cfg.attn_shard == "shmap" and ep is not None
+                 and cfg.n_experts % ep.world == 0)
     h, cache = Lyr.attention(use(p, "attn"), cfg,
                              enter_partial(mp, Lyr.rms_norm(x, p["ln1"])),
                              positions=positions, window=window,
@@ -336,7 +345,10 @@ def _moe_block_fwd(p, cfg, x, positions, window, kv_cache=None,
                              mp=mp)
     x = x + reduce_partial(mp, h)
     xn = Lyr.rms_norm(x, p["ln2"])
-    if ep is None or ep.world == 1:
+    if (one is not None and cfg.attn_shard == "shmap"
+            and cfg.n_experts % one[1] == 0):
+        moe_out, aux = Lyr.moe_ffn_blocks(use(p, "moe"), cfg, xn, *one)
+    elif not per_shard and (ep is None or ep.world == 1):
         moe_out, aux = Lyr.moe_ffn(use(p, "moe"), cfg, xn, ep)
     else:
         wire = torch.bfloat16 if cfg.attn_shard == "shmap" else xn.dtype
@@ -558,9 +570,10 @@ def cross_kv(p, cfg, enc_out, mp=None) -> tuple[torch.Tensor, torch.Tensor]:
 def _decoder_block_fwd(p, cfg, x, positions, kv, kv_cache=None,
                        cache_len=None, mode="decode", mp=None):
     """One encdec decoder layer: the dense block (no window), then cross
-    attention over the encoder's kv = (k, v) on rms_norm(x, ln_cross):
-    under mp the rank's query heads over its kv heads, or at decode over
-    a cross K/V cut over its frames (`layers.cross_attention`)."""
+    attention over the encoder's kv = (k, v, their layout tag) on
+    rms_norm(x, ln_cross): under mp the rank's query heads over its kv
+    heads ("heads"), or at decode over a cross K/V cut over its frames
+    ("seq"; `layers.cross_attention`)."""
     x, cache = _dense_block_fwd(p, cfg, x, positions, BIG_WINDOW, kv_cache,
                                 cache_len, mode, mp)
     h, _ = Lyr.attention(p["cross"], cfg,
@@ -581,7 +594,8 @@ def _forward_encdec(params, cfg, batch, mp=None):
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["blocks"], cfg.n_layers):
         x, _ = _decoder_block_fwd(p, cfg, x, positions,
-                                  cross_kv(p, cfg, enc_out, mp), mp=mp)
+                                  (*cross_kv(p, cfg, enc_out, mp), "heads"),
+                                  mp=mp)
     x = Lyr.rms_norm(x, params["final_norm"])
     return _lm_head(params, cfg, x, mp), torch.zeros((), device=x.device)
 
@@ -633,7 +647,10 @@ def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update,
     unsharded one's. The weights gathered for use are not saved for the
     backward (`parallel.regather_saved`); the leaves the layout leaves
     whole over "data" have their gradients summed over it
-    (`parallel.reduce_replicated_grads`); Adam runs on the shards."""
+    (`parallel.reduce_replicated_grads`), and a kv head that several
+    "model" ranks hold (the attention's wk / wv where the ranks do not
+    divide the kv heads) has its gradient summed over them
+    (`parallel.sum_held_kv`); Adam runs on the shards."""
     leaves = tree_map(lambda p_: p_.detach().requires_grad_(True), params)
     if layout is None:
         loss = lm_loss(leaves, cfg, batch)
@@ -648,6 +665,10 @@ def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update,
                                         list(tree_leaves(layout.specs)))
     grads = iter(grads)
     grads = tree_map(lambda p_: next(grads), leaves)
+    if (layout is not None and layout.mode != "zero3"
+            and cfg.n_kv_heads % mp.world):
+        attn = grads["blocks"]["attn"]
+        attn["wk"], attn["wv"] = sum_held_kv(mp, cfg, attn["wk"], attn["wv"])
     updates, opt_state = opt_update(grads, opt_state, params)
     # freed before the new params are made: the step's peak is then the
     # optimizer's own (params, both states and the updates), not one tree

@@ -10,8 +10,11 @@ The port's counterpart of `benchmarks/fig5_peak_load.py`, in three parts:
 2. the serving engine under load: the streaming CascadeSession (plan
    "filter": query_bias and the fused score-and-filter kernel on the
    card) driven open-loop at 0.25x, 1x and 4x the capacity measured on
-   its live submit -> step path. Claims: it sheds over 10% at 4x, and no
-   less than at 0.25x;
+   its live submit -> step path, each chunk costing exactly the
+   calibrated chunk time (the reference asserts on the real clock, where
+   a loaded machine serves the sweep at another speed than it calibrated
+   at); the run on the real clock is printed, not claimed. Claims: it
+   sheds over 10% at 4x, and no less than at 0.25x;
 3. scale-out: the same 4x overload through a ReplicaRouter over 1 and 2
    replicas, each chunk costing exactly the calibrated chunk time (a
    deterministic service clock); the run on the real clock is printed,
@@ -236,14 +239,22 @@ def run(split: common.Split, device) -> tuple[dict, list[common.Claim]]:
     common.emit("fig5/session_capacity", us_chunk,
                 f"chunk_qps_capacity={cap_qps:.0f};"
                 f"bucket=({BATCH_GROUPS},{g});note=live_submit_step_path")
-    sweep = session_sweep(params, cfg, lcfg, te, device, cap_qps)
-    for mult, res in sweep.items():
-        common.emit(f"fig5/openloop_x{mult}", res.serve_s * 1e6,
-                    f"offered_qps={res.offered_qps:.0f};"
-                    f"achieved_qps={res.achieved_qps:.0f};"
-                    f"shed_frac={res.shed_frac:.3f};p95_ms={res.pct(95):.2f};"
-                    f"p50_ms={res.pct(50):.2f};degraded_frac="
-                    f"{res.degraded / max(res.completed, 1):.3f}")
+    # claimed on the calibrated fixed clock, as part 3: on the real clock
+    # the machine's load may differ between the calibration and the
+    # sweep, and then "4x capacity" is not 4x
+    sweep = session_sweep(params, cfg, lcfg, te, device, cap_qps,
+                          timer=lambda: FixedTimer(us_chunk / 1e6))
+    # the same sweep on the real clock, reported but not claimed
+    real = session_sweep(params, cfg, lcfg, te, device, cap_qps)
+    for tag, runs in (("", sweep), ("_measured", real)):
+        for mult, res in runs.items():
+            common.emit(f"fig5/openloop_x{mult}{tag}", res.serve_s * 1e6,
+                        f"offered_qps={res.offered_qps:.0f};"
+                        f"achieved_qps={res.achieved_qps:.0f};"
+                        f"shed_frac={res.shed_frac:.3f};"
+                        f"p95_ms={res.pct(95):.2f};"
+                        f"p50_ms={res.pct(50):.2f};degraded_frac="
+                        f"{res.degraded / max(res.completed, 1):.3f}")
 
     served, shed_n, measured = {}, {}, {}
     for n in (1, 2):
@@ -265,6 +276,7 @@ def run(split: common.Split, device) -> tuple[dict, list[common.Claim]]:
                 f"floor={SCALING_FLOOR}")
     shed = {m: r.shed_frac for m, r in sweep.items()}
     rows = {"util": util, "us_chunk": us_chunk, "shed": shed,
+            "measured_shed": {m: r.shed_frac for m, r in real.items()},
             "served": served, "router_shed": shed_n, "measured": measured}
     return rows, claims(util, shed, served)
 

@@ -55,8 +55,11 @@ leaf) a K/V leaf whose slots the ranks divide holds the rank's block of
 them (positions, a ring's slots, or seamless's encoder frames) with every
 kv head, and decode combines K8's partials over the blocks across the
 ranks (`layers.seq_decode_attention`); a leaf they do not divide keeps the
-"heads" cut, so one cache can mix both (attention reads each leaf's own).
-Every rank returns the same, whole logits.
+"heads" cut, so one cache can mix both: `init_cache` tags each K/V leaf
+with its layout (`KVCache.cuts`), and attention reads each leaf's tag.
+Where the ranks split a dense or moe model's query heads (yi-34b's 56
+over 16 ranks), a rank's kv heads are those its touched query heads read
+(`parallel.q_heads`). Every rank returns the same, whole logits.
 """
 
 from __future__ import annotations
@@ -118,6 +121,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     return {k: (s, cfg.dtype) for k, s in shapes.items()}
 
 
+# the recurrent families' state leaves: every other leaf is a K/V leaf
+_STATES = ("tm_shift", "cm_shift", "wkv", "ssm", "conv")
+
+
 def cache_policy(cfg: ModelConfig) -> str:
     """The cache layout a model-parallel run of cfg takes: the reference's
     decode layout, "seq" under its sequence-sharded variants, else
@@ -144,8 +151,9 @@ def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
     whole (`parallel.mamba_pieces`: d_inner / world + 2 N), and
     "tm_shift" / "cm_shift" are whole."""
     check_tp(cfg, mp.world)
-    seq, n = cache_policy(cfg) == "seq", mp.world
+    n = mp.world
     held = len(kv_heads(cfg.n_heads, cfg.n_kv_heads, n, mp.rank))
+    cuts = cache_cuts(cfg, batch, max_len, mp, enc_len)
 
     def one(k, s):
         if k in ("tm_shift", "cm_shift"):
@@ -154,7 +162,7 @@ def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
             return s[:2] + (s[2] // n,) + s[3:]
         if k == "conv":
             return s[:-1] + (cfg.ssm_d_inner // n + 2 * cfg.ssm_state,)
-        if seq and s[-3] % n == 0:
+        if cuts[k] == "seq":
             return s[:-3] + (s[-3] // n,) + s[-2:]
         return s[:-2] + (held, s[-1])
 
@@ -162,14 +170,46 @@ def local_cache_shapes(cfg: ModelConfig, batch: int, max_len: int, mp,
         cfg, batch, max_len, enc_len).items()}
 
 
+def cache_cuts(cfg: ModelConfig, batch: int, max_len: int, mp,
+               enc_len: int = 0) -> dict[str, str]:
+    """The layout tag of every K/V leaf of the cache (every leaf but the
+    recurrent states, `_STATES`) under mp: "seq" (a block of its slots,
+    every kv head) where `cache_policy(cfg)` is "seq" and more than one
+    rank divides its slots, else "heads" (the rank's kv heads; every leaf
+    without mp)."""
+    seq = mp is not None and mp.world > 1 and cache_policy(cfg) == "seq"
+    return {k: "seq" if seq and s[-3] % mp.world == 0 else "heads"
+            for k, (s, _) in cache_shapes(cfg, batch, max_len,
+                                          enc_len).items()
+            if k not in _STATES}
+
+
+class KVCache(dict):
+    """The serving cache: its tensors by name (a dict), and `cuts`, each
+    K/V leaf's layout tag (`cache_cuts`), kept beside the tensors so that
+    each rank's cache bytes are its layout's alone. Prefill and decode
+    read each leaf's tag (`layers.seq_cut`)."""
+
+    def __init__(self, tensors: dict, cuts: dict[str, str]):
+        super().__init__(tensors)
+        self.cuts = dict(cuts)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
-               *, device="cuda", mp=None) -> dict[str, torch.Tensor]:
+               *, device="cuda", mp=None) -> KVCache:
     """The zeroed serving cache; under mp this rank's part of it
-    (`local_cache_shapes`)."""
+    (`local_cache_shapes`), its K/V leaves tagged with their layouts."""
     shapes = (cache_shapes(cfg, batch, max_len, enc_len) if mp is None
               else local_cache_shapes(cfg, batch, max_len, mp, enc_len))
-    return {k: torch.zeros(s, dtype=dt, device=device)
-            for k, (s, dt) in shapes.items()}
+    return KVCache({k: torch.zeros(s, dtype=dt, device=device)
+                    for k, (s, dt) in shapes.items()},
+                   cache_cuts(cfg, batch, max_len, mp, enc_len))
+
+
+def _kv(cache: KVCache, k: str, v: str, *idx) -> dict:
+    """A layer's K/V leaves cache[k][idx] / cache[v][idx] and their
+    layout tag, as `layers.attention` takes them."""
+    return {"k": cache[k][idx], "v": cache[v][idx], "cut": cache.cuts[k]}
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +265,8 @@ def _run_layers(params, cfg, x, positions, cache, cache_len, mode, mp=None):
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, _, _ = Z._block_fwd(
             p, cfg, x, positions, int(wins[i]),
-            kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_len=cache_len, mode=mode, mp=mp)
+            kv_cache=_kv(cache, "k", "v", i), cache_len=cache_len,
+            mode=mode, mp=mp)
     return x
 
 
@@ -240,29 +280,29 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode,
     g = cfg.global_every
     n_groups = cfg.n_layers // g
     w = cache["lk"].shape[3]
-    if Lyr.seq_cut(mp, cache["lk"], cfg.n_kv_heads):
+    if Lyr.seq_cut(mp, cache.cuts["lk"]):
         w *= mp.world                   # the rank holds a block of the ring
     layers = unstack(params["blocks"], cfg.n_layers)
 
-    def local_block(x, p, lk, lv):
+    def local_block(x, p, kv):
         h, _ = Lyr.attention(
             p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]), positions=positions,
-            kv_cache={"k": lk, "v": lv}, cache_len=cache_len, mode=mode,
-            ring_window=w, mp=mp)
+            kv_cache=kv, cache_len=cache_len, mode=mode, ring_window=w,
+            mp=mp)
         x = x + reduce_partial(mp, h)
         return x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]),
                                               p["mlp"], cfg.mlp_act))
 
     for gi in range(n_groups):
         for li in range(g - 1):
-            x = local_block(x, layers[gi * g + li], cache["lk"][gi, li],
-                            cache["lv"][gi, li])
+            x = local_block(x, layers[gi * g + li],
+                            _kv(cache, "lk", "lv", gi, li))
         x, _ = Z._dense_block_fwd(
             layers[gi * g + g - 1], cfg, x, positions, Lyr.NO_WINDOW,
-            kv_cache={"k": cache["gk"][gi], "v": cache["gv"][gi]},
-            cache_len=cache_len, mode=mode, mp=mp)
+            kv_cache=_kv(cache, "gk", "gv", gi), cache_len=cache_len,
+            mode=mode, mp=mp)
     for ti, p in enumerate(layers[n_groups * g:]):
-        x = local_block(x, p, cache["tlk"][ti], cache["tlv"][ti])
+        x = local_block(x, p, _kv(cache, "tlk", "tlv", ti))
     return x
 
 
@@ -302,7 +342,7 @@ def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode, mp=None):
             g = i // cfg.attn_every
             x, _ = Z._shared_attn_fwd(
                 params["shared_attn"], cfg, x, emb0, positions,
-                kv_cache={"k": cache["attn_k"][g], "v": cache["attn_v"][g]},
+                kv_cache=_kv(cache, "attn_k", "attn_v", g),
                 cache_len=cache_len, mode=mode, mp=mp)
     return x
 
@@ -317,12 +357,12 @@ def _prefill_encdec(params, cfg, batch, cache, mp=None):
     batch["tokens"]: each layer writes its self K/V (prefill mode) and its
     cross K/V, cast to the cache's dtype, into cache["cross_k"][i] /
     ["cross_v"][i]: under mp the rank's kv heads or, where the leaf is cut
-    over its frames (`layers.seq_cut`), the rank's block of the frames
-    with every kv head (the rank's heads gathered whole). Its own cross
-    attention attends the uncast K/V of its heads, as the reference's
-    does (no cache, no sequence cut)."""
+    over its frames (its tag "seq", `layers.seq_cut`), the rank's block of
+    the frames with every kv head (the rank's heads gathered whole). Its
+    own cross attention attends the uncast K/V of its heads, as the
+    reference's does (no cache, no sequence cut)."""
     frames = batch["frontend"].shape[1]
-    seq = Lyr.seq_cut(mp, cache["cross_k"], cfg.n_kv_heads)
+    seq = Lyr.seq_cut(mp, cache.cuts["cross_k"])
     enc_len = cache["cross_k"].shape[2] * (mp.world if seq else 1)
     if frames != enc_len:
         raise ValueError(f"a cache of {enc_len} encoder frames cannot take "
@@ -334,9 +374,9 @@ def _prefill_encdec(params, cfg, batch, cache, mp=None):
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         ck, cv = Z.cross_kv(p, cfg, enc_out, mp)
         x, _ = Z._decoder_block_fwd(
-            p, cfg, x, positions, (ck, cv),
-            kv_cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_len=0,
-            mode="prefill", mp=mp)
+            p, cfg, x, positions, (ck, cv, "heads"),
+            kv_cache=_kv(cache, "k", "v", i), cache_len=0, mode="prefill",
+            mp=mp)
         if seq:
             n = cache["cross_k"].shape[2]
             ck, cv = (t[:, mp.rank * n:(mp.rank + 1) * n] for t in
@@ -352,7 +392,8 @@ def _decode_encdec(params, cfg, x, positions, cache, cache_len, mp=None):
     cache_len, cross attention through K8 over the cached cross K/V."""
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, _ = Z._decoder_block_fwd(
-            p, cfg, x, positions, (cache["cross_k"][i], cache["cross_v"][i]),
-            kv_cache={"k": cache["k"][i], "v": cache["v"][i]},
-            cache_len=cache_len, mode="decode", mp=mp)
+            p, cfg, x, positions, (cache["cross_k"][i], cache["cross_v"][i],
+                                   cache.cuts["cross_k"]),
+            kv_cache=_kv(cache, "k", "v", i), cache_len=cache_len,
+            mode="decode", mp=mp)
     return x

@@ -127,8 +127,8 @@ def test_full_config_size_from_templates_alone():
 @pytest.mark.parametrize("qk_norm", [False, True])
 @pytest.mark.parametrize("sq,s_enc", [(5, 16), (1, 16), (1, 37), (3, 8193)])
 def test_cross_attention_matches_reference(sq, s_enc, qk_norm):
-    """`attention(..., cross_kv=(k, v))` on the decoder's layer-0 cross
-    weights: no rope, q normed only under qk_norm, no mask. Several
+    """`attention(..., cross_kv=(k, v, "heads"))` on the decoder's layer-0
+    cross weights: no rope, q normed only under qk_norm, no mask. Several
     queries take the full attention (blockwise past 8192 keys), one query
     K8's plain version over every encoder position, at 2e-5."""
     jcfg, tcfg, jp, tp = encdec_model(qk_norm=qk_norm)
@@ -149,7 +149,7 @@ def test_cross_attention_matches_reference(sq, s_enc, qk_norm):
         got, cache = TL.attention(tx, tcfg, exact(x),
                                   positions=torch.from_numpy(pos),
                                   causal=False,
-                                  cross_kv=(exact(k), exact(v)))
+                                  cross_kv=(exact(k), exact(v), "heads"))
     finally:
         TL.ops.swa_decode = k8
     assert cache is None and tuple(got.shape) == (2, sq, jcfg.d_model)

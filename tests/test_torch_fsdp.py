@@ -163,7 +163,7 @@ def runs():
             if (d, m) == (2, 2) else None
         ranks[(d, m)] = spawn_ranks(
             d * m, torch_tp_ranks.train_rank, (cases, kept, launcher),
-            mesh=train_mesh(d, m), timeout_s=300)
+            mesh=train_mesh(d, m), device="cpu", timeout_s=300)
     return refs, ranks
 
 
@@ -373,9 +373,9 @@ def test_launcher_rank_trains_as_the_launcher(runs, capsys):
 REFUSED = [("rwkv6-1.6b", {}, (2, 2), "fsdp", "families"),
            ("zamba2-1.2b", {}, (2, 2), "zero3", "families"),
            ("seamless-m4t-large-v2", {}, (1, 2), "zero3", "families"),
-           ("yi-34b", {"attn_shard": "shmap"}, (2, 2), "fsdp", "shmap"),
+           ("yi-34b", {"attn_shard": "shmap"}, (2, 2), "zero3", "shmap"),
            ("dbrx-132b", {"attn_shard": "seqkv"}, (1, 2), "tp", "seqkv"),
-           ("yi-34b", {}, (1, 8), "fsdp", "divide"),
+           ("yi-34b", {}, (1, 3), "fsdp", "divide"),
            ("dbrx-132b", {}, (2, 3), "zero3", "divide"),
            ("gemma3-27b", {}, (2, 2), "shard", "layout")]
 
@@ -385,9 +385,13 @@ REFUSED = [("rwkv6-1.6b", {}, (2, 2), "fsdp", "families"),
 def test_check_train_refuses(arch, kw, mesh, mode, why):
     """check_train refuses the ssm, hybrid and encdec families under the
     layouts that cut weights over "data" ("tp" trains them:
-    tests/test_torch_train_families.py), a sequence-sharded variant, a "model" axis check_tp refuses (8 ranks
-    over 4 heads; 3 over 4 heads and experts) and an unknown layout, and
-    the training forward refuses them too."""
+    tests/test_torch_train_families.py), "seqkv" and "shmap" under zero3
+    ("shmap" trains under "tp" and "fsdp" since the reference's pod dry
+    run does: tests/test_torch_shmap_train.py; this case refused it under
+    "fsdp" before), "seqkv" anywhere, a "model" axis check_tp refuses (3
+    ranks over 4 heads' 256 columns, and over 4 experts; 8 ranks, which
+    this case took before, now split the heads) and an unknown layout,
+    and the training forward refuses them too."""
     cfg = dataclasses.replace(TCFG.get_smoke(arch), **kw)
     with pytest.raises(ValueError, match=cfg.name):
         TPAR.check_train(cfg, train_mesh(*mesh), mode)

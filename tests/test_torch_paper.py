@@ -290,6 +290,23 @@ def test_fig5_des_counts_match_reference_on_fixed_clock(small, fitted,
         assert gstats["submitted"] == F5.ROUTER_REQUESTS
 
 
+def test_fig5_fixed_clock_sweeps_repeat(small, fitted):
+    """Fig 5's claimed session sweep runs on the calibrated fixed clock:
+    two sweeps from the same seed shed the same requests at every load
+    (on the real clock they need not, the machine's load moving between
+    them)."""
+    (_, te), _ = small
+    p, cfg, lcfg = fitted[0]
+    us_chunk = 2000.0
+    cap_qps = F5.BATCH_GROUPS / (us_chunk / 1e6)
+    a, b = (F5.session_sweep(p, cfg, lcfg, te, "cpu", cap_qps,
+                             timer=lambda: F5.FixedTimer(us_chunk / 1e6))
+            for _ in range(2))
+    assert {m: (r.shed, r.completed, r.degraded) for m, r in a.items()} \
+        == {m: (r.shed, r.completed, r.degraded) for m, r in b.items()}
+    assert a[4.0].shed > 0
+
+
 def _reference_table3(jsplit):
     """The reference's Table 3 (benchmarks/table3_offline.run) on jsplit,
     recomposed from repro.core: {algo: (train AUC, test AUC, cost)}."""

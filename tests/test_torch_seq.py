@@ -252,7 +252,8 @@ def runs(tmp_path_factory):
     attn_cases = [(*_attn_inputs(name), *ATTN_CASES[name][6:])
                   for name in ATTN_CASES]
     ranks = spawn_ranks(WORLD, torch_tp_ranks.seq_tests_rank,
-                        (engine_cases, attn_cases), timeout_s=300)
+                        (engine_cases, attn_cases), device="cpu",
+                        timeout_s=300)
     engine = {name: dict(ref=refs[name],
                          ranks=[r["engine"][i] for r in ranks])
               for i, name in enumerate(ENGINE_CASES)}
@@ -658,11 +659,23 @@ def test_seq_variants_refuse_an_unknown_attn_shard():
 
 
 def test_seq_cut_reads_the_leaf_not_the_variant():
-    """A leaf is cut over its slots iff it holds every kv head under more
-    than one rank."""
-    leaf = torch.zeros(2, 25, 2, 64)
-    assert TL.seq_cut(_rank(0, 2), leaf, 2)
-    assert not TL.seq_cut(_rank(0, 2), leaf[:, :, :1], 2)
-    assert not TL.seq_cut(None, leaf, 2)
-    assert not TL.seq_cut(_rank(0, 1), leaf, 2)
+    """A leaf is cut over its slots iff its layout tag, set where the
+    cache is laid out (`engine.cache_cuts`, `KVCache.cuts`), is "seq"
+    under more than one rank. This read the leaf's shape (every kv head:
+    "seq") before the tag; a rank holding every kv head under "heads"
+    (MQA) is now told apart. The variant alone decides nothing: a leaf
+    whose slots the ranks do not divide stays "heads" under "seqkv"."""
+    assert TL.seq_cut(_rank(0, 2), "seq")
+    assert not TL.seq_cut(_rank(0, 2), "heads")
+    assert not TL.seq_cut(None, "seq")
+    assert not TL.seq_cut(_rank(0, 1), "seq")
+    cfg = dataclasses.replace(torch_tp_ranks.smoke_cfg("yi-34b"),
+                              attn_shard="seqkv", n_kv_heads=1)
+    assert TE.cache_cuts(cfg, 2, 48, _rank(0, 2)) == {"k": "seq",
+                                                      "v": "seq"}
+    assert TE.cache_cuts(cfg, 2, 49, _rank(0, 2)) == {"k": "heads",
+                                                      "v": "heads"}
+    cache = TE.init_cache(cfg, 2, 49, device="cpu", mp=_rank(1, 2))
+    assert cache.cuts == {"k": "heads", "v": "heads"}
+    assert cache["k"].shape[-2] == cfg.n_kv_heads
 

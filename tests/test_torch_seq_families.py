@@ -209,7 +209,7 @@ def runs(tmp_path_factory):
               inputs[name][3], inputs[name][4], refs[name][2], max_len)
              for name, (arch, variant, _, max_len) in CASES.items()]
     ranks = spawn_ranks(WORLD, torch_tp_ranks.seq_family_rank, (cases,),
-                        timeout_s=300)
+                        device="cpu", timeout_s=300)
     return {name: dict(ref=refs[name], ranks=[r[name] for r in ranks])
             for name in CASES}
 

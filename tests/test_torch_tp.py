@@ -93,7 +93,7 @@ def runs():
         ranks = spawn_ranks(
             WORLD, torch_tp_ranks.model_rank,
             (arch, jax.device_get(jp), n(tb["tokens"]), fed, STEPS,
-             max_len), timeout_s=300)
+             max_len), device="cpu", timeout_s=300)
         out[arch] = dict(cfg=tcfg, logits=np.asarray(want_logits),
                          aux=float(want_aux), steps=steps, cache=cache,
                          ranks=ranks)
@@ -235,7 +235,7 @@ def shmap_runs(tmp_path_factory):
     try:
         ranks = spawn_ranks(WORLD, torch_tp_ranks.moe_rank,
                             ("dbrx-132b", p, x, CAPACITY_FACTORS),
-                            timeout_s=300)
+                            device="cpu", timeout_s=300)
         log, _ = ref.communicate(timeout=300)
     finally:
         if ref.poll() is None:
@@ -322,11 +322,14 @@ def _rank(r: int, world: int) -> ModelParallel:
 
 
 def test_tp_refuses_a_world_that_does_not_divide_the_kv_heads():
-    """A world that does not divide the kv heads runs where it divides the
-    query heads (each rank holds whole the kv heads its query heads read,
-    tests/test_torch_tp_kvrep.py): every 2-kv-head smoke config of the
-    dense and moe families at 4 ranks. It is still refused at 8 ranks (4
-    query heads) and at 3, by check_tp, init_cache and forward, and for
+    """A world that does not divide the kv heads runs where it divides
+    wq's H·hd columns (each rank holds whole the kv heads its touched
+    query heads read, tests/test_torch_tp_kvrep.py and
+    tests/test_torch_tp_qsplit.py): every 2-kv-head smoke config of the
+    dense and moe families at 4 ranks, and since the ranks may split the
+    query heads, the dense ones at 8 (half a head a rank; this check
+    refused 8 before that). It is still refused where the ranks do not divide H·hd (3 and
+    6 ranks: 'qout': 256), by check_tp, init_cache and forward, and for
     the hybrid / encdec / ssm families at such counts."""
     smoke = [a for a in PORTED_ARCHS
              if CFG.get_smoke(a).arch_type in ("dense", "moe")]
@@ -336,13 +339,15 @@ def test_tp_refuses_a_world_that_does_not_divide_the_kv_heads():
         assert cfg.n_kv_heads == 2 and cfg.n_heads == 4
         check_tp(cfg, 4)
         check_tp(cfg, 2)
+        if cfg.arch_type == "dense":        # the moe smokes' 4 experts
+            check_tp(cfg, 8)
     cfg = torch_tp_ranks.smoke_cfg("gemma3-27b")        # 2 kv heads
     params = MB.materialize(TZ.templates(cfg),
                             torch.Generator().manual_seed(0))
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    for world in (8, 3):
+    for world in (6, 3):
         with pytest.raises(ValueError, match=rf'"tp" layout over {world} '
-                                             r"ranks.*'heads': 4"):
+                                             r"ranks.*'qout': 256"):
             check_tp(cfg, world)
         mp = _rank(0, world)
         with pytest.raises(ValueError, match='"tp" layout'):

@@ -97,7 +97,7 @@ def runs():
                       tb["frontend"].numpy() if enc_len else None, fed,
                       max_len))
     ranks = spawn_ranks(WORLD, torch_tp_ranks.family_rank, (cases,),
-                        timeout_s=300)
+                        device="cpu", timeout_s=300)
     for name, ref in refs.items():
         ref["ranks"] = [rank[name] for rank in ranks]
         arch, impl, vocab = CASES[name]

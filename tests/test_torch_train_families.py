@@ -156,7 +156,7 @@ def runs(tmp_path_factory):
         launcher = LAUNCHER if (d, m) == (2, 2) else None
         ranks[(d, m)] = spawn_ranks(
             d * m, torch_tp_ranks.train_rank, (cases, None, launcher),
-            mesh=train_mesh(d, m), timeout_s=300)
+            mesh=train_mesh(d, m), device="cpu", timeout_s=300)
     return refs, ranks
 
 

@@ -1,7 +1,8 @@
 """Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py,
-tests/test_torch_tp_kvrep.py, tests/test_torch_seq.py,
-tests/test_torch_seq_families.py, tests/test_torch_fsdp.py and
-tests/test_torch_train_families.py.
+tests/test_torch_tp_kvrep.py, tests/test_torch_tp_qsplit.py,
+tests/test_torch_seq.py, tests/test_torch_seq_families.py,
+tests/test_torch_fsdp.py, tests/test_torch_train_families.py and
+tests/test_torch_shmap_train.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -127,6 +128,32 @@ def kvrep_rank(mp, cases) -> dict:
         cfg = dataclasses.replace(smoke_cfg(arch), attn_shard=variant)
         out[name] = dict(serve_case(mp, cfg, params_np, tokens, feed,
                                     max_len), digests=digests[start:])
+    return out
+
+
+def qsplit_rank(mp, cases) -> dict:
+    """One rank of tests/test_torch_tp_qsplit.py: `serve_case` for each
+    case (name, arch, overrides, variant, params_np, tokens, feed,
+    max_len), the arch's smoke config in float32 with the fields
+    `overrides` names (its query / kv head counts) under
+    attn_shard=variant; every all-reduce's result digested, and K8's
+    calls (whole and partials) over the whole case counted, per case."""
+    digests = record_reductions(mp)
+    out = {}
+    for name, arch, overrides, variant, params_np, tokens, feed, \
+            max_len in cases:
+        start = len(digests)
+        cfg = dataclasses.replace(smoke_cfg(arch), attn_shard=variant,
+                                  **overrides)
+        whole, ranges = [], []
+        undo, undo_k8 = _record_partials(ranges), _record_k8(whole)
+        try:
+            res = serve_case(mp, cfg, params_np, tokens, feed, max_len)
+        finally:
+            undo()
+            undo_k8()
+        out[name] = dict(res, digests=digests[start:], k8=len(whole),
+                         k8_partial=len(ranges))
     return out
 
 
