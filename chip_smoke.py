@@ -328,6 +328,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    on the card, equal bits wherever ranks share a leaf's pieces, each
    rank's state its pieces' bytes, the collectives of every step the
    formula's;
+8h. `[pod costs]` (after [tp families lm]) the pod dry run
+   (`launch/dryrun.py` `rank_class_records`, the counting transport) held
+   on the host to the spawns above, in [costs]'s pool: for every rank row
+   ([tp lm], [seq lm], [tp moe], [tp kvrep lm], [tp qsplit lm] under "tp"
+   and "seqkv", [tp / seq families lm]) each decode step (and the prefill,
+   but the recurrent families' scan-form ones) traced on `meta` for
+   every class of ranks, and for [shmap train lm] and [fsdp lm] an Adam
+   step: every rank's collectives (calls and bytes by kind) and K8
+   launches equal its own counts pass by pass, its shard / cache / params
+   + m + v bytes equal its own; each row's bound on the shared card (the
+   ranks' FLOPs and bytes summed) printed beside its medians, none faster
+   than it;
 10. `[train lm]` --target lm at starcoder2-3b's published widths cut to
    2 layers (float32 weights, as the launcher draws them), 3 Adam steps on
    the card: finite losses within 1e-4 of the same steps on the CPU, and
@@ -382,6 +394,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 from __future__ import annotations
 
+import atexit
 import collections
 import concurrent.futures
 import contextlib
@@ -1047,27 +1060,39 @@ def costs_combos() -> list[tuple[str, str]]:
     return out
 
 
+HOST_WORKERS = min(8, os.cpu_count() or 1)
+
+
+@functools.lru_cache(maxsize=1)
+def host_pool() -> concurrent.futures.ProcessPoolExecutor:
+    """The pool of HOST_WORKERS spawned processes that traces on the
+    host's CPU: `[costs]` starts it, `[pod costs]` reuses it (its workers
+    wait idle in between, so the second phase pays no start-up), and main
+    shuts it down after that (or the interpreter's exit, after a failed
+    phase)."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    atexit.register(pool.shutdown)
+    return pool
+
+
 def phase_costs(tmp: str) -> dict:
     """The dry-run cost report on the host at --variant auto over
     `costs_combos()`, written under tmp: one line per combo (skipped ones
     with the reason) and the phase's wall time. The combos are traced in
-    a pool of spawned processes, one per core up to 8, the longest (the
-    32k-token prefills' KV-chunk loops) first. A combo that fails to trace
-    fails the run."""
+    `host_pool()`, the longest (the 32k-token prefills' KV-chunk loops)
+    first. A combo that fails to trace fails the run."""
     DR, RL = cost_report()
     t0 = time.perf_counter()
     combos = sorted(costs_combos(),
                     key=lambda c: ("prefill", "train", "decode").index(
                         SHAPES[c[1]].step))
-    ctx = multiprocessing.get_context("spawn")
-    workers = min(8, os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(workers,
-                                                mp_context=ctx) as pool:
-        futures = {(arch, shape): pool.submit(
-            DR.run_one, arch, shape, out_dir=Path(tmp),
-            variant=DR.recommended_variant(CFG.get(arch), shape))
-            for arch, shape in combos}
-        done = {c: f.result() for c, f in futures.items()}
+    pool = host_pool()
+    futures = {(arch, shape): pool.submit(
+        DR.run_one, arch, shape, out_dir=Path(tmp),
+        variant=DR.recommended_variant(CFG.get(arch), shape))
+        for arch, shape in combos}
+    done = {c: f.result() for c, f in futures.items()}
     recs = {}
     for arch, shape in costs_combos():
         rec = done[(arch, shape)]
@@ -1079,7 +1104,7 @@ def phase_costs(tmp: str) -> dict:
               f"{DR.summary(rec)}")
     seconds = time.perf_counter() - t0
     print(f"[costs] {len(recs)} combos traced on meta tensors in "
-          f"{seconds:.1f} s on the host ({workers} processes; one H100's "
+          f"{seconds:.1f} s on the host ({HOST_WORKERS} processes; one H100's "
           f"peaks: {RL.PEAK_FLOPS:.3g} FLOP/s bf16, {RL.HBM_BW:.3g} B/s)")
     return dict(records=recs, seconds=seconds)
 
@@ -4463,7 +4488,9 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
     (`engine.cache_policy`): logits and the rank's own routes (kept on the
     card until the last step), the launch counts (0 before the prefill,
     read after the last step), the cache's bytes, peak memory, prefill s,
-    ms per step (CUDA events), the collectives of the decode steps."""
+    ms per step (CUDA events), the collectives of the decode steps, and
+    `passes`: what [pod costs] traces again on `meta` (`pass_counts` of
+    the prefill and of each decode step, the run's sizes and config)."""
     dev = mp.device
     tokens = torch.as_tensor(job["tokens"]).to(dev)
     feed = [torch.as_tensor(f).to(dev) for f in job["feed"]]
@@ -4473,28 +4500,40 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
     batch, enc_len = {"tokens": tokens}, 0
     if frontend is not None:
         batch["frontend"], enc_len = frontend, frontend.shape[1]
-    cache = E.init_cache(cfg, b, job.get("max_len") or s + len(feed),
-                         enc_len, device=dev, mp=mp)
+    max_len = job.get("max_len") or s + len(feed)
+    cache = E.init_cache(cfg, b, max_len, enc_len, device=dev, mp=mp)
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    passes = dict(arch=job["arch"], n_layers=cfg.n_layers,
+                  n_enc_layers=cfg.n_enc_layers, attn_shard=cfg.attn_shard,
+                  prefill_shard=(prefill_cfg or cfg).attn_shard,
+                  mesh=mp.mesh.sizes, batch=b, prompt=s, max_len=max_len,
+                  enc_len=enc_len, decode=[])
     sync()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()                # this rank's path starts here
+    mp.reset_counts()
     t0 = time.perf_counter()
     (lg, cache), routes = routed(E.prefill, params, prefill_cfg or cfg,
                                  batch, cache, mp, host=False, feed=gates)
     sync()
     prefill_s = time.perf_counter() - t0
+    passes["prefill"] = pass_counts(mp, {})
     logits = [lg[:, -1]]
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(len(feed) + 1)]
-    mp.reset_counts()
+    calls, nbytes = collections.Counter(), collections.Counter()
     events[0].record()
     for i, tok in enumerate(feed):
+        before = ops.launch_counts()
+        mp.reset_counts()
         (lg, cache), r = routed(E.decode_step, params, cfg, tok, cache,
                                 s + i, mp, host=False, feed=gates)
         logits.append(lg[:, -1])
         routes += r
         events[i + 1].record()
+        passes["decode"].append(pass_counts(mp, before))
+        calls.update(mp.calls)
+        nbytes.update(mp.bytes)
     sync()
     counts = ops.launch_counts()             # ... and ends here
     step_ms = [events[i].elapsed_time(events[i + 1])
@@ -4504,11 +4543,22 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
         routes=[(p.cpu(), i.cpu()) for p, i in routes],
         k8=counts["swa_decode"], k8_partial=counts["swa_decode_partial"],
         cache_bytes=cache_bytes, prefill_s=prefill_s, step_ms=step_ms,
-        peak=torch.cuda.max_memory_allocated(), calls=dict(mp.calls),
-        bytes=dict(mp.bytes))
+        peak=torch.cuda.max_memory_allocated(), calls=dict(calls),
+        bytes=dict(nbytes), passes=passes)
     del cache, lg
     free_cuda()
     return out
+
+
+def pass_counts(mp, before: dict) -> dict:
+    """A pass's counts on this rank: its collectives (calls and bytes put
+    in, by kind, `mp`'s since its last reset) and K8's launches, whole and
+    partials, since the launch counts `before` (its counters since their
+    reset where empty)."""
+    now = ops.launch_counts()
+    return dict(calls=dict(mp.calls), bytes=dict(mp.bytes), **{
+        key: now[name] - before.get(name, 0) for key, name in (
+            ("k8", "swa_decode"), ("k8_partial", "swa_decode_partial"))})
 
 
 def check_rank_routes(rank_routes, want, k: int, tag: str
@@ -4732,14 +4782,16 @@ def phase_tp_lm(card: str, moe_ref: dict) -> dict:
             calls_per_step=[{k: v / TP_STEPS
                              for k, v in rank[arch]["calls"].items()}
                             for rank in ranks],
+            shard_bytes=[rank[arch]["shard_bytes"] for rank in ranks],
+            passes=[rank[arch]["passes"] for rank in ranks],
             worst_share_of_bar=worst, backend=backend, cards=n_cards,
             **({"route_log_err": dlog, "route_share_of_bar": dshare}
                if cfg.arch_type == "moe" else {}))
         if job["seq"]:
-            out[f"{arch}/seq"] = seq_lm_report(
+            out[f"{arch}/seq"] = dict(seq_lm_report(
                 [rank[f"{arch}/seq"] for rank in ranks], ref,
                 dataclasses.replace(cfg, n_layers=layers), job["seq"],
-                backend, n_cards, card)
+                backend, n_cards, card), shard_bytes=out[arch]["shard_bytes"])
     print(f"[tp lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded reference runs {ref_s:.1f} s, the ranks {spawn_s:.1f} "
           f"s of it, [seq lm], [tp kvrep parity], [tp kvrep lm] and [tp "
@@ -4846,6 +4898,8 @@ def phase_tp_qsplit_lm(card: str) -> dict:
                 prefill_s=[run["prefill_s"] for run in got],
                 peak_bytes=[run["peak"] for run in got],
                 cache_bytes=[run["cache_bytes"] for run in got],
+                shard_bytes=[rank[arch]["shard_bytes"] for rank in ranks],
+                passes=[run["passes"] for run in got],
                 worst_share_of_bar=worst)
     got = [rank["train"] for rank in ranks]
     err = max(abs(a - c) for run in got
@@ -4884,7 +4938,8 @@ def phase_tp_qsplit_lm(card: str) -> dict:
               f"collectives a step (calls, bytes) {calls}")
     out["train"] = dict(losses=got[0]["losses"], one_process=want, err=err,
                         shared_leaves=shared,
-                        peak_bytes=[run["peak_bytes"] for run in got])
+                        peak_bytes=[run["peak_bytes"] for run in got],
+                        runs=[train_counts(run) for run in got])
     print(f"[tp qsplit lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded runs {ref_s:.1f} s; the spawn of {QSPLIT_WORLD} ranks "
           f"{spawn_s:.1f} s, [shmap train lm] included); the times are "
@@ -5356,7 +5411,8 @@ def phase_fsdp(card: str) -> dict:
             shared_leaves=shared,
             peak_bytes=[run["peak_bytes"] for run in got],
             step_s=[run["seconds"] for run in got],
-            calls=got[0]["calls"][-1])
+            calls=got[0]["calls"][-1],
+            runs=[train_counts(run) for run in got])
     print(f"[fsdp lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded references {ref_s:.1f} s, the ranks {spawn_s:.1f} s, "
           f"[fsdp parity] and [shmap train parity] included); the times are "
@@ -5411,6 +5467,7 @@ def seq_lm_report(got, ref, cfg, variant, backend, n_cards, card) -> dict:
                 calls_per_step=[{k: v / TP_STEPS
                                  for k, v in rank["calls"].items()}
                                 for rank in got],
+                passes=[rank["passes"] for rank in got],
                 worst_share_of_bar=worst, variant=variant)
 
 
@@ -5829,11 +5886,13 @@ def phase_tp_families_lm(card: str) -> dict:
             peak_bytes=[rank[arch]["peak"] for rank in ranks],
             calls_per_step=per_step, worst_share_of_bar=worst,
             std_bar_share=alone, one_card_spread_share=spread,
+            passes=[rank[arch]["passes"] for rank in ranks],
             backend=backend, cards=n_cards)
     for arch in SEQ_FAMILY_ARCHS:
-        out[f"{arch}/seq"] = seq_families_lm_report(
+        out[f"{arch}/seq"] = dict(seq_families_lm_report(
             [rank[f"{arch}/seq"] for rank in ranks], refs[arch],
-            family_lm_cfg(arch), backend, n_cards, card)
+            family_lm_cfg(arch), backend, n_cards, card),
+            shard_bytes=out[arch]["shard_bytes"])
     print(f"[tp families lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"ranks {spawn_s:.1f} s of it, [seq families lm] included); the "
           f"times are {TP_WORLD} processes " + where)
@@ -5892,7 +5951,197 @@ def seq_families_lm_report(got, ref, cfg, backend, n_cards, card) -> dict:
                 cache_bytes=[rank["cache_bytes"] for rank in got],
                 peak_bytes=[rank["peak"] for rank in got],
                 seconds=[rank["seconds"] for rank in got],
+                passes=[rank["passes"] for rank in got],
                 calls_per_step=per_step, worst_share_of_bar=worst)
+
+
+# -- 8h. [pod costs]: the pod dry run held to the ranks' own counts -----------
+
+def train_counts(run) -> dict:
+    """What [pod costs] reads of a `train_lm_rank` run: each step's
+    collectives (calls and bytes put in), the bytes of params + m + v, the
+    seconds of each step."""
+    return {k: run[k] for k in ("calls", "bytes", "state_bytes", "seconds")}
+
+
+def _by_rank(classes) -> dict[int, dict]:
+    return {r: c for c in classes for r in c["ranks"]}
+
+
+def _check_pass(tag, label, recs, got) -> None:
+    """A pass's meta records (by rank) against each rank's own counts:
+    collective calls and bytes by kind, K8's launches whole and
+    partials, all equal."""
+    for r, run in enumerate(got):
+        rec = recs[r]
+        k8 = rec["kernel_calls"]
+        want = dict(calls=rec["calls"], bytes=rec["bytes"],
+                    k8=k8.get("swa_decode", 0),
+                    k8_partial=k8.get("swa_decode_partial", 0))
+        assert want == run, (tag, label, r, want, run)
+
+
+def shared_card_bound(recs: dict) -> tuple[float, str, float]:
+    """(bound ms, by, collective ms) of one step of every rank in `recs`
+    on ONE card: max(the ranks' FLOPs / the peak of the dtype their
+    matmuls run in (the records' `dtype`), their bytes / HBM bandwidth);
+    the collective term (at an H100 machine's links, the largest rank's)
+    printed beside it, not priced: gloo moves it through the host."""
+    _, RL = cost_report()
+    (dtype,) = {rec["dtype"] for rec in recs.values()}
+    flops = sum(rec["cost"]["flops"] for rec in recs.values())
+    nbytes = sum(rec["cost"]["bytes accessed"] for rec in recs.values())
+    t = {"compute": flops / RL.peak_flops(dtype), "memory": nbytes / RL.HBM_BW}
+    by = max(t, key=t.get)
+    coll = max(RL.collective_s(rec["collectives"]) for rec in recs.values())
+    return 1e3 * t[by], by, 1e3 * coll
+
+
+def pod_serve_row(tag: str, row: dict, card: str) -> dict:
+    """One serving rank row (`tp_lm_serve`'s runs, per rank): its config,
+    mesh and sizes as the ranks ran them (`passes`), each decode step and,
+    but for the recurrent families' scan-form prefills (a trace steps
+    through every prompt token: 9-14 s of host each, beside no check
+    [pod costs] owes), the prefill traced on `meta` for every class of
+    ranks (`dryrun.rank_class_records`), every rank's collectives and K8
+    launches equal to its own counts pass by pass, its parameter and cache
+    bytes equal to its shard's and cache's; the bound of the last step on
+    the shared card (`shared_card_bound`) no slower than any rank's
+    median step."""
+    DR, _ = cost_report()
+    t0 = time.perf_counter()
+    passes = row["passes"]
+    p0 = passes[0]
+    cfg = dataclasses.replace(CFG.get(p0["arch"]), n_layers=p0["n_layers"],
+                              n_enc_layers=p0["n_enc_layers"],
+                              attn_shard=p0["attn_shard"])
+    mesh = train_mesh(*p0["mesh"])
+    kw = dict(batch=p0["batch"], max_len=p0["max_len"],
+              enc_len=p0["enc_len"])
+    classes, traced = [], []
+    if cfg.arch_type not in ("ssm", "hybrid"):
+        recs = _by_rank(DR.rank_class_records(
+            dataclasses.replace(cfg, attn_shard=p0["prefill_shard"]),
+            "prefill", mesh, seq_len=p0["prompt"], cache_cfg=cfg, **kw))
+        _check_pass(tag, "prefill", recs, [p["prefill"] for p in passes])
+        classes.append(len({id(rec) for rec in recs.values()}))
+        traced.append(f"the {p0['prefill_shard']} prefill")
+    for i in range(len(p0["decode"])):
+        recs = _by_rank(DR.rank_class_records(
+            cfg, "decode", mesh, seq_len=p0["max_len"],
+            cache_len=p0["prompt"] + i, **kw))
+        _check_pass(tag, f"decode {i}", recs, [p["decode"][i] for p in passes])
+    classes.append(len({id(rec) for rec in recs.values()}))
+    traced.append(f"{len(p0['decode'])} {cfg.attn_shard} decode steps")
+    for r in recs:
+        assert recs[r]["argument_bytes"]["params"] == row["shard_bytes"][r] \
+            and recs[r]["argument_bytes"]["cache"] == \
+            row["cache_bytes"][r], (tag, r, recs[r]["argument_bytes"])
+    bound, by, coll = shared_card_bound(recs)
+    med = row["step_ms_median"]
+    assert min(med) >= bound, (tag, med, bound)
+    line = (f"[pod costs] {tag}: {cfg.name}, {cfg.n_layers} layers, "
+            f"{len(passes)} ranks ({' / '.join(map(str, classes))} "
+            f"class(es)): {' and '.join(traced)} traced on meta, every "
+            f"rank's collectives (calls and bytes by kind) and K8 launches "
+            f"equal its own, its shard and cache bytes too; one step of all "
+            f"ranks on one card ({card}) bound {bound:.4f} ms by {by} "
+            f"(collective term {coll:.4f} ms a rank at H100 links, not "
+            f"priced for gloo); medians {min(med):.3f}-{max(med):.3f} ms a "
+            f"step, the bound {bound / min(med):.2%} of the fastest")
+    return dict(bound_ms=bound, bound_by=by, collective_ms=coll,
+                median_ms=med, classes=classes, line=line,
+                seconds=time.perf_counter() - t0)
+
+
+def pod_train_row(tag: str, runs: list, cfg, mesh, mode: str,
+                  card: str) -> dict:
+    """One training rank row (`train_counts` per rank of
+    `train_lm_rank`'s run of cfg on `mesh` under `mode`): an Adam step
+    traced on `meta` for every class of ranks, every step's collectives of
+    every rank equal to the trace's, no kernel, params + m + v equal to
+    the rank's state bytes; the bound of a step of all ranks on the shared
+    card no slower than any rank's median step."""
+    DR, _ = cost_report()
+    t0 = time.perf_counter()
+    recs = _by_rank(DR.rank_class_records(
+        cfg, "train", mesh, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+        mode=mode, param_dtype=torch.float32))
+    for r, run in enumerate(runs):
+        rec = recs[r]
+        for i, (calls, nbytes) in enumerate(zip(run["calls"], run["bytes"])):
+            assert (rec["calls"], rec["bytes"]) == (calls, nbytes), (
+                tag, r, i, rec["calls"], calls, rec["bytes"], nbytes)
+        assert not rec["kernel_calls"], (tag, rec["kernel_calls"])
+        held = rec["argument_bytes"]
+        assert held["params"] + held["opt_state"] - 4 == run["state_bytes"], (
+            tag, r, held, run["state_bytes"])
+    bound, by, coll = shared_card_bound(recs)
+    med = [1e3 * statistics.median(run["seconds"]) for run in runs]
+    assert min(med) >= bound, (tag, med, bound)
+    line = (f"[pod costs] {tag}: {cfg.name}, {cfg.n_layers} layer(s), "
+          f"float32 weights, {mode!r} + {cfg.attn_shard!r} over "
+          f"{mesh.sizes[0]} x {mesh.sizes[1]} ranks "
+          f"({len({id(rec) for rec in recs.values()})} classes): an Adam "
+          f"step traced on meta, every step's collectives of every rank "
+          f"equal its own, params + m + v its state bytes, no kernel; one "
+          f"step of all ranks on one card ({card}) bound {bound:.3f} ms by "
+          f"{by} at the float32 peak (collective term {coll:.3f} ms a rank "
+          f"at H100 links, not priced for gloo); medians {min(med):.1f}-"
+          f"{max(med):.1f} ms a step, the bound {bound / min(med):.2%} of "
+          f"the fastest")
+    return dict(bound_ms=bound, bound_by=by, collective_ms=coll,
+                median_ms=med, line=line, seconds=time.perf_counter() - t0)
+
+
+def phase_pod_costs(card: str, tp_lm: dict, tp_qsplit: dict, fsdp: dict,
+                    tp_families_lm: dict) -> dict:
+    """[pod costs]: the pod dry run (`launch/dryrun.py` `rank_record`, the
+    counting transport) held on the host to the spawns that ran on the
+    card, no new spawn: every rank row (`pod_serve_row`: [tp lm], [seq
+    lm], [tp moe], [tp kvrep lm], [tp qsplit lm] under "tp" and "seqkv",
+    [tp families lm], [seq families lm]) and the training rows
+    (`pod_train_row`: [shmap train lm], [fsdp lm] under each of
+    FSDP_MODES), each rank's counts equal to the trace's, each row's
+    bound printed beside its medians. The rows are traced in [costs]'s
+    pool (`host_pool`), the longest first."""
+    t0 = time.perf_counter()
+    rows = {"tp lm": tp_lm[LM_ARCH], "seq lm": tp_lm[f"{LM_ARCH}/seq"],
+            "tp moe": tp_lm[TP_MOE_ARCH],
+            "tp kvrep lm": tp_lm[KVREP_LM_ARCH],
+            **{f"tp qsplit lm {arch}{'' if key == arch else ' seqkv'}":
+               tp_qsplit[key] for arch in QSPLIT_LM_ARCHS
+               for key in (arch, f"{arch}/seq")},
+            **{f"tp families lm {arch}": tp_families_lm[arch]
+               for arch in TP_FAMILY_ARCHS},
+            **{f"seq families lm {arch}": tp_families_lm[f"{arch}/seq"]
+               for arch in SEQ_FAMILY_ARCHS}}
+    train = {"shmap train lm": (
+        tp_qsplit["train"]["runs"],
+        TLT.lm_config(SHMAP_LM_ARCH, False, SHMAP_LM_LAYERS,
+                      attn_shard="shmap"), train_mesh(1, QSPLIT_WORLD), "tp"),
+        **{f"fsdp lm {mode}": (
+            fsdp[f"lm/{mode}"]["runs"],
+            TLT.lm_config(FSDP_LM_ARCH, False, FSDP_LM_LAYERS),
+            train_mesh(*FSDP_MESH), mode) for mode in FSDP_MODES}}
+    pool = host_pool()
+    # the longest first: gemma3's prefills of 4 x 2048 tokens, then the
+    # 16 ranks' rows
+    order = sorted(rows, key=lambda tag: (tag not in ("tp lm", "seq lm"),
+                                          "qsplit" not in tag))
+    futures = {tag: pool.submit(pod_serve_row, tag, rows[tag], card)
+               for tag in order}
+    futures.update({tag: pool.submit(pod_train_row, tag, *args, card)
+                     for tag, args in train.items()})
+    out = {tag: futures[tag].result() for tag in (*rows, *train)}
+    for r in out.values():
+        print(r["line"])
+    seconds = time.perf_counter() - t0
+    print(f"[pod costs] {len(out)} rank rows traced on meta tensors and "
+          f"held to the ranks' counts in {seconds:.1f} s on the host "
+          f"({HOST_WORKERS} processes; each row's own seconds "
+          f"{ {tag: round(r['seconds'], 1) for tag, r in out.items()} })")
+    return dict(rows=out, seconds=seconds)
 
 
 # -- 8g. "tp" training of the ssm, hybrid and encdec families -----------------
@@ -6729,13 +6978,16 @@ def main() -> None:
     for r in moe_lm.values():
         del r["tp_ref"]
     free_cuda()
-    phase_fsdp(card)
+    fsdp = phase_fsdp(card)
     lap("fsdp")
     ssm_lm = phase_ssm_lm(card)
     encdec_lm = phase_encdec_lm(card)
     lap("ssm lm, encdec lm")
     tp_families_lm = phase_tp_families_lm(card)
     lap("tp families lm")
+    phase_pod_costs(card, tp_lm, tp_qsplit, fsdp, tp_families_lm)
+    host_pool().shutdown()
+    lap("pod costs")
     free_cuda()
     phase_tp_families_train(card)
     lap("tp families train")

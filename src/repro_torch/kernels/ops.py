@@ -168,7 +168,8 @@ def _swa_decode_meta(q, k, v, cache_len, window) -> torch.Tensor:
 
 def _swa_decode_partial_meta(q, k, v, lo, hi):
     """The partials mode on `meta` tensors: the checks, empty float32 (m,
-    l, acc), no launch; the work of the hi - lo slots goes to the sink."""
+    l, acc), no launch; the work of the hi - lo slots goes to the sink,
+    which hears of no call for an empty range (the card launches none)."""
     lo, hi = operator.index(lo), operator.index(hi)
     b, _, h, hkv, hd = _swa_kernel.check_range("swa_decode_partial", q, k,
                                                v, lo, hi)
@@ -177,7 +178,7 @@ def _swa_decode_partial_meta(q, k, v, lo, hi):
     out = tuple(torch.empty(shape, device="meta")
                 for shape in ((b, h), (b, h), (b, h, hd)))
     sink = _work_sink.get()
-    if sink is not None:
+    if sink is not None and hi > lo and b * h:
         sink("swa_decode_partial", ops_,
              [(q, q_bytes), (k, kv_bytes // 2), (v, kv_bytes // 2)], out)
     return out

@@ -57,6 +57,9 @@ counts each kind's calls and the bytes each rank puts in. With no
 ModelParallel (`mp=None`, the default of every entry point) nothing is
 sharded and nothing is reduced. `launch.mesh.model_parallel` builds one in
 each rank of a run; `launch.mesh.spawn_ranks` starts the ranks.
+`ModelParallel.counting(mesh, rank)` builds one rank of a mesh whose
+transport only counts (backend "meta", on `meta` tensors, no process
+group): the pod dry run (`launch/dryrun.py`) traces a rank's step with it.
 """
 
 from __future__ import annotations
@@ -96,7 +99,15 @@ class ModelParallel:
     counted, so a collective on the default group is over an axis that
     spans every rank. `calls` and `bytes` count the collectives by kind
     ("all_reduce_sum", "all_reduce_max", "all_gather", "reduce_scatter"):
-    calls, and the bytes of the tensor this rank puts in."""
+    calls, and the bytes of the tensor this rank puts in. Where `log` is a
+    list, each call also appends (kind, bytes put in, the global ranks
+    of its group, the bytes of one element) to it (the pod dry run prices
+    each call by its group).
+
+    Backend "meta" (`counting`) is a transport that only counts: every
+    collective counts as above and returns what it would, shaped as the
+    real one's, without moving data; it refuses a tensor that is not on
+    `meta`, so it never stands in for a real transport."""
 
     rank: int
     world: int
@@ -114,30 +125,63 @@ class ModelParallel:
     # storage of a weight gathered for use -> what gathers it again
     # (`regather_saved`); None outside a training forward
     regather: dict | None = None
+    log: list | None = None
+
+    @classmethod
+    def counting(cls, mesh, rank: int) -> "ModelParallel":
+        """Global rank `rank` (row-major) of the ("data", "model") `mesh`
+        over the counting transport: backend "meta", device `meta`, no
+        process group; `log` collects every call."""
+        if tuple(mesh.axis_names) != ("data", "model"):
+            raise ValueError(f"a (\"data\", \"model\") mesh, not {mesh}")
+        n_data, n_model = mesh.sizes
+        data_rank, model_rank = divmod(rank, n_model)
+        return cls(rank=model_rank, world=n_model, mesh=mesh, backend="meta",
+                   device=torch.device("meta"), data_rank=data_rank,
+                   data_world=n_data, log=[])
 
     @property
     def global_rank(self) -> int:
         return self.data_rank * self.world + self.rank
 
-    def _count(self, kind: str, x: torch.Tensor) -> None:
+    def _count(self, kind: str, nbytes: int, members: list[int],
+               itemsize: int) -> None:
         self.calls[kind] += 1
-        self.bytes[kind] += x.numel() * x.element_size()
+        self.bytes[kind] += nbytes
+        if self.log is not None:
+            self.log.append((kind, nbytes, tuple(members), itemsize))
+
+    def _wire(self, name: str, tensors: list[torch.Tensor], *args,
+              **kw) -> None:
+        """The one seam to the transport: dist.<name>(*args, **kw), or, on
+        the counting transport, nothing (each of the call's `tensors` must
+        be on `meta`)."""
+        if self.backend != "meta":
+            getattr(dist, name)(*args, **kw)
+            return
+        for t in tensors:
+            if t.device.type != "meta":
+                raise ValueError(f"the counting transport moves no data: "
+                                 f"{name} on a {t.device.type} tensor")
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the "model" axis, IN PLACE (the reference's
         psum); every rank then holds the same bits."""
-        if self.world == 1:
-            return x
-        self._count("all_reduce_sum", x)
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.model_group)
-        return x
+        return self._all_reduce(x, ("model",), "all_reduce_sum",
+                                dist.ReduceOp.SUM)
 
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
         """x's elementwise max over the "model" axis, in place (pmax)."""
-        if self.world == 1:
+        return self._all_reduce(x, ("model",), "all_reduce_max",
+                                dist.ReduceOp.MAX)
+
+    def _all_reduce(self, x, axes, kind, op) -> torch.Tensor:
+        members = self.axis_ranks(axes)
+        if len(members) == 1:
             return x
-        self._count("all_reduce_max", x)
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model_group)
+        self._count(kind, x.numel() * x.element_size(), members,
+                    x.element_size())
+        self._wire("all_reduce", [x], x, op=op, group=self._group(axes))
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -162,23 +206,20 @@ class ModelParallel:
         """x summed IN PLACE over the ranks along `axes`."""
         if axes == ("model",):
             return self.all_reduce_sum(x)
-        if len(self.axis_ranks(axes)) == 1:
-            return x
-        self._count("all_reduce_sum", x)
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self._group(axes))
-        return x
+        return self._all_reduce(x, axes, "all_reduce_sum", dist.ReduceOp.SUM)
 
     def gather_axes(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
         """The blocks of x that the ranks along `axes` hold, concatenated
         along `dim` in their order (`axis_ranks`): a fresh contiguous
         tensor; over one rank, x itself."""
-        n = len(self.axis_ranks(axes))
-        if n == 1:
+        members = self.axis_ranks(axes)
+        if len(members) == 1:
             return x
         x = x.contiguous()
-        self._count("all_gather", x)
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=self._group(axes))
+        self._count("all_gather", x.numel() * x.element_size(), members,
+                    x.element_size())
+        parts = [torch.empty_like(x) for _ in members]
+        self._wire("all_gather", [x], parts, x, group=self._group(axes))
         return torch.cat(parts, dim=dim)
 
     def reduce_scatter_axes(self, g: torch.Tensor, dim: int,
@@ -193,21 +234,24 @@ class ModelParallel:
         column."""
         members = self.axis_ranks(axes)
         n = g.shape[dim] // len(members)
-        col = [members.index(r) for r in self.axis_ranks(("data",))]
+        column = self.axis_ranks(("data",))
+        col = [members.index(r) for r in column]
         if len(col) == 1:
             return g.narrow(dim, members.index(self.global_rank) * n, n)
         blocks = [g.narrow(dim, i * n, n).contiguous() for i in col]
-        self.calls["reduce_scatter"] += 1
-        self.bytes["reduce_scatter"] += sum(b.numel() * b.element_size()
-                                            for b in blocks)
+        self._count("reduce_scatter", sum(b.numel() * b.element_size()
+                                          for b in blocks), column,
+                    g.element_size())
         out = torch.empty_like(blocks[0])
-        dist.reduce_scatter(out, blocks, op=dist.ReduceOp.SUM,
-                            group=self.data_group)
+        self._wire("reduce_scatter", [g], out, blocks, op=dist.ReduceOp.SUM,
+                   group=self.data_group)
         return out
 
     def reset_counts(self) -> None:
         self.calls.clear()
         self.bytes.clear()
+        if self.log is not None:
+            self.log.clear()
 
 
 def tp_dims(cfg) -> dict[str, int]:
@@ -702,8 +746,8 @@ def gather_for_use(mp: ModelParallel, shard: torch.Tensor,
         return shard
     full = _GatherForUse.apply(shard, mp, *cut)
     if mp.regather is not None:
-        mp.regather[full.untyped_storage().data_ptr()] = (
-            weakref.ref(full), shard.detach(), *cut)
+        mp.regather[_storage_key(full)] = (weakref.ref(full), shard.detach(),
+                                           *cut)
     return full
 
 
@@ -712,6 +756,13 @@ def gather_tree(mp: ModelParallel, tree, specs):
     if isinstance(tree, dict):
         return {k: gather_tree(mp, v, specs[k]) for k, v in tree.items()}
     return gather_for_use(mp, tree, specs)
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    """The identity of t's storage: the same for every view of it, unique
+    among the storages alive at once, on every device (a `meta` storage
+    has no data pointer: every one reads 0)."""
+    return t.untyped_storage()._cdata
 
 
 @contextlib.contextmanager
@@ -725,7 +776,7 @@ def regather_saved(mp: ModelParallel):
     reg: dict = {}
 
     def pack(t: torch.Tensor):
-        entry = reg.get(t.untyped_storage().data_ptr())
+        entry = reg.get(_storage_key(t))
         if entry is None or entry[0]() is None:
             return t
         return entry[1:], tuple(t.shape), t.stride(), t.storage_offset()

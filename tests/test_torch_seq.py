@@ -328,7 +328,8 @@ def test_partial_of_an_empty_range_and_natural_log_units():
 def test_partial_on_meta_reports_its_range_and_launches_nothing():
     """On `meta` tensors the partials mode launches nothing and reports
     the hi - lo slots' work (`swa_decode_range_work`) to the sink; an
-    empty range reports none."""
+    empty range reports no call and no work, as the card launches
+    nothing for it."""
     q = torch.empty((4, 32, 128), dtype=torch.bfloat16, device="meta")
     k = torch.empty((4, 514, 16, 128), dtype=torch.bfloat16, device="meta")
     seen = []
@@ -338,12 +339,11 @@ def test_partial_on_meta_reports_its_range_and_launches_nothing():
     assert [t.shape for t in (m, l, acc)] == [(4, 32), (4, 32),
                                              (4, 32, 128)]
     assert all(t.dtype == torch.float32 for t in (m, l, acc))
-    (name, nops, reads, _), (_, nops0, reads0, _) = seen
+    [(name, nops, reads, _)] = seen
     assert name == "swa_decode_partial"
     assert nops == 4 * 4 * 32 * 504 * 128
     assert sum(r for _, r in reads) == 2 * 4 * 504 * 16 * 128 * 2 \
         + 4 * 32 * 128 * 2
-    assert nops0 == 0 and sum(r for _, r in reads0) == 4 * 32 * 128 * 2
     with pytest.raises(ValueError, match="outside the block"):
         ops.swa_decode_partial(q, k, k, 0, 515)
 

@@ -1,8 +1,8 @@
 """Rank functions of tests/test_torch_tp.py, tests/test_torch_tp_families.py,
 tests/test_torch_tp_kvrep.py, tests/test_torch_tp_qsplit.py,
 tests/test_torch_seq.py, tests/test_torch_seq_families.py,
-tests/test_torch_fsdp.py, tests/test_torch_train_families.py and
-tests/test_torch_shmap_train.py.
+tests/test_torch_fsdp.py, tests/test_torch_train_families.py,
+tests/test_torch_shmap_train.py and tests/test_torch_pod_dryrun.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -534,4 +534,72 @@ def train_rank(mp, cases, kept_case=None, launcher=None) -> dict:
         arch, mode, steps, batch, seq, seed = launcher
         out["launcher"] = TLT.train_lm_rank(mp, arch, 0, mode, steps, batch,
                                             seq, seed, True, 1e-3)
+    return out
+
+
+def _pass_counts(mp, fn):
+    """fn() with this rank's collectives (calls and bytes put in by kind)
+    and K8's calls counted: whole, and partials over a non-empty range
+    (the card launches none for an empty one)."""
+    whole, ranges = [], []
+    undo, undo_k8 = _record_partials(ranges), _record_k8(whole)
+    mp.reset_counts()
+    try:
+        out = fn()
+    finally:
+        undo()
+        undo_k8()
+    return out, dict(calls=dict(mp.calls), bytes=dict(mp.bytes),
+                     k8=len(whole),
+                     k8_partial=sum(hi > lo for lo, hi in ranges))
+
+
+def pod_rank(mp, serve_cases=(), train_cases=()) -> dict:
+    """One rank of tests/test_torch_pod_dryrun.py: the counts (`_pass_counts`)
+    of every pass of each case, on random weights (what is counted does not
+    depend on them). A serve case (name, arch, overrides, variant, batch,
+    prompt, steps, max_len, enc_len): the arch's smoke config in float32
+    with `overrides` under attn_shard=variant, its "tp" shard, the prefill
+    of batch x prompt tokens (an encdec model's enc_len frames) into the
+    cache of max_len positions, then `steps` decode steps. A train case
+    (name, arch, overrides, mode, batch, seq): one Adam step under `mode`
+    on the rank's rows of a batch x seq batch."""
+    out = {}
+    gen = torch.Generator().manual_seed(0)
+    for name, arch, overrides, variant, b, s, steps, max_len, enc_len \
+            in serve_cases:
+        cfg = dataclasses.replace(smoke_cfg(arch), attn_shard=variant,
+                                  **overrides)
+        tmpl = Z.templates(cfg)
+        shard = MB.materialize_shard(tmpl, gen, torch.float32,
+                                     SH.param_layouts(tmpl, mp.mesh), mp)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, s),
+                                         generator=gen)}
+        if enc_len:
+            batch["frontend"] = torch.randn((b, enc_len, cfg.d_model),
+                                            generator=gen)
+        cache = E.init_cache(cfg, b, max_len, enc_len, device="cpu", mp=mp)
+        (lg, cache), prefill = _pass_counts(
+            mp, lambda: E.prefill(shard, cfg, batch, cache, mp))
+        decode = []
+        for i in range(steps):
+            tok = lg[:, -1].argmax(-1)[:, None]
+            (lg, cache), counts = _pass_counts(
+                mp, lambda: E.decode_step(shard, cfg, tok, cache, s + i, mp))
+            decode.append(counts)
+        out[name] = dict(prefill=prefill, decode=decode)
+    for name, arch, overrides, mode, b, s in train_cases:
+        cfg = dataclasses.replace(smoke_cfg(arch), **overrides)
+        tmpl = Z.templates(cfg)
+        layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh,
+                                                         mode))
+        shard = MB.materialize_shard(tmpl, gen, torch.float32, layout.specs,
+                                     mp)
+        opt = adam(1e-3)
+        state = opt.init(shard)
+        rows = TLT.batch_rows(TLT.lm_batch(cfg, np.random.default_rng(0), b,
+                                           s, "cpu"), mp.mesh, mp.global_rank)
+        _, counts = _pass_counts(mp, lambda: Z.train_step(
+            shard, state, rows, cfg, opt.update, mp, layout))
+        out[name] = dict(train=counts)
     return out
