@@ -407,6 +407,7 @@ import math
 import multiprocessing
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -518,8 +519,10 @@ NEURAL_ARCH = "gemma3-27b"
 # reference's does, so the bar is float32's: Adam carries the gradients'
 # float32 differences forward, most once lr 0.01 has doubled the loss by
 # the third step. The same steps with the weights in bfloat16 must miss
-# the bar, so it is one that bf16 rounding fails.
-LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_STEPS = "starcoder2-3b", 2, 3
+# the bar, so it is one that bf16 rounding fails. 1 layer (2 until the
+# "zero3" phases joined the script, cut for its time limit: the CPU's
+# steps took 32 s at 2).
+LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_STEPS = "starcoder2-3b", 1, 3
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 64      # the launcher's defaults
 LM_TRAIN_RTOL = 1e-4
 # The moe family. [moe parity]: each smoke config in float32 on the card
@@ -613,14 +616,15 @@ K8_LIB_TOL = 2.0 ** -5
 # decode steps. [ssm lm]: both configs at published widths and full depth
 # in bfloat16, a prompt's prefill through the scan and the chunked form,
 # then SSM_LM_STEPS greedy decode steps. [ssm lm check] / [ssm train]: full
-# width at SSM_CHECK_LAYERS (rwkv6 2, zamba2 7: one group of 6 and a tail
-# layer; ~1.5 GB each in float32) on the card against the CPU.
+# width at SSM_CHECK_LAYERS (rwkv6 1, 2 until the "zero3" phases joined
+# the script, cut for its time limit; zamba2 7: one group of 6 and a tail
+# layer; ~1.5 GB in float32) on the card against the CPU.
 SSM_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b")
 SSM_PARITY_CASES = (("rwkv6-1.6b", 0), ("zamba2-1.2b", 0), ("zamba2-1.2b", 3))
 SSM_PARITY_BATCH, SSM_PARITY_PROMPT, SSM_PARITY_STEPS = 2, 40, 16
 SSM_NOISE = 0.1
 SSM_LM_BATCH, SSM_LM_PROMPT, SSM_LM_STEPS = 4, 512, 32
-SSM_CHECK_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 7}
+SSM_CHECK_LAYERS = {"rwkv6-1.6b": 1, "zamba2-1.2b": 7}
 SSM_CHECK_BATCH, SSM_CHECK_PROMPT, SSM_CHECK_STEPS = 2, 128, 8
 # [ssm train] runs the launcher at lr 1e-4, not its default 0.01. Adam
 # moves a weight by about lr whatever its gradient's size, so where a
@@ -690,7 +694,9 @@ TP_FAMILY_CASES = (("rwkv6-1.6b", "scan", 0), ("rwkv6-1.6b", "chunked", 0),
                    ("zamba2-1.2b", "scan", 0), ("zamba2-1.2b", "chunked", 0),
                    (ENCDEC_ARCH, "scan", 0), (ENCDEC_ARCH, "scan", TP_ODD_VOCAB))
 TP_FAMILY_ARCHS = (*SSM_ARCHS, ENCDEC_ARCH)
-TP_FAMILY_LAYERS = {"rwkv6-1.6b": 6, "zamba2-1.2b": 13, ENCDEC_ARCH: 6}
+# rwkv6 and seamless 3 (6 until the "zero3" phases joined the script, cut
+# for its time limit); zamba2 13, two applications of its shared block
+TP_FAMILY_LAYERS = {"rwkv6-1.6b": 3, "zamba2-1.2b": 13, ENCDEC_ARCH: 3}
 # "tp" where the ranks do not divide the kv heads: each rank holds whole
 # the kv heads its query heads read (`parallel.kv_heads`), so a kv head
 # sits on several ranks. Both phases run inside [tp lm]'s spawn of
@@ -704,10 +710,10 @@ TP_FAMILY_LAYERS = {"rwkv6-1.6b": 6, "zamba2-1.2b": 13, ENCDEC_ARCH: 6}
 # a prefill of KVREP_LM_BATCH x KVREP_LM_PROMPT tokens and TP_STEPS decode
 # steps fed the unsharded run's greedy tokens, held to that run at [tp
 # lm]'s bar (`check_tp_logits`); cut to KVREP_LM_LAYERS of its 30 layers
-# for [tp lm]'s reason.
+# for [tp lm]'s reason (3; 5 until the "zero3" phases joined the script).
 KVREP_PARITY_ARCHS = ("starcoder2-3b", "dbrx-132b")
 KVREP_LM_ARCH, KVREP_LM_BATCH, KVREP_LM_PROMPT = "starcoder2-3b", 4, 2048
-KVREP_LM_LAYERS = 5
+KVREP_LM_LAYERS = 3
 # Training over a ("data", "model") mesh (`zoo.train_step` with a
 # `parallel.TrainLayout`), one spawn of FSDP_MESH's ranks after [tp lm]'s.
 # [fsdp parity]: the CPU tests' smoke cases (tests/test_torch_fsdp.py; a
@@ -790,7 +796,11 @@ QSPLIT_PARITY = {"yi6": ("yi-34b", {"n_heads": 6, "head_dim": 64}),
                  "dbrx14": ("dbrx-132b", {"n_heads": 14, "head_dim": 64})}
 QSPLIT_MQA = {"yi-mqa": ("yi-34b", {"n_kv_heads": 1})}
 QSPLIT_WORLD = 16
-QSPLIT_LM_ARCHS = {"starcoder2-3b": 4, "yi-34b": 1}
+# starcoder2-3b kept 4 layers until its "zero3" run joined the spawn,
+# whose ranks gather every layer's leaves at every pass through gloo on
+# the shared host (3.2 s a decode step at 2 layers on an H100 host); cut
+# to 1 for the script's time limit
+QSPLIT_LM_ARCHS = {"starcoder2-3b": 1, "yi-34b": 1}
 QSPLIT_LM_BATCH, QSPLIT_LM_PROMPT = 4, 512
 QSPLIT_PREFILL, QSPLIT_SEQ = "shmap", "seqkv"
 # "shmap" training (the reference's shard_map attention and MoE: the max
@@ -836,6 +846,43 @@ SHMAP_TRAIN_MODES = ("tp", "fsdp")
 SHMAP_LOSS_BAR, SHMAP_M_BAR = 1e-3, 2.0 ** -8
 SHMAP_LM_ARCH, SHMAP_LM_LAYERS = "yi-34b", 1
 SHMAP_LM_BAR = 6e-3
+# "zero3" wherever the reference's dry run reaches it: every family's
+# serving (`engine.serve_weights`: a rank holds its zero3 shard, gathers a
+# sublayer's weights whole where it runs them, narrows them to its "tp"
+# pieces and runs the "tp" code into the "tp" cache) and the ssm, hybrid
+# and encdec families' training (computed whole on every rank). Inside
+# [fsdp lm]'s spawn of FSDP_MESH's ranks: [zero3 families parity]:
+# ZERO3_FAMILY_PARITY's smoke configs in float32 (seed 3), LM_TRAIN_STEPS
+# Adam steps of FSDP_PARITY_BATCH x FSDP_PARITY_SEQ tokens under "zero3"
+# against the card's unsharded train_step at [fsdp parity]'s bars, the
+# ranks holding the same pieces of a leaf holding equal bits of it; [zero3
+# serve parity]: ZERO3_SERVE_ARCHS' smoke configs in float32 (seed 3),
+# each row of data ranks serving its row of the batch, a prefill of
+# TP_PARITY_BATCH x TP_PARITY_PROMPT tokens and TP_PARITY_STEPS decode
+# steps fed the card's unsharded run's greedy tokens, at [tp parity]'s
+# bars, K8 a rank "tp"'s (`k8_decode_calls` a step); [zero3 lm]:
+# ZERO3_LM_ARCHS at their published widths cut to the layers given
+# (zamba2: its attn_every, the fewest at which its shared block runs),
+# float32 weights from seed 0, LM_TRAIN_STEPS Adam steps of the
+# launcher's batch at FSDP_LM_LR under "zero3" in the chunked form (the
+# dry run's choice for training), held to the unsharded run of the same
+# steps on the card at LM_TRAIN_RTOL. Inside [tp qsplit lm]'s spawn of
+# QSPLIT_WORLD ranks: ZERO3_QSPLIT_ARCH at its [tp qsplit lm] depth in
+# bfloat16 served under "zero3" (its 2 kv heads over 16 ranks: the case
+# the repair of `parallel.rank_pieces` fixed), the prefill and TP_STEPS
+# decode steps held to the same unsharded run at [tp lm]'s bar.
+ZERO3_FAMILY_PARITY = {"rwkv6-scan": ("rwkv6-1.6b", "scan"),
+                       "rwkv6-chunked": ("rwkv6-1.6b", "chunked"),
+                       "zamba2": ("zamba2-1.2b", "scan"),
+                       "seamless": (ENCDEC_ARCH, "scan")}
+ZERO3_SERVE_ARCHS = ("yi-34b", "gemma3-27b", "dbrx-132b", "rwkv6-1.6b",
+                     "zamba2-1.2b", ENCDEC_ARCH)
+ZERO3_LM_ARCHS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6}
+ZERO3_QSPLIT_ARCH = "starcoder2-3b"
+# [zero3 families parity]'s bar on step 1's m where float32's own spread
+# is wider than FSDP_M_TOL (`data_split_spread`), as [tp families lm]'s
+# TP_SPREAD_FACTOR
+ZERO3_SPREAD_FACTOR = 2.0
 # query_bias: the serving buckets' batch sizes and a large batch; timed at
 # the largest bucket and at 4096 rows.
 QB_ROWS = (1, 2, 3, 4, 8, 16, 32, 4096)
@@ -4428,8 +4475,9 @@ def tp_lm_rank(mp, jobs, parity=(), qsplit=(), train=None) -> dict:
     lm]), one rank: for each job its shard of the config at full width
     (cut to job["layers"] where given) in bfloat16, drawn as the unsharded
     phase drew it (seed 0 on the card) keeping only this rank's pieces,
-    served by `tp_lm_serve` (key: the arch; its prefill under
-    job["prefill"] where given); where job["seq"] names a
+    served by `tp_lm_serve` (key: job["key"], default the arch; its
+    prefill under job["prefill"] where given; its layout job["mode"],
+    default "tp"); where job["seq"] names a
     sequence-sharded variant, the same shard served again under it with
     the "seq" cache (key: "arch/seq"). First [tp kvrep parity]:
     `tp_parity_rank` of the `parity` cases under "auto" (key: "kvrep
@@ -4447,18 +4495,23 @@ def tp_lm_rank(mp, jobs, parity=(), qsplit=(), train=None) -> dict:
             cfg = dataclasses.replace(cfg, n_layers=job["layers"])
         tmpl = Z.templates(cfg)
         t0 = time.perf_counter()
+        mode = job.get("mode", "tp")
+        layout = TrainLayout(mode, SHD.param_layouts(tmpl, mp.mesh, mode))
         params = MB.materialize_shard(
             tmpl, torch.Generator(device=dev).manual_seed(0), cfg.dtype,
-            SHD.param_layouts(tmpl, mp.mesh), mp)
+            layout.specs, mp)
         sync()
         make_s = time.perf_counter() - t0
         shard_bytes = sum(a.numel() * a.element_size()
                           for a in MB.tree_leaves(params))
         pre = (dataclasses.replace(cfg, attn_shard=job["prefill"])
                if job.get("prefill") else None)
-        out[job["arch"]] = dict(make_s=make_s, shard_bytes=shard_bytes,
-                                **tp_lm_serve(mp, params, cfg, job,
-                                              prefill_cfg=pre))
+        t0 = time.perf_counter()
+        out[job.get("key", job["arch"])] = dict(
+            make_s=make_s, shard_bytes=shard_bytes,
+            **tp_lm_serve(mp, params, cfg, job, prefill_cfg=pre,
+                          layout=None if mode == "tp" else layout),
+            s=time.perf_counter() - t0)
         if job["seq"]:
             out[f"{job['arch']}/seq"] = tp_lm_serve(
                 mp, params, dataclasses.replace(cfg, attn_shard=job["seq"]),
@@ -4479,7 +4532,7 @@ def tp_lm_rank(mp, jobs, parity=(), qsplit=(), train=None) -> dict:
 
 
 def tp_lm_serve(mp, params, cfg, job, frontend=None,
-                prefill_cfg=None) -> dict:
+                prefill_cfg=None, layout=None) -> dict:
     """One rank's prefill of job["tokens"] (over an encdec model's
     `frontend` frames; under `prefill_cfg`'s attn_shard where given) and
     decode steps fed job["feed"], every moe layer's
@@ -4490,7 +4543,8 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
     read after the last step), the cache's bytes, peak memory, prefill s,
     ms per step (CUDA events), the collectives of the decode steps, and
     `passes`: what [pod costs] traces again on `meta` (`pass_counts` of
-    the prefill and of each decode step, the run's sizes and config)."""
+    the prefill and of each decode step, the run's sizes and config).
+    layout: the params' (`engine.serve_weights`; None: "tp")."""
     dev = mp.device
     tokens = torch.as_tensor(job["tokens"]).to(dev)
     feed = [torch.as_tensor(f).to(dev) for f in job["feed"]]
@@ -4506,7 +4560,10 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
     passes = dict(arch=job["arch"], n_layers=cfg.n_layers,
                   n_enc_layers=cfg.n_enc_layers, attn_shard=cfg.attn_shard,
                   prefill_shard=(prefill_cfg or cfg).attn_shard,
-                  mesh=mp.mesh.sizes, batch=b, prompt=s, max_len=max_len,
+                  mode="tp" if layout is None else layout.mode,
+                  smoke=cfg.name == CFG.get_smoke(job["arch"]).name,
+                  dtype=cfg.dtype, ssm_impl=cfg.ssm_impl, mesh=mp.mesh.sizes,
+                  batch=b * mp.data_world, prompt=s, max_len=max_len,
                   enc_len=enc_len, decode=[])
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -4514,7 +4571,8 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
     mp.reset_counts()
     t0 = time.perf_counter()
     (lg, cache), routes = routed(E.prefill, params, prefill_cfg or cfg,
-                                 batch, cache, mp, host=False, feed=gates)
+                                 batch, cache, mp, layout, host=False,
+                                 feed=gates)
     sync()
     prefill_s = time.perf_counter() - t0
     passes["prefill"] = pass_counts(mp, {})
@@ -4527,7 +4585,7 @@ def tp_lm_serve(mp, params, cfg, job, frontend=None,
         before = ops.launch_counts()
         mp.reset_counts()
         (lg, cache), r = routed(E.decode_step, params, cfg, tok, cache,
-                                s + i, mp, host=False, feed=gates)
+                                s + i, mp, layout, host=False, feed=gates)
         logits.append(lg[:, -1])
         routes += r
         events[i + 1].record()
@@ -4802,6 +4860,56 @@ def phase_tp_lm(card: str, moe_ref: dict) -> dict:
     return out
 
 
+def zero3_qsplit_check(job, got, backend, n_cards, card) -> dict:
+    """[tp qsplit lm]'s "zero3" run of ZERO3_QSPLIT_ARCH (every rank's,
+    `got`) against the unsharded run of the same cut at [tp lm]'s bar
+    (`check_tp_logits`: the ranks' logits bit-equal too), K8 =
+    k8_decode_calls x TP_STEPS a rank ("tp"'s) and no partials; prints per
+    rank the K8 launches, the shard's and the cache's bytes, peak memory,
+    prefill s, the median ms a step, the collectives a step by kind with
+    their bytes, and the run's seconds."""
+    arch, layers, ref = job["arch"], job["layers"], job["ref"]
+    cfg = dataclasses.replace(CFG.get(arch), n_layers=layers)
+    b, s = ref["tokens"].shape
+    want_k8 = k8_decode_calls(cfg) * TP_STEPS
+    for r, run in enumerate(got):
+        assert run["k8"] == want_k8 and run["k8_partial"] == 0, (
+            r, run["k8"], run["k8_partial"])
+    worst, greedy = check_tp_logits([run["logits"] for run in got], ref,
+                                    "tp qsplit lm zero3")
+    print(f"[tp qsplit lm] {cfg.name}, {layers} of "
+          f"{CFG.get(arch).n_layers} layers in bfloat16 ({cfg.n_heads} "
+          f"query / {cfg.n_kv_heads} kv heads) under \"zero3\" over 1 x "
+          f"{QSPLIT_WORLD} ranks ({backend}; {n_cards} card(s): {card}): "
+          f"each rank's zero3 shard ({got[0]['shard_bytes']} bytes; the "
+          f"weights cut on embed over all {QSPLIT_WORLD} ranks) gathered a "
+          f"sublayer at a time and narrowed to its \"tp\" pieces; prefill "
+          f"{b} x {s} tokens, {TP_STEPS} decode steps fed the unsharded "
+          f"run's greedy tokens into the \"tp\" cache; logits within "
+          f"{worst:.3f} of the bar ({TP_BF16_STD_TOL} x the step's logit "
+          f"std) on all {len(got) * (TP_STEPS + 1) * b} rank-rows, {greedy} "
+          f"greedy tokens equal; the ranks' logits bit-equal; "
+          f"{got[0]['s']:.1f} s")
+    for r, run in enumerate(got):
+        calls = {k: (v / TP_STEPS, run["bytes"][k] / TP_STEPS)
+                 for k, v in run["calls"].items()}
+        print(f"[tp qsplit lm]   zero3 rank {r}: K8 {run['k8']} = "
+              f"{k8_decode_calls(cfg)} x {TP_STEPS}; cache "
+              f"{run['cache_bytes']} bytes; peak memory {run['peak']} bytes; "
+              f"prefill {run['prefill_s']:.3f} s; median "
+              f"{statistics.median(run['step_ms']):.3f} ms a decode step; "
+              f"collectives a step (calls, bytes) {calls}")
+    return dict(launches_per_rank=[run["k8"] for run in got],
+                step_ms_median=[statistics.median(run["step_ms"])
+                                for run in got],
+                prefill_s=[run["prefill_s"] for run in got],
+                peak_bytes=[run["peak"] for run in got],
+                cache_bytes=[run["cache_bytes"] for run in got],
+                shard_bytes=[run["shard_bytes"] for run in got],
+                passes=[run["passes"] for run in got],
+                worst_share_of_bar=worst, seconds=got[0]["s"])
+
+
 def phase_tp_qsplit_lm(card: str) -> dict:
     """[tp qsplit lm] and [shmap train lm] in one spawn of QSPLIT_WORLD
     ranks sharing the card (gloo) on a 1 x QSPLIT_WORLD mesh, the
@@ -4839,13 +4947,17 @@ def phase_tp_qsplit_lm(card: str) -> dict:
     # layout cuts each leaf into blocks, every block holding a prompt
     # position, so every rank launches K8's partials at every step
     max_len = -(-(QSPLIT_LM_PROMPT + TP_STEPS) // QSPLIT_WORLD) * QSPLIT_WORLD
+    z3 = next(j for j in jobs if j["arch"] == ZERO3_QSPLIT_ARCH)
+    z3 = dict(z3, seq=None, prefill=None, mode="zero3",
+              key=f"{ZERO3_QSPLIT_ARCH}/zero3")
     ranks = spawn_ranks(
         QSPLIT_WORLD, tp_lm_rank,
         ([dict(arch=j["arch"], layers=j["layers"], seq=j["seq"],
                prefill=j["prefill"], max_len=max_len,
+               mode=j.get("mode", "tp"), key=j.get("key", j["arch"]),
                tokens=j["ref"]["tokens"].numpy(),
                feed=[f.numpy() for f in j["ref"]["fed"]], gates=None)
-          for j in jobs], (), (),
+          for j in (*jobs, z3)], (), (),
          (SHMAP_LM_ARCH, SHMAP_LM_LAYERS, FSDP_LM_LR)),
         device="cuda", timeout_s=900, mesh=mesh)
     spawn_s = time.perf_counter() - t1
@@ -4901,6 +5013,9 @@ def phase_tp_qsplit_lm(card: str) -> dict:
                 shard_bytes=[rank[arch]["shard_bytes"] for rank in ranks],
                 passes=[run["passes"] for run in got],
                 worst_share_of_bar=worst)
+    out[z3["key"]] = zero3_qsplit_check(z3, [rank[z3["key"]]
+                                             for rank in ranks],
+                                        backend, n_cards, card)
     got = [rank["train"] for rank in ranks]
     err = max(abs(a - c) for run in got
               for a, c in zip(run["losses"], want))
@@ -5027,17 +5142,33 @@ def recorded_dispatch(keeps: list):
 
 
 def fsdp_parity_run(params, cfg, device, mp=None, layout=None,
-                    feed=None) -> dict:
+                    feed=None, states=None) -> dict:
     """LM_TRAIN_STEPS Adam steps of `zoo.train_step` (with mp and layout:
     a rank's shard and rows of `fsdp_batches`): the losses, step 1's m
     (gathered under a layout), each step's kept choices, routes (`routed`:
-    each moe layer's probabilities and its own choices) and collectives.
+    each moe layer's probabilities and its own choices), collectives
+    (calls and bytes put in) and seconds (the loss read back included).
     feed: per step, the gate_i (T, k) of each moe layer's call, which the
-    step routes its tokens to (`routed(feed=)`)."""
+    step routes its tokens to (`routed(feed=)`). Under a layout, after the
+    last step, a sha256 of each leaf of params, m and v that another rank
+    holds the same pieces of (`launch.train.shared_leaves`; leaf index ->
+    digest). states: "record" keeps, as `states`, the whole params and
+    Adam state (on the CPU) each step after the first starts from; a path
+    to a file of such a list (`torch.save`) makes each step after the
+    first start from its entry instead of this run's own (a rank's shard
+    of it under a layout)."""
     opt = adam(FSDP_PARITY_LR)
     state = opt.init(params)
-    out = dict(losses=[], keeps=[], calls=[], routes=[])
+    out = dict(losses=[], keeps=[], calls=[], bytes=[], routes=[],
+               seconds=[])
+    given = None if states in (None, "record") else torch.load(states)
     for i, batch in enumerate(fsdp_batches(cfg)):
+        if i and states == "record":
+            out.setdefault("states", []).append(MB.tree_map(
+                lambda a: a.detach().cpu().clone(),
+                {"params": params, **state}))
+        if i and given is not None:
+            params, state = state_at(given[i - 1], cfg, layout, mp, device)
         if mp is not None:
             batch = TLT.batch_rows(batch, mp.mesh, mp.global_rank)
             mp.reset_counts()
@@ -5046,6 +5177,7 @@ def fsdp_parity_run(params, cfg, device, mp=None, layout=None,
         undo = recorded_dispatch(keeps)
         gates = (None if feed is None else
                  iter([torch.as_tensor(g).to(device) for g in feed[i]]))
+        t0 = time.perf_counter()
         try:
             (params, state, loss), routes = routed(
                 Z.train_step, params, state, batch, cfg, opt.update, mp,
@@ -5053,16 +5185,35 @@ def fsdp_parity_run(params, cfg, device, mp=None, layout=None,
         finally:
             undo()
         out["losses"].append(float(loss))
+        out["seconds"].append(time.perf_counter() - t0)
         out["keeps"].append(keeps)
         out["routes"].append(routes)
         out["calls"].append(dict(mp.calls) if mp is not None else {})
+        out["bytes"].append(dict(mp.bytes) if mp is not None else {})
         if i == 0:
             m = state["m"] if mp is None else MB.gather_params(
                 state["m"], Z.templates(cfg), layout.specs, mp)
             out["m1"] = [a.detach().cpu() for a in MB.tree_leaves(m)]
     out["state_bytes"] = sum(a.numel() * a.element_size() for t in (
         params, state["m"], state["v"]) for a in MB.tree_leaves(t))
+    if layout is not None:
+        shared = TLT.shared_leaves(Z.templates(cfg), layout.specs, mp.mesh,
+                                   mp.global_rank)
+        out["digests"] = {kind: {i: TLT._digest(a) for i, a in enumerate(
+            MB.tree_leaves(tree)) if i in shared} for kind, tree in (
+                ("params", params), ("m", state["m"]), ("v", state["v"]))}
     return out
+
+
+def state_at(whole: dict, cfg, layout, mp, device) -> tuple[dict, dict]:
+    """(params, Adam state) on `device` from a whole one (`fsdp_parity_run`
+    's recorded `states`): under a layout, mp's shards of it."""
+    tmpl = Z.templates(cfg)
+    out = {k: v if k == "step" else MB.tree_map(
+        lambda a: a.to(device), v if layout is None else MB.shard_params(
+            v, tmpl, layout.specs, mp)) for k, v in whole.items()}
+    params = out.pop("params")
+    return params, out
 
 
 def shmap_parity_cfg(key: str):
@@ -5207,14 +5358,88 @@ def check_shmap_parity(key, mode, got, want, backend, n_cards, card
     return dict(m_err=m_err, losses=got[0]["losses"])
 
 
-def fsdp_rank(mp, lm_layers: int, lm_lr: float, shmap_feeds) -> dict:
+def zero3_family_cfg(key: str):
+    """A [zero3 families parity] case's smoke config in float32."""
+    arch, impl = ZERO3_FAMILY_PARITY[key]
+    return dataclasses.replace(CFG.get_smoke(arch), dtype=torch.float32,
+                               ssm_impl=impl)
+
+
+def zero3_shard(mp, cfg, seed: int):
+    """(rank mp's zero3 shard of the params `MB.materialize` draws on the
+    CPU from `seed`, on the rank's card; the layout)."""
+    tmpl = Z.templates(cfg)
+    layout = TrainLayout("zero3", SHD.param_layouts(tmpl, mp.mesh, "zero3"))
+    full = MB.materialize(tmpl, torch.Generator().manual_seed(seed))
+    return MB.tree_map(lambda a: a.to(mp.device), MB.shard_params(
+        full, tmpl, layout.specs, mp)), layout
+
+
+def zero3_rank(mp, serve_cases, lm_lr: float, family_states: dict) -> dict:
+    """[zero3 families parity], [zero3 serve parity] and [zero3 lm], one
+    rank of FSDP_MESH, each case's launch counts set to 0 before it and
+    read after, its seconds timed: each ZERO3_FAMILY_PARITY case's zero3
+    shard of its smoke params (seed 3) trained by `fsdp_parity_run`, each
+    step after the first from the unsharded run's state of that step
+    (family_states[key], a file) (step 1's m returned by rank 0 only);
+    each serve case (arch, tokens, feed,
+    frontend) of ZERO3_SERVE_ARCHS served from its zero3 shard (seed 3)
+    by `tp_lm_serve` on the rank's rows; `train_lm_rank` of each of
+    ZERO3_LM_ARCHS under "zero3" in the chunked form."""
+    out = {}
+    for key in ZERO3_FAMILY_PARITY:
+        t0 = time.perf_counter()
+        cfg = zero3_family_cfg(key)
+        shard, layout = zero3_shard(mp, cfg, 3)
+        ops.reset_launch_counts()            # this rank's path starts here
+        run = fsdp_parity_run(shard, cfg, mp.device, mp, layout,
+                              states=family_states[key])
+        sync()
+        run["launches"] = ops.launch_counts()    # ... and ends here
+        if mp.global_rank:
+            del run["m1"]
+        out[f"zero3 family/{key}"] = dict(run, s=time.perf_counter() - t0)
+    for arch, tokens, feed, frontend in serve_cases:
+        t0 = time.perf_counter()
+        cfg = parity_cfg(arch)
+        shard, layout = zero3_shard(mp, cfg, 3)
+        rows = TLT.batch_rows({"tokens": torch.as_tensor(tokens)}, mp.mesh,
+                              mp.global_rank)["tokens"]
+        job = dict(arch=arch, tokens=rows.numpy(), gates=None, feed=[
+            TLT.batch_rows({"tokens": torch.as_tensor(f)}, mp.mesh,
+                           mp.global_rank)["tokens"].numpy() for f in feed])
+        if frontend is not None:
+            frontend = TLT.batch_rows({"f": torch.as_tensor(frontend)},
+                                      mp.mesh, mp.global_rank)["f"]
+            frontend = frontend.to(mp.device)
+        run = tp_lm_serve(mp, shard, cfg, job, frontend, layout=layout)
+        run["shard_bytes"] = sum(a.numel() * a.element_size()
+                                 for a in MB.tree_leaves(shard))
+        out[f"zero3 serve/{arch}"] = dict(run, s=time.perf_counter() - t0)
+        del shard
+    for arch, layers in ZERO3_LM_ARCHS.items():
+        free_cuda()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()            # this rank's path starts here
+        run = TLT.train_lm_rank(mp, arch, layers, "zero3", LM_TRAIN_STEPS,
+                                LM_TRAIN_BATCH, LM_TRAIN_SEQ, 0, False,
+                                lm_lr, ssm_impl="chunked")
+        sync()
+        run["launches"] = ops.launch_counts()    # ... and ends here
+        out[f"zero3 lm/{arch}"] = dict(run, s=time.perf_counter() - t0)
+    free_cuda()
+    return out
+
+
+def fsdp_rank(mp, lm_layers: int, lm_lr: float, shmap_feeds,
+              zero3_serve_cases, zero3_states) -> dict:
     """[shmap train parity], [fsdp parity] and [fsdp lm], one rank of
     FSDP_MESH: `shmap_parity_rank` routed to shmap_feeds[its rank]; each
     parity case's shard of its smoke params (seed 3) under each mode,
     trained as the unsharded run (`fsdp_parity_run`; step 1's m returned
     by rank 0 only); then `train_lm_rank` of FSDP_LM_ARCH at lm_layers
     layers under each mode, the launch counts set to 0 before it and read
-    after."""
+    after; then the "zero3" cases (`zero3_rank`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = shmap_parity_rank(mp, shmap_feeds[mp.global_rank])
     for arch in FSDP_PARITY_ARCHS:
@@ -5239,6 +5464,7 @@ def fsdp_rank(mp, lm_layers: int, lm_lr: float, shmap_feeds) -> dict:
         sync()
         run["launches"] = ops.launch_counts()    # ... and ends here
         out[f"lm/{mode}"] = run
+    out.update(zero3_rank(mp, zero3_serve_cases, lm_lr, zero3_states))
     return out
 
 
@@ -5311,6 +5537,226 @@ def check_fsdp_parity(arch, mode, got, want, backend, n_cards, card) -> dict:
     return dict(m_err=m_err, losses=got[0]["losses"])
 
 
+def zero3_refs(tmp: str) -> dict:
+    """The card's unsharded runs the "zero3" cases are held to: each
+    ZERO3_FAMILY_PARITY case's `fsdp_parity_run` (smoke params, seed 3),
+    the state each step after the first starts from saved under `tmp`
+    (the ranks start each such step from it: Adam moves a weight whose
+    gradient rounding leaves near 0 by +-lr on a sign the rounding
+    decides, so two runs' later losses part by more than [fsdp parity]'s
+    bar, rwkv6-smoke's by 2.3e-5 at step 2 on the card);
+    each of ZERO3_SERVE_ARCHS' prefill of TP_PARITY_BATCH x
+    TP_PARITY_PROMPT tokens (numpy seed 3; an encdec model's
+    ENCDEC_PARITY_FRAMES frames too) and TP_PARITY_STEPS greedy decode
+    steps (`lm_serve`), with the ranks' cases (arch, tokens, the tokens
+    fed, frames); each of ZERO3_LM_ARCHS' `launch.train.lm_train_steps`
+    at its cut in the chunked form (losses, seconds, peak bytes)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"family": {}, "states": {}, "serve": {}, "cases": [], "lm": {}}
+    for key in ZERO3_FAMILY_PARITY:
+        cfg = zero3_family_cfg(key)
+        params = MB.tree_map(lambda a: a.to("cuda"), MB.materialize(
+            Z.templates(cfg), torch.Generator().manual_seed(3)))
+        run = fsdp_parity_run(params, cfg, "cuda", states="record")
+        run["spread"] = data_split_spread(params, cfg, {
+            k: v.to("cuda") for k, v in fsdp_batches(cfg)[0].items()})
+        out["states"][key] = os.path.join(tmp, f"{key}.pt")
+        torch.save(run.pop("states"), out["states"][key])
+        out["family"][key] = run
+        del params
+    for arch in ZERO3_SERVE_ARCHS:
+        cfg = parity_cfg(arch)
+        params = MB.tree_map(lambda a: a.to("cuda"), MB.materialize(
+            Z.templates(cfg), torch.Generator().manual_seed(3)))
+        tokens, frontend = tp_family_inputs(cfg)
+        ref = lm_serve(params, cfg, tokens, TP_PARITY_STEPS, "cuda",
+                       frontend=frontend)
+        out["serve"][arch] = ref
+        out["cases"].append((arch, tokens.numpy(),
+                             [f.numpy() for f in ref["fed"]],
+                             None if frontend is None else frontend.numpy()))
+        del params
+    free_cuda()
+    for arch, layers in ZERO3_LM_ARCHS.items():
+        cfg = TLT.lm_config(arch, False, layers, "chunked")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            losses = TLT.lm_train_steps(cfg, LM_TRAIN_STEPS, LM_TRAIN_BATCH,
+                                        LM_TRAIN_SEQ, 0, FSDP_LM_LR, "cuda")
+        sync()
+        out["lm"][arch] = dict(losses=losses, s=time.perf_counter() - t0,
+                               peak=torch.cuda.max_memory_allocated())
+        free_cuda()
+    return out
+
+
+def data_split_spread(params, cfg, batch) -> list[float]:
+    """Per leaf (tree order), how far the gradient of the loss on `batch`
+    moves when the batch is cut into FSDP_MESH[0] blocks of rows, each
+    block's gradient taken apart and averaged (the order a data split
+    sums in), from the whole batch's, as a share of the leaf's largest:
+    float32's own spread for this step on one card."""
+    def grads(rows):
+        leaves = MB.tree_map(lambda p: p.detach().requires_grad_(True),
+                             params)
+        flat = list(MB.tree_leaves(leaves))
+        got = torch.autograd.grad(Z.lm_loss(leaves, cfg, rows), flat,
+                                  allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for g, p in zip(got, flat)]
+
+    n = FSDP_MESH[0]
+    b = batch["tokens"].shape[0] // n
+    whole = grads(batch)
+    parts = [grads({k: v[i * b:(i + 1) * b] for k, v in batch.items()})
+             for i in range(n)]
+    return [float((sum(ps) / n - w).abs().max())
+            / max(float(w.abs().max()), 1e-30)
+            for w, *ps in zip(whole, *parts)]
+
+
+def check_zero3_family(key, got, want, backend, n_cards, card) -> dict:
+    """One [zero3 families parity] case on every rank (`got`, each step
+    after the first from `want`'s state) against the card's unsharded run
+    `want`, at [fsdp parity]'s bars: the losses (equal on every rank)
+    within FSDP_LOSS_TOL each step, step 1's gathered m within FSDP_M_TOL
+    of each leaf's largest or, where float32's own spread for the step
+    is wider (`data_split_spread`: rwkv6-smoke's, up to 8.1e-5 on an
+    H100), ZERO3_SPREAD_FACTOR x that leaf's spread, each rank's state
+    bytes its layout's, every two ranks holding the same pieces of a leaf
+    holding equal bits of it (`shared_bits`), no kernel launched."""
+    cfg = zero3_family_cfg(key)
+    mesh = train_mesh(*FSDP_MESH)
+    for r, rank in enumerate(got):
+        assert rank["losses"] == got[0]["losses"], (key, r)
+        np.testing.assert_allclose(rank["losses"], want["losses"],
+                                   rtol=FSDP_LOSS_TOL, atol=FSDP_LOSS_TOL)
+        assert rank["state_bytes"] == layout_bytes(cfg, mesh, "zero3", r), (
+            key, r, rank["state_bytes"])
+        assert not any(rank["launches"].values()), rank["launches"]
+    m_err = share = 0.0
+    for g, w, spread in zip(got[0]["m1"], want["m1"], want["spread"]):
+        scale = float(w.abs().max())
+        err = float((torch.from_numpy(g) - w).abs().max())
+        bar = max(FSDP_M_TOL, ZERO3_SPREAD_FACTOR * spread)
+        assert err <= bar * scale, (key, err, scale, spread)
+        m_err = max(m_err, err / max(scale, 1e-30))
+        share = max(share, err / max(bar * scale, 1e-30))
+    shared, differ = shared_bits(cfg, mesh, "zero3", got)
+    assert shared and not differ, (key, shared, differ)
+    print(f"[zero3 families parity] {cfg.name} (float32, {cfg.ssm_impl}) "
+          f"under \"zero3\" over {FSDP_MESH[0]} x {FSDP_MESH[1]} ranks "
+          f"({backend}, {n_cards} card(s), {card}) against the card's "
+          f"unsharded train_step: {LM_TRAIN_STEPS} Adam steps of "
+          f"{FSDP_PARITY_BATCH} x {FSDP_PARITY_SEQ} tokens, each after the "
+          f"first from the unsharded run's state, losses "
+          f"{got[0]['losses']} (the unsharded {want['losses']}; bar "
+          f"{FSDP_LOSS_TOL}), step 1's m within {m_err:.3g} of each leaf's "
+          f"largest, {share:.3f} of its bar (the larger of {FSDP_M_TOL} and "
+          f"{ZERO3_SPREAD_FACTOR} x the leaf's data-split spread, at most "
+          f"{max(want['spread']):.3g}); equal bits of the {shared} leaves "
+          f"ranks share; state {got[0]['state_bytes']} bytes a rank; "
+          f"collectives a step {got[0]['calls'][0]}; kernel launches 0; "
+          f"{got[0]['s']:.1f} s")
+    return dict(m_err=m_err, losses=got[0]["losses"],
+                runs=[train_counts(run) for run in got])
+
+
+def check_zero3_serve(arch, got, want, backend, n_cards, card) -> dict:
+    """One [zero3 serve parity] case on every rank (`got`, each its row of
+    the batch) against the card's unsharded run `want` at [tp parity]'s
+    bars: logits within TP_RTOL / TP_ATOL, greedy tokens exact where the
+    margin exceeds TP_TOKEN_MARGIN, the ranks of a data row bit-equal, K8
+    = k8_decode_calls x TP_PARITY_STEPS a rank ("tp"'s)."""
+    cfg = parity_cfg(arch)
+    n_data, n_model = FSDP_MESH
+    rows = TP_PARITY_BATCH // n_data
+    want_k8 = k8_decode_calls(cfg) * TP_PARITY_STEPS
+    err, greedy = 0.0, 0
+    for r, rank in enumerate(got):
+        assert rank["k8"] == want_k8 and rank["k8_partial"] == 0, (
+            arch, r, rank["k8"])
+        mine = slice(r // n_model * rows, (r // n_model + 1) * rows)
+        for i, (g, w) in enumerate(zip(rank["logits"], want["logits"])):
+            np.testing.assert_array_equal(
+                got[r - r % n_model]["logits"][i], g)
+            g, w = torch.from_numpy(g), w[mine]
+            torch.testing.assert_close(
+                g, w, rtol=TP_RTOL, atol=TP_ATOL,
+                msg=lambda m: f"[zero3 serve parity] {arch} rank {r} step "
+                              f"{i}: {m}")
+            err = max(err, float((g - w).abs().max()))
+            top2 = torch.topk(w, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > TP_TOKEN_MARGIN
+            assert torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure])
+            greedy += int(sure.sum())
+    assert greedy > 0, arch
+    calls = {k: (v / TP_PARITY_STEPS, got[0]["bytes"][k] / TP_PARITY_STEPS)
+             for k, v in got[0]["calls"].items()}
+    print(f"[zero3 serve parity] {cfg.name} (float32) under \"zero3\" over "
+          f"{n_data} x {n_model} ranks ({backend}, {n_cards} card(s), "
+          f"{card}), each data row of ranks its {rows} row(s), against the "
+          f"card's unsharded run: prefill of {TP_PARITY_BATCH} x "
+          f"{TP_PARITY_PROMPT} tokens + {TP_PARITY_STEPS} decode steps fed "
+          f"its greedy tokens, max |err| {err:.3g} (bars rtol {TP_RTOL}, "
+          f"atol {TP_ATOL}), {greedy} greedy tokens equal; K8 per rank "
+          f"{[rank['k8'] for rank in got]} = {k8_decode_calls(cfg)} x "
+          f"{TP_PARITY_STEPS} (\"tp\"'s); collectives a decode step "
+          f"(calls, bytes) {calls}; {got[0]['s']:.1f} s")
+    return dict(err=err, k8_per_rank=[rank["k8"] for rank in got],
+                passes=[rank["passes"] for rank in got],
+                step_ms_median=[statistics.median(rank["step_ms"])
+                                for rank in got],
+                shard_bytes=[rank["shard_bytes"] for rank in got],
+                cache_bytes=[rank["cache_bytes"] for rank in got])
+
+
+def check_zero3_lm(arch, got, want, backend, n_cards, card) -> dict:
+    """One [zero3 lm] run on every rank (`got`, `train_lm_rank`'s) against
+    the unsharded run of the same steps on the card (`want`) at
+    LM_TRAIN_RTOL, each rank's params + m + v its layout's bytes, the
+    ranks sharing a leaf's pieces holding equal bits of it, no kernel
+    launched; prints the state and peak a rank."""
+    cfg = TLT.lm_config(arch, False, ZERO3_LM_ARCHS[arch], "chunked")
+    mesh = train_mesh(*FSDP_MESH)
+    err = max(abs(a - c) / abs(c) for run in got
+              for a, c in zip(run["losses"], want["losses"]))
+    for r, run in enumerate(got):
+        assert np.isfinite(run["losses"]).all(), run["losses"]
+        np.testing.assert_allclose(run["losses"], want["losses"],
+                                   rtol=LM_TRAIN_RTOL)
+        assert run["state_bytes"] == layout_bytes(cfg, mesh, "zero3", r), (
+            arch, r, run["state_bytes"])
+        assert not any(run["launches"].values()), run["launches"]
+    shared, differ = shared_bits(cfg, mesh, "zero3", got)
+    assert shared and not differ, (arch, shared, differ)
+    print(f"[zero3 lm] {cfg.name}, {cfg.n_layers} layers at the published "
+          f"widths ({cfg.ssm_impl}), float32, {LM_TRAIN_STEPS} Adam steps of "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens at lr {FSDP_LM_LR} under "
+          f"\"zero3\" over {FSDP_MESH[0]} x {FSDP_MESH[1]} ranks "
+          f"({backend}; {n_cards} card(s): {card}): losses "
+          f"{got[0]['losses']}, the unsharded run's on the card "
+          f"{want['losses']} ({want['s']:.2f} s, peak {want['peak']} bytes),"
+          f" max relative err {err:.3g} (bar {LM_TRAIN_RTOL}); equal bits "
+          f"of the {shared} leaves ranks share; state "
+          f"{got[0]['state_bytes']} bytes a rank (the unsharded "
+          f"{layout_bytes(cfg, train_mesh(1, 1), 'zero3', 0)}); kernel "
+          f"launches 0; {got[0]['s']:.1f} s")
+    for r, run in enumerate(got):
+        calls = {k: (v, run["bytes"][-1][k])
+                 for k, v in run["calls"][-1].items()}
+        print(f"[zero3 lm]   {arch} rank {r}: state {run['state_bytes']} "
+              f"bytes; peak {run['peak_bytes']} bytes "
+              f"({run['peak_bytes'] / want['peak']:.3f} of the unsharded "
+              f"run's); seconds a step "
+              f"{[round(v, 3) for v in run['seconds']]}; collectives a step "
+              f"(calls, bytes) {calls}")
+    return dict(losses=got[0]["losses"], max_rel_err=err,
+                peak_bytes=[run["peak_bytes"] for run in got],
+                runs=[train_counts(run) for run in got])
+
+
 def phase_fsdp(card: str) -> dict:
     """[fsdp parity] and [fsdp lm] in one spawn of FSDP_MESH's ranks
     sharing the card: the card's unsharded references first (the parity
@@ -5330,6 +5776,9 @@ def phase_fsdp(card: str) -> dict:
     n_cards = len(set(map(str, devices)))
     refs = fsdp_parity_refs()
     shmap_refs = shmap_parity_refs()
+    tmp = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, tmp, True)
+    z3 = zero3_refs(tmp)
     args = ["--target", "lm", "--arch", FSDP_LM_ARCH, "--layers",
             str(FSDP_LM_LAYERS), "--steps", str(LM_TRAIN_STEPS), "--batch",
             str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--lr",
@@ -5348,7 +5797,8 @@ def phase_fsdp(card: str) -> dict:
     t1 = time.perf_counter()
     ranks = spawn_ranks(world, fsdp_rank,
                         (FSDP_LM_LAYERS, FSDP_LM_LR,
-                         shmap_parity_feeds(shmap_refs)),
+                         shmap_parity_feeds(shmap_refs), z3["cases"],
+                         z3["states"]),
                         device="cuda", timeout_s=900,
                         mesh=train_mesh(*FSDP_MESH))
     spawn_s = time.perf_counter() - t1
@@ -5413,9 +5863,22 @@ def phase_fsdp(card: str) -> dict:
             step_s=[run["seconds"] for run in got],
             calls=got[0]["calls"][-1],
             runs=[train_counts(run) for run in got])
+    for key in ZERO3_FAMILY_PARITY:
+        out[f"zero3 family/{key}"] = check_zero3_family(
+            key, [rank[f"zero3 family/{key}"] for rank in ranks],
+            z3["family"][key], backend, n_cards, card)
+    for arch in ZERO3_SERVE_ARCHS:
+        out[f"zero3 serve/{arch}"] = check_zero3_serve(
+            arch, [rank[f"zero3 serve/{arch}"] for rank in ranks],
+            z3["serve"][arch], backend, n_cards, card)
+    for arch in ZERO3_LM_ARCHS:
+        out[f"zero3 lm/{arch}"] = check_zero3_lm(
+            arch, [rank[f"zero3 lm/{arch}"] for rank in ranks],
+            z3["lm"][arch], backend, n_cards, card)
     print(f"[fsdp lm] done in {time.perf_counter() - t0:.1f} s (the "
           f"unsharded references {ref_s:.1f} s, the ranks {spawn_s:.1f} s, "
-          f"[fsdp parity] and [shmap train parity] included); the times are "
+          f"[fsdp parity], [shmap train parity] and the zero3 cases "
+          f"included); the times are "
           f"{world} processes "
           + ("sharing one card over gloo, not a sharded deployment's"
              if n_cards < world else f"on {n_cards} cards over {backend}"))
@@ -6012,12 +6475,14 @@ def pod_serve_row(tag: str, row: dict, card: str) -> dict:
     t0 = time.perf_counter()
     passes = row["passes"]
     p0 = passes[0]
-    cfg = dataclasses.replace(CFG.get(p0["arch"]), n_layers=p0["n_layers"],
+    base = CFG.get_smoke(p0["arch"]) if p0["smoke"] else CFG.get(p0["arch"])
+    cfg = dataclasses.replace(base, n_layers=p0["n_layers"],
                               n_enc_layers=p0["n_enc_layers"],
-                              attn_shard=p0["attn_shard"])
+                              attn_shard=p0["attn_shard"],
+                              ssm_impl=p0["ssm_impl"], dtype=p0["dtype"])
     mesh = train_mesh(*p0["mesh"])
     kw = dict(batch=p0["batch"], max_len=p0["max_len"],
-              enc_len=p0["enc_len"])
+              enc_len=p0["enc_len"], mode=p0["mode"])
     classes, traced = [], []
     if cfg.arch_type not in ("ssm", "hybrid"):
         recs = _by_rank(DR.rank_class_records(
@@ -6041,7 +6506,8 @@ def pod_serve_row(tag: str, row: dict, card: str) -> dict:
     med = row["step_ms_median"]
     assert min(med) >= bound, (tag, med, bound)
     line = (f"[pod costs] {tag}: {cfg.name}, {cfg.n_layers} layers, "
-            f"{len(passes)} ranks ({' / '.join(map(str, classes))} "
+            f"{p0['mode']!r}, {len(passes)} ranks "
+            f"({' / '.join(map(str, classes))} "
             f"class(es)): {' and '.join(traced)} traced on meta, every "
             f"rank's collectives (calls and bytes by kind) and K8 launches "
             f"equal its own, its shard and cache bytes too; one step of all "
@@ -6055,7 +6521,8 @@ def pod_serve_row(tag: str, row: dict, card: str) -> dict:
 
 
 def pod_train_row(tag: str, runs: list, cfg, mesh, mode: str,
-                  card: str) -> dict:
+                  card: str, batch: int = LM_TRAIN_BATCH,
+                  seq: int = LM_TRAIN_SEQ) -> dict:
     """One training rank row (`train_counts` per rank of
     `train_lm_rank`'s run of cfg on `mesh` under `mode`): an Adam step
     traced on `meta` for every class of ranks, every step's collectives of
@@ -6065,8 +6532,8 @@ def pod_train_row(tag: str, runs: list, cfg, mesh, mode: str,
     DR, _ = cost_report()
     t0 = time.perf_counter()
     recs = _by_rank(DR.rank_class_records(
-        cfg, "train", mesh, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
-        mode=mode, param_dtype=torch.float32))
+        cfg, "train", mesh, batch=batch, seq_len=seq, mode=mode,
+        param_dtype=torch.float32))
     for r, run in enumerate(runs):
         rec = recs[r]
         for i, (calls, nbytes) in enumerate(zip(run["calls"], run["bytes"])):
@@ -6099,10 +6566,11 @@ def phase_pod_costs(card: str, tp_lm: dict, tp_qsplit: dict, fsdp: dict,
     """[pod costs]: the pod dry run (`launch/dryrun.py` `rank_record`, the
     counting transport) held on the host to the spawns that ran on the
     card, no new spawn: every rank row (`pod_serve_row`: [tp lm], [seq
-    lm], [tp moe], [tp kvrep lm], [tp qsplit lm] under "tp" and "seqkv",
-    [tp families lm], [seq families lm]) and the training rows
-    (`pod_train_row`: [shmap train lm], [fsdp lm] under each of
-    FSDP_MODES), each rank's counts equal to the trace's, each row's
+    lm], [tp moe], [tp kvrep lm], [tp qsplit lm] under "tp", "seqkv" and
+    "zero3", [tp families lm], [seq families lm], [zero3 serve parity])
+    and the training rows (`pod_train_row`: [shmap train lm], [fsdp lm]
+    under each of FSDP_MODES, [zero3 lm], [zero3 families parity]), each
+    rank's counts equal to the trace's, each row's
     bound printed beside its medians. The rows are traced in [costs]'s
     pool (`host_pool`), the longest first."""
     t0 = time.perf_counter()
@@ -6115,15 +6583,30 @@ def phase_pod_costs(card: str, tp_lm: dict, tp_qsplit: dict, fsdp: dict,
             **{f"tp families lm {arch}": tp_families_lm[arch]
                for arch in TP_FAMILY_ARCHS},
             **{f"seq families lm {arch}": tp_families_lm[f"{arch}/seq"]
-               for arch in SEQ_FAMILY_ARCHS}}
+               for arch in SEQ_FAMILY_ARCHS},
+            f"tp qsplit lm {ZERO3_QSPLIT_ARCH} zero3":
+                tp_qsplit[f"{ZERO3_QSPLIT_ARCH}/zero3"],
+            **{f"zero3 serve parity {arch}": fsdp[f"zero3 serve/{arch}"]
+               for arch in ZERO3_SERVE_ARCHS}}
+    lm = (LM_TRAIN_BATCH, LM_TRAIN_SEQ)
     train = {"shmap train lm": (
         tp_qsplit["train"]["runs"],
         TLT.lm_config(SHMAP_LM_ARCH, False, SHMAP_LM_LAYERS,
-                      attn_shard="shmap"), train_mesh(1, QSPLIT_WORLD), "tp"),
+                      attn_shard="shmap"), train_mesh(1, QSPLIT_WORLD), "tp",
+        *lm),
         **{f"fsdp lm {mode}": (
             fsdp[f"lm/{mode}"]["runs"],
             TLT.lm_config(FSDP_LM_ARCH, False, FSDP_LM_LAYERS),
-            train_mesh(*FSDP_MESH), mode) for mode in FSDP_MODES}}
+            train_mesh(*FSDP_MESH), mode, *lm) for mode in FSDP_MODES},
+        **{f"zero3 lm {arch}": (
+            fsdp[f"zero3 lm/{arch}"]["runs"],
+            TLT.lm_config(arch, False, layers, "chunked"),
+            train_mesh(*FSDP_MESH), "zero3", *lm)
+           for arch, layers in ZERO3_LM_ARCHS.items()},
+        **{f"zero3 families parity {key}": (
+            fsdp[f"zero3 family/{key}"]["runs"], zero3_family_cfg(key),
+            train_mesh(*FSDP_MESH), "zero3", FSDP_PARITY_BATCH,
+            FSDP_PARITY_SEQ) for key in ZERO3_FAMILY_PARITY}}
     pool = host_pool()
     # the longest first: gemma3's prefills of 4 x 2048 tokens, then the
     # 16 ranks' rows
@@ -6131,7 +6614,8 @@ def phase_pod_costs(card: str, tp_lm: dict, tp_qsplit: dict, fsdp: dict,
                                           "qsplit" not in tag))
     futures = {tag: pool.submit(pod_serve_row, tag, rows[tag], card)
                for tag in order}
-    futures.update({tag: pool.submit(pod_train_row, tag, *args, card)
+    futures.update({tag: pool.submit(pod_train_row, tag, *args[:4], card,
+                                     *args[4:])
                      for tag, args in train.items()})
     out = {tag: futures[tag].result() for tag in (*rows, *train)}
     for r in out.values():
@@ -7040,7 +7524,13 @@ def main() -> None:
            f"_launches_per_rank": r["k8_per_rank"]
            for a, r in tp_families_parity.items() if "k8_per_rank" in r},
         **{f"tp_families_lm_{a}_launches_per_rank": r["k8_per_rank"]
-           for a, r in tp_families_lm.items() if "k8_per_rank" in r}}
+           for a, r in tp_families_lm.items() if "k8_per_rank" in r},
+        **{f"zero3_serve_parity_{a.split('-')[0]}_launches_per_rank":
+           fsdp[f"zero3 serve/{a}"]["k8_per_rank"]
+           for a in ZERO3_SERVE_ARCHS},
+        f"zero3_qsplit_lm_{ZERO3_QSPLIT_ARCH.split('-')[0]}"
+        f"_launches_per_rank":
+            tp_qsplit[f"{ZERO3_QSPLIT_ARCH}/zero3"]["launches_per_rank"]}
     seq_lm = tp_lm[f"{LM_ARCH}/seq"]
     launches["swa_decode_partial"] = seq_lm["k8_partial_per_rank"][0]
     extra["swa_decode_partial"] = {

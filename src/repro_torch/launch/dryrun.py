@@ -68,9 +68,9 @@ from repro_torch.launch.mesh import MeshShape, production_mesh
 from repro_torch.models import base as MB
 from repro_torch.models import zoo as Z
 from repro_torch.models.base import ModelConfig
-from repro_torch.models.parallel import (ModelParallel, TrainLayout,
-                                         _kv_runs, check_train, local_slices,
-                                         q_heads, rank_pieces)
+from repro_torch.models.parallel import (SERVE_MODES, ModelParallel,
+                                         TrainLayout, _kv_runs, check_train,
+                                         local_slices, q_heads, rank_pieces)
 from repro_torch.optim import adam
 from repro_torch.serving import engine as E
 
@@ -423,19 +423,21 @@ def rank_record(cfg: ModelConfig, step: str, mp=None, *, batch: int,
     default cfg.dtype's). With no mp the step is the whole one-card step.
     With mp, the counting transport of a rank (`ModelParallel.counting`),
     it is that rank's: a train step under `layout` (a `TrainLayout` on
-    mp.mesh), a prefill or decode step with the "tp" parameters; and the
-    record adds its collectives as the transport counts them (`calls`,
-    `bytes`: bytes put in) and as the reference records them
+    mp.mesh), a prefill or decode step under `layout` (its
+    `parallel.SERVE_MODES`: "zero3" gathers each sublayer's weights where
+    it runs them, `engine.serve_weights`) or, with none, with the "tp"
+    parameters; and the record adds its collectives as the transport
+    counts them (`calls`, `bytes`: bytes put in) and as the reference
+    records them
     (`collectives`: result bytes by kind, `roofline.collectives`)."""
     if step not in ("train", "prefill", "decode"):
         raise ValueError(f"step {step!r}: train, prefill or decode")
     specs = None
-    if mp is not None and step == "train":
-        if layout is None:
-            raise ValueError("a train step over ranks needs its layout")
-        specs = layout.specs
-    elif mp is not None:
-        specs = SHD.param_layouts(Z.templates(cfg), mp.mesh, "tp")
+    if mp is not None and step == "train" and layout is None:
+        raise ValueError("a train step over ranks needs its layout")
+    if mp is not None:
+        specs = (layout.specs if layout is not None else
+                 SHD.param_layouts(Z.templates(cfg), mp.mesh, "tp"))
     max_len = seq_len if max_len is None else max_len
     args = step_inputs(cfg, step, mp, batch=batch, seq_len=seq_len,
                        max_len=max_len, enc_len=enc_len, specs=specs,
@@ -450,14 +452,14 @@ def rank_record(cfg: ModelConfig, step: str, mp=None, *, batch: int,
     elif step == "prefill":
         def run():
             return E.prefill(args["params"], cfg, args["batch"],
-                             args["cache"], mp)
+                             args["cache"], mp, layout)
     else:
         cache_len = max_len - 1 if cache_len is None else cache_len
 
         def run():
             return E.decode_step(args["params"], cfg,
                                  args["batch"]["tokens"], args["cache"],
-                                 cache_len, mp)
+                                 cache_len, mp, layout)
     if mp is not None:
         mp.reset_counts()
     rec = _trace(run, _tensors(args))
@@ -491,7 +493,9 @@ def rank_classes(cfg: ModelConfig, step: str, mesh, specs: dict, *,
     """The global ranks of the ("data", "model") `mesh` in classes of
     equal inputs, each in order of its first rank, from what the code
     reads of a rank: the shapes of its pieces of every leaf under the
-    layout tree `specs` (`rank_pieces`), its touched query heads and the
+    layout tree `specs` (`rank_pieces`) and, at prefill / decode, under
+    "tp" (a "zero3" rank runs the "tp" code on its "tp" pieces,
+    `parallel.serve_pieces`), its touched query heads and the
     runs of them that read one kv head (`parallel.q_heads`, `_kv_runs`),
     and, for each K/V leaf the cache cuts over its slots, how many of the
     rank's slots hold a position after the step (its range of K8's
@@ -502,7 +506,9 @@ def rank_classes(cfg: ModelConfig, step: str, mesh, specs: dict, *,
     world = mesh.shape["model"]
     probe = ModelParallel.counting(mesh, 0)
     seq = {}
+    trees = [specs]
     if step != "train":
+        trees.append(SHD.param_layouts(tmpl, mesh, "tp"))
         ccfg = cache_cfg or cfg
         frames = _enc_frames(cfg, step, max_len, enc_len)
         fill = _filled(cfg, step, seq_len,
@@ -518,8 +524,9 @@ def rank_classes(cfg: ModelConfig, step: str, mesh, specs: dict, *,
     for r in range(mesh.size):
         m = r % world
         key = [tuple(tuple(sum(n for _, n in dim) for dim in leaf)
-                     for leaf in MB.tree_leaves(rank_pieces(tmpl, specs,
-                                                            mesh, r)))]
+                     for leaf in MB.tree_leaves(rank_pieces(tmpl, tree,
+                                                            mesh, r)))
+               for tree in trees]
         if attn:
             key.append((len(q_heads(cfg.n_heads, world, m)),
                         tuple(n for _, n in _kv_runs(
@@ -538,19 +545,17 @@ def rank_class_records(cfg: ModelConfig, step: str, mesh, *, batch: int,
                        param_dtype=None,
                        cache_cfg: ModelConfig | None = None) -> list[dict]:
     """`rank_record` of the first rank of each of `rank_classes` of the
-    ("data", "model") `mesh` (a train step under the layout `mode`; a
-    prefill or decode step under "tp"), each with its class's `ranks`."""
+    ("data", "model") `mesh` under the layout `mode` (a train step's, or a
+    prefill or decode step's, `parallel.SERVE_MODES`), each with its
+    class's `ranks`."""
     tmpl = Z.templates(cfg)
-    layout = None
     if step == "train":
         check_train(cfg, mesh, mode)
-        layout = TrainLayout(mode, SHD.param_layouts(tmpl, mesh, mode))
-        specs = layout.specs
-    else:
-        if mode != "tp":
-            raise ValueError(f"{cfg.name}: the port serves over ranks under "
-                             f"\"tp\", not {mode!r}")
-        specs = SHD.param_layouts(tmpl, mesh, "tp")
+    elif mode not in SERVE_MODES:
+        raise ValueError(f"{cfg.name}: the port serves over ranks under "
+                         f"{SERVE_MODES}, not {mode!r}")
+    layout = TrainLayout(mode, SHD.param_layouts(tmpl, mesh, mode))
+    specs = layout.specs
     max_len = seq_len if max_len is None else max_len
     out = []
     for ranks in rank_classes(cfg, step, mesh, specs, batch=batch,
@@ -582,9 +587,10 @@ def pod_record(arch: str, shape_name: str, *, multi_pod: bool = False,
     once (`rank_record`); the record carries every class with its ranks,
     and its headline figures (`memory`, `cost`, `collectives`, ...,
     `roofline`) are those of the class with the largest bound, the rank a
-    step waits for. A combo `shapes.applicable` rules out, and a prefill
-    or decode under "zero3" (the port serves over ranks under "tp" only,
-    ROADMAP item 30), is recorded as skipped with the reason."""
+    step waits for. Under "zero3" the recurrent families' train and
+    prefill steps take the chunked form (`ssm_impl` in the record). A
+    combo `shapes.applicable` rules out is recorded as skipped with its
+    reason."""
     base = CFG.get(arch)
     sh = SH.SHAPES[shape_name]
     mesh = production_mesh(multi_pod=multi_pod)
@@ -595,12 +601,17 @@ def pod_record(arch: str, shape_name: str, *, multi_pod: bool = False,
            "variant": variant,
            "mesh": dict(zip(mesh.axis_names, mesh.sizes))}
     ok, why = SH.applicable(base, shape_name)
-    if ok and sh.step != "train" and mode == "zero3":
-        ok, why = False, ("the port serves over ranks under \"tp\" only: "
-                          "\"zero3\" prefill and decode are ROADMAP item 30")
     if not ok:
         return dict(rec, status="skipped", skipped=why)
     cfg = pod_config(base, variant)
+    if variant == "zero3" and recommended_variant(cfg, shape_name) != \
+            "baseline":
+        # the reference lowers the scan form here (one compiled loop
+        # body); the port's scan is a Python loop over the positions, which
+        # a trace of 4k or 32k of them cannot afford: it traces the chunked
+        # form, the same function, as "auto" does
+        cfg = dataclasses.replace(cfg, ssm_impl="chunked")
+        rec["ssm_impl"] = "chunked"
     t0 = time.perf_counter()
     classes = rank_class_records(cfg, sh.step, fold_mesh(mesh),
                                  batch=sh.global_batch, seq_len=sh.seq_len,

@@ -35,8 +35,8 @@ of the keys and `combine_partials` merges the ranks' softmax states, as
 the reference's `shmap_attention` does with a pmax and two psums.
 
 Training (`zoo.train_step` with a `TrainLayout`, `check_train`) runs over
-a ("data", "model") mesh under the reference's "tp" layout for every
-family, and "fsdp" and "zero3" for the dense and moe families, as GSPMD
+a ("data", "model") mesh under the reference's "tp" and "zero3" layouts
+for every family, and "fsdp" for the dense and moe families, as GSPMD
 partitions its unsharded step: the batch is cut over "data"; a leaf whose
 `embed` dim the layout cuts over the data axes (and, under "zero3",
 "model" too) is all-gathered where it is used (`gather_for_use`) and its
@@ -50,7 +50,11 @@ passes the gradient through, `enter_partial` passes forward and sums the
 gradient, also on a whole leaf, or a piece of one, that each rank uses
 on its own heads; `reduce_shared` sums both ways, for a sum each rank
 uses on its own channels; `gather_last`), so that the "tp" partial sums
-train.
+train. Serving under "zero3" (`serving.engine.serve_weights`) gathers a
+sublayer's leaves where it runs them and narrows them to the rank's "tp"
+pieces (`layout_use` with `serve_pieces`), so the "tp" code serves; the
+head is never gathered (`gathered_logits`), nor the embedding where the
+batch's tokens are fewer than its rows (`gathered_lookup`).
 
 Every collective of such a run goes through one `ModelParallel`, which
 counts each kind's calls and the bytes each rank puts in. With no
@@ -602,6 +606,11 @@ _MAMBA_FUSED = {"in_proj": "in_proj", "conv_w": "conv", "conv_b": "conv"}
 _ATTN = {"wq", "wk", "wv", "wo"}
 
 
+def _cuts_last(spec) -> bool:
+    """Whether the layout `spec` cuts its last dim over "model"."""
+    return "model" in _flat(spec[-1])
+
+
 def rank_pieces(templates, layout, mesh, rank: int) -> dict:
     """What `rank` holds of every leaf of a parameter template tree under
     `layout` (`launch.sharding.param_layouts` on mesh): per leaf, per dim,
@@ -609,13 +618,15 @@ def rank_pieces(templates, layout, mesh, rank: int) -> dict:
     A leaf the design holds as the reference lays it out has one piece a
     dim, its block (`local_slices`; a dim cut over "data" too, as
     "fsdp" / "zero3" cut `embed`). The exceptions, on the last dim, when
-    the "model" axis has more than one rank: a Mamba2 mixer's in_proj,
-    conv_w and conv_b (a template dict holding in_proj, conv_w, conv_b,
-    out_proj and D), whose last dim holds `mamba_pieces`; an attention's
-    wk and wv (a template dict holding wq, wk, wv and wo, wk's `head_dim`
-    set) where the ranks do not divide the kv heads, whose last dim holds
-    the columns of the rank's `kv_heads`, one piece a head (k_norm stays
-    whole).
+    the "model" axis has more than one rank and the layout cuts that dim
+    over it ("tp", "fsdp"; "zero3" keeps it whole and computes whole on
+    every rank): a Mamba2 mixer's in_proj, conv_w and conv_b (a template
+    dict holding in_proj, conv_w, conv_b, out_proj and D; in_proj's
+    layout decides for the three), whose last dim holds `mamba_pieces`;
+    an attention's wk and wv (a template dict holding wq, wk, wv and wo,
+    wk's `head_dim` set) where the ranks do not divide the kv heads,
+    whose last dim holds the columns of the rank's `kv_heads`, one piece
+    a head (k_norm stays whole).
     `models.base.shard_params`, `gather_params` and `materialize_shard`
     read this."""
     if not isinstance(templates, dict):
@@ -626,13 +637,15 @@ def rank_pieces(templates, layout, mesh, rank: int) -> dict:
     coord, world = rank_coords(mesh, rank)["model"], mesh.shape["model"]
     if world <= 1:
         return out
-    if {"in_proj", "out_proj", "D", *_MAMBA_FUSED} <= set(templates):
+    if ({"in_proj", "out_proj", "D", *_MAMBA_FUSED} <= set(templates)
+            and _cuts_last(layout["in_proj"])):
         di = templates["out_proj"].shape[-2]
         n = (templates["conv_w"].shape[-1] - di) // 2
         pieces = mamba_pieces(di, n, templates["D"].shape[-1], world, coord)
         for k, group in _MAMBA_FUSED.items():
             out[k] = out[k][:-1] + [pieces[group]]
-    if _ATTN <= set(templates) and templates["wk"].head_dim:
+    if (_ATTN <= set(templates) and templates["wk"].head_dim
+            and _cuts_last(layout["wk"])):
         hd = templates["wk"].head_dim
         h, hkv = (templates[k].shape[-1] // hd for k in ("wq", "wk"))
         if hkv % world:
@@ -661,11 +674,15 @@ def take_pieces(a: torch.Tensor, pieces: list) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the layouts `zoo.train_step` trains under (launch/sharding.py's rule
-# sets), and the families each trains: "tp" every family, the layouts
-# that cut weights over "data" the dense and moe families
+# sets), and the families each trains: "tp" and "zero3" every family,
+# "fsdp" the dense and moe families (the others': ROADMAP item 29)
 TRAIN_MODES = ("tp", "fsdp", "zero3")
 TRAIN_ARCH_TYPES = {"tp": TP_ARCH_TYPES, "fsdp": ("dense", "moe"),
-                    "zero3": ("dense", "moe")}
+                    "zero3": TP_ARCH_TYPES}
+# the layouts the engine serves under (`serving.engine.prefill` /
+# `decode_step`), every family: the reference's dry run serves under "tp"
+# and, with its "zero3" variant, under "zero3"
+SERVE_MODES = ("tp", "zero3")
 # the attn_shard each layout trains: the reference's "shmap" variant (its
 # shard_map attention and MoE) under "tp" and "fsdp" for the dense and moe
 # families, as its pod dry run combines them; never with "zero3"
@@ -677,9 +694,9 @@ SHMAP_TRAIN_ARCH_TYPES = ("dense", "moe")
 def check_train(cfg, mesh, mode: str) -> None:
     """Raise ValueError unless cfg trains over the ("data", "model") mesh
     `mesh` under `mode`: a layout of TRAIN_MODES that trains cfg's family
-    (`TRAIN_ARCH_TYPES`: "tp" every family; "fsdp" / "zero3" the dense and
-    moe families, the ssm, hybrid and encdec families' being ROADMAP item
-    29), an attn_shard the layout trains (`TRAIN_ATTN_SHARDS`: "auto", or
+    (`TRAIN_ARCH_TYPES`: "tp" and "zero3" every family; "fsdp" the dense
+    and moe families, the ssm, hybrid and encdec families' being ROADMAP
+    item 29), an attn_shard the layout trains (`TRAIN_ATTN_SHARDS`: "auto", or
     "shmap" under "tp" / "fsdp" for the dense and moe families), and a
     "model" axis that `check_tp` lets serve."""
     if mode not in TRAIN_MODES:
@@ -706,7 +723,8 @@ def check_train(cfg, mesh, mode: str) -> None:
 class TrainLayout:
     """The layout a training step runs under: `mode` ("tp", "fsdp" or
     "zero3") and `specs`, its layout tree on the run's mesh
-    (`launch.sharding.param_layouts(templates, mesh, mode)`)."""
+    (`launch.sharding.param_layouts(templates, mesh, mode)`); a serving
+    step takes one too (`SERVE_MODES`)."""
 
     mode: str
     specs: dict
@@ -756,6 +774,103 @@ def gather_tree(mp: ModelParallel, tree, specs):
     if isinstance(tree, dict):
         return {k: gather_tree(mp, v, specs[k]) for k, v in tree.items()}
     return gather_for_use(mp, tree, specs)
+
+
+def _narrow_tree(tree, pieces):
+    """`take_pieces` over a (sub)tree of leaves (its own keys: a subtree
+    may leave leaves of `pieces` out)."""
+    if isinstance(tree, dict):
+        return {k: _narrow_tree(v, pieces[k]) for k, v in tree.items()}
+    return take_pieces(tree, pieces)
+
+
+def layout_use(mp: ModelParallel, specs: dict, stack: str = "blocks",
+               pieces: dict | None = None):
+    """use(p, key): what the layer code reads of p[key] (a sublayer of one
+    layer of the stacked subtree `stack`, "blocks" or "enc_blocks", or a
+    top-level leaf or subtree: the names are looked up among the top
+    level's layouts and one layer's, and no name is in both) under the
+    layout tree `specs`: its leaves cut over "data" gathered where used
+    (`gather_tree`) and, with `pieces` (`serve_pieces`, a tree like
+    specs), each then narrowed to its pieces."""
+    s = {**specs, **layer_specs(specs[stack])}
+    q = None if pieces is None else {**pieces, **layer_specs(pieces[stack])}
+
+    def use(p, key):
+        w = gather_tree(mp, p[key], s[key])
+        return w if q is None else _narrow_tree(w, q[key])
+
+    return use
+
+
+def gathered_lookup(mp: ModelParallel, shard: torch.Tensor,
+                    tokens: torch.Tensor, spec) -> torch.Tensor:
+    """The embedding rows of `tokens` (this rank's rows of the batch) from
+    a table (V, d) whose layout `spec` cuts d over "data" (zero3's) and of
+    which the rank holds `shard` (V, its block of d): the data ranks'
+    tokens gathered, each rank looks its block of d up for all of them and
+    the blocks are gathered along d, so no rank gathers the table; the
+    rank keeps its own rows, the table's bits. The tokens cross as
+    int32."""
+    _, axes = data_cut(spec)
+    every = mp.gather_axes(tokens.to(torch.int32), 0, ("data",))
+    rows = mp.gather_axes(shard[every], -1, axes)
+    b = tokens.shape[0]
+    return rows.narrow(0, mp.data_rank * b, b)
+
+
+def gathered_logits(mp: ModelParallel, x: torch.Tensor, shard: torch.Tensor,
+                    spec, tied: bool = False) -> torch.Tensor:
+    """x (this rank's rows, (B, S, d)) through a head (d, V), or a tied
+    embedding (V, d) transposed, whose layout `spec` cuts d over "data"
+    (zero3's), of which the rank holds `shard`: the data ranks' x
+    gathered, each rank's block of d times its shard in float32, the
+    partial logits summed over the ranks that cut d; the rank keeps its
+    own rows, in x's dtype. No rank gathers the head."""
+    _, axes = data_cut(spec)
+    w = shard.T if tied else shard
+    every = mp.gather_axes(x, 0, ("data",))
+    n = w.shape[0]
+    at = mp.axis_ranks(axes).index(mp.global_rank) * n
+    part = every.narrow(-1, at, n).float() @ w.float()
+    logits = mp.all_reduce_axes(part, axes)
+    b = x.shape[0]
+    return logits.narrow(0, mp.data_rank * b, b).to(x.dtype)
+
+
+def serve_pieces(templates, specs, tp_specs, mesh, rank: int):
+    """What a rank serving under the layout tree `specs` ("zero3") narrows
+    each leaf to, once gathered whole over "data" (`layout_use`), to run
+    the "tp" layer code: per dim, its "tp" pieces (`rank_pieces` under
+    tp_specs, "tp"'s layout tree) where `specs` keeps the dim whole or
+    cuts it over "data" (which "tp" keeps whole: the gather makes it
+    whole), and all of what it holds where `specs` cuts the dim over
+    "model" alone (the experts, which both layouts cut alike). ValueError
+    where the two layouts cut one dim otherwise. (Every rank along the
+    gather's axes takes other "tp" pieces: the gather moves whole
+    leaves.)"""
+    def walk(tmpl, spec, tp, held):
+        if isinstance(spec, dict):
+            return {k: walk(tmpl[k], spec[k], tp[k], held[k]) for k in spec}
+        out = []
+        for dim, axes in enumerate(spec):
+            axes = _flat(axes)
+            if "data" in axes and tp[dim] != [(0, tmpl.shape[dim])]:
+                raise ValueError(f"a dim cut over {axes} that \"tp\" "
+                                 f"cuts to {tp[dim]}")
+            if axes and "data" not in axes:
+                if tp[dim] != held[dim]:
+                    raise ValueError(f"a dim cut to {held[dim]} over "
+                                     f"{axes} that \"tp\" cuts to "
+                                     f"{tp[dim]}")
+                out.append([(0, sum(m for _, m in held[dim]))])
+            else:
+                out.append(tp[dim])
+        return out
+
+    return walk(templates, specs,
+                rank_pieces(templates, tp_specs, mesh, rank),
+                rank_pieces(templates, specs, mesh, rank))
 
 
 def _storage_key(t: torch.Tensor) -> int:

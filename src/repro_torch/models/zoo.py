@@ -38,7 +38,7 @@ are whole and every rank looks its tokens up and computes the whole
 logits, with no collective.
 
 Training over a ("data", "model") mesh (`train_step` with mp and a
-`parallel.TrainLayout`; "tp" for every family, "fsdp" and "zero3" for the
+`parallel.TrainLayout`; "tp" and "zero3" for every family, "fsdp" for the
 dense and moe families, `parallel.check_train`): the params are a rank's
 shard under the layout, the batch its rows (the "data" axis). Each block
 gathers the leaves of a sublayer (its attention, MLP, experts) that the
@@ -64,8 +64,7 @@ import torch
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.parallel import (check_tp, check_train, enter_partial,
-                                         gather_last, gather_tree,
-                                         layer_specs,
+                                         gather_last, layout_use,
                                          reduce_partial,
                                          reduce_replicated_grads,
                                          regather_saved, sum_over,
@@ -380,27 +379,30 @@ def _chunked(cfg, x) -> bool:
     return cfg.ssm_impl == "chunked" and x.shape[1] > 1
 
 
-def _rwkv_block_fwd(p, cfg, x, state=None, mp=None):
-    """One RWKV-6 layer: (x, new state {"tm_shift", "wkv", "cm_shift"})."""
+def _rwkv_block_fwd(p, cfg, x, state=None, mp=None, use=operator.getitem):
+    """One RWKV-6 layer: (x, new state {"tm_shift", "wkv", "cm_shift"});
+    use(p, key) as the dense block's."""
     st_tm = None if state is None else {"shift": state["tm_shift"],
                                         "wkv": state["wkv"]}
     tm = (Lyr.rwkv6_timemix_chunked if _chunked(cfg, x)
           else Lyr.rwkv6_timemix)
-    h, new_tm = tm(p["tm"], cfg, Lyr.rms_norm(x, p["ln1"]), st_tm, mp=mp)
+    h, new_tm = tm(use(p, "tm"), cfg, Lyr.rms_norm(x, p["ln1"]), st_tm,
+                   mp=mp)
     x = x + reduce_partial(mp, h)
     st_cm = None if state is None else {"shift": state["cm_shift"]}
-    h, new_cm = Lyr.rwkv6_channelmix(p["cm"], Lyr.rms_norm(x, p["ln2"]),
+    h, new_cm = Lyr.rwkv6_channelmix(use(p, "cm"), Lyr.rms_norm(x, p["ln2"]),
                                      st_cm, mp)
     x = x + h
     return x, {"tm_shift": new_tm["shift"], "wkv": new_tm["wkv"],
                "cm_shift": new_cm["shift"]}
 
 
-def _mamba_block_fwd(p, cfg, x, state=None, mp=None):
-    """One Mamba2 layer: (x, new state {"conv", "ssm"})."""
+def _mamba_block_fwd(p, cfg, x, state=None, mp=None, use=operator.getitem):
+    """One Mamba2 layer: (x, new state {"conv", "ssm"}); use(p, key) as
+    the dense block's."""
     impl = Lyr.mamba2_chunked if _chunked(cfg, x) else Lyr.mamba2_scan
-    h, new_state = impl(p["mixer"], cfg, Lyr.rms_norm(x, p["ln"]), state,
-                        mp=mp)
+    h, new_state = impl(use(p, "mixer"), cfg, Lyr.rms_norm(x, p["ln"]),
+                        state, mp=mp)
     return x + reduce_partial(mp, h), new_state
 
 
@@ -446,8 +448,11 @@ def embed_tokens(params, cfg, tokens, mp=None) -> torch.Tensor:
     return reduce_partial(mp, rows)
 
 
-def embed_inputs(params, cfg, batch, mp=None):
-    tok_emb = embed_tokens(params, cfg, batch["tokens"], mp)
+def embed_inputs(params, cfg, batch, mp=None, tok_emb=None):
+    """The embedded tokens (`tok_emb` where given), a vlm's frontend
+    positions before them."""
+    if tok_emb is None:
+        tok_emb = embed_tokens(params, cfg, batch["tokens"], mp)
     if cfg.frontend_positions and cfg.arch_type != "encdec":
         fe = batch["frontend"].to(tok_emb.dtype)     # (B, P, d) stub embeds
         return torch.cat([fe, tok_emb], dim=1)
@@ -463,23 +468,24 @@ def forward(params, cfg: ModelConfig, batch, mp=None, layout=None
     layout (with mp, a `parallel.TrainLayout`; `parallel.check_train`):
     params are the rank's shard and batch its rows of a training run. Each
     sublayer's leaves cut over "data" are gathered where they run
-    (`parallel.gather_tree`), the embedding and the head where they are
-    used; the heads, the MLP and the vocabulary are cut over "model" as in
+    (`parallel.layout_use`: a layer's attention, MLP, experts, RWKV-6's
+    time and channel mix, a Mamba2 mixer, zamba2's shared block at each
+    application, seamless's cross attention with its cross K/V), the
+    embedding and the head where they are used; the heads, the MLP, the
+    recurrent mixers' heads and the vocabulary are cut over "model" as in
     serving unless the layout is "zero3" (computed whole on every rank,
     the experts still over "model"); the aux is the whole batch's."""
-    tp, use = mp, operator.getitem
+    tp, use, enc_use = mp, operator.getitem, operator.getitem
     if layout is not None:
         check_train(cfg, mp.mesh, layout.mode)
         tp = None if layout.mode == "zero3" else mp
-        # the top level's layouts and a layer's (no name is in both)
-        specs = {**layout.specs, **layer_specs(layout.specs["blocks"])}
-
-        def use(p, key):
-            return gather_tree(mp, p[key], specs[key])
+        use = layout_use(mp, layout.specs)
+        if cfg.arch_type == "encdec":
+            enc_use = layout_use(mp, layout.specs, "enc_blocks")
     elif mp is not None:
         check_tp(cfg, mp.world)
     if cfg.arch_type == "encdec":
-        return _forward_encdec(params, cfg, batch, mp)
+        return _forward_encdec(params, cfg, batch, tp, use, enc_use)
     x = embed_inputs({"embed": use(params, "embed")}, cfg, batch, tp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -487,9 +493,9 @@ def forward(params, cfg: ModelConfig, batch, mp=None, layout=None
     layers = unstack(params["blocks"], cfg.n_layers)
     if cfg.arch_type == "ssm":
         for p in layers:
-            x, _ = _rwkv_block_fwd(p, cfg, x, mp=mp)
+            x, _ = _rwkv_block_fwd(p, cfg, x, mp=tp, use=use)
     elif cfg.arch_type == "hybrid":
-        x = _hybrid_forward(params, cfg, x, layers, positions, mp)
+        x = _hybrid_forward(params, cfg, x, layers, positions, tp, use)
     else:
         wins = window_schedule(cfg)
         for i, p in enumerate(layers):
@@ -501,16 +507,19 @@ def forward(params, cfg: ModelConfig, batch, mp=None, layout=None
     return _lm_head({w: use(params, w)}, cfg, x, tp), aux_total
 
 
-def _hybrid_forward(params, cfg, x, layers, positions, mp=None):
+def _hybrid_forward(params, cfg, x, layers, positions, mp=None,
+                    use=operator.getitem):
     """zamba2: the mamba layers, the shared block after each whole group
     of `attn_every` of them (its second input emb0 the embedded input),
-    the tail's layers after the last application."""
+    the tail's layers after the last application. use(p, key) as the
+    dense block's: the shared block's weights are read (gathered) anew at
+    each application."""
     emb0 = x
     for i, p in enumerate(layers):
-        x, _ = _mamba_block_fwd(p, cfg, x, mp=mp)
+        x, _ = _mamba_block_fwd(p, cfg, x, mp=mp, use=use)
         if (i + 1) % cfg.attn_every == 0:
-            x, _ = _shared_attn_fwd(params["shared_attn"], cfg, x, emb0,
-                                    positions, mp=mp)
+            x, _ = _shared_attn_fwd(use(params, "shared_attn"), cfg, x,
+                                    emb0, positions, mp=mp)
     return x
 
 
@@ -532,7 +541,8 @@ def _promoted(x, w):
     return x.to(torch.promote_types(x.dtype, w.dtype))
 
 
-def encode(params, cfg, frontend: torch.Tensor, mp=None) -> torch.Tensor:
+def encode(params, cfg, frontend: torch.Tensor, mp=None,
+           use=operator.getitem) -> torch.Tensor:
     """The encoder over the frontend's frame embeddings (B, S_enc, d), cast
     to cfg.dtype as in the reference: non-causal attention with rope at
     positions 0..S_enc-1 and the MLP in each layer, then enc_norm. Under mp
@@ -540,17 +550,21 @@ def encode(params, cfg, frontend: torch.Tensor, mp=None) -> torch.Tensor:
     through `enter_partial`) and sums both output projections over the
     ranks; under the sequence-sharded variants its attention, with no
     cache, runs over the ranks' blocks of the frames where they divide
-    S_enc (`layers.attention`); the output is whole."""
+    S_enc (`layers.attention`); the output is whole. use(p, key) reads an
+    encoder layer's attention and MLP (`parallel.layout_use` of
+    "enc_blocks")."""
     x = frontend.to(cfg.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
-        xn = _promoted(Lyr.rms_norm(x, p["ln1"]), p["attn"]["wq"])
-        h, _ = Lyr.attention(p["attn"], cfg, enter_partial(mp, xn),
+        attn = use(p, "attn")
+        xn = _promoted(Lyr.rms_norm(x, p["ln1"]), attn["wq"])
+        h, _ = Lyr.attention(attn, cfg, enter_partial(mp, xn),
                              positions=positions, causal=False, mp=mp)
+        del attn
         x = x + reduce_partial(mp, h)
         x = x + reduce_partial(mp, Lyr.mlp(
-            enter_partial(mp, Lyr.rms_norm(x, p["ln2"])), p["mlp"],
+            enter_partial(mp, Lyr.rms_norm(x, p["ln2"])), use(p, "mlp"),
             cfg.mlp_act))
     return Lyr.rms_norm(x, params["enc_norm"])
 
@@ -568,14 +582,16 @@ def cross_kv(p, cfg, enc_out, mp=None) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _decoder_block_fwd(p, cfg, x, positions, kv, kv_cache=None,
-                       cache_len=None, mode="decode", mp=None):
-    """One encdec decoder layer: the dense block (no window), then cross
-    attention over the encoder's kv = (k, v, their layout tag) on
-    rms_norm(x, ln_cross): under mp the rank's query heads over its kv
-    heads ("heads"), or at decode over a cross K/V cut over its frames
-    ("seq"; `layers.cross_attention`)."""
+                       cache_len=None, mode="decode", mp=None,
+                       use=operator.getitem):
+    """One encdec decoder layer: the dense block (no window; use(p, key)
+    as its), then cross attention over the encoder's kv = (k, v, their
+    layout tag) on rms_norm(x, ln_cross): under mp the rank's query heads
+    over its kv heads ("heads"), or at decode over a cross K/V cut over
+    its frames ("seq"; `layers.cross_attention`). p["cross"] is read as
+    it is: the caller has made it ready (`ready_cross`)."""
     x, cache = _dense_block_fwd(p, cfg, x, positions, BIG_WINDOW, kv_cache,
-                                cache_len, mode, mp)
+                                cache_len, mode, mp, use)
     h, _ = Lyr.attention(p["cross"], cfg,
                          enter_partial(mp, Lyr.rms_norm(x, p["ln_cross"])),
                          positions=positions, causal=False, cross_kv=kv,
@@ -583,21 +599,37 @@ def _decoder_block_fwd(p, cfg, x, positions, kv, kv_cache=None,
     return x + reduce_partial(mp, h), cache
 
 
-def _forward_encdec(params, cfg, batch, mp=None):
+def ready_cross(p, use, keys=None) -> dict:
+    """A decoder layer's views p with its cross attention's weights read
+    once (use(p, "cross"), `parallel.layout_use`) for both its cross K/V
+    and its cross attention; `keys` keeps only those leaves (a decode step
+    reads the cached cross K/V, not cross wk / wv)."""
+    cross = p["cross"] if keys is None else {k: v for k, v in
+                                             p["cross"].items() if k in keys}
+    return dict(p, cross=use({"cross": cross}, "cross"))
+
+
+def _forward_encdec(params, cfg, batch, mp=None, use=operator.getitem,
+                    enc_use=operator.getitem):
     """seamless: the encoder over batch["frontend"], then the decoder over
     batch["tokens"] with each layer's cross attention over the encoder's
     output; aux 0. (The reference's jax.checkpoint is remat, not
-    semantics.)"""
-    enc_out = encode(params, cfg, batch["frontend"], mp)
-    x = embed_tokens(params, cfg, batch["tokens"], mp)
+    semantics.) use / enc_use read a decoder / encoder layer's sublayers
+    and the top level's leaves (`parallel.layout_use`)."""
+    enc_out = encode(params, cfg, batch["frontend"], mp, enc_use)
+    x = embed_tokens({"embed": use(params, "embed")}, cfg, batch["tokens"],
+                     mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for p in unstack(params["blocks"], cfg.n_layers):
+        p = ready_cross(p, use)
         x, _ = _decoder_block_fwd(p, cfg, x, positions,
                                   (*cross_kv(p, cfg, enc_out, mp), "heads"),
-                                  mp=mp)
+                                  mp=mp, use=use)
     x = Lyr.rms_norm(x, params["final_norm"])
-    return _lm_head(params, cfg, x, mp), torch.zeros((), device=x.device)
+    w = "embed" if cfg.tie_embeddings else "head"
+    return (_lm_head({w: use(params, w)}, cfg, x, mp),
+            torch.zeros((), device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -640,8 +672,8 @@ def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update,
     leaf the loss does not reach (a hybrid's shared block when the depth
     keeps no application of it) gets a zero gradient, as under jax.grad.
 
-    With mp and a `parallel.TrainLayout` (`parallel.check_train`: "tp" for
-    every family, "fsdp" / "zero3" for the dense and moe families): params
+    With mp and a `parallel.TrainLayout` (`parallel.check_train`: "tp" and
+    "zero3" for every family, "fsdp" for the dense and moe families): params
     and opt_state are this rank's shards
     under the layout, batch its rows of the batch; the step is the
     unsharded one's. The weights gathered for use are not saved for the

@@ -60,17 +60,29 @@ with its layout (`KVCache.cuts`), and attention reads each leaf's tag.
 Where the ranks split a dense or moe model's query heads (yi-34b's 56
 over 16 ranks), a rank's kv heads are those its touched query heads read
 (`parallel.q_heads`). Every rank returns the same, whole logits.
+With a "zero3" layout (`serve_weights`) a rank holds its zero3 shard and
+runs the "tp" code on each sublayer's leaves gathered and narrowed where
+the step reads them, into the "tp" cache; its logits are those of its
+rows of the batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import operator
+from typing import Any, Callable
+
 import torch
 
+from repro_torch.launch import sharding as SHD
 from repro_torch.models import layers as Lyr
 from repro_torch.models import zoo as Z
 from repro_torch.models.base import ModelConfig, unstack
-from repro_torch.models.parallel import (SEQ_VARIANTS, check_tp, kv_heads,
-                                         reduce_partial)
+from repro_torch.models.parallel import (SERVE_MODES, SEQ_VARIANTS, check_tp,
+                                         data_cut, gathered_logits,
+                                         gathered_lookup, kv_heads,
+                                         layout_use, reduce_partial,
+                                         serve_pieces)
 
 
 def _windowed(cfg: ModelConfig) -> bool:
@@ -213,21 +225,95 @@ def _kv(cache: KVCache, k: str, v: str, *idx) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# What a step reads of its parameters
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServeWeights:
+    """How a serving step reads its parameters (`serve_weights`): use(p,
+    key) a sublayer of a layer of "blocks" or a top-level leaf or subtree
+    as the "tp" layer code takes it, enc_use a layer of "enc_blocks"
+    likewise (`parallel.layout_use`); `embed` and `logits` the embedding
+    lookup and the head. specs: the "zero3" layout tree (None under "tp"),
+    under which a rank never gathers the head (`parallel.gathered_logits`
+    sums the ranks' float32 partial logits instead) and gathers the
+    embedding only where the batch's tokens outnumber its rows (a long
+    prefill): else `parallel.gathered_lookup` moves the tokens' rows, the
+    table's bits."""
+
+    use: Callable = operator.getitem
+    enc_use: Callable = operator.getitem
+    mp: Any = None
+    specs: dict | None = None
+
+    def _cut(self, key: str) -> bool:
+        return (self.specs is not None
+                and data_cut(self.specs[key]) is not None)
+
+    def embed(self, params, cfg, tokens):
+        # the rows of every data rank's tokens, or the table: the fewer
+        if (self._cut("embed")
+                and tokens.numel() * self.mp.data_world < cfg.vocab):
+            return gathered_lookup(self.mp, params["embed"], tokens,
+                                   self.specs["embed"])
+        return Z.embed_tokens({"embed": self.use(params, "embed")}, cfg,
+                              tokens, self.mp)
+
+    def logits(self, params, cfg, x):
+        w = "embed" if cfg.tie_embeddings else "head"
+        if self._cut(w):
+            return gathered_logits(self.mp, x, params[w], self.specs[w],
+                                   tied=cfg.tie_embeddings)
+        return Z._lm_head({w: self.use(params, w)}, cfg, x, self.mp)
+
+
+def serve_weights(cfg: ModelConfig, mp=None, layout=None) -> ServeWeights:
+    """How a step of cfg reads a rank's parameters under `layout`. With no
+    layout, or under "tp", the rank's shard as it is held. Under "zero3"
+    (`parallel.SERVE_MODES`; layout a `parallel.TrainLayout` on mp's mesh)
+    the rank holds its zero3 shard: each layer's leaves the layout cuts
+    over "data" are gathered whole where the step reads them, then
+    narrowed to the rank's "tp" pieces (`parallel.serve_pieces`), and the
+    "tp" code runs on them (the cache is the "tp" cache); the gathered
+    weights die with the sublayer that read them, before the next one
+    gathers. The embedding and the head are read as `ServeWeights` says."""
+    if layout is None or layout.mode == "tp":
+        return ServeWeights(mp=mp)
+    if mp is None or layout.mode not in SERVE_MODES:
+        raise ValueError(f"{cfg.name}: the engine serves over ranks under "
+                         f"{SERVE_MODES}, not {layout.mode!r}"
+                         + ("" if mp is not None else " without ranks"))
+    tmpl = Z.templates(cfg)
+    pieces = serve_pieces(tmpl, layout.specs,
+                          SHD.param_layouts(tmpl, mp.mesh, "tp"), mp.mesh,
+                          mp.global_rank)
+    enc_use = (layout_use(mp, layout.specs, "enc_blocks", pieces)
+               if cfg.arch_type == "encdec" else operator.getitem)
+    return ServeWeights(layout_use(mp, layout.specs, "blocks", pieces),
+                        enc_use, mp, layout.specs)
+
+
+# ---------------------------------------------------------------------------
 # Prefill: consume the full prompt, fill the cache, return last-token logits.
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg: ModelConfig, batch, cache, mp=None
+def prefill(params, cfg: ModelConfig, batch, cache, mp=None, layout=None
             ) -> tuple[torch.Tensor, dict]:
+    """layout: the parameters' layout under mp (`serve_weights`; None is
+    "tp")."""
     if mp is not None:
         check_tp(cfg, mp.world)
+    w = serve_weights(cfg, mp, layout)
     if cfg.arch_type == "encdec":
-        return _prefill_encdec(params, cfg, batch, cache, mp)
-    x = Z.embed_inputs(params, cfg, batch, mp)
+        return _prefill_encdec(params, cfg, batch, cache, mp, w)
+    x = Z.embed_inputs(params, cfg, batch, mp,
+                       tok_emb=w.embed(params, cfg, batch["tokens"]))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x = _run_layers(params, cfg, x, positions, cache, 0, "prefill", mp)
+    x = _run_layers(params, cfg, x, positions, cache, 0, "prefill", mp,
+                    w.use)
     x = Lyr.rms_norm(x[:, -1:], params["final_norm"])
-    return Z._lm_head(params, cfg, x, mp), cache
+    return w.logits(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -235,38 +321,43 @@ def prefill(params, cfg: ModelConfig, batch, cache, mp=None
 # ---------------------------------------------------------------------------
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
-                cache_len: int, mp=None) -> tuple[torch.Tensor, dict]:
-    """tokens: (B, 1) int; cache_len: host int (current cache fill)."""
+                cache_len: int, mp=None, layout=None
+                ) -> tuple[torch.Tensor, dict]:
+    """tokens: (B, 1) int; cache_len: host int (current cache fill);
+    layout as `prefill`'s."""
     if mp is not None:
         check_tp(cfg, mp.world)
-    x = Z.embed_tokens(params, cfg, tokens, mp)
+    w = serve_weights(cfg, mp, layout)
+    x = w.embed(params, cfg, tokens)
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.int64,
                            device=x.device)
     if cfg.arch_type == "encdec":
-        x = _decode_encdec(params, cfg, x, positions, cache, cache_len, mp)
+        x = _decode_encdec(params, cfg, x, positions, cache, cache_len, mp,
+                           w.use)
     else:
         x = _run_layers(params, cfg, x, positions, cache, cache_len,
-                        "decode", mp)
+                        "decode", mp, w.use)
     x = Lyr.rms_norm(x, params["final_norm"])
-    return Z._lm_head(params, cfg, x, mp), cache
+    return w.logits(params, cfg, x), cache
 
 
-def _run_layers(params, cfg, x, positions, cache, cache_len, mode, mp=None):
+def _run_layers(params, cfg, x, positions, cache, cache_len, mode, mp=None,
+                use=operator.getitem):
     if cfg.arch_type == "ssm":
-        return _rwkv_run(params, cfg, x, cache, mode, mp)
+        return _rwkv_run(params, cfg, x, cache, mode, mp, use)
     if cfg.arch_type == "hybrid":
         return _hybrid_run(params, cfg, x, positions, cache, cache_len, mode,
-                           mp)
+                           mp, use)
     if _windowed(cfg):
         return _dense_serve_windowed(params, cfg, x, positions, cache,
-                                     cache_len, mode, mp)
+                                     cache_len, mode, mp, use)
     wins = Z.window_schedule(cfg)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, _, _ = Z._block_fwd(
             p, cfg, x, positions, int(wins[i]),
             kv_cache=_kv(cache, "k", "v", i), cache_len=cache_len,
-            mode=mode, mp=mp)
+            mode=mode, mp=mp, use=use)
     return x
 
 
@@ -276,7 +367,7 @@ def _run_layers(params, cfg, x, positions, cache, cache_len, mode, mp=None):
 # ---------------------------------------------------------------------------
 
 def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode,
-                          mp=None):
+                          mp=None, use=operator.getitem):
     g = cfg.global_every
     n_groups = cfg.n_layers // g
     w = cache["lk"].shape[3]
@@ -286,12 +377,12 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode,
 
     def local_block(x, p, kv):
         h, _ = Lyr.attention(
-            p["attn"], cfg, Lyr.rms_norm(x, p["ln1"]), positions=positions,
-            kv_cache=kv, cache_len=cache_len, mode=mode, ring_window=w,
-            mp=mp)
+            use(p, "attn"), cfg, Lyr.rms_norm(x, p["ln1"]),
+            positions=positions, kv_cache=kv, cache_len=cache_len,
+            mode=mode, ring_window=w, mp=mp)
         x = x + reduce_partial(mp, h)
         return x + reduce_partial(mp, Lyr.mlp(Lyr.rms_norm(x, p["ln2"]),
-                                              p["mlp"], cfg.mlp_act))
+                                              use(p, "mlp"), cfg.mlp_act))
 
     for gi in range(n_groups):
         for li in range(g - 1):
@@ -300,7 +391,7 @@ def _dense_serve_windowed(params, cfg, x, positions, cache, cache_len, mode,
         x, _ = Z._dense_block_fwd(
             layers[gi * g + g - 1], cfg, x, positions, Lyr.NO_WINDOW,
             kv_cache=_kv(cache, "gk", "gv", gi), cache_len=cache_len,
-            mode=mode, mp=mp)
+            mode=mode, mp=mp, use=use)
     for ti, p in enumerate(layers[n_groups * g:]):
         x = local_block(x, p, _kv(cache, "tlk", "tlv", ti))
     return x
@@ -320,28 +411,30 @@ def _write_state(cache, i, new: dict) -> None:
         cache[k][i].copy_(v)
 
 
-def _rwkv_run(params, cfg, x, cache, mode, mp=None):
+def _rwkv_run(params, cfg, x, cache, mode, mp=None, use=operator.getitem):
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, new = Z._rwkv_block_fwd(
             p, cfg, x, _layer_state(cache, ("tm_shift", "wkv", "cm_shift"),
-                                    i, mode), mp)
+                                    i, mode), mp, use)
         _write_state(cache, i, new)
     return x
 
 
-def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode, mp=None):
+def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode, mp=None,
+                use=operator.getitem):
     """zamba2: the mamba layers with their conv / ssm state, and after each
     whole group of `attn_every` the shared block on its own KV cache
     attn_k[g] / attn_v[g] (one set of weights for every application)."""
     emb0 = x
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, new = Z._mamba_block_fwd(
-            p, cfg, x, _layer_state(cache, ("conv", "ssm"), i, mode), mp)
+            p, cfg, x, _layer_state(cache, ("conv", "ssm"), i, mode), mp,
+            use)
         _write_state(cache, i, new)
         if (i + 1) % cfg.attn_every == 0:
             g = i // cfg.attn_every
             x, _ = Z._shared_attn_fwd(
-                params["shared_attn"], cfg, x, emb0, positions,
+                use(params, "shared_attn"), cfg, x, emb0, positions,
                 kv_cache=_kv(cache, "attn_k", "attn_v", g),
                 cache_len=cache_len, mode=mode, mp=mp)
     return x
@@ -352,7 +445,7 @@ def _hybrid_run(params, cfg, x, positions, cache, cache_len, mode, mp=None):
 # projected cross K/V live in the cache for decode.
 # ---------------------------------------------------------------------------
 
-def _prefill_encdec(params, cfg, batch, cache, mp=None):
+def _prefill_encdec(params, cfg, batch, cache, mp=None, w=ServeWeights()):
     """The encoder over batch["frontend"], then the decoder over
     batch["tokens"]: each layer writes its self K/V (prefill mode) and its
     cross K/V, cast to the cache's dtype, into cache["cross_k"][i] /
@@ -367,16 +460,17 @@ def _prefill_encdec(params, cfg, batch, cache, mp=None):
     if frames != enc_len:
         raise ValueError(f"a cache of {enc_len} encoder frames cannot take "
                          f"a frontend of {frames}")
-    enc_out = Z.encode(params, cfg, batch["frontend"], mp)
-    x = Z.embed_tokens(params, cfg, batch["tokens"], mp)
+    enc_out = Z.encode(params, cfg, batch["frontend"], mp, w.enc_use)
+    x = w.embed(params, cfg, batch["tokens"])
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
+        p = Z.ready_cross(p, w.use)
         ck, cv = Z.cross_kv(p, cfg, enc_out, mp)
         x, _ = Z._decoder_block_fwd(
             p, cfg, x, positions, (ck, cv, "heads"),
             kv_cache=_kv(cache, "k", "v", i), cache_len=0, mode="prefill",
-            mp=mp)
+            mp=mp, use=w.use)
         if seq:
             n = cache["cross_k"].shape[2]
             ck, cv = (t[:, mp.rank * n:(mp.rank + 1) * n] for t in
@@ -384,16 +478,23 @@ def _prefill_encdec(params, cfg, batch, cache, mp=None):
         cache["cross_k"][i].copy_(ck)
         cache["cross_v"][i].copy_(cv)
     x = Lyr.rms_norm(x[:, -1:], params["final_norm"])
-    return Z._lm_head(params, cfg, x, mp), cache
+    return w.logits(params, cfg, x), cache
 
 
-def _decode_encdec(params, cfg, x, positions, cache, cache_len, mp=None):
+# a decode step's cross attention reads the cached cross K/V, and of its
+# weights only these
+_CROSS_DECODE = ("wq", "wo", "q_norm")
+
+
+def _decode_encdec(params, cfg, x, positions, cache, cache_len, mp=None,
+                   use=operator.getitem):
     """One token through the decoder: self attention through K8 at
     cache_len, cross attention through K8 over the cached cross K/V."""
     for i, p in enumerate(unstack(params["blocks"], cfg.n_layers)):
         x, _ = Z._decoder_block_fwd(
-            p, cfg, x, positions, (cache["cross_k"][i], cache["cross_v"][i],
-                                   cache.cuts["cross_k"]),
+            Z.ready_cross(p, use, _CROSS_DECODE), cfg, x, positions,
+            (cache["cross_k"][i], cache["cross_v"][i],
+             cache.cuts["cross_k"]),
             kv_cache=_kv(cache, "k", "v", i), cache_len=cache_len,
-            mode="decode", mp=mp)
+            mode="decode", mp=mp, use=use)
     return x

@@ -371,8 +371,8 @@ def test_launcher_rank_trains_as_the_launcher(runs, capsys):
 
 
 REFUSED = [("rwkv6-1.6b", {}, (2, 2), "fsdp", "families"),
-           ("zamba2-1.2b", {}, (2, 2), "zero3", "families"),
-           ("seamless-m4t-large-v2", {}, (1, 2), "zero3", "families"),
+           ("zamba2-1.2b", {}, (2, 2), "fsdp", "families"),
+           ("seamless-m4t-large-v2", {}, (1, 2), "fsdp", "families"),
            ("yi-34b", {"attn_shard": "shmap"}, (2, 2), "zero3", "shmap"),
            ("dbrx-132b", {"attn_shard": "seqkv"}, (1, 2), "tp", "seqkv"),
            ("yi-34b", {}, (1, 3), "fsdp", "divide"),
@@ -383,9 +383,11 @@ REFUSED = [("rwkv6-1.6b", {}, (2, 2), "fsdp", "families"),
 @pytest.mark.parametrize("arch,kw,mesh,mode,why", REFUSED,
                          ids=[f"{r[0]}-{r[4]}" for r in REFUSED])
 def test_check_train_refuses(arch, kw, mesh, mode, why):
-    """check_train refuses the ssm, hybrid and encdec families under the
-    layouts that cut weights over "data" ("tp" trains them:
-    tests/test_torch_train_families.py), "seqkv" and "shmap" under zero3
+    """check_train refuses the ssm, hybrid and encdec families under
+    "fsdp" ("tp" trains them: tests/test_torch_train_families.py; "zero3"
+    too since it runs them whole: tests/test_torch_zero3.py, and the
+    zamba2 and seamless cases here refused it before), "seqkv" and
+    "shmap" under zero3
     ("shmap" trains under "tp" and "fsdp" since the reference's pod dry
     run does: tests/test_torch_shmap_train.py; this case refused it under
     "fsdp" before), "seqkv" anywhere, a "model" axis check_tp refuses (3

@@ -830,9 +830,15 @@ def test_record_prices_the_dtype_its_matmuls_run_in(param_dtype):
 
 
 def test_pod_record_skips_zero3_serving_and_long_context():
-    rec = D.pod_record("yi-34b", "decode_32k", variant="zero3")
-    assert rec["status"] == "skipped" and "item 30" in rec["skipped"]
-    assert D.pod_record("yi-34b", "long_500k")["status"] == "skipped"
+    """A combo the reference's `shapes.applicable` rules out is skipped
+    under every variant, "zero3" included, with its reason; zero3 serving
+    itself is traced since it runs (tests/test_torch_zero3_serve.py)."""
+    for variant in ("zero3", "baseline"):
+        rec = D.pod_record("yi-34b", "long_500k", variant=variant)
+        assert rec["status"] == "skipped", variant
+        assert rec["skipped"] == TSH.applicable(TCFG.get("yi-34b"),
+                                                "long_500k")[1]
+        assert "item 30" not in rec["skipped"]
 
 
 def test_multi_pod_example_runs():

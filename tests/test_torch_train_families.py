@@ -299,9 +299,13 @@ def test_family_launcher_rank_trains_as_the_launcher(runs, capsys):
 @pytest.mark.parametrize("mode", ["fsdp", "zero3"])
 def test_check_train_keeps_the_data_cut_layouts_for_the_dense_families(
         arch, mode):
-    """"tp" trains every family; "fsdp" and "zero3" stay the dense and moe
-    families' (the others': ROADMAP item 29)."""
+    """"tp" and "zero3" (which computes whole on every rank:
+    tests/test_torch_zero3.py) train every family; "fsdp" stays the dense
+    and moe families' (the others': ROADMAP item 29)."""
     cfg = TCFG.get_smoke(arch)
     TPAR.check_train(cfg, train_mesh(2, 2), "tp")
+    if mode == "zero3":
+        TPAR.check_train(cfg, train_mesh(2, 2), mode)
+        return
     with pytest.raises(ValueError, match="item 29"):
         TPAR.check_train(cfg, train_mesh(2, 2), mode)

@@ -2,7 +2,8 @@
 tests/test_torch_tp_kvrep.py, tests/test_torch_tp_qsplit.py,
 tests/test_torch_seq.py, tests/test_torch_seq_families.py,
 tests/test_torch_fsdp.py, tests/test_torch_train_families.py,
-tests/test_torch_shmap_train.py and tests/test_torch_pod_dryrun.py.
+tests/test_torch_shmap_train.py, tests/test_torch_pod_dryrun.py,
+tests/test_torch_zero3.py and tests/test_torch_zero3_serve.py.
 Each runs in a process that `launch.mesh.spawn_ranks` starts, one rank of
 a model-parallel run over gloo on the CPU, and returns what the test
 compares (tensors come back as numpy arrays). This module imports torch
@@ -488,13 +489,15 @@ def _train_case(mp, arch, mode, overrides, params_np, batches, lr,
                 step=int(state["step"]))
 
 
-def _kept_gathered(mp, arch, mode, params_np, batch, hooks: bool) -> int:
+def _kept_gathered(mp, arch, mode, params_np, batch, hooks: bool,
+                   overrides=None) -> int:
     """How many of the weights a training forward gathered for use are
     still alive after it returns (held by the autograd graph for the
     backward), with `regather_saved`'s hooks or, for contrast, with the
     gathered weights registered but no hooks; the backward then runs, so
-    that every rank makes the same collectives."""
-    cfg = smoke_cfg(arch)
+    that every rank makes the same collectives. `overrides`: config
+    fields, as `_train_case`'s."""
+    cfg = dataclasses.replace(smoke_cfg(arch), **(overrides or {}))
     tmpl = Z.templates(cfg)
     layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh, mode))
     shard = MB.shard_params(Z.params_from_numpy(params_np, cfg, device="cpu"),
@@ -534,6 +537,20 @@ def train_rank(mp, cases, kept_case=None, launcher=None) -> dict:
         arch, mode, steps, batch, seq, seed = launcher
         out["launcher"] = TLT.train_lm_rank(mp, arch, 0, mode, steps, batch,
                                             seq, seed, True, 1e-3)
+    return out
+
+
+def zero3_train_rank(mp, cases, kept_cases=()) -> dict:
+    """One rank of tests/test_torch_zero3.py: `_train_case` for each case
+    (name, arch, mode, config overrides, params_np, batches, lr[,
+    states]), and for each kept case (name, arch, overrides, params_np,
+    batch) the gathered weights still alive after a "zero3" forward with
+    and without `regather_saved` (`_kept_gathered`)."""
+    out = {name: _train_case(mp, *case) for name, *case in cases}
+    out["kept"] = {name: {hooks: _kept_gathered(mp, arch, "zero3", params_np,
+                                                batch, hooks, overrides)
+                          for hooks in (True, False)}
+                   for name, arch, overrides, params_np, batch in kept_cases}
     return out
 
 
@@ -603,3 +620,92 @@ def pod_rank(mp, serve_cases=(), train_cases=()) -> dict:
             shard, state, rows, cfg, opt.update, mp, layout))
         out[name] = dict(train=counts)
     return out
+
+
+def zero3_serve_case(mp, cfg, params_np: dict, tokens, frontend, feed,
+                     max_len: int) -> dict:
+    """One rank serving cfg under "zero3" from the reference's numpy
+    params, beside the same rank under "tp": each layout's shard and its
+    gather back (bit for bit, per leaf), then for each layout the engine's
+    prefill of the rank's rows of `tokens` (`launch.train.batch_rows`; an
+    encdec model's `frontend` frames too) and a decode step per feed[i]
+    (B, 1), each pass's collectives and K8 calls counted (`_pass_counts`),
+    the logits and the cache after the last step kept, and how many bytes
+    of gathered weights were alive at once at most (`_live_gathered`)."""
+    full = Z.params_from_numpy(params_np, cfg, device="cpu")
+    tmpl = Z.templates(cfg)
+    batch = {"tokens": torch.as_tensor(tokens)}
+    if frontend is not None:
+        batch["frontend"] = torch.as_tensor(frontend)
+    enc_len = frontend.shape[1] if cfg.arch_type == "encdec" else 0
+    rows = TLT.batch_rows(batch, mp.mesh, mp.global_rank)
+    b, s = rows["tokens"].shape
+    n = len(feed)
+    feed = [TLT.batch_rows({"tokens": torch.as_tensor(t)}, mp.mesh,
+                           mp.global_rank)["tokens"] for t in feed]
+    out = {}
+    for mode in ("zero3", "tp"):
+        layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh, mode))
+        shard = MB.shard_params(full, tmpl, layout.specs, mp)
+        back = MB.gather_params(shard, tmpl, layout.specs, mp)
+        round_trip = all(torch.equal(a, c) for a, c in
+                         zip(MB.tree_leaves(back), MB.tree_leaves(full)))
+        del back
+        cache = E.init_cache(cfg, b, max_len, enc_len, device="cpu", mp=mp)
+        live = _live_gathered(mp)
+        (lg, cache), prefill = _pass_counts(
+            mp, lambda: E.prefill(shard, cfg, rows, cache, mp, layout))
+        step_logits, decode = [lg[:, -1]], []
+        for i in range(n):
+            (lg, cache), counts = _pass_counts(
+                mp, lambda: E.decode_step(shard, cfg, feed[i], cache, s + i,
+                                          mp, layout))
+            step_logits.append(lg[:, -1])
+            decode.append(counts)
+        live.undo()
+        out[mode] = dict(round_trip=round_trip, step_logits=step_logits,
+                         cache=dict(cache), prefill=prefill, decode=decode,
+                         live_gathered=live.peak,
+                         state_bytes=sum(a.numel() * a.element_size()
+                                         for a in MB.tree_leaves(shard)))
+    return out
+
+
+class _live_gathered:
+    """Wraps mp.gather_axes to follow the bytes alive of the weights it
+    gathers for use (over axes that include "data": not the logits'
+    gather over "model"), and `peak`, the most alive at once (the
+    backward's gathers included); `undo()` restores it."""
+
+    def __init__(self, mp):
+        import weakref
+        self.mp, self.live, self.peak = mp, 0, 0
+        orig = self.orig = mp.gather_axes
+
+        def counted(x, dim, axes):
+            out = orig(x, dim, axes)
+            if out is not x and "data" in axes:
+                n = out.untyped_storage().nbytes()
+                self.live += n
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(out.untyped_storage(), self._free, n)
+            return out
+
+        mp.gather_axes = counted
+
+    def _free(self, n):
+        self.live -= n
+
+    def undo(self):
+        self.mp.gather_axes = self.orig
+
+
+def zero3_serve_rank(mp, cases) -> dict:
+    """One rank of tests/test_torch_zero3_serve.py: `zero3_serve_case` for
+    each case (name, arch, ssm_impl, params_np, tokens, frontend, feed,
+    max_len), the arch's smoke config in float32."""
+    return {name: zero3_serve_case(
+        mp, dataclasses.replace(smoke_cfg(arch), ssm_impl=impl), params_np,
+        tokens, frontend, feed, max_len)
+        for name, arch, impl, params_np, tokens, frontend, feed, max_len
+        in cases}
