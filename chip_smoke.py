@@ -346,7 +346,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    the same steps with the weights in bfloat16 more than 1e-4 from them;
    the card's peak memory beside the report's argument + temp bytes.
    It and the phases after it run last: their CPU work stays out of every
-   phase timed on the host's clock;
+   phase timed on the host's clock. Every training step remats each block
+   (the reference's jax.checkpoint);
+10b. `[remat lm]` starcoder2-3b at its published widths, full depth (30
+   layers) and dtype (bfloat16), weights drawn on the card: 2 Adam steps
+   of 2 x 4,096 tokens (train_4k's sequences) through `zoo.train_step`,
+   every block entering remat's checkpoint once a step and no kernel of
+   the table launched; finite losses; the peak below the card's 80 GB and
+   within 0.8-1.25 of the cost report's argument + temp for the step
+   (traced in [costs]'s pool), printed beside the report's figure without
+   remat (which no card holds). Then 2 layers, one sequence of 4,096, in
+   bfloat16, rematted against the unrematted step (the test seam
+   `zoo._REMAT` off): the first loss bit-equal, both within 1e-6, the
+   rematted peak lower by about one layer's activations or more (0.75 of
+   the report's unrematted growth from one layer);
 11. `[moe parity]` dbrx-smoke and arctic-smoke in float32 on the card
    against the CPU: forward logits (2e-4) and aux loss (1e-6), prefill and
    16 greedy decode steps (2e-4), greedy tokens and every layer's expert
@@ -424,6 +437,7 @@ sys.path.insert(0, os.environ.get("CHIP_SMOKE_SRC") or os.path.join(
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
+import torch.utils.checkpoint  # noqa: E402
 from torch.distributed.device_mesh import DeviceMesh  # noqa: E402
 
 from repro_torch import configs as CFG  # noqa: E402
@@ -525,6 +539,29 @@ NEURAL_ARCH = "gemma3-27b"
 LM_TRAIN_ARCH, LM_TRAIN_LAYERS, LM_TRAIN_STEPS = "starcoder2-3b", 1, 3
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 64      # the launcher's defaults
 LM_TRAIN_RTOL = 1e-4
+# [remat lm]: `zoo.train_step` (remat of every block, as the reference's
+# jax.checkpoint) of REMAT_LM_ARCH at its published widths, full depth and
+# published dtype (bfloat16) on train_4k's sequences, REMAT_LM_BATCH of
+# them, REMAT_LM_STEPS Adam steps: a step that fits one card only with
+# remat. Its peak memory within REMAT_PEAK_BAND of the cost report's
+# argument + temp for the same step. Then the rematted step against the
+# unrematted one (the test seam `zoo._REMAT` off) at LM_TRAIN_ARCH's
+# widths, REMAT_AB_LAYERS layers, one sequence, in the published dtype
+# (in float32 Adam's own temporaries, 4x the params' bytes, set both
+# steps' peaks: the report's saving there is 0.138 GB): the first loss
+# equal bit for bit, every loss within REMAT_AB_RTOL, the rematted peak
+# below the other by about one layer's activations or more: at least
+# REMAT_SAVING_SHARE of what the report's unrematted step grows by from
+# one layer fewer. (The report's own saving is printed beside, not held:
+# the card's rematted backward holds one float32 attention-probability
+# buffer, 24 x 4,096^2 x 4 bytes, more than the trace at its peak.)
+REMAT_LM_ARCH, REMAT_LM_BATCH, REMAT_LM_SEQ, REMAT_LM_STEPS = (
+    "starcoder2-3b", 2, 4096, 2)
+REMAT_LM_LR = 1e-4
+REMAT_PEAK_BAND = (0.8, 1.25)
+REMAT_AB_LAYERS, REMAT_AB_BATCH = 2, 1
+REMAT_AB_RTOL = 1e-6
+REMAT_SAVING_SHARE = 0.75
 # The moe family. [moe parity]: each smoke config in float32 on the card
 # against the CPU (forward, prefill, MOE_PARITY_STEPS greedy decode
 # steps). [moe lm]: each config at its published widths cut to
@@ -2383,6 +2420,187 @@ def phase_train_lm() -> dict:
                 peak_bytes=peak, report_bytes=need)
 
 
+def remat_report(arch: str, layers: int, b: int, s: int, dtype: str,
+                 remat: bool) -> dict:
+    """The cost report's one train step (`step_record`) of arch's published
+    widths at `layers` layers, its params and cfg in `dtype`, b x s tokens,
+    under remat or with the test seam `zoo._REMAT` off: argument and temp
+    bytes, the trace's seconds. Run in the host pool (each worker its own
+    process: the seam is set in it alone)."""
+    DR, _ = cost_report()
+    cfg = dataclasses.replace(CFG.get(arch), n_layers=layers,
+                              dtype=getattr(torch, dtype))
+    Z._REMAT = remat
+    try:
+        rec = DR.step_record(cfg, "train", batch=b, seq_len=s)
+    finally:
+        Z._REMAT = True
+    mem = rec["memory"]
+    return dict(args=mem["argument_size_in_bytes"],
+                temp=mem["temp_size_in_bytes"], seconds=rec["trace_s"])
+
+
+def remat_reports() -> dict:
+    """[remat lm]'s cost reports, submitted to the host pool (traced while
+    the card runs the phases before it): "lm" the full-depth bfloat16 step
+    with remat and "lm plain" without; "ab" / "ab plain" the float32 steps
+    it compares, and "ab plain 1" the latter at one layer fewer (one
+    layer's activations). Futures."""
+    lm = (REMAT_LM_ARCH, CFG.get(REMAT_LM_ARCH).n_layers, REMAT_LM_BATCH,
+          REMAT_LM_SEQ, "bfloat16")
+    ab = (LM_TRAIN_ARCH, REMAT_AB_LAYERS, REMAT_AB_BATCH, REMAT_LM_SEQ,
+          "bfloat16")
+    ab1 = (LM_TRAIN_ARCH, REMAT_AB_LAYERS - 1, *ab[2:])
+    pool = host_pool()
+    return {tag: pool.submit(remat_report, *args, remat)
+            for tag, args, remat in (("lm", lm, True), ("lm plain", lm, False),
+                                     ("ab", ab, True),
+                                     ("ab plain", ab, False),
+                                     ("ab plain 1", ab1, False))}
+
+
+def counted_remat():
+    """Count the blocks that enter remat's checkpoint; returns (the list
+    that grows by one an entry, the undo)."""
+    entries, orig = [], torch.utils.checkpoint.checkpoint
+
+    def counted(*args, **kw):
+        entries.append(1)
+        return orig(*args, **kw)
+
+    torch.utils.checkpoint.checkpoint = counted
+    return entries, lambda: setattr(torch.utils.checkpoint, "checkpoint",
+                                    orig)
+
+
+def remat_steps(cfg, b: int, steps: int, lr: float) -> dict:
+    """`steps` Adam steps of `zoo.train_step` on cfg's weights drawn on the
+    card in cfg.dtype from a seeded CUDA generator (only this function
+    holds them: each step's are freed by the next) and b x REMAT_LM_SEQ
+    tokens from numpy's seed 0 stream: the params, the seconds to draw
+    them, the losses, the seconds of each step (its loss read back), the
+    peak memory of the steps (from the params, state and batches made),
+    the blocks that entered remat's checkpoint and the table's kernels
+    launched (counts set to 0 before the first step, read after the
+    last)."""
+    t0 = time.perf_counter()
+    params = MB.materialize(Z.templates(cfg),
+                            torch.Generator(device="cuda").manual_seed(0),
+                            dtype=cfg.dtype)
+    sync()
+    make_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in MB.tree_leaves(params))
+    opt = adam(lr)
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+    batches = [TLT.lm_batch(cfg, rng, b, REMAT_LM_SEQ, "cuda")
+               for _ in range(steps)]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    entries, undo = counted_remat()
+    ops.reset_launch_counts()             # the path starts here
+    losses, seconds = [], []
+    try:
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, state, loss = Z.train_step(params, state, batch, cfg,
+                                               opt.update)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        undo()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, batches
+    free_cuda()
+    return dict(params=n_params, make_s=make_s, losses=losses,
+                seconds=seconds, peak=peak, entries=len(entries),
+                launches=launches)
+
+
+def phase_remat_lm(card: str, reports: dict) -> dict:
+    """[remat lm]: REMAT_LM_STEPS steps of REMAT_LM_ARCH at its published
+    widths, depth and dtype (`remat_steps`) on REMAT_LM_BATCH x
+    REMAT_LM_SEQ tokens: finite losses; every block entering remat's
+    checkpoint once a step; none of the table's kernels launched; the
+    peak below the card's memory and within REMAT_PEAK_BAND of the cost
+    report's argument + temp for the step, printed beside the report's
+    figure without remat. Then the rematted step against the unrematted
+    one (the test seam `zoo._REMAT` off, the same weights and batches,
+    REMAT_AB_LAYERS layers of LM_TRAIN_ARCH in its published dtype, one
+    sequence): the first loss equal bit for bit, each loss within
+    REMAT_AB_RTOL, the rematted peak lower by at least REMAT_SAVING_SHARE
+    of one layer's activations (the report's unrematted step at
+    REMAT_AB_LAYERS layers less at one fewer); both peaks printed."""
+    RL = cost_report()[1]
+    rep = {tag: f.result() for tag, f in reports.items()}
+    cfg = CFG.get(REMAT_LM_ARCH)
+    assert cfg.dtype == torch.bfloat16, cfg.dtype
+    free_cuda()
+    run = remat_steps(cfg, REMAT_LM_BATCH, REMAT_LM_STEPS, REMAT_LM_LR)
+    assert np.isfinite(run["losses"]).all(), run["losses"]
+    assert run["entries"] == cfg.n_layers * REMAT_LM_STEPS, run["entries"]
+    assert not run["launches"], run["launches"]
+    need = rep["lm"]["args"] + rep["lm"]["temp"]
+    plain = rep["lm plain"]["args"] + rep["lm plain"]["temp"]
+    share = run["peak"] / need
+    assert run["peak"] < RL.CARD_BYTES, run["peak"]
+    assert REMAT_PEAK_BAND[0] <= share <= REMAT_PEAK_BAND[1], (
+        run["peak"], need)
+    print(f"[remat lm] {cfg.name}: {cfg.n_layers} layers, "
+          f"{run['params'] / 1e9:.3f}B params in {cfg.dtype} (drawn on the "
+          f"card in {run['make_s']:.2f} s), {REMAT_LM_STEPS} Adam steps of "
+          f"{REMAT_LM_BATCH} x {REMAT_LM_SEQ} tokens, every block under "
+          f"remat ({run['entries']} checkpoint entries): losses "
+          f"{[round(v, 4) for v in run['losses']]}, s a step "
+          f"{[round(v, 3) for v in run['seconds']]}; table kernels "
+          f"launched 0")
+    print(f"[remat lm] peak memory {run['peak']} bytes "
+          f"({run['peak'] / 1e9:.3f} GB) of the card's {RL.CARD_BYTES:.0f}; "
+          f"the cost report's argument + temp {need} bytes "
+          f"({rep['lm']['args'] / 1e9:.3f} + {rep['lm']['temp'] / 1e9:.3f} "
+          f"GB; {share:.3f} of it, band {REMAT_PEAK_BAND}); without remat "
+          f"the report gives {plain / 1e9:.3f} GB "
+          f"({rep['lm plain']['args'] / 1e9:.3f} + "
+          f"{rep['lm plain']['temp'] / 1e9:.3f}); traced in "
+          f"{rep['lm']['seconds']:.1f} / {rep['lm plain']['seconds']:.1f} s "
+          f"on the host; {card}")
+
+    cfg = dataclasses.replace(CFG.get(LM_TRAIN_ARCH),
+                              n_layers=REMAT_AB_LAYERS)
+    ab = {}
+    for remat in (True, False):
+        Z._REMAT = remat
+        try:
+            ab[remat] = remat_steps(cfg, REMAT_AB_BATCH, REMAT_LM_STEPS,
+                                    REMAT_LM_LR)
+        finally:
+            Z._REMAT = True
+    got, want = ab[True], ab[False]
+    saved = want["peak"] - got["peak"]
+    totals = {tag: rep[tag]["args"] + rep[tag]["temp"]
+              for tag in ("ab", "ab plain", "ab plain 1")}
+    report_saved = totals["ab plain"] - totals["ab"]
+    layer = rep["ab plain"]["temp"] - rep["ab plain 1"]["temp"]
+    print(f"[remat lm] against no remat ({cfg.name}, {cfg.n_layers} layers, "
+          f"{REMAT_AB_BATCH} x {REMAT_LM_SEQ} tokens, {cfg.dtype}): losses "
+          f"{got['losses']} / {want['losses']}; peaks {got['peak']} / "
+          f"{want['peak']} bytes (the report's {totals['ab']} / "
+          f"{totals['ab plain']}), remat {saved / 1e9:.3f} GB lower (the "
+          f"report's {report_saved / 1e9:.3f} GB; its unrematted step grows "
+          f"by {layer / 1e9:.3f} GB from {cfg.n_layers - 1} layer(s)); s a "
+          f"step {got['seconds']} / {want['seconds']}")
+    assert got["entries"] == cfg.n_layers * REMAT_LM_STEPS, got["entries"]
+    assert want["entries"] == 0, want["entries"]
+    assert got["losses"][0] == want["losses"][0], (got["losses"],
+                                                   want["losses"])
+    np.testing.assert_allclose(got["losses"], want["losses"],
+                               rtol=REMAT_AB_RTOL, atol=0)
+    assert saved >= REMAT_SAVING_SHARE * layer, (saved, layer)
+    return dict(losses=run["losses"], peak=run["peak"], report=need,
+                report_plain=plain, ab={str(k): v for k, v in ab.items()})
+
+
 def train_need(cfg, b: int, s: int, enc_len: int = 0) -> int:
     """The cost report's argument + peak temp bytes of one train step
     (`zoo.train_step` with Adam) of cfg at b x s: what the card must hold
@@ -3972,17 +4190,21 @@ def routed(fn, *args, host=True, feed=None):
     of gate_i (T, k) on the device, one a call: each call then routes its
     tokens to feed's experts, their gates this run's own probabilities of
     them renormalised as moe_route renormalises its top k, and records its
-    own choices."""
+    own choices. A training step's remat recomputes each moe block in its
+    backward: those routings are not recorded, and a fed one routes to
+    what its forward was fed (`layers.forward_route`)."""
     routes = []
     orig = Lyr.moe_route
 
     def rec(p, cfg, xt):
         out = orig(p, cfg, xt)
-        r = (out[0].detach(), out[2])
-        routes.append(tuple(a.cpu() for a in r) if host else r)
+        again = Lyr.recomputing()
+        if not again:
+            r = (out[0].detach(), out[2])
+            routes.append(tuple(a.cpu() for a in r) if host else r)
         if feed is None:
             return out
-        gate_i = next(feed)
+        gate_i = Lyr.forward_route() if again else next(feed)
         gate_v = out[0].gather(1, gate_i)
         gate_v = gate_v / torch.clamp_min(gate_v.sum(-1, keepdim=True), 1e-9)
         return out[0], gate_v, gate_i
@@ -5128,13 +5350,14 @@ def fsdp_batches(cfg) -> list[dict]:
 
 def recorded_dispatch(keeps: list):
     """Wrap `layers.moe_dispatch` to record each call's router
-    probabilities and kept choices (slot < cap) on the host; returns the
-    undo."""
+    probabilities and kept choices (slot < cap) on the host, but a remat's
+    recompute's (its forward's again); returns the undo."""
     orig = Lyr.moe_dispatch
 
     def recorded(cfg, probs, gate_i, mp=None):
         out = orig(cfg, probs, gate_i, mp)
-        keeps.append((probs.detach().cpu(), (out[2] < out[3]).cpu()))
+        if not Lyr.recomputing():
+            keeps.append((probs.detach().cpu(), (out[2] < out[3]).cpu()))
         return out
 
     Lyr.moe_dispatch = recorded
@@ -6645,16 +6868,22 @@ def family_train_calls(cfg, mesh) -> dict[str, int]:
     head input's backward sum; per layer rwkv6 14 sums and 1 gather (its
     channel mix), zamba2 10 sums and 4 per shared-block application,
     seamless 7 sums and 4 per encoder layer; where D > 1 the loss's and
-    the gradients' sums over "data"."""
+    the gradients' sums over "data"; and remat's recompute of each block
+    in the backward: rwkv6 2 sums a layer, zamba2 2 a layer of a group, 1
+    a shared-block application and 1 a tail layer, seamless 2 a decoder
+    layer and 1 an encoder layer."""
     d, m = mesh
     vocab = int(cfg.vocab % m == 0)
     sums, gathers = vocab + 1, vocab
     if cfg.arch_type == "ssm":
-        sums, gathers = sums + 14 * cfg.n_layers, gathers + cfg.n_layers
+        sums, gathers = sums + 16 * cfg.n_layers, gathers + cfg.n_layers
     elif cfg.arch_type == "hybrid":
-        sums += 10 * cfg.n_layers + 4 * Z.shared_applications(cfg)
+        g = Z.shared_applications(cfg)
+        tail = cfg.n_layers - g * cfg.attn_every
+        sums += (10 * cfg.n_layers + 4 * g + 2 * (cfg.n_layers - tail) + g
+                 + tail)
     else:
-        sums += 7 * cfg.n_layers + 4 * cfg.n_enc_layers
+        sums += 9 * cfg.n_layers + 5 * cfg.n_enc_layers
     return {"all_reduce_sum": sums + (2 if d > 1 else 0),
             "all_gather": gathers}
 
@@ -7371,6 +7600,7 @@ def main() -> None:
     phase_lint()
     with tempfile.TemporaryDirectory() as tmp:
         phase_costs(tmp)
+    remat_traces = remat_reports()
     lap("device, lint, costs")
     phase_build()
     lap("build")
@@ -7479,7 +7709,8 @@ def main() -> None:
                 neural=S.build_neural(NEURAL_ARCH, device="cuda"))
     free_cuda()
     phase_train_lm()
-    lap("neural slice, train lm")
+    phase_remat_lm(card, remat_traces)
+    lap("neural slice, train lm, remat lm")
     moe_parity = phase_moe_parity()
     moe_check = phase_moe_lm_check()     # its CPU part is the largest
     lap("moe parity, moe lm check")

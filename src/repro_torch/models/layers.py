@@ -48,6 +48,7 @@ import contextlib
 import functools
 import math
 import operator
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -677,6 +678,67 @@ def ring_slot_positions(cache_len: int, window: int,
 # ---------------------------------------------------------------------------
 
 
+# The pass of a block under remat (`zoo._remat`) that this thread runs, if
+# any: [the forward's expert choices, whether this is the recompute, the
+# next routing's index among them].
+_REMAT_PASS = threading.local()
+
+
+@contextlib.contextmanager
+def remat_pass(routes: list, again: bool):
+    """Within, on this thread: the forward (again False) or the recompute
+    in the backward (again True) of one block under remat. `routes` holds
+    the gate_i of each routing of the block's forward, in call order; the
+    recompute's are held to them (`_route_held`)."""
+    prev = getattr(_REMAT_PASS, "state", None)
+    _REMAT_PASS.state = [routes, again, 0]
+    try:
+        yield
+    finally:
+        _REMAT_PASS.state = prev
+
+
+def recomputing() -> bool:
+    """Whether this thread runs the recompute of a block under remat (a
+    recorder of the step's routings skips its calls: they repeat the
+    forward's)."""
+    state = getattr(_REMAT_PASS, "state", None)
+    return state is not None and state[1]
+
+
+def forward_route() -> torch.Tensor | None:
+    """In the recompute of a block under remat, the gate_i that its
+    forward took at the routing about to run (what a wrapper of
+    `moe_route` that fed the forward its choices feeds again); else
+    None."""
+    state = getattr(_REMAT_PASS, "state", None)
+    if state is None or not state[1]:
+        return None
+    return state[0][state[2]]
+
+
+def _route_held(gate_i: torch.Tensor) -> None:
+    """gate_i, the expert choices a routing of a block under remat took:
+    kept in its forward; in its recompute held to the forward's, equal
+    exactly (RuntimeError otherwise: the backward would take the
+    gradients of other choices than the loss's). `meta` tensors carry no
+    choices to compare."""
+    state = getattr(_REMAT_PASS, "state", None)
+    if state is None:
+        return
+    routes, again, at = state
+    if not again:
+        routes.append(gate_i)
+        return
+    state[2] = at + 1
+    if not gate_i.is_meta and not torch.equal(routes[at], gate_i):
+        raise RuntimeError(
+            f"the recompute of a block under remat chose other experts "
+            f"than its forward at routing {at}: "
+            f"{int((routes[at] != gate_i).sum())} of {gate_i.numel()} "
+            f"choices differ")
+
+
 def moe_route(p, cfg, xt: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Token-choice routing of xt (T, d): (probs (T, E) float32, gate_v
@@ -801,6 +863,7 @@ def moe_ffn(p, cfg, x: torch.Tensor, mp=None
     t = b * s
     xt = x.reshape(t, d)
     probs, gate_v, gate_i = moe_route(p, cfg, xt)
+    _route_held(gate_i)
 
     flat_e, pos, slot, cap, aux = moe_dispatch(cfg, probs, gate_i, mp)
     keep, rows, safe_pos = _dispatch_rows(pos, slot, cap, t, k)
@@ -883,6 +946,7 @@ def moe_ffn_shmap(p, cfg, x: torch.Tensor, mp, *,
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gate_v, gate_i = moe_route(p, cfg, xt)
+    _route_held(gate_i)
     e_loc = p["w_gate"].shape[0]
     if e_loc * mp.world != cfg.n_experts:
         raise ValueError(f"{cfg.name}: {e_loc} experts on each of "
@@ -918,6 +982,7 @@ def moe_ffn_blocks(p, cfg, x: torch.Tensor, data: int, model: int
     for xs in x.chunk(shards):
         xt = xs.reshape(-1, d)
         probs, gate_v, gate_i = moe_route(p, cfg, xt)
+        _route_held(gate_i)
         *dispatch, shard_aux = moe_dispatch(cfg, probs, gate_i)
         parts = [_local_experts(
             {k: p[k][g * e_loc:(g + 1) * e_loc]

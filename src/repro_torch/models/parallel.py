@@ -887,7 +887,10 @@ def regather_saved(mp: ModelParallel):
     again (no gradient) when the backward reads it, so no gathered weight
     lives from its forward to its backward. The weight is known by its
     storage while it is alive (a weak reference: a storage freed and reused
-    is not taken for it)."""
+    is not taken for it). Inside a block under remat (`zoo._remat`) the
+    checkpoint's own hooks, the innermost, save nothing of the block: its
+    recompute gathers its weights again; these hooks keep the leaves
+    outside the blocks (the embedding, the head)."""
     reg: dict = {}
 
     def pack(t: torch.Tensor):

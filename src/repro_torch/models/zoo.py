@@ -17,6 +17,16 @@ params STACKED on a leading axis; the forward walks the layers in a
 Python loop over per-layer views (`base.unstack`). `lm_loss` and
 `train_step` are the reference's next-token objective and optimizer step.
 
+Remat (activation checkpointing), as the reference's `jax.checkpoint` of
+every block: where a forward runs with gradients (training), each block
+keeps only its input for the backward and runs again there to rebuild
+what its backward reads (`_remat`); the blocks are the reference's: a
+dense or moe layer, an RWKV-6 layer, a hybrid's group of `attn_every`
+Mamba2 layers with the shared block after them and each tail layer, an
+encoder layer, a decoder layer with its cross K/V. The embedding, the
+final norms, the head and the loss stay outside. Serving runs the same
+block functions without it.
+
 Model parallelism (`mp`, a `models.parallel.ModelParallel`; every
 family): the params are a rank's shard under the "tp" layout
 (`base.shard_params`); attention runs on the rank's heads, or under
@@ -56,11 +66,13 @@ reference's over the whole batch: each rank's NLL summed over "data"
 
 from __future__ import annotations
 
+import itertools
 import operator
 from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as Lyr
 from repro_torch.models.parallel import (check_tp, check_train, enter_partial,
@@ -74,6 +86,11 @@ from repro_torch.models.base import (ModelConfig, ParamTemplate as P,
                                      unstack)
 
 BIG_WINDOW = 1 << 30     # "no window" sentinel of the per-layer schedule
+
+# Whether a forward with gradients remats its blocks (`_remat`). A test
+# seam only: the tests and chip_smoke.py set it False to run the
+# unrematted step as the rematted one's oracle; nothing else sets it.
+_REMAT = True
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +312,51 @@ def window_schedule(cfg: ModelConfig, n_layers: int | None = None) -> np.ndarray
 
 
 # ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+def _reads_grad(tree) -> bool:
+    """Whether a tensor of `tree` (dicts, lists, tuples) requires grad."""
+    if isinstance(tree, dict):
+        return any(_reads_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_reads_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def _remat(fn, *args):
+    """fn(*args), one block of a forward (args: every tensor it reads, its
+    input and its layer's leaves among them), under remat where gradients
+    are on and an argument requires grad: the reference's `jax.checkpoint`
+    of the block. The forward keeps only the arguments for the backward,
+    which runs fn again to rebuild what it reads
+    (`torch.utils.checkpoint.checkpoint`, non-reentrant: the step's graph
+    and `autograd.grad` as without remat, and the recompute stops once the
+    last tensor the backward reads is rebuilt, so the block's last product,
+    whose output only joins the residual, and the collectives after it do
+    not run again, as XLA drops them from the reference's). Whatever fn
+    gathers or sums over ranks (`parallel.layout_use`, `enter_partial` /
+    `reduce_partial`) it gathers and sums again in the recompute, in the
+    same order on every rank; the gathered weights live from the recompute
+    to the block's backward only. A moe block's recompute must choose the
+    experts its forward chose (`layers.remat_pass`: RuntimeError
+    otherwise). The blocks draw no random numbers, so no RNG state is
+    saved or restored (preserve_rng_state=False). Otherwise (serving, no
+    grad, or the test seam `_REMAT` off) fn(*args) as it is."""
+    if not (_REMAT and torch.is_grad_enabled() and _reads_grad(args)):
+        return fn(*args)
+    routes: list = []
+    calls = itertools.count()
+
+    def block(*a):
+        with Lyr.remat_pass(routes, again=next(calls) > 0):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+# ---------------------------------------------------------------------------
 # Forward pass (full sequence). Returns logits.
 # batch: {"tokens": (B,S)} (+ "frontend": (B,P,d) for the vlm)
 # ---------------------------------------------------------------------------
@@ -493,14 +555,19 @@ def forward(params, cfg: ModelConfig, batch, mp=None, layout=None
     layers = unstack(params["blocks"], cfg.n_layers)
     if cfg.arch_type == "ssm":
         for p in layers:
-            x, _ = _rwkv_block_fwd(p, cfg, x, mp=tp, use=use)
+            x = _remat(lambda x, p: _rwkv_block_fwd(p, cfg, x, mp=tp,
+                                                    use=use)[0], x, p)
     elif cfg.arch_type == "hybrid":
         x = _hybrid_forward(params, cfg, x, layers, positions, tp, use)
     else:
+        def layer(x, p, window):
+            x, _, aux = _block_fwd(p, cfg, x, positions, window, mp=tp,
+                                   use=use, ep=mp)
+            return x, aux
+
         wins = window_schedule(cfg)
         for i, p in enumerate(layers):
-            x, _, aux = _block_fwd(p, cfg, x, positions, int(wins[i]),
-                                   mp=tp, use=use, ep=mp)
+            x, aux = _remat(layer, x, p, int(wins[i]))
             aux_total = aux_total + aux
     x = Lyr.rms_norm(x, params["final_norm"])
     w = "embed" if cfg.tie_embeddings else "head"
@@ -513,13 +580,23 @@ def _hybrid_forward(params, cfg, x, layers, positions, mp=None,
     of `attn_every` of them (its second input emb0 the embedded input),
     the tail's layers after the last application. use(p, key) as the
     dense block's: the shared block's weights are read (gathered) anew at
-    each application."""
-    emb0 = x
-    for i, p in enumerate(layers):
-        x, _ = _mamba_block_fwd(p, cfg, x, mp=mp, use=use)
-        if (i + 1) % cfg.attn_every == 0:
-            x, _ = _shared_attn_fwd(use(params, "shared_attn"), cfg, x,
-                                    emb0, positions, mp=mp)
+    each application. Under remat a group with its shared block is one
+    block, and each tail layer one, as the reference checkpoints them."""
+    emb0, g = x, cfg.attn_every
+    whole = len(layers) // g * g
+
+    def group(x, ps, shared, emb0):
+        for p in ps:
+            x, _ = _mamba_block_fwd(p, cfg, x, mp=mp, use=use)
+        return _shared_attn_fwd(use(shared, "shared_attn"), cfg, x, emb0,
+                                positions, mp=mp)[0]
+
+    shared = {"shared_attn": params["shared_attn"]}
+    for i in range(0, whole, g):
+        x = _remat(group, x, layers[i:i + g], shared, emb0)
+    for p in layers[whole:]:
+        x = _remat(lambda x, p: _mamba_block_fwd(p, cfg, x, mp=mp,
+                                                 use=use)[0], x, p)
     return x
 
 
@@ -552,20 +629,24 @@ def encode(params, cfg, frontend: torch.Tensor, mp=None,
     cache, runs over the ranks' blocks of the frames where they divide
     S_enc (`layers.attention`); the output is whole. use(p, key) reads an
     encoder layer's attention and MLP (`parallel.layout_use` of
-    "enc_blocks")."""
+    "enc_blocks"). With gradients each layer is a block under remat."""
     x = frontend.to(cfg.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
+
+    def layer(x, p):
         attn = use(p, "attn")
         xn = _promoted(Lyr.rms_norm(x, p["ln1"]), attn["wq"])
         h, _ = Lyr.attention(attn, cfg, enter_partial(mp, xn),
                              positions=positions, causal=False, mp=mp)
         del attn
         x = x + reduce_partial(mp, h)
-        x = x + reduce_partial(mp, Lyr.mlp(
+        return x + reduce_partial(mp, Lyr.mlp(
             enter_partial(mp, Lyr.rms_norm(x, p["ln2"])), use(p, "mlp"),
             cfg.mlp_act))
+
+    for p in unstack(params["enc_blocks"], cfg.n_enc_layers):
+        x = _remat(layer, x, p)
     return Lyr.rms_norm(x, params["enc_norm"])
 
 
@@ -613,19 +694,24 @@ def _forward_encdec(params, cfg, batch, mp=None, use=operator.getitem,
                     enc_use=operator.getitem):
     """seamless: the encoder over batch["frontend"], then the decoder over
     batch["tokens"] with each layer's cross attention over the encoder's
-    output; aux 0. (The reference's jax.checkpoint is remat, not
-    semantics.) use / enc_use read a decoder / encoder layer's sublayers
-    and the top level's leaves (`parallel.layout_use`)."""
+    output; aux 0. Under remat a decoder layer with its cross K/V (made
+    from the encoder's output inside it) is one block. use / enc_use read
+    a decoder / encoder layer's sublayers and the top level's leaves
+    (`parallel.layout_use`)."""
     enc_out = encode(params, cfg, batch["frontend"], mp, enc_use)
     x = embed_tokens({"embed": use(params, "embed")}, cfg, batch["tokens"],
                      mp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for p in unstack(params["blocks"], cfg.n_layers):
+
+    def layer(x, p, enc_out):
         p = ready_cross(p, use)
-        x, _ = _decoder_block_fwd(p, cfg, x, positions,
+        return _decoder_block_fwd(p, cfg, x, positions,
                                   (*cross_kv(p, cfg, enc_out, mp), "heads"),
-                                  mp=mp, use=use)
+                                  mp=mp, use=use)[0]
+
+    for p in unstack(params["blocks"], cfg.n_layers):
+        x = _remat(layer, x, p, enc_out)
     x = Lyr.rms_norm(x, params["final_norm"])
     w = "embed" if cfg.tie_embeddings else "head"
     return (_lm_head({w: use(params, w)}, cfg, x, mp),
@@ -668,16 +754,19 @@ def _or_zeros(g, p_):
 def train_step(params, opt_state, batch, cfg: ModelConfig, opt_update,
                mp=None, layout=None):
     """One optimizer step on the parameter tree: (params, opt_state, loss).
-    Each update is cast to its parameter's dtype before it is added. A
-    leaf the loss does not reach (a hybrid's shared block when the depth
-    keeps no application of it) gets a zero gradient, as under jax.grad.
+    The forward remats every block (`_remat`). Each update is cast to its
+    parameter's dtype before it is added. A leaf the loss does not reach
+    (a hybrid's shared block when the depth keeps no application of it)
+    gets a zero gradient, as under jax.grad.
 
     With mp and a `parallel.TrainLayout` (`parallel.check_train`: "tp" and
     "zero3" for every family, "fsdp" for the dense and moe families): params
     and opt_state are this rank's shards
     under the layout, batch its rows of the batch; the step is the
     unsharded one's. The weights gathered for use are not saved for the
-    backward (`parallel.regather_saved`); the leaves the layout leaves
+    backward: a block's are gathered again by its recompute, the
+    embedding's and the head's where the backward reads them
+    (`parallel.regather_saved`); the leaves the layout leaves
     whole over "data" have their gradients summed over it
     (`parallel.reduce_replicated_grads`), and a kv head that several
     "model" ranks hold (the attention's wk / wv where the ranks do not

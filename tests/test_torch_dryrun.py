@@ -8,9 +8,11 @@ smoke configs (B = 2, S = 64) the two counts are equal exactly for every
 family's forward, prefill and decode, with one exception asserted to the
 FLOP and named: zamba2's chunked forward, where XLA drops a product whose
 result is dead (see `test_zamba2_chunked_forward_dead_state_product`).
-Train: the port has no remat, so its step is exactly three forwards; the
-reference's HLO adds its `jax.checkpoint` recompute, exactly, once each
-side's outer products are counted as the other's compiler runs them.
+Train: the port's step is three forwards plus its remat's recompute, the
+reference's `jax.checkpoint` recompute exactly (every block's forward but
+its last product, which neither recomputes), so the two train counts are
+equal once each side's outer products are counted as the other's compiler
+runs them.
 The decode step's bytes are held to `chip_smoke.py`'s hand formulas plus
 the terms they leave out, each added here by name.
 """
@@ -154,7 +156,10 @@ def test_zamba2_chunked_forward_dead_state_product():
 
 def last_products(cfg) -> int:
     """The FLOPs of each checkpointed block's last product, whose result
-    only joins the residual: the reference's remat does not recompute it.
+    only joins the residual: the reference's remat does not recompute it
+    (XLA drops it), nor does the port's (its non-reentrant checkpoint's
+    recompute stops once the last tensor the backward reads is rebuilt,
+    the inputs of that product).
     Dense: the MLP's down projection; encdec: the decoder's cross-attention
     out projection and the encoder's MLP down projection; hybrid: the
     shared block's MLP down projection, once per application (its
@@ -254,24 +259,28 @@ def ref_train(cfg) -> tuple[int, int]:
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-27b", "dbrx-132b",
                                   "rwkv6-1.6b", "zamba2-1.2b",
                                   "seamless-m4t-large-v2"])
-def test_train_is_three_forwards_plus_reference_remat(arch):
-    """The port's train step (no remat) counts exactly 3 x its forward (the
-    recurrent families in their scan form). The reference's train HLO is
-    exactly that plus its `jax.checkpoint` recompute (the forward of every
-    checkpointed block, all but the embedding and the head, but its last
-    product), with the outer products counted as XLA counts them: less
-    the port's backward bmms with a contraction of one (a multiply in
-    XLA), plus the dots of XLA's transposes of the reference's
-    outer-product einsums (a multiply in the port: rwkv6's k v^T, mamba2's
-    dt x B^T)."""
+def test_train_is_three_forwards_plus_reference_remat(arch, monkeypatch):
+    """The port's train step counts exactly 3 x its forward (the recurrent
+    families in their scan form) plus its remat's recompute: the forward
+    of every checkpointed block (all but the embedding and the head) but
+    its last product; with the test seam `zoo._REMAT` off, 3 x its
+    forward. The reference's train HLO, whose `jax.checkpoint` recomputes
+    the same, equals the port's step exactly, with the outer products
+    counted as XLA counts them: less the port's backward bmms with a
+    contraction of one (a multiply in XLA), plus the dots of XLA's
+    transposes of the reference's outer-product einsums (a multiply in
+    the port: rwkv6's k v^T, mamba2's dt x B^T)."""
     jcfg, tcfg = configs(arch)
     fwd = port_forward_flops(tcfg)
     train = port_flops(tcfg, "train")
-    assert train == 3 * fwd
     head = 2 * B * S * tcfg.d_model * tcfg.vocab
     remat = fwd - head - last_products(tcfg)
+    assert train == 3 * fwd + remat
     want, outer = ref_train(jcfg)
-    assert want == train + remat - port_outer_products(tcfg) + outer
+    assert want == train - port_outer_products(tcfg) + outer
+    with monkeypatch.context() as m:
+        m.setattr(TZ, "_REMAT", False)
+        assert port_flops(tcfg, "train") == 3 * fwd
     if arch == "starcoder2-3b":
         assert remat == 184_549_376 and outer == 0
     if tcfg.arch_type in ("ssm", "hybrid"):

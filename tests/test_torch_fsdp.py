@@ -37,7 +37,13 @@ and fsdp layouts with M > 1, V = 1 where the vocabulary is cut:
                    backward (the experts alone run over "model");
                  + where D > 1: 1 (the loss) + 1 (the gradients of the
                    leaves not cut over "data") + 1 per moe layer (the
-                   dispatch's counts and the aux's sums).
+                   dispatch's counts and the aux's sums);
+                 + remat's recompute of each layer in the backward: under
+                   tensor 1 (attention's partial sum; the MLP's or the
+                   experts' follows the last tensor the backward reads,
+                   and is not summed again), where D > 1 1 per moe layer
+                   (the dispatch's sums). Its gathers of the layer's
+                   weights stand for the backward's gathers again above.
 """
 
 import dataclasses
@@ -290,11 +296,11 @@ def _calls_per_step(cfg, mode, mesh) -> dict:
     ar = 0
     if tensor:
         ar = vocab + 1 + cfg.n_layers * (2 + (3 if moe else 2)
-                                         + 2 * cfg.qk_norm)
+                                         + 2 * cfg.qk_norm + 1)
     elif moe and m > 1:
         ar = cfg.n_layers * 3
     if d > 1:
-        ar += 2 + (cfg.n_layers if moe else 0)
+        ar += 2 + (2 * cfg.n_layers if moe else 0)
     out = {"all_gather": 2 * uses - (1 if uses else 0) + vocab,
            "reduce_scatter": uses, "all_reduce_sum": ar}
     return {k: v for k, v in out.items() if v}

@@ -469,14 +469,13 @@ def _held_beyond_block(cfg, leaves) -> int:
 
 def flop_differences(cfg, case, ref, port_outer: int) -> dict:
     """The reference's dot FLOPs less rank 0's, by named cause, for a case
-    of the 2 x 2 mesh under "tp" (T its rows x positions). A train step
-    runs each forward difference three times (forward, and the two
-    products of each in the backward), but where one of those is an outer
-    product:
+    of the 2 x 2 mesh under "tp" (T its rows x positions). Both sides
+    remat the same blocks (the reference's dots under
+    `rematted_computation`, the port's recompute), so a train step runs
+    each forward difference four times (forward, its recompute, and the
+    two products of each in the backward), but where one of those is an
+    outer product:
 
-      * remat: the reference's checkpointed layers recompute their forward
-        in the backward (its dots under `rematted_computation`); the port
-        keeps the forward's activations;
       * outer (train): a product with no summed index is a multiply in
         XLA: the port's backward matmuls with a contraction of one
         (`port_outer`) count in the port, XLA's transposes of the
@@ -490,7 +489,8 @@ def flop_differences(cfg, case, ref, port_outer: int) -> dict:
       * mamba2_bc (negative): the port's rank holds Mamba2's B / C columns
         of in_proj and their conv channels whole (`parallel.mamba_pieces`),
         2 T FLOPs for each element held beyond the reference's block (in
-        training, the conv's input gradient is an outer product);
+        training, the conv's input gradient is an outer product: the
+        conv's forward, its recompute and its weight's gradient);
       * rwkv6_lora (negative): the reference contracts each LoRA's d over
         the model axis (its input arrives cut), the port's rank runs the
         whole d (its x is whole): 11 of a layer's 12 LoRA dots (the decay
@@ -499,7 +499,6 @@ def flop_differences(cfg, case, ref, port_outer: int) -> dict:
     t, world, out = _rank_tokens(case), 2, {}
     train = step == "train"
     if train:
-        out["remat"] = ref["remat_flops"]
         out["outer"] = ref["outer_flops"] - port_outer
     if cfg.arch_type == "moe":
         t_batch = b * (1 if step == "decode" else s)
@@ -508,13 +507,13 @@ def flop_differences(cfg, case, ref, port_outer: int) -> dict:
         rows = min(cap, t * cfg.top_k)
         per = (2 * cfg.n_experts // world * (cap - rows) * cfg.d_model
                * cfg.d_ff)
-        out["moe_capacity"] = (3 if train else 1) * 3 * cfg.n_layers * per
+        out["moe_capacity"] = (4 if train else 1) * 3 * cfg.n_layers * per
     if cfg.arch_type == "hybrid":
         out["mamba2_bc"] = -2 * t * (
-            (3 if train else 1) * _held_beyond_block(cfg, ("in_proj",))
-            + (2 if train else 1) * _held_beyond_block(cfg, ("conv_w",)))
+            (4 if train else 1) * _held_beyond_block(cfg, ("in_proj",))
+            + (3 if train else 1) * _held_beyond_block(cfg, ("conv_w",)))
     if cfg.arch_type == "ssm":
-        out["rwkv6_lora"] = -((3 if train else 1) * cfg.n_layers * 11 * 2 * t
+        out["rwkv6_lora"] = -((4 if train else 1) * cfg.n_layers * 11 * 2 * t
                               * cfg.rwkv_lora_dim
                               * (cfg.d_model - cfg.d_model // world))
     return out
@@ -525,8 +524,9 @@ def test_dot_flops_equal_the_reference(case, reference):
     """Rank 0's FLOPs (matmuls, and K8's own at decode) equal the dot
     FLOPs of the reference's compiled 2 x 2 step, but for the differences
     `flop_differences` names, each to the FLOP (none for the dense and
-    encdec families' prefill and decode). A train step's port count is
-    taken under `OuterProducts` too."""
+    encdec families' prefill and decode; no remat difference in training:
+    the port's recompute is the reference's, dot for dot). A train step's
+    port count is taken under `OuterProducts` too."""
     with OuterProducts() as outer:
         cfg, rec = _rank_record(case)
     ref = reference["cases"][case[0]]
@@ -534,7 +534,7 @@ def test_dot_flops_equal_the_reference(case, reference):
     if case[2] != "train" and cfg.arch_type in ("dense", "encdec"):
         assert diff == {}
     if case[2] == "train":
-        assert diff["remat"] > 0
+        assert ref["remat_flops"] > 0 and "remat" not in diff
         assert (diff["outer"] != 0) == (cfg.arch_type in ("ssm", "hybrid"))
     assert int(rec["dot_flops_per_device"]) + sum(diff.values()) == \
         ref["flops"], diff
@@ -561,7 +561,7 @@ def _stacked_elements(cfg, mode="tp") -> int:
 
 
 @pytest.mark.parametrize("case", COLL_CASES, ids=[c[0] for c in COLL_CASES])
-def test_collectives_equal_the_reference(case, reference):
+def test_collectives_equal_the_reference(case, reference, monkeypatch):
     """Rank 0's collectives, in the reference's terms (result elements by
     kind), equal the collectives of the reference's compiled 2 x 2 step
     (`HloCost(...).collectives()`, and each collective of its HLO with its
@@ -574,17 +574,21 @@ def test_collectives_equal_the_reference(case, reference):
         decode: the last position's; train: every position's, for the
         loss), where the reference's step returns them cut and its loss
         all-reduces each position's max, sum and target logit instead;
-      * train: the reference's checkpointed layers re-issue each attention
-        output's all-reduce (self, and cross for encdec) in the backward;
-        and it all-reduces the input gradient of each projection that reads
+      * train: the reference all-reduces the input gradient of each projection that reads
         one input apart (q, k, v; gate and up of a SwiGLU FFN; an encdec
         decoder's cross k and v), where the port sums them first;
       * train: HloCost misses the all-reduce of the layer stacks' weight
         gradients over "data": its tuple of six or more results prints
         `/*index=5*/`, which the parser's result pattern refuses.
 
-    Prefill and decode issue the same all-reduces: their counts are equal
-    too. Train counts differ as XLA combines all-reduces; bytes do not."""
+    Both remat the same blocks: the reference's checkpointed layers
+    re-issue each attention output's all-reduce (self, and cross for
+    encdec) in the backward, and so does the port's recompute (with the
+    test seam `zoo._REMAT` off its step issues exactly those fewer; the
+    MLP's sum follows the last tensor its backward reads, and neither
+    re-issues it). Prefill and decode issue the same all-reduces: their
+    counts are equal too. Train counts differ as XLA combines
+    all-reduces; bytes do not."""
     _, arch, step, mode, b, s, enc = case
     cfg, rec = _rank_record(case)
     ref = reference["cases"][case[0]]
@@ -608,12 +612,16 @@ def test_collectives_equal_the_reference(case, reference):
         split = (2 + (cfg.mlp_act == "swiglu"))
         differences = {
             "loss": 3 * t,
-            "remat": _elements(items, "all-reduce", again=True),
             "split": split * (cfg.n_layers * t + cfg.n_enc_layers * frames)
             * d + (cfg.n_layers * frames * d if enc else 0),
             "parser": -_elements(items, "all-reduce", seen=False)}
-        assert differences["remat"] == attn_out * d
+        assert _elements(items, "all-reduce", again=True) == attn_out * d
         assert -differences["parser"] == _stacked_elements(cfg)
+        monkeypatch.setattr(Z, "_REMAT", False)
+        once = _port_elements(_rank_log(
+            cfg, case, TPAR.ModelParallel.counting(train_mesh(2, 2), 0)))
+        assert port["all_reduce_sum"] - once["all_reduce_sum"] == \
+            attn_out * d
     else:
         assert coll["all-reduce_count"] == sum(
             1 for kind, *_ in log if kind == "all_reduce_sum")

@@ -403,13 +403,13 @@ def test_shmap_state_bytes_equal_the_pieces(runs, name):
 @pytest.mark.parametrize("name", [k for k, c in CASES.items()
                                   if c[2] == "shmap"])
 def test_shmap_attention_combines_once_a_layer(runs, name):
-    """Each training step runs the attention combine's max once a layer
-    (the forward's; the max carries no gradient, so the backward runs
-    none) on every rank."""
+    """Each training step runs the attention combine's max once a layer's
+    forward and once more in its recompute under remat (the max carries no
+    gradient, so the backward runs none) on every rank."""
     cfg = _cfg(name)
     for rank in runs[name]["ranks"]:
         for calls in rank["calls"]:
-            assert calls["all_reduce_max"] == cfg.n_layers
+            assert calls["all_reduce_max"] == 2 * cfg.n_layers
 
 
 def _shard_keeps(probs, cfg, shard, n_shards):

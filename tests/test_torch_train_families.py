@@ -55,7 +55,17 @@ smoke configs' 512 over 2):
                             K/V), and per encoder layer 2 forward + 2
                             backward (its ln1 and ln2 outputs);
                  + where D > 1: 1 (the loss) + 1 (the gradients of every
-                   leaf, none being cut over "data" under "tp").
+                   leaf, none being cut over "data" under "tp");
+                 + remat's recompute in the backward, of each forward sum
+                   before a block's last tensor its backward reads:
+                   rwkv6    2 a layer (the same two);
+                   zamba2   2 a layer of a group (out_norm's sum of
+                            squares, out_proj) + 1 a shared-block
+                            application (wo), 1 a tail layer (out_norm's
+                            sum: its out_proj's sum is its block's last);
+                   seamless 2 a decoder layer (self attention's wo, the
+                            MLP: cross attention's wo is its last) + 1 an
+                            encoder layer (wo).
 """
 
 import dataclasses
@@ -251,12 +261,14 @@ def _calls_per_step(cfg, mesh) -> dict:
     sums = vocab + 1
     gathers = vocab
     if cfg.arch_type == "ssm":
-        sums += 14 * L
+        sums += 16 * L
         gathers += L
     elif cfg.arch_type == "hybrid":
-        sums += 10 * L + 4 * TZ.shared_applications(cfg)
+        g = TZ.shared_applications(cfg)
+        tail = L - g * cfg.attn_every
+        sums += 10 * L + 4 * g + 2 * (L - tail) + g + tail
     else:
-        sums += 7 * L + 4 * cfg.n_enc_layers
+        sums += 9 * L + 5 * cfg.n_enc_layers
     if d > 1:
         sums += 2
     return {"all_reduce_sum": sums, "all_gather": gathers}

@@ -389,13 +389,14 @@ def family_rank(mp, cases) -> dict:
 
 def _record_keeps(keeps: list):
     """Wrap `layers.moe_dispatch` to record each call's kept choices (slot
-    < cap: this rank's tokens' choices, of the whole batch's dispatch);
-    returns the undo."""
+    < cap: this rank's tokens' choices, of the whole batch's dispatch),
+    but a remat's recompute's (its forward's again); returns the undo."""
     orig = Lyr.moe_dispatch
 
     def recorded(cfg, probs, gate_i, mp=None):
         out = orig(cfg, probs, gate_i, mp)
-        keeps.append(out[2] < out[3])
+        if not Lyr.recomputing():
+            keeps.append(out[2] < out[3])
         return out
 
     Lyr.moe_dispatch = recorded
@@ -709,3 +710,87 @@ def zero3_serve_rank(mp, cases) -> dict:
         tokens, frontend, feed, max_len)
         for name, arch, impl, params_np, tokens, frontend, feed, max_len
         in cases}
+
+
+def _counted_checkpoints() -> tuple[list, callable]:
+    """Count the blocks that enter `torch.utils.checkpoint.checkpoint`
+    (zoo's remat); returns (the count, a list that grows by one a call;
+    the undo)."""
+    entries, orig = [], torch.utils.checkpoint.checkpoint
+
+    def counted(*args, **kw):
+        entries.append(1)
+        return orig(*args, **kw)
+
+    torch.utils.checkpoint.checkpoint = counted
+    return entries, lambda: setattr(torch.utils.checkpoint, "checkpoint",
+                                    orig)
+
+
+def _route_record(routes: list):
+    """Wrap `layers.moe_route` to record each call's gate_i with whether a
+    remat's recompute made it (`layers.recomputing`); returns the undo."""
+    orig = Lyr.moe_route
+
+    def recorded(p, cfg, xt):
+        out = orig(p, cfg, xt)
+        routes.append((out[2].clone(), Lyr.recomputing()))
+        return out
+
+    Lyr.moe_route = recorded
+    return lambda: setattr(Lyr, "moe_route", orig)
+
+
+def remat_rank(mp, cases) -> dict:
+    """One rank of tests/test_torch_remat.py: for each case (name, arch,
+    mode, overrides, params_np, batch, lr), the arch's smoke config in
+    float32 with `overrides`, its shard under `mode` and one Adam step on
+    the rank's rows of batch, once under remat and once with the test
+    seam `zoo._REMAT` off, from the same shard and state: the loss, step
+    1's m gathered (rank 0), whether the two steps' losses, params, m and
+    v are equal bit for bit, the checkpoint entries, the collectives of
+    each step and the moe layers' expert choices of the rematted one
+    (gate_i, made by a recompute)."""
+    out = {}
+    for name, arch, mode, overrides, params_np, batch, lr in cases:
+        cfg = dataclasses.replace(smoke_cfg(arch), **overrides)
+        tmpl = Z.templates(cfg)
+        layout = TPAR.TrainLayout(mode, SH.param_layouts(tmpl, mp.mesh,
+                                                         mode))
+        shard = MB.shard_params(Z.params_from_numpy(params_np, cfg,
+                                                    device="cpu"),
+                                tmpl, layout.specs, mp)
+        rows = TLT.batch_rows({k: torch.as_tensor(v)
+                               for k, v in batch.items()}, mp.mesh,
+                              mp.global_rank)
+        opt = adam(lr)
+        runs = {}
+        for remat in (True, False):
+            state = opt.init(shard)
+            routes = []
+            entries, undo = _counted_checkpoints()
+            undo_routes = _route_record(routes)
+            Z._REMAT = remat
+            mp.reset_counts()
+            try:
+                runs[remat] = (*Z.train_step(shard, state, rows, cfg,
+                                             opt.update, mp, layout),
+                               dict(mp.calls), len(entries), routes)
+            finally:
+                Z._REMAT = True
+                undo_routes()
+                undo()
+        (p1, s1, l1, c1, e1, r1), (p0, s0, l0, c0, e0, _) = (runs[True],
+                                                            runs[False])
+        trees = [(p1, p0), (s1["m"], s0["m"]), (s1["v"], s0["v"])]
+        equal = bool(torch.equal(l1, l0)) and all(
+            torch.equal(a, b) for t1, t0 in trees
+            for a, b in zip(MB.tree_leaves(t1), MB.tree_leaves(t0)))
+        m1 = MB.gather_params(s1["m"], tmpl, layout.specs, mp)
+        out[name] = dict(
+            loss=float(l1), equal=equal, entries=(e1, e0),
+            calls=(c1, c0),
+            m1=[a.numpy() for a in MB.tree_leaves(m1)]
+            if mp.global_rank == 0 else None,
+            routes=[(g.numpy(), again) for g, again in r1])
+    return out
